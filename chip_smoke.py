@@ -24,13 +24,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. the same requests with both kernel flags off (the plain versions on
      the card): tokens must agree, or first differ where the plain run's
      top-2 logit gap is a near tie;
-  7. a shorter int8-cache run, held to the plain int8 path the same way.
+  7. a shorter int8-cache run, held to the plain int8 path the same way;
+  8. the training kernels' device times at the training main path's
+     shapes (flash forward with lse and dropout, flash backward dq and
+     dk/dv: B=16, H=12, T=512, D=64, bfloat16, causal, p=0.1; AdamW over
+     every gpt2-small parameter), each beside its bound, its plain
+     version's time and one library call's time;
+  9. the training main path: the JAX package's GPT-2 train bench
+     (benchmarks/train_bench.py) on the port: gpt2-small at full width and
+     depth (seeded weights, both dropouts 0.1) -> amp.decorate(O2,
+     bfloat16) -> AdamW(lr=1e-4, weight_decay=0.01) -> make_train_step,
+     fed by DataLoader(prefetch_to_device=2) over the bench's synthetic
+     token stream, B=16, T=512, 3 warm-up and 10 timed steps; the launch
+     and path counters are zeroed just before and read just after; then a
+     torch.profiler breakdown of one step;
+ 10. the same float32 weights with both dropouts 0, B=4, T=512, 3 steps,
+     once with the kernels and once with use_flash_attention and
+     use_fused_optimizer off (which must launch nothing): the losses and
+     the parameters must agree within the stated tolerances.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,16 +70,55 @@ TIE_TOL = {"float32": 1e-3, "int8": 1e-2}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
+# training-kernel checks, max abs error relative to the largest |value| of
+# the plain version's output (at least 1):
+REL_TOL = {
+    # float32 sums over up to 512 keys in another order
+    "float32": 2e-4,
+    # one bfloat16 rounding of the output (2^-8 relative) plus the float32
+    # differences that can flip it to the neighbouring bfloat16 value
+    "bfloat16": 1e-2,
+}
+# AdamW: the kernel rounds every operation on its own, as the plain rule
+# does (no FMA contraction), so the parameter must be bit-equal; each
+# moment element may differ from the plain one by at most this share of
+# its size (one float32 ulp)
+ADAMW_MOMENT_REL_TOL = 2 ** -23
+# the bfloat16 cases at lr 1e-2 on parameters of size ~1e-2 must move at
+# least this share of the elements, or the bit-equality shows nothing
+ADAMW_MOVED_MIN = 0.9
+# train_compare: max parameter difference after 3 float32 steps at lr
+# 1e-4, between a sound reading (~1e-5: float32 sums in another order,
+# amplified by Adam's normalised step) and the whole 3-step movement
+# (~3e-4), which a run that skipped its updates would show
+TRAIN_PARAM_TOL = 1e-4
+DROP_RATE_TOL = 0.002
+
 TPU_KERNELS = {
     "flash_fwd": "paddle_tpu/ops/pallas_kernels.py:324",
+    "flash_fwd_train": "paddle_tpu/ops/pallas_kernels.py:324",
+    "flash_bwd_dq": "paddle_tpu/ops/pallas_kernels.py:462",
+    "flash_bwd_dkv": "paddle_tpu/ops/pallas_kernels.py:524",
+    "adamw": "paddle_tpu/ops/pallas_kernels.py:1044",
     "paged_decode": "paddle_tpu/ops/pallas_kernels.py:1738",
     "paged_decode_int8": "paddle_tpu/ops/pallas_kernels.py:1746",
 }
 SOURCES = {
     "flash_fwd": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
+    "flash_fwd_train": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
+    "flash_bwd_dq": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+    "flash_bwd_dkv": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+    "adamw": "paddle_tpu_torch/ops/csrc/adamw.cu",
     "paged_decode": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
     "paged_decode_int8": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
 }
+KERNEL_ORDER = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq",
+                "flash_bwd_dkv", "adamw", "paged_decode", "paged_decode_int8")
+
+# the training main path: the JAX package's GPT-2 train bench
+TRAIN_B, TRAIN_T, TRAIN_WARMUP, TRAIN_STEPS = 16, 512, 3, 10
+DROPOUT = 0.1
+SEED, OFFSET = 0x1234_5678_9ABC_DEF0, 7       # kernel checks' dropout key
 
 VOCAB_TOKENS = 50257          # GPT-2's tokenizer; the table is padded
 
@@ -165,6 +222,157 @@ def check_flash(torch, ck, gen):
     return worst["float32"]
 
 
+def abs_rel_err(got, want):
+    """(max |got - want|, that over max(1, max |want|))."""
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    return err, err / max(1.0, want.abs().max().item())
+
+
+def check_dropout_bits(torch, ck):
+    """The kernel's bits equal the plain Philox bit for bit, and drop at
+    rate p at the main path's shapes."""
+    for BH, Tq, Tk in ((6, 37, 50), (2, 4, 1)):
+        got = ck.attn_dropout_bits(SEED, OFFSET, BH, Tq, Tk)
+        want = ck.attn_dropout_bits_plain(SEED, OFFSET, BH, Tq, Tk,
+                                          device="cuda")
+        require(torch.equal(got, want), "attn_dropout_bits %s differ from "
+                "the plain Philox" % ((BH, Tq, Tk),))
+    bits = ck.attn_dropout_bits(SEED, OFFSET, TRAIN_B * 12, TRAIN_T, TRAIN_T)
+    thr = min(int(DROPOUT * 2 ** 32), 2 ** 32 - 1)
+    rate = (bits < thr).double().mean().item()
+    require(abs(rate - DROPOUT) <= DROP_RATE_TOL,
+            "dropout rate %.5f, want %.3f +- %.3f" % (rate, DROPOUT,
+                                                       DROP_RATE_TOL))
+    say("check attn_dropout_bits: bit-equal to the plain Philox; drop rate "
+        "%.5f at [%d, %d, %d] (want %.3f +- %.3f)"
+        % (rate, TRAIN_B * 12, TRAIN_T, TRAIN_T, DROPOUT, DROP_RATE_TOL))
+
+
+def check_flash_train(torch, ck, gen):
+    """Training forward (o, lse) and backward (dq, dk, dv) against the
+    plain versions fed the kernels' own dropout bits; the backward plain
+    versions take the kernel's o and lse, so each kernel is held alone."""
+    names = ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
+    worst = {n: 0.0 for n in names}            # relative, for the checks
+    worst_abs = {n: 0.0 for n in names}        # absolute, for the table
+    cases = [(2, 64, 64, 4, 64, True),
+             (1, 200, 200, 2, 64, True),          # ragged T
+             (1, 48, 96, 2, 64, True),            # bottom-right, Tq < Tk
+             (1, 100, 100, 2, 64, False),
+             (1, 64, 64, 2, 128, True),           # widest head
+             (1, 33, 33, 2, 24, True),            # D not a multiple of 32
+             (2, 512, 512, 2, 64, True)]          # main path's T
+    n = 0
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        tol = REL_TOL[dtype_name]
+        for B, Tq, Tk, H, D, causal in cases:
+            for p in (0.0, DROPOUT):
+                q, _, _ = qkv_views(torch, B, Tq, H, D, dtype, gen)
+                _, k, v = qkv_views(torch, B, Tk, H, D, dtype, gen)
+                do = torch.randn((B, H, Tq, D), generator=gen,
+                                 device="cuda").to(dtype)
+                bits = (ck.attn_dropout_bits(SEED, OFFSET, B * H, Tq, Tk)
+                        if p else None)
+                o, lse = ck.flash_fwd_train(q, k, v, causal, p, SEED,
+                                            OFFSET)
+                dq, delta = ck.flash_bwd_dq(q, k, v, o, do, lse, causal, p,
+                                            SEED, OFFSET)
+                dk, dv = ck.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                          p, SEED, OFFSET)
+                o_ref, lse_ref = ck.flash_fwd_train_plain(q, k, v, causal,
+                                                          p, bits)
+                dq_ref, delta_ref = ck.flash_bwd_dq_plain(
+                    q, k, v, o, do, lse, causal, p, bits)
+                dk_ref, dv_ref = ck.flash_bwd_dkv_plain(
+                    q, k, v, do, lse, delta_ref, causal, p, bits)
+                torch.cuda.synchronize()
+                pairs = {"flash_fwd_train": ((o, o_ref), (lse, lse_ref)),
+                         "flash_bwd_dq": ((dq, dq_ref), (delta, delta_ref)),
+                         "flash_bwd_dkv": ((dk, dk_ref), (dv, dv_ref))}
+                for t in (o, dq, dk, dv):
+                    require(t.dtype == dtype and bool(
+                        torch.isfinite(t.float()).all()),
+                        "flash training kernels: non-finite or wrong type")
+                for name, outs in pairs.items():
+                    ea, er = (max(x) for x in zip(*(abs_rel_err(g, w)
+                                                    for g, w in outs)))
+                    require(er <= tol, "%s %s B=%d Tq=%d Tk=%d H=%d D=%d "
+                            "causal=%s p=%g: rel err %.3g > %.3g"
+                            % (name, dtype_name, B, Tq, Tk, H, D, causal, p,
+                               er, tol))
+                    worst[name] = max(worst[name], er)
+                    worst_abs[name] = max(worst_abs[name], ea)
+                n += 1
+    for name, err in worst.items():
+        say("check %s: max rel err %.3g (tol f32 %.0e, bf16 %.0e), max abs "
+            "err %.3g, over %d cases, p in {0, %g}"
+            % (name, err, REL_TOL["float32"], REL_TOL["bfloat16"],
+               worst_abs[name], n, DROPOUT))
+    return worst_abs
+
+
+def check_adamw(torch, ck, gen):
+    """The kernel against the plain rule: parameter bit-equal, moments
+    within one float32 ulp. Each case runs at lr 1e-4 on parameters of
+    size ~1 (the main path's lr, where a bfloat16 parameter mostly does
+    not move) and at lr 1e-2 on parameters of size ~1e-2, where it
+    must."""
+    worst_p = worst_m = 0.0
+    moved_min = 1.0
+    n = 0
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        for lr, pscale in ((1e-4, 1.0), (1e-2, 1e-2)):
+            for coeff in (0.0, 0.01):
+                for t in (1, 1000):
+                    for numel in (7, 768, 2304 * 768):
+                        p = (torch.randn(numel, generator=gen, device="cuda")
+                             * pscale).to(dtype)
+                        g = (torch.randn(numel, generator=gen, device="cuda")
+                             * 1e-2).to(dtype)
+                        m1 = torch.randn(numel, generator=gen,
+                                         device="cuda") * 1e-3
+                        m2 = torch.rand(numel, generator=gen,
+                                        device="cuda") * 1e-5
+                        kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8,
+                                  coeff=coeff)
+                        ka = [x.clone() for x in (p, g, m1, m2)]
+                        pa = [x.clone() for x in (p, g, m1, m2)]
+                        ck.adamw(*ka, lr, t, **kw)
+                        ck.adamw_plain(*pa, lr, t, **kw)
+                        torch.cuda.synchronize()
+                        what = "adamw %s lr=%g coeff=%g t=%d numel=%d" % (
+                            dtype_name, lr, coeff, t, numel)
+                        err_p = (ka[0].float() - pa[0].float()).abs() \
+                            .max().item()
+                        require(torch.equal(ka[0], pa[0]),
+                                "%s: parameter differs from the plain rule "
+                                "by %.3g" % (what, err_p))
+                        worst_p = max(worst_p, err_p)
+                        err_m = max(((ka[i] - pa[i]).abs()
+                                     / pa[i].abs().clamp_min(1e-30)).max()
+                                    .item() for i in (2, 3))
+                        require(err_m <= ADAMW_MOMENT_REL_TOL,
+                                "%s: moment rel err %.3g > %.3g"
+                                % (what, err_m, ADAMW_MOMENT_REL_TOL))
+                        worst_m = max(worst_m, err_m)
+                        if dtype == torch.bfloat16 and lr == 1e-2 \
+                                and numel > 7:
+                            moved = (ka[0] != p).double().mean().item()
+                            require(moved >= ADAMW_MOVED_MIN,
+                                    "%s: only %.3f of the parameter moved"
+                                    % (what, moved))
+                            moved_min = min(moved_min, moved)
+                        n += 1
+    say("check adamw: parameters bit-equal to the plain rule, moments max "
+        "rel err %.3g (tol %.3g) over %d cases; bfloat16 at lr 1e-2 moved "
+        ">= %.4f of the elements (want >= %.2f)"
+        % (worst_m, ADAMW_MOMENT_REL_TOL, n, moved_min, ADAMW_MOVED_MIN))
+    return worst_p
+
+
 def paged_inputs(torch, quantized, lens, gen, nan_tail=True, B=8, H=12,
                  T=512, D=64):
     """Decode-step inputs; the cache past each slot's lens is NaN garbage
@@ -236,6 +444,16 @@ def check_gates(torch, ck, gen):
            ("D=160", lambda: ck.flash_attention_or_none(
                 *qkv_views(torch, 1, 8, 1, 160, torch.float32, gen), None,
                 True))]
+    bad.append(("dropout p=1", lambda: ck.flash_attention_or_none(
+        q, k, v, None, True, dropout_p=1.0)))
+    qh = q.detach().half()
+    bad.append(("float16 backward", lambda: ck.flash_bwd_dq(
+        qh, qh, qh, qh, qh, torch.zeros(64, device="cuda"), True)))
+    w = torch.zeros(16, device="cuda", dtype=torch.float16)
+    m = torch.zeros(16, device="cuda")
+    bad.append(("float16 adamw", lambda: ck.fused_adamw_or_none(
+        w, w, 1e-3, 1, m, m, beta1=0.9, beta2=0.999, epsilon=1e-8,
+        coeff=0.0)))
     args = paged_inputs(torch, False, [3, 4], gen, B=2, H=2, T=64, D=64)
     args[3] = args[3].long()
     bad.append(("int64 lens",
@@ -310,6 +528,322 @@ def time_paged(torch, ck, F, timer, gen, quantized, lens):
             lambda a: F.scaled_dot_product_attention(a[0], a[1], a[2],
                                                      attn_mask=live)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# training
+
+
+def train_timings(torch, ck, F, timer, gen):
+    """Device times of the training kernels at the main path's shapes."""
+    B, H, T, D = TRAIN_B, 12, TRAIN_T, 64
+    dt = torch.bfloat16
+    q, k, v = qkv_views(torch, B, T, H, D, dt, gen)
+    do = torch.randn((B, H, T, D), generator=gen, device="cuda").to(dt)
+    bits = ck.attn_dropout_bits(SEED, OFFSET, B * H, T, T)
+    bhtd, bht = B * H * T * D * 2, B * H * T * 4
+    pairs = B * H * (T * (T + 1) // 2)          # live (row, key) pairs
+    args = (q, k, v, True, DROPOUT, SEED, OFFSET)
+    o, lse = ck.flash_fwd_train(*args)
+    dq, delta = ck.flash_bwd_dq(q, k, v, o, do, lse, True, DROPOUT, SEED,
+                                OFFSET)
+    # library yardstick: PyTorch's fused attention, forward and backward,
+    # with dropout; its backward computes dq, dk and dv in one call
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                        dropout_p=DROPOUT)
+    lib_bwd = timer.ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do, retain_graph=True))
+    out = {}
+    b, by = bound_ms(4 * bhtd + bht, 4 * D * pairs, "bfloat16")
+    out["flash_fwd_train"] = {
+        "ms": timer.ms(lambda: ck.flash_fwd_train(*args)),
+        "plain_ms": timer.ms(lambda: ck.flash_fwd_train_plain(
+            q, k, v, True, DROPOUT, bits)),
+        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=DROPOUT)),
+        "bound_ms": b, "bound_by": by}
+    # dq: reads q, k, v, o, dO, lse; writes dq, Delta; 3 products
+    b, by = bound_ms(6 * bhtd + 2 * bht, 6 * D * pairs, "bfloat16")
+    out["flash_bwd_dq"] = {
+        "ms": timer.ms(lambda: ck.flash_bwd_dq(q, k, v, o, do, lse, True,
+                                               DROPOUT, SEED, OFFSET)),
+        "plain_ms": timer.ms(lambda: ck.flash_bwd_dq_plain(
+            q, k, v, o, do, lse, True, DROPOUT, bits)),
+        "library_ms": lib_bwd, "bound_ms": b, "bound_by": by}
+    # dk/dv: reads q, k, v, dO, lse, Delta; writes dk, dv; 4 products
+    b, by = bound_ms(6 * bhtd + 2 * bht, 8 * D * pairs, "bfloat16")
+    out["flash_bwd_dkv"] = {
+        "ms": timer.ms(lambda: ck.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                True, DROPOUT, SEED,
+                                                OFFSET)),
+        "plain_ms": timer.ms(lambda: ck.flash_bwd_dkv_plain(
+            q, k, v, do, lse, delta, True, DROPOUT, bits)),
+        "library_ms": lib_bwd, "bound_ms": b, "bound_by": by}
+    for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
+        t = out[name]
+        say("time %s B=%d H=%d T=%d D=%d bf16 causal p=%g: %.4f ms, plain "
+            "%.4f ms, torch sdpa %s %.4f ms, bound %.4f ms (%s)"
+            % (name, B, H, T, D, DROPOUT, t["ms"], t["plain_ms"],
+               "fwd" if name == "flash_fwd_train" else "bwd (dq+dk+dv)",
+               t["library_ms"], t["bound_ms"], t["bound_by"]))
+    say("time flash backward dq + dkv: %.4f ms vs torch sdpa backward %.4f "
+        "ms" % (out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"],
+                lib_bwd))
+    return out
+
+
+def time_adamw(torch, ck, timer, gen, shapes):
+    """One AdamW step over tensors shaped like every gpt2-small parameter,
+    bfloat16 parameters and gradients, float32 moments, as the O2 main
+    path runs it: one launch per parameter."""
+    ps = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+          for s in shapes]
+    gs = [(torch.randn(s, generator=gen, device="cuda") * 1e-2).to(
+        torch.bfloat16) for s in shapes]
+    m1 = [torch.zeros(s, device="cuda") for s in shapes]
+    m2 = [torch.zeros(s, device="cuda") for s in shapes]
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.01)
+
+    def run(fn):
+        for p, g, a, b in zip(ps, gs, m1, m2):
+            fn(p, g, a, b, 1e-4, 10, **kw)
+    lib_p = [p.clone().requires_grad_() for p in ps]
+    for p, g in zip(lib_p, gs):
+        p.grad = g.clone()
+    lib = torch.optim.AdamW(lib_p, lr=1e-4, weight_decay=0.01, fused=True)
+    n = sum(p.numel() for p in ps)
+    # each element: param read + write (2 + 2), grad read (2), m1 and m2
+    # read + write (8 + 8)
+    b, by = bound_ms(22 * n, 10 * n, "float32")
+    out = {"ms": timer.ms(lambda: run(ck.adamw)),
+           "plain_ms": timer.ms(lambda: run(ck.adamw_plain)),
+           "library_ms": timer.ms(lib.step), "bound_ms": b, "bound_by": by}
+    say("time adamw %d parameters, %d elements, bf16 param+grad, f32 "
+        "moments: %.4f ms/step, plain %.4f ms, torch AdamW(fused=True) "
+        "%.4f ms, bound %.4f ms (%s)" % (len(shapes), n, out["ms"],
+                                         out["plain_ms"], out["library_ms"],
+                                         b, by))
+    return out
+
+
+def token_stream(io, vocab, T):
+    import numpy as np
+
+    class TokenStream(io.Dataset):
+        """The bench's synthetic stream (benchmarks/train_bench.py)."""
+
+        def __len__(self):
+            return 100000
+
+        def __getitem__(self, i):
+            rs = np.random.RandomState(i)
+            return rs.randint(0, vocab, (T + 1,)).astype(np.int64)
+    return TokenStream()
+
+
+# kernel-name patterns of the training step's profile groups, first match
+PROFILE_GROUPS = (("flash kernels (port)", ("flash_fwd_kernel",
+                                            "flash_bwd_")),
+                  ("adamw (port)", ("adamw_kernel",)),
+                  ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "cublas")),
+                  ("reductions", ("reduce_kernel",)),
+                  ("elementwise", ("elementwise", "vectorized")))
+
+
+def profile_groups(rows):
+    """Device ms per PROFILE_GROUPS group (and "other") of profiler rows."""
+    out = {}
+    for t_us, key, _ in rows:
+        name = next((g for g, pats in PROFILE_GROUPS
+                     if any(p in key for p in pats)), "other")
+        out[name] = out.get(name, 0.0) + t_us / 1e3
+    return out
+
+
+def profile_step(torch, step, batch):
+    """Device time of one train step from torch.profiler: (kernel ms, all
+    kernel rows by device time). 0 ms when the profiler saw no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*batch())
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    return sum(t for t, _, _ in rows) / 1e3, rows
+
+
+def train_main(torch, ck, card):
+    """The training main path; returns (launch counts, parameter shapes)."""
+    from paddle_tpu_torch import amp, io, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.io.prefetch import FEED_STALL
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
+
+    prandom.seed(0)
+    t0 = time.perf_counter()
+    model = gpt2_small(seed=0)
+    model.train()
+    opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                          parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    crit = GPTPretrainingCriterion()
+    step = make_train_step(model, lambda o, l: crit(o, l), opt)
+    vocab = model.gpt.vocab_size
+    loader = io.DataLoader(token_stream(io, vocab, TRAIN_T),
+                           batch_size=TRAIN_B, prefetch_to_device=2)
+    it = iter(loader)
+
+    def batch():
+        ids = next(it)
+        return [ids[:, :-1]], [ids[:, 1:]]
+    n_params = sum(p.numel() for p in model.parameters())
+    say("train: gpt2-small %d parameters (%d tensors) in %s, built in %.1f "
+        "s" % (n_params, len(list(model.parameters())),
+               next(model.parameters()).dtype,
+               time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.launch_counts(reset=True)
+    ck.attention_path_counts(reset=True)
+    losses, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            stall0 = (FEED_STALL.sum, FEED_STALL.count)
+        t0 = time.perf_counter()
+        loss, _ = step(*batch())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    stall_ms = (FEED_STALL.sum - stall0[0]) / (FEED_STALL.count - stall0[1])
+    launches = ck.launch_counts()
+    paths = ck.attention_path_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses),
+            "train: non-finite loss %s" % losses)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    say("train main path: %d steps, losses %s" % (
+        n_steps, ["%.4f" % x for x in losses]))
+    say("train main path launches %s, attention paths %s"
+        % (launches, paths))
+    for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
+                 "adamw"):
+        require(launches[name] > 0, "train: %s never launched" % name)
+    require(paths["flash_dropout"] > 0 and paths["xla_sdpa"] == 0,
+            "train: attention paths %s" % paths)
+    L = len(model.gpt.layers)
+    per_step = {k: launches[k] / n_steps for k in
+                ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
+                 "adamw")}
+    require(per_step["flash_fwd_train"] == L
+            and per_step["adamw"] == len(list(model.parameters())),
+            "train: launches per step %s" % per_step)
+    step_ms = statistics.median(times[TRAIN_WARMUP:])
+    tokens = TRAIN_B * TRAIN_T
+    d = model.gpt.hidden_size
+    flops = 6 * n_params * tokens + 12 * L * d * TRAIN_T * tokens
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    say("train main path: B=%d T=%d, step %.2f ms median (%.2f mean) over "
+        "%d timed steps, %.0f tokens/s, MFU %.4f of 989 TFLOP/s bf16 (%s), "
+        "peak memory %.1f MiB, feed stall %.3f ms a batch, launches per "
+        "step %s"
+        % (TRAIN_B, TRAIN_T, step_ms, statistics.mean(times[TRAIN_WARMUP:]),
+           TRAIN_STEPS, tokens / (step_ms / 1e3), mfu, card, peak / 2 ** 20,
+           stall_ms, per_step))
+    dev_ms, top = profile_step(torch, step, batch)
+    it.close()
+    if dev_ms > 0:
+        say("train step profile: %.3f ms of kernels in one step (torch."
+            "profiler) vs %.2f ms median step: device idle %.1f %%"
+            % (dev_ms, step_ms, 100.0 * (1.0 - dev_ms / step_ms)))
+        for name, ms in sorted(profile_groups(top).items(),
+                               key=lambda kv: -kv[1]):
+            say("  group %-22s %8.3f ms/step" % (name, ms))
+        for t_us, key, count in top[:12]:
+            say("  %9.1f us/step  %5d launches  %s"
+                % (t_us, count, key[:90]))
+    else:
+        say("train step profile: not measured (the profiler saw no device "
+            "activity)")
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    return launches, shapes
+
+
+def train_compare(torch, ck, flags):
+    """Kernels vs plain versions on the card: same float32 weights, no
+    dropout, B=4, T=512, 3 AdamW steps."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.models import (GPT_CONFIGS, GPTPretrainingCriterion,
+                                         gpt2_small)
+    import numpy as np
+    B, steps, lr = 4, 3, 1e-4
+    vocab = GPT_CONFIGS["gpt2-small"]["vocab_size"]
+    data = [token_stream_batch(np, vocab, B, TRAIN_T, s) for s in
+            range(steps)]
+    saved = flags.get_flags(["use_flash_attention", "use_fused_optimizer"])
+
+    def run(on):
+        flags.set_flags({"use_flash_attention": on,
+                         "use_fused_optimizer": on})
+        try:
+            prandom.seed(0)
+            model = gpt2_small(seed=0, attn_dropout_prob=0.0,
+                               hidden_dropout_prob=0.0)
+            model.train()
+            opt = optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
+                                  parameters=model.parameters())
+            crit = GPTPretrainingCriterion()
+            step = make_train_step(model, lambda o, l: crit(o, l), opt)
+            start = None if on else [p.detach().clone()
+                                     for p in model.parameters()]
+            ck.launch_counts(reset=True)
+            losses = []
+            for ids in data:
+                x = torch.from_numpy(ids).cuda()
+                loss, _ = step([x[:, :-1]], [x[:, 1:]])
+                losses.append(float(loss))
+            torch.cuda.synchronize()
+            launches = ck.launch_counts()
+        finally:
+            flags.set_flags(saved)
+        return (losses, [p.detach() for p in model.parameters()], launches,
+                start)
+    kl, kp, kla, _ = run(True)
+    pl, pp, pla, start = run(False)
+    require(sum(pla.values()) == 0, "the plain run launched %s" % pla)
+    require(kla["flash_fwd_train"] > 0 and kla["flash_bwd_dkv"] > 0
+            and kla["adamw"] > 0, "the kernel run launched %s" % kla)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
+    diff = max((a - b).abs().max().item() for a, b in zip(kp, pp))
+    # control: what a kernel run that never updated would differ by
+    moved = max((a - b).abs().max().item() for a, b in zip(pp, start))
+    say("train kernels vs plain (float32, no dropout, B=%d T=%d, %d steps): "
+        "losses %s vs %s, max rel diff %.3g (tol 1e-4); max parameter diff "
+        "%.3g (tol %.0e), against the plain run's own movement %.3g"
+        % (B, TRAIN_T, steps, ["%.6f" % x for x in kl],
+           ["%.6f" % x for x in pl], rel, diff, TRAIN_PARAM_TOL, moved))
+    require(rel <= 1e-4, "train: kernel and plain losses differ by %.3g"
+            % rel)
+    require(moved > TRAIN_PARAM_TOL, "train: the parameters moved %.3g, "
+            "within the tolerance: the check would not see a skipped update"
+            % moved)
+    require(diff <= TRAIN_PARAM_TOL, "train: parameters differ by %.3g"
+            % diff)
+
+
+def token_stream_batch(np, vocab, B, T, n):
+    """Batch n of the bench's token stream: samples n*B .. n*B+B-1."""
+    return np.stack([np.random.RandomState(i).randint(0, vocab, (T + 1,))
+                     for i in range(n * B, n * B + B)]).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +1010,9 @@ def main():
     errs = {"flash_fwd": check_flash(torch, ck, gen),
             "paged_decode": check_paged(torch, ck, False, gen),
             "paged_decode_int8": check_paged(torch, ck, True, gen)}
+    check_dropout_bits(torch, ck)
+    errs.update(check_flash_train(torch, ck, gen))
+    errs["adamw"] = check_adamw(torch, ck, gen)
     check_gates(torch, ck, gen)
     if opts.kernels_only:
         say("kernels-only run: checks passed")
@@ -594,9 +1131,18 @@ def main():
     p8, gaps8 = plain_run(ireqs, kv_dtype="int8")
     compare_tokens(k8, p8, gaps8, "int8")
 
+    # 8-10. training: kernel times, the main path, kernels vs plain
+    times.update(train_timings(torch, ck, F, timer, gen))
+    tlaunches, shapes = train_main(torch, ck, card)
+    times["adamw"] = time_adamw(torch, ck, timer, gen, shapes)
+    train_compare(torch, ck, flags)
+
     counts = {"flash_fwd": launches["flash_fwd"],
               "paged_decode": launches["paged_decode"],
               "paged_decode_int8": launches8["paged_decode_int8"]}
+    for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
+                 "adamw"):
+        counts[name] = tlaunches[name]
     table = [{"name": name, "route": "cuda", "source": SOURCES[name],
               "replaces": TPU_KERNELS[name], "launches": counts[name],
               "max_abs_err": errs[name], "ms": times[name]["ms"],
@@ -604,7 +1150,7 @@ def main():
               "bound_ms": times[name]["bound_ms"],
               "bound_by": times[name]["bound_by"],
               "library_ms": times[name]["library_ms"]}
-             for name in ("flash_fwd", "paged_decode", "paged_decode_int8")]
+             for name in KERNEL_ORDER]
     say(card)
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-"""PyTorch + CUDA port of paddle_tpu's GPT serving path.
+"""PyTorch + CUDA port of paddle_tpu's GPT serving and training paths.
 
-The JAX package `paddle_tpu` stays the reference; this package serves the
-same models through the same host API on an NVIDIA H100, with the attention
-kernels written by hand in CUDA C++ for `sm_90a` (ops/csrc/).
+The JAX package `paddle_tpu` stays the reference; this package serves and
+trains the same models through the same host API on an NVIDIA H100, with
+the attention and optimizer kernels written by hand in CUDA C++ for
+`sm_90a` (ops/csrc/).
 
     from paddle_tpu_torch.models import gpt2_small
     from paddle_tpu_torch.inference.serving import (ContinuousBatcher,
@@ -13,6 +14,17 @@ kernels written by hand in CUDA C++ for `sm_90a` (ops/csrc/).
     eng = GenerationEngine(model, max_batch=8, max_seq_len=512,
                            prefill_buckets=(32, 128, 256))
     batcher = ContinuousBatcher(eng)
+
+    # training: the JAX package's GPT-2 train bench, eagerly
+    from paddle_tpu_torch import amp, io, optimizer
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                          parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    crit = GPTPretrainingCriterion()
+    step = make_train_step(model, lambda o, l: crit(o, l), opt)
+    loss, _ = step([ids[:, :-1]], [ids[:, 1:]])
 
 Entry points take an explicit `device` that defaults to "cuda" and raise
 when CUDA is absent unless the caller passes device="cpu"; on CPU tensors
@@ -26,4 +38,5 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["framework", "inference", "models", "nn", "observability", "ops"]
+__all__ = ["amp", "framework", "inference", "io", "jit", "models", "nn",
+           "observability", "ops", "optimizer"]

@@ -1,20 +1,22 @@
-"""Carry weights from the JAX package's model onto the port's module.
+"""Carry weights between the JAX package's model and the port's module.
 
 The port keeps the reference's parameter names and layouts (a Linear
 weight is [in, out] in both), so a state dict of numpy arrays taken from
-`paddle_tpu_model.state_dict()` maps one to one:
+`paddle_tpu_model.state_dict()` maps one to one, and back:
 
     state = {k: np.asarray(v.numpy()) for k, v in ref.state_dict().items()}
     load_reference_state(port_model, state)
+    ...
+    arrays = export_reference_state(port_model)   # name -> numpy
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["load_reference_state"]
+__all__ = ["load_reference_state", "export_reference_state"]
 
 
 def load_reference_state(module: torch.nn.Module,
@@ -36,3 +38,17 @@ def load_reference_state(module: torch.nn.Module,
                 raise ValueError("%s: shape %s in the state dict, %s in the "
                                  "module" % (name, arr.shape, tuple(p.shape)))
             p.copy_(torch.tensor(arr, dtype=p.dtype))
+
+
+def export_reference_state(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The way back: every parameter as a numpy array on the host, keyed
+    by the reference's names. numpy has no bfloat16, so a bfloat16
+    parameter comes back as float32 (exactly: bfloat16 widens without
+    rounding)."""
+    out = {}
+    for name, p in module.named_parameters():
+        t = p.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.cpu().numpy().copy()
+    return out

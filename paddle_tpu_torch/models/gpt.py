@@ -1,5 +1,5 @@
-"""GPT decoder-only LM for serving (counterpart of paddle_tpu/models/gpt.py,
-GPTEmbeddings through GPTForPretraining).
+"""GPT decoder-only LM for serving and training (counterpart of
+paddle_tpu/models/gpt.py, GPTEmbeddings through GPTPretrainingCriterion).
 
 Off a mesh the reference's ColumnParallelLinear / RowParallelLinear /
 VocabParallelEmbedding are plain Linear / Embedding, which is what the port
@@ -7,8 +7,9 @@ uses. MoE blocks, the pipeline classes, `generate` and the sequence-parallel
 constraints are not part of this port.
 
 Attention takes three routes, as in the reference:
-  * no cache, or a zero-length legacy cache (cold prefill):
-    F.scaled_dot_product_attention, causal -> the flash kernel;
+  * no cache, or a zero-length legacy cache (cold prefill, and training):
+    F.scaled_dot_product_attention, causal -> the flash kernels, with
+    attention dropout drawn in the kernel in train();
   * a non-empty legacy (k, v) cache with several queries (suffix prefill
     after a prefix-cache hit): `_prefix_concat_attention`, plain torch with
     the bottom-right causal mask;
@@ -26,7 +27,8 @@ from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 from ..ops import cuda_kernels as ck
 
 __all__ = ["GPTModel", "GPTForPretraining", "GPTEmbeddings",
-           "GPTDecoderLayer", "GPT_CONFIGS", "gpt_tiny", "gpt2_small"]
+           "GPTDecoderLayer", "GPTPretrainingCriterion",
+           "ParallelCrossEntropy", "GPT_CONFIGS", "gpt_tiny", "gpt2_small"]
 
 
 class GPTEmbeddings(nn.Module):
@@ -141,7 +143,10 @@ class GPTMLP(nn.Module):
 
 class GPTDecoderLayer(nn.Module):
     """Pre-LN transformer decoder block: x + dropout(attn(ln_1(x))), then
-    x + dropout(mlp(ln_2(x)))."""
+    x + dropout(mlp(ln_2(x))): the reference's composed
+    `_residual_dropout` route, which it takes while its fused
+    dropout-residual kernels are off (FLAGS_use_fused_dropout_ln and
+    FLAGS_fused_block, both off by default)."""
 
     def __init__(self, hidden_size, num_heads, intermediate_size=None,
                  attn_dropout_prob=0.1, hidden_dropout_prob=0.1,
@@ -214,6 +219,37 @@ class GPTForPretraining(nn.Module):
         return _lm_logits(hidden, self.gpt.embeddings.word_embeddings.weight)
 
 
+class ParallelCrossEntropy(nn.Module):
+    """Per-position softmax cross entropy, [B, T] (reference:
+    distributed/fleet/meta_parallel/mp_layers.py ParallelCrossEntropy,
+    which is plain cross entropy off a mesh)."""
+
+    def __init__(self, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, input, label):  # noqa: A002
+        return F.cross_entropy(input, label, reduction="none",
+                               ignore_index=self.ignore_index)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Masked next-token cross entropy: the mean over positions, or the
+    loss_mask-weighted mean (reference: paddle_tpu/models/gpt.py
+    GPTPretrainingCriterion)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ce = ParallelCrossEntropy()
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = self.ce(logits, labels)                 # [B, T]
+        if loss_mask is not None:
+            mask = loss_mask.reshape(loss.shape).to(loss.dtype)
+            return (loss * mask).sum() / torch.clamp_min(mask.sum(), 1e-6)
+        return loss.mean()
+
+
 GPT_CONFIGS = {
     # test-scale
     "gpt-tiny": dict(vocab_size=128, hidden_size=64, num_layers=2,
@@ -229,7 +265,8 @@ GPT_CONFIGS = {
 def _make(name, pretraining=True, seed=0, device="cuda", **overrides):
     """Build a config with weights drawn on the CPU from a torch.Generator
     seeded with `seed`, then move it to `device` (resolved first, so a
-    missing CUDA raises before any work)."""
+    missing CUDA raises before any work). Each parameter's `qualname` is its
+    qualified name, which the optimizer hands to apply_decay_param_fun."""
     dev = resolve_device(device)
     cfg = dict(GPT_CONFIGS[name])
     cfg.update(overrides)
@@ -237,7 +274,10 @@ def _make(name, pretraining=True, seed=0, device="cuda", **overrides):
     model = GPTModel(generator=gen, **cfg)
     if pretraining:
         model = GPTForPretraining(model)
-    return model.to(dev)
+    model = model.to(dev)
+    for pname, p in model.named_parameters():
+        p.qualname = pname
+    return model
 
 
 def gpt_tiny(**kw):

@@ -1,4 +1,4 @@
-"""Functional ops of the serving path (counterpart of
+"""Functional ops of the serving and training paths (counterpart of
 paddle_tpu/nn/functional and the primitives in paddle_tpu/ops/nn_ops.py
 that GPT reaches).
 
@@ -9,10 +9,14 @@ from __future__ import annotations
 
 import torch
 
+from ..framework.random import RNG
 from ..ops import cuda_kernels as ck
 
 __all__ = ["linear", "gelu", "layer_norm", "dropout",
-           "scaled_dot_product_attention"]
+           "scaled_dot_product_attention", "cross_entropy",
+           "softmax_with_cross_entropy"]
+
+_DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
 
 
 def linear(x, weight, bias=None):
@@ -42,15 +46,33 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
     return y
 
 
-def dropout(x, p=0.5, training=True):
-    """The identity in eval or at p=0. Training-mode dropout (paddle's
-    upscale_in_train, drawn from an explicit torch.Generator) comes with
-    the training slice of the port; until then it raises."""
+def _keep(shape, p, device):
+    """Bernoulli(1 - p) keep mask drawn from the framework generator of
+    `device`."""
+    u = torch.rand(shape, generator=RNG.generator(device), device=device)
+    return u >= p
+
+
+def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
+    """paddle's dropout (reference: nn/functional dropout, ops/nn_ops.py
+    _dropout). upscale_in_train: kept values scaled by 1/(1-p) in
+    training, the identity in eval. downscale_in_infer: kept values as
+    they are in training, x * (1-p) in eval. The mask is drawn from the
+    framework's generator for x's device (framework/random.py), so it is
+    not the reference's jax.random mask."""
+    if mode not in _DROPOUT_MODES:
+        raise ValueError("dropout mode %r (one of %s)" % (mode,
+                                                          _DROPOUT_MODES))
     if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
         return x
-    raise NotImplementedError(
-        "training-mode dropout is not ported yet: call model.eval() or "
-        "set the dropout probabilities to 0")
+    if p == 1.0:
+        return x * torch.zeros_like(x)
+    keep = _keep(x.shape, p, x.device)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0)
+    return torch.where(keep, x, 0.0)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -59,20 +81,62 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Attention entry point, q/k/v [B, H, T, D]; returns out [B, H, Tq, D].
 
     Gate order of the reference (nn/functional/__init__.py
-    scaled_dot_product_attention): the flash kernel while the flag
-    `use_flash_attention` is on (its gate raises on an additive mask or a
-    shape the kernel does not take), else the dense plain version
-    `flash_attention_plain`, which also takes an additive mask. The reference's
-    blockwise tier for keys >= 2048 is not ported: no serving shape reaches
-    it (max_position_embeddings is 1024)."""
-    if training and dropout_p > 0.0:
-        raise NotImplementedError(
-            "attention dropout in training is not ported yet: call "
-            "model.eval() or set attn_dropout_prob to 0")
+    scaled_dot_product_attention): attention dropout counts only in
+    training; the flash kernels (`FlashAttentionFunction`, dropout drawn in
+    the kernel) while the flag `use_flash_attention` is on, their gate
+    raising on an additive mask or a shape the kernels do not take; else
+    the dense plain version `flash_attention_plain` (path xla_sdpa), which
+    also takes an additive mask and drops the probabilities with a mask
+    from the framework generator, as the reference's XLA path does. The
+    reference's blockwise tier for keys >= 2048 is not ported: no shape of
+    the ported paths reaches it (max_position_embeddings is 1024)."""
+    p = float(dropout_p) if training else 0.0
     out = ck.flash_attention_or_none(query, key, value, attn_mask,
-                                     is_causal)
+                                     is_causal, dropout_p=p)
     if out is not None:
         return out
     ck._note_attn_path("xla_sdpa")
+    B, H, Tq, _ = query.shape
+    keep = (_keep((B, H, Tq, key.shape[2]), p, query.device) if p > 0.0
+            else None)
     return ck.flash_attention_plain(query, key, value, bool(is_causal),
-                                    attn_mask)
+                                    attn_mask, keep=keep, dropout_p=p)
+
+
+def softmax_with_cross_entropy(logits, label, ignore_index=-100, axis=-1):
+    """-log_softmax(logits)[label] along `axis`, keeping that axis with
+    size 1, computed in the logits' dtype as the reference computes it
+    (ops/nn_ops.py softmax_with_cross_entropy); positions whose label is
+    `ignore_index` give 0. A label with a trailing size-1 axis is taken
+    as it is."""
+    axis = axis % logits.ndim
+    lab = label.long()
+    if lab.ndim == logits.ndim and lab.shape[axis] == 1:
+        lab = lab.squeeze(axis)
+    logp = torch.log_softmax(logits, dim=axis)
+    picked = torch.gather(logp, axis,
+                          lab.clamp(min=0).unsqueeze(axis))
+    return torch.where(lab.unsqueeze(axis) == ignore_index,
+                       torch.zeros_like(picked), -picked)
+
+
+def cross_entropy(input, label, ignore_index=-100, reduction="mean",
+                  axis=-1):
+    """Hard-label softmax cross entropy (reference: nn/functional
+    cross_entropy with use_softmax=True, no weight, no soft labels):
+    the per-position loss with the class axis squeezed, then "none",
+    "sum", or "mean". As in the reference, "mean" with ignore_index >= 0
+    divides by the count of labels that are not ignored; with a negative
+    ignore_index it is the plain mean, ignored positions counting 0."""
+    if reduction not in ("none", "sum", "mean"):
+        raise ValueError("reduction %r" % (reduction,))
+    loss = softmax_with_cross_entropy(input, label, ignore_index, axis)
+    loss = loss.squeeze(axis % input.ndim)
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    if ignore_index >= 0:
+        valid = (label.reshape(loss.shape) != ignore_index).to(input.dtype)
+        return loss.sum() / torch.clamp_min(valid.sum(), 1e-8)
+    return loss.mean()

@@ -1,4 +1,4 @@
-"""Layers of the serving path as torch.nn.Modules (counterparts of
+"""Layers of the ported paths as torch.nn.Modules (counterparts of
 paddle_tpu/nn/layers.py Linear, Embedding, LayerNorm and Dropout).
 
 Parameters are created on the CPU and drawn from the explicit
@@ -65,11 +65,13 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """The identity in eval (see functional.dropout)."""
+    """paddle's Dropout: live in train(), the mode's eval rule in eval()
+    (see functional.dropout)."""
 
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, mode="upscale_in_train"):
         super().__init__()
         self.p = p
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training)
+        return F.dropout(x, self.p, self.training, self.mode)

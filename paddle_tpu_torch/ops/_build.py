@@ -3,8 +3,9 @@
 Each source in ops/csrc/ is compiled by `nvcc` into its own shared library
 with a plain C interface and loaded with ctypes; no PyTorch header is
 included, so a build takes seconds. Libraries go into ops/build/ (listed
-in .gitignore), named by the hash of their source, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+in .gitignore), named by the hash of their source and of the headers in
+csrc/, so an edited source is rebuilt and an unchanged one is loaded as
+it is.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o ops/build/lib<name>-<hash>.so csrc/<name>.cu
@@ -30,21 +31,41 @@ __all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build", "load", "build_logs"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
 
+_CSRC = os.path.join(_HERE, "csrc")
 KERNEL_SOURCES = {
-    "flash_fwd": os.path.join(_HERE, "csrc", "flash_fwd.cu"),
-    "paged_decode": os.path.join(_HERE, "csrc", "paged_decode.cu"),
-}
+    name: os.path.join(_CSRC, name + ".cu")
+    for name in ("flash_fwd", "flash_bwd", "adamw", "paged_decode")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _U64, _I64 = ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong
+# dropout arguments of the flash kernels: on, threshold, scale, seed, offset
+_DROP = [_I, _U, _F, _U64, _U]
+# library -> {C entry: argtypes}
 _SIGNATURES = {
-    # q, k, v, o, strides*, B, H, Tq, Tk, D, causal, sm_scale, dtype, stream
-    "flash_fwd": ("flash_fwd",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
-    # q, nk, nv, strides*, kc, vc, ks, vs, lens, out, B, H, T, D,
-    # sm_scale, quant, stream
-    "paged_decode": ("paged_decode",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _F, _I, _P]),
+    "flash_fwd": {
+        # q, k, v, o, lse, strides*, B, H, Tq, Tk, D, causal, sm_scale,
+        # dtype, dropout..., stream
+        "flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I] + _DROP + [_P],
+        # out, seed, offset, BH, Tq, Tk, stream
+        "attn_dropout_bits": [_P, _U64, _U, _I, _I, _I, _P],
+    },
+    "flash_bwd": {
+        # q, k, v, o, dO, lse, dq, delta, strides*, B, H, Tq, Tk, D,
+        # causal, sm_scale, dtype, dropout..., stream
+        "flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _I] + _DROP + [_P],
+        # q, k, v, dO, lse, delta, dk, dv, strides*, then as flash_bwd_dq
+        "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I] + _DROP + [_P],
+    },
+    "adamw": {
+        # param, grad, m1, m2, n, ptype, gtype, lr, decay, use_decay, b1,
+        # 1-b1, b2, 1-b2, eps, c1, c2, stream
+        "adamw": [_P] * 4 + [_I64, _I, _I, _F, _F, _I] + [_F] * 7 + [_P],
+    },
+    "paged_decode": {
+        # q, nk, nv, strides*, kc, vc, ks, vs, lens, out, B, H, T, D,
+        # sm_scale, quant, stream
+        "paged_decode": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
+    },
 }
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -69,8 +90,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(KERNEL_SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh"))
+    for path in [KERNEL_SOURCES[name]] + [os.path.join(_CSRC, n)
+                                          for n in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest))
 
 
@@ -121,9 +147,9 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(_target(name))
-            sym, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for sym, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
     return lib

@@ -1,0 +1,104 @@
+// Fused Adam / AdamW update for Hopper (sm_90a), in place on the
+// parameter and both moments.
+//
+// Replaces paddle_tpu/ops/pallas_kernels.py `_adamw_kernel` (launched by
+// `fused_adamw_or_none`), whose arithmetic is the jnp rule of
+// paddle_tpu/optimizer Adam/AdamW `_update_rule`:
+//     p  = float(param) [* (1 - lr * coeff)]        (AdamW's decoupled decay)
+//     m1 = b1 * m1 + (1 - b1) * g                   (g = float(grad))
+//     m2 = b2 * m2 + (1 - b2) * (g * g)
+//     param = p - lr * (m1 / c1) / (sqrt(m2 / c2) + eps)
+// with c1 = 1 - b1^t and c2 = 1 - b2^t computed on the host in float32 and
+// passed in, as the TPU wrapper passes them. Every operation is rounded
+// on its own (__fmul_rn, __fdiv_rn, __fsqrt_rn, ...: no FMA contraction),
+// so the kernel equals the plain PyTorch version op for op.
+//
+// The parameter is float32 or bfloat16, the gradient float32 or bfloat16
+// (converted to float32 here), the moments float32. Any numel: the TPU's
+// rows-of-128 rule (`_adamw_rows_ok`) is not carried over. One launch per
+// parameter, as the JAX step makes one pallas_call per parameter.
+//
+// What bounds it on the H100: bytes. Each element reads param, grad, m1,
+// m2 and writes param, m1, m2 once: 22 bytes for a bfloat16 parameter and
+// gradient, 28 for float32, at ~10 flops, far below the card's ~300 flops
+// per byte. What the design does about it: one pass, nothing staged, a
+// grid-stride loop of coalesced loads with enough blocks to cover the SMs
+// several times over; vector (16-byte) loads and one launch for all
+// parameters are later work.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+struct Hyper {
+  float lr, decay, b1, omb1, b2, omb2, eps, c1, c2;
+  int use_decay;
+};
+
+template <typename P, typename G>
+__global__ void __launch_bounds__(256)
+adamw_kernel(P* __restrict__ param, const G* __restrict__ grad,
+             float* __restrict__ m1, float* __restrict__ m2, long long n,
+             Hyper hp) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float g = to_f(grad[i]);
+    float p = to_f(param[i]);
+    if (hp.use_decay) p = __fmul_rn(p, hp.decay);
+    const float a = __fadd_rn(__fmul_rn(hp.b1, m1[i]), __fmul_rn(hp.omb1, g));
+    const float b = __fadd_rn(__fmul_rn(hp.b2, m2[i]),
+                              __fmul_rn(hp.omb2, __fmul_rn(g, g)));
+    const float step = __fdiv_rn(
+        __fmul_rn(hp.lr, __fdiv_rn(a, hp.c1)),
+        __fadd_rn(__fsqrt_rn(__fdiv_rn(b, hp.c2)), hp.eps));
+    store(param + i, __fsub_rn(p, step));
+    m1[i] = a;
+    m2[i] = b;
+  }
+}
+
+template <typename P, typename G>
+int launch(void* param, const void* grad, float* m1, float* m2, long long n,
+           const Hyper& hp, cudaStream_t stream) {
+  const int threads = 256;
+  long long blocks = (n + threads - 1) / threads;
+  if (blocks > 132 * 16) blocks = 132 * 16;    // 16 blocks per SM, then loop
+  adamw_kernel<P, G><<<(int)blocks, threads, 0, stream>>>(
+      static_cast<P*>(param), static_cast<const G*>(grad), m1, m2, n, hp);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ptype / gtype: 0 float32, 1 bfloat16. lr, decay (= 1 - lr * coeff),
+// the betas, 1 - beta, eps, c1 and c2 are float32 values computed by the
+// caller. use_decay: 0 for Adam (no decay multiply). Returns
+// cudaGetLastError() after the launch.
+extern "C" int adamw(void* param, const void* grad, float* m1, float* m2,
+                     long long n, int ptype, int gtype, float lr,
+                     float decay, int use_decay, float b1, float omb1,
+                     float b2, float omb2, float eps, float c1, float c2,
+                     cudaStream_t stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const Hyper hp{lr, decay, b1, omb1, b2, omb2, eps, c1, c2, use_decay};
+  if (ptype == 0 && gtype == 0)
+    return launch<float, float>(param, grad, m1, m2, n, hp, stream);
+  if (ptype == 0 && gtype == 1)
+    return launch<float, __nv_bfloat16>(param, grad, m1, m2, n, hp, stream);
+  if (ptype == 1 && gtype == 0)
+    return launch<__nv_bfloat16, float>(param, grad, m1, m2, n, hp, stream);
+  if (ptype == 1 && gtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(param, grad, m1, m2, n, hp,
+                                                stream);
+  return (int)cudaErrorInvalidValue;
+}

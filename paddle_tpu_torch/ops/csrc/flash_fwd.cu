@@ -1,12 +1,24 @@
-// Flash-attention forward for Hopper (sm_90a), float32 accumulation.
+// Flash-attention forward for Hopper (sm_90a), float32 accumulation, with
+// the training options: an lse output and attention dropout.
 //
 // Replaces paddle_tpu/ops/pallas_kernels.py `_flash_fwd_kernel` (launched by
-// `_flash_fwd` with need_lse=False): out = softmax(Q K^T * D^-1/2) V per
-// (batch*head), online softmax over K/V tiles, causal mask aligned
-// bottom-right (a query row i sees keys j <= i + Tk - Tq), tiles past the
-// diagonal skipped. No lse output, no dropout: those belong to training.
-// The TPU kernel carries its softmax state across a sequential grid axis;
-// here one block loops over the key tiles itself.
+// `_flash_fwd`): out = softmax(Q K^T * D^-1/2) V per (batch*head), online
+// softmax over K/V tiles, causal mask aligned bottom-right (a query row i
+// sees keys j <= i + Tk - Tq), tiles past the diagonal skipped. The TPU
+// kernel carries its softmax state across a sequential grid axis; here one
+// block loops over the key tiles itself.
+//
+// Training options (both off on the serving path, where no lse pointer is
+// passed and the dropout branch is compiled out):
+//   * lse [B*H, Tq] float32 = m + log l of the scaled scores, the one
+//     number per row the backward kernels need. The TPU kernel stores it
+//     broadcast over 128 lanes ([B*H, Tq, 128]) because a TPU vector store
+//     is 128 lanes wide; a CUDA thread stores one float, so the port keeps
+//     one value per row (128x fewer bytes).
+//   * dropout at p: the keep mask (attn_dropout.cuh, Philox bits per
+//     element) scales the exp-scores of the P V product only; the softmax
+//     denominator l sums the undropped scores, which equals
+//     dropout(softmax(s)) V exactly, as `_flash_fwd_kernel` computes it.
 //
 // Design: one CTA (4 warps) per (batch*head, 16-row query tile). Each K/V
 // tile of 32 keys is staged in shared memory as float32: every warp loads
@@ -17,20 +29,25 @@
 // D4 + 4 floats so a quarter-warp hits 32 distinct banks) and the 4 query
 // rows as broadcasts. The warp reduces max and sum with shuffles per row;
 // for P V, lane l accumulates output columns l, l+32, ... of all 4 rows in
-// registers. Any Tq/Tk is allowed: the ragged edge is masked, rows past Tq
-// are computed and not stored. D <= 128.
+// registers. The warp's 4 rows are 4-aligned, so one Philox call per lane
+// and tile gives the dropout bits of all 4 rows. Any Tq/Tk is allowed: the
+// ragged edge is masked, rows past Tq are computed and not stored. D <= 128.
 //
 // What bounds it on the H100: at the serving prefill shapes (B=1, H=12,
 // T <= 256, D=64) the work is ~0.1 GFLOP and ~3 MB, a bound of about two
-// microseconds, so the kernel is latency-bound (24 to 192 CTAs on 132 SMs)
-// and its FMAs run on the CUDA cores, not the tensor cores. What the
-// design does about it: it never writes the [Tq, Tk] scores to device
-// memory, skips the tiles above the diagonal, keeps every tile load in
-// flight at once and reuses each shared-memory K value for 4 rows; moving
-// QK^T and PV onto wgmma with bf16 tiles is later work.
+// microseconds, so the kernel is latency-bound (24 to 192 CTAs on 132 SMs);
+// at the training shapes (B=16, H=12, T=512, D=64, causal) it is 6.4 GFLOP
+// against 25 MB, bound by operations. Its FMAs run on the CUDA cores, not
+// the tensor cores. What the design does about it: it never writes the
+// [Tq, Tk] scores or the dropout mask to device memory, skips the tiles
+// above the diagonal, keeps every tile load in flight at once and reuses
+// each shared-memory K value for 4 rows; moving QK^T and PV onto wgmma
+// with bf16 tiles is later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "attn_dropout.cuh"
 
 namespace {
 
@@ -65,15 +82,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 __host__ __device__ __forceinline__ int pad4(int d) { return (d + 3) & ~3; }
 
 // DC = ceil(D / 32): head-dim columns each lane loads and accumulates.
-template <typename T, int DC>
+template <typename T, int DC, bool DROP>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse,
                  long long qsb, long long qsh, long long qst,
                  long long ksb, long long ksh, long long kst,
                  long long vsb, long long vsh, long long vst,
                  long long osb, long long osh, long long ost,
-                 int H, int Tq, int Tk, int D, int causal, float sm_scale) {
+                 int H, int Tq, int Tk, int D, int causal, float sm_scale,
+                 unsigned drop_thr, float drop_scale,
+                 unsigned long long seed, unsigned offset) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D4 = pad4(D);                // head dim padded to float4
@@ -165,6 +185,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // online softmax per row
     const int kpos = k0 + lane;
+    uint4 bits;
+    if (DROP) bits = attn_dropout::bits4(seed, offset, bh, (q0 >> 2) + warp,
+                                         kpos);
     float p[kR];
 #pragma unroll
     for (int rr = 0; rr < kR; ++rr) {
@@ -179,6 +202,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m[rr] - m_sub);
       l[rr] = l[rr] * alpha + warp_sum(p[rr]);
       m[rr] = m_new;
+      // the denominator took the undropped score; P V takes the dropped one
+      if (DROP)
+        p[rr] = attn_dropout::word(bits, rr) >= drop_thr ? p[rr] * drop_scale
+                                                         : 0.f;
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[rr][c] *= alpha;
     }
@@ -206,6 +233,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int rr = 0; rr < kR; ++rr) {
     const int qpos = q0 + warp * kR + rr;
     if (qpos >= Tq) continue;
+    if (lse != nullptr && lane == 0)
+      lse[(long long)bh * Tq + qpos] = m[rr] + logf(l[rr]);
     const float inv = 1.f / l[rr];
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
@@ -216,9 +245,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* st, int B, int H, int Tq, int Tk, int D,
-           int causal, float sm_scale, cudaStream_t stream) {
+           int causal, float sm_scale, int dropout, unsigned drop_thr,
+           float drop_scale, unsigned long long seed, unsigned offset,
+           cudaStream_t stream) {
   if (D < 1 || D > 128 || Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
   const dim3 block(kWarps * 32);
@@ -228,34 +259,78 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   T* oo = static_cast<T*>(o);
-#define FLASH_LAUNCH(DC)                                                     \
-  flash_fwd_kernel<T, DC><<<grid, block, smem, stream>>>(                    \
-      qq, kk, vv, oo, st[0], st[1], st[2], st[3], st[4], st[5], st[6],       \
-      st[7], st[8], st[9], st[10], st[11], H, Tq, Tk, D, causal, sm_scale)
-  switch ((D + 31) / 32) {
-    case 1: FLASH_LAUNCH(1); break;
-    case 2: FLASH_LAUNCH(2); break;
-    case 3: FLASH_LAUNCH(3); break;
-    default: FLASH_LAUNCH(4); break;
+#define FLASH_LAUNCH(DC, DROP)                                               \
+  flash_fwd_kernel<T, DC, DROP><<<grid, block, smem, stream>>>(              \
+      qq, kk, vv, oo, lse, st[0], st[1], st[2], st[3], st[4], st[5], st[6],  \
+      st[7], st[8], st[9], st[10], st[11], H, Tq, Tk, D, causal, sm_scale,   \
+      drop_thr, drop_scale, seed, offset)
+#define FLASH_LAUNCH_DC(DROP)                                                \
+  switch ((D + 31) / 32) {                                                   \
+    case 1: FLASH_LAUNCH(1, DROP); break;                                    \
+    case 2: FLASH_LAUNCH(2, DROP); break;                                    \
+    case 3: FLASH_LAUNCH(3, DROP); break;                                    \
+    default: FLASH_LAUNCH(4, DROP); break;                                   \
   }
+  if (dropout) {
+    FLASH_LAUNCH_DC(true)
+  } else {
+    FLASH_LAUNCH_DC(false)
+  }
+#undef FLASH_LAUNCH_DC
 #undef FLASH_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Bits of the dropout mask, [B*H, Tq, Tk] uint32: one thread per (column,
+// 4-row group), the counter layout of attn_dropout.cuh.
+__global__ void attn_dropout_bits_kernel(unsigned* __restrict__ out,
+                                         unsigned long long seed,
+                                         unsigned offset, int Tq, int Tk) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int group = blockIdx.y, bh = blockIdx.z;
+  if (col >= Tk) return;
+  const uint4 r = attn_dropout::bits4(seed, offset, bh, group, col);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = 4 * group + i;
+    if (row < Tq)
+      out[((long long)bh * Tq + row) * Tk + col] = attn_dropout::word(r, i);
+  }
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, time) for q, k, v, o in turn;
-// the head_dim stride must be 1. dtype: 0 float32, 1 bfloat16.
+// the head_dim stride must be 1. dtype: 0 float32, 1 bfloat16. lse: null,
+// or [B*H, Tq] float32. dropout: 0 off, else keep iff bits >= drop_thr and
+// kept values times drop_scale, bits keyed by (seed, offset).
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* o, const long long* strides, int B, int H,
-                         int Tq, int Tk, int D, int causal, float sm_scale,
-                         int dtype, cudaStream_t stream) {
+                         void* o, float* lse, const long long* strides,
+                         int B, int H, int Tq, int Tk, int D, int causal,
+                         float sm_scale, int dtype, int dropout,
+                         unsigned drop_thr, float drop_scale,
+                         unsigned long long seed, unsigned offset,
+                         cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float>(q, k, v, o, strides, B, H, Tq, Tk, D, causal,
-                         sm_scale, stream);
+    return launch<float>(q, k, v, o, lse, strides, B, H, Tq, Tk, D, causal,
+                         sm_scale, dropout, drop_thr, drop_scale, seed,
+                         offset, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, strides, B, H, Tq, Tk, D,
-                                 causal, sm_scale, stream);
+    return launch<__nv_bfloat16>(q, k, v, o, lse, strides, B, H, Tq, Tk, D,
+                                 causal, sm_scale, dropout, drop_thr,
+                                 drop_scale, seed, offset, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// out: [BH, Tq, Tk] uint32 (stored in an int32 tensor).
+extern "C" int attn_dropout_bits(void* out, unsigned long long seed,
+                                 unsigned offset, int BH, int Tq, int Tk,
+                                 cudaStream_t stream) {
+  if (BH < 1 || Tq < 1 || Tk < 1 || BH > 65535 || (Tq + 3) / 4 > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Tk + 127) / 128, (Tq + 3) / 4, BH);
+  attn_dropout_bits_kernel<<<grid, 128, 0, stream>>>(
+      static_cast<unsigned*>(out), seed, offset, Tq, Tk);
+  return (int)cudaGetLastError();
 }

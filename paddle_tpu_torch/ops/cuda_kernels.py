@@ -1,10 +1,18 @@
-"""Hand-written CUDA kernels of the serving path, with their gates.
+"""Hand-written CUDA kernels of the ported paths, with their gates.
 
-Counterpart of paddle_tpu/ops/pallas_kernels.py for the two kernel families
-the serving path runs:
+Counterpart of paddle_tpu/ops/pallas_kernels.py for the kernel families
+the serving and training paths run:
 
-  * flash-attention forward (csrc/flash_fwd.cu) — prefill attention,
-    replacing `_flash_fwd_kernel`;
+  * flash-attention forward (csrc/flash_fwd.cu), replacing
+    `_flash_fwd_kernel`: prefill attention (`flash_fwd`) and the training
+    forward with an lse output and in-kernel dropout (`flash_fwd_train`);
+  * flash-attention backward (csrc/flash_bwd.cu), replacing
+    `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`, behind
+    `FlashAttentionFunction` (the counterpart of the custom vjp `_flash`);
+  * the attention-dropout bits (csrc/attn_dropout.cuh, Philox-4x32-10 per
+    element): `attn_dropout_bits` writes them out so the checks can hand
+    them to the plain versions;
+  * fused AdamW (csrc/adamw.cu), replacing `_adamw_kernel`;
   * paged decode (csrc/paged_decode.cu) — one decode step's KV append plus
     single-query attention over the paged cache, float32 or int8, replacing
     `_paged_f_kernel` / `_paged_q_kernel` (`_paged_core`).
@@ -15,8 +23,9 @@ kernel takes on every device and raises ValueError on anything else; it
 then runs the plain version for tensors that lie on the CPU and launches
 the kernel for CUDA tensors. There is no probe and no quiet fallback: a
 gate returns None (the caller's plain route) only when the kernel's flag
-is off (`use_flash_attention`, `paged_flash_decode`), which the callers
-report in the attention path counters (`xla_sdpa`, `xla_paged`).
+is off (`use_flash_attention`, `use_fused_optimizer`,
+`paged_flash_decode`), which the attention callers report in the path
+counters (`xla_sdpa`, `xla_paged`).
 
 The int8 KV rule (`quantize_kv` / `dequantize_kv`) lives here too: the
 paged-decode kernel's in-kernel append must match it bit for bit, and the
@@ -31,25 +40,34 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..framework.flags import flag
+from ..framework.random import next_seed_offset
 from ..observability import metrics
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_plain",
-           "flash_attention_or_none", "paged_decode", "paged_decode_plain",
+__all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
+           "flash_fwd_train_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
+           "flash_bwd_dkv", "flash_bwd_dkv_plain", "FlashAttentionFunction",
+           "attn_dropout_bits", "attn_dropout_bits_plain",
+           "flash_attention_or_none", "adamw", "adamw_plain",
+           "fused_adamw_or_none", "paged_decode", "paged_decode_plain",
            "paged_decode_attention_or_none", "quantize_kv", "dequantize_kv",
            "launch_counts", "attention_path_counts"]
 
 _NEG_INF = -1e30
 
 # kernel launches, bumped by the wrappers right after a successful launch
-_LAUNCHES = {"flash_fwd": 0, "paged_decode": 0, "paged_decode_int8": 0}
+_LAUNCHES = {"flash_fwd": 0, "flash_fwd_train": 0, "flash_bwd_dq": 0,
+             "flash_bwd_dkv": 0, "attn_dropout_bits": 0, "adamw": 0,
+             "paged_decode": 0, "paged_decode_int8": 0}
 
 # attention implementation chosen by the gates (reference:
 # pallas_kernels.py _ATTN_PATHS / _note_attn_path)
-_ATTN_PATHS = {"flash": 0, "xla_sdpa": 0, "paged_flash": 0, "xla_paged": 0}
+_ATTN_PATHS = {"flash": 0, "flash_dropout": 0, "xla_sdpa": 0,
+               "paged_flash": 0, "xla_paged": 0}
 _ATTN_COUNTER = metrics.counter(
     "pt_attn_path_total", "Attention implementations run, by path",
     labelnames=("path",))
@@ -95,22 +113,117 @@ def _need(cond, msg):
         raise ValueError(msg)
 
 
+def _on_cuda(t, name):
+    """True for a CPU tensor's plain route, False for a CUDA launch; raises
+    for any other device."""
+    if t.device.type == "cpu":
+        return False
+    _need(t.device.type == "cuda", "%s: tensors on %s" % (name, t.device))
+    return True
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# Attention dropout bits
+#
+# The flash kernels draw their dropout mask in the kernel (attn_dropout.cuh):
+# Philox-4x32-10 keyed by the call's 64-bit seed, counter (col, row // 4,
+# batch*head, call offset), word row % 4; keep iff bits >= floor(p * 2^32)
+# (clamped to 2^32 - 1), kept values scaled by 1 / (1 - p) — the keep and
+# scale rule of the reference's `_attn_drop_keep` / `_attn_drop_scale`.
+# A bit depends on its element only, never on the tiling, so the forward
+# and both backward kernels regenerate one mask. The plain versions take
+# the bits as an int64 tensor [B*H, Tq, Tk] holding values in [0, 2^32).
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a, b):
+    """(hi, lo) 32-bit halves of the constant a times int64 tensor b, both
+    below 2^32, in int64 arithmetic without overflow."""
+    x = (b >> 16) * a                      # < 2^48
+    y = (b & 0xFFFF) * a                   # < 2^48
+    s = ((x & 0xFFFF) << 16) + y           # < 2^49
+    return (x >> 16) + (s >> 32), s & _U32
+
+
+def _philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox-4x32-10 (Random123) on int64 tensors holding uint32 values;
+    the function attn_dropout.cuh computes on the card."""
+    for i in range(10):
+        if i:
+            k0 = (k0 + _PHILOX_W[0]) & _U32
+            k1 = (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def attn_dropout_bits_plain(seed, offset, BH, Tq, Tk, device="cpu"):
+    """The kernels' dropout bits, [BH, Tq, Tk] int64 in [0, 2^32)."""
+    G = (Tq + 3) // 4
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    shape = (BH, G, Tk)
+    words = _philox4x32_10(
+        ar(Tk).view(1, 1, Tk).expand(shape), ar(G).view(1, G, 1).expand(shape),
+        ar(BH).view(BH, 1, 1).expand(shape),
+        torch.full(shape, int(offset), dtype=torch.int64, device=device),
+        int(seed) & _U32, (int(seed) >> 32) & _U32)
+    bits = torch.stack(words, dim=2).reshape(BH, 4 * G, Tk)
+    return bits[:, :Tq].contiguous()
+
+
+def attn_dropout_bits(seed, offset, BH, Tq, Tk, device="cuda"):
+    """The dropout bits the flash kernels draw for (seed, offset), written
+    out by a small kernel; the plain version on the CPU. Not on the main
+    path: the checks hand these bits to the plain versions."""
+    dev = torch.device(device)
+    _need(0 <= int(seed) < 2 ** 64 and 0 <= int(offset) < 2 ** 32,
+          "attn_dropout_bits: seed must fit 64 bits and offset 32")
+    probe = torch.empty(0, device=dev)
+    if not _on_cuda(probe, "attn_dropout_bits"):
+        return attn_dropout_bits_plain(seed, offset, BH, Tq, Tk, dev)
+    out = torch.empty((BH, Tq, Tk), dtype=torch.int32, device=dev)
+    err = _build.load("flash_fwd").attn_dropout_bits(
+        out.data_ptr(), int(seed), int(offset), BH, Tq, Tk, _stream(out))
+    _check_launch(err, "attn_dropout_bits")
+    _LAUNCHES["attn_dropout_bits"] += 1
+    return out.to(torch.int64) & _U32
+
+
+def _drop_args(dropout_p):
+    """(threshold, scale) of the keep rule: keep iff bits >= threshold,
+    kept values times scale (float32, as the reference's weak-typed
+    1 / (1 - p) multiply rounds it)."""
+    thr = min(int(dropout_p * (2.0 ** 32)), 2 ** 32 - 1)
+    return thr, float(np.float32(1.0 / (1.0 - dropout_p)))
+
+
+def _keep_mask(bits, dropout_p, shape):
+    thr, _ = _drop_args(dropout_p)
+    return bits.reshape(shape) >= thr
+
+
 # ---------------------------------------------------------------------------
 # Flash-attention forward
 #
 # Replaces pallas_kernels.py `_flash_fwd_kernel` (:324, via `_flash_fwd`
-# :412 with need_lse=False). Bound on the H100: at the serving prefill
-# shapes (B=1, H=12, T<=256, D=64) a few microseconds of bytes or flops,
-# so the kernel is latency-bound; it keeps the [Tq, Tk] scores on chip and
-# skips the K/V tiles above the causal diagonal (see the source's note).
+# :412). Bound on the H100: at the serving prefill shapes (B=1, H=12,
+# T<=256, D=64) a few microseconds of bytes or flops, so the kernel is
+# latency-bound; at the training shapes (B=16, H=12, T=512, D=64, causal)
+# it is bound by operations. It keeps the [Tq, Tk] scores and the dropout
+# mask on chip and skips the K/V tiles above the causal diagonal (see the
+# source's note).
 
 
-def flash_attention_plain(q, k, v, causal, attn_mask=None):
-    """softmax(q k^T / sqrt(D) + attn_mask) v in float32, causal mask
-    aligned bottom-right (query i sees keys j <= i + Tk - Tq), returned in
-    q's dtype (reference: pallas_kernels.py `_xla_attention`). The one
-    dense attention body of the port: the kernel's CPU path, the plain sdpa
-    route and the suffix-prefill attention all run it."""
+def _scores(q, k, causal):
+    """Scaled float32 scores q k^T / sqrt(D), the causal mask aligned
+    bottom-right (query i sees keys j <= i + Tk - Tq) as -1e30."""
     d = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
         float(d) ** -0.5)
@@ -119,18 +232,48 @@ def flash_attention_plain(q, k, v, causal, attn_mask=None):
         cm = torch.ones((tq, tk), dtype=torch.bool,
                         device=s.device).tril(tk - tq)
         s = torch.where(cm, s, torch.full_like(s, _NEG_INF))
+    return s
+
+
+def flash_attention_plain(q, k, v, causal, attn_mask=None, keep=None,
+                          dropout_p=0.0):
+    """softmax(q k^T / sqrt(D) + attn_mask) v in float32, causal mask
+    aligned bottom-right, returned in q's dtype (reference:
+    pallas_kernels.py `_xla_attention`). With `keep` (bool, [B, H, Tq, Tk])
+    the probabilities are dropped where keep is False and the rest scaled
+    by 1 / (1 - dropout_p). The one dense attention body of the port: the
+    kernels' CPU path, the plain sdpa route and the suffix-prefill
+    attention all run it."""
+    s = _scores(q, k, causal)
     if attn_mask is not None:
         s = s + attn_mask.float()
     w = torch.softmax(s, dim=-1)
+    if keep is not None:
+        w = torch.where(keep, w * _drop_args(dropout_p)[1], 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
 
-def _flash_check(q, k, v, causal):
-    """What the kernel takes (the reference's `_shapes_ok` minus the TPU
+def flash_fwd_train_plain(q, k, v, causal, dropout_p=0.0, bits=None):
+    """Plain version of the training forward: (out, lse) with lse
+    [B*H, Tq] float32 the logsumexp of the scaled scores, and dropout by
+    the explicit `bits` ([B*H, Tq, Tk] int64) when dropout_p > 0."""
+    B, H, Tq, _ = q.shape
+    s = _scores(q, k, causal)
+    lse = torch.logsumexp(s, dim=-1).reshape(B * H, Tq)
+    keep = (_keep_mask(bits, dropout_p, s.shape) if dropout_p > 0.0
+            else None)
+    w = torch.softmax(s, dim=-1)
+    if keep is not None:
+        w = torch.where(keep, w * _drop_args(dropout_p)[1], 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+    return out, lse
+
+
+def _flash_check(q, k, v, causal, dropout_p=0.0):
+    """What the kernels take (the reference's `_shapes_ok` minus the TPU
     tiling rules: any T, ragged edges masked in the kernel); raises
     ValueError on anything else."""
-    _need(q.ndim == 4 and k.ndim == 4 and q.dtype in (torch.float32,
-                                                       torch.bfloat16)
+    _need(q.ndim == 4 and k.ndim == 4 and q.dtype in _DTYPE_CODE
           and q.shape[-1] <= 128 and not (causal and k.shape[2] < q.shape[2]),
           "flash_attention: unsupported input %s %s %s causal=%s (float32 "
           "or bfloat16, [B,H,T,D] with D<=128, Tk>=Tq when causal)"
@@ -139,51 +282,347 @@ def _flash_check(q, k, v, causal):
     _need(tuple(k.shape) == (B, H, k.shape[2], D) and v.shape == k.shape
           and k.dtype == q.dtype and v.dtype == q.dtype,
           "flash_attention: k/v shape or dtype")
+    _need(0.0 <= dropout_p < 1.0,
+          "flash_attention: dropout_p %r (the kernel takes 0 <= p < 1)"
+          % (dropout_p,))
     for t in (q, k, v):
         _need(t.device == q.device, "flash_attention: mixed devices")
         _need(t.stride(-1) == 1, "flash_attention: head_dim stride != 1")
 
 
-def flash_attention(q, k, v, causal):
-    """Attention forward, q/k/v [B, H, T, D]; any strides with a unit
-    head_dim stride. Inputs the kernel does not take raise ValueError on
-    every device; CPU tensors then take the plain version."""
-    _flash_check(q, k, v, causal)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    _need(q.device.type == "cuda", "flash_attention: tensors on %s"
-          % q.device)
+def _strides(*ts):
+    """(batch, head, time) element strides of [B, H, T, D] tensors, as the
+    kernels' C arrays take them; None stands for a tensor a kernel does
+    not touch."""
+    vals = [s for t in ts for s in (t.stride()[:3] if t is not None
+                                    else (0, 0, 0))]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _bhtd_empty(B, H, T, D, like):
+    """[B, H, T, D] output laid out as [B, T, H, D]: the attention layer's
+    transpose(1, 2).reshape(B, T, H*D) is then a view, not a copy."""
+    return torch.empty((B, T, H, D), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _flash_fwd(q, k, v, causal, dropout_p, seed, offset, need_lse):
+    """The forward kernel, or its plain version on CPU tensors; counts a
+    launch as flash_fwd_train when it writes lse or drops, else as
+    flash_fwd. Returns (out, lse or None)."""
+    _flash_check(q, k, v, causal, dropout_p)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    o = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, o) for s in t.stride()[:3]))
+    if not _on_cuda(q, "flash_attention"):
+        bits = (attn_dropout_bits_plain(seed, offset, B * H, Tq, Tk)
+                if dropout_p > 0.0 else None)
+        out, lse = flash_fwd_train_plain(q, k, v, causal, dropout_p, bits)
+        return out, (lse if need_lse else None)
+    o = _bhtd_empty(B, H, Tq, D, q)
+    lse = (torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    thr, scale = _drop_args(dropout_p)
     lib = _build.load("flash_fwd")
+    strides = _strides(q, k, v, o)
     err = lib.flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        ctypes.addressof(strides), B, H, Tq, Tk, D, int(bool(causal)),
-        float(D) ** -0.5, 0 if q.dtype == torch.float32 else 1,
+        lse.data_ptr() if need_lse else None, ctypes.addressof(strides),
+        B, H, Tq, Tk, D, int(bool(causal)), float(D) ** -0.5,
+        _DTYPE_CODE[q.dtype], int(dropout_p > 0.0), thr, scale, int(seed),
+        int(offset), _stream(q))
+    name = "flash_fwd_train" if (need_lse or dropout_p > 0.0) else \
+        "flash_fwd"
+    _check_launch(err, name)
+    _LAUNCHES[name] += 1
+    return o, lse
+
+
+def flash_attention(q, k, v, causal):
+    """Attention forward without lse or dropout (the serving prefill), q/k/v
+    [B, H, T, D]; any strides with a unit head_dim stride. Inputs the
+    kernel does not take raise ValueError on every device; CPU tensors
+    then take the plain version."""
+    return _flash_fwd(q, k, v, causal, 0.0, 0, 0, False)[0]
+
+
+def flash_fwd_train(q, k, v, causal, dropout_p=0.0, seed=0, offset=0,
+                    need_lse=True):
+    """The training forward: (out, lse [B*H, Tq] float32 or None), with
+    attention dropout at `dropout_p` drawn from (seed, offset)."""
+    return _flash_fwd(q, k, v, causal, float(dropout_p), seed, offset,
+                      need_lse)
+
+
+# ---------------------------------------------------------------------------
+# Flash-attention backward
+#
+# Replaces pallas_kernels.py `_flash_bwd_dq_kernel` (:462) and
+# `_flash_bwd_dkv_kernel` (:524), launched by `_flash_bwd` (:589). Bound on
+# the H100: operations (7 D FMAs per live (row, key) pair, on the CUDA
+# cores). Delta = rowsum(dO o O) is computed once, by the dq kernel, which
+# writes it beside dq; the dkv kernel reads it (no launch of its own).
+
+
+def _bwd_terms(q, k, v, do, lse, causal, dropout_p, bits):
+    """p = exp(s - lse), the dropped dP, and the keep scale (plain)."""
+    B, H, Tq, _ = q.shape
+    s = _scores(q, k, causal)
+    p = torch.exp(s - lse.reshape(B, H, Tq, 1))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    pd = p
+    if dropout_p > 0.0:
+        keep = _keep_mask(bits, dropout_p, s.shape)
+        scale = _drop_args(dropout_p)[1]
+        pd = torch.where(keep, p * scale, 0.0)
+        dp = torch.where(keep, dp * scale, 0.0)
+    return p, pd, dp
+
+
+def flash_bwd_dq_plain(q, k, v, o, do, lse, causal, dropout_p=0.0,
+                       bits=None):
+    """(dq in q's dtype, Delta [B*H, Tq] float32) as `_flash_bwd_dq_kernel`
+    computes them: dS = p (dP - Delta) / sqrt(D), dq = dS K."""
+    B, H, Tq, D = q.shape
+    delta = (do.float() * o.float()).sum(-1)
+    p, _, dp = _bwd_terms(q, k, v, do, lse, causal, dropout_p, bits)
+    ds = p * (dp - delta[..., None]) * (float(D) ** -0.5)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    return dq.to(q.dtype), delta.reshape(B * H, Tq)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, dropout_p=0.0,
+                        bits=None):
+    """(dk, dv) in k's dtype as `_flash_bwd_dkv_kernel` computes them:
+    dv = (M o p)^T dO, dk = dS^T Q."""
+    B, H, Tq, D = q.shape
+    p, pd, dp = _bwd_terms(q, k, v, do, lse, causal, dropout_p, bits)
+    ds = p * (dp - delta.reshape(B, H, Tq, 1)) * (float(D) ** -0.5)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd, do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_check(q, k, v, rows, lse, causal, dropout_p):
+    """`rows`: the [B, H, Tq, D] tensors beside q (o, dO)."""
+    _flash_check(q, k, v, causal, dropout_p)
+    B, H, Tq, _ = q.shape
+    for t in rows:
+        _need(t.shape == q.shape and t.dtype == q.dtype
+              and t.device == q.device and t.stride(-1) == 1,
+              "flash backward: o/dO must match q's shape, dtype and device "
+              "with unit head_dim stride")
+    for t in lse:
+        _need(t.dtype == torch.float32 and tuple(t.shape) == (B * H, Tq)
+              and t.is_contiguous() and t.device == q.device,
+              "flash backward: lse/delta must be contiguous float32 "
+              "[B*H, Tq]")
+
+
+def _bwd_launch(fn, name, ptrs, q, k, causal, dropout_p, seed, offset,
+                strides):
+    B, H, Tq, D = q.shape
+    thr, scale = _drop_args(dropout_p)
+    err = getattr(_build.load("flash_bwd"), fn)(
+        *ptrs, ctypes.addressof(strides), B, H, Tq, k.shape[2], D,
+        int(bool(causal)), float(D) ** -0.5, _DTYPE_CODE[q.dtype],
+        int(dropout_p > 0.0), thr, scale, int(seed), int(offset),
         _stream(q))
-    _check_launch(err, "flash_fwd")
-    _LAUNCHES["flash_fwd"] += 1
-    return o
+    _check_launch(err, name)
+    _LAUNCHES[name] += 1
 
 
-def flash_attention_or_none(query, key, value, attn_mask, is_causal):
+def flash_bwd_dq(q, k, v, o, do, lse, causal, dropout_p=0.0, seed=0,
+                 offset=0):
+    """dq kernel: (dq, Delta). Dropout bits are regenerated from (seed,
+    offset), which must be the forward's."""
+    dropout_p = float(dropout_p)
+    _bwd_check(q, k, v, (o, do), (lse,), causal, dropout_p)
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if not _on_cuda(q, "flash_bwd_dq"):
+        bits = (attn_dropout_bits_plain(seed, offset, B * H, Tq, Tk)
+                if dropout_p > 0.0 else None)
+        return flash_bwd_dq_plain(q, k, v, o, do, lse, causal, dropout_p,
+                                  bits)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    delta = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+    _bwd_launch("flash_bwd_dq", "flash_bwd_dq",
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                 delta.data_ptr()), q, k, causal, dropout_p, seed, offset,
+                _strides(q, k, v, o, do, dq, None, None))
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal, dropout_p=0.0, seed=0,
+                  offset=0):
+    """dk/dv kernel: (dk, dv); `delta` from flash_bwd_dq."""
+    dropout_p = float(dropout_p)
+    _bwd_check(q, k, v, (do,), (lse, delta), causal, dropout_p)
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if not _on_cuda(q, "flash_bwd_dkv"):
+        bits = (attn_dropout_bits_plain(seed, offset, B * H, Tq, Tk)
+                if dropout_p > 0.0 else None)
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                   dropout_p, bits)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _bwd_launch("flash_bwd_dkv", "flash_bwd_dkv",
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr()), q, k, causal, dropout_p, seed, offset,
+                _strides(q, k, v, None, do, None, dk, dv))
+    return dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its backward (the counterpart of the custom vjp
+    `_flash` :675 with `defvjp` :703). The forward runs the forward
+    kernel, writing lse only when an input needs a gradient; the backward
+    runs the dq and dk/dv kernels with the forward's dropout (seed,
+    offset). CPU tensors take the plain versions through the same
+    Function, so the graph is the same on every device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, dropout_p, seed, offset):
+        need_lse = any(ctx.needs_input_grad[:3])
+        o, lse = flash_fwd_train(q, k, v, causal, dropout_p, seed, offset,
+                                 need_lse)
+        if need_lse:
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.args = (causal, dropout_p, seed, offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, dropout_p, seed, offset = ctx.args
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, delta = flash_bwd_dq(q, k, v, o, do, lse, causal, dropout_p,
+                                 seed, offset)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, dropout_p,
+                               seed, offset)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_or_none(query, key, value, attn_mask, is_causal,
+                            dropout_p=0.0):
     """Gate (reference: pallas_kernels.py flash_attention_or_none :1534):
     None when `use_flash_attention` is off (the caller then runs the plain
-    version), else the kernel's output. An additive mask, or an input the
-    kernel does not take, raises ValueError: unlike the reference's gate,
-    this one never hands such a call to the plain version on its own.
-    Attention dropout is not ported: the caller refuses it first."""
+    version), else the output of `FlashAttentionFunction`, with attention
+    dropout at `dropout_p` drawn in the kernel (path counter
+    flash_dropout) or without (flash). An additive mask, p >= 1, or an
+    input the kernel does not take raises ValueError: unlike the
+    reference's gate, this one never hands such a call to the plain
+    version on its own."""
     if not flag("use_flash_attention"):
         return None
     _need(attn_mask is None,
           "flash_attention: the kernel takes no additive mask; set the "
           "use_flash_attention flag to False for the plain version")
-    out = flash_attention(query, key, value, bool(is_causal))
-    _note_attn_path("flash")
+    dropout_p = float(dropout_p)
+    seed, offset = next_seed_offset() if dropout_p > 0.0 else (0, 0)
+    out = FlashAttentionFunction.apply(query, key, value, bool(is_causal),
+                                       dropout_p, seed, offset)
+    _note_attn_path("flash_dropout" if dropout_p > 0.0 else "flash")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Fused AdamW
+#
+# Replaces pallas_kernels.py `_adamw_kernel` (:1044, via
+# `fused_adamw_or_none` :1067). Bound on the H100: bytes (22 per element
+# for a bfloat16 parameter and gradient, 28 for float32). One pass, in
+# place; one launch per parameter.
+
+
+def _adam_scalars(lr, t, beta1, beta2, epsilon, coeff):
+    """The update's scalars in float32, as the reference rounds them: lr
+    and the betas as float32, 1 - beta in double then float32 (a weak-typed
+    python float), decay = 1 - lr * coeff and the bias corrections
+    c = 1 - beta^t in float32 on the host, as `fused_adamw_or_none` passes
+    them (np.float32 power: equal to jnp.power at the t the tests take)."""
+    f = np.float32
+    lr32 = f(lr)
+    return dict(lr=lr32, decay=f(1) - lr32 * f(coeff), b1=f(beta1),
+                omb1=f(1 - beta1), b2=f(beta2), omb2=f(1 - beta2),
+                eps=f(epsilon), c1=f(1) - f(beta1) ** f(t),
+                c2=f(1) - f(beta2) ** f(t))
+
+
+def adamw_plain(param, grad, m1, m2, lr, t, *, beta1, beta2, epsilon,
+                coeff):
+    """The update in plain PyTorch, in place on param, m1 and m2: the
+    reference's jnp rule (optimizer Adam/AdamW `_update_rule`) line for
+    line, each operation rounded on its own as the kernel rounds it."""
+    sc = _adam_scalars(lr, t, beta1, beta2, epsilon, coeff)
+    dev = param.device
+    # tensor divisors, filled on the device: dividing by a python number,
+    # torch may multiply by its reciprocal instead
+    c1 = torch.full((), float(sc["c1"]), device=dev)
+    c2 = torch.full((), float(sc["c2"]), device=dev)
+    g = grad.float()
+    p32 = param.float()
+    if coeff:
+        p32 = p32 * float(sc["decay"])
+    m1n = float(sc["b1"]) * m1 + float(sc["omb1"]) * g
+    m2n = float(sc["b2"]) * m2 + float(sc["omb2"]) * (g * g)
+    step = float(sc["lr"]) * (m1n / c1) / (torch.sqrt(m2n / c2)
+                                           + float(sc["eps"]))
+    param.copy_(p32 - step)
+    m1.copy_(m1n)
+    m2.copy_(m2n)
+
+
+def _adamw_check(param, grad, m1, m2):
+    _need(param.dtype in _DTYPE_CODE and grad.dtype in _DTYPE_CODE,
+          "adamw: param and grad must be float32 or bfloat16 (got %s, %s)"
+          % (param.dtype, grad.dtype))
+    for t in (grad, m1, m2):
+        _need(t.shape == param.shape and t.device == param.device,
+              "adamw: grad and moments must match the parameter's shape "
+              "and device")
+    _need(m1.dtype == torch.float32 and m2.dtype == torch.float32,
+          "adamw: moments must be float32")
+    for t in (param, grad, m1, m2):
+        _need(t.is_contiguous(), "adamw: tensors must be contiguous")
+    _need(param.numel() > 0, "adamw: empty parameter")
+
+
+def adamw(param, grad, m1, m2, lr, t, *, beta1, beta2, epsilon, coeff):
+    """The fused update kernel, in place on param, m1, m2 (plain version
+    on CPU tensors). coeff 0 is Adam."""
+    _adamw_check(param, grad, m1, m2)
+    if not _on_cuda(param, "adamw"):
+        return adamw_plain(param, grad, m1, m2, lr, t, beta1=beta1,
+                           beta2=beta2, epsilon=epsilon, coeff=coeff)
+    sc = _adam_scalars(lr, t, beta1, beta2, epsilon, coeff)
+    err = _build.load("adamw").adamw(
+        param.data_ptr(), grad.data_ptr(), m1.data_ptr(), m2.data_ptr(),
+        param.numel(), _DTYPE_CODE[param.dtype], _DTYPE_CODE[grad.dtype],
+        float(sc["lr"]), float(sc["decay"]), int(bool(coeff)),
+        float(sc["b1"]), float(sc["omb1"]), float(sc["b2"]),
+        float(sc["omb2"]), float(sc["eps"]), float(sc["c1"]),
+        float(sc["c2"]), _stream(param))
+    _check_launch(err, "adamw")
+    _LAUNCHES["adamw"] += 1
+
+
+def fused_adamw_or_none(param, grad, lr, t, m1, m2, *, beta1, beta2,
+                        epsilon, coeff):
+    """Gate (reference: pallas_kernels.py fused_adamw_or_none :1067): None
+    when `use_fused_optimizer` is off (the caller runs the plain rule),
+    else the kernel's update, in place, returning (param, m1, m2). The
+    kernel takes any numel, so the reference's rows-of-128 rule is not
+    carried over; an input it does not take raises ValueError."""
+    if not flag("use_fused_optimizer"):
+        return None
+    adamw(param, grad, m1, m2, lr, t, beta1=beta1, beta2=beta2,
+          epsilon=epsilon, coeff=coeff)
+    return param, m1, m2
 
 
 # ---------------------------------------------------------------------------

@@ -188,10 +188,24 @@ def test_decode_clamps_lens_and_positions_at_the_wall(models):
     assert np.all((out >= 0) & (out < VOCAB))
 
 
-def test_training_mode_dropout_is_refused_until_ported():
+def test_training_mode_dropout_runs_and_differs_from_eval():
+    # train() draws the hidden dropouts from the framework generator and
+    # the attention dropout in the flash path; eval() is deterministic
+    from paddle_tpu_torch.framework import random as prandom
     model = tgpt_tiny(device="cpu", **SHAPE)
-    ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="model.eval"):
-        model(ids)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, VOCAB, (2, 9)))
+    before = ck.attention_path_counts()
+    prandom.seed(3)
+    train_a = model(ids)
+    prandom.seed(3)
+    train_b = model(ids)
+    after = ck.attention_path_counts()
+    assert after["flash_dropout"] - before["flash_dropout"] == 2 * 2
+    torch.testing.assert_close(train_a, train_b, rtol=0, atol=0)
     model.eval()
-    assert model(ids).shape == (1, 4, VOCAB)
+    with torch.no_grad():
+        ev = model(ids)
+    assert ev.shape == train_a.shape == (2, 9, VOCAB)
+    assert torch.isfinite(train_a).all()
+    assert (train_a - ev).abs().max() > 1e-3
+    torch.testing.assert_close(model(ids), ev, rtol=0, atol=0)

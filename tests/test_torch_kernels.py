@@ -317,3 +317,290 @@ def test_quantize_kv_bit_equal_to_reference(seed):
     np.testing.assert_array_equal(
         ck.dequantize_kv(tq, ts).numpy(),
         np.asarray(jcache.dequantize_kv(jq, js)))
+
+
+# ---------------------------------------------------------------------------
+# flash-attention training forward (lse, dropout) and backward
+#
+# The port's plain versions against `_flash_fwd` / `_flash_bwd` in Pallas
+# interpret mode, both fed the same numpy-made dropout bits (the JAX
+# interpret path takes an explicit [B*H, Tq, Tk] bits slab). Tolerances:
+# float32 5e-5 (sums in another order through a softmax and two products),
+# bfloat16 5e-2 (bfloat16 inputs and outputs, one rounding each).
+
+# (B, H, Tq, Tk, D, causal, block_q, block_k): test_pallas_fused.py's
+# single-block configs, then its multi-block grids (incl. Tq < Tk causal)
+FLASH_TRAIN_CFGS = [
+    (2, 3, 32, 32, 16, False, 128, 128), (2, 3, 32, 32, 16, True, 128, 128),
+    (1, 2, 16, 48, 8, True, 128, 128), (2, 2, 64, 64, 32, False, 128, 128),
+    (1, 2, 64, 64, 16, True, 16, 16), (1, 2, 64, 64, 16, False, 16, 32),
+    (1, 1, 32, 64, 8, True, 16, 16)]
+FLASH_TRAIN_CASES = (
+    [(cfg, p, "float32") for cfg in FLASH_TRAIN_CFGS for p in (0.0, 0.1)]
+    + [(FLASH_TRAIN_CFGS[i], 0.5, "float32") for i in (1, 2, 5)]
+    + [(FLASH_TRAIN_CFGS[i], p, "bfloat16") for i in (1, 2, 4)
+       for p in (0.0, 0.1)])
+
+
+def _train_inputs(B, H, Tq, Tk, D, seed=0):
+    rs = np.random.RandomState(seed)
+    q, k, v = _qkv(B, H, Tq, Tk, D, seed)
+    g = rs.randn(B, H, Tq, D).astype(np.float32)
+    bits = rs.randint(0, 2 ** 32, (B * H, Tq, Tk), dtype=np.uint64)
+    return q, k, v, g, bits
+
+
+@pytest.mark.parametrize("cfg,p,dtype", FLASH_TRAIN_CASES)
+def test_flash_train_plain_matches_pallas(cfg, p, dtype):
+    B, H, Tq, Tk, D, causal, bq, bk = cfg
+    atol = 5e-5 if dtype == "float32" else 5e-2
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    q, k, v, g, bits = _train_inputs(B, H, Tq, Tk, D)
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
+    jbits = jnp.asarray(bits.astype(np.uint32)) if p else None
+    jo, jlse = pk._flash_fwd(jq, jk, jv, causal, block_q=bq, block_k=bk,
+                             interpret=True, dropout_p=p, rng=jbits)
+    jgrads = pk._flash_bwd(jq, jk, jv, jo, jlse, jg, causal, block_q=bq,
+                           block_k=bk, interpret=True, dropout_p=p,
+                           rng=jbits)
+    tq, tk, tv, tg = (_t(a, tdt) for a in (q, k, v, g))
+    tbits = _t(bits.astype(np.int64)) if p else None
+    o, lse = ck.flash_fwd_train_plain(tq, tk, tv, causal, p, tbits)
+    dq, delta = ck.flash_bwd_dq_plain(tq, tk, tv, o, tg, lse, causal, p,
+                                      tbits)
+    dk, dv = ck.flash_bwd_dkv_plain(tq, tk, tv, tg, lse, delta, causal, p,
+                                    tbits)
+    assert lse.shape == (B * H, Tq) and lse.dtype == torch.float32
+    for t in (o, dq, dk, dv):
+        assert t.dtype == tdt
+    np.testing.assert_allclose(_np32(o), _np32(jo), atol=atol, rtol=atol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0],
+                               atol=atol, rtol=atol)
+    for got, want in zip((dq, dk, dv), jgrads):
+        np.testing.assert_allclose(_np32(got), _np32(want), atol=atol,
+                                   rtol=atol)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("Tq,Tk,causal", [(24, 24, True), (8, 40, True),
+                                          (24, 24, False)])
+def test_flash_plain_backward_matches_autograd(Tq, Tk, causal, p):
+    # dq/dk/dv of the plain backward equal torch.autograd through the
+    # dense plain forward with the same keep mask
+    q, k, v, g, bits = _train_inputs(2, 2, Tq, Tk, 16, seed=Tq + Tk)
+    tbits = _t(bits.astype(np.int64)) if p else None
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    keep = ck._keep_mask(tbits, p, (2, 2, Tq, Tk)) if p else None
+    out = ck.flash_attention_plain(tq, tk, tv, causal, keep=keep,
+                                   dropout_p=p)
+    want = torch.autograd.grad(out, (tq, tk, tv), _t(g))
+    with torch.no_grad():
+        o, lse = ck.flash_fwd_train_plain(tq, tk, tv, causal, p, tbits)
+        dq, delta = ck.flash_bwd_dq_plain(tq, tk, tv, o, _t(g), lse, causal,
+                                          p, tbits)
+        dk, dv = ck.flash_bwd_dkv_plain(tq, tk, tv, _t(g), lse, delta,
+                                        causal, p, tbits)
+    np.testing.assert_allclose(o.numpy(), out.detach().numpy(), atol=1e-5,
+                               rtol=1e-5)
+    for got, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_sdpa_training_grads_flow_through_flash_function(causal):
+    # the repaired fault: with the flag on, a training call must go
+    # through FlashAttentionFunction, whose backward gives q, k and v the
+    # gradients of the plain attention
+    from paddle_tpu_torch.nn import functional as F
+    q, k, v, g, _ = _train_inputs(2, 3, 24, 24, 16, seed=4)
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    before = ck.attention_path_counts()["flash"]
+    out = F.scaled_dot_product_attention(tq, tk, tv, dropout_p=0.0,
+                                         is_causal=causal, training=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    assert ck.attention_path_counts()["flash"] == before + 1
+    out.backward(_t(g))
+    rq, rk, rv = (_t(a).requires_grad_() for a in (q, k, v))
+    ck.flash_attention_plain(rq, rk, rv, causal).backward(_t(g))
+    for got, want in ((tq, rq), (tk, rk), (tv, rv)):
+        assert got.grad is not None
+        np.testing.assert_allclose(got.grad.numpy(), want.grad.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_flash_function_with_dropout_regenerates_one_mask():
+    # forward and backward draw the same Philox bits: the Function's
+    # gradients equal autograd through the plain forward fed those bits
+    from paddle_tpu_torch.framework import random as prandom
+    q, k, v, g, _ = _train_inputs(1, 2, 20, 20, 8, seed=6)
+    prandom.seed(11)
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    before = ck.attention_path_counts()["flash_dropout"]
+    out = ck.flash_attention_or_none(tq, tk, tv, None, True, dropout_p=0.25)
+    assert ck.attention_path_counts()["flash_dropout"] == before + 1
+    out.backward(_t(g))
+    prandom.seed(11)
+    seed, offset = prandom.next_seed_offset()
+    bits = ck.attn_dropout_bits(seed, offset, 2, 20, 20, device="cpu")
+    rq, rk, rv = (_t(a).requires_grad_() for a in (q, k, v))
+    want = ck.flash_attention_plain(
+        rq, rk, rv, True, keep=ck._keep_mask(bits, 0.25, (1, 2, 20, 20)),
+        dropout_p=0.25)
+    want.backward(_t(g))
+    np.testing.assert_allclose(out.detach().numpy(), want.detach().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    for got, w in ((tq, rq), (tk, rk), (tv, rv)):
+        np.testing.assert_allclose(got.grad.numpy(), w.grad.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_flash_function_without_grad_skips_lse():
+    # the serving path: no input needs a gradient, so nothing is saved
+    q, k, v, _, _ = _train_inputs(1, 2, 8, 8, 16)
+    out = ck.FlashAttentionFunction.apply(_t(q), _t(k), _t(v), True, 0.0,
+                                          0, 0)
+    assert out.grad_fn is None
+    np.testing.assert_allclose(
+        out.numpy(), ck.flash_attention(_t(q), _t(k), _t(v), True).numpy())
+
+
+def test_flash_gate_refuses_dropout_one():
+    q, k, v = (_t(a) for a in _qkv(1, 2, 8, 8, 16, seed=0))
+    with pytest.raises(ValueError, match="dropout_p"):
+        ck.flash_attention_or_none(q, k, v, None, True, dropout_p=1.0)
+
+
+# ---------------------------------------------------------------------------
+# attention-dropout bits (Philox-4x32-10)
+
+
+def test_philox_known_answers():
+    # Random123's known-answer vectors for philox4x32-10
+    cases = [((0, 0, 0, 0), (0, 0),
+              (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+             ((0xffffffff,) * 4, (0xffffffff,) * 2,
+              (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+             ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+              (0xa4093822, 0x299f31d0),
+              (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
+    for ctr, key, want in cases:
+        got = ck._philox4x32_10(*(torch.tensor([c]) for c in ctr), *key)
+        assert tuple(int(w) for w in got) == want
+
+
+def test_dropout_bits_layout_and_rate():
+    seed, offset = 0x0123456789ABCDEF, 5
+    bits = ck.attn_dropout_bits(seed, offset, 3, 10, 7, device="cpu")
+    assert bits.shape == (3, 10, 7) and bits.dtype == torch.int64
+    assert int(bits.min()) >= 0 and int(bits.max()) < 2 ** 32
+    # element (bh, row, col) is word row % 4 of the counter
+    # (col, row // 4, bh, offset) under the key (seed lo, seed hi)
+    bh, row, col = 2, 9, 4
+    words = ck._philox4x32_10(torch.tensor([col]), torch.tensor([row // 4]),
+                              torch.tensor([bh]), torch.tensor([offset]),
+                              seed & 0xFFFFFFFF, seed >> 32)
+    assert int(bits[bh, row, col]) == int(words[row % 4])
+    # another offset is another mask; the keep rate follows p
+    assert not torch.equal(bits, ck.attn_dropout_bits(seed, offset + 1, 3,
+                                                      10, 7, device="cpu"))
+    big = ck.attn_dropout_bits(seed, offset, 4, 128, 128, device="cpu")
+    drop = (big < int(0.1 * 2 ** 32)).double().mean().item()
+    n = big.numel()
+    assert abs(drop - 0.1) < 5 * (0.1 * 0.9 / n) ** 0.5
+
+
+# ---------------------------------------------------------------------------
+# fused AdamW
+
+
+def _adam_case(shape, seed=0, dtype=np.float32):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(*shape).astype(dtype), rs.randn(*shape).astype(dtype),
+            rs.rand(*shape).astype(np.float32),
+            rs.rand(*shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape,coeff", [((4, 128), 0.01), ((256,), 0.0),
+                                         ((8, 128), 0.1), ((7,), 0.01)])
+def test_adamw_plain_matches_pallas_and_jnp_rule(shape, coeff):
+    from paddle_tpu.optimizer import Adam, AdamW
+    p, g, m1, m2 = _adam_case(shape)
+    lr, t = jnp.float32(1e-3), jnp.int32(7)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=coeff)
+    sa = (0.9, 0.999, 1e-8, coeff)
+    refs = [AdamW._update_rule(sa, p, g, lr, t, m1, m2) if coeff
+            else Adam._update_rule(sa[:3], p, g, lr, t, m1, m2)]
+    fused = pk.fused_adamw_or_none(p, g, lr, t, m1, m2, interpret=True, **kw)
+    # the TPU kernel takes numel % 128 == 0 only; the port takes any
+    assert (fused is None) == (int(np.prod(shape)) % 128 != 0)
+    if fused is not None:
+        refs.append(fused)
+    got = [_t(a.copy()) for a in (p, g, m1, m2)]
+    ck.adamw_plain(*got, 1e-3, 7, **kw)
+    for ref in refs:
+        for a, b in zip((got[0], got[2], got[3]), ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
+                                       rtol=1e-6)
+
+
+def test_adamw_bf16_param_matches_jnp_rule():
+    from paddle_tpu.optimizer import AdamW
+    p, g, m1, m2 = _adam_case((3, 50), seed=2)
+    jp, jg = jnp.asarray(p, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    ref = AdamW._update_rule((0.9, 0.999, 1e-8, 0.01), jp, jg,
+                             jnp.float32(1e-3), jnp.int32(3), m1, m2)
+    got = [_t(p, torch.bfloat16), _t(g, torch.bfloat16), _t(m1.copy()),
+           _t(m2.copy())]
+    ck.adamw_plain(*got, 1e-3, 3, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                   coeff=0.01)
+    assert got[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np32(got[0]), _np32(ref[0]))
+    for a, b in zip(got[2:], ref[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
+                                   rtol=1e-6)
+
+
+def test_adamw_gate_and_launch_counter():
+    p, g, m1, m2 = (_t(a) for a in _adam_case((5, 3)))
+    want = [x.clone() for x in (p, g, m1, m2)]
+    ck.adamw_plain(*want, 1e-3, 2, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                   coeff=0.0)
+    before = ck.launch_counts()["adamw"]
+    out = ck.fused_adamw_or_none(p, g, 1e-3, 2, m1, m2, beta1=0.9,
+                                 beta2=0.999, epsilon=1e-8, coeff=0.0)
+    assert out[0] is p and out[1] is m1 and out[2] is m2      # in place
+    assert ck.launch_counts()["adamw"] == before              # CPU: plain
+    for a, b in zip((p, m1, m2), (want[0], want[2], want[3])):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    saved = get_flags("use_fused_optimizer")
+    set_flags({"use_fused_optimizer": False})
+    try:
+        assert ck.fused_adamw_or_none(p, g, 1e-3, 3, m1, m2, beta1=0.9,
+                                      beta2=0.999, epsilon=1e-8,
+                                      coeff=0.0) is None
+    finally:
+        set_flags(saved)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ck.fused_adamw_or_none(p.half(), g.half(), 1e-3, 3, m1, m2,
+                               beta1=0.9, beta2=0.999, epsilon=1e-8,
+                               coeff=0.0)
+
+
+def test_bias_corrections_match_jnp_power():
+    # c = 1 - b^t on the host in float32 (np.float32 power) against the
+    # reference's jnp.power: equal at the t the tests use; over
+    # t = 1..20000, c1 within 2 ulp and c2 within 64 ulp (where 1 - b^t
+    # cancels), which the 1e-6 tolerances above absorb
+    ts = np.arange(1, 20001, dtype=np.float32)
+    for b, worst in ((0.9, 2), (0.999, 64)):
+        host = np.float32(1) - np.float32(b) ** ts
+        ref = np.asarray(1 - jnp.power(jnp.float32(b), jnp.asarray(ts)))
+        ulps = np.abs(host.view(np.int32).astype(np.int64)
+                      - ref.view(np.int32).astype(np.int64))
+        assert ulps.max() <= worst
+        for t in (1, 2, 3, 7, 1000):
+            assert ulps[t - 1] == 0
+        sc = ck._adam_scalars(1e-3, 7, b, b, 1e-8, 0.0)
+        assert sc["c1"] == host[6]

@@ -49,7 +49,9 @@ def test_package_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import paddle_tpu_torch\n"
-        "from paddle_tpu_torch import framework, models, nn, ops\n"
+        "from paddle_tpu_torch import (amp, framework, io, jit, models, "
+        "nn, ops,\n"
+        "                              optimizer)\n"
         "from paddle_tpu_torch.inference import serving\n"
         "from paddle_tpu_torch.observability import journal, metrics, spans\n"
         "import torch\n"
@@ -81,6 +83,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GenerationEngine(model, max_batch=1, max_seq_len=32,
                          prefill_buckets=(8,))
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.optimizer import Adam, AdamW
+    for build in (lambda: AdamW(parameters=model.parameters()),
+                  lambda: Adam(parameters=model.parameters()),
+                  lambda: make_train_step(model, lambda o, l: o.sum(),
+                                          None),
+                  lambda: DataLoader([np.zeros(2)], prefetch_to_device=2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
 
 
 def test_cpu_tensors_leave_every_launch_counter_at_zero():
@@ -92,6 +104,13 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero():
     rs = np.random.RandomState(0)
     q = torch.from_numpy(rs.randn(1, 2, 8, 16).astype(np.float32))
     ck.flash_attention(q, q, q, True)
+    qg = q.clone().requires_grad_()
+    ck.flash_attention_or_none(qg, qg, qg, None, True,
+                               dropout_p=0.2).sum().backward()
+    ck.attn_dropout_bits(1, 2, 2, 8, 8, device="cpu")
+    w, m = torch.zeros(9), torch.zeros(9)
+    ck.adamw(w, w.clone(), m, m.clone(), 1e-3, 1, beta1=0.9, beta2=0.999,
+             epsilon=1e-8, coeff=0.01)
     kc = torch.zeros(1, 2, 16, 16)
     lens = torch.tensor([3], dtype=torch.int32)
     one = q[:, :, :1]
@@ -106,8 +125,10 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero():
         b = ContinuousBatcher(eng)
         b.submit(Request(prompt=[1, 2, 3], max_new_tokens=4))
         b.run_until_idle()
-    assert ck.launch_counts() == {"flash_fwd": 0, "paged_decode": 0,
-                                  "paged_decode_int8": 0}
+    assert set(ck.launch_counts()) == {
+        "flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
+        "attn_dropout_bits", "adamw", "paged_decode", "paged_decode_int8"}
+    assert set(ck.launch_counts().values()) == {0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -118,11 +139,19 @@ def test_wrappers_refuse_other_devices():
     lens = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="meta"):
         ck.paged_decode(one, q, q, lens, one, one)
+    lse = torch.zeros(1, 8, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ck.flash_bwd_dq(q, q, q, q, q, lse, True)
+    with pytest.raises(ValueError, match="meta"):
+        ck.adamw(q, q, q, q, 1e-3, 1, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 coeff=0.0)
 
 
 def test_kernel_sources_are_listed_for_the_build():
     from paddle_tpu_torch.ops import _build
-    assert set(_build.KERNEL_SOURCES) == {"flash_fwd", "paged_decode"}
+    assert set(_build.KERNEL_SOURCES) == {"flash_fwd", "flash_bwd", "adamw",
+                                          "paged_decode"}
+    assert set(_build._SIGNATURES) == set(_build.KERNEL_SOURCES)
     for path in _build.KERNEL_SOURCES.values():
         assert os.path.exists(path)
     flags = " ".join(_build._NVCC_FLAGS)
