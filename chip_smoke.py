@@ -11,8 +11,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      each, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
      serving shapes and at the edge cases (ragged T, idle slot, block
-     edge, T-1, full clamp, NaN tail), with the tolerances stated below;
-     and each gate raising on inputs its kernel does not take;
+     edge, T-1, full clamp, NaN tail), and the fused dropout-residual(+LN)
+     kernels at float32, bfloat16 and mixed input types, Hd 64, 768 and
+     1000, p 0, 0.1 and 1, both dropout modes, fed the kernels' own
+     dropout bits, with the tolerances stated below; and each gate
+     raising on inputs its kernel does not take;
   4. each kernel's device time (CUDA events, median of 25 runs of 10
      back-to-back launches queued behind a sleep kernel) beside its bound,
      its plain version's time and one library call's time;
@@ -41,7 +44,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
  10. the same float32 weights with both dropouts 0, B=4, T=512, 3 steps,
      once with the kernels and once with use_flash_attention and
      use_fused_optimizer off (which must launch nothing): the losses and
-     the parameters must agree within the stated tolerances.
+     the parameters must agree within the stated tolerances;
+ 11. the fused dropout-residual(+LN) kernels' device times at path B's
+     shape (N=8192, Hd=768, bfloat16) and path A's (N=4096, Hd=768,
+     float32), beside their bounds, their plain versions and the composed
+     PyTorch route the flag replaces;
+ 12. path B: phase 9 with FLAGS_use_fused_dropout_ln and FLAGS_fused_block
+     on (12 / 12 / 24 launches of the fused forward, no-LN forward and
+     backward a step), its step beside phase 9's; then phase 10 with the
+     fused flags on in the kernel run;
+ 13. path A: the JAX package's ERNIE bench (train_bench.py bench_ernie)
+     on the port: ernie-base at full width and depth (seeded weights,
+     dropouts 0.1), B=32, T=128, AdamW(lr=1e-4, weight_decay=0.01),
+     make_train_step with the MLM + NSP criterion, under
+     amp.auto_cast(level="O2"), FLAGS_use_fused_dropout_ln on, 3 warm-up
+     and 10 timed steps, counters zeroed just before and read just after,
+     one step profiled;
+ 14. path A's kernels vs plain: float32, no dropout, 3 steps, as in 10.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -53,6 +72,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 # tolerances of the kernel-vs-plain checks (max abs error)
 TOL = {
@@ -92,13 +113,26 @@ ADAMW_MOVED_MIN = 0.9
 # amplified by Adam's normalised step) and the whole 3-step movement
 # (~3e-4), which a run that skipped its updates would show
 TRAIN_PARAM_TOL = 1e-4
+TRAIN_LR = 1e-4
+# ernie_compare: elements whose first-step |g| is at most this (ten times
+# Adam's epsilon) are held within 2 * steps * lr (see compare_runs)
+ADAM_NOISE_FLOOR = 1e-7
 DROP_RATE_TOL = 0.002
+# fused dropout-LN checks with bfloat16 outputs: one bfloat16 rounding of
+# y, z and the gradients (2^-8 relative), plus the float32 differences
+# that flip it, relative to the largest value (at least 1); float32
+# outputs are held to 1e-4 the same way
+FDRLN_BF16_REL_TOL = 2e-2
+FDRLN_F32_REL_TOL = 1e-4
 
 TPU_KERNELS = {
     "flash_fwd": "paddle_tpu/ops/pallas_kernels.py:324",
     "flash_fwd_train": "paddle_tpu/ops/pallas_kernels.py:324",
     "flash_bwd_dq": "paddle_tpu/ops/pallas_kernels.py:462",
     "flash_bwd_dkv": "paddle_tpu/ops/pallas_kernels.py:524",
+    "fused_dropout_ln_fwd": "paddle_tpu/ops/pallas_kernels.py:768",
+    "fused_dropout_residual_fwd": "paddle_tpu/ops/pallas_kernels.py:792",
+    "fused_dropout_ln_bwd": "paddle_tpu/ops/pallas_kernels.py:800",
     "adamw": "paddle_tpu/ops/pallas_kernels.py:1044",
     "paged_decode": "paddle_tpu/ops/pallas_kernels.py:1738",
     "paged_decode_int8": "paddle_tpu/ops/pallas_kernels.py:1746",
@@ -108,15 +142,25 @@ SOURCES = {
     "flash_fwd_train": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
     "flash_bwd_dq": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
     "flash_bwd_dkv": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+    "fused_dropout_ln_fwd": "paddle_tpu_torch/ops/csrc/fused_dropout_ln.cu",
+    "fused_dropout_residual_fwd":
+        "paddle_tpu_torch/ops/csrc/fused_dropout_ln.cu",
+    "fused_dropout_ln_bwd": "paddle_tpu_torch/ops/csrc/fused_dropout_ln.cu",
     "adamw": "paddle_tpu_torch/ops/csrc/adamw.cu",
     "paged_decode": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
     "paged_decode_int8": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
 }
 KERNEL_ORDER = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq",
-                "flash_bwd_dkv", "adamw", "paged_decode", "paged_decode_int8")
+                "flash_bwd_dkv", "fused_dropout_ln_fwd",
+                "fused_dropout_residual_fwd", "fused_dropout_ln_bwd", "adamw",
+                "paged_decode", "paged_decode_int8")
+FUSED_KERNELS = ("fused_dropout_ln_fwd", "fused_dropout_residual_fwd",
+                 "fused_dropout_ln_bwd")
 
 # the training main path: the JAX package's GPT-2 train bench
 TRAIN_B, TRAIN_T, TRAIN_WARMUP, TRAIN_STEPS = 16, 512, 3, 10
+# the ERNIE-base pretraining path: the JAX package's ERNIE bench
+ERNIE_B, ERNIE_T = 32, 128
 DROPOUT = 0.1
 SEED, OFFSET = 0x1234_5678_9ABC_DEF0, 7       # kernel checks' dropout key
 
@@ -628,8 +672,6 @@ def time_adamw(torch, ck, timer, gen, shapes):
 
 
 def token_stream(io, vocab, T):
-    import numpy as np
-
     class TokenStream(io.Dataset):
         """The bench's synthetic stream (benchmarks/train_bench.py)."""
 
@@ -645,6 +687,7 @@ def token_stream(io, vocab, T):
 # kernel-name patterns of the training step's profile groups, first match
 PROFILE_GROUPS = (("flash kernels (port)", ("flash_fwd_kernel",
                                             "flash_bwd_")),
+                  ("fused dropout-LN (port)", ("fdrln_",)),
                   ("adamw (port)", ("adamw_kernel",)),
                   ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "cublas")),
                   ("reductions", ("reduce_kernel",)),
@@ -678,166 +721,230 @@ def profile_step(torch, step, batch):
     return sum(t for t, _, _ in rows) / 1e3, rows
 
 
-def train_main(torch, ck, card):
-    """The training main path; returns (launch counts, parameter shapes)."""
+def report_profile(label, dev_ms, step_ms, top):
+    """Print one profiled step: its kernel time against the median step
+    (the device's idle share), the groups and the largest kernels."""
+    if dev_ms <= 0:
+        say("%s step profile: not measured (the profiler saw no device "
+            "activity)" % label)
+        return
+    say("%s step profile: %.3f ms of kernels in one step (torch.profiler) "
+        "vs %.2f ms median step: device idle %.1f %%"
+        % (label, dev_ms, step_ms, 100.0 * (1.0 - dev_ms / step_ms)))
+    for name, ms in sorted(profile_groups(top).items(),
+                           key=lambda kv: -kv[1]):
+        say("  group %-26s %8.3f ms/step" % (name, ms))
+    for t_us, key, count in top[:12]:
+        say("  %9.1f us/step  %5d launches  %s" % (t_us, count, key[:90]))
+
+
+def train_main(torch, ck, flags, card, fused=False):
+    """The GPT-2 training path, with both fused flags (use_fused_dropout_ln,
+    fused_block) off (phase 9) or on (path B); returns (launch counts,
+    parameter shapes, median step ms)."""
     from paddle_tpu_torch import amp, io, optimizer
     from paddle_tpu_torch.framework import random as prandom
     from paddle_tpu_torch.io.prefetch import FEED_STALL
     from paddle_tpu_torch.jit import make_train_step
     from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
 
-    prandom.seed(0)
-    t0 = time.perf_counter()
-    model = gpt2_small(seed=0)
-    model.train()
-    opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
-                          parameters=model.parameters())
-    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
-    crit = GPTPretrainingCriterion()
-    step = make_train_step(model, lambda o, l: crit(o, l), opt)
-    vocab = model.gpt.vocab_size
-    loader = io.DataLoader(token_stream(io, vocab, TRAIN_T),
-                           batch_size=TRAIN_B, prefetch_to_device=2)
-    it = iter(loader)
-
-    def batch():
-        ids = next(it)
-        return [ids[:, :-1]], [ids[:, 1:]]
-    n_params = sum(p.numel() for p in model.parameters())
-    say("train: gpt2-small %d parameters (%d tensors) in %s, built in %.1f "
-        "s" % (n_params, len(list(model.parameters())),
-               next(model.parameters()).dtype,
-               time.perf_counter() - t0))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ck.launch_counts(reset=True)
-    ck.attention_path_counts(reset=True)
-    losses, times = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
-        if i == TRAIN_WARMUP:
-            stall0 = (FEED_STALL.sum, FEED_STALL.count)
+    label = "train fused" if fused else "train"
+    saved = flags.get_flags(["use_fused_dropout_ln", "fused_block"])
+    flags.set_flags({"use_fused_dropout_ln": fused, "fused_block": fused})
+    try:
+        prandom.seed(0)
         t0 = time.perf_counter()
-        loss, _ = step(*batch())
+        model = gpt2_small(seed=0)
+        model.train()
+        opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              parameters=model.parameters())
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        crit = GPTPretrainingCriterion()
+        step = make_train_step(model, lambda o, l: crit(o, l), opt)
+        vocab = model.gpt.vocab_size
+        loader = io.DataLoader(token_stream(io, vocab, TRAIN_T),
+                               batch_size=TRAIN_B, prefetch_to_device=2)
+        it = iter(loader)
+
+        def batch():
+            ids = next(it)
+            return [ids[:, :-1]], [ids[:, 1:]]
+        n_params = sum(p.numel() for p in model.parameters())
+        say("%s: gpt2-small %d parameters (%d tensors) in %s, built in %.1f "
+            "s, use_fused_dropout_ln and fused_block %s"
+            % (label, n_params, len(list(model.parameters())),
+               next(model.parameters()).dtype, time.perf_counter() - t0,
+               "on" if fused else "off"))
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-    stall_ms = (FEED_STALL.sum - stall0[0]) / (FEED_STALL.count - stall0[1])
-    launches = ck.launch_counts()
-    paths = ck.attention_path_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
-    require(all(math.isfinite(x) for x in losses),
-            "train: non-finite loss %s" % losses)
-    n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    say("train main path: %d steps, losses %s" % (
-        n_steps, ["%.4f" % x for x in losses]))
-    say("train main path launches %s, attention paths %s"
-        % (launches, paths))
-    for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
-                 "adamw"):
-        require(launches[name] > 0, "train: %s never launched" % name)
-    require(paths["flash_dropout"] > 0 and paths["xla_sdpa"] == 0,
-            "train: attention paths %s" % paths)
-    L = len(model.gpt.layers)
-    per_step = {k: launches[k] / n_steps for k in
-                ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
-                 "adamw")}
-    require(per_step["flash_fwd_train"] == L
-            and per_step["adamw"] == len(list(model.parameters())),
-            "train: launches per step %s" % per_step)
-    step_ms = statistics.median(times[TRAIN_WARMUP:])
-    tokens = TRAIN_B * TRAIN_T
-    d = model.gpt.hidden_size
-    flops = 6 * n_params * tokens + 12 * L * d * TRAIN_T * tokens
-    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
-    say("train main path: B=%d T=%d, step %.2f ms median (%.2f mean) over "
-        "%d timed steps, %.0f tokens/s, MFU %.4f of 989 TFLOP/s bf16 (%s), "
-        "peak memory %.1f MiB, feed stall %.3f ms a batch, launches per "
-        "step %s"
-        % (TRAIN_B, TRAIN_T, step_ms, statistics.mean(times[TRAIN_WARMUP:]),
-           TRAIN_STEPS, tokens / (step_ms / 1e3), mfu, card, peak / 2 ** 20,
-           stall_ms, per_step))
-    dev_ms, top = profile_step(torch, step, batch)
-    it.close()
-    if dev_ms > 0:
-        say("train step profile: %.3f ms of kernels in one step (torch."
-            "profiler) vs %.2f ms median step: device idle %.1f %%"
-            % (dev_ms, step_ms, 100.0 * (1.0 - dev_ms / step_ms)))
-        for name, ms in sorted(profile_groups(top).items(),
-                               key=lambda kv: -kv[1]):
-            say("  group %-22s %8.3f ms/step" % (name, ms))
-        for t_us, key, count in top[:12]:
-            say("  %9.1f us/step  %5d launches  %s"
-                % (t_us, count, key[:90]))
-    else:
-        say("train step profile: not measured (the profiler saw no device "
-            "activity)")
+        torch.cuda.reset_peak_memory_stats()
+        ck.launch_counts(reset=True)
+        ck.attention_path_counts(reset=True)
+        losses, times = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            if i == TRAIN_WARMUP:
+                stall0 = (FEED_STALL.sum, FEED_STALL.count)
+            t0 = time.perf_counter()
+            loss, _ = step(*batch())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        stall_ms = (FEED_STALL.sum - stall0[0]) / (FEED_STALL.count
+                                                   - stall0[1])
+        launches = ck.launch_counts()
+        paths = ck.attention_path_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in losses]
+        require(all(math.isfinite(x) for x in losses),
+                "%s: non-finite loss %s" % (label, losses))
+        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        say("%s main path: %d steps, losses %s" % (
+            label, n_steps, ["%.4f" % x for x in losses]))
+        say("%s main path launches %s, attention paths %s"
+            % (label, launches, paths))
+        require(paths["flash_dropout"] > 0 and paths["xla_sdpa"] == 0,
+                "%s: attention paths %s" % (label, paths))
+        L = len(model.gpt.layers)
+        per_step = {k: launches[k] / n_steps for k in launches}
+        want = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "adamw": len(list(model.parameters())),
+                "fused_dropout_ln_fwd": L if fused else 0,
+                "fused_dropout_residual_fwd": L if fused else 0,
+                "fused_dropout_ln_bwd": 2 * L if fused else 0}
+        require(all(per_step[k] == v for k, v in want.items()),
+                "%s: launches per step %s, want %s" % (label, per_step, want))
+        step_ms = statistics.median(times[TRAIN_WARMUP:])
+        tokens = TRAIN_B * TRAIN_T
+        d = model.gpt.hidden_size
+        flops = 6 * n_params * tokens + 12 * L * d * TRAIN_T * tokens
+        mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+        say("%s main path: B=%d T=%d, step %.2f ms median (%.2f mean) over "
+            "%d timed steps, %.0f tokens/s, MFU %.4f of 989 TFLOP/s bf16 "
+            "(%s), peak memory %.1f MiB, feed stall %.3f ms a batch, "
+            "launches per step %s"
+            % (label, TRAIN_B, TRAIN_T, step_ms,
+               statistics.mean(times[TRAIN_WARMUP:]), TRAIN_STEPS,
+               tokens / (step_ms / 1e3), mfu, card, peak / 2 ** 20, stall_ms,
+               {k: v for k, v in per_step.items() if v}))
+        dev_ms, top = profile_step(torch, step, batch)
+        it.close()
+        report_profile(label, dev_ms, step_ms, top)
+    finally:
+        flags.set_flags(saved)
     shapes = [tuple(p.shape) for p in model.parameters()]
-    return launches, shapes
+    return launches, shapes, step_ms
 
 
-def train_compare(torch, ck, flags):
-    """Kernels vs plain versions on the card: same float32 weights, no
-    dropout, B=4, T=512, 3 AdamW steps."""
-    from paddle_tpu_torch import optimizer
-    from paddle_tpu_torch.framework import random as prandom
-    from paddle_tpu_torch.jit import make_train_step
-    from paddle_tpu_torch.models import (GPT_CONFIGS, GPTPretrainingCriterion,
-                                         gpt2_small)
-    import numpy as np
-    B, steps, lr = 4, 3, 1e-4
-    vocab = GPT_CONFIGS["gpt2-small"]["vocab_size"]
-    data = [token_stream_batch(np, vocab, B, TRAIN_T, s) for s in
-            range(steps)]
-    saved = flags.get_flags(["use_flash_attention", "use_fused_optimizer"])
+def compare_runs(torch, ck, flags, label, build, kernel_flags, must_launch,
+                 steps=3, noise_floor=None):
+    """Kernels vs plain versions on the card. `build()` makes the seeded
+    float32 model without dropout, its optimizer and a closure that runs
+    train step i; it runs once with `kernel_flags` on and once with all of
+    them off (which must launch nothing). The losses must agree within
+    1e-4 relative and the parameters within TRAIN_PARAM_TOL, which the
+    plain run's own movement must exceed.
+
+    With `noise_floor`, an element whose first-step gradient in the plain
+    run is at most that in magnitude is held within 2 * steps * lr
+    instead, and the elements are counted: where |g| is at Adam's epsilon
+    (1e-8), its step lr * g / (|g| + eps) follows the gradient's rounding
+    noise, which two correct summation orders do not share (ERNIE-base's
+    upper query/key projections start with gradients of 1e-9 to 1e-5)."""
+    saved = flags.get_flags(list(kernel_flags))
 
     def run(on):
-        flags.set_flags({"use_flash_attention": on,
-                         "use_fused_optimizer": on})
+        flags.set_flags({f: on for f in kernel_flags})
         try:
-            prandom.seed(0)
-            model = gpt2_small(seed=0, attn_dropout_prob=0.0,
-                               hidden_dropout_prob=0.0)
-            model.train()
-            opt = optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
-                                  parameters=model.parameters())
-            crit = GPTPretrainingCriterion()
-            step = make_train_step(model, lambda o, l: crit(o, l), opt)
+            model, opt, step = build()
             start = None if on else [p.detach().clone()
                                      for p in model.parameters()]
+            first = []
+            if noise_floor is not None and not on:
+                apply = opt.apply_gradients
+
+                def recording(pairs):
+                    pairs = list(pairs)
+                    if not first:
+                        first.extend(g.abs() <= noise_floor for _, g in pairs)
+                    return apply(pairs)
+                opt.apply_gradients = recording
             ck.launch_counts(reset=True)
-            losses = []
-            for ids in data:
-                x = torch.from_numpy(ids).cuda()
-                loss, _ = step([x[:, :-1]], [x[:, 1:]])
-                losses.append(float(loss))
+            losses = [float(step(i)[0]) for i in range(steps)]
             torch.cuda.synchronize()
             launches = ck.launch_counts()
         finally:
             flags.set_flags(saved)
         return (losses, [p.detach() for p in model.parameters()], launches,
-                start)
-    kl, kp, kla, _ = run(True)
-    pl, pp, pla, start = run(False)
-    require(sum(pla.values()) == 0, "the plain run launched %s" % pla)
-    require(kla["flash_fwd_train"] > 0 and kla["flash_bwd_dkv"] > 0
-            and kla["adamw"] > 0, "the kernel run launched %s" % kla)
+                start, first)
+    kl, kp, kla, _, _ = run(True)
+    pl, pp, pla, start, quiet = run(False)
+    require(sum(pla.values()) == 0, "%s: the plain run launched %s"
+            % (label, pla))
+    require(all(kla[k] > 0 for k in must_launch),
+            "%s: the kernel run launched %s" % (label, kla))
     rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
-    diff = max((a - b).abs().max().item() for a, b in zip(kp, pp))
+    diffs = [(a - b).abs() for a, b in zip(kp, pp)]
+    if quiet:
+        noisy = max(d[q].max().item() if bool(q.any()) else 0.0
+                    for d, q in zip(diffs, quiet))
+        diffs = [d.masked_fill(q, 0.0) for d, q in zip(diffs, quiet)]
+    diff = max(d.max().item() for d in diffs)
     # control: what a kernel run that never updated would differ by
     moved = max((a - b).abs().max().item() for a, b in zip(pp, start))
-    say("train kernels vs plain (float32, no dropout, B=%d T=%d, %d steps): "
+    say("%s kernels vs plain (float32, no dropout, %d steps, flags %s): "
         "losses %s vs %s, max rel diff %.3g (tol 1e-4); max parameter diff "
         "%.3g (tol %.0e), against the plain run's own movement %.3g"
-        % (B, TRAIN_T, steps, ["%.6f" % x for x in kl],
+        % (label, steps, "+".join(kernel_flags), ["%.6f" % x for x in kl],
            ["%.6f" % x for x in pl], rel, diff, TRAIN_PARAM_TOL, moved))
-    require(rel <= 1e-4, "train: kernel and plain losses differ by %.3g"
-            % rel)
-    require(moved > TRAIN_PARAM_TOL, "train: the parameters moved %.3g, "
+    if quiet:
+        n = sum(int(q.sum()) for q in quiet)
+        total = sum(q.numel() for q in quiet)
+        say("%s: %d of %d elements with a first-step |g| <= %.0e (Adam's "
+            "step follows their rounding noise) held within %.0e: max diff "
+            "%.3g" % (label, n, total, noise_floor, 2 * steps * TRAIN_LR,
+                      noisy))
+        require(noisy <= 2 * steps * TRAIN_LR, "%s: a near-zero-gradient "
+                "element moved %.3g apart" % (label, noisy))
+    require(rel <= 1e-4, "%s: kernel and plain losses differ by %.3g"
+            % (label, rel))
+    require(moved > TRAIN_PARAM_TOL, "%s: the parameters moved %.3g, "
             "within the tolerance: the check would not see a skipped update"
-            % moved)
-    require(diff <= TRAIN_PARAM_TOL, "train: parameters differ by %.3g"
-            % diff)
+            % (label, moved))
+    require(diff <= TRAIN_PARAM_TOL, "%s: parameters differ by %.3g"
+            % (label, diff))
+
+
+def train_compare(torch, ck, flags, fused=False):
+    """GPT-2 kernels vs plain: the same float32 weights, no dropout, B=4,
+    T=512, 3 AdamW steps; with `fused`, the kernel run has both fused
+    flags on too."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.models import (GPT_CONFIGS, GPTPretrainingCriterion,
+                                         gpt2_small)
+    B, lr = 4, TRAIN_LR
+    vocab = GPT_CONFIGS["gpt2-small"]["vocab_size"]
+    data = [torch.from_numpy(token_stream_batch(np, vocab, B, TRAIN_T, s))
+            .cuda() for s in range(3)]
+
+    def build():
+        prandom.seed(0)
+        model = gpt2_small(seed=0, attn_dropout_prob=0.0,
+                           hidden_dropout_prob=0.0)
+        model.train()
+        opt = optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
+                              parameters=model.parameters())
+        crit = GPTPretrainingCriterion()
+        step = make_train_step(model, lambda o, l: crit(o, l), opt)
+        return model, opt, lambda i: step([data[i][:, :-1]],
+                                          [data[i][:, 1:]])
+    kernel_flags = ("use_flash_attention", "use_fused_optimizer")
+    must = ("flash_fwd_train", "flash_bwd_dkv", "adamw")
+    if fused:
+        kernel_flags += ("use_fused_dropout_ln", "fused_block")
+        must += FUSED_KERNELS
+    compare_runs(torch, ck, flags, "train fused" if fused else "train",
+                 build, kernel_flags, must)
 
 
 def token_stream_batch(np, vocab, B, T, n):
@@ -846,6 +953,368 @@ def token_stream_batch(np, vocab, B, T, n):
                      for i in range(n * B, n * B + B)]).astype(np.int64)
 
 
+# ---------------------------------------------------------------------------
+# fused bias + dropout + residual (+ LayerNorm): rows 4-6
+
+
+FDRLN_MODES = ("upscale_in_train", "downscale_in_infer")
+
+
+def fdrln_scale(p, mode):
+    """The kernels' keep scale for dropout p in training (reference:
+    fused_bias_dropout_residual_ln_arrays)."""
+    if mode == "downscale_in_infer":
+        return 1.0
+    return float(np.float32(1.0 / (1.0 - p))) if p < 1.0 else 0.0
+
+
+def check_fused(torch, ck, flags, gen):
+    """Rows 4-6 against their plain versions fed the kernels' own bits:
+    float32, bfloat16 and mixed x/residual types, Hd 64, 768 and 1000,
+    p 0, 0.1 and 1, both modes; the keep decisions bit-equal; the gates
+    raising on inputs the kernels do not take."""
+    names = ("fused_dropout_ln_fwd", "fused_dropout_residual_fwd",
+             "fused_dropout_ln_bwd")
+    worst = {n: 0.0 for n in names}             # relative, for the checks
+    worst_abs = {n: 0.0 for n in names}         # absolute, for the table
+    types = (("float32", torch.float32, torch.float32),
+             ("bfloat16", torch.bfloat16, torch.bfloat16),
+             ("mixed", torch.bfloat16, torch.float32),
+             ("mixed", torch.float32, torch.bfloat16))
+    n = 0
+    for N, Hd in ((301, 64), (4096, 768), (67, 1000)):
+        bits = ck.fused_dropout_bits(SEED, OFFSET, N, Hd)
+        require(torch.equal(bits, ck.fused_dropout_bits_plain(
+            SEED, OFFSET, N, Hd, device="cuda")), "fused_dropout_bits "
+            "[%d, %d] differ from the plain Philox" % (N, Hd))
+        for tname, xdt, rdt in types:
+            tol = FDRLN_F32_REL_TOL if xdt == torch.float32 else \
+                FDRLN_BF16_REL_TOL
+            x = torch.randn((N, Hd), generator=gen, device="cuda").to(xdt)
+            res = torch.randn((N, Hd), generator=gen, device="cuda").to(rdt)
+            vec = lambda s, o: (torch.randn(Hd, generator=gen, device="cuda")
+                                * s + o).to(rdt)
+            bias, gamma, beta = vec(1.0, 0.0), vec(0.1, 1.0), vec(1.0, 0.0)
+            dy = torch.randn((N, Hd), generator=gen, device="cuda").to(xdt)
+            dz = torch.randn((N, Hd), generator=gen, device="cuda").to(rdt)
+            for p in (0.0, DROPOUT, 1.0):
+                for mode in FDRLN_MODES:
+                    s = fdrln_scale(p, mode)
+                    what = "%s x=%s res=%s N=%d Hd=%d p=%g %s" % (
+                        "%s", xdt, rdt, N, Hd, p, mode)
+                    y, z = ck.fused_dropout_ln_fwd(x, res, bias, gamma, beta,
+                                                   p, s, 1e-5, SEED, OFFSET)
+                    z1 = ck.fused_dropout_residual_fwd(x, res, bias, p, s,
+                                                       SEED, OFFSET)
+                    yp, zp = ck.fused_dropout_ln_fwd_plain(
+                        x, res, bias, gamma, beta, p, s, 1e-5, bits=bits)
+                    z1p = ck.fused_dropout_residual_fwd_plain(
+                        x, res, bias, p, s, bits=bits)
+                    outs = {"fused_dropout_ln_fwd": [(y, yp), (z, zp)],
+                            "fused_dropout_residual_fwd": [(z1, z1p)],
+                            "fused_dropout_ln_bwd": []}
+                    for g, dzx in ((gamma, dz), (None, dz), (gamma, None)):
+                        got = ck.fused_dropout_ln_bwd(z, dy, dzx, g, p, s,
+                                                      1e-5, SEED, OFFSET)
+                        want = ck.fused_dropout_ln_bwd_plain(
+                            z, dy, dzx, g, p, s, 1e-5, bits=bits)
+                        outs["fused_dropout_ln_bwd"] += [
+                            (a, b) for a, b in zip(got, want)
+                            if b is not None]
+                        require(all(a is None for a, b in zip(got, want)
+                                    if b is None),
+                                "fused_dropout_ln_bwd: dgamma without LN")
+                        # keep decisions: the dropped dx are exactly 0
+                        keep = bits >= min(int(p * 2 ** 32), 2 ** 32 - 1)
+                        if p > 0.0 and s > 0.0:
+                            nz = (got[1] != 0) & keep
+                            require(torch.equal(got[0] != 0, nz),
+                                    (what % "fused_dropout_ln_bwd")
+                                    + ": keep mask differs from the bits")
+                    torch.cuda.synchronize()
+                    for name, pairs in outs.items():
+                        for a, b in pairs:
+                            require(a.dtype == b.dtype and a.shape == b.shape
+                                    and bool(torch.isfinite(a.float()).all()),
+                                    (what % name) + ": type, shape or "
+                                    "non-finite")
+                        ea, er = (max(v) for v in zip(*(abs_rel_err(a, b)
+                                                        for a, b in pairs)))
+                        require(er <= tol, (what % name) + ": rel err %.3g > "
+                                "%.3g" % (er, tol))
+                        worst[name] = max(worst[name], er)
+                        worst_abs[name] = max(worst_abs[name], ea)
+                    n += 1
+        # the forward's keep decisions: ones + 0 residual is 0 where dropped
+        ones, zeros = (torch.ones((N, Hd), device="cuda"),
+                       torch.zeros((N, Hd), device="cuda"))
+        for p in (DROPOUT, 0.5):
+            z1 = ck.fused_dropout_residual_fwd(ones, zeros, None, p, 1.0,
+                                               SEED, OFFSET)
+            require(torch.equal(z1 != 0, bits >= int(p * 2 ** 32)),
+                    "fused_dropout_residual_fwd: keep mask differs from the "
+                    "bits at p=%g" % p)
+    for name in names:
+        say("check %s: max rel err %.3g (tol f32 %.0e, bf16 %.0e, by the "
+            "output's type), max abs err %.3g, over %d cases (f32, bf16, "
+            "mixed; Hd 64, 768, 1000; p 0, %g, 1; both modes)"
+            % (name, worst[name], FDRLN_F32_REL_TOL, FDRLN_BF16_REL_TOL,
+               worst_abs[name], n, DROPOUT))
+    # the drop rate and the gates
+    bits = ck.fused_dropout_bits(SEED, OFFSET, 8192, 768)
+    rate = (bits < int(DROPOUT * 2 ** 32)).double().mean().item()
+    require(abs(rate - DROPOUT) <= DROP_RATE_TOL,
+            "fused dropout rate %.5f, want %.3f +- %.3f"
+            % (rate, DROPOUT, DROP_RATE_TOL))
+    say("check fused_dropout_bits: bit-equal to the plain Philox; drop rate "
+        "%.5f at [8192, 768] (want %.3f +- %.3f); keep decisions of the "
+        "forward and backward bit-equal to the bits" % (rate, DROPOUT,
+                                                        DROP_RATE_TOL))
+    big = torch.zeros((4, ck.FDRLN_MAX_HD + 1), device="cuda")
+    x = torch.zeros((8, 64), device="cuda")
+    v = torch.ones(64, device="cuda")
+    saved = flags.get_flags(["use_fused_dropout_ln"])
+    flags.set_flags({"use_fused_dropout_ln": True})
+    gate = ck.fused_dropout_residual_ln_or_none
+    bad = [("Hd above the limit", lambda: gate(big, big, None, None, None,
+                                                0.1, 1e-5, True,
+                                                "upscale_in_train")),
+           ("float16", lambda: gate(x.half(), x, None, v, v, 0.1, 1e-5, True,
+                                    "upscale_in_train")),
+           ("mismatched shapes", lambda: gate(x, x[:4], None, v, v, 0.1,
+                                              1e-5, True,
+                                              "upscale_in_train")),
+           ("gamma of another width",
+            lambda: ck.fused_bias_dropout_residual_ln(
+                x, x, None, v[:32], v, 0.1, 1e-5, True,
+                "upscale_in_train")),
+           ("float16 backward", lambda: ck.fused_dropout_ln_bwd(
+               x.half(), x.half(), None, v, 0.1, 1.0, 1e-5))]
+    before = ck.launch_counts()
+    try:
+        for what, call in bad:
+            try:
+                call()
+            except ValueError:
+                continue
+            raise SystemExit("chip_smoke FAILED: a fused gate took %s on the "
+                             "card without raising" % what)
+    finally:
+        flags.set_flags(saved)
+    require(ck.launch_counts() == before, "a rejected input launched")
+    say("check fused gates: %d inputs the kernels do not take raise on the "
+        "card" % len(bad))
+    return worst_abs
+
+
+def time_fused(torch, ck, timer, gen, N, Hd, dtype, dz_extra, label):
+    """Device times of rows 4-6 at one path's shape: x, residual and the
+    LN vectors in `dtype`, no bias (the model's tails pass none), p=0.1,
+    upscale_in_train; the backward with LN (dz_extra: whether z's own
+    cotangent is passed, as the fused_block pair does and the post-LN
+    tail does not) and without. The yardstick is the composed route the
+    flag replaces, in PyTorch's own ops: residual +
+    torch.nn.functional.dropout(x), then torch.nn.functional.layer_norm,
+    and its autograd backward."""
+    tF = torch.nn.functional
+    mk = lambda: torch.randn((N, Hd), generator=gen, device="cuda").to(dtype)
+    x, res, dy, dz = mk(), mk(), mk(), mk()
+    g = (1.0 + 0.1 * torch.randn(Hd, generator=gen, device="cuda")).to(dtype)
+    b = torch.randn(Hd, generator=gen, device="cuda").to(dtype)
+    p, s = DROPOUT, fdrln_scale(DROPOUT, "upscale_in_train")
+    bits = ck.fused_dropout_bits(SEED, OFFSET, N, Hd)
+    y, z = ck.fused_dropout_ln_fwd(x, res, None, g, b, p, s, 1e-5, SEED,
+                                   OFFSET)
+    dzx = dz if dz_extra else None
+    esize = x.element_size()
+    rows = N * Hd * esize
+    vecs = Hd * esize
+    flop = N * Hd
+
+    lx, lr, lg, lb = (t.detach().clone().requires_grad_()
+                      for t in (x, res, g, b))
+    lz = lr + tF.dropout(lx, p)
+    ly = tF.layer_norm(lz, (Hd,), lg, lb, 1e-5)
+    cot = (dy, dz) if dz_extra else (dy,)
+    outs = (ly, lz) if dz_extra else (ly,)
+    out = {}
+    # row 4: reads x, res, gamma, beta; writes y, z; ~10 flops an element
+    bound, by = bound_ms(4 * rows + 2 * vecs, 10 * flop, "float32")
+    out["fused_dropout_ln_fwd"] = {
+        "ms": timer.ms(lambda: ck.fused_dropout_ln_fwd(
+            x, res, None, g, b, p, s, 1e-5, SEED, OFFSET)),
+        "plain_ms": timer.ms(lambda: ck.fused_dropout_ln_fwd_plain(
+            x, res, None, g, b, p, s, 1e-5, bits=bits)),
+        "library_ms": timer.ms(lambda: tF.layer_norm(
+            res + tF.dropout(x, p), (Hd,), g, b, 1e-5)),
+        "bound_ms": bound, "bound_by": by}
+    # row 5: reads x, res; writes z; 2 flops an element
+    bound, by = bound_ms(3 * rows, 2 * flop, "float32")
+    out["fused_dropout_residual_fwd"] = {
+        "ms": timer.ms(lambda: ck.fused_dropout_residual_fwd(
+            x, res, None, p, s, SEED, OFFSET)),
+        "plain_ms": timer.ms(lambda: ck.fused_dropout_residual_fwd_plain(
+            x, res, None, p, s, bits=bits)),
+        "library_ms": timer.ms(lambda: res + tF.dropout(x, p)),
+        "bound_ms": bound, "bound_by": by}
+    # row 6 with LN: reads z, dy (, dz_extra), gamma; writes dx, dres and
+    # dbias, dgamma, dbeta; ~16 flops an element
+    nrows = 4 + (1 if dz_extra else 0)
+    bound, by = bound_ms(nrows * rows + 4 * vecs, 16 * flop, "float32")
+    out["fused_dropout_ln_bwd"] = {
+        "ms": timer.ms(lambda: ck.fused_dropout_ln_bwd(
+            z, dy, dzx, g, p, s, 1e-5, SEED, OFFSET)),
+        "plain_ms": timer.ms(lambda: ck.fused_dropout_ln_bwd_plain(
+            z, dy, dzx, g, p, s, 1e-5, bits=bits)),
+        "library_ms": timer.ms(lambda: torch.autograd.grad(
+            outs, (lx, lr, lg, lb), cot, retain_graph=True)),
+        "bound_ms": bound, "bound_by": by}
+    noln = {"ms": timer.ms(lambda: ck.fused_dropout_ln_bwd(
+                z, dy, None, None, p, s, 1e-5, SEED, OFFSET)),
+            "bound_ms": bound_ms(3 * rows + vecs, 2 * flop, "float32")[0]}
+    for name, t in out.items():
+        say("time %s %s N=%d Hd=%d %s p=%g%s: %.4f ms, plain %.4f ms, "
+            "composed torch route %.4f ms, bound %.4f ms (%s)"
+            % (name, label, N, Hd, str(dtype).split(".")[-1], p,
+               " dz_extra" if dz_extra and name.endswith("bwd") else "",
+               t["ms"], t["plain_ms"], t["library_ms"], t["bound_ms"],
+               t["bound_by"]))
+    say("time fused_dropout_ln_bwd without LN %s N=%d Hd=%d: %.4f ms, bound "
+        "%.4f ms (bytes)" % (label, N, Hd, noln["ms"], noln["bound_ms"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ERNIE-base pretraining (path A)
+
+
+def ernie_batch(torch, vocab, B, T):
+    """The ERNIE bench's batch (benchmarks/train_bench.py bench_ernie):
+    ids from RandomState(0), every fifth MLM label -100, random NSP
+    labels."""
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, vocab, (B, T)).astype(np.int64)
+    labels = ids.copy()
+    labels[:, ::5] = -100
+    nsp = rs.randint(0, 2, (B,)).astype(np.int64)
+    to = lambda a: torch.from_numpy(a).cuda()
+    return [to(ids)], [to(labels), to(nsp)]
+
+
+def ernie_main(torch, ck, flags, card):
+    """Path A: the JAX package's ERNIE bench on the port: ernie_base at full
+    width and depth (seeded weights, dropouts 0.1), B=32, T=128,
+    AdamW(lr=1e-4, weight_decay=0.01), make_train_step with the MLM + NSP
+    criterion, under amp.auto_cast(level="O2") with float32 parameters,
+    FLAGS_use_fused_dropout_ln on; 3 warm-up and 10 timed steps, the
+    counters zeroed just before and read just after; then one step under
+    torch.profiler. Returns the launch counts."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.models import BertPretrainingCriterion, ernie_base
+
+    saved = flags.get_flags(["use_fused_dropout_ln"])
+    flags.set_flags({"use_fused_dropout_ln": True})
+    try:
+        t0 = time.perf_counter()
+        net = ernie_base(seed=0)
+        net.train()
+        prandom.seed(0)
+        crit = BertPretrainingCriterion()
+        opt = optimizer.AdamW(parameters=net.parameters(),
+                              learning_rate=1e-4, weight_decay=0.01)
+        step = make_train_step(
+            net, lambda lg, nl, y1, y2: crit(lg, nl, y1, y2), opt)
+        vocab = net.bert.embeddings.word_embeddings.weight.shape[0]
+        batch = ernie_batch(torch, vocab, ERNIE_B, ERNIE_T)
+        n_params = sum(p.numel() for p in net.parameters())
+        n_tensors = len(list(net.parameters()))
+        say("ernie: ernie-base %d parameters (%d tensors) in %s, built in "
+            "%.1f s" % (n_params, n_tensors, next(net.parameters()).dtype,
+                        time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.launch_counts(reset=True)
+        ck.attention_path_counts(reset=True)
+        losses, times = [], []
+        with amp.auto_cast(level="O2"):
+            for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+                t0 = time.perf_counter()
+                loss, (logits, _) = step(*batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss)
+            launches = ck.launch_counts()
+            paths = ck.attention_path_counts()
+            peak = torch.cuda.max_memory_allocated()
+            dev_ms, top = profile_step(torch, step, lambda: batch)
+        losses = [float(x) for x in losses]
+        require(all(math.isfinite(x) for x in losses),
+                "ernie: non-finite loss %s" % losses)
+        require(logits.dtype == torch.float32
+                and tuple(logits.shape) == (ERNIE_B, ERNIE_T, vocab),
+                "ernie: logits %s %s" % (logits.dtype, tuple(logits.shape)))
+        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        L = len(net.bert.layers)
+        per_step = {k: launches[k] / n_steps for k in launches}
+        say("ernie main path: %d steps, losses %s" % (
+            n_steps, ["%.4f" % x for x in losses]))
+        say("ernie main path launches per step %s, attention paths %s"
+            % ({k: v for k, v in per_step.items() if v}, paths))
+        want = {"fused_dropout_ln_fwd": 2 * L, "fused_dropout_ln_bwd": 2 * L,
+                "flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "adamw": n_tensors, "fused_dropout_residual_fwd": 0}
+        require(all(per_step[k] == v for k, v in want.items()),
+                "ernie: launches per step %s, want %s" % (per_step, want))
+        require(paths["flash_dropout"] == L * n_steps
+                and paths["xla_sdpa"] == 0 and paths["flash"] == 0,
+                "ernie: attention paths %s" % paths)
+        step_ms = statistics.median(times[TRAIN_WARMUP:])
+        tokens = ERNIE_B * ERNIE_T
+        d = net.bert.hidden_size
+        flops = 6 * n_params * tokens + 12 * L * d * ERNIE_T * tokens
+        mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+        say("ernie main path: B=%d T=%d, step %.2f ms median (%.2f mean) "
+            "over %d timed steps, %.0f tokens/s, MFU %.4f of 989 TFLOP/s "
+            "bf16 (%s), peak memory %.1f MiB"
+            % (ERNIE_B, ERNIE_T, step_ms,
+               statistics.mean(times[TRAIN_WARMUP:]), TRAIN_STEPS,
+               tokens / (step_ms / 1e3), mfu, card, peak / 2 ** 20))
+        report_profile("ernie", dev_ms, step_ms, top)
+    finally:
+        flags.set_flags(saved)
+    return launches
+
+
+def ernie_compare(torch, ck, flags):
+    """Path A's kernels against the plain versions on the card: the same
+    float32 ernie-base weights, no dropout, the bench's batch, 3 AdamW
+    steps at lr 1e-4, without auto_cast."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.models import BertPretrainingCriterion, ernie_base
+
+    def build():
+        prandom.seed(0)
+        net = ernie_base(seed=0, hidden_dropout_prob=0.0,
+                         attention_dropout_prob=0.0)
+        net.train()
+        opt = optimizer.AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                              parameters=net.parameters())
+        crit = BertPretrainingCriterion()
+        step = make_train_step(
+            net, lambda lg, nl, y1, y2: crit(lg, nl, y1, y2), opt)
+        vocab = net.bert.embeddings.word_embeddings.weight.shape[0]
+        batch = ernie_batch(torch, vocab, ERNIE_B, ERNIE_T)
+        return net, opt, lambda i: step(*batch)
+    compare_runs(torch, ck, flags, "ernie", build,
+                 ("use_flash_attention", "use_fused_optimizer",
+                  "use_fused_dropout_ln"),
+                 ("flash_fwd_train", "flash_bwd_dkv", "adamw",
+                  "fused_dropout_ln_fwd", "fused_dropout_ln_bwd"),
+                 noise_floor=ADAM_NOISE_FLOOR)
 # ---------------------------------------------------------------------------
 # serving
 
@@ -974,7 +1443,6 @@ def main():
 
     import torch
     require(torch.cuda.is_available(), "CUDA is not available")
-    import numpy as np
     import torch.nn.functional as F
 
     from paddle_tpu_torch.framework import flags
@@ -1014,6 +1482,7 @@ def main():
     errs.update(check_flash_train(torch, ck, gen))
     errs["adamw"] = check_adamw(torch, ck, gen)
     check_gates(torch, ck, gen)
+    errs.update(check_fused(torch, ck, flags, gen))
     if opts.kernels_only:
         say("kernels-only run: checks passed")
         return 0
@@ -1133,9 +1602,25 @@ def main():
 
     # 8-10. training: kernel times, the main path, kernels vs plain
     times.update(train_timings(torch, ck, F, timer, gen))
-    tlaunches, shapes = train_main(torch, ck, card)
+    tlaunches, shapes, off_ms = train_main(torch, ck, flags, card)
     times["adamw"] = time_adamw(torch, ck, timer, gen, shapes)
     train_compare(torch, ck, flags)
+
+    # 11-12. rows 4-6 at the paths' shapes; path B: GPT-2 training with
+    # both fused flags on, then its kernels vs the flags-off plain run
+    times.update(time_fused(torch, ck, timer, gen, TRAIN_B * TRAIN_T, 768,
+                            torch.bfloat16, True, "gpt2 (path B)"))
+    time_fused(torch, ck, timer, gen, ERNIE_B * ERNIE_T, 768, torch.float32,
+               False, "ernie (path A)")
+    blaunches, _, on_ms = train_main(torch, ck, flags, card, fused=True)
+    say("train step, gpt2-small B=%d T=%d O2 bf16 (%s): fused flags off "
+        "%.2f ms, on %.2f ms (median of %d steps each, this run)"
+        % (TRAIN_B, TRAIN_T, card, off_ms, on_ms, TRAIN_STEPS))
+    train_compare(torch, ck, flags, fused=True)
+
+    # 13-14. path A: ERNIE-base pretraining, then kernels vs plain
+    alaunches = ernie_main(torch, ck, flags, card)
+    ernie_compare(torch, ck, flags)
 
     counts = {"flash_fwd": launches["flash_fwd"],
               "paged_decode": launches["paged_decode"],
@@ -1143,6 +1628,10 @@ def main():
     for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
                  "adamw"):
         counts[name] = tlaunches[name]
+    for name in FUSED_KERNELS:
+        counts[name] = blaunches[name] + alaunches[name]
+        say("launches %s: %d on path B (gpt2, fused flags), %d on path A "
+            "(ernie)" % (name, blaunches[name], alaunches[name]))
     table = [{"name": name, "route": "cuda", "source": SOURCES[name],
               "replaces": TPU_KERNELS[name], "launches": counts[name],
               "max_abs_err": errs[name], "ms": times[name]["ms"],

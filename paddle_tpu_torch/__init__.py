@@ -1,9 +1,10 @@
-"""PyTorch + CUDA port of paddle_tpu's GPT serving and training paths.
+"""PyTorch + CUDA port of paddle_tpu's GPT serving and training paths and
+its BERT/ERNIE pretraining path.
 
 The JAX package `paddle_tpu` stays the reference; this package serves and
 trains the same models through the same host API on an NVIDIA H100, with
-the attention and optimizer kernels written by hand in CUDA C++ for
-`sm_90a` (ops/csrc/).
+the attention, residual-tail and optimizer kernels written by hand in
+CUDA C++ for `sm_90a` (ops/csrc/).
 
     from paddle_tpu_torch.models import gpt2_small
     from paddle_tpu_torch.inference.serving import (ContinuousBatcher,
@@ -26,6 +27,19 @@ the attention and optimizer kernels written by hand in CUDA C++ for
     step = make_train_step(model, lambda o, l: crit(o, l), opt)
     loss, _ = step([ids[:, :-1]], [ids[:, 1:]])
 
+    # ERNIE-base pretraining: the JAX package's ERNIE bench
+    from paddle_tpu_torch.framework import set_flags
+    from paddle_tpu_torch.models import BertPretrainingCriterion, ernie_base
+    set_flags({"FLAGS_use_fused_dropout_ln": True})
+    net = ernie_base(seed=0)
+    opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                          parameters=net.parameters())
+    crit = BertPretrainingCriterion()
+    step = make_train_step(net, lambda lg, nl, y1, y2: crit(lg, nl, y1, y2),
+                           opt)
+    with amp.auto_cast(level="O2"):
+        loss, _ = step([ids], [mlm_labels, nsp_labels])
+
 Entry points take an explicit `device` that defaults to "cuda" and raise
 when CUDA is absent unless the caller passes device="cpu"; on CPU tensors
 every kernel wrapper runs its plain PyTorch version instead.
@@ -38,5 +52,5 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["amp", "framework", "inference", "io", "jit", "models", "nn",
-           "observability", "ops", "optimizer"]
+__all__ = ["amp", "framework", "incubate", "inference", "io", "jit",
+           "models", "nn", "observability", "ops", "optimizer"]

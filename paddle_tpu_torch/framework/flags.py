@@ -1,11 +1,7 @@
 """Global flag registry (copy of paddle_tpu/framework/flags.py:16-53).
 
 Flags are plain typed python values seeded from FLAGS_* environment
-variables at import. Only the flags the ported paths read are defined,
-plus the two fused-block flags of the next slice, whose kernels are not
-ported yet: they stay off, and turning one on (set_flags or the
-environment) raises NotImplementedError rather than run the unfused path
-unasked.
+variables at import. Only the flags the ported paths read are defined.
 """
 from __future__ import annotations
 
@@ -13,15 +9,6 @@ import os
 from typing import Any, Dict
 
 _FLAGS: Dict[str, Any] = {}
-# registered flags whose kernels are not ported: only False is accepted
-_NOT_PORTED = ("use_fused_dropout_ln", "fused_block")
-
-
-def _check_ported(key: str, value):
-    if key in _NOT_PORTED and value:
-        raise NotImplementedError(
-            "FLAGS_%s: its fused kernels are not ported to paddle_tpu_torch "
-            "yet (see ROADMAP.md); only False is accepted" % key)
 
 
 def define_flag(name: str, default, help_str: str = ""):
@@ -36,7 +23,6 @@ def define_flag(name: str, default, help_str: str = ""):
             value = float(env)
         else:
             value = env
-    _check_ported(name, value)
     _FLAGS[name] = value
     return value
 
@@ -58,7 +44,6 @@ def set_flags(flags: Dict[str, Any]):
         key = f[6:] if f.startswith("FLAGS_") else f
         if key not in _FLAGS:
             raise ValueError(f"unknown flag {f!r}")
-        _check_ported(key, v)
         _FLAGS[key] = v
 
 
@@ -80,8 +65,11 @@ define_flag("use_fused_optimizer", True,
             "kernel (ops/csrc/adamw.cu: one pass over param, grad and both "
             "moments, in place); False takes the plain PyTorch rule")
 define_flag("use_fused_dropout_ln", False,
-            "fused bias+dropout+residual+layernorm kernels; not ported yet, "
-            "so only off (the reference's default) is accepted")
+            "route residual tails (residual + dropout(x + bias), then the "
+            "layer norm of a post-LN tail) to the hand-written fused "
+            "kernels (ops/csrc/fused_dropout_ln.cu); False takes the "
+            "composed PyTorch ops")
 define_flag("fused_block", False,
-            "decoder-block fusion of the attention epilogue and ln_2; not "
-            "ported yet, so only off (the reference's default) is accepted")
+            "GPTDecoderLayer: the attention epilogue and ln_2 as one fused "
+            "kernel pass with two outputs (the residual stream z and "
+            "ln_2(z)); False takes the layer's unfused route")

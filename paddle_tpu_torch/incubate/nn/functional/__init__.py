@@ -1,0 +1,7 @@
+from .fused_transformer import (fused_bias_dropout_residual,
+                                fused_bias_dropout_residual_layer_norm,
+                                fused_bias_dropout_residual_ln_pair)
+
+__all__ = ["fused_bias_dropout_residual",
+           "fused_bias_dropout_residual_layer_norm",
+           "fused_bias_dropout_residual_ln_pair"]

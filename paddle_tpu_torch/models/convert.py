@@ -8,6 +8,10 @@ weight is [in, out] in both), so a state dict of numpy arrays taken from
     load_reference_state(port_model, state)
     ...
     arrays = export_reference_state(port_model)   # name -> numpy
+
+Both sides list a parameter that is used twice (BERT's word embeddings,
+which are also its MLM decoder weight) once, under the name of its first
+use, so a tied weight maps one to one.
 """
 from __future__ import annotations
 

@@ -22,6 +22,9 @@ import torch
 from torch import nn
 
 from ..framework.device import resolve_device
+from ..framework.flags import flag
+from ..incubate.nn.functional import (fused_bias_dropout_residual,
+                                      fused_bias_dropout_residual_ln_pair)
 from ..nn import functional as F
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 from ..ops import cuda_kernels as ck
@@ -143,10 +146,10 @@ class GPTMLP(nn.Module):
 
 class GPTDecoderLayer(nn.Module):
     """Pre-LN transformer decoder block: x + dropout(attn(ln_1(x))), then
-    x + dropout(mlp(ln_2(x))): the reference's composed
-    `_residual_dropout` route, which it takes while its fused
-    dropout-residual kernels are off (FLAGS_use_fused_dropout_ln and
-    FLAGS_fused_block, both off by default)."""
+    x + dropout(mlp(ln_2(x))). Each residual tail is `_residual_dropout`:
+    one fused kernel pass while FLAGS_use_fused_dropout_ln is on, else the
+    composed ops. Under FLAGS_fused_block (training and prefill without a
+    cache) the attention tail and ln_2 are one pass with two outputs."""
 
     def __init__(self, hidden_size, num_heads, intermediate_size=None,
                  attn_dropout_prob=0.1, hidden_dropout_prob=0.1,
@@ -160,13 +163,34 @@ class GPTDecoderLayer(nn.Module):
         self.mlp = GPTMLP(hidden_size, inter, generator)
         self.dropout = Dropout(hidden_dropout_prob)
 
+    def _residual_dropout(self, h, residual):
+        """Pre-LN residual tail: residual + dropout(h) (reference:
+        paddle_tpu/models/gpt.py:326-337, off a mesh)."""
+        return fused_bias_dropout_residual(
+            h, residual, None, self.dropout.p, training=self.training,
+            mode=self.dropout.mode)
+
+    def _fused_block_ok(self):
+        """Decoder-block fusion opt-in (FLAGS_fused_block): the attention
+        epilogue and ln_2 as one fused_bias_dropout_residual_ln_pair
+        pass."""
+        return flag("fused_block")
+
     def forward(self, x, cache=None):
+        if cache is None and self._fused_block_ok():
+            a = self.attn(self.ln_1(x))
+            # y = ln_2(z), z = x + dropout(a): one pass, two outputs
+            y, z = fused_bias_dropout_residual_ln_pair(
+                a, x, None, self.ln_2.weight, self.ln_2.bias,
+                self.dropout.p, self.ln_2._epsilon, self.training,
+                self.dropout.mode)
+            return self._residual_dropout(self.mlp(y), z)
         if cache is None:
-            x = x + self.dropout(self.attn(self.ln_1(x)))
+            x = self._residual_dropout(self.attn(self.ln_1(x)), x)
         else:
             a, cache = self.attn(self.ln_1(x), cache)
-            x = x + self.dropout(a)
-        x = x + self.dropout(self.mlp(self.ln_2(x)))
+            x = self._residual_dropout(a, x)
+        x = self._residual_dropout(self.mlp(self.ln_2(x)), x)
         return x if cache is None else (x, cache)
 
 

@@ -1,28 +1,66 @@
 """Functional ops of the serving and training paths (counterpart of
 paddle_tpu/nn/functional and the primitives in paddle_tpu/ops/nn_ops.py
-that GPT reaches).
+that GPT and BERT reach).
 
 Weights follow paddle's layout: a linear weight is [in, out] and the op is
-x @ W + b, not torch.nn.Linear's [out, in].
+x @ W + b, not torch.nn.Linear's [out, in]. Inside `amp.auto_cast` the ops
+that the reference lists cast their inputs by the reference's op names
+(`amp_cast_inputs`).
 """
 from __future__ import annotations
 
 import torch
 
+from ..amp import amp_cast_inputs
 from ..framework.random import RNG
 from ..ops import cuda_kernels as ck
 
-__all__ = ["linear", "gelu", "layer_norm", "dropout",
+__all__ = ["linear", "matmul", "gelu", "relu", "tanh", "softmax",
+           "log_softmax", "layer_norm", "dropout",
            "scaled_dot_product_attention", "cross_entropy",
            "softmax_with_cross_entropy"]
 
-_DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
+
+def matmul(x, y, transpose_x=False, transpose_y=False):
+    """paddle.matmul (reference: ops/math.py matmul, op matmul_v2) with
+    the transposes of the last two axes."""
+    x, y = amp_cast_inputs("matmul_v2", [x, y])
+    if transpose_x:
+        x = x.transpose(-1, -2)
+    if transpose_y:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)
 
 
 def linear(x, weight, bias=None):
-    """x @ weight + bias with weight [in, out] (paddle layout)."""
-    y = torch.matmul(x, weight)
+    """x @ weight + bias with weight [in, out] (paddle layout): the matmul
+    is matmul_v2 under auto_cast, the bias add on neither list."""
+    y = matmul(x, weight)
     return y if bias is None else y + bias
+
+
+def relu(x):
+    """relu (reference: ops/nn_ops.py:21), TransformerEncoderLayer's
+    default activation."""
+    return torch.relu(x)
+
+
+def tanh(x):
+    """tanh (reference: ops/nn_ops.py:84)."""
+    return torch.tanh(x)
+
+
+def softmax(x, axis=-1):
+    """softmax along `axis` (reference: ops/nn_ops.py:165, softmax_op)."""
+    (x,) = amp_cast_inputs("softmax_op", [x])
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis=-1):
+    """log-softmax along `axis` (reference: ops/nn_ops.py:170,
+    log_softmax_op)."""
+    (x,) = amp_cast_inputs("log_softmax_op", [x])
+    return torch.log_softmax(x, dim=axis)
 
 
 def gelu(x, approximate=False):
@@ -35,7 +73,9 @@ def gelu(x, approximate=False):
 def layer_norm(x, weight, bias, epsilon=1e-5):
     """LayerNorm over the last axis with the reference's formula
     (ops/nn_ops.py layer_norm): mean, then the mean of squared deviations,
-    then (x - mean) * rsqrt(var + eps) * weight + bias."""
+    then (x - mean) * rsqrt(var + eps) * weight + bias; layer_norm_op
+    under auto_cast."""
+    x, weight, bias = amp_cast_inputs("layer_norm_op", [x, weight, bias])
     mean = x.mean(dim=-1, keepdim=True)
     var = (x - mean).square().mean(dim=-1, keepdim=True)
     y = (x - mean) * torch.rsqrt(var + epsilon)
@@ -60,9 +100,9 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
     they are in training, x * (1-p) in eval. The mask is drawn from the
     framework's generator for x's device (framework/random.py), so it is
     not the reference's jax.random mask."""
-    if mode not in _DROPOUT_MODES:
+    if mode not in ck.DROPOUT_MODES:
         raise ValueError("dropout mode %r (one of %s)" % (mode,
-                                                          _DROPOUT_MODES))
+                                                          ck.DROPOUT_MODES))
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
@@ -109,6 +149,7 @@ def softmax_with_cross_entropy(logits, label, ignore_index=-100, axis=-1):
     (ops/nn_ops.py softmax_with_cross_entropy); positions whose label is
     `ignore_index` give 0. A label with a trailing size-1 axis is taken
     as it is."""
+    (logits,) = amp_cast_inputs("softmax_with_cross_entropy", [logits])
     axis = axis % logits.ndim
     lab = label.long()
     if lab.ndim == logits.ndim and lab.shape[axis] == 1:

@@ -1,5 +1,5 @@
 """Layers of the ported paths as torch.nn.Modules (counterparts of
-paddle_tpu/nn/layers.py Linear, Embedding, LayerNorm and Dropout).
+paddle_tpu/nn/layers.py Linear, Embedding, LayerNorm, Dropout and Tanh).
 
 Parameters are created on the CPU and drawn from the explicit
 `torch.Generator` the caller passes; the model factory moves the finished
@@ -14,7 +14,7 @@ from torch import nn
 
 from . import functional as F
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Tanh"]
 
 
 def _normal(shape, std, generator):
@@ -75,3 +75,8 @@ class Dropout(nn.Module):
 
     def forward(self, x):
         return F.dropout(x, self.p, self.training, self.mode)
+
+
+class Tanh(nn.Module):
+    def forward(self, x):
+        return F.tanh(x)

@@ -34,7 +34,8 @@ BUILD_DIR = os.path.join(_HERE, "build")
 _CSRC = os.path.join(_HERE, "csrc")
 KERNEL_SOURCES = {
     name: os.path.join(_CSRC, name + ".cu")
-    for name in ("flash_fwd", "flash_bwd", "adamw", "paged_decode")}
+    for name in ("flash_fwd", "flash_bwd", "adamw", "paged_decode",
+                 "fused_dropout_ln")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U, _U64, _I64 = ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong
@@ -65,6 +66,18 @@ _SIGNATURES = {
         # q, nk, nv, strides*, kc, vc, ks, vs, lens, out, B, H, T, D,
         # sm_scale, quant, stream
         "paged_decode": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
+    },
+    "fused_dropout_ln": {
+        # x, res, bias, gamma, beta, y, z, n, h, dtypes, with_ln, on, thr,
+        # scale, eps, seed, offset, stream
+        "fused_dropout_ln_fwd": [_P] * 7 + [_I] * 5 + [_U, _F, _F, _U64, _U,
+                                                      _P],
+        # z, dy, dz_extra, gamma, dx, dres, part, n, h, grid, dtypes,
+        # with_ln, on, thr, scale, eps, seed, offset, stream
+        "fused_dropout_ln_bwd": [_P] * 7 + [_I] * 6 + [_U, _F, _F, _U64, _U,
+                                                      _P],
+        # out, seed, offset, n, h, stream
+        "fused_dropout_bits": [_P, _U64, _U, _I, _I, _P],
     },
 }
 

@@ -12,6 +12,11 @@ the serving and training paths run:
   * the attention-dropout bits (csrc/attn_dropout.cuh, Philox-4x32-10 per
     element): `attn_dropout_bits` writes them out so the checks can hand
     them to the plain versions;
+  * fused bias + dropout + residual (+ LayerNorm) (csrc/
+    fused_dropout_ln.cu), replacing `_fbdrln_fwd_kernel`,
+    `_fbdrln_fwd_noln_kernel` and `_fbdrln_bwd_kernel`, behind
+    `FusedDropoutResidualLNFunction` (the counterpart of the custom vjp
+    `_fbdrln_pair`); `fused_dropout_bits` writes its dropout bits out;
   * fused AdamW (csrc/adamw.cu), replacing `_adamw_kernel`;
   * paged decode (csrc/paged_decode.cu) — one decode step's KV append plus
     single-query attention over the paged cache, float32 or int8, replacing
@@ -24,8 +29,8 @@ then runs the plain version for tensors that lie on the CPU and launches
 the kernel for CUDA tensors. There is no probe and no quiet fallback: a
 gate returns None (the caller's plain route) only when the kernel's flag
 is off (`use_flash_attention`, `use_fused_optimizer`,
-`paged_flash_decode`), which the attention callers report in the path
-counters (`xla_sdpa`, `xla_paged`).
+`paged_flash_decode`, `use_fused_dropout_ln`), which the attention
+callers report in the path counters (`xla_sdpa`, `xla_paged`).
 
 The int8 KV rule (`quantize_kv` / `dequantize_kv`) lives here too: the
 paged-decode kernel's in-kernel append must match it bit for bit, and the
@@ -43,6 +48,7 @@ import math
 import numpy as np
 import torch
 
+from ..amp import amp_cast_inputs
 from ..framework.flags import flag
 from ..framework.random import next_seed_offset
 from ..observability import metrics
@@ -52,7 +58,14 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
            "flash_fwd_train_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
            "flash_bwd_dkv", "flash_bwd_dkv_plain", "FlashAttentionFunction",
            "attn_dropout_bits", "attn_dropout_bits_plain",
-           "flash_attention_or_none", "adamw", "adamw_plain",
+           "flash_attention_or_none", "fused_dropout_ln_fwd",
+           "fused_dropout_ln_fwd_plain", "fused_dropout_residual_fwd",
+           "fused_dropout_residual_fwd_plain", "fused_dropout_ln_bwd",
+           "fused_dropout_ln_bwd_plain", "FusedDropoutResidualLNFunction",
+           "fused_dropout_bits", "fused_dropout_bits_plain",
+           "fused_bias_dropout_residual_ln",
+           "fused_dropout_residual_ln_or_none", "DROPOUT_MODES", "adamw",
+           "adamw_plain",
            "fused_adamw_or_none", "paged_decode", "paged_decode_plain",
            "paged_decode_attention_or_none", "quantize_kv", "dequantize_kv",
            "launch_counts", "attention_path_counts"]
@@ -61,7 +74,9 @@ _NEG_INF = -1e30
 
 # kernel launches, bumped by the wrappers right after a successful launch
 _LAUNCHES = {"flash_fwd": 0, "flash_fwd_train": 0, "flash_bwd_dq": 0,
-             "flash_bwd_dkv": 0, "attn_dropout_bits": 0, "adamw": 0,
+             "flash_bwd_dkv": 0, "attn_dropout_bits": 0,
+             "fused_dropout_ln_fwd": 0, "fused_dropout_residual_fwd": 0,
+             "fused_dropout_ln_bwd": 0, "fused_dropout_bits": 0, "adamw": 0,
              "paged_decode": 0, "paged_decode_int8": 0}
 
 # attention implementation chosen by the gates (reference:
@@ -196,12 +211,17 @@ def attn_dropout_bits(seed, offset, BH, Tq, Tk, device="cuda"):
     return out.to(torch.int64) & _U32
 
 
+def _threshold(p):
+    """The keep rule's threshold: keep iff bits >= floor(p * 2^32),
+    clamped to 2^32 - 1."""
+    return min(int(p * (2.0 ** 32)), 2 ** 32 - 1)
+
+
 def _drop_args(dropout_p):
     """(threshold, scale) of the keep rule: keep iff bits >= threshold,
     kept values times scale (float32, as the reference's weak-typed
     1 / (1 - p) multiply rounds it)."""
-    thr = min(int(dropout_p * (2.0 ** 32)), 2 ** 32 - 1)
-    return thr, float(np.float32(1.0 / (1.0 - dropout_p)))
+    return _threshold(dropout_p), float(np.float32(1.0 / (1.0 - dropout_p)))
 
 
 def _keep_mask(bits, dropout_p, shape):
@@ -516,9 +536,12 @@ def flash_attention_or_none(query, key, value, attn_mask, is_causal,
     flash_dropout) or without (flash). An additive mask, p >= 1, or an
     input the kernel does not take raises ValueError: unlike the
     reference's gate, this one never hands such a call to the plain
-    version on its own."""
+    version on its own. Under amp.auto_cast this is the op
+    flash_attention (white list): q, k and v enter in the amp dtype."""
     if not flag("use_flash_attention"):
         return None
+    query, key, value = amp_cast_inputs("flash_attention",
+                                        [query, key, value])
     _need(attn_mask is None,
           "flash_attention: the kernel takes no additive mask; set the "
           "use_flash_attention flag to False for the plain version")
@@ -528,6 +551,356 @@ def flash_attention_or_none(query, key, value, attn_mask, is_causal,
                                        dropout_p, seed, offset)
     _note_attn_path("flash_dropout" if dropout_p > 0.0 else "flash")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Fused bias + dropout + residual (+ LayerNorm)
+#
+# Replaces pallas_kernels.py `_fbdrln_fwd_kernel` (:768),
+# `_fbdrln_fwd_noln_kernel` (:792) and `_fbdrln_bwd_kernel` (:800), launched
+# by `_fbdrln_call` (:840) behind the custom vjp `_fbdrln_pair` (:943).
+# Bound on the H100: bytes (one pass over the [N, Hd] rows per call). The
+# dropout bits are Philox-4x32-10 keyed by the call's 64-bit seed, counter
+# (col, row // 4, _FDRLN_TAG, call offset), word row % 4 (csrc/
+# fused_dropout_ln.cu); the backward regenerates the forward's mask from
+# the saved (seed, offset). The plain versions take the bits as an int64
+# tensor [N, Hd] holding values in [0, 2^32), or draw the kernels' own.
+
+_FDRLN_TAG = 0xFD1D0000
+# the backward kernel keeps 7 float32 values per column in shared memory
+FDRLN_MAX_HD = 8192
+# the backward kernel's CTAs per SM (each walks every grid-th 4-row group)
+_FDRLN_BWD_CTAS_PER_SM = 4
+_SM_COUNT = {}
+
+
+def fused_dropout_bits_plain(seed, offset, N, Hd, device="cpu"):
+    """The fused kernels' dropout bits, [N, Hd] int64 in [0, 2^32)."""
+    G = (N + 3) // 4
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    shape = (G, Hd)
+    full = lambda v: torch.full(shape, int(v), dtype=torch.int64,
+                                device=device)
+    words = _philox4x32_10(
+        ar(Hd).view(1, Hd).expand(shape), ar(G).view(G, 1).expand(shape),
+        full(_FDRLN_TAG), full(offset), int(seed) & _U32,
+        (int(seed) >> 32) & _U32)
+    bits = torch.stack(words, dim=1).reshape(4 * G, Hd)
+    return bits[:N].contiguous()
+
+
+def fused_dropout_bits(seed, offset, N, Hd, device="cuda"):
+    """The dropout bits the fused kernels draw for (seed, offset), written
+    out by a small kernel; the plain version on the CPU. Not on the main
+    path: the checks hand these bits to the plain versions."""
+    dev = torch.device(device)
+    _need(0 <= int(seed) < 2 ** 64 and 0 <= int(offset) < 2 ** 32,
+          "fused_dropout_bits: seed must fit 64 bits and offset 32")
+    if not _on_cuda(torch.empty(0, device=dev), "fused_dropout_bits"):
+        return fused_dropout_bits_plain(seed, offset, N, Hd, dev)
+    out = torch.empty((N, Hd), dtype=torch.int32, device=dev)
+    err = _build.load("fused_dropout_ln").fused_dropout_bits(
+        out.data_ptr(), int(seed), int(offset), N, Hd, _stream(out))
+    _check_launch(err, "fused_dropout_bits")
+    _LAUNCHES["fused_dropout_bits"] += 1
+    return out.to(torch.int64) & _U32
+
+
+def _fdrln_drop(h, p, scale, seed, offset, bits):
+    """`_dropout_keep`: h where bits >= floor(p * 2^32) (clamped to
+    2^32 - 1) times scale, else 0; the kernels' bits for (seed, offset)
+    when `bits` is None."""
+    if bits is None:
+        bits = fused_dropout_bits_plain(seed, offset, *h.shape,
+                                        device=h.device)
+    return torch.where(bits.reshape(h.shape) >= _threshold(p), h * scale,
+                       0.0)
+
+
+def _fdrln_z(x, residual, bias, p, scale, seed, offset, bits):
+    h = x.float()
+    if bias is not None:
+        h = h + bias.float().reshape(-1)
+    if p > 0.0:
+        h = _fdrln_drop(h, p, scale, seed, offset, bits)
+    return residual.float() + h
+
+
+def _ln_stats(z, eps):
+    """(mean, rstd) over the last axis of float32 z, the variance in two
+    passes as `_fbdrln_fwd_kernel` takes it."""
+    mean = z.mean(-1, keepdim=True)
+    var = (z - mean).square().mean(-1, keepdim=True)
+    return mean, torch.rsqrt(var + eps)
+
+
+def fused_dropout_residual_fwd_plain(x, residual, bias, p, scale, seed=0,
+                                     offset=0, bits=None):
+    """`_fbdrln_fwd_noln_kernel` in plain PyTorch: z = residual +
+    dropout(x + bias) in float32, stored in x's dtype. x, residual
+    [N, Hd]; bias [Hd] or None; at p > 0 the keep mask comes from `bits`
+    ([N, Hd], values in [0, 2^32)) or from the kernels' bits for (seed,
+    offset), kept values times `scale`."""
+    return _fdrln_z(x, residual, bias, p, scale, seed, offset,
+                    bits).to(x.dtype)
+
+
+def fused_dropout_ln_fwd_plain(x, residual, bias, gamma, beta, p, scale,
+                               eps, seed=0, offset=0, bits=None):
+    """`_fbdrln_fwd_kernel` in plain PyTorch: (y, z) with z as
+    `fused_dropout_residual_fwd_plain` computes it and y = (z - mean) *
+    rstd * gamma + beta from the float32 z; both stored in x's dtype."""
+    z = _fdrln_z(x, residual, bias, p, scale, seed, offset, bits)
+    mean, rstd = _ln_stats(z, eps)
+    y = (z - mean) * rstd * gamma.float().reshape(-1) + \
+        beta.float().reshape(-1)
+    return y.to(x.dtype), z.to(x.dtype)
+
+
+def fused_dropout_ln_bwd_plain(z, dy, dz_extra, gamma, p, scale, eps, seed=0,
+                               offset=0, bits=None):
+    """`_fbdrln_bwd_kernel` and the column sums of `_fbdrln_vjp_bwd` in
+    plain PyTorch: (dx, dres, dbias, dgamma, dbeta). With gamma, the LN
+    statistics come from the stored z (in z's dtype, widened) and dz =
+    rstd (a - mean(a) - x^ mean(a x^)) with a = dy gamma; without (gamma
+    None), dz = dy and dgamma = dbeta = None. dz_extra (or None: 0) is
+    added; dres = dz and dx = dz under the forward's keep mask, both in
+    z's dtype; dbias = the column sum of dx as stored, dgamma = sum dy x^,
+    dbeta = sum dy, each [Hd] in z's dtype."""
+    dyf = dy.float()
+    if gamma is not None:
+        zf = z.float()
+        mean, rstd = _ln_stats(zf, eps)
+        xhat = (zf - mean) * rstd
+        a = dyf * gamma.float().reshape(-1)
+        dz = rstd * (a - a.mean(-1, keepdim=True)
+                     - xhat * (a * xhat).mean(-1, keepdim=True))
+    else:
+        dz = dyf
+    if dz_extra is not None:
+        dz = dz + dz_extra.float()
+    dres = dz.to(z.dtype)
+    dx = (_fdrln_drop(dz, p, scale, seed, offset, bits) if p > 0.0
+          else dz).to(z.dtype)
+    dbias = dx.float().sum(0).to(z.dtype)
+    if gamma is None:
+        return dx, dres, dbias, None, None
+    return (dx, dres, dbias, (dyf * xhat).sum(0).to(z.dtype),
+            dyf.sum(0).to(z.dtype))
+
+
+def _fdrln_check(name, rows, vecs, p):
+    """`rows`: [N, Hd] tensors, `vecs`: [Hd] vectors (None where absent);
+    raises ValueError on anything the kernels do not take."""
+    first = rows[0]
+    _need(first.ndim == 2 and first.shape[0] >= 1
+          and 1 <= first.shape[1] <= FDRLN_MAX_HD,
+          "%s: rows must be [N, Hd] with 1 <= Hd <= %d, got %s"
+          % (name, FDRLN_MAX_HD, tuple(first.shape)))
+    Hd = first.shape[1]
+    for t in rows:
+        if t is not None:
+            _need(t.shape == first.shape, "%s: row tensors of shapes %s and "
+                  "%s" % (name, tuple(first.shape), tuple(t.shape)))
+    for t in vecs:
+        if t is not None:
+            _need(t.numel() == Hd and t.shape[-1] == Hd,
+                  "%s: vector of shape %s for Hd=%d" % (name, tuple(t.shape),
+                                                        Hd))
+    for t in rows + vecs:
+        if t is None:
+            continue
+        _need(t.dtype in _DTYPE_CODE, "%s: float32 or bfloat16 tensors, got "
+              "%s" % (name, t.dtype))
+        _need(t.device == first.device, "%s: mixed devices" % name)
+        _need(t.is_contiguous(), "%s: tensors must be contiguous" % name)
+    _need(0.0 <= p <= 1.0, "%s: dropout p %r (0 <= p <= 1)" % (name, p))
+
+
+def _bf16_bits(*ts):
+    """Bit i set where tensor i is bfloat16: the kernels' dtype word."""
+    return sum(1 << i for i, t in enumerate(ts)
+               if t is not None and t.dtype == torch.bfloat16)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, seed, offset):
+    """The forward kernels, or their plain versions on CPU tensors: (y, z)
+    with gamma, (None, z) without."""
+    p = float(p)
+    with_ln = gamma is not None
+    name = "fused_dropout_ln_fwd" if with_ln else "fused_dropout_residual_fwd"
+    _fdrln_check(name, [x, residual], [bias, gamma, beta], p)
+    _need(with_ln == (beta is not None),
+          "%s: gamma and beta come together" % name)
+    if not _on_cuda(x, name):
+        if with_ln:
+            return fused_dropout_ln_fwd_plain(x, residual, bias, gamma, beta,
+                                              p, scale, eps, seed, offset)
+        return None, fused_dropout_residual_fwd_plain(x, residual, bias, p,
+                                                      scale, seed, offset)
+    N, Hd = x.shape
+    z = torch.empty_like(x)
+    y = torch.empty_like(x) if with_ln else None
+    err = _build.load("fused_dropout_ln").fused_dropout_ln_fwd(
+        x.data_ptr(), residual.data_ptr(), _ptr(bias), _ptr(gamma),
+        _ptr(beta), _ptr(y), z.data_ptr(), N, Hd,
+        _bf16_bits(x, residual, bias, gamma, beta), int(with_ln),
+        int(p > 0.0), _threshold(p), float(scale), float(eps), int(seed),
+        int(offset), _stream(x))
+    _check_launch(err, name)
+    _LAUNCHES[name] += 1
+    return y, z
+
+
+def fused_dropout_ln_fwd(x, residual, bias, gamma, beta, p, scale, eps,
+                         seed=0, offset=0):
+    """Row 4's kernel: (y, z) for x, residual [N, Hd] (contiguous, each
+    float32 or bfloat16), bias [Hd] or None, gamma and beta [Hd]; dropout
+    at p from (seed, offset), kept values times `scale`. Inputs the kernel
+    does not take raise ValueError on every device; CPU tensors then take
+    the plain version."""
+    return _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, seed,
+                      offset)
+
+
+def fused_dropout_residual_fwd(x, residual, bias, p, scale, seed=0,
+                               offset=0):
+    """Row 5's kernel: z = residual + dropout(x + bias), one output."""
+    return _fdrln_fwd(x, residual, bias, None, None, p, scale, 0.0, seed,
+                      offset)[1]
+
+
+def fused_dropout_ln_bwd(z, dy, dz_extra, gamma, p, scale, eps, seed=0,
+                         offset=0):
+    """Row 6's kernel, with LN (gamma given) or without: (dx, dres, dbias,
+    dgamma, dbeta) as `fused_dropout_ln_bwd_plain` computes them, dgamma
+    and dbeta None without LN. dz_extra may be None (0). The kernel folds
+    the column sums in as per-CTA partial rows, added here."""
+    p = float(p)
+    name = "fused_dropout_ln_bwd"
+    _fdrln_check(name, [z, dy, dz_extra], [gamma], p)
+    if not _on_cuda(z, name):
+        return fused_dropout_ln_bwd_plain(z, dy, dz_extra, gamma, p, scale,
+                                          eps, seed, offset)
+    N, Hd = z.shape
+    with_ln = gamma is not None
+    dev = z.device
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    grid = min((N + 3) // 4, _FDRLN_BWD_CTAS_PER_SM * _SM_COUNT[dev])
+    nacc = 3 if with_ln else 1
+    dx, dres = torch.empty_like(z), torch.empty_like(z)
+    part = torch.empty((grid, nacc, Hd), dtype=torch.float32, device=dev)
+    err = _build.load("fused_dropout_ln").fused_dropout_ln_bwd(
+        z.data_ptr(), dy.data_ptr(), _ptr(dz_extra), _ptr(gamma),
+        dx.data_ptr(), dres.data_ptr(), part.data_ptr(), N, Hd, grid,
+        _bf16_bits(z, dy, dz_extra, gamma), int(with_ln), int(p > 0.0),
+        _threshold(p), float(scale), float(eps), int(seed), int(offset),
+        _stream(z))
+    _check_launch(err, name)
+    _LAUNCHES[name] += 1
+    sums = part.sum(0).to(z.dtype)
+    if not with_ln:
+        return dx, dres, sums[0], None, None
+    return dx, dres, sums[0], sums[1], sums[2]
+
+
+class FusedDropoutResidualLNFunction(torch.autograd.Function):
+    """z = residual + dropout(x + bias) and, with gamma, y = LN(z) over the
+    last axis, with its backward (the counterpart of the custom vjp
+    `_fbdrln_pair` :943-951 with `defvjp` :954). With gamma it returns
+    (y, z), so both cotangents reach the backward (dy, and dz_extra for z:
+    the residual stream); without it returns z alone, whose one cotangent
+    holds both of the reference's (there y is z). It saves z and the
+    call's (seed, offset): the backward recomputes the LN statistics from
+    the stored z and regenerates the mask. CPU tensors take the plain
+    versions through the same Function."""
+
+    @staticmethod
+    def forward(ctx, x, residual, bias, gamma, beta, p, scale, eps, seed,
+                offset):
+        shape, Hd = x.shape, x.shape[-1]
+        y, z = _fdrln_fwd(x.reshape(-1, Hd).contiguous(),
+                          residual.reshape(-1, Hd).contiguous(), bias, gamma,
+                          beta, p, scale, eps, seed, offset)
+        ctx.save_for_backward(z, gamma)
+        ctx.args = (p, scale, eps, seed, offset, shape, residual.shape,
+                    None if bias is None else bias.shape)
+        ctx.set_materialize_grads(False)
+        if gamma is None:
+            return z.reshape(shape)
+        return y.reshape(shape), z.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, dy, dz=None):
+        z, gamma = ctx.saved_tensors
+        p, scale, eps, seed, offset, shape, res_shape, bias_shape = ctx.args
+        Hd = shape[-1]
+        flat = lambda g: None if g is None else g.reshape(-1, Hd).contiguous()
+        if dy is None:                  # only z's cotangent arrived
+            dy = torch.zeros_like(z)
+        dx, dres, dbias, dgamma, dbeta = fused_dropout_ln_bwd(
+            z, flat(dy), flat(dz), gamma, p, scale, eps, seed, offset)
+        need = ctx.needs_input_grad
+        return (dx.reshape(shape), dres.reshape(res_shape),
+                dbias.reshape(bias_shape) if need[2] else None,
+                dgamma.reshape(gamma.shape) if need[3] else None,
+                dbeta.reshape(gamma.shape) if need[4] else None,
+                None, None, None, None, None)
+
+
+DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
+
+
+def fused_bias_dropout_residual_ln(x, residual, bias, gamma, beta, p, eps,
+                                   training, mode):
+    """The array-level entry (reference: pallas_kernels.py
+    fused_bias_dropout_residual_ln_arrays :960): x, residual [..., Hd] ->
+    (y, z) with z = residual + dropout(x + bias), y = LN(z); z alone when
+    gamma is None. paddle's modes: upscale_in_train scales kept values by
+    1 / (1 - p) in training (0 at p = 1); downscale_in_infer keeps them as
+    they are in training and, in eval, multiplies x and bias by 1 - p.
+    Eval runs the kernels at p = 0 and draws no seed, so the flash
+    kernels' call offsets do not move."""
+    _need(mode in DROPOUT_MODES, "dropout mode %r (one of %s)"
+          % (mode, DROPOUT_MODES))
+    p = float(p)
+    _need(0.0 <= p <= 1.0, "fused dropout: p %r (0 <= p <= 1)" % (p,))
+    if not training:
+        p_eff, scale = 0.0, 1.0
+        if mode == "downscale_in_infer":
+            x = x * (1.0 - p)
+            bias = None if bias is None else bias * (1.0 - p)
+    else:
+        p_eff = p
+        if mode == "downscale_in_infer":
+            scale = 1.0
+        else:
+            scale = float(np.float32(1.0 / (1.0 - p))) if p < 1.0 else 0.0
+    seed, offset = next_seed_offset() if p_eff > 0.0 else (0, 0)
+    return FusedDropoutResidualLNFunction.apply(
+        x, residual, bias, gamma, beta, p_eff, scale, float(eps), seed,
+        offset)
+
+
+def fused_dropout_residual_ln_or_none(x, residual, bias, gamma, beta, p, eps,
+                                      training, mode):
+    """Gate of `fused_bias_dropout_residual` and
+    `fused_bias_dropout_residual_layer_norm` (reference: pallas_kernels.py
+    fused_ln_shapes_ok :1024): None when `use_fused_dropout_ln` is off (the
+    caller runs the composed ops), else `fused_bias_dropout_residual_ln`'s
+    output. The reference's gate also hands a shape the TPU cannot tile
+    to the composed ops; this one raises ValueError on an input the
+    kernels do not take."""
+    if not flag("use_fused_dropout_ln"):
+        return None
+    return fused_bias_dropout_residual_ln(x, residual, bias, gamma, beta, p,
+                                          eps, training, mode)
 
 
 # ---------------------------------------------------------------------------

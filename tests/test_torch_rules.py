@@ -1,6 +1,6 @@
-"""Rules the PyTorch port keeps: it imports neither JAX nor the JAX
-package, its entry points run on CUDA unless the caller asks for the CPU,
-and a CPU tensor never counts as a kernel launch."""
+"""Rules the PyTorch port keeps: it (and chip_smoke.py) imports neither
+JAX nor the JAX package, its entry points run on CUDA unless the caller
+asks for the CPU, and a CPU tensor never counts as a kernel launch."""
 import ast
 import os
 import subprocess
@@ -37,6 +37,7 @@ def _imported_roots(path):
 def test_no_file_imports_jax_or_the_jax_package():
     files = list(_py_files())
     assert len(files) > 15
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p)
            if m in ("jax", "jaxlib", "paddle_tpu")]
@@ -49,9 +50,9 @@ def test_package_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import paddle_tpu_torch\n"
-        "from paddle_tpu_torch import (amp, framework, io, jit, models, "
-        "nn, ops,\n"
-        "                              optimizer)\n"
+        "from paddle_tpu_torch import (amp, framework, incubate, io, jit, "
+        "models,\n"
+        "                              nn, ops, optimizer)\n"
         "from paddle_tpu_torch.inference import serving\n"
         "from paddle_tpu_torch.observability import journal, metrics, spans\n"
         "import torch\n"
@@ -73,8 +74,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from paddle_tpu_torch.framework.device import resolve_device
     from paddle_tpu_torch.inference.serving import (GenerationEngine,
                                                     PagedKVCache)
-    from paddle_tpu_torch.models import gpt2_small, gpt_tiny
-    for build in (gpt_tiny, gpt2_small, resolve_device):
+    from paddle_tpu_torch.models import (bert_base, bert_tiny, ernie_base,
+                                         gpt2_small, gpt_tiny)
+    for build in (gpt_tiny, gpt2_small, bert_tiny, bert_base, ernie_base,
+                  resolve_device):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -118,6 +121,25 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero():
     qc = torch.zeros(1, 2, 16, 16, dtype=torch.int8)
     sc = torch.zeros(1, 2, 16)
     ck.paged_decode(one, qc, qc.clone(), lens, one, one, sc, sc.clone())
+    x = torch.from_numpy(rs.randn(6, 32).astype(np.float32))
+    v = torch.ones(32, requires_grad=True)
+    xg = x.clone().requires_grad_()
+    y, z = ck.fused_bias_dropout_residual_ln(xg, x, v, v, v, 0.3, 1e-5, True,
+                                             "upscale_in_train")
+    (y.sum() + z.sum()).backward()
+    ck.fused_bias_dropout_residual_ln(xg, x, v, None, None, 0.3, 1e-5, True,
+                                      "upscale_in_train").sum().backward()
+    ck.fused_dropout_bits(1, 2, 6, 32, device="cpu")
+    from paddle_tpu_torch.framework import set_flags
+    from paddle_tpu_torch.models import bert_tiny
+    set_flags({"use_fused_dropout_ln": True, "fused_block": True})
+    try:
+        gpt_tiny(device="cpu")(torch.zeros(1, 8, dtype=torch.long)) \
+            .sum().backward()
+        bert_tiny(device="cpu")(torch.zeros(1, 8, dtype=torch.long))[0] \
+            .sum().backward()
+    finally:
+        set_flags({"use_fused_dropout_ln": False, "fused_block": False})
     for kv_dtype in ("float32", "int8"):
         eng = GenerationEngine(gpt_tiny(device="cpu"), max_batch=2,
                                max_seq_len=32, prefill_buckets=(8,),
@@ -127,7 +149,9 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero():
         b.run_until_idle()
     assert set(ck.launch_counts()) == {
         "flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
-        "attn_dropout_bits", "adamw", "paged_decode", "paged_decode_int8"}
+        "attn_dropout_bits", "fused_dropout_ln_fwd",
+        "fused_dropout_residual_fwd", "fused_dropout_ln_bwd",
+        "fused_dropout_bits", "adamw", "paged_decode", "paged_decode_int8"}
     assert set(ck.launch_counts().values()) == {0}
 
 
@@ -145,12 +169,17 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="meta"):
         ck.adamw(q, q, q, q, 1e-3, 1, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  coeff=0.0)
+    rows = torch.zeros(4, 16, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ck.fused_dropout_ln_bwd(rows, rows, None, None, 0.0, 1.0, 1e-5)
+    with pytest.raises(ValueError, match="meta"):
+        ck.fused_dropout_bits(1, 2, 4, 16, device="meta")
 
 
 def test_kernel_sources_are_listed_for_the_build():
     from paddle_tpu_torch.ops import _build
     assert set(_build.KERNEL_SOURCES) == {"flash_fwd", "flash_bwd", "adamw",
-                                          "paged_decode"}
+                                          "paged_decode", "fused_dropout_ln"}
     assert set(_build._SIGNATURES) == set(_build.KERNEL_SOURCES)
     for path in _build.KERNEL_SOURCES.values():
         assert os.path.exists(path)

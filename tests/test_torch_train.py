@@ -395,19 +395,3 @@ def test_rng_state_round_trip():
     torch.testing.assert_close(first[0], second[0], rtol=0, atol=0)
     assert first[1] == second[1]
     assert prandom.next_seed_offset()[1] == first[1][1] + 1
-
-
-@pytest.mark.parametrize("name", ["use_fused_dropout_ln", "fused_block"])
-def test_unported_fused_flags_refuse_true(name, monkeypatch):
-    # registered for the next slice's kernels, which are not ported: on
-    # would run the unfused path unasked, so it raises instead
-    from paddle_tpu_torch.framework import flags
-    assert flags.get_flags(name) == {name: False}
-    flags.set_flags({"FLAGS_" + name: False})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        flags.set_flags({"FLAGS_" + name: True})
-    assert flags.flag(name) is False
-    monkeypatch.setenv("FLAGS_" + name, "1")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        flags.define_flag(name, False)
-    assert flags.flag(name) is False
