@@ -377,9 +377,14 @@ def flash_fwd_train(q, k, v, causal, dropout_p=0.0, seed=0, offset=0,
 # Flash-attention backward
 #
 # Replaces pallas_kernels.py `_flash_bwd_dq_kernel` (:462) and
-# `_flash_bwd_dkv_kernel` (:524), launched by `_flash_bwd` (:589). Bound on
-# the H100: operations (7 D FMAs per live (row, key) pair, on the CUDA
-# cores). Delta = rowsum(dO o O) is computed once, by the dq kernel, which
+# `_flash_bwd_dkv_kernel` (:524), launched by `_flash_bwd` (:589).
+# bfloat16 inputs (every training path, under O2 or auto_cast) run on the
+# tensor cores: bf16 mma.sync with float32 sums, M o p and dS kept in
+# registers as bf16 hi + lo operand pairs. At the training shapes
+# they are bound by bytes on paper, and in practice by the dropout's
+# Philox calls and mma.sync's share of the tensor-core peak (see the
+# source's note). float32 inputs keep the CUDA-core kernels in full
+# float32. Delta = rowsum(dO o O) is computed once, by the dq kernel, which
 # writes it beside dq; the dkv kernel reads it (no launch of its own).
 
 
