@@ -32,9 +32,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shapes (flash forward with lse and dropout, flash backward dq and
      dk/dv: B=16, H=12, T=512, D=64, bfloat16, causal, p=0.1; AdamW over
      every gpt2-small parameter), each beside its bound, its plain
-     version's time and one library call's time; the flash backward also
-     at p=0 (its Philox share) and at ERNIE's attention (B=32, T=128, not
-     causal, p=0.1);
+     version's time and one library call's time; the flash forward and
+     backward also at p=0 (their Philox share) and at ERNIE's attention
+     (B=32, T=128, not causal, p=0.1);
   9. the training main path: the JAX package's GPT-2 train bench
      (benchmarks/train_bench.py) on the port: gpt2-small at full width and
      depth (seeded weights, both dropouts 0.1) -> amp.decorate(O2,
@@ -50,7 +50,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
  11. the fused dropout-residual(+LN) kernels' device times at path B's
      shape (N=8192, Hd=768, bfloat16) and path A's (N=4096, Hd=768,
      float32), beside their bounds, their plain versions and the composed
-     PyTorch route the flag replaces;
+     PyTorch route the flag replaces, and the backward's grid and the
+     bytes of its partial rows;
  12. path B: phase 9 with FLAGS_use_fused_dropout_ln and FLAGS_fused_block
      on (12 / 12 / 24 launches of the fused forward, no-LN forward and
      backward a step), its step beside phase 9's; then phase 10 with the
@@ -81,7 +82,8 @@ import numpy as np
 TOL = {
     # float32 sums over up to 512 keys in another order
     "float32": 1e-4,
-    # one bfloat16 rounding of outputs of magnitude up to ~3
+    # one bfloat16 rounding of outputs of magnitude up to ~3 (one ulp at
+    # |o| in [2, 4) is 0.0156; at |o| >= 4 it is 0.031, which fails)
     "bfloat16": 2e-2,
 }
 # greedy tokens may first differ only where the plain run's top-2 logit
@@ -102,8 +104,11 @@ REL_TOL = {
     # under one bfloat16 ulp of the largest value (2^-8 to 2^-7 of it)
     # shows as at most that one ulp, which this passes and two fail. The
     # tensor-core flash backward keeps its difference far below that by
-    # taking M o p (P without dropout) and dS as bfloat16 hi + lo pairs
-    # (tests/test_torch_flash_bwd.py mirrors its rounding on the CPU)
+    # taking M o p (P without dropout) and dS as bfloat16 hi + lo pairs;
+    # the tensor-core forward rounds P once to bfloat16 for P V, about
+    # 1e-3 of the largest output, under a quarter of this (the CPU mirrors
+    # tests/test_torch_flash_bwd.py and test_torch_flash_fwd.py; the
+    # latter also holds check_flash's bfloat16 cases to TOL)
     "bfloat16": 1e-2,
 }
 # AdamW: the kernel rounds every operation on its own, as the plain rule
@@ -646,31 +651,40 @@ def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
     return out
 
 
+def fwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
+    """Device time of the training flash forward (row 1t: lse and
+    in-kernel dropout) at B x 12 heads x T x 64, bfloat16, beside its plain
+    version, its bound and PyTorch's sdpa forward on the same inputs."""
+    H, D = 12, 64
+    q, k, v = qkv_views(torch, B, T, H, D, torch.bfloat16, gen)
+    bits = ck.attn_dropout_bits(SEED, OFFSET, B * H, T, T) if p else None
+    bhtd, bht = B * H * T * D * 2, B * H * T * 4
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    # reads q, k, v; writes o, lse; 2 products of 2 D flops a live pair
+    b, by = bound_ms(4 * bhtd + bht, 4 * D * pairs, "bfloat16")
+    t = {"ms": timer.ms(lambda: ck.flash_fwd_train(q, k, v, causal, p, SEED,
+                                                   OFFSET)),
+         "plain_ms": timer.ms(lambda: ck.flash_fwd_train_plain(
+             q, k, v, causal, p, bits)),
+         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+             q, k, v, is_causal=causal, dropout_p=p)),
+         "bound_ms": b, "bound_by": by}
+    say("time flash_fwd_train B=%d H=%d T=%d D=%d bf16 %s p=%g: %.4f ms, "
+        "plain %.4f ms, torch sdpa fwd %.4f ms, bound %.4f ms (%s)"
+        % (B, H, T, D, "causal" if causal else "not causal", p, t["ms"],
+           t["plain_ms"], t["library_ms"], t["bound_ms"], t["bound_by"]))
+    return t
+
+
 def train_timings(torch, ck, F, timer, gen):
     """Device times of the training kernels at the main path's shapes; the
-    flash backward also at GPT-2's shape without dropout (the Philox share)
+    flash kernels also at GPT-2's shape without dropout (the Philox share)
     and at ERNIE's attention shape (path A)."""
-    B, H, T, D = TRAIN_B, 12, TRAIN_T, 64
-    dt = torch.bfloat16
-    q, k, v = qkv_views(torch, B, T, H, D, dt, gen)
-    bits = ck.attn_dropout_bits(SEED, OFFSET, B * H, T, T)
-    bhtd, bht = B * H * T * D * 2, B * H * T * 4
-    pairs = B * H * (T * (T + 1) // 2)          # live (row, key) pairs
-    args = (q, k, v, True, DROPOUT, SEED, OFFSET)
-    out = {}
-    b, by = bound_ms(4 * bhtd + bht, 4 * D * pairs, "bfloat16")
-    out["flash_fwd_train"] = {
-        "ms": timer.ms(lambda: ck.flash_fwd_train(*args)),
-        "plain_ms": timer.ms(lambda: ck.flash_fwd_train_plain(
-            q, k, v, True, DROPOUT, bits)),
-        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, dropout_p=DROPOUT)),
-        "bound_ms": b, "bound_by": by}
-    t = out["flash_fwd_train"]
-    say("time flash_fwd_train B=%d H=%d T=%d D=%d bf16 causal p=%g: %.4f "
-        "ms, plain %.4f ms, torch sdpa fwd %.4f ms, bound %.4f ms (%s)"
-        % (B, H, T, D, DROPOUT, t["ms"], t["plain_ms"], t["library_ms"],
-           t["bound_ms"], t["bound_by"]))
+    B, T = TRAIN_B, TRAIN_T
+    out = {"flash_fwd_train": fwd_timings(torch, ck, F, timer, gen, B, T,
+                                          True, DROPOUT)}
+    fwd_timings(torch, ck, F, timer, gen, B, T, True, 0.0)
+    fwd_timings(torch, ck, F, timer, gen, ERNIE_B, ERNIE_T, False, DROPOUT)
     out.update(bwd_timings(torch, ck, F, timer, gen, B, T, True, DROPOUT))
     bwd_timings(torch, ck, F, timer, gen, B, T, True, 0.0)
     bwd_timings(torch, ck, F, timer, gen, ERNIE_B, ERNIE_T, False, DROPOUT)
@@ -725,8 +739,7 @@ def token_stream(io, vocab, T):
 
 
 # kernel-name patterns of the training step's profile groups, first match
-PROFILE_GROUPS = (("flash kernels (port)", ("flash_fwd_kernel",
-                                            "flash_bwd_")),
+PROFILE_GROUPS = (("flash kernels (port)", ("flash_fwd_", "flash_bwd_")),
                   ("fused dropout-LN (port)", ("fdrln_",)),
                   ("adamw (port)", ("adamw_kernel",)),
                   ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "cublas")),
@@ -1011,12 +1024,25 @@ def fdrln_scale(p, mode):
 def check_fused(torch, ck, flags, gen):
     """Rows 4-6 against their plain versions fed the kernels' own bits:
     float32, bfloat16 and mixed x/residual types, Hd 64, 768 and 1000,
-    p 0, 0.1 and 1, both modes; the keep decisions bit-equal; the gates
-    raising on inputs the kernels do not take."""
+    p 0, 0.1 and 1, both modes; row 6 also at path B's shape; the keep
+    decisions bit-equal; the gates raising on inputs the kernels do not
+    take."""
     names = ("fused_dropout_ln_fwd", "fused_dropout_residual_fwd",
              "fused_dropout_ln_bwd")
     worst = {n: 0.0 for n in names}             # relative, for the checks
     worst_abs = {n: 0.0 for n in names}         # absolute, for the table
+
+    def hold(what, name, pairs, tol):
+        torch.cuda.synchronize()
+        for a, b in pairs:
+            require(a.dtype == b.dtype and a.shape == b.shape
+                    and bool(torch.isfinite(a.float()).all()),
+                    what + ": type, shape or non-finite")
+        ea, er = (max(v) for v in zip(*(abs_rel_err(a, b) for a, b in pairs)))
+        require(er <= tol, what + ": rel err %.3g > %.3g" % (er, tol))
+        worst[name] = max(worst[name], er)
+        worst_abs[name] = max(worst_abs[name], ea)
+
     types = (("float32", torch.float32, torch.float32),
              ("bfloat16", torch.bfloat16, torch.bfloat16),
              ("mixed", torch.bfloat16, torch.float32),
@@ -1071,19 +1097,8 @@ def check_fused(torch, ck, flags, gen):
                             require(torch.equal(got[0] != 0, nz),
                                     (what % "fused_dropout_ln_bwd")
                                     + ": keep mask differs from the bits")
-                    torch.cuda.synchronize()
                     for name, pairs in outs.items():
-                        for a, b in pairs:
-                            require(a.dtype == b.dtype and a.shape == b.shape
-                                    and bool(torch.isfinite(a.float()).all()),
-                                    (what % name) + ": type, shape or "
-                                    "non-finite")
-                        ea, er = (max(v) for v in zip(*(abs_rel_err(a, b)
-                                                        for a, b in pairs)))
-                        require(er <= tol, (what % name) + ": rel err %.3g > "
-                                "%.3g" % (er, tol))
-                        worst[name] = max(worst[name], er)
-                        worst_abs[name] = max(worst_abs[name], ea)
+                        hold(what % name, name, pairs, tol)
                     n += 1
         # the forward's keep decisions: ones + 0 residual is 0 where dropped
         ones, zeros = (torch.ones((N, Hd), device="cuda"),
@@ -1094,12 +1109,39 @@ def check_fused(torch, ck, flags, gen):
             require(torch.equal(z1 != 0, bits >= int(p * 2 ** 32)),
                     "fused_dropout_residual_fwd: keep mask differs from the "
                     "bits at p=%g" % p)
+    # the backward at path B's shape, the only one of these where a warp
+    # takes two 4-row groups (2048 groups on a grid of one CTA of 8 warps
+    # an SM): its column sums run across groups, and it loads the next
+    # group's first row ahead. With LN and dz_extra, and without LN, as
+    # the main path calls it; also without LN with dz_extra, and float32.
+    N, Hd, s = 8192, 768, fdrln_scale(DROPOUT, "upscale_in_train")
+    bits = ck.fused_dropout_bits(SEED, OFFSET, N, Hd)
+    nb = 0
+    for dt in (torch.bfloat16, torch.float32):
+        tol = FDRLN_F32_REL_TOL if dt == torch.float32 else FDRLN_BF16_REL_TOL
+        z, dy, dz = (torch.randn((N, Hd), generator=gen, device="cuda").to(dt)
+                     for _ in range(3))
+        gamma = (torch.randn(Hd, generator=gen, device="cuda") * 0.1
+                 + 1.0).to(dt)
+        for g, dzx in ((gamma, dz), (None, None), (None, dz)):
+            got = ck.fused_dropout_ln_bwd(z, dy, dzx, g, DROPOUT, s, 1e-5,
+                                          SEED, OFFSET)
+            want = ck.fused_dropout_ln_bwd_plain(z, dy, dzx, g, DROPOUT, s,
+                                                 1e-5, bits=bits)
+            hold("fused_dropout_ln_bwd %s N=%d Hd=%d p=%g LN=%s dz_extra=%s"
+                 % (dt, N, Hd, DROPOUT, g is not None, dzx is not None),
+                 "fused_dropout_ln_bwd",
+                 [(a, b) for a, b in zip(got, want) if b is not None], tol)
+            nb += 1
     for name in names:
         say("check %s: max rel err %.3g (tol f32 %.0e, bf16 %.0e, by the "
             "output's type), max abs err %.3g, over %d cases (f32, bf16, "
-            "mixed; Hd 64, 768, 1000; p 0, %g, 1; both modes)"
+            "mixed; Hd 64, 768, 1000; p 0, %g, 1; both modes)%s"
             % (name, worst[name], FDRLN_F32_REL_TOL, FDRLN_BF16_REL_TOL,
-               worst_abs[name], n, DROPOUT))
+               worst_abs[name], n, DROPOUT,
+               " and %d at path B's N=8192, Hd=768, p=%g (bf16, f32; with "
+               "LN and dz_extra, without LN with and without dz_extra)"
+               % (nb, DROPOUT) if name == "fused_dropout_ln_bwd" else ""))
     # the drop rate and the gates
     bits = ck.fused_dropout_bits(SEED, OFFSET, 8192, 768)
     rate = (bits < int(DROPOUT * 2 ** 32)).double().mean().item()
@@ -1221,6 +1263,17 @@ def time_fused(torch, ck, timer, gen, N, Hd, dtype, dz_extra, label):
                t["bound_by"]))
     say("time fused_dropout_ln_bwd without LN %s N=%d Hd=%d: %.4f ms, bound "
         "%.4f ms (bytes)" % (label, N, Hd, noln["ms"], noln["bound_ms"]))
+    # the backward's partial rows (one float32 row per column sum and CTA,
+    # written by the kernel and read by its column-sum kernel), which the
+    # bound above does not count
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = ck._fdrln_bwd_grid(N, "cuda")
+    for what, nacc in (("with LN", 3), ("without LN", 1)):
+        say("fused_dropout_ln_bwd %s %s N=%d Hd=%d: grid %d CTAs on %d SMs, "
+            "partial rows %d x %d x %d float32 = %d bytes written, then read "
+            "by the column-sum kernel"
+            % (what, label, N, Hd, grid, sms, grid, nacc, Hd,
+               4 * grid * nacc * Hd))
     return out
 
 

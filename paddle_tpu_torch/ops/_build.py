@@ -72,9 +72,9 @@ _SIGNATURES = {
         # scale, eps, seed, offset, stream
         "fused_dropout_ln_fwd": [_P] * 7 + [_I] * 5 + [_U, _F, _F, _U64, _U,
                                                       _P],
-        # z, dy, dz_extra, gamma, dx, dres, part, n, h, grid, dtypes,
+        # z, dy, dz_extra, gamma, dx, dres, part, sums, n, h, grid, dtypes,
         # with_ln, on, thr, scale, eps, seed, offset, stream
-        "fused_dropout_ln_bwd": [_P] * 7 + [_I] * 6 + [_U, _F, _F, _U64, _U,
+        "fused_dropout_ln_bwd": [_P] * 8 + [_I] * 6 + [_U, _F, _F, _U64, _U,
                                                       _P],
         # out, seed, offset, n, h, stream
         "fused_dropout_bits": [_P, _U64, _U, _I, _I, _P],

@@ -25,7 +25,13 @@
 // unit head_dim stride.
 //
 // bfloat16 route (namespace tc): FlashAttention-2's backward in its two
-// passes, on mma.sync.m16n8k16 bf16 x bf16 -> f32.
+// passes, on mma.sync.m16n8k16 bf16 x bf16 -> f32. Its building blocks
+// (cp.async, ldmatrix, mma, the hi + lo split, the accumulator-to-A-
+// fragment repacking, tile loads and pair stores, the Philox stage) live
+// in tc_mma.cuh, which the forward's tensor-core kernel (flash_fwd.cu)
+// includes too; moving them there left this file's kernels the same
+// machine code, instruction for instruction (cuobjdump -sass of the old
+// and the new source's cubins, kernel by kernel).
 //   * Tiles. A CTA is 4 warps and holds 64 resident rows in shared memory
 //     (Q and dO in dq, K and V in dk/dv), loaded once; a warp owns 16 of
 //     them. The streamed tiles (64 keys of K/V in dq, 32 past D = 64; 32
@@ -96,6 +102,7 @@
 #include <math.h>
 
 #include "attn_dropout.cuh"
+#include "tc_mma.cuh"
 
 namespace {
 
@@ -499,15 +506,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
 
 
 // ---------------------------------------------------------------------------
-// bfloat16 route: tensor cores (see the note at the top)
+// bfloat16 route: tensor cores (see the note at the top). The kernels live
+// in namespace tc beside the building blocks of tc_mma.cuh.
+
+}  // namespace
 
 namespace tc {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 128;          // 4 warps
-constexpr int kRes = 64;               // resident rows a CTA, 16 a warp
-constexpr float kLog2e = 1.4426950408889634f;
 
 // A tile configuration: DP, the head dim rounded up to 32 (the k extent
 // of S and the n extent of the outputs; columns D..DP are zeros in shared
@@ -535,135 +539,6 @@ template <int DP>
 struct DkvBlocks {              // past D = 64 dk/dv takes ~250 registers
   static constexpr int value = DP <= 64 ? 3 : 1;
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 (or 4) bytes global -> shared without a register; zeros if !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// all but the newest group have landed (this thread's copies)
-__device__ __forceinline__ void cp_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a b: a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
-      "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 as one bf16 pair register, lo in the low half
-__device__ __forceinline__ unsigned pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// x, y as a bf16 pair hi and the pair lo of what hi leaves out (x - hi
-// is exact in f32): hi + lo holds x to 2^-17 relative, where hi alone
-// holds it to 2^-9
-__device__ __forceinline__ void split(unsigned& hi, unsigned& lo, float x,
-                                      float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack(x - f.x, y - f.y);
-}
-
-// The A fragment (16 x k16) made of the accumulators of n8 tiles j, j+1,
-// as hi and lo fragments: a0/a1 are rows g / g+8 of tile j, a2/a3 the
-// same of tile j+1.
-__device__ __forceinline__ void a_from_acc(unsigned (&hi)[4],
-                                           unsigned (&lo)[4],
-                                           const float (&c0)[4],
-                                           const float (&c1)[4]) {
-  split(hi[0], lo[0], c0[0], c0[1]);
-  split(hi[1], lo[1], c0[2], c0[3]);
-  split(hi[2], lo[2], c1[0], c1[1]);
-  split(hi[3], lo[3], c1[2], c1[3]);
-}
-
-// Rows [row0, row0 + R) of a [T, D] head slice (time stride ts) into
-// shared rows of LD elements, columns [0, DP); rows >= T and columns >= D
-// become zeros. vec: 16-byte cp.async (D % 8 == 0, rows 16-byte aligned);
-// otherwise element loads, which land before the next __syncthreads.
-template <int R, int DP>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                          long long ts, int row0, int T,
-                                          int D, bool vec) {
-  constexpr int LD = DP + 8, CH = DP / 8;
-  if (vec) {
-#pragma unroll
-    for (int j = 0; j < (R * CH + kThreads - 1) / kThreads; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int r = i / CH, c = i - r * CH, row = row0 + r;
-      const bool ok = row < T && c * 8 < D;
-      if (i < R * CH)
-        cp_async16(s + r * LD + c * 8, ok ? g + row * ts + c * 8 : g, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * DP; i += kThreads) {
-      const int r = i / DP, d = i - r * DP, row = row0 + r;
-      s[r * LD + d] = (row < T && d < D) ? g[row * ts + d]
-                                         : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// rows [row0, row0 + n) of a float [T] vector; zeros past T
-__device__ __forceinline__ void load_vec(float* s, const float* g, int row0,
-                                         int T, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const bool ok = row0 + i < T;
-    cp_async4(s + i, ok ? g + row0 + i : g, ok);
-  }
-}
-
-// A thread's accumulator pair (cols d, d+1 of one row) to a [T, D] output
-__device__ __forceinline__ void store_pair(bf16* p, float x, float y, int d,
-                                           int D, bool vec) {
-  if (vec) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-  } else {
-    if (d < D) p[0] = __float2bfloat16(x);
-    if (d + 1 < D) p[1] = __float2bfloat16(y);
-  }
-}
 
 template <typename C>
 constexpr size_t smem_bytes() {
@@ -818,10 +693,8 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < NT; ++j) {
       if (DROP) {
         // lane: rows 4 (lane / 8) .. +3 of the warp, key 8 j + lane % 8
-        wbits[lane] = attn_dropout::bits4(seed, offset, bh,
-                                          (r0 >> 2) + (lane >> 3),
-                                          k0 + 8 * j + (lane & 7));
-        __syncwarp();
+        stage_bits(wbits, lane, seed, offset, bh, (r0 >> 2) + (lane >> 3),
+                   k0 + 8 * j + (lane & 7));
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -833,8 +706,8 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         float dpv = dp[j][e];
         if (DROP) {
-          const unsigned w = reinterpret_cast<const unsigned*>(
-              wbits + ((rr >> 2) << 3) + kc)[rr & 3];
+          const unsigned w = staged_word(wbits, ((rr >> 2) << 3) + kc,
+                                         rr & 3);
           dpv = w >= drop_thr ? dpv * drop_scale : 0.f;
         }
         s[j][e] = p * (dpv - dlt[e >> 1]) * sm_scale;
@@ -988,10 +861,8 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < NT; ++j) {
       if (DROP) {
         // lane: key lane % 16 of the warp, rows 8 j + 4 (lane / 16) .. +3
-        wbits[lane] = attn_dropout::bits4(seed, offset, bh,
-                                          ((i0 + 8 * j) >> 2) + (lane >> 4),
-                                          kw + (lane & 15));
-        __syncwarp();
+        stage_bits(wbits, lane, seed, offset, bh,
+                   ((i0 + 8 * j) >> 2) + (lane >> 4), kw + (lane & 15));
       }
       const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
       const float2 d2 =
@@ -1009,8 +880,8 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         float pd = p, dpv = dp[j][e];
         if (DROP) {
-          const unsigned w = reinterpret_cast<const unsigned*>(
-              wbits + ((t >> 1) << 4) + kr)[2 * (t & 1) + (e & 1)];
+          const unsigned w = staged_word(wbits, ((t >> 1) << 4) + kr,
+                                         2 * (t & 1) + (e & 1));
           const bool keep = w >= drop_thr;
           pd = keep ? p * drop_scale : 0.f;
           dpv = keep ? dpv * drop_scale : 0.f;
@@ -1069,6 +940,8 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 }  // namespace tc
+
+namespace {
 
 // Above 48 KB a block's dynamic shared memory needs an opt-in per kernel.
 template <typename K>

@@ -18,7 +18,7 @@
 //             type.
 // All arithmetic is float32; each of x, residual, bias, gamma, beta (and
 // z, dy, dz_extra, gamma) is float32 or bfloat16 on its own (bit i of
-// `dtypes`). Hd <= 8192 (the backward's shared memory; the wrapper
+// `dtypes`). Hd <= 8192 (the forward's shared memory; the wrapper
 // refuses more). IEEE division and square root (no --use_fast_math), so
 // rstd is 1 / sqrtf, not the approximate rsqrtf.
 //
@@ -32,27 +32,45 @@
 // no attention call draws the same counter.
 //
 // The reference leaves dbias, dgamma and dbeta to XLA column reductions
-// outside the kernel (:924-933). Here the backward folds them in: each CTA
-// walks a strided set of 4-row groups, sums dx (as stored), dy * x^ and dy
-// per column in shared memory, and writes one float32 partial row per
-// column sum; the wrapper adds the grid's partial rows (a few hundred).
+// outside the kernel (:924-933). Here the backward folds them in: each
+// lane keeps the sums of dx (as stored), dy * x^ and dy of its columns in
+// registers across its warp's groups, the CTA's warps add theirs in shared
+// memory at its end, and the CTA writes one float32 partial row per sum
+// (132 on an H100); a second, small kernel of the same call adds
+// the partial rows in CTA order and stores the sums in z's type.
 //
-// Design: one CTA of 256 threads per group of 4 rows (the forward) or per
-// strided set of groups (the backward). A thread owns columns tid,
-// tid + 256, ... of all 4 rows, so one Philox call per column gives the
-// bits of the group's 4 rows. The row sums go through warp shuffles and
-// one shared-memory step (4 rows at once). With LN the rows' float32 z
-// (forward) or z then x^ (backward) sit in shared memory between passes;
-// the backward reads dy twice (the second time from L2).
+// Forward design: one CTA of 256 threads per group of 4 rows. A thread
+// owns columns tid, tid + 256, ... of all 4 rows, so one Philox call per
+// column gives the bits of the group's 4 rows. The row sums go through
+// warp shuffles and one shared-memory step (4 rows at once). With LN the
+// rows' float32 z sit in shared memory between passes.
+//
+// Backward design: a warp per 4-row group, 8 warps a CTA, one CTA an SM
+// (the launch bounds; the wrapper sizes the grid to match), the groups
+// dealt to the CTAs in turn and within a CTA to its warps. The element types are template parameters. A lane takes 8
+// columns at once, one 16-byte access of bfloat16 or two of float32,
+// where Hd % 8 == 0 and the rows are 16-byte aligned, else single
+// elements in the same kernel. One Philox call per column gives the
+// group's 4 rows' bits, packed to a keep bit each at the group's start.
+// Each row's 768 block columns of z, dy and dz_extra are loaded into
+// registers once (bfloat16 stays packed), a row ahead of the row being
+// reduced, and every pass of the row reads them there: no value is read
+// twice from memory and nothing is staged in shared memory. Row sums are
+// warp shuffles only, no __syncthreads within a group. Past Hd = 768 the
+// grid gains column blocks of 768, each adding the columns outside its
+// block to the rows' sums from global memory and writing its own columns.
 //
 // What bounds it on the H100: bytes. At the GPT-2 shapes (N = 8192 rows,
 // Hd = 768, bfloat16) the forward with LN reads x and the residual and
 // writes y and z (4 x 12.6 MB), without LN one output fewer, and the
-// backward reads z, dy and dz_extra and writes dx and dres (5 x 12.6 MB);
-// about 20 flops per element against the card's ~300 per byte. What the
-// design does about it: one pass over device memory per call, the mask
-// never stored, the LN statistics recomputed from z rather than saved;
-// vector loads and a warp per row are later work.
+// backward reads z, dy and dz_extra and writes dx and dres (5 x 12.6 MB).
+// The backward's instructions come near that: by count ~36 an element
+// and lane plus one Philox call (~120) per 4 elements, ~14 us at the
+// card's peak issue rate against the bytes' ~19 us. What the design does
+// about it: one pass over
+// device memory per call, the mask never stored, the LN statistics
+// recomputed from z rather than saved, registers in place of re-reads;
+// the forward's vector loads and a warp per row are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -84,11 +102,6 @@ __device__ __forceinline__ void st(void* p, int bf, size_t i, float v) {
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
   else
     static_cast<float*>(p)[i] = v;
-}
-
-// v as stored in the type (bf: bfloat16), widened back
-__device__ __forceinline__ float stored(int bf, float v) {
-  return bf ? __bfloat162float(__float2bfloat16(v)) : v;
 }
 
 __device__ __forceinline__ uint4 bits4(const Drop& d, int group, int col) {
@@ -188,106 +201,419 @@ fdrln_fwd_kernel(const void* __restrict__ x, const void* __restrict__ res,
   }
 }
 
-template <bool LN>
-__global__ void __launch_bounds__(kThreads)
-fdrln_bwd_kernel(const void* __restrict__ z, const void* __restrict__ dy,
-                 const void* __restrict__ dzx,
-                 const void* __restrict__ gamma, void* __restrict__ dx,
-                 void* __restrict__ dres, float* __restrict__ part, int n,
-                 int h, int dt, Drop d, float eps) {
-  extern __shared__ float sm[];
-  float* xs = sm;                            // LN: kRows * h, z then x^
-  float* acc = sm + (LN ? kRows * h : 0);    // per column: dbias, dgamma, dbeta
-  __shared__ float red[kRows * 32];
+// ---------------------------------------------------------------------------
+// Backward: a warp per 4-row group, 16-byte accesses, dtypes as template
+// parameters (TZ: z, dx and dres; TY: dy; TE: dz_extra; TG: gamma).
+
+// 8 warps: with LN a thread takes up to ~220 registers (its 72 column
+// sums, two rows of packed values), so one CTA an SM (the launch bounds,
+// and the wrapper's _FDRLN_BWD_CTAS_PER_SM); 12 or 16 warps capped the
+// registers and spilled, and ran slower on the H100
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kChunk = 8;                // columns a lane takes at once
+constexpr int kLaneChunks = 3;           // chunks a lane keeps sums for
+// the columns whose sums a CTA keeps (in its lanes' registers): 768, so at
+// Hd <= 768 one column block holds the whole row
+constexpr int kColBlock = 32 * kChunk * kLaneChunks;
+
+// 8 values from p: one 16-byte load (bfloat16) or two (float32) when vec,
+// else the first n by element, zeros after
+__device__ __forceinline__ void load8(const float* p, float (&v)[kChunk],
+                                      bool vec, int n) {
+  if (vec) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) v[e] = e < n ? p[e] : 0.f;
+  }
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&v)[kChunk], bool vec, int n) {
+  if (vec) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h2[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      v[e] = e < n ? __bfloat162float(p[e]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[kChunk],
+                                       bool vec, int n) {
+  if (vec) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      if (e < n) p[e] = v[e];
+  }
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p,
+                                       const float (&v)[kChunk], bool vec,
+                                       int n) {
+  if (vec) {
+    uint4 u;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      h2[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      if (e < n) p[e] = __float2bfloat16(v[e]);
+  }
+}
+
+// 8 values of a row as loaded, in their own type (bfloat16 stays packed:
+// 4 registers, widened where it is read)
+template <typename T>
+struct Chunk;
+template <>
+struct Chunk<float> {
+  float v[kChunk];
+  __device__ __forceinline__ void load(const float* p, bool vec, int n) {
+    load8(p, v, vec, n);
+  }
+  __device__ __forceinline__ float operator[](int e) const { return v[e]; }
+};
+template <>
+struct Chunk<__nv_bfloat16> {
+  __nv_bfloat162 v[kChunk / 2];
+  __device__ __forceinline__ void load(const __nv_bfloat16* p, bool vec,
+                                       int n) {
+    if (vec) {
+      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kChunk; e += 2)
+        v[e / 2] = __halves2bfloat162(
+            e < n ? p[e] : __float2bfloat16(0.f),
+            e + 1 < n ? p[e + 1] : __float2bfloat16(0.f));
+    }
+  }
+  __device__ __forceinline__ float operator[](int e) const {
+    return e & 1 ? __high2float(v[e / 2]) : __low2float(v[e / 2]);
+  }
+};
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// v as stored in T, widened back
+__device__ __forceinline__ float as_stored(float v, const float*) {
+  return v;
+}
+__device__ __forceinline__ float as_stored(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Warp w of CTA b takes groups b + grid (w + 8 i), so every CTA gets its
+// share of the groups when they are few. Lane l takes columns
+// cb0 + 256 c + 8 l .. +7 of the CTA's column block (blockIdx.y, 768
+// columns), and keeps their column sums (dx as stored, dy x^, dy) in
+// registers across its groups. A group starts with its keep bits (one
+// Philox call per column, 4 rows' bits, packed to a bit each); then row
+// after row, the row's block columns of z, dy and dz_extra are loaded
+// into registers once (a row ahead, all their loads in flight), and every
+// pass of the row (mean, variance, the sums of a and a x^, then dz, dres
+// and dx) reads them there. Past Hd = 768 the columns
+// outside the block only add to the row's sums, read from global memory
+// in the same passes. At the end the CTA's warps add their column sums in
+// shared memory in a fixed order, and the CTA writes one float32 partial
+// row per sum.
+template <bool LN, typename TZ, typename TY, typename TE, typename TG>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+fdrln_bwd_kernel(const TZ* __restrict__ z, const TY* __restrict__ dy,
+                 const TE* __restrict__ dzx, const TG* __restrict__ gamma,
+                 TZ* __restrict__ dx, TZ* __restrict__ dres,
+                 float* __restrict__ part, int n, int h, int vec, Drop d,
+                 float eps) {
   constexpr int nacc = LN ? 3 : 1;
-  const int zb = dt & 1, yb = (dt >> 1) & 1, eb = (dt >> 2) & 1;
-  const int gb = (dt >> 3) & 1;
-  for (int c = threadIdx.x; c < h; c += kThreads)
-#pragma unroll
-    for (int k = 0; k < nacc; ++k) acc[k * h + c] = 0.f;
+  __shared__ float sums[nacc * kColBlock];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cb0 = blockIdx.y * kColBlock;
   const int groups = (n + kRows - 1) / kRows;
-  for (int group = blockIdx.x; group < groups; group += gridDim.x) {
+  // the lane's columns of the block: col0 + 256 c + e
+  const int col0 = cb0 + lane * kChunk;
+  auto ncols = [&](int c) { return min(kChunk, h - (col0 + c * 32 * kChunk)); };
+  float cdx[kLaneChunks][kChunk], cdyx[kLaneChunks][kChunk],
+      cdy[kLaneChunks][kChunk];
+#pragma unroll
+  for (int c = 0; c < kLaneChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) cdx[c][e] = cdyx[c][e] = cdy[c][e] = 0.f;
+
+  // the block columns of z, dy and dz_extra of one row, loaded one row
+  // ahead of the row being worked on (the next group's first row after a
+  // group's last), so a row's loads are in flight while the row before it
+  // is reduced and written
+  Chunk<TZ> zn[kLaneChunks];
+  Chunk<TY> yn[kLaneChunks];
+  Chunk<TE> en[kLaneChunks];
+  auto load_row = [&](int row) {
+    const size_t rb = (size_t)row * h;
+#pragma unroll
+    for (int c = 0; c < kLaneChunks; ++c) {
+      const int col = col0 + c * 32 * kChunk, nv = ncols(c);
+      if (nv <= 0) continue;
+      yn[c].load(dy + rb + col, vec, nv);
+      if (LN) zn[c].load(z + rb + col, vec, nv);
+      if (dzx) en[c].load(dzx + rb + col, vec, nv);
+    }
+  };
+  const int gstride = gridDim.x * kBwdWarps;
+  if (blockIdx.x + gridDim.x * warp < groups)
+    load_row((blockIdx.x + gridDim.x * warp) * kRows);
+
+  for (int group = blockIdx.x + gridDim.x * warp; group < groups;
+       group += gstride) {
     const int row0 = group * kRows, rows = min(kRows, n - row0);
-    float rstd[kRows], ma[kRows], max_[kRows];
-    if (LN) {
-      float s[kRows] = {0.f, 0.f, 0.f, 0.f};
-      for (int c = threadIdx.x; c < h; c += kThreads) {
+    // bit 4 e + r of keep[c]: row r of column col0 + 256 c + e is kept
+    unsigned keep[kLaneChunks];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float zv =
-              r < rows ? ld(z, zb, (size_t)(row0 + r) * h + c) : 0.f;
-          xs[r * h + c] = zv;
-          s[r] += zv;
+    for (int c = 0; c < kLaneChunks; ++c) {
+      keep[c] = 0xFFFFFFFFu;
+      const int col = col0 + c * 32 * kChunk;
+      if (d.on && col < h) {
+        keep[c] = 0u;
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) {
+          const uint4 w = bits4(d, group, col + e);
+          keep[c] |= ((unsigned)(w.x >= d.thr) |
+                      (unsigned)(w.y >= d.thr) << 1 |
+                      (unsigned)(w.z >= d.thr) << 2 |
+                      (unsigned)(w.w >= d.thr) << 3) << (4 * e);
         }
-      }
-      block_sum4(s, red);
-      float mean[kRows], v[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        mean[r] = s[r] / (float)h;
-        v[r] = 0.f;
-      }
-      for (int c = threadIdx.x; c < h; c += kThreads) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float dd = xs[r * h + c] - mean[r];
-          v[r] += dd * dd;
-        }
-      }
-      block_sum4(v, red);
-      float sa[kRows], sax[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        rstd[r] = 1.0f / sqrtf(v[r] / (float)h + eps);
-        sa[r] = sax[r] = 0.f;
-      }
-      for (int c = threadIdx.x; c < h; c += kThreads) {
-        const float g = ld(gamma, gb, c);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (r >= rows) break;
-          const float xh = (xs[r * h + c] - mean[r]) * rstd[r];
-          xs[r * h + c] = xh;
-          const float dyv = ld(dy, yb, (size_t)(row0 + r) * h + c);
-          const float a = dyv * g;
-          sa[r] += a;
-          sax[r] += a * xh;
-          acc[h + c] += dyv * xh;
-          acc[2 * h + c] += dyv;
-        }
-      }
-      block_sum4(sa, red);
-      block_sum4(sax, red);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        ma[r] = sa[r] / (float)h;
-        max_[r] = sax[r] / (float)h;
       }
     }
-    for (int c = threadIdx.x; c < h; c += kThreads) {
-      uint4 w = make_uint4(0, 0, 0, 0);
-      if (d.on) w = bits4(d, group, c);
-      const float g = LN ? ld(gamma, gb, c) : 0.f;
+#pragma unroll 1
+    for (int r = 0; r < rows; ++r) {
+      const size_t rb = (size_t)(row0 + r) * h;
+      Chunk<TZ> zc[kLaneChunks];
+      Chunk<TY> yc[kLaneChunks];
+      Chunk<TE> ec[kLaneChunks];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r >= rows) break;
-        const size_t i = (size_t)(row0 + r) * h + c;
-        float dz = ld(dy, yb, i);
-        if (LN)
-          dz = rstd[r] * (dz * g - ma[r] - xs[r * h + c] * max_[r]);
-        if (dzx) dz += ld(dzx, eb, i);
-        st(dres, zb, i, dz);
-        float dxv = dz;
-        if (d.on) dxv = attn_dropout::word(w, r) >= d.thr ? dz * d.scale : 0.f;
-        st(dx, zb, i, dxv);
-        acc[c] += stored(zb, dxv);
+      for (int c = 0; c < kLaneChunks; ++c) {
+        zc[c] = zn[c];
+        yc[c] = yn[c];
+        ec[c] = en[c];
+      }
+      if (r + 1 < rows)
+        load_row(row0 + r + 1);
+      else if (group + gstride < groups)
+        load_row((group + gstride) * kRows);
+      float mean = 0.f, rstd = 0.f, ma = 0.f, mxa = 0.f;
+      if (LN) {
+        // the row's columns outside the block: 256 a lane-chunk step
+        auto others = [&](auto&& fn) {
+          for (int base = 0; base < h; base += kColBlock) {
+            if (base == cb0) continue;
+            for (int c = 0; c < kLaneChunks; ++c) {
+              const int col = base + c * 32 * kChunk + lane * kChunk;
+              const int nv = min(kChunk, h - col);
+              if (nv > 0) fn(col, nv);
+            }
+          }
+        };
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < kLaneChunks; ++c) {
+          if (ncols(c) <= 0) continue;
+#pragma unroll
+          for (int e = 0; e < kChunk; ++e) s += zc[c][e];   // 0 past h
+        }
+        others([&](int col, int nv) {
+          float zv[kChunk];
+          load8(z + rb + col, zv, vec, nv);
+#pragma unroll
+          for (int e = 0; e < kChunk; ++e) s += zv[e];
+        });
+        mean = warp_sum(s) / (float)h;
+        float v = 0.f;
+#pragma unroll
+        for (int c = 0; c < kLaneChunks; ++c) {
+          const int nv = ncols(c);
+#pragma unroll
+          for (int e = 0; e < kChunk; ++e) {
+            const float dd = e < nv ? zc[c][e] - mean : 0.f;
+            v += dd * dd;
+          }
+        }
+        others([&](int col, int nv) {
+          float zv[kChunk];
+          load8(z + rb + col, zv, vec, nv);
+#pragma unroll
+          for (int e = 0; e < kChunk; ++e) {
+            const float dd = e < nv ? zv[e] - mean : 0.f;
+            v += dd * dd;
+          }
+        });
+        rstd = 1.0f / sqrtf(warp_sum(v) / (float)h + eps);
+        float sa = 0.f, sax = 0.f;
+#pragma unroll
+        for (int c = 0; c < kLaneChunks; ++c) {
+          const int nv = ncols(c);
+          if (nv <= 0) continue;
+          float g[kChunk];
+          load8(gamma + col0 + c * 32 * kChunk, g, false, nv);
+#pragma unroll
+          for (int e = 0; e < kChunk; ++e) {
+            // columns past h hold dy = 0 and add nothing
+            const float xh = (zc[c][e] - mean) * rstd;
+            const float a = yc[c][e] * g[e];
+            sa += a;
+            sax += a * xh;
+            cdyx[c][e] += yc[c][e] * xh;
+            cdy[c][e] += yc[c][e];
+          }
+        }
+        others([&](int col, int nv) {
+          float zv[kChunk], yv[kChunk], g[kChunk];
+          load8(z + rb + col, zv, vec, nv);
+          load8(dy + rb + col, yv, vec, nv);
+          load8(gamma + col, g, false, nv);
+#pragma unroll
+          for (int e = 0; e < kChunk; ++e) {
+            const float xh = (zv[e] - mean) * rstd;
+            const float a = yv[e] * g[e];
+            sa += a;
+            sax += a * xh;
+          }
+        });
+        ma = warp_sum(sa) / (float)h;
+        mxa = warp_sum(sax) / (float)h;
+      }
+#pragma unroll
+      for (int c = 0; c < kLaneChunks; ++c) {
+        const int col = col0 + c * 32 * kChunk, nv = ncols(c);
+        if (nv <= 0) continue;
+        float g[kChunk], dz[kChunk], dxv[kChunk];
+        if (LN) load8(gamma + col, g, false, nv);
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) {
+          float v = yc[c][e];
+          if (LN) {
+            const float xh = (zc[c][e] - mean) * rstd;
+            v = rstd * (v * g[e] - ma - xh * mxa);
+          }
+          if (dzx) v += ec[c][e];
+          dz[e] = v;
+          dxv[e] = d.on ? ((keep[c] >> (4 * e + r)) & 1u ? v * d.scale : 0.f)
+                        : v;
+          // columns past h add 0 (dy = dz_extra = 0 there, dx = 0)
+          if (e < nv) cdx[c][e] += as_stored(dxv[e], dx);
+        }
+        store8(dres + rb + col, dz, vec, nv);
+        store8(dx + rb + col, dxv, vec, nv);
       }
     }
   }
-  for (int c = threadIdx.x; c < h; c += kThreads)
+
+  // the CTA's column sums: warp after warp, a fixed order
+  for (int w = 0; w < kBwdWarps; ++w) {
+    if (warp == w) {
 #pragma unroll
-    for (int k = 0; k < nacc; ++k)
-      part[((size_t)blockIdx.x * nacc + k) * h + c] = acc[k * h + c];
+      for (int c = 0; c < kLaneChunks; ++c)
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) {
+          const int cl = c * 32 * kChunk + lane * kChunk + e;
+          sums[cl] = (w ? sums[cl] : 0.f) + cdx[c][e];
+          if (LN) {
+            sums[kColBlock + cl] = (w ? sums[kColBlock + cl] : 0.f) +
+                                   cdyx[c][e];
+            sums[2 * kColBlock + cl] =
+                (w ? sums[2 * kColBlock + cl] : 0.f) + cdy[c][e];
+          }
+        }
+    }
+    __syncthreads();
+  }
+  for (int j = threadIdx.x; j < nacc * kColBlock; j += kBwdThreads) {
+    const int k = j / kColBlock, col = cb0 + j - k * kColBlock;
+    if (col < h) part[((size_t)blockIdx.x * nacc + k) * h + col] = sums[j];
+  }
+}
+
+// out[j] = the sum of part[b][j] over the grid's rows b, in row order,
+// stored in out's type: the backward's column sums
+template <typename T>
+__global__ void fdrln_colsum_kernel(const float* __restrict__ part,
+                              T* __restrict__ out, int rows, int m) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  float t = 0.f;
+  for (int b = 0; b < rows; ++b) t += part[(size_t)b * m + j];
+  store1(out + j, t);
+}
+
+// A block whose shared memory passes 48 KB in all (`dynamic` bytes beside
+// the kernel's static `fixed`) needs an opt-in per kernel.
+template <typename K>
+int set_smem(K kernel, size_t dynamic, size_t fixed) {
+  if (dynamic + fixed <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic);
+}
+
+struct BwdArgs {
+  const void *z, *dy, *dzx, *gamma;
+  void *dx, *dres;
+  float* part;
+  int n, h, grid, vec;
+  Drop d;
+  float eps;
+  cudaStream_t stream;
+};
+
+template <bool LN, typename TZ, typename TY, typename TE, typename TG>
+int launch_bwd(const BwdArgs& a) {
+  const dim3 grid(a.grid, (a.h + kColBlock - 1) / kColBlock);
+  fdrln_bwd_kernel<LN, TZ, TY, TE, TG><<<grid, kBwdThreads, 0, a.stream>>>(
+      static_cast<const TZ*>(a.z), static_cast<const TY*>(a.dy),
+      static_cast<const TE*>(a.dzx), static_cast<const TG*>(a.gamma),
+      static_cast<TZ*>(a.dx), static_cast<TZ*>(a.dres), a.part, a.n, a.h,
+      a.vec, a.d, a.eps);
+  return (int)cudaGetLastError();
+}
+// the element types from `dtypes` (bit 0 z, 1 dy, 2 dz_extra, 3 gamma set
+// for bfloat16); without LN gamma is unused and float
+typedef __nv_bfloat16 bf16;
+template <bool LN, typename TZ, typename TY, typename TE>
+int pick_g(const BwdArgs& a, int dt) {
+  if constexpr (LN) {
+    if ((dt >> 3) & 1) return launch_bwd<LN, TZ, TY, TE, bf16>(a);
+  }
+  return launch_bwd<LN, TZ, TY, TE, float>(a);
+}
+template <bool LN, typename TZ, typename TY>
+int pick_e(const BwdArgs& a, int dt) {
+  return (dt >> 2) & 1 ? pick_g<LN, TZ, TY, bf16>(a, dt)
+                       : pick_g<LN, TZ, TY, float>(a, dt);
+}
+template <bool LN, typename TZ>
+int pick_y(const BwdArgs& a, int dt) {
+  return (dt >> 1) & 1 ? pick_e<LN, TZ, bf16>(a, dt)
+                       : pick_e<LN, TZ, float>(a, dt);
+}
+int pick(const BwdArgs& a, int dt, int with_ln) {
+  if (with_ln)
+    return dt & 1 ? pick_y<true, bf16>(a, dt) : pick_y<true, float>(a, dt);
+  return dt & 1 ? pick_y<false, bf16>(a, dt) : pick_y<false, float>(a, dt);
 }
 
 __global__ void fdrln_bits_kernel(unsigned* __restrict__ out, Drop d, int n,
@@ -301,13 +627,6 @@ __global__ void fdrln_bits_kernel(unsigned* __restrict__ out, Drop d, int n,
     for (int r = 0; r < kRows && group * kRows + r < n; ++r)
       out[(size_t)(group * kRows + r) * h + c] = attn_dropout::word(w, r);
   }
-}
-
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace
@@ -329,7 +648,8 @@ extern "C" int fused_dropout_ln_fwd(const void* x, const void* res,
   const int groups = (n + kRows - 1) / kRows;
   if (with_ln) {
     const size_t smem = (size_t)kRows * h * sizeof(float);
-    const int err = set_smem(fdrln_fwd_kernel<true>, smem);
+    const int err =
+        set_smem(fdrln_fwd_kernel<true>, smem, sizeof(float) * kRows * 32);
     if (err) return err;
     fdrln_fwd_kernel<true><<<groups, kThreads, smem, stream>>>(
         x, res, bias, gamma, beta, y, z, n, h, dtypes, d, eps);
@@ -342,30 +662,39 @@ extern "C" int fused_dropout_ln_fwd(const void* x, const void* res,
 
 // Backward. z, dy [n, h], dz_extra [n, h] or null (0), gamma [h] (with_ln).
 // dtypes: bit 0 z, 1 dy, 2 dz_extra, 3 gamma for bfloat16; dx and dres
-// take z's type. part: float32 [grid, 3 or 1, h], the CTAs' column sums
-// of dx, dy * x^ and dy (with LN) or of dx alone. grid: CTAs, each walking
-// the 4-row groups grid apart.
+// take z's type. part: float32 scratch [grid, 3 or 1, h], the CTAs' column
+// sums of dx, dy * x^ and dy (with LN) or of dx alone; sums: [3 or 1, h]
+// in z's type, their totals over the CTAs (a second, small kernel adds
+// the partial rows in CTA order). grid: CTAs along the rows (one an SM,
+// at most one per 4-row group), each warp walking the 4-row groups
+// grid * 8 apart; past h = 768 the grid has a second axis of 768-column blocks.
 extern "C" int fused_dropout_ln_bwd(const void* z, const void* dy,
                                     const void* dzx, const void* gamma,
-                                    void* dx, void* dres, float* part, int n,
-                                    int h, int grid, int dtypes, int with_ln,
-                                    int on, unsigned thr, float scale,
-                                    float eps, unsigned long long seed,
-                                    unsigned offset, cudaStream_t stream) {
+                                    void* dx, void* dres, float* part,
+                                    void* sums, int n, int h, int grid,
+                                    int dtypes, int with_ln, int on,
+                                    unsigned thr, float scale, float eps,
+                                    unsigned long long seed, unsigned offset,
+                                    cudaStream_t stream) {
   if (n < 1 || h < 1 || h > kMaxHd || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const Drop d{on, thr, scale, seed, offset};
-  if (with_ln) {
-    const size_t smem = (size_t)(kRows + 3) * h * sizeof(float);
-    const int err = set_smem(fdrln_bwd_kernel<true>, smem);
-    if (err) return err;
-    fdrln_bwd_kernel<true><<<grid, kThreads, smem, stream>>>(
-        z, dy, dzx, gamma, dx, dres, part, n, h, dtypes, d, eps);
-  } else {
-    const size_t smem = (size_t)h * sizeof(float);
-    fdrln_bwd_kernel<false><<<grid, kThreads, smem, stream>>>(
-        z, dy, dzx, gamma, dx, dres, part, n, h, dtypes, d, eps);
-  }
+  // 16-byte accesses: h % 8 == 0 (rows of 8-column chunks stay aligned)
+  // and every row tensor 16-byte aligned
+  int vec = h % kChunk == 0;
+  const void* rows[5] = {z, dy, dzx, dx, dres};
+  for (const void* p : rows)
+    if (reinterpret_cast<unsigned long long>(p) % 16) vec = 0;
+  const BwdArgs a{z, dy, dzx, gamma, dx, dres, part, n, h, grid, vec,
+                  Drop{on, thr, scale, seed, offset}, eps, stream};
+  const int err = pick(a, dtypes, with_ln);
+  if (err) return err;
+  const int m = (with_ln ? 3 : 1) * h;
+  if (dtypes & 1)
+    fdrln_colsum_kernel<<<(m + 255) / 256, 256, 0, stream>>>(
+        part, static_cast<__nv_bfloat16*>(sums), grid, m);
+  else
+    fdrln_colsum_kernel<<<(m + 255) / 256, 256, 0, stream>>>(
+        part, static_cast<float*>(sums), grid, m);
   return (int)cudaGetLastError();
 }
 

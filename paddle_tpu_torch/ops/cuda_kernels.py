@@ -233,12 +233,17 @@ def _keep_mask(bits, dropout_p, shape):
 # Flash-attention forward
 #
 # Replaces pallas_kernels.py `_flash_fwd_kernel` (:324, via `_flash_fwd`
-# :412). Bound on the H100: at the serving prefill shapes (B=1, H=12,
-# T<=256, D=64) a few microseconds of bytes or flops, so the kernel is
+# :412). bfloat16 inputs (every training path, under O2 or auto_cast, and
+# bf16 prefill) run on the tensor cores: bf16 mma.sync with float32 sums,
+# S and P kept in registers, P rounded once to bf16 for the P V product.
+# float32 inputs (the serving path's float32 cache) keep the CUDA-core
+# kernel in full float32. Bound on the H100: at the serving prefill shapes
+# (B=1, H=12, T<=256, D=64) a few microseconds, so the kernel is
 # latency-bound; at the training shapes (B=16, H=12, T=512, D=64, causal)
-# it is bound by operations. It keeps the [Tq, Tk] scores and the dropout
-# mask on chip and skips the K/V tiles above the causal diagonal (see the
-# source's note).
+# bytes on paper, and in practice the dropout's Philox calls and
+# mma.sync's share of the tensor-core peak. It keeps the [Tq, Tk] scores
+# and the dropout mask on chip and skips the K/V tiles above the causal
+# diagonal (see the source's note).
 
 
 def _scores(q, k, causal):
@@ -572,10 +577,12 @@ def flash_attention_or_none(query, key, value, attn_mask, is_causal,
 # tensor [N, Hd] holding values in [0, 2^32), or draw the kernels' own.
 
 _FDRLN_TAG = 0xFD1D0000
-# the backward kernel keeps 7 float32 values per column in shared memory
+# the forward kernel with LN keeps 4 float32 values per column in shared
+# memory
 FDRLN_MAX_HD = 8192
-# the backward kernel's CTAs per SM (each walks every grid-th 4-row group)
-_FDRLN_BWD_CTAS_PER_SM = 4
+# the backward kernel's CTAs an SM: its launch bounds hold one (with LN a
+# thread takes up to 255 registers); each CTA writes one partial row
+_FDRLN_BWD_CTAS_PER_SM = 1
 _SM_COUNT = {}
 
 
@@ -779,12 +786,23 @@ def fused_dropout_residual_fwd(x, residual, bias, p, scale, seed=0,
                       offset)[1]
 
 
+def _fdrln_bwd_grid(N, device):
+    """The backward kernel's CTAs along N rows: one an SM, at most one per
+    4-row group."""
+    dev = torch.device(device)
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return min((N + 3) // 4, _FDRLN_BWD_CTAS_PER_SM * _SM_COUNT[dev])
+
+
 def fused_dropout_ln_bwd(z, dy, dz_extra, gamma, p, scale, eps, seed=0,
                          offset=0):
     """Row 6's kernel, with LN (gamma given) or without: (dx, dres, dbias,
     dgamma, dbeta) as `fused_dropout_ln_bwd_plain` computes them, dgamma
     and dbeta None without LN. dz_extra may be None (0). The kernel folds
-    the column sums in as per-CTA partial rows, added here."""
+    the column sums in as per-CTA partial rows (one CTA an SM), which a
+    second small kernel of the same call adds."""
     p = float(p)
     name = "fused_dropout_ln_bwd"
     _fdrln_check(name, [z, dy, dz_extra], [gamma], p)
@@ -794,22 +812,19 @@ def fused_dropout_ln_bwd(z, dy, dz_extra, gamma, p, scale, eps, seed=0,
     N, Hd = z.shape
     with_ln = gamma is not None
     dev = z.device
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    grid = min((N + 3) // 4, _FDRLN_BWD_CTAS_PER_SM * _SM_COUNT[dev])
+    grid = _fdrln_bwd_grid(N, dev)
     nacc = 3 if with_ln else 1
     dx, dres = torch.empty_like(z), torch.empty_like(z)
     part = torch.empty((grid, nacc, Hd), dtype=torch.float32, device=dev)
+    sums = torch.empty((nacc, Hd), dtype=z.dtype, device=dev)
     err = _build.load("fused_dropout_ln").fused_dropout_ln_bwd(
         z.data_ptr(), dy.data_ptr(), _ptr(dz_extra), _ptr(gamma),
-        dx.data_ptr(), dres.data_ptr(), part.data_ptr(), N, Hd, grid,
-        _bf16_bits(z, dy, dz_extra, gamma), int(with_ln), int(p > 0.0),
-        _threshold(p), float(scale), float(eps), int(seed), int(offset),
-        _stream(z))
+        dx.data_ptr(), dres.data_ptr(), part.data_ptr(), sums.data_ptr(), N,
+        Hd, grid, _bf16_bits(z, dy, dz_extra, gamma), int(with_ln),
+        int(p > 0.0), _threshold(p), float(scale), float(eps), int(seed),
+        int(offset), _stream(z))
     _check_launch(err, name)
     _LAUNCHES[name] += 1
-    sums = part.sum(0).to(z.dtype)
     if not with_ln:
         return dx, dres, sums[0], None, None
     return dx, dres, sums[0], sums[1], sums[2]
