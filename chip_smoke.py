@@ -11,11 +11,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      each, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
      serving shapes and at the edge cases (ragged T, idle slot, block
-     edge, T-1, full clamp, NaN tail), and the fused dropout-residual(+LN)
-     kernels at float32, bfloat16 and mixed input types, Hd 64, 768 and
-     1000, p 0, 0.1 and 1, both dropout modes, fed the kernels' own
-     dropout bits, with the tolerances stated below; and each gate
-     raising on inputs its kernel does not take;
+     edge, the float32 paged kernel's chunk edges, T-1, full clamp, every
+     slot full, NaN tail), and the fused dropout-residual(+LN) kernels at
+     float32, bfloat16 and mixed input types, Hd 64, 768 and 1000, p 0,
+     0.1 and 1, both dropout modes, and at the training paths' shapes,
+     fed the kernels' own dropout bits, with the tolerances stated below;
+     the backward's mask equal to the forward's; and each gate raising
+     on inputs its kernel does not take;
   4. each kernel's device time (CUDA events, median of 25 runs of 10
      back-to-back launches queued behind a sleep kernel) beside its bound,
      its plain version's time and one library call's time;
@@ -468,13 +470,19 @@ def clone_args(args):
 
 def check_paged(torch, ck, quantized, gen):
     """Idle slot, inside a block, both sides of a 128-row block edge, a
-    mid length, T-1 and T (full clamp), NaN garbage past every lens; then
-    a cache depth and head width no power-of-two block tiles (T=100,
-    D=24), which the gate also sends to the kernel."""
+    mid length, T-1 and T (full clamp), NaN garbage past every lens; the
+    float32 kernel's chunk edges (lens 0, chunk - 1, chunk, chunk + 1,
+    2 chunk, T - 1, T) and a batch whose every slot is at T, so every
+    chunk is live; then a cache depth and head width no power-of-two block
+    tiles (T=100, D=24), which the gate also sends to the kernel."""
     name = "paged_decode_int8" if quantized else "paged_decode"
     worst = 0.0
-    for lens, shape in (([0, 5, 127, 128, 300, 511, 512, 200],
-                         dict(B=8, H=12, T=512, D=64)),
+    serving = dict(B=8, H=12, T=512, D=64)
+    c = ck.paged_split_geometry(64)[1]
+    for lens, shape in (([0, 5, 127, 128, 300, 511, 512, 200], serving),
+                        ([0, c - 1, c, c + 1, 2 * c, 511, 512, 3 * c + 1],
+                         serving),
+                        ([512] * 8, serving),
                         ([0, 57, 99, 100], dict(B=4, H=2, T=100, D=24))):
         args = paged_inputs(torch, quantized, lens, gen, **shape)
         ka, pa = clone_args(args), clone_args(args)
@@ -1114,15 +1122,26 @@ def check_fused(torch, ck, flags, gen):
     # an SM): its column sums run across groups, and it loads the next
     # group's first row ahead. With LN and dz_extra, and without LN, as
     # the main path calls it; also without LN with dz_extra, and float32.
+    # The forward with LN there too (bf16 is path B's own case; path A's,
+    # N=4096 f32, is in the cases above), where a warp of its persistent
+    # grid may take more than one group.
     N, Hd, s = 8192, 768, fdrln_scale(DROPOUT, "upscale_in_train")
     bits = ck.fused_dropout_bits(SEED, OFFSET, N, Hd)
     nb = 0
     for dt in (torch.bfloat16, torch.float32):
         tol = FDRLN_F32_REL_TOL if dt == torch.float32 else FDRLN_BF16_REL_TOL
-        z, dy, dz = (torch.randn((N, Hd), generator=gen, device="cuda").to(dt)
-                     for _ in range(3))
+        x, res, beta = (torch.randn(shape, generator=gen, device="cuda")
+                        .to(dt) for shape in ((N, Hd), (N, Hd), Hd))
         gamma = (torch.randn(Hd, generator=gen, device="cuda") * 0.1
                  + 1.0).to(dt)
+        got = ck.fused_dropout_ln_fwd(x, res, None, gamma, beta, DROPOUT, s,
+                                      1e-5, SEED, OFFSET)
+        want = ck.fused_dropout_ln_fwd_plain(x, res, None, gamma, beta,
+                                             DROPOUT, s, 1e-5, bits=bits)
+        hold("fused_dropout_ln_fwd %s N=%d Hd=%d p=%g" % (dt, N, Hd, DROPOUT),
+             "fused_dropout_ln_fwd", list(zip(got, want)), tol)
+        z, dy, dz = (torch.randn((N, Hd), generator=gen, device="cuda").to(dt)
+                     for _ in range(3))
         for g, dzx in ((gamma, dz), (None, None), (None, dz)):
             got = ck.fused_dropout_ln_bwd(z, dy, dzx, g, DROPOUT, s, 1e-5,
                                           SEED, OFFSET)
@@ -1133,15 +1152,18 @@ def check_fused(torch, ck, flags, gen):
                  "fused_dropout_ln_bwd",
                  [(a, b) for a, b in zip(got, want) if b is not None], tol)
             nb += 1
+    check_mask_identity(torch, ck)
+    extra = {"fused_dropout_ln_fwd": " and 2 at path B's N=8192, Hd=768, "
+             "p=%g (bf16, f32)" % DROPOUT,
+             "fused_dropout_ln_bwd": " and %d at path B's N=8192, Hd=768, "
+             "p=%g (bf16, f32; with LN and dz_extra, without LN with and "
+             "without dz_extra)" % (nb, DROPOUT)}
     for name in names:
         say("check %s: max rel err %.3g (tol f32 %.0e, bf16 %.0e, by the "
             "output's type), max abs err %.3g, over %d cases (f32, bf16, "
             "mixed; Hd 64, 768, 1000; p 0, %g, 1; both modes)%s"
             % (name, worst[name], FDRLN_F32_REL_TOL, FDRLN_BF16_REL_TOL,
-               worst_abs[name], n, DROPOUT,
-               " and %d at path B's N=8192, Hd=768, p=%g (bf16, f32; with "
-               "LN and dz_extra, without LN with and without dz_extra)"
-               % (nb, DROPOUT) if name == "fused_dropout_ln_bwd" else ""))
+               worst_abs[name], n, DROPOUT, extra.get(name, "")))
     # the drop rate and the gates
     bits = ck.fused_dropout_bits(SEED, OFFSET, 8192, 768)
     rate = (bits < int(DROPOUT * 2 ** 32)).double().mean().item()
@@ -1187,6 +1209,36 @@ def check_fused(torch, ck, flags, gen):
     say("check fused gates: %d inputs the kernels do not take raise on the "
         "card" % len(bad))
     return worst_abs
+
+
+def check_mask_identity(torch, ck):
+    """Row 6 regenerates row 4's mask: at path B's shape (bf16, N=8192) and
+    path A's (f32, N=4096), the forward with LN drops h = 1 (x = 1, no
+    bias, residual 0) exactly where the bits say, so z is 0 exactly there;
+    the backward with LN from the same (seed, offset), fed dy = 0 and
+    dz_extra = 1 (so dz = 1), gives dx = 0 exactly there too."""
+    s = fdrln_scale(DROPOUT, "upscale_in_train")
+    for N, dt in ((8192, torch.bfloat16), (4096, torch.float32)):
+        Hd = 768
+        ones = torch.ones((N, Hd), device="cuda", dtype=dt)
+        zeros = torch.zeros((N, Hd), device="cuda", dtype=dt)
+        g, b = ones[0].clone(), zeros[0].clone()
+        _, z = ck.fused_dropout_ln_fwd(ones, zeros, None, g, b, DROPOUT, s,
+                                       1e-5, SEED, OFFSET)
+        dropped = z == 0
+        bits = ck.fused_dropout_bits(SEED, OFFSET, N, Hd)
+        require(torch.equal(dropped, bits < int(DROPOUT * 2 ** 32)),
+                "fused_dropout_ln_fwd %s N=%d: dropped elements differ from "
+                "the bits" % (dt, N))
+        dx = ck.fused_dropout_ln_bwd(z, zeros, ones, g, DROPOUT, s, 1e-5,
+                                     SEED, OFFSET)[0]
+        require(torch.equal(dx == 0, dropped),
+                "fused_dropout_ln_bwd %s N=%d: dx is not zero exactly where "
+                "the forward dropped h" % (dt, N))
+        say("check mask identity %s N=%d Hd=%d p=%g: the forward with LN "
+            "dropped %d elements, the bits' own; the backward's dx is zero "
+            "at exactly those" % (str(dt).split(".")[-1], N, Hd, DROPOUT,
+                                  int(dropped.sum())))
 
 
 def time_fused(torch, ck, timer, gen, N, Hd, dtype, dz_extra, label):

@@ -63,9 +63,9 @@ _SIGNATURES = {
         "adamw": [_P] * 4 + [_I64, _I, _I, _F, _F, _I] + [_F] * 7 + [_P],
     },
     "paged_decode": {
-        # q, nk, nv, strides*, kc, vc, ks, vs, lens, out, B, H, T, D,
-        # sm_scale, quant, stream
-        "paged_decode": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
+        # q, nk, nv, strides*, kc, vc, ks, vs, lens, out, part, ticket, B,
+        # H, T, D, lanes, vec, sm_scale, quant, stream
+        "paged_decode": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
     },
     "fused_dropout_ln": {
         # x, res, bias, gamma, beta, y, z, n, h, dtypes, with_ln, on, thr,

@@ -39,11 +39,26 @@
 // (132 on an H100); a second, small kernel of the same call adds
 // the partial rows in CTA order and stores the sums in z's type.
 //
-// Forward design: one CTA of 256 threads per group of 4 rows. A thread
-// owns columns tid, tid + 256, ... of all 4 rows, so one Philox call per
-// column gives the bits of the group's 4 rows. The row sums go through
-// warp shuffles and one shared-memory step (4 rows at once). With LN the
-// rows' float32 z sit in shared memory between passes.
+// Forward design, with LN at Hd <= 768 (both main paths: GPT-2 and ERNIE
+// are 768 wide): a warp per 4-row group, 8 warps a CTA, a persistent grid
+// of as many CTAs as fit on the card (the occupancy API), the groups dealt
+// to the CTAs in turn and within a CTA to its warps. The row types (x and
+// the residual; y and z take x's) are template parameters; bias, gamma and
+// beta sit in each lane's registers as float, read once, whatever their
+// type. A lane takes 8 columns at once, one 16-byte access of bfloat16 or
+// two of float32, where Hd % 8 == 0 and the rows are 16-byte aligned,
+// else single elements in the same kernel. One Philox call per column
+// gives the group's 4 rows' bits, packed to a keep bit each at the group's
+// start. Row by row, the next row's x and residual are loaded before the
+// current row is reduced; z is formed in float32 in registers and stored,
+// its mean and two-pass variance are warp shuffles over those registers
+// (statistics of the float32 z, as the reference takes them), and y is
+// stored. No shared memory, no __syncthreads.
+// Without LN, and with LN past Hd = 768, one CTA of 256 threads per group
+// of 4 rows: a thread owns columns tid, tid + 256, ... of all 4 rows, so
+// one Philox call per column gives the bits of the group's 4 rows. The row
+// sums go through warp shuffles and one shared-memory step (4 rows at
+// once). With LN the rows' float32 z sit in shared memory between passes.
 //
 // Backward design: a warp per 4-row group, 8 warps a CTA, one CTA an SM
 // (the launch bounds; the wrapper sizes the grid to match), the groups
@@ -67,10 +82,12 @@
 // The backward's instructions come near that: by count ~36 an element
 // and lane plus one Philox call (~120) per 4 elements, ~14 us at the
 // card's peak issue rate against the bytes' ~19 us. What the design does
-// about it: one pass over
-// device memory per call, the mask never stored, the LN statistics
-// recomputed from z rather than saved, registers in place of re-reads;
-// the forward's vector loads and a warp per row are later work.
+// about it: one pass over device memory per call, the mask never stored,
+// the LN statistics recomputed from z rather than saved, registers in
+// place of re-reads and shared-memory staging, 16-byte accesses, and
+// loads a row ahead so that a warp keeps bytes in flight while it
+// reduces. The forward without LN keeps the CTA-per-group kernel: it
+// reaches half its bound.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -216,6 +233,10 @@ constexpr int kLaneChunks = 3;           // chunks a lane keeps sums for
 // the columns whose sums a CTA keeps (in its lanes' registers): 768, so at
 // Hd <= 768 one column block holds the whole row
 constexpr int kColBlock = 32 * kChunk * kLaneChunks;
+// the forward with LN at Hd <= kColBlock: 8 warps a CTA, as many CTAs an
+// SM as its registers allow (the launch asks the occupancy API)
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = kFwdWarps * 32;
 
 // 8 values from p: one 16-byte load (bfloat16) or two (float32) when vec,
 // else the first n by element, zeros after
@@ -322,6 +343,139 @@ __device__ __forceinline__ float as_stored(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// keep bits of a group: bit 4 e + r of keep[c] is row r of column
+// col0 + 256 c + e, from one Philox call per column (all kept when off)
+__device__ __forceinline__ void keep_bits(const Drop& d, int group, int col0,
+                                          int h,
+                                          unsigned (&keep)[kLaneChunks]) {
+#pragma unroll
+  for (int c = 0; c < kLaneChunks; ++c) {
+    keep[c] = 0xFFFFFFFFu;
+    const int col = col0 + c * 32 * kChunk;
+    if (d.on && col < h) {
+      keep[c] = 0u;
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e) {
+        const uint4 w = bits4(d, group, col + e);
+        keep[c] |= ((unsigned)(w.x >= d.thr) |
+                    (unsigned)(w.y >= d.thr) << 1 |
+                    (unsigned)(w.z >= d.thr) << 2 |
+                    (unsigned)(w.w >= d.thr) << 3) << (4 * e);
+      }
+    }
+  }
+}
+
+// Forward with LN at Hd <= 768 (kColBlock): a warp per 4-row group, 8 warps
+// a CTA, a persistent grid; warp w of CTA b takes groups b + grid (w + 8 i).
+// Lane l takes columns 256 c + 8 l .. +7 (c < 3), 16 bytes at a time where
+// vec. bias, gamma and beta sit in its registers as float, read once. A
+// group starts with its keep bits; then row after row: x and the residual
+// of the next row (the next group's first after a group's last) are loaded
+// before the current row is reduced; z = residual + dropped (x + bias) in
+// float32 is stored, its mean and two-pass variance are warp shuffles over
+// the float32 values in registers, and y is stored. No __syncthreads.
+template <typename TX, typename TR>
+__global__ void __launch_bounds__(kFwdThreads)
+fdrln_fwd_ln_kernel(const TX* __restrict__ x, const TR* __restrict__ res,
+                    const void* __restrict__ bias,
+                    const void* __restrict__ gamma,
+                    const void* __restrict__ beta, TX* __restrict__ y,
+                    TX* __restrict__ z, int n, int h, int vec, int dt, Drop d,
+                    float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (n + kRows - 1) / kRows;
+  const int col0 = lane * kChunk;
+  auto ncols = [&](int c) { return min(kChunk, h - (col0 + c * 32 * kChunk)); };
+  const int bb = (dt >> 2) & 1, gb = (dt >> 3) & 1, eb = (dt >> 4) & 1;
+  float vb[kLaneChunks][kChunk], vg[kLaneChunks][kChunk],
+      ve[kLaneChunks][kChunk];
+#pragma unroll
+  for (int c = 0; c < kLaneChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const int col = col0 + c * 32 * kChunk + e;
+      const bool in = col < h;
+      vb[c][e] = in && bias ? ld(bias, bb, col) : 0.f;
+      vg[c][e] = in ? ld(gamma, gb, col) : 0.f;
+      ve[c][e] = in ? ld(beta, eb, col) : 0.f;
+    }
+
+  Chunk<TX> xn[kLaneChunks];
+  Chunk<TR> rn[kLaneChunks];
+  auto load_row = [&](int row) {
+    const size_t rb = (size_t)row * h;
+#pragma unroll
+    for (int c = 0; c < kLaneChunks; ++c) {
+      const int col = col0 + c * 32 * kChunk, nv = ncols(c);
+      if (nv <= 0) continue;
+      xn[c].load(x + rb + col, vec, nv);
+      rn[c].load(res + rb + col, vec, nv);
+    }
+  };
+  const int gstride = gridDim.x * kFwdWarps;
+  if (blockIdx.x + gridDim.x * warp < groups)
+    load_row((blockIdx.x + gridDim.x * warp) * kRows);
+
+  for (int group = blockIdx.x + gridDim.x * warp; group < groups;
+       group += gstride) {
+    const int row0 = group * kRows, rows = min(kRows, n - row0);
+    unsigned keep[kLaneChunks];
+    keep_bits(d, group, col0, h, keep);
+#pragma unroll 1
+    for (int r = 0; r < rows; ++r) {
+      const size_t rb = (size_t)(row0 + r) * h;
+      Chunk<TX> xc[kLaneChunks];
+      Chunk<TR> rc[kLaneChunks];
+#pragma unroll
+      for (int c = 0; c < kLaneChunks; ++c) {
+        xc[c] = xn[c];
+        rc[c] = rn[c];
+      }
+      if (r + 1 < rows)
+        load_row(row0 + r + 1);
+      else if (group + gstride < groups)
+        load_row((group + gstride) * kRows);
+      float zv[kLaneChunks][kChunk];
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < kLaneChunks; ++c) {
+        const int nv = ncols(c);
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) {
+          float hv = xc[c][e] + vb[c][e];
+          if (d.on) hv = (keep[c] >> (4 * e + r)) & 1u ? hv * d.scale : 0.f;
+          zv[c][e] = e < nv ? rc[c][e] + hv : 0.f;
+          s += zv[c][e];
+        }
+        if (nv > 0) store8(z + rb + col0 + c * 32 * kChunk, zv[c], vec, nv);
+      }
+      const float mean = warp_sum(s) / (float)h;
+      float v = 0.f;
+#pragma unroll
+      for (int c = 0; c < kLaneChunks; ++c) {
+        const int nv = ncols(c);
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) {
+          const float dd = e < nv ? zv[c][e] - mean : 0.f;
+          v += dd * dd;
+        }
+      }
+      const float rstd = 1.0f / sqrtf(warp_sum(v) / (float)h + eps);
+#pragma unroll
+      for (int c = 0; c < kLaneChunks; ++c) {
+        const int nv = ncols(c);
+        if (nv <= 0) continue;
+        float yv[kChunk];
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e)
+          yv[e] = (zv[c][e] - mean) * rstd * vg[c][e] + ve[c][e];
+        store8(y + rb + col0 + c * 32 * kChunk, yv, vec, nv);
+      }
+    }
+  }
+}
+
 // Warp w of CTA b takes groups b + grid (w + 8 i), so every CTA gets its
 // share of the groups when they are few. Lane l takes columns
 // cb0 + 256 c + 8 l .. +7 of the CTA's column block (blockIdx.y, 768
@@ -383,24 +537,8 @@ fdrln_bwd_kernel(const TZ* __restrict__ z, const TY* __restrict__ dy,
   for (int group = blockIdx.x + gridDim.x * warp; group < groups;
        group += gstride) {
     const int row0 = group * kRows, rows = min(kRows, n - row0);
-    // bit 4 e + r of keep[c]: row r of column col0 + 256 c + e is kept
     unsigned keep[kLaneChunks];
-#pragma unroll
-    for (int c = 0; c < kLaneChunks; ++c) {
-      keep[c] = 0xFFFFFFFFu;
-      const int col = col0 + c * 32 * kChunk;
-      if (d.on && col < h) {
-        keep[c] = 0u;
-#pragma unroll
-        for (int e = 0; e < kChunk; ++e) {
-          const uint4 w = bits4(d, group, col + e);
-          keep[c] |= ((unsigned)(w.x >= d.thr) |
-                      (unsigned)(w.y >= d.thr) << 1 |
-                      (unsigned)(w.z >= d.thr) << 2 |
-                      (unsigned)(w.w >= d.thr) << 3) << (4 * e);
-        }
-      }
-    }
+    keep_bits(d, group, col0, h, keep);
 #pragma unroll 1
     for (int r = 0; r < rows; ++r) {
       const size_t rb = (size_t)(row0 + r) * h;
@@ -616,6 +754,40 @@ int pick(const BwdArgs& a, int dt, int with_ln) {
   return dt & 1 ? pick_y<false, bf16>(a, dt) : pick_y<false, float>(a, dt);
 }
 
+struct FwdArgs {
+  const void *x, *res, *bias, *gamma, *beta;
+  void *y, *z;
+  int n, h, vec, dt;
+  Drop d;
+  float eps;
+  cudaStream_t stream;
+};
+
+// the persistent grid: as many CTAs as fit on the card at once, at most
+// one per 8 groups
+template <typename TX, typename TR>
+int launch_fwd_ln(const FwdArgs& a) {
+  static int per_sm = 0;               // per instance; the same on any H100
+  if (!per_sm) {
+    const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fdrln_fwd_ln_kernel<TX, TR>, kFwdThreads, 0);
+    if (err) return err;
+    if (!per_sm) return (int)cudaErrorInvalidConfiguration;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  const int err = (int)cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  const int groups = (a.n + kRows - 1) / kRows;
+  const int grid = min((groups + kFwdWarps - 1) / kFwdWarps, per_sm * sms);
+  fdrln_fwd_ln_kernel<TX, TR><<<grid, kFwdThreads, 0, a.stream>>>(
+      static_cast<const TX*>(a.x), static_cast<const TR*>(a.res), a.bias,
+      a.gamma, a.beta, static_cast<TX*>(a.y), static_cast<TX*>(a.z), a.n,
+      a.h, a.vec, a.dt, a.d, a.eps);
+  return (int)cudaGetLastError();
+}
+
 __global__ void fdrln_bits_kernel(unsigned* __restrict__ out, Drop d, int n,
                                   int h) {
   const int groups = (n + kRows - 1) / kRows;
@@ -634,8 +806,9 @@ __global__ void fdrln_bits_kernel(unsigned* __restrict__ out, Drop d, int n,
 // Forward. x, res [n, h]; bias, gamma, beta [h] (bias may be null: 0);
 // with_ln = 0 writes z only (y, gamma, beta unused). dtypes: bit 0 x,
 // 1 res, 2 bias, 3 gamma, 4 beta set for bfloat16; y and z take x's type.
-// on: dropout with keep iff bits >= thr, kept values times scale. Returns
-// cudaGetLastError() after the launch.
+// on: dropout with keep iff bits >= thr, kept values times scale. With LN
+// at h <= 768 the warp-per-group kernel runs, else the CTA-per-group one.
+// Returns cudaGetLastError() after the launch.
 extern "C" int fused_dropout_ln_fwd(const void* x, const void* res,
                                     const void* bias, const void* gamma,
                                     const void* beta, void* y, void* z,
@@ -646,6 +819,20 @@ extern "C" int fused_dropout_ln_fwd(const void* x, const void* res,
   if (n < 1 || h < 1 || h > kMaxHd) return (int)cudaErrorInvalidValue;
   const Drop d{on, thr, scale, seed, offset};
   const int groups = (n + kRows - 1) / kRows;
+  if (with_ln && h <= kColBlock) {
+    // 16-byte accesses as in the backward
+    int vec = h % kChunk == 0;
+    const void* rows[4] = {x, res, y, z};
+    for (const void* p : rows)
+      if (reinterpret_cast<unsigned long long>(p) % 16) vec = 0;
+    const FwdArgs a{x, res, bias, gamma, beta, y, z, n, h, vec, dtypes, d,
+                    eps, stream};
+    if (dtypes & 1)
+      return dtypes & 2 ? launch_fwd_ln<bf16, bf16>(a)
+                        : launch_fwd_ln<bf16, float>(a);
+    return dtypes & 2 ? launch_fwd_ln<float, bf16>(a)
+                      : launch_fwd_ln<float, float>(a);
+  }
   if (with_ln) {
     const size_t smem = (size_t)kRows * h * sizeof(float);
     const int err =

@@ -67,6 +67,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
            "fused_dropout_residual_ln_or_none", "DROPOUT_MODES", "adamw",
            "adamw_plain",
            "fused_adamw_or_none", "paged_decode", "paged_decode_plain",
+           "paged_split_geometry",
            "paged_decode_attention_or_none", "quantize_kv", "dequantize_kv",
            "launch_counts", "attention_path_counts"]
 
@@ -87,8 +88,9 @@ _ATTN_COUNTER = metrics.counter(
     "pt_attn_path_total", "Attention implementations run, by path",
     labelnames=("path",))
 
-# the paged-decode kernel keeps one float score per cache row in shared
-# memory and stays under the 48 KB a block gets without an opt-in
+# the int8 paged-decode kernel keeps one float score per cache row in
+# shared memory and stays under the 48 KB a block gets without an opt-in;
+# the float32 kernel takes the same depths
 _PAGED_MAX_T = 8192
 
 
@@ -1025,7 +1027,41 @@ def fused_adamw_or_none(param, grad, lr, t, m1, m2, *, beta1, beta2,
 # `_paged_q_kernel` (:1746), both `_paged_core` (:1646), launched by
 # `_paged_decode` (:1755). Bound on the H100: bytes — each live K/V row is
 # read once per step; the kernel reads only rows 0..min(lens, T-1) and
-# updates the cache in place (the reference returns new buffers).
+# updates the cache in place (the reference returns new buffers). The
+# float32 kernel splits each (slot, head)'s keys into chunks, one CTA each,
+# whose partial softmax sums the last CTA to arrive combines
+# (csrc/paged_decode.cu); its workspace and tickets live here.
+
+# the float32 kernel's warps a CTA and key loads in flight a lane
+_PAGED_WARPS, _PAGED_SLOTS = 4, 8
+_PAGED_WS = {}
+
+
+def paged_split_geometry(D, vec4=True):
+    """(lanes, chunk) of the float32 paged-decode kernel for head width D:
+    `lanes` take one key row, 16 bytes a lane when `vec4` (rows of float4:
+    D % 4 == 0 and 16-byte aligned caches; the power of two >= D / 4, at
+    least 4), else 32 lanes of single floats; a CTA takes `chunk` = 4
+    warps x 8 loads x 32 / lanes keys."""
+    if vec4 and D % 4 == 0:
+        lanes = max(4, 1 << (D // 4 - 1).bit_length())
+    else:
+        lanes = 32
+    return lanes, _PAGED_WARPS * _PAGED_SLOTS * (32 // lanes)
+
+
+def _paged_workspace(q, stream, B, H, T, D, chunk):
+    """The float32 kernel's partial sums (B * H * ceil(T / chunk) * (D + 2)
+    floats) and its tickets (uint32 [B * H], zeroed once; each call leaves
+    them 0), cached per device and stream and grown when too small."""
+    key = (q.device, stream)
+    need = B * H * -(-T // chunk) * (D + 2)
+    ws = _PAGED_WS.get(key)
+    if ws is None or ws[0].numel() < need or ws[1].numel() < B * H:
+        ws = (torch.empty(need, dtype=torch.float32, device=q.device),
+              torch.zeros(B * H, dtype=torch.int32, device=q.device))
+        _PAGED_WS[key] = ws
+    return ws
 
 
 def quantize_kv(x, eps=1e-8):
@@ -1147,14 +1183,23 @@ def paged_decode(q, k_cache, v_cache, lens, new_k, new_v, k_scale=None,
     out = torch.empty((B, H, 1, D), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 6)(
         *(s for t in (q, new_k, new_v) for s in t.stride()[:2]))
+    stream = _stream(q)
+    part = ticket = None
+    lanes = vec4 = 0
+    if not quantized:
+        vec4 = (D % 4 == 0 and k_cache.data_ptr() % 16 == 0
+                and v_cache.data_ptr() % 16 == 0)
+        lanes, chunk = paged_split_geometry(D, vec4)
+        part, ticket = (t.data_ptr() for t in
+                        _paged_workspace(q, stream, B, H, T, D, chunk))
     lib = _build.load("paged_decode")
     err = lib.paged_decode(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
         ctypes.addressof(strides), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        lens.data_ptr(), out.data_ptr(), B, H, T, D,
-        1.0 / math.sqrt(D), int(quantized), _stream(q))
+        lens.data_ptr(), out.data_ptr(), part, ticket, B, H, T, D, lanes,
+        int(vec4), 1.0 / math.sqrt(D), int(quantized), stream)
     _check_launch(err, "paged_decode")
     _LAUNCHES["paged_decode_int8" if quantized else "paged_decode"] += 1
     return out
