@@ -11,11 +11,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      each, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
      serving shapes and at the edge cases (ragged T, idle slot, block
-     edge, the float32 paged kernel's chunk edges, T-1, full clamp, every
-     slot full, NaN tail), and the fused dropout-residual(+LN) kernels at
-     float32, bfloat16 and mixed input types, Hd 64, 768 and 1000, p 0,
-     0.1 and 1, both dropout modes, and at the training paths' shapes,
-     fed the kernels' own dropout bits, with the tolerances stated below;
+     edge, the paged kernel's chunk edges for each cache, T-1, full clamp,
+     every slot full, NaN tail, a 16384-row cache), and the fused
+     dropout-residual(+LN) kernels at float32, bfloat16 and mixed input
+     types, Hd 64, 768 and 1000, p 0, 0.1 and 1, both dropout modes, and
+     at the training paths' shapes, fed the kernels' own dropout bits,
+     with the tolerances stated below;
      the backward's mask equal to the forward's; and each gate raising
      on inputs its kernel does not take;
   4. each kernel's device time (CUDA events, median of 25 runs of 10
@@ -25,11 +26,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      behind GenerationEngine(max_batch=8, max_seq_len=512, buckets
      (32, 128, 256)) and ContinuousBatcher with the prefix cache on,
      serving 16 requests; the kernel launch counters are zeroed just
-     before and read just after;
+     before and read just after, the flash forward's also by prefill
+     bucket (summed against each bucket's time and bound); then a
+     torch.profiler breakdown of the decode step;
   6. the same requests with both kernel flags off (the plain versions on
      the card): tokens must agree, or first differ where the plain run's
      top-2 logit gap is a near tie;
-  7. a shorter int8-cache run, held to the plain int8 path the same way;
+  7. a shorter int8-cache run, its decode step profiled the same way,
+     held to the plain int8 path the same way;
   8. the training kernels' device times at the training main path's
      shapes (flash forward with lse and dropout, flash backward dq and
      dk/dv: B=16, H=12, T=512, D=64, bfloat16, causal, p=0.1; AdamW over
@@ -73,6 +77,7 @@ The line before the last is the kernel table as JSON; the last line is
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -174,6 +179,9 @@ FUSED_KERNELS = ("fused_dropout_ln_fwd", "fused_dropout_residual_fwd",
 TRAIN_B, TRAIN_T, TRAIN_WARMUP, TRAIN_STEPS = 16, 512, 3, 10
 # the ERNIE-base pretraining path: the JAX package's ERNIE bench
 ERNIE_B, ERNIE_T = 32, 128
+# the serving main path's prefill buckets (GenerationEngine's
+# prefill_buckets), each a query length of the flash forward
+BUCKETS = (32, 128, 256)
 DROPOUT = 0.1
 SEED, OFFSET = 0x1234_5678_9ABC_DEF0, 7       # kernel checks' dropout key
 
@@ -187,6 +195,26 @@ def say(*parts):
 def require(cond, msg):
     if not cond:
         raise SystemExit("chip_smoke FAILED: " + msg)
+
+
+def ptxas_registers(logs, needles):
+    """(source, kernel entry, registers, spill line) from nvcc's -Xptxas -v
+    output, for the entries whose mangled name holds one of `needles`."""
+    out = []
+    for name, log in sorted(logs.items()):
+        entry = spill = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry, spill = m.group(1), None
+            elif "spill stores" in line:
+                spill = line.strip()
+            else:
+                m = re.search(r"Used (\d+) registers", line)
+                if m and entry and any(n in entry for n in needles):
+                    out.append((name, entry, int(m.group(1)), spill))
+                    entry = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -471,19 +499,24 @@ def clone_args(args):
 def check_paged(torch, ck, quantized, gen):
     """Idle slot, inside a block, both sides of a 128-row block edge, a
     mid length, T-1 and T (full clamp), NaN garbage past every lens; the
-    float32 kernel's chunk edges (lens 0, chunk - 1, chunk, chunk + 1,
-    2 chunk, T - 1, T) and a batch whose every slot is at T, so every
+    kernel's chunk edges for this cache (lens 0, chunk - 1, chunk, chunk +
+    1, 2 chunk, T - 1, T) and a batch whose every slot is at T, so every
     chunk is live; then a cache depth and head width no power-of-two block
-    tiles (T=100, D=24), which the gate also sends to the kernel."""
+    tiles (T=100, D=24), which the gate also sends to the kernel, and a
+    cache deeper than any shared array could hold (T=16384, lens near
+    T)."""
     name = "paged_decode_int8" if quantized else "paged_decode"
     worst = 0.0
     serving = dict(B=8, H=12, T=512, D=64)
-    c = ck.paged_split_geometry(64)[1]
+    geometry = (ck.paged_int8_geometry if quantized
+                else ck.paged_split_geometry)
+    c = geometry(64)[1]
     for lens, shape in (([0, 5, 127, 128, 300, 511, 512, 200], serving),
                         ([0, c - 1, c, c + 1, 2 * c, 511, 512, 3 * c + 1],
                          serving),
                         ([512] * 8, serving),
-                        ([0, 57, 99, 100], dict(B=4, H=2, T=100, D=24))):
+                        ([0, 57, 99, 100], dict(B=4, H=2, T=100, D=24)),
+                        ([16384, 16001], dict(B=2, H=2, T=16384, D=64))):
         args = paged_inputs(torch, quantized, lens, gen, **shape)
         ka, pa = clone_args(args), clone_args(args)
         got = ck.paged_decode(*ka)
@@ -1559,6 +1592,36 @@ def profile_decode(torch, engine, n=10):
     return total_us / n / 1e3, rows[:5]
 
 
+def count_flash_by_t(ck):
+    """Also count each flash_fwd launch by its query length (the prefill
+    bucket): wraps the wrappers' common dispatcher. Returns (the counts,
+    a function that unwraps it)."""
+    by_t = {}
+    inner = ck._flash_fwd
+
+    def counted(q, *args):
+        before = ck._LAUNCHES["flash_fwd"]
+        out = inner(q, *args)
+        if ck._LAUNCHES["flash_fwd"] != before:
+            by_t[q.shape[2]] = by_t.get(q.shape[2], 0) + 1
+        return out
+    ck._flash_fwd = counted
+    return by_t, lambda: setattr(ck, "_flash_fwd", inner)
+
+
+def report_decode_profile(label, dev_ms, step_ms, top):
+    if dev_ms > 0:
+        say("%s decode step profile: %.3f ms of kernels per step (torch."
+            "profiler, 10 steps) vs %.2f ms wall: device idle %.1f %%"
+            % (label, dev_ms, step_ms, 100.0 * (1.0 - dev_ms / step_ms)))
+        for t_us, key, count in top:
+            say("  %8.1f us/step  %5d launches  %s"
+                % (t_us / 10, count, key[:90]))
+    else:
+        say("%s decode step profile: not measured (the profiler saw no "
+            "device activity)" % label)
+
+
 def compare_tokens(kernel_reqs, plain_reqs, gaps, kv_dtype):
     same = 0
     for a, b in zip(kernel_reqs, plain_reqs):
@@ -1618,6 +1681,9 @@ def main():
             if ("registers" in line or "spill" in line
                     or "Compiling entry function" in line):
                 say("ptxas %s: %s" % (name, line.strip()))
+    for src, entry, regs, spill in ptxas_registers(
+            _build.build_logs(), ("paged_split_kernel", "flash_fwd_f32")):
+        say("registers %s %s: %d (%s)" % (src, entry, regs, spill))
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1636,13 +1702,15 @@ def main():
     # 4. kernel timings at the main path's shapes
     timer = Timer(torch)
     times = {}
-    for T in (32, 128, 256):
+    flash_t = {}                        # by prefill bucket
+    for T in BUCKETS:
         t = time_flash(torch, ck, F, timer, gen, T)
         say("time flash_fwd B=1 H=12 T=%d D=64 f32 causal: %.4f ms, plain "
             "%.4f ms, sdpa %.4f ms, bound %.4f ms (%s)"
             % (T, t["ms"], t["plain_ms"], t["library_ms"], t["bound_ms"],
                t["bound_by"]))
-        times["flash_fwd"] = t                    # the 256 bucket is kept
+        flash_t[T] = t
+    times["flash_fwd"] = dict(flash_t[BUCKETS[-1]])   # the row's time
     decode_lens = [int(x) for x in
                    np.random.RandomState(1).randint(2, 320, 8)]
     for name, quantized in (("paged_decode", False),
@@ -1662,16 +1730,20 @@ def main():
     say("gpt2-small: %d parameters, built in %.1f s"
         % (sum(p.numel() for p in model.parameters()),
            time.perf_counter() - t0))
-    cfg = dict(max_batch=8, max_seq_len=512, prefill_buckets=(32, 128, 256))
+    cfg = dict(max_batch=8, max_seq_len=512, prefill_buckets=BUCKETS)
     warm = serving.GenerationEngine(model, **cfg)
     serve(serving, warm, [(np.arange(1, 6), 4), (np.arange(1, 101), 4)])
     del warm
     reqs = make_requests(np)
     torch.cuda.reset_peak_memory_stats()
     eng = serving.GenerationEngine(model, **cfg)
+    flash_by_t, unwrap = count_flash_by_t(ck)
     ck.launch_counts(reset=True)
     ck.attention_path_counts(reset=True)
-    kreqs, wall, steps = serve(serving, eng, reqs)
+    try:
+        kreqs, wall, steps = serve(serving, eng, reqs)
+    finally:
+        unwrap()
     launches = ck.launch_counts()
     paths = ck.attention_path_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1693,18 +1765,21 @@ def main():
             "the main path took a plain attention path: %s" % paths)
     require(any(r.prefix_len > 0 for r in kreqs),
             "no prefix-cache hit: the suffix path did not run")
+    require(sum(flash_by_t.values()) == launches["flash_fwd"]
+            and set(flash_by_t) <= set(BUCKETS),
+            "flash_fwd launches by bucket %s do not add up to %d"
+            % (flash_by_t, launches["flash_fwd"]))
+    over = sum(flash_by_t.get(T, 0) * (flash_t[T]["ms"]
+                                       - flash_t[T]["bound_ms"])
+               for T in BUCKETS)
+    say("flash_fwd launches by bucket %s: launches x (time - bound) %.3f "
+        "ms over the run" % (flash_by_t, over))
+    times["flash_fwd"]["buckets"] = [
+        dict(T=T, launches=flash_by_t.get(T, 0), **{
+            k: flash_t[T][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms")}) for T in BUCKETS]
     dev_ms, top = profile_decode(torch, eng)
-    step_ms = statistics.median(steps)
-    if dev_ms > 0:
-        say("decode step profile: %.3f ms of kernels per step (torch."
-            "profiler, 10 steps) vs %.2f ms wall: device idle %.1f %%"
-            % (dev_ms, step_ms, 100.0 * (1.0 - dev_ms / step_ms)))
-        for t_us, key, count in top:
-            say("  %8.1f us/step  %5d launches  %s"
-                % (t_us / 10, count, key[:90]))
-    else:
-        say("decode step profile: not measured (the profiler saw no "
-            "device activity)")
+    report_decode_profile("float32", dev_ms, statistics.median(steps), top)
     del eng
 
     # 6. the same requests on the plain versions
@@ -1732,16 +1807,20 @@ def main():
     e8 = serving.GenerationEngine(model, kv_dtype="int8", **cfg)
     ck.launch_counts(reset=True)
     ck.attention_path_counts(reset=True)
-    k8, wall8, _ = serve(serving, e8, ireqs)
+    k8, wall8, steps8 = serve(serving, e8, ireqs)
     launches8 = ck.launch_counts()
     paths8 = ck.attention_path_counts()
-    say("int8 run: %d requests in %.3f s, launches %s, attention paths %s"
-        % (len(k8), wall8, launches8, paths8))
+    say("int8 run: %d requests in %.3f s, %d decode steps, %.2f ms/step "
+        "median, launches %s, attention paths %s"
+        % (len(k8), wall8, len(steps8), statistics.median(steps8),
+           launches8, paths8))
     require(launches8["paged_decode_int8"] > 0 and
             launches8["flash_fwd"] > 0,
             "the int8 run did not launch its kernels: %s" % launches8)
     require(paths8["xla_sdpa"] == 0 and paths8["xla_paged"] == 0,
             "the int8 run took a plain attention path: %s" % paths8)
+    dev8, top8 = profile_decode(torch, e8)
+    report_decode_profile("int8", dev8, statistics.median(steps8), top8)
     del e8
     p8, gaps8 = plain_run(ireqs, kv_dtype="int8")
     compare_tokens(k8, p8, gaps8, "int8")
@@ -1786,6 +1865,8 @@ def main():
               "bound_by": times[name]["bound_by"],
               "library_ms": times[name]["library_ms"]}
              for name in KERNEL_ORDER]
+    next(e for e in table if e["name"] == "flash_fwd")["buckets"] = \
+        times["flash_fwd"]["buckets"]
     say(card)
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {

@@ -45,8 +45,8 @@ _DROP = [_I, _U, _F, _U64, _U]
 _SIGNATURES = {
     "flash_fwd": {
         # q, k, v, o, lse, strides*, B, H, Tq, Tk, D, causal, sm_scale,
-        # dtype, dropout..., stream
-        "flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I] + _DROP + [_P],
+        # dtype, warps, tile, dropout..., stream
+        "flash_fwd": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + _DROP + [_P],
         # out, seed, offset, BH, Tq, Tk, stream
         "attn_dropout_bits": [_P, _U64, _U, _I, _I, _I, _P],
     },

@@ -1,13 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a), float32 accumulation, with
 // the training options: an lse output and attention dropout. bfloat16
-// inputs run on the tensor cores; float32 inputs keep the CUDA-core kernel.
+// inputs run on the tensor cores, float32 inputs on the CUDA cores.
 //
 // Replaces paddle_tpu/ops/pallas_kernels.py `_flash_fwd_kernel` (:324,
 // launched by `_flash_fwd` :412, call :445): out = softmax(Q K^T * D^-1/2) V
 // per (batch*head), online softmax over K/V tiles, causal mask aligned
 // bottom-right (a query row i sees keys j <= i + Tk - Tq), tiles past the
 // diagonal skipped. The TPU kernel carries its softmax state across a
-// sequential grid axis; here one CTA loops over the key tiles itself.
+// sequential grid axis; here a CTA's warps loop over the key tiles
+// themselves.
 //
 // Training options (both off on the serving path, where no lse pointer is
 // passed and the dropout branch is compiled out):
@@ -63,17 +64,50 @@
 // the serving prefill shapes (B=1, H=12, T <= 256) the work is a few
 // microseconds and the kernel latency-bound.
 //
-// float32 route: one CTA (4 warps) per (batch*head, 16-row query tile).
-// Each K/V tile of 32 keys is staged in shared memory as float32: every
-// warp loads 8 of its rows with all loads issued before the first store.
-// Each warp owns 4 query rows: lane l takes key l of the tile, reads its K
-// row once per 4 head-dim values (float4, rows padded to a stride of
-// D4 + 4 floats) and the 4 query rows as broadcasts; shuffles reduce max
-// and sum per row; for P V, lane l accumulates output columns l, l+32, ...
-// of all 4 rows. One Philox call per lane and tile gives the dropout bits
-// of the warp's 4 rows. Its FMAs run on the CUDA cores in full float32:
-// the serving path's float32 cache and the float32 compares (1e-4) need
-// that, which TF32 would not meet.
+// float32 route (namespace f32): full float32 FMA on the CUDA cores. TF32
+// would not meet the float32 checks (1e-4). At the serving buckets the
+// work is a few microseconds; what sets the time is the CTA with the most
+// keys (the last query tile): its serial chain, and the shared-memory
+// loads that feed its FMAs, which all run on one SM.
+//   * Keys split across warps. A CTA of NW warps (8 up to D = 64, 4 past
+//     it) owns 16 query rows; its causal key range, in tiles of BK = 8 or
+//     16 keys, is dealt out to the warps in turn (tile t to warp t % NW),
+//     and each warp keeps an online-softmax state (m, l, acc) for all 16
+//     rows over its own tiles. At the end the CTA combines the NW states
+//     in shared memory in warp order: out = sum acc_w e^(m_w - M) / sum
+//     l_w e^(m_w - M), lse = M + log L. BK is 8 where that covers a
+//     warp's share of the last query tile's keys, else 16
+//     (cuda_kernels.flash_f32_geometry): at T = 32, 128 and 256 the
+//     longest chain is 1, 1 and 2 tiles a warp, where the CTA of the
+//     earlier design walked T / 32 tiles of 32 keys in a row. The CTAs
+//     with the most tiles are dispatched first.
+//   * Register micro-tiles. In S = Q K^T a lane (rg = lane / 8, kg =
+//     lane % 8) takes rows 4 rg .. 4 rg + 3 against keys kg + 8 i, i <
+//     BK / 8: per 4 head-dim values, 5 or 6 shared float4 loads feed 16 or
+//     32 FMAs, and the K rows a quarter-warp reads (row stride D + 4
+//     floats) fall in distinct banks. The row max takes 3 shuffles among
+//     the 8 lanes of a row group; l stays a per-lane partial, summed once
+//     at the end. S is scaled after the product, as the plain version
+//     scales it.
+//   * P staged in shared memory. Each lane stores its 4 rows of a key as
+//     one float4 (P as [key][row], stride 20); in P V a lane owns the same
+//     4 rows and columns 4 kg .. 4 kg + 3 (+ 32 c), and reads a key's 4 p
+//     as one float4 broadcast and its V columns as float4: no shuffle.
+//   * Tiles by cp.async. Every warp has its own K, V and P stage and brings
+//     its tiles in by 16-byte cp.async (zeros past Tk) where D % 4 == 0 and
+//     the rows are 16-byte aligned, else by element copies. A warp's next
+//     K is requested as soon as S is formed and its next V as soon as P V
+//     is done, so each load runs under the other half of the tile.
+//   * Dropout: the mask of attn_dropout.cuh, one Philox call per lane and
+//     key for its 4-row group (a function of (bh, row / 4, key) alone, so
+//     the backward kernels and attn_dropout_bits regenerate it); l takes
+//     the undropped p, P V the dropped one, and 1 / (1 - p) comes with
+//     1 / l at the end.
+//   * Edges: any Tq, Tk (bottom-right causal with Tq < Tk), D <= 128,
+//     any strides with a unit head-dim stride.
+//   Tried on the H100 and dropped (PERF.md, section 6): tiles of 32 keys (one
+//   CTA an SM, slower at T = 256), and the key range of the longest query
+//   tiles split across CTAs with a ticket combine (slower at every bucket).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -83,228 +117,374 @@
 
 namespace {
 
-constexpr int kBQ = 16;                  // query rows per CTA
-constexpr int kBK = 32;                  // keys per tile (one per lane)
-constexpr int kWarps = 4;
-constexpr int kR = kBQ / kWarps;         // query rows per warp
-constexpr int kLoadRows = kBK / kWarps;  // tile rows each warp loads
+// ---------------------------------------------------------------------------
+// float32 route (see the note at the top)
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+namespace f32 {
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kBQ = 16;                  // query rows a CTA
+constexpr int kPP = 20;                  // P row stride: 16 rows + pad
 
 __host__ __device__ __forceinline__ int pad4(int d) { return (d + 3) & ~3; }
 
-// DC = ceil(D / 32): head-dim columns each lane loads and accumulates.
-template <typename T, int DC, bool DROP>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse,
-                 long long qsb, long long qsh, long long qst,
-                 long long ksb, long long ksh, long long kst,
-                 long long vsb, long long vsh, long long vst,
-                 long long osb, long long osh, long long ost,
-                 int H, int Tq, int Tk, int D, int causal, float sm_scale,
-                 unsigned drop_thr, float drop_scale,
-                 unsigned long long seed, unsigned offset) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int D4 = pad4(D);                // head dim padded to float4
-  const int KP = D4 + 4;                 // K row stride, bank-conflict free
-  float* qs = smem;                      // [kBQ][D4], scaled, zero-padded
-  float* ks = qs + kBQ * D4;             // [kBK][KP], zero-padded
-  float* vs = ks + kBK * KP;             // [kBK][D]
+// floats of a warp's stage for tiles of BK keys: K [BK][D4 + 4], V [BK]
+// [32 DC], P [BK][kPP]
+__host__ __device__ __forceinline__ int warp_floats(int D, int DC, int BK) {
+  return BK * (pad4(D) + 4 + 32 * DC + kPP);
+}
 
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * kBQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* qp = q + b * qsb + h * qsh;
-  const T* kp = k + b * ksb + h * ksh;
-  const T* vp = v + b * vsb + h * vsh;
-  T* op = o + b * osb + h * osh;
+// Q and NW warps' stages; the combine reuses the stages (acc [NW][kBQ][D4],
+// m and l [NW][kBQ], [kBQ] scales), which always fit: BK >= 8 and
+// D4 <= 32 DC
+__host__ __device__ __forceinline__ size_t smem_bytes(int D, int DC, int BK,
+                                                      int NW) {
+  return sizeof(float) * (kBQ * pad4(D) + NW * warp_floats(D, DC, BK));
+}
 
-  // this warp's 4 query rows, scaled by D^-1/2 as the TPU kernel does
-#pragma unroll
-  for (int rr = 0; rr < kR; ++rr) {
-    const int r = warp * kR + rr, qr = q0 + r;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D4)
-        qs[r * D4 + d] =
-            (qr < Tq && d < D) ? to_f(qp[qr * qst + d]) * sm_scale : 0.f;
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + n - 1 of a [rows, D] slab (row stride st, rows from
+// `lim` on read as zeros) into dst [n][ld], by threads t0, t0 + nt, ...:
+// 16-byte cp.async when vec (D % 4 == 0), else element copies that also
+// zero the pad columns D .. width - 1
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* src, long long st,
+                                          int r0, int n, int lim, int D,
+                                          int width, int vec, int t0,
+                                          int nt) {
+  if (vec) {
+    const int c4 = D >> 2;
+    for (int i = t0; i < n * c4; i += nt) {
+      const int r = i / c4, c = i - r * c4, row = r0 + r;
+      const bool ok = row < lim;
+      tc::cp_async16(dst + r * ld + 4 * c, src + (ok ? row : 0) * st + 4 * c,
+                     ok);
     }
-  }
-
-  float acc[kR][DC];
-  float m[kR], l[kR];
-#pragma unroll
-  for (int rr = 0; rr < kR; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[rr][c] = 0.f;
-  }
-
-  const int shift = Tk - Tq;
-  int kend = Tk;
-  if (causal) kend = min(Tk, q0 + kBQ + shift);   // last row's bound, excl.
-  const float* qrow = qs + warp * kR * D4;
-  const float* krow = ks + lane * KP;
-
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    // issue every load of this warp's 8 tile rows, then store them
-    float kreg[kLoadRows][DC], vreg[kLoadRows][DC];
-#pragma unroll
-    for (int i = 0; i < kLoadRows; ++i) {
-      const int kr = k0 + warp + kWarps * i;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        const bool ok = kr < Tk && d < D;
-        kreg[i][c] = ok ? to_f(kp[kr * kst + d]) : 0.f;
-        vreg[i][c] = ok ? to_f(vp[kr * vst + d]) : 0.f;
-      }
-    }
-    __syncthreads();                     // previous tile fully consumed
-#pragma unroll
-    for (int i = 0; i < kLoadRows; ++i) {
-      const int r = warp + kWarps * i;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D4) ks[r * KP + d] = kreg[i][c];
-        if (d < D) vs[r * D + d] = vreg[i][c];
-      }
-    }
-    __syncthreads();
-
-    // scores of key k0 + lane against the warp's 4 rows
-    float s[kR];
-#pragma unroll
-    for (int rr = 0; rr < kR; ++rr) s[rr] = 0.f;
-    for (int d = 0; d < D4; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(krow + d);
-#pragma unroll
-      for (int rr = 0; rr < kR; ++rr) {
-        const float4 qv = *reinterpret_cast<const float4*>(qrow + rr * D4 + d);
-        s[rr] = fmaf(qv.x, kv.x, s[rr]);
-        s[rr] = fmaf(qv.y, kv.y, s[rr]);
-        s[rr] = fmaf(qv.z, kv.z, s[rr]);
-        s[rr] = fmaf(qv.w, kv.w, s[rr]);
-      }
-    }
-
-    // online softmax per row
-    const int kpos = k0 + lane;
-    uint4 bits;
-    if (DROP) bits = attn_dropout::bits4(seed, offset, bh, (q0 >> 2) + warp,
-                                         kpos);
-    float p[kR];
-#pragma unroll
-    for (int rr = 0; rr < kR; ++rr) {
-      const int qpos = q0 + warp * kR + rr;
-      const bool ok = kpos < Tk && (!causal || kpos <= qpos + shift);
-      const float sv = ok ? s[rr] : -INFINITY;
-      const float m_new = fmaxf(m[rr], warp_max(sv));
-      // a row with no live key yet keeps m = -inf; subtract 0 then so
-      // exp() sees -inf and yields 0 instead of NaN
-      const float m_sub = m_new == -INFINITY ? 0.f : m_new;
-      p[rr] = ok ? expf(sv - m_sub) : 0.f;
-      const float alpha = expf(m[rr] - m_sub);
-      l[rr] = l[rr] * alpha + warp_sum(p[rr]);
-      m[rr] = m_new;
-      // the denominator took the undropped score; P V takes the dropped one
-      if (DROP)
-        p[rr] = attn_dropout::word(bits, rr) >= drop_thr ? p[rr] * drop_scale
-                                                         : 0.f;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[rr][c] *= alpha;
-    }
-
-    // acc += P V: lane owns columns lane + 32c of all 4 rows
-#pragma unroll 8
-    for (int j = 0; j < kBK; ++j) {
-      const float* vrow = vs + j * D;
-      float vv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        vv[c] = d < D ? vrow[d] : 0.f;
-      }
-#pragma unroll
-      for (int rr = 0; rr < kR; ++rr) {
-        const float pj = __shfl_sync(0xffffffffu, p[rr], j);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[rr][c] = fmaf(pj, vv[c], acc[rr][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kR; ++rr) {
-    const int qpos = q0 + warp * kR + rr;
-    if (qpos >= Tq) continue;
-    if (lse != nullptr && lane == 0)
-      lse[(long long)bh * Tq + qpos] = m[rr] + logf(l[rr]);
-    const float inv = 1.f / l[rr];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) store(op + qpos * ost + d, acc[rr][c] * inv);
+  } else {
+    for (int i = t0; i < n * width; i += nt) {
+      const int r = i / width, d = i - r * width, row = r0 + r;
+      dst[r * ld + d] = row < lim && d < D ? src[row * st + d] : 0.f;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           const long long* st, int B, int H, int Tq, int Tk, int D,
-           int causal, float sm_scale, int dropout, unsigned drop_thr,
-           float drop_scale, unsigned long long seed, unsigned offset,
-           cudaStream_t stream) {
-  if (D < 1 || D > 128 || Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
-  const dim3 block(kWarps * 32);
-  const size_t smem =
-      sizeof(float) * (kBQ * pad4(D) + kBK * (pad4(D) + 4) + kBK * D);
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  T* oo = static_cast<T*>(o);
-#define FLASH_LAUNCH(DC, DROP)                                               \
-  flash_fwd_kernel<T, DC, DROP><<<grid, block, smem, stream>>>(              \
-      qq, kk, vv, oo, lse, st[0], st[1], st[2], st[3], st[4], st[5], st[6],  \
-      st[7], st[8], st[9], st[10], st[11], H, Tq, Tk, D, causal, sm_scale,   \
-      drop_thr, drop_scale, seed, offset)
-#define FLASH_LAUNCH_DC(DROP)                                                \
-  switch ((D + 31) / 32) {                                                   \
-    case 1: FLASH_LAUNCH(1, DROP); break;                                    \
-    case 2: FLASH_LAUNCH(2, DROP); break;                                    \
-    case 3: FLASH_LAUNCH(3, DROP); break;                                    \
-    default: FLASH_LAUNCH(4, DROP); break;                                   \
+// out (and lse) for 16 query rows of one (batch, head). Grid (B*H, query
+// tiles), so every (batch, head)'s last query tile is dispatched first. NW
+// warps, tiles of BK = 8 KI keys (a lane takes KI of them), DC = ceil(D /
+// 32): float4 column groups of 32 a lane owns in P V.
+template <int DC, int KI, int NW, bool DROP>
+__global__ void __launch_bounds__(NW * 32)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, long long qsb, long long qsh,
+              long long qst, long long ksb, long long ksh, long long kst,
+              long long vsb, long long vsh, long long vst, long long osb,
+              long long osh, long long ost, int H, int Tq, int Tk, int D,
+              int causal, float sm_scale, int vec, unsigned drop_thr,
+              float drop_scale, unsigned long long seed, unsigned offset) {
+  constexpr int BK = 8 * KI, NT = NW * 32;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D4 = pad4(D), KP = D4 + 4, VP = 32 * DC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane >> 3, kg = lane & 7;
+  float* qs = smem;                                  // [kBQ][D4]
+  float* ks = qs + kBQ * D4 + warp * warp_floats(D, DC, BK);
+  float* vs = ks + BK * KP;                          // [BK][VP]
+  float* ps = vs + BK * VP;                          // [BK][kPP]
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const float* qp = q + b * qsb + h * qsh;
+  const float* kp = k + b * ksb + h * ksh;
+  const float* vp = v + b * vsb + h * vsh;
+  const int shift = Tk - Tq;
+  const int kend = causal ? min(Tk, q0 + kBQ + shift) : Tk;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  // cp.async groups a lane has: Q, then K and V of its warp's first tile
+  load_rows(qs, D4, qp, qst, q0, kBQ, Tq, D, D4, vec, tid, NT);
+  tc::cp_commit();
+  int t = warp;
+  if (t < ntiles) load_rows(ks, KP, kp, kst, t * BK, BK, Tk, D, D4, vec,
+                            lane, 32);
+  tc::cp_commit();
+  if (t < ntiles) load_rows(vs, VP, vp, vst, t * BK, BK, Tk, D, D4, vec,
+                            lane, 32);
+  tc::cp_commit();
+  cp_wait<1>();                          // Q and K landed
+  __syncthreads();                       // Q from every thread
+
+  // rows 4 rg + ii of the CTA: m running max, l this lane's share of the
+  // denominator, acc columns 32 c + 4 kg + e
+  float m[4], l[4], acc[4][4 * DC];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    m[ii] = -INFINITY;
+    l[ii] = 0.f;
+#pragma unroll
+    for (int x = 0; x < 4 * DC; ++x) acc[ii][x] = 0.f;
   }
-  if (dropout) {
-    FLASH_LAUNCH_DC(true)
-  } else {
-    FLASH_LAUNCH_DC(false)
+  const float* qrow = qs + 4 * rg * D4;
+  const float* krow = ks + kg * KP;
+
+  for (; t < ntiles; t += NW) {
+    __syncwarp();                        // K(t) from every lane
+    float s[4][KI];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int i = 0; i < KI; ++i) s[ii][i] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D4; d += 4) {
+      float4 qv[4], kv[KI];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+        qv[ii] = *reinterpret_cast<const float4*>(qrow + ii * D4 + d);
+#pragma unroll
+      for (int i = 0; i < KI; ++i)
+        kv[i] = *reinterpret_cast<const float4*>(krow + 8 * i * KP + d);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          s[ii][i] = fmaf(qv[ii].x, kv[i].x, s[ii][i]);
+          s[ii][i] = fmaf(qv[ii].y, kv[i].y, s[ii][i]);
+          s[ii][i] = fmaf(qv[ii].z, kv[i].z, s[ii][i]);
+          s[ii][i] = fmaf(qv[ii].w, kv[i].w, s[ii][i]);
+        }
+    }
+    __syncwarp();                        // K(t) consumed
+    const int tn = t + NW;
+    if (tn < ntiles) load_rows(ks, KP, kp, kst, tn * BK, BK, Tk, D, D4, vec,
+                               lane, 32);
+    tc::cp_commit();
+
+    // scaled, masked, the rows' new max among the 8 lanes of the group;
+    // p in place of s (l takes it undropped)
+    const int k0 = t * BK;
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int row = q0 + 4 * rg + ii;
+      float mx = m[ii];
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+        const int key = k0 + kg + 8 * i;
+        const bool ok = key < Tk && (!causal || key <= row + shift);
+        s[ii][i] = ok ? s[ii][i] * sm_scale : -INFINITY;
+        mx = fmaxf(mx, s[ii][i]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      // a row with no live key yet keeps m = -inf; subtract 0 then so
+      // exp() sees -inf and yields 0 instead of NaN
+      const float msub = mx == -INFINITY ? 0.f : mx;
+      const float alpha = expf(m[ii] - msub);
+      m[ii] = mx;
+      l[ii] *= alpha;
+#pragma unroll
+      for (int x = 0; x < 4 * DC; ++x) acc[ii][x] *= alpha;
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+        s[ii][i] = expf(s[ii][i] - msub);
+        l[ii] += s[ii][i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      const int key = k0 + kg + 8 * i;
+      if (DROP && key < Tk && (!causal || key <= q0 + 4 * rg + 3 + shift)) {
+        const uint4 bits = attn_dropout::bits4(seed, offset, bh,
+                                               (q0 >> 2) + rg, key);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+          if (attn_dropout::word(bits, ii) < drop_thr) s[ii][i] = 0.f;
+      }
+      *reinterpret_cast<float4*>(ps + (kg + 8 * i) * kPP + 4 * rg) =
+          make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+    }
+    cp_wait<1>();                        // V(t) landed
+    __syncwarp();                        // V(t) and P from every lane
+
+    // acc += P V
+    const float* pr = ps + 4 * rg;
+    const float* vr = vs + 4 * kg;
+#pragma unroll 8
+    for (int j = 0; j < BK; ++j) {
+      const float4 pj = *reinterpret_cast<const float4*>(pr + j * kPP);
+      const float pv[4] = {pj.x, pj.y, pj.z, pj.w};
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(vr + j * VP + 32 * c);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          acc[ii][4 * c] = fmaf(pv[ii], vv.x, acc[ii][4 * c]);
+          acc[ii][4 * c + 1] = fmaf(pv[ii], vv.y, acc[ii][4 * c + 1]);
+          acc[ii][4 * c + 2] = fmaf(pv[ii], vv.z, acc[ii][4 * c + 2]);
+          acc[ii][4 * c + 3] = fmaf(pv[ii], vv.w, acc[ii][4 * c + 3]);
+        }
+      }
+    }
+    __syncwarp();                        // V(t) and P consumed
+    if (tn < ntiles) load_rows(vs, VP, vp, vst, tn * BK, BK, Tk, D, D4, vec,
+                               lane, 32);
+    tc::cp_commit();
+    cp_wait<1>();                        // K(tn) landed
   }
-#undef FLASH_LAUNCH_DC
-#undef FLASH_LAUNCH
+  cp_wait<0>();
+
+  // the warps' states to shared memory, over their stages: acc [NW][kBQ]
+  // [D4], then m and l [NW][kBQ]
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    l[ii] += __shfl_xor_sync(0xffffffffu, l[ii], 1);
+    l[ii] += __shfl_xor_sync(0xffffffffu, l[ii], 2);
+    l[ii] += __shfl_xor_sync(0xffffffffu, l[ii], 4);
+  }
+  __syncthreads();                       // every warp done with its stage
+  float* s_acc = qs + kBQ * D4;
+  float* s_m = s_acc + NW * kBQ * D4;
+  float* s_l = s_m + NW * kBQ;
+  float* s_inv = s_l + NW * kBQ;         // [kBQ]: the scale of each row
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int r = 4 * rg + ii;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = 32 * c + 4 * kg;
+      if (col < D4)
+        *reinterpret_cast<float4*>(s_acc + (warp * kBQ + r) * D4 + col) =
+            make_float4(acc[ii][4 * c], acc[ii][4 * c + 1],
+                        acc[ii][4 * c + 2], acc[ii][4 * c + 3]);
+    }
+    if (kg == 0) {
+      s_m[warp * kBQ + r] = m[ii];
+      s_l[warp * kBQ + r] = l[ii];
+    }
+  }
+  __syncthreads();
+
+  // per row: M, L and each warp's weight e^(m_w - M), in warp order; M is
+  // finite for a row < Tq (key 0 is live to it, in warp 0's first tile)
+  if (tid < kBQ) {
+    const int row = q0 + tid;
+    float M = s_m[tid];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) M = fmaxf(M, s_m[w * kBQ + tid]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float e = expf(s_m[w * kBQ + tid] - M);
+      s_m[w * kBQ + tid] = e;
+      L += e * s_l[w * kBQ + tid];
+    }
+    s_inv[tid] = (DROP ? drop_scale : 1.f) / L;
+    if (lse != nullptr && row < Tq) lse[(long long)bh * Tq + row] =
+        M + logf(L);
+  }
+  __syncthreads();
+  float* op = o + b * osb + h * osh;
+  for (int i = tid; i < kBQ * D; i += NT) {
+    const int r = i / D, d = i - r * D, row = q0 + r;
+    if (row >= Tq) continue;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      a = fmaf(s_m[w * kBQ + r], s_acc[(w * kBQ + r) * D4 + d], a);
+    op[row * ost + d] = a * s_inv[r];
+  }
+}
+
+template <int DC, int KI, int NW, bool DROP>
+int launch_dc(const float* q, const float* k, const float* v, float* o,
+              float* lse, const long long* st, int B, int H, int Tq, int Tk,
+              int D, int causal, float sm_scale, int vec, unsigned drop_thr,
+              float drop_scale, unsigned long long seed, unsigned offset,
+              cudaStream_t stream) {
+  const size_t smem = smem_bytes(D, DC, 8 * KI, NW);
+  auto kern = flash_fwd_f32<DC, KI, NW, DROP>;
+  if (smem > 48 * 1024) {
+    // above 48 KB a block's dynamic shared memory needs an opt-in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
+  kern<<<grid, NW * 32, smem, stream>>>(
+      q, k, v, o, lse, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], H, Tq, Tk, D, causal, sm_scale,
+      vec, drop_thr, drop_scale, seed, offset);
   return (int)cudaGetLastError();
+}
+
+// the instance for D (DC = ceil(D / 32); 8 warps up to D = 64, 4 past it,
+// so that two CTAs fit an SM) and tiles of `tile` keys
+template <int DC, bool DROP>
+int launch_tile(const float* q, const float* k, const float* v, float* o,
+                float* lse, const long long* st, int B, int H, int Tq,
+                int Tk, int D, int causal, float sm_scale, int vec,
+                int warps, int tile, unsigned drop_thr, float drop_scale,
+                unsigned long long seed, unsigned offset,
+                cudaStream_t stream) {
+  constexpr int NW = DC <= 2 ? 8 : 4;
+  if (warps != NW) return (int)cudaErrorInvalidValue;
+#define F32_TILE(KI)                                                         \
+  return launch_dc<DC, KI, NW, DROP>(q, k, v, o, lse, st, B, H, Tq, Tk, D,   \
+                                     causal, sm_scale, vec, drop_thr,        \
+                                     drop_scale, seed, offset, stream)
+  switch (tile) {
+    case 8: F32_TILE(1);
+    case 16: F32_TILE(2);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef F32_TILE
+}
+
+}  // namespace f32
+
+// The float32 route: f32::flash_fwd_f32 for D, `warps` and `tile`
+// (cuda_kernels.flash_f32_geometry). The tiles come by 16-byte cp.async
+// when D % 4 == 0 and every pointer and (batch, head, time) stride of q, k
+// and v is a multiple of 16 bytes; otherwise by element copies.
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, const long long* st, int B, int H, int Tq, int Tk,
+               int D, int causal, float sm_scale, int warps, int tile,
+               int dropout, unsigned drop_thr, float drop_scale,
+               unsigned long long seed, unsigned offset,
+               cudaStream_t stream) {
+  if (D < 1 || D > 128 || Tq < 1 || Tk < 1 ||
+      (Tq + f32::kBQ - 1) / f32::kBQ > 65535 || (causal && Tk < Tq))
+    return (int)cudaErrorInvalidValue;
+  int vec = D % 4 == 0;
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    if (reinterpret_cast<unsigned long long>(ptrs[i]) % 16) vec = 0;
+    for (int j = 0; j < 3; ++j)
+      if (st[3 * i + j] % 4) vec = 0;
+  }
+  const float* qq = static_cast<const float*>(q);
+  const float* kk = static_cast<const float*>(k);
+  const float* vv = static_cast<const float*>(v);
+  float* oo = static_cast<float*>(o);
+#define FWD_F32_CASE(DC)                                                     \
+  if (D <= 32 * DC)                                                          \
+    return dropout                                                           \
+        ? f32::launch_tile<DC, true>(qq, kk, vv, oo, lse, st, B, H, Tq, Tk,  \
+                                     D, causal, sm_scale, vec, warps, tile,  \
+                                     drop_thr, drop_scale, seed, offset,     \
+                                     stream)                                 \
+        : f32::launch_tile<DC, false>(qq, kk, vv, oo, lse, st, B, H, Tq, Tk, \
+                                      D, causal, sm_scale, vec, warps, tile, \
+                                      drop_thr, drop_scale, seed, offset,    \
+                                      stream);
+  FWD_F32_CASE(1) FWD_F32_CASE(2) FWD_F32_CASE(3) FWD_F32_CASE(4)
+#undef FWD_F32_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // Bits of the dropout mask, [B*H, Tq, Tk] uint32: one thread per (column,
@@ -610,19 +790,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // strides: 12 element strides, (batch, head, time) for q, k, v, o in turn;
 // the head_dim stride must be 1. dtype: 0 float32, 1 bfloat16. lse: null,
 // or [B*H, Tq] float32. dropout: 0 off, else keep iff bits >= drop_thr and
-// kept values times drop_scale, bits keyed by (seed, offset).
+// kept values times drop_scale, bits keyed by (seed, offset). float32 only:
+// `warps` and `tile` (8 or 16 keys), cuda_kernels.flash_f32_geometry's; the
+// bfloat16 route ignores them.
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, const long long* strides,
                          int B, int H, int Tq, int Tk, int D, int causal,
-                         float sm_scale, int dtype, int dropout,
-                         unsigned drop_thr, float drop_scale,
+                         float sm_scale, int dtype, int warps, int tile,
+                         int dropout, unsigned drop_thr, float drop_scale,
                          unsigned long long seed, unsigned offset,
                          cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float>(q, k, v, o, lse, strides, B, H, Tq, Tk, D, causal,
-                         sm_scale, dropout, drop_thr, drop_scale, seed,
-                         offset, stream);
+    return launch_f32(q, k, v, o, lse, strides, B, H, Tq, Tk, D, causal,
+                      sm_scale, warps, tile, dropout, drop_thr, drop_scale,
+                      seed, offset, stream);
   if (dtype == 1)
     return launch_bf16(q, k, v, o, lse, strides, B, H, Tq, Tk, D, causal,
                        sm_scale, dropout, drop_thr, drop_scale, seed, offset,

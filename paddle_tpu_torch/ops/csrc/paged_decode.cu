@@ -31,45 +31,49 @@
 // microseconds at the card's rate, so what limits a kernel in practice is
 // memory latency: how many of those bytes it has in flight at once.
 //
-// float32 cache: flash-decoding. The key range 0..cl of each (slot, head)
-// is split into chunks of CH keys, one CTA of 4 warps per chunk (grid
-// ceil(T / CH) x H x B; a CTA whose chunk starts past cl exits at once,
-// since the host does not know lens). A key row is taken by G lanes, 16
-// bytes (float4) a lane where D % 4 == 0 and the caches are 16-byte
-// aligned (G = the power of two >= D / 4, at least 4: at D = 64 a warp
-// takes 2 keys a load), else G = 32 lanes of single floats. Each warp
-// issues the K and V loads of all its 8 slots (8 * 32 / G keys) before it
-// reduces the first, so a CTA has its whole chunk in flight, and the
-// launch has every live row in flight over a few hundred CTAs. A warp
-// forms its partial (m, l, acc[D]) with the reference's online-softmax
-// algebra, the CTA combines its 4 warps' in shared memory, and the
-// chunks' partials go to a float32 workspace; the last CTA of a (slot,
-// head) to arrive (an atomic ticket per (slot, head), which it resets to
-// 0 for the next call) combines them in chunk order: out = sum acc_c
-// e^(m_c - M) / sum l_c e^(m_c - M). A (slot, head) of one chunk writes
-// its output directly. The chunk that holds cl writes the appended row to
-// the cache and takes it from shared memory, never reading it back; no
-// other CTA reads row cl. The wrapper owns the workspace and the tickets
-// (cached per device and stream); the kernel allocates nothing.
+// The kernel: flash-decoding, one design for both caches. The key range
+// 0..cl of each (slot, head) is split into chunks of CH keys, one CTA of 4
+// warps per chunk (grid ceil(T / CH) x H x B; a CTA whose chunk starts past
+// cl exits at once, since the host does not know lens). A key row is taken
+// by G lanes, VEC elements a lane a load: 16 bytes (float4) for a float32
+// cache, 4 bytes (char4) for an int8 one, where D % 4 == 0 and the caches
+// are aligned to that width (G = the power of two >= D / 4, at least 4:
+// at D = 64 a warp takes 2 keys a load), else G = 32 lanes of single
+// elements. Each warp issues the K and V loads of all its 8 slots (8 * 32
+// / G keys), and for int8 the keys' two scales, before it reduces the
+// first, so a CTA has its whole chunk in flight, and the launch has every
+// live row in flight over a few hundred CTAs. A warp forms its partial
+// (m, l, acc[D]) with the reference's online-softmax algebra, the CTA
+// combines its 4 warps' in shared memory, and the chunks' partials go to a
+// float32 workspace; the last CTA of a (slot, head) to arrive (an atomic
+// ticket per (slot, head), which it resets to 0 for the next call)
+// combines them in chunk order: out = sum acc_c e^(m_c - M) / sum l_c
+// e^(m_c - M). A (slot, head) of one chunk writes its output directly.
+// The chunk that holds cl writes the appended row (quantized, for int8,
+// with its two scales) to the cache and takes it from shared memory, never
+// reading it back; no other CTA reads row cl. The wrapper owns the
+// workspace and the tickets (cached per device and stream); the kernel
+// allocates nothing. No shared array grows with T, so the kernel takes any
+// cache depth.
 //
-// int8 cache: one CTA (8 warps) per (slot, head), reading only rows 0..cl.
-// Pass 1: each warp scores 8 keys at a time (lanes split D, a coalesced
-// row read per key, all 8 keys' loads in flight, shuffle reductions);
-// scores go to shared memory. Pass 2: block max and sum. Pass 3: thread
-// groups split the keys, each thread owns one output column and keeps 8
-// V rows' loads in flight; partial sums are reduced in shared memory. At
-// B*H = 96 CTAs the 132 SMs are underfilled and each CTA walks its keys in
-// a few dependent rounds, with one byte a lane per load: the split design
-// above is its later work.
+// int8 geometry: a 64-byte row of int8 in 16-byte loads would take G = 4
+// lanes, 8 keys a warp load and 256-key chunks, so at the serving lens
+// (39-257) nearly every (slot, head) would be one CTA. 4-byte loads keep
+// the float32 kernel's geometry (G = 16 at D = 64, chunks of 64 keys, the
+// same live CTAs: cuda_kernels.paged_int8_geometry); the int8 values are
+// widened to float32 after the load, k_scale multiplies a key's score
+// after its D-dot, and v_scale the key's probability before the P V sum
+// (l sums the probabilities without it), as `_paged_q_kernel` does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kU = 8;                    // keys per warp in flight, pass 1
+constexpr int kSplitWarps = 4;
+constexpr int kSplitThreads = kSplitWarps * 32;
+constexpr int kSlots = 8;                // key loads in flight a lane
+constexpr int kMaxD = 128;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -78,156 +82,26 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Block-wide reduction over all kThreads threads; `red` holds kWarps floats.
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = kMax ? warp_max(v) : warp_sum(v);
-  __syncthreads();                       // red may still be read
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
-
-__device__ __forceinline__ float load_row(const float* p) { return *p; }
-__device__ __forceinline__ float load_row(const int8_t* p) {
-  return (float)*p;
-}
-
-// Quantize one D-row with warp 0 and write it at `dst`; returns the scale
-// (valid in warp 0). Mirrors cuda_kernels.quantize_kv exactly.
-__device__ float quantize_row(const float* src, int8_t* dst, int D) {
+// Quantize one D-row with one warp: the int8 row goes to `dst` (the cache)
+// and, widened, to `keep` (shared memory); returns the scale, in every
+// lane. Mirrors cuda_kernels.quantize_kv exactly.
+__device__ float quantize_row(const float* src, int8_t* dst, float* keep,
+                              int D) {
   const int lane = threadIdx.x & 31;
   float amax = 0.f;
   for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(src[d]));
   amax = warp_max(amax);
   const float scale = fmaxf(amax, 1e-8f) / 127.0f;
   for (int d = lane; d < D; d += 32) {
-    const float r = rintf(src[d] / scale);
-    dst[d] = (int8_t)fminf(fmaxf(r, -127.0f), 127.0f);
+    const float r = fminf(fmaxf(rintf(src[d] / scale), -127.0f), 127.0f);
+    dst[d] = (int8_t)r;
+    keep[d] = r;
   }
   return scale;
 }
 
-// DC = ceil(D / 32): head-dim columns each lane reads in pass 1.
-template <typename C, bool kQuant, int DC>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ nk,
-                    const float* __restrict__ nv, long long qsb,
-                    long long qsh, long long ksb, long long ksh,
-                    long long vsb, long long vsh, C* kc, C* vc, float* ksc,
-                    float* vsc, const int* __restrict__ lens,
-                    float* __restrict__ out, int H, int T, int D,
-                    float sm_scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                      // [D]
-  float* red = qs + D;                   // [kWarps]
-  float* pv = red + kWarps;              // [groups * D]
-  const int groups = kThreads / D;
-  float* sc = pv + groups * D;           // [T] scores, then probabilities
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ln = min(max(lens[b], 0), T);
-  const int cl = min(ln, T - 1);         // append row
-  const long long row0 = ((long long)b * H + h) * T;   // first row of (b,h)
-  const float* qp = q + b * qsb + h * qsh;
-  const float* nkp = nk + b * ksb + h * ksh;
-  const float* nvp = nv + b * vsb + h * vsh;
-
-  // append (in place), then the query, scaled
-  if constexpr (kQuant) {
-    if (warp == 0) {
-      const float s = quantize_row(nkp, kc + (row0 + cl) * D, D);
-      if (lane == 0) ksc[row0 + cl] = s;
-    } else if (warp == 1) {
-      const float s = quantize_row(nvp, vc + (row0 + cl) * D, D);
-      if (lane == 0) vsc[row0 + cl] = s;
-    }
-  } else {
-    for (int d = tid; d < D; d += kThreads) {
-      kc[(row0 + cl) * D + d] = nkp[d];
-      vc[(row0 + cl) * D + d] = nvp[d];
-    }
-  }
-  for (int d = tid; d < D; d += kThreads) qs[d] = qp[d] * sm_scale;
-  __syncthreads();                       // appended row visible block-wide
-
-  // pass 1: scores of the live keys 0..cl, kU keys per warp in flight
-  const int n = cl + 1;
-  for (int j0 = warp * kU; j0 < n; j0 += kWarps * kU) {
-    // no branch around the loads, so all kU rows are in flight at once:
-    // keys past n re-read row n-1 (live) and their scores are dropped
-    float part[kU], kscale[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int j = min(j0 + u, n - 1);
-      const C* krow = kc + (row0 + j) * D;
-      part[u] = 0.f;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) part[u] = fmaf(qs[d], load_row(krow + d), part[u]);
-      }
-      if constexpr (kQuant) kscale[u] = ksc[row0 + j];
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      float sv = warp_sum(part[u]);
-      if constexpr (kQuant) sv *= kscale[u];
-      if (lane == 0 && j0 + u < n) sc[j0 + u] = sv;
-    }
-  }
-  __syncthreads();
-
-  // pass 2: softmax statistics; sc becomes p (times v_scale for int8)
-  float mx = -INFINITY;
-  for (int j = tid; j < n; j += kThreads) mx = fmaxf(mx, sc[j]);
-  mx = block_reduce<true>(mx, red);
-  float sum = 0.f;
-  for (int j = tid; j < n; j += kThreads) {
-    const float p = expf(sc[j] - mx);
-    sum += p;
-    if constexpr (kQuant) sc[j] = p * vsc[row0 + j];
-    else sc[j] = p;
-  }
-  sum = block_reduce<false>(sum, red);   // ends with a __syncthreads()
-
-  // pass 3: out[d] = sum_j p_j v[j, d] / sum
-  if (tid < groups * D) {
-    const int g = tid / D, d = tid - g * D;
-    float a = 0.f;
-#pragma unroll 8
-    for (int j = g; j < n; j += groups)
-      a = fmaf(sc[j], load_row(vc + (row0 + j) * D + d), a);
-    pv[g * D + d] = a;
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += kThreads) {
-    float a = 0.f;
-    for (int g = 0; g < groups; ++g) a += pv[g * D + d];
-    out[((long long)b * H + h) * D + d] = a / sum;
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// float32 cache: the key range split across CTAs (see the note at the top)
-
-constexpr int kSplitWarps = 4;
-constexpr int kSplitThreads = kSplitWarps * 32;
-constexpr int kSlots = 8;                // key loads in flight a lane
-constexpr int kMaxD = 128;
-
-// VEC floats of a row from global memory: one 16-byte load, or one float
+// VEC elements of a cache row from global memory, as float32: one 16-byte
+// load of floats or one 4-byte load of int8, or a single element
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float* v) {
   if constexpr (VEC == 4) {
@@ -237,29 +111,41 @@ __device__ __forceinline__ void load_vec(const float* p, float* v) {
     v[0] = __ldg(p);
   }
 }
+template <int VEC>
+__device__ __forceinline__ void load_vec(const int8_t* p, float* v) {
+  if constexpr (VEC == 4) {
+    const char4 a = __ldg(reinterpret_cast<const char4*>(p));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    v[0] = __ldg(reinterpret_cast<const signed char*>(p));
+  }
+}
 
-// G lanes take a key row, each C vectors of VEC floats: columns
+// G lanes take a key row, each C vectors of VEC elements: columns
 // (gl + G c) VEC .. +VEC-1 of lane gl of its group. A warp takes 32 / G
 // keys a load and kSlots loads, a CTA CH = 4 * kSlots * 32 / G keys
-// (cuda_kernels.paged_split_geometry).
-template <int G, int C, int VEC>
+// (cuda_kernels.paged_split_geometry, paged_int8_geometry). CT is the
+// cache's element type: float, or int8_t with float32 scales ksc / vsc.
+template <typename CT, int G, int C, int VEC>
 __global__ void __launch_bounds__(kSplitThreads)
 paged_split_kernel(const float* __restrict__ q,
                    const float* __restrict__ nk,
                    const float* __restrict__ nv, long long qsb,
                    long long qsh, long long ksb, long long ksh,
-                   long long vsb, long long vsh, float* kc, float* vc,
-                   const int* __restrict__ lens, float* __restrict__ out,
-                   float* part, unsigned* ticket, int H, int T, int D,
-                   float sm_scale) {
+                   long long vsb, long long vsh, CT* kc, CT* vc, float* ksc,
+                   float* vsc, const int* __restrict__ lens,
+                   float* __restrict__ out, float* part, unsigned* ticket,
+                   int H, int T, int D, float sm_scale) {
+  constexpr bool kQuant = sizeof(CT) == 1;
   constexpr int KPW = 32 / G;            // keys a warp load takes
   constexpr int CH = kSplitWarps * kSlots * KPW;
-  constexpr int W = C * VEC;             // floats of a row a lane holds
+  constexpr int W = C * VEC;             // elements of a row a lane holds
   __shared__ __align__(16) float s_q[kMaxD];
   __shared__ __align__(16) float s_nk[kMaxD];
   __shared__ __align__(16) float s_nv[kMaxD];
   __shared__ __align__(16) float s_acc[kSplitWarps][kMaxD];
   __shared__ float s_m[kSplitWarps], s_l[kSplitWarps];
+  __shared__ float s_ks, s_vs;
   __shared__ bool s_last;
 
   const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -274,12 +160,13 @@ paged_split_kernel(const float* __restrict__ q,
   const bool owner = cl < k0 + CH;       // this chunk holds the append row
 
   // the warp's keys: kw0 + KPW u + gi, u < kSlots. The loads of the cache
-  // rows (those below cl; rows past cl are never loaded) are all issued
-  // first, so their latency overlaps the query's; row cl comes from shared
-  // memory below.
+  // rows (those below cl; rows past cl are never loaded) and, for int8,
+  // their scales are all issued first, so their latency overlaps the
+  // query's; row cl comes from shared memory below.
   const int gi = lane / G, gl = lane % G;
   const int kw0 = k0 + warp * kSlots * KPW;
   float kr[kSlots][W], vr[kSlots][W];
+  float kscale[kSlots], vscale[kSlots];
 #pragma unroll
   for (int u = 0; u < kSlots; ++u) {
     const int j = kw0 + KPW * u + gi;
@@ -295,19 +182,37 @@ paged_split_kernel(const float* __restrict__ q,
           kr[u][c * VEC + e] = vr[u][c * VEC + e] = 0.f;
       }
     }
+    if constexpr (kQuant) {
+      kscale[u] = j < cl ? __ldg(ksc + row0 + j) : 0.f;
+      vscale[u] = j < cl ? __ldg(vsc + row0 + j) : 0.f;
+    }
   }
 
   // the query, scaled; the chunk holding cl appends the new row (in
-  // place) and keeps it in shared memory for its own use
+  // place; for int8 quantized by warps 0 and 1) and keeps it in shared
+  // memory for its own use
   for (int d = tid; d < D; d += kSplitThreads) {
     s_q[d] = q[b * qsb + h * qsh + d] * sm_scale;
-    if (owner) {
-      const float kv = nk[b * ksb + h * ksh + d];
-      const float vv = nv[b * vsb + h * vsh + d];
-      s_nk[d] = kv;
-      s_nv[d] = vv;
-      kc[(row0 + cl) * D + d] = kv;
-      vc[(row0 + cl) * D + d] = vv;
+    if constexpr (!kQuant) {
+      if (owner) {
+        const float kv = nk[b * ksb + h * ksh + d];
+        const float vv = nv[b * vsb + h * vsh + d];
+        s_nk[d] = kv;
+        s_nv[d] = vv;
+        kc[(row0 + cl) * D + d] = kv;
+        vc[(row0 + cl) * D + d] = vv;
+      }
+    }
+  }
+  if constexpr (kQuant) {
+    if (owner && warp == 0) {
+      const float s = quantize_row(nk + b * ksb + h * ksh,
+                                   kc + (row0 + cl) * D, s_nk, D);
+      if (lane == 0) ksc[row0 + cl] = s_ks = s;
+    } else if (owner && warp == 1) {
+      const float s = quantize_row(nv + b * vsb + h * vsh,
+                                   vc + (row0 + cl) * D, s_nv, D);
+      if (lane == 0) vsc[row0 + cl] = s_vs = s;
     }
   }
   __syncthreads();
@@ -333,11 +238,16 @@ paged_split_kernel(const float* __restrict__ q,
           vr[u][c * VEC + e] = col < D ? s_nv[col + e] : 0.f;
         }
       }
+      if constexpr (kQuant) {
+        kscale[u] = s_ks;
+        vscale[u] = s_vs;
+      }
     }
   }
 
   // the warp's partial: m = max score, l = sum e^(s - m), acc = sum
-  // e^(s - m) v; a warp with no live key keeps m = -inf, l = acc = 0
+  // e^(s - m) v (times v_scale for int8); a warp with no live key keeps
+  // m = -inf, l = acc = 0
   float s[kSlots], m = -INFINITY;
 #pragma unroll
   for (int u = 0; u < kSlots; ++u) {
@@ -347,6 +257,7 @@ paged_split_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int o = G / 2; o > 0; o >>= 1)
       a += __shfl_xor_sync(0xffffffffu, a, o);
+    if constexpr (kQuant) a *= kscale[u];
     s[u] = kw0 + KPW * u + gi <= cl ? a : -INFINITY;
     m = fmaxf(m, s[u]);
   }
@@ -361,8 +272,9 @@ paged_split_kernel(const float* __restrict__ q,
     for (int u = 0; u < kSlots; ++u) {
       const float p = expf(s[u] - m);    // 0 for a dead key
       l += p;
+      const float pv = kQuant ? p * vscale[u] : p;
 #pragma unroll
-      for (int i = 0; i < W; ++i) acc[i] = fmaf(p, vr[u][i], acc[i]);
+      for (int i = 0; i < W; ++i) acc[i] = fmaf(pv, vr[u][i], acc[i]);
     }
   }
   // sum over the warp's key groups (lanes gl, gl + G, ...)
@@ -439,16 +351,53 @@ paged_split_kernel(const float* __restrict__ q,
   if (tid == 0) ticket[bh] = 0;          // ready for the next call
 }
 
-template <int G, int C, int VEC>
+template <typename CT, int G, int C, int VEC>
 void launch_split(const float* q, const float* nk, const float* nv,
-                  const long long* st, float* kc, float* vc, const int* lens,
-                  float* out, float* part, unsigned* ticket, int B, int H,
-                  int T, int D, float sm_scale, cudaStream_t stream) {
+                  const long long* st, CT* kc, CT* vc, float* ksc,
+                  float* vsc, const int* lens, float* out, float* part,
+                  unsigned* ticket, int B, int H, int T, int D,
+                  float sm_scale, cudaStream_t stream) {
   constexpr int CH = kSplitWarps * kSlots * (32 / G);
   const dim3 grid((T + CH - 1) / CH, H, B);
-  paged_split_kernel<G, C, VEC><<<grid, kSplitThreads, 0, stream>>>(
-      q, nk, nv, st[0], st[1], st[2], st[3], st[4], st[5], kc, vc, lens,
-      out, part, ticket, H, T, D, sm_scale);
+  paged_split_kernel<CT, G, C, VEC><<<grid, kSplitThreads, 0, stream>>>(
+      q, nk, nv, st[0], st[1], st[2], st[3], st[4], st[5], kc, vc, ksc, vsc,
+      lens, out, part, ticket, H, T, D, sm_scale);
+}
+
+// the geometry's instance: VEC-wide loads by `lanes` lanes a row (VEC = 4
+// for 16-byte float or 4-byte int8 loads), or 32 lanes of single elements
+template <typename CT, int VEC>
+int launch_for(const float* q, const float* nk, const float* nv,
+               const long long* st, CT* kc, CT* vc, float* ksc, float* vsc,
+               const int* lens, float* out, float* part, unsigned* ticket,
+               int B, int H, int T, int D, int lanes, int vec, float sm_scale,
+               cudaStream_t stream) {
+  const bool aligned =
+      reinterpret_cast<unsigned long long>(kc) % (VEC * sizeof(CT)) == 0 &&
+      reinterpret_cast<unsigned long long>(vc) % (VEC * sizeof(CT)) == 0;
+#define SPLIT_LAUNCH(G, C, V)                                                \
+  launch_split<CT, G, C, V>(q, nk, nv, st, kc, vc, ksc, vsc, lens, out,      \
+                            part, ticket, B, H, T, D, sm_scale, stream)
+  if (vec) {
+    if (D % 4 || !aligned || 4 * lanes < D) return (int)cudaErrorInvalidValue;
+    switch (lanes) {
+      case 4: SPLIT_LAUNCH(4, 1, VEC); break;
+      case 8: SPLIT_LAUNCH(8, 1, VEC); break;
+      case 16: SPLIT_LAUNCH(16, 1, VEC); break;
+      case 32: SPLIT_LAUNCH(32, 1, VEC); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    if (lanes != 32) return (int)cudaErrorInvalidValue;
+    switch ((D + 31) / 32) {
+      case 1: SPLIT_LAUNCH(32, 1, 1); break;
+      case 2: SPLIT_LAUNCH(32, 2, 1); break;
+      case 3: SPLIT_LAUNCH(32, 3, 1); break;
+      default: SPLIT_LAUNCH(32, 4, 1); break;
+    }
+  }
+#undef SPLIT_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -456,11 +405,11 @@ void launch_split(const float* q, const float* nk, const float* nv,
 // q/new_k/new_v: float32 [B, H, 1, D] given by (batch, head) element
 // strides; caches [B, H, T, D] contiguous, float32 (quant=0) or int8
 // (quant=1, with float32 scales [B, H, T]); lens int32 [B]; out float32
-// [B, H, 1, D] contiguous. float32 only: `lanes` (G) and `vec` (float4
-// rows) pick the split kernel's geometry (cuda_kernels.paged_split_geometry),
-// `part` is a float32 workspace of at least B * H * ceil(T / CH) * (D + 2)
-// floats and `ticket` uint32 [B * H], all 0 before the call and after it.
-// Returns cudaGetLastError() after the launch.
+// [B, H, 1, D] contiguous. `lanes` (G) and `vec` (4-wide rows: float4 or
+// char4) pick the geometry (cuda_kernels.paged_split_geometry,
+// paged_int8_geometry), `part` is a float32 workspace of at least B * H *
+// ceil(T / CH) * (D + 2) floats and `ticket` uint32 [B * H], all 0 before
+// the call and after it. Returns cudaGetLastError() after the launch.
 extern "C" int paged_decode(const void* q, const void* new_k,
                             const void* new_v, const long long* strides,
                             void* k_cache, void* v_cache, void* k_scale,
@@ -468,62 +417,25 @@ extern "C" int paged_decode(const void* q, const void* new_k,
                             void* part, void* ticket, int B, int H, int T,
                             int D, int lanes, int vec, float sm_scale,
                             int quant, cudaStream_t stream) {
-  if (D < 1 || D > kMaxD || T < 1 || B < 1 || H < 1)
+  if (D < 1 || D > kMaxD || T < 1 || B < 1 || H < 1 || B > 65535 ||
+      H > 65535)
     return (int)cudaErrorInvalidValue;
   const float* qq = static_cast<const float*>(q);
   const float* kk = static_cast<const float*>(new_k);
   const float* vv = static_cast<const float*>(new_v);
   const int* ll = static_cast<const int*>(lens);
   float* oo = static_cast<float*>(out);
-  if (!quant) {
-    float* kf = static_cast<float*>(k_cache);
-    float* vf = static_cast<float*>(v_cache);
-    float* pp = static_cast<float*>(part);
-    unsigned* tt = static_cast<unsigned*>(ticket);
-    const bool aligned = reinterpret_cast<unsigned long long>(kf) % 16 == 0 &&
-                         reinterpret_cast<unsigned long long>(vf) % 16 == 0;
-#define SPLIT_LAUNCH(G, C, VEC)                                              \
-  launch_split<G, C, VEC>(qq, kk, vv, strides, kf, vf, ll, oo, pp, tt, B, H, \
-                          T, D, sm_scale, stream)
-    if (vec) {
-      if (D % 4 || !aligned || 4 * lanes < D) return (int)cudaErrorInvalidValue;
-      switch (lanes) {
-        case 4: SPLIT_LAUNCH(4, 1, 4); break;
-        case 8: SPLIT_LAUNCH(8, 1, 4); break;
-        case 16: SPLIT_LAUNCH(16, 1, 4); break;
-        case 32: SPLIT_LAUNCH(32, 1, 4); break;
-        default: return (int)cudaErrorInvalidValue;
-      }
-    } else {
-      if (lanes != 32) return (int)cudaErrorInvalidValue;
-      switch ((D + 31) / 32) {
-        case 1: SPLIT_LAUNCH(32, 1, 1); break;
-        case 2: SPLIT_LAUNCH(32, 2, 1); break;
-        case 3: SPLIT_LAUNCH(32, 3, 1); break;
-        default: SPLIT_LAUNCH(32, 4, 1); break;
-      }
-    }
-#undef SPLIT_LAUNCH
-    return (int)cudaGetLastError();
-  }
-  const int groups = kThreads / D;
-  const size_t smem = sizeof(float) * (D + kWarps + groups * D + T);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid(H, B);
-  int8_t* kq = static_cast<int8_t*>(k_cache);
-  int8_t* vq = static_cast<int8_t*>(v_cache);
-  float* ks = static_cast<float*>(k_scale);
-  float* vs = static_cast<float*>(v_scale);
-#define PAGED_LAUNCH(DC)                                                     \
-  paged_decode_kernel<int8_t, true, DC><<<grid, kThreads, smem, stream>>>(   \
-      qq, kk, vv, strides[0], strides[1], strides[2], strides[3],            \
-      strides[4], strides[5], kq, vq, ks, vs, ll, oo, H, T, D, sm_scale)
-  switch ((D + 31) / 32) {
-    case 1: PAGED_LAUNCH(1); break;
-    case 2: PAGED_LAUNCH(2); break;
-    case 3: PAGED_LAUNCH(3); break;
-    default: PAGED_LAUNCH(4); break;
-  }
-#undef PAGED_LAUNCH
-  return (int)cudaGetLastError();
+  float* pp = static_cast<float*>(part);
+  unsigned* tt = static_cast<unsigned*>(ticket);
+  if (quant)
+    return launch_for<int8_t, 4>(
+        qq, kk, vv, strides, static_cast<int8_t*>(k_cache),
+        static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale),
+        static_cast<float*>(v_scale), ll, oo, pp, tt, B, H, T, D, lanes, vec,
+        sm_scale, stream);
+  return launch_for<float, 4>(qq, kk, vv, strides,
+                              static_cast<float*>(k_cache),
+                              static_cast<float*>(v_cache), nullptr, nullptr,
+                              ll, oo, pp, tt, B, H, T, D, lanes, vec,
+                              sm_scale, stream);
 }

@@ -55,7 +55,8 @@ from ..observability import metrics
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
-           "flash_fwd_train_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
+           "flash_fwd_train_plain", "flash_f32_geometry", "flash_bwd_dq",
+           "flash_bwd_dq_plain",
            "flash_bwd_dkv", "flash_bwd_dkv_plain", "FlashAttentionFunction",
            "attn_dropout_bits", "attn_dropout_bits_plain",
            "flash_attention_or_none", "fused_dropout_ln_fwd",
@@ -67,7 +68,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
            "fused_dropout_residual_ln_or_none", "DROPOUT_MODES", "adamw",
            "adamw_plain",
            "fused_adamw_or_none", "paged_decode", "paged_decode_plain",
-           "paged_split_geometry",
+           "paged_split_geometry", "paged_int8_geometry",
            "paged_decode_attention_or_none", "quantize_kv", "dequantize_kv",
            "launch_counts", "attention_path_counts"]
 
@@ -87,12 +88,6 @@ _ATTN_PATHS = {"flash": 0, "flash_dropout": 0, "xla_sdpa": 0,
 _ATTN_COUNTER = metrics.counter(
     "pt_attn_path_total", "Attention implementations run, by path",
     labelnames=("path",))
-
-# the int8 paged-decode kernel keeps one float score per cache row in
-# shared memory and stays under the 48 KB a block gets without an opt-in;
-# the float32 kernel takes the same depths
-_PAGED_MAX_T = 8192
-
 
 def launch_counts(reset=False):
     out = dict(_LAUNCHES)
@@ -238,14 +233,34 @@ def _keep_mask(bits, dropout_p, shape):
 # :412). bfloat16 inputs (every training path, under O2 or auto_cast, and
 # bf16 prefill) run on the tensor cores: bf16 mma.sync with float32 sums,
 # S and P kept in registers, P rounded once to bf16 for the P V product.
-# float32 inputs (the serving path's float32 cache) keep the CUDA-core
-# kernel in full float32. Bound on the H100: at the serving prefill shapes
-# (B=1, H=12, T<=256, D=64) a few microseconds, so the kernel is
-# latency-bound; at the training shapes (B=16, H=12, T=512, D=64, causal)
-# bytes on paper, and in practice the dropout's Philox calls and
-# mma.sync's share of the tensor-core peak. It keeps the [Tq, Tk] scores
-# and the dropout mask on chip and skips the K/V tiles above the causal
-# diagonal (see the source's note).
+# float32 inputs (the serving path's float32 cache) run on the CUDA cores
+# in full float32, each CTA's causal key range dealt out to its warps in
+# tiles (`flash_f32_geometry`), the warps' softmax states combined at the
+# end. Bound on the H100: at the serving prefill shapes (B=1, H=12,
+# T<=256, D=64) a few microseconds, so the kernel is latency-bound; at the
+# training shapes (B=16, H=12, T=512, D=64, causal) bytes on paper, and in
+# practice the dropout's Philox calls and mma.sync's share of the
+# tensor-core peak. It keeps the [Tq, Tk] scores and the dropout mask on
+# chip and skips the K/V tiles above the causal diagonal (see the
+# source's note).
+
+# the float32 kernel's query rows a CTA
+_F32_ROWS = 16
+
+
+def flash_f32_geometry(Tq, Tk, D, causal):
+    """(warps, tile) of the float32 flash forward: a CTA of `warps` warps
+    (8 up to D = 64, 4 past it) takes 16 query rows and deals their causal
+    key range out to its warps in tiles of `tile` keys, tile t to warp
+    t % warps. The tile is 8 keys where that covers a warp's share of the
+    last query tile's range (the CTA with the most keys), so that short
+    prompts keep every warp busy, else 16 (two CTAs an SM; tiles of 32
+    were slower at T = 256 on the H100, PERF.md)."""
+    warps = 8 if D <= 64 else 4
+    kend = Tk
+    if causal:
+        kend = min(Tk, -(-Tq // _F32_ROWS) * _F32_ROWS + Tk - Tq)
+    return warps, 8 if -(-kend // warps) <= 8 else 16
 
 
 def _scores(q, k, causal):
@@ -351,12 +366,14 @@ def _flash_fwd(q, k, v, causal, dropout_p, seed, offset, need_lse):
     thr, scale = _drop_args(dropout_p)
     lib = _build.load("flash_fwd")
     strides = _strides(q, k, v, o)
+    warps, tile = (flash_f32_geometry(Tq, Tk, D, causal)
+                   if q.dtype == torch.float32 else (0, 0))
     err = lib.flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if need_lse else None, ctypes.addressof(strides),
         B, H, Tq, Tk, D, int(bool(causal)), float(D) ** -0.5,
-        _DTYPE_CODE[q.dtype], int(dropout_p > 0.0), thr, scale, int(seed),
-        int(offset), _stream(q))
+        _DTYPE_CODE[q.dtype], warps, tile, int(dropout_p > 0.0), thr,
+        scale, int(seed), int(offset), _stream(q))
     name = "flash_fwd_train" if (need_lse or dropout_p > 0.0) else \
         "flash_fwd"
     _check_launch(err, name)
@@ -1027,22 +1044,23 @@ def fused_adamw_or_none(param, grad, lr, t, m1, m2, *, beta1, beta2,
 # `_paged_q_kernel` (:1746), both `_paged_core` (:1646), launched by
 # `_paged_decode` (:1755). Bound on the H100: bytes — each live K/V row is
 # read once per step; the kernel reads only rows 0..min(lens, T-1) and
-# updates the cache in place (the reference returns new buffers). The
-# float32 kernel splits each (slot, head)'s keys into chunks, one CTA each,
-# whose partial softmax sums the last CTA to arrive combines
-# (csrc/paged_decode.cu); its workspace and tickets live here.
+# updates the cache in place (the reference returns new buffers). For
+# either cache the kernel splits each (slot, head)'s keys into chunks, one
+# CTA each, whose partial softmax sums the last CTA to arrive combines
+# (csrc/paged_decode.cu); its workspace and tickets live here. Nothing in
+# it grows with the cache depth T, so it takes any T.
 
-# the float32 kernel's warps a CTA and key loads in flight a lane
+# the kernel's warps a CTA and key loads in flight a lane
 _PAGED_WARPS, _PAGED_SLOTS = 4, 8
 _PAGED_WS = {}
 
 
 def paged_split_geometry(D, vec4=True):
-    """(lanes, chunk) of the float32 paged-decode kernel for head width D:
-    `lanes` take one key row, 16 bytes a lane when `vec4` (rows of float4:
-    D % 4 == 0 and 16-byte aligned caches; the power of two >= D / 4, at
-    least 4), else 32 lanes of single floats; a CTA takes `chunk` = 4
-    warps x 8 loads x 32 / lanes keys."""
+    """(lanes, chunk) of the paged-decode kernel on a float32 cache for
+    head width D: `lanes` take one key row, 16 bytes a lane when `vec4`
+    (rows of float4: D % 4 == 0 and 16-byte aligned caches; the power of
+    two >= D / 4, at least 4), else 32 lanes of single floats; a CTA takes
+    `chunk` = 4 warps x 8 loads x 32 / lanes keys."""
     if vec4 and D % 4 == 0:
         lanes = max(4, 1 << (D // 4 - 1).bit_length())
     else:
@@ -1050,8 +1068,19 @@ def paged_split_geometry(D, vec4=True):
     return lanes, _PAGED_WARPS * _PAGED_SLOTS * (32 // lanes)
 
 
+def paged_int8_geometry(D, vec4=True):
+    """(lanes, chunk) of the kernel on an int8 cache: 4 bytes (char4) a
+    lane when `vec4` (D % 4 == 0 and 4-byte aligned caches), else 32 lanes
+    of single bytes. Four values a lane, as the float32 cache's float4, so
+    the rule is `paged_split_geometry`'s: at D = 64, 16 lanes a row and
+    chunks of 64 keys. (16-byte loads of int8 would give 4 lanes a row and
+    256-key chunks, one CTA for nearly every (slot, head) at the serving
+    lens.)"""
+    return paged_split_geometry(D, vec4)
+
+
 def _paged_workspace(q, stream, B, H, T, D, chunk):
-    """The float32 kernel's partial sums (B * H * ceil(T / chunk) * (D + 2)
+    """The kernel's partial sums (B * H * ceil(T / chunk) * (D + 2)
     floats) and its tickets (uint32 [B * H], zeroed once; each call leaves
     them 0), cached per device and stream and grown when too small."""
     key = (q.device, stream)
@@ -1142,8 +1171,8 @@ def _paged_check(q, k_cache, v_cache, lens, new_k, new_v, k_scale,
     T = k_cache.shape[2]
     _need(tuple(k_cache.shape) == (B, H, T, D)
           and v_cache.shape == k_cache.shape, "paged_decode: cache shape")
-    _need(1 <= D <= 128 and T <= _PAGED_MAX_T,
-          "paged_decode: needs D <= 128 and T <= %d" % _PAGED_MAX_T)
+    _need(1 <= D <= 128 and B <= 65535 and H <= 65535,
+          "paged_decode: needs D <= 128 and B, H <= 65535")
     for t in (q, new_k, new_v):
         _need(t.dtype == torch.float32 and tuple(t.shape) == (B, H, 1, D)
               and t.stride(-1) == 1, "paged_decode: q/new_k/new_v must be "
@@ -1184,14 +1213,14 @@ def paged_decode(q, k_cache, v_cache, lens, new_k, new_v, k_scale=None,
     strides = (ctypes.c_longlong * 6)(
         *(s for t in (q, new_k, new_v) for s in t.stride()[:2]))
     stream = _stream(q)
-    part = ticket = None
-    lanes = vec4 = 0
-    if not quantized:
-        vec4 = (D % 4 == 0 and k_cache.data_ptr() % 16 == 0
-                and v_cache.data_ptr() % 16 == 0)
-        lanes, chunk = paged_split_geometry(D, vec4)
-        part, ticket = (t.data_ptr() for t in
-                        _paged_workspace(q, stream, B, H, T, D, chunk))
+    # 4 elements a lane load: float4 rows (16 bytes) or char4 (4 bytes)
+    align = 4 if quantized else 16
+    vec4 = (D % 4 == 0 and k_cache.data_ptr() % align == 0
+            and v_cache.data_ptr() % align == 0)
+    lanes, chunk = (paged_int8_geometry if quantized
+                    else paged_split_geometry)(D, vec4)
+    part, ticket = (t.data_ptr() for t in
+                    _paged_workspace(q, stream, B, H, T, D, chunk))
     lib = _build.load("paged_decode")
     err = lib.paged_decode(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),

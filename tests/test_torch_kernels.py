@@ -269,10 +269,13 @@ class TestPagedGate:
         finally:
             set_flags(saved)
 
-    @pytest.mark.parametrize("D,T", [(12, T_CACHE), (D_HEAD, 7), (24, 100)])
+    @pytest.mark.parametrize("D,T", [(12, T_CACHE), (D_HEAD, 7), (24, 100),
+                                     (D_HEAD, 16384)])
     def test_takes_any_depth_and_width(self, D, T):
         # no block tiles T=7 or T=100 and D % 8 != 0 for D=12: the
-        # reference gate refuses these, the port's kernel takes them
+        # reference gate refuses these, the port's kernel takes them; no
+        # shared array of the kernel grows with T, so a cache deeper than
+        # 8192 rows is taken too
         args = self._args(D=D, T=T)
         want = ck.paged_decode_plain(*[a.clone() for a in args])
         got = ck.paged_decode_attention_or_none(*args)
