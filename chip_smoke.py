@@ -25,15 +25,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
   5. the main path: gpt2-small at full width and depth (seeded weights)
      behind GenerationEngine(max_batch=8, max_seq_len=512, buckets
      (32, 128, 256)) and ContinuousBatcher with the prefix cache on,
-     serving 16 requests; the kernel launch counters are zeroed just
-     before and read just after, the flash forward's also by prefill
-     bucket (summed against each bucket's time and bound); then a
-     torch.profiler breakdown of the decode step;
+     serving 16 requests; the engine's step programs are CUDA graphs,
+     each captured once and replayed; the kernel launch counters are
+     zeroed just before and read just after, and must equal each
+     program's runs times its captured launches, with kernels launched
+     through replays; the compile-once contract (one decode program, at
+     most one prefill program a bucket, a suffix program for the shared
+     head of requests 2 and 6), each program's capture time and the graph
+     pool's memory; the flash forward's launches by prefill bucket
+     (summed against each bucket's time and bound); a torch.profiler
+     breakdown of the decode step; the same requests again on the same
+     engine (dirty slots, a fresh prefix cache, every program built):
+     the same tokens and no build; then the same requests through the
+     engine's step bodies run eagerly: tokens identical and the final
+     cache (k, v, lens) bit-equal to the replayed run's;
   6. the same requests with both kernel flags off (the plain versions on
-     the card): tokens must agree, or first differ where the plain run's
-     top-2 logit gap is a near tie;
-  7. a shorter int8-cache run, its decode step profiled the same way,
-     held to the plain int8 path the same way;
+     the card, captured the same way): tokens must agree, or first differ
+     where the plain run's top-2 logit gap is a near tie;
+  7. a shorter int8-cache run, checked, profiled and held to the eager
+     bodies (scales too) the same way, and to the plain int8 path;
   8. the training kernels' device times at the training main path's
      shapes (flash forward with lse and dropout, flash backward dq and
      dk/dv: B=16, H=12, T=512, D=64, bfloat16, causal, p=0.1; AdamW over
@@ -1514,39 +1524,53 @@ def make_requests(np, n=16):
 def recording_engine(torch, GenerationEngine):
     class RecordingEngine(GenerationEngine):
         """Keeps each request's top-2 logit gap at every step (plain
-        comparison runs only), keyed by the request's prompt object."""
+        comparison runs only), keyed by the request's prompt object. The
+        step programs write the gaps into a static buffer, which each
+        step's replay overwrites: it is read right after the step."""
 
         batcher = None
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.gaps = {}
-            self._gap = None
+            self._gap = torch.zeros(self.max_batch, device=self.device)
 
         def _logits(self, hidden):
             logits = super()._logits(hidden)
             top = torch.topk(logits.float(), 2, dim=-1).values
-            self._gap = (top[..., 0] - top[..., 1]).reshape(-1)
+            gap = (top[..., 0] - top[..., 1]).reshape(-1)
+            self._gap[:gap.numel()].copy_(gap)
             return logits
 
         def prefill(self, slot, prompt):
             tok = super().prefill(slot, prompt)
-            self.gaps.setdefault(id(prompt), []).append(self._gap[0])
+            self.gaps.setdefault(id(prompt), []).append(float(self._gap[0]))
             return tok
 
         def decode(self):
             out = super().decode()
+            gap = self._gap.cpu()
             for s, req in enumerate(self.batcher.slots):
                 if req is not None:
                     self.gaps.setdefault(id(req.prompt), []).append(
-                        self._gap[s])
+                        float(gap[s]))
             return out
     return RecordingEngine
 
 
+def eager_engine(GenerationEngine):
+    class EagerEngine(GenerationEngine):
+        """The engine's step bodies run eagerly on every call: no program
+        is built, captured or replayed."""
+
+        def _run(self, key, body):
+            body()
+    return EagerEngine
+
+
 def serve(serving, engine, reqs):
     """Serve `reqs` through ContinuousBatcher; returns (requests, wall s,
-    decode step wall times in ms)."""
+    the run's decode step wall times in ms)."""
     batcher = serving.ContinuousBatcher(engine)
     engine.batcher = batcher
     steps = []
@@ -1561,9 +1585,13 @@ def serve(serving, engine, reqs):
     rs = [serving.Request(prompt=p.copy(), max_new_tokens=m)
           for p, m in reqs]
     t0 = time.perf_counter()
-    for r in rs:
-        batcher.submit(r)
-    batcher.run_until_idle(max_steps=10_000)
+    try:
+        for r in rs:
+            batcher.submit(r)
+        batcher.run_until_idle(max_steps=10_000)
+    finally:
+        # later decode steps (the profile, a second pass) are not this run's
+        engine.decode = decode
     wall = time.perf_counter() - t0
     for r in rs:
         require(r.outcome == "completed" and len(r.tokens) == r.max_new_tokens,
@@ -1592,28 +1620,104 @@ def profile_decode(torch, engine, n=10):
     return total_us / n / 1e3, rows[:5]
 
 
-def count_flash_by_t(ck):
-    """Also count each flash_fwd launch by its query length (the prefill
-    bucket): wraps the wrappers' common dispatcher. Returns (the counts,
-    a function that unwraps it)."""
+def program_launches(eng, launches):
+    """Launch accounting through the engine's step programs: each
+    program's runs (its build's eager run and its replays) times its
+    launches a run must add up to `launches`, the counts of the run.
+    Returns (the flash forward's launches by prefill bucket, the launches
+    that replays made)."""
+    progs = eng._programs
+    total = dict.fromkeys(launches, 0)
+    replayed = dict.fromkeys(launches, 0)
     by_t = {}
-    inner = ck._flash_fwd
+    for key, per_run in progs.launches.items():
+        for name, n in per_run.items():
+            total[name] += progs.runs(key) * n
+            replayed[name] += progs.replays[key] * n
+        if key[0] == "prefill":
+            by_t[key[1]] = progs.runs(key) * per_run["flash_fwd"]
+    require(total == launches,
+            "launch counts %s are not the programs' runs x launches %s"
+            % (launches, total))
+    return by_t, replayed
 
-    def counted(q, *args):
-        before = ck._LAUNCHES["flash_fwd"]
-        out = inner(q, *args)
-        if ck._LAUNCHES["flash_fwd"] != before:
-            by_t[q.shape[2]] = by_t.get(q.shape[2], 0) + 1
-        return out
-    ck._flash_fwd = counted
-    return by_t, lambda: setattr(ck, "_flash_fwd", inner)
+
+def report_programs(label, eng, card):
+    """The compile-once contract and each program's build."""
+    progs = eng._programs
+    for key in sorted(progs.builds, key=str):
+        say("%s program %s: %d replays, launches a run %s, captured in "
+            "%.1f ms (%s)" % (label, key, progs.replays[key],
+                              {k: n for k, n in progs.launches[key].items()
+                               if n}, progs.capture_s[key] * 1e3, card))
+    say("%s programs: %d prefill, %d suffix, %d decode; graph pool %.1f "
+        "MiB (%s)" % (label, eng.prefill_compiles,
+                      eng.suffix_prefill_compiles, eng.decode_compiles,
+                      progs.pool_bytes() / 2**20, card))
+    require(eng.decode_compiles == 1,
+            "%s: %d decode programs" % (label, eng.decode_compiles))
+    require(eng.prefill_compiles <= len(BUCKETS),
+            "%s: %d prefill programs" % (label, eng.prefill_compiles))
+    require(eng.suffix_prefill_compiles >= 1,
+            "%s: no suffix program (requests 2 and 6 share a head)" % label)
+    require(all(progs.replays[key] > 0 for key in progs.builds
+                if key[0] == "decode"), "%s: decode never replayed" % label)
 
 
-def report_decode_profile(label, dev_ms, step_ms, top):
+def serve_line(label, rs, wall, steps, card):
+    ntok = sum(len(r.tokens) for r in rs)
+    say("%s: %d requests, %d tokens in %.3f s: %.1f tokens/s; TTFT p50 %.1f "
+        "ms; %d decode steps, %.2f ms/step median, %.2f ms/step mean (%s)"
+        % (label, len(rs), ntok, wall, ntok / wall,
+           statistics.median(r.ttft_s for r in rs) * 1e3, len(steps),
+           statistics.median(steps), statistics.mean(steps), card))
+
+
+def serve_again(serving, eng, rq, first, label, card):
+    """The same requests again on the same engine, its slots dirty, with a
+    fresh prefix cache: every program is built, so every call replays;
+    the tokens must be the first pass's."""
+    built = dict(eng._programs.builds)
+    eng.prefix_cache = serving.PrefixCache(eng.prefix_cache.max_bytes,
+                                           eng.buckets)
+    rs, wall, steps = serve(serving, eng, rq)
+    require(eng._programs.builds == built,
+            "%s: the second pass built a program" % label)
+    require([r.tokens for r in rs] == [r.tokens for r in first],
+            "%s: the second pass gave other tokens" % label)
+    serve_line("%s again (every program built, same tokens)" % label, rs,
+               wall, steps, card)
+
+
+def graph_against_eager(torch, serving, model, cfg, rq, graph_reqs,
+                        graph_state, label, card, **kw):
+    """The same requests through the engine's step bodies run eagerly:
+    tokens identical and the final cache (k, v, scales, lens) bit-equal
+    to the graph-replayed run's."""
+    e = eager_engine(serving.GenerationEngine)(model, **cfg, **kw)
+    ereqs, wall, steps = serve(serving, e, rq)
+    for a, b in zip(graph_reqs, ereqs):
+        require(a.tokens == b.tokens,
+                "%s: request %d's tokens differ between the replayed "
+                "programs and the eager bodies" % (label, a.rid))
+    names = ("k", "v", "k_scale", "v_scale", "lens")
+    if len(graph_state) == 3:
+        names = ("k", "v", "lens")
+    for name, g, t in zip(names, graph_state, e.kv.state()):
+        require(g.dtype == t.dtype and torch.equal(g, t),
+                "%s: the cache's %s differs between the replayed programs "
+                "and the eager bodies" % (label, name))
+    say("%s graph against eager: %d requests token-identical, %s bit-equal"
+        % (label, len(ereqs), ", ".join(names)))
+    serve_line("%s eager bodies" % label, ereqs, wall, steps, card)
+
+
+def report_decode_profile(label, dev_ms, step_ms, top, card):
     if dev_ms > 0:
         say("%s decode step profile: %.3f ms of kernels per step (torch."
-            "profiler, 10 steps) vs %.2f ms wall: device idle %.1f %%"
-            % (label, dev_ms, step_ms, 100.0 * (1.0 - dev_ms / step_ms)))
+            "profiler, 10 steps) vs %.2f ms wall: device idle %.1f %% (%s)"
+            % (label, dev_ms, step_ms, 100.0 * (1.0 - dev_ms / step_ms),
+               card))
         for t_us, key, count in top:
             say("  %8.1f us/step  %5d launches  %s"
                 % (t_us / 10, count, key[:90]))
@@ -1737,27 +1841,18 @@ def main():
     reqs = make_requests(np)
     torch.cuda.reset_peak_memory_stats()
     eng = serving.GenerationEngine(model, **cfg)
-    flash_by_t, unwrap = count_flash_by_t(ck)
     ck.launch_counts(reset=True)
     ck.attention_path_counts(reset=True)
-    try:
-        kreqs, wall, steps = serve(serving, eng, reqs)
-    finally:
-        unwrap()
+    kreqs, wall, steps = serve(serving, eng, reqs)
     launches = ck.launch_counts()
     paths = ck.attention_path_counts()
+    kstate = [t.clone() for t in eng.kv.state()]
     peak = torch.cuda.max_memory_allocated()
-    ntok = sum(len(r.tokens) for r in kreqs)
-    ttft = sorted(r.ttft_s for r in kreqs)
-    say("main path: %d requests, %d tokens in %.3f s: %.1f tokens/s; TTFT "
-        "p50 %.1f ms (16 submitted at once on 8 slots); %d decode steps, "
-        "%.2f ms/step median, %.2f ms/step mean; prefix hits %d; peak "
-        "memory %.1f MiB (KV cache %.1f MiB)"
-        % (len(kreqs), ntok, wall, ntok / wall,
-           statistics.median(ttft) * 1e3, len(steps),
-           statistics.median(steps), statistics.mean(steps),
-           sum(1 for r in kreqs if r.prefix_len > 0), peak / 2**20,
-           eng.kv.nbytes / 2**20))
+    serve_line("main path (16 submitted at once on 8 slots, step programs "
+               "replayed)", kreqs, wall, steps, card)
+    say("main path: prefix hits %d; peak memory %.1f MiB (KV cache %.1f "
+        "MiB)" % (sum(1 for r in kreqs if r.prefix_len > 0), peak / 2**20,
+                  eng.kv.nbytes / 2**20))
     say("main path launches %s, attention paths %s" % (launches, paths))
     require(launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
             "the main path did not launch both kernels: %s" % launches)
@@ -1765,6 +1860,12 @@ def main():
             "the main path took a plain attention path: %s" % paths)
     require(any(r.prefix_len > 0 for r in kreqs),
             "no prefix-cache hit: the suffix path did not run")
+    report_programs("float32", eng, card)
+    flash_by_t, replayed = program_launches(eng, launches)
+    say("main path launches through replays %s"
+        % {k: n for k, n in replayed.items() if n})
+    require(replayed["flash_fwd"] > 0 and replayed["paged_decode"] > 0,
+            "the main path launched its kernels in no replay: %s" % replayed)
     require(sum(flash_by_t.values()) == launches["flash_fwd"]
             and set(flash_by_t) <= set(BUCKETS),
             "flash_fwd launches by bucket %s do not add up to %d"
@@ -1779,8 +1880,12 @@ def main():
             k: flash_t[T][k] for k in ("ms", "plain_ms", "bound_ms",
                                        "library_ms")}) for T in BUCKETS]
     dev_ms, top = profile_decode(torch, eng)
-    report_decode_profile("float32", dev_ms, statistics.median(steps), top)
+    report_decode_profile("float32", dev_ms, statistics.median(steps), top,
+                          card)
+    serve_again(serving, eng, reqs, kreqs, "main path", card)
     del eng
+    graph_against_eager(torch, serving, model, cfg, reqs, kreqs, kstate,
+                        "float32", card)
 
     # 6. the same requests on the plain versions
     Recording = recording_engine(torch, serving.GenerationEngine)
@@ -1810,18 +1915,28 @@ def main():
     k8, wall8, steps8 = serve(serving, e8, ireqs)
     launches8 = ck.launch_counts()
     paths8 = ck.attention_path_counts()
-    say("int8 run: %d requests in %.3f s, %d decode steps, %.2f ms/step "
-        "median, launches %s, attention paths %s"
-        % (len(k8), wall8, len(steps8), statistics.median(steps8),
-           launches8, paths8))
+    state8 = [t.clone() for t in e8.kv.state()]
+    serve_line("int8 run (8 submitted at once on 8 slots, step programs "
+               "replayed)", k8, wall8, steps8, card)
+    say("int8 run launches %s, attention paths %s" % (launches8, paths8))
     require(launches8["paged_decode_int8"] > 0 and
             launches8["flash_fwd"] > 0,
             "the int8 run did not launch its kernels: %s" % launches8)
     require(paths8["xla_sdpa"] == 0 and paths8["xla_paged"] == 0,
             "the int8 run took a plain attention path: %s" % paths8)
+    report_programs("int8", e8, card)
+    _, replayed8 = program_launches(e8, launches8)
+    say("int8 run launches through replays %s"
+        % {k: n for k, n in replayed8.items() if n})
+    require(replayed8["paged_decode_int8"] > 0,
+            "the int8 run launched its kernel in no replay: %s" % replayed8)
     dev8, top8 = profile_decode(torch, e8)
-    report_decode_profile("int8", dev8, statistics.median(steps8), top8)
+    report_decode_profile("int8", dev8, statistics.median(steps8), top8,
+                          card)
+    serve_again(serving, e8, ireqs, k8, "int8 run", card)
     del e8
+    graph_against_eager(torch, serving, model, cfg, ireqs, k8, state8, "int8",
+                        card, kv_dtype="int8")
     p8, gaps8 = plain_run(ireqs, kv_dtype="int8")
     compare_tokens(k8, p8, gaps8, "int8")
 

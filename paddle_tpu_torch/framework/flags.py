@@ -5,6 +5,7 @@ variables at import. Only the flags the ported paths read are defined.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Dict
 
@@ -49,6 +50,24 @@ def set_flags(flags: Dict[str, Any]):
 
 def flag(name: str):
     return _FLAGS[name]
+
+
+def all_flags() -> Dict[str, Any]:
+    """A copy of every flag's value."""
+    return dict(_FLAGS)
+
+
+@contextlib.contextmanager
+def flags_as(values: Dict[str, Any]):
+    """Run a block with the flags at `values` (an `all_flags()` reading),
+    then put back what they were: a step program built under some flags
+    keeps them, as a jax.jit trace keeps what it read."""
+    saved = dict(_FLAGS)
+    _FLAGS.update(values)
+    try:
+        yield
+    finally:
+        _FLAGS.update(saved)
 
 
 define_flag("use_flash_attention", True,

@@ -11,7 +11,11 @@ Unlike the reference, whose JAX arrays are immutable and are threaded
 through each jitted step and returned anew, these buffers are updated IN
 PLACE: a prefill copies its K/V into the slot's rows, and each decode
 step's attention kernel writes only the appended row. A slot is freed by
-overwriting it on its next prefill.
+overwriting it on its next prefill. The engine's step programs are CUDA
+graphs that hold these buffers' addresses, so `set_state` copies into
+them and never rebinds them. The cache also owns the paged-decode
+kernel's workspace (`workspace`: partials and tickets), allocated once
+before any capture and handed to the kernel through each layer's view.
 
   * **int8 quantized KV** (`kv_dtype="int8"`): k/v are stored as int8 with
     a float32 scale per (layer, slot, head, token), the symmetric absmax
@@ -22,7 +26,8 @@ overwriting it on its next prefill.
     the paged cache, which later in-place decode steps would overwrite.
 
 `LayerCacheView` is the per-layer window handed to `GPTAttention` in a
-decode step: views of one layer's buffers, written through in place.
+decode step: views of one layer's buffers, written through in place, and
+the kernel's workspace.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ import torch
 from ...framework.device import resolve_device
 from ...observability import metrics
 # the int8 rule sits beside the paged-decode kernel that repeats it
-from ...ops.cuda_kernels import dequantize_kv, quantize_kv
+from ...ops.cuda_kernels import (dequantize_kv, paged_workspace_numel,
+                                 quantize_kv)
 
 __all__ = ["LayerCacheView", "PagedKVCache", "PrefixCache", "bucket_for",
            "dequantize_kv", "quantize_kv", "prefix_cache_budget"]
@@ -64,18 +70,22 @@ class LayerCacheView:
     k/v: [B, n_heads, max_seq_len, head_dim] views of the cache buffers;
     lens: int32 [B]. For a quantized cache, k/v are int8 and
     k_scale/v_scale are the float32 per-(slot, head, token) scales
-    [B, n_heads, max_seq_len] (None otherwise). `GPTAttention.forward`
-    detects this type (duck-typed on `.lens`) and the attention writes the
-    step's K/V at each slot's `lens` row through these views."""
+    [B, n_heads, max_seq_len] (None otherwise). `workspace` is the
+    paged-decode kernel's (partials, tickets), or None for the one the
+    kernel module caches. `GPTAttention.forward` detects this type
+    (duck-typed on `.lens`) and the attention writes the step's K/V at
+    each slot's `lens` row through these views."""
 
-    __slots__ = ("k", "v", "lens", "k_scale", "v_scale")
+    __slots__ = ("k", "v", "lens", "k_scale", "v_scale", "workspace")
 
-    def __init__(self, k, v, lens, k_scale=None, v_scale=None):
+    def __init__(self, k, v, lens, k_scale=None, v_scale=None,
+                 workspace=None):
         self.k = k
         self.v = v
         self.lens = lens
         self.k_scale = k_scale
         self.v_scale = v_scale
+        self.workspace = workspace
 
 
 def bucket_for(length: int, buckets: Sequence[int]) -> int:
@@ -95,7 +105,10 @@ class PagedKVCache:
     """The preallocated cache buffers, updated in place by the engine.
 
     `kv_dtype="int8"` stores k/v as int8 plus float32 `k_scale`/`v_scale`
-    side buffers of shape [n_layers, max_batch, n_heads, max_seq_len]."""
+    side buffers of shape [n_layers, max_batch, n_heads, max_seq_len].
+    `workspace` is the paged-decode kernel's (float32 partials, int32
+    tickets left at 0 by every call), shared by the layers, which run one
+    after another on one stream."""
 
     def __init__(self, n_layers: int, max_batch: int, n_heads: int,
                  max_seq_len: int, head_dim: int, kv_dtype="float32",
@@ -125,6 +138,11 @@ class PagedKVCache:
                                        device=dev)
         else:
             self.k_scale = self.v_scale = None
+        part, tickets = paged_workspace_numel(
+            self.max_batch, self.n_heads, self.max_seq_len, self.head_dim)
+        self.workspace = (
+            torch.zeros((part,), dtype=torch.float32, device=dev),
+            torch.zeros((tickets,), dtype=torch.int32, device=dev))
 
     @property
     def nbytes(self) -> int:
@@ -133,12 +151,53 @@ class PagedKVCache:
             n += self.k_scale.nbytes + self.v_scale.nbytes
         return int(n)
 
+    def state(self) -> Tuple[torch.Tensor, ...]:
+        """The flat state tuple: (k, v, lens) for a float cache, (k, v,
+        k_scale, v_scale, lens) for a quantized one, whose scales must
+        travel with the values they decode. The buffers themselves, not
+        copies."""
+        if self.quantized:
+            return self.k, self.v, self.k_scale, self.v_scale, self.lens
+        return self.k, self.v, self.lens
+
+    def set_state(self, *state) -> None:
+        """Copy a `state()`-shaped tuple (one tuple, or its arrays as
+        arguments) INTO the buffers, which keep their addresses: the
+        engine's captured programs hold them."""
+        want = 5 if self.quantized else 3
+        if len(state) == 1 and isinstance(state[0], (tuple, list)):
+            state = tuple(state[0])
+        if len(state) != want:
+            raise ValueError(
+                "set_state expects %d arrays for kv_dtype=%s, got %d "
+                "(a quantized cache's scales must round-trip with it)"
+                % (want, self.kv_dtype, len(state)))
+        for name, arr, ref in (("k", state[0], self.k),
+                               ("v", state[1], self.v)):
+            if arr.dtype != ref.dtype:
+                raise ValueError(
+                    "set_state %s dtype %s does not match this cache's "
+                    "kv_dtype=%s storage (%s); rebuild the cache instead "
+                    "of mixing quantized and float states"
+                    % (name, arr.dtype, self.kv_dtype, ref.dtype))
+        bufs = self.state()
+        for arr, buf in zip(state, bufs):
+            if tuple(arr.shape) != tuple(buf.shape):
+                raise ValueError("set_state shape %s where the cache holds "
+                                 "%s" % (tuple(arr.shape), tuple(buf.shape)))
+        with torch.no_grad():
+            for arr, buf in zip(state, bufs):
+                buf.copy_(arr)
+
     def view(self, layer: int) -> LayerCacheView:
-        """Layer `layer`'s buffers as a LayerCacheView (views, not copies)."""
+        """Layer `layer`'s buffers as a LayerCacheView (views, not copies)
+        with the cache's kernel workspace."""
         if self.quantized:
             return LayerCacheView(self.k[layer], self.v[layer], self.lens,
-                                  self.k_scale[layer], self.v_scale[layer])
-        return LayerCacheView(self.k[layer], self.v[layer], self.lens)
+                                  self.k_scale[layer], self.v_scale[layer],
+                                  self.workspace)
+        return LayerCacheView(self.k[layer], self.v[layer], self.lens,
+                              workspace=self.workspace)
 
 
 def prefix_cache_budget(explicit: Optional[int] = None) -> int:

@@ -1,4 +1,6 @@
-"""Training step of the port (counterpart of paddle_tpu/jit)."""
+"""Training step and compile-once step programs of the port (counterpart
+of paddle_tpu/jit)."""
+from .cuda_graph import StepPrograms
 from .engine import make_train_step
 
-__all__ = ["make_train_step"]
+__all__ = ["StepPrograms", "make_train_step"]

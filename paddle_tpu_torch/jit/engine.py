@@ -4,7 +4,10 @@ make_train_step, minus jit, buffer donation, the mesh and ZeRO).
 The reference compiles forward, loss, backward and the optimizer update
 into one XLA executable that returns new parameters and moments. The port
 runs the same sequence eagerly and updates the parameters and moments in
-place. Capturing the step in a CUDA graph is later performance work.
+place. The serving steps are already captured once as CUDA graphs and
+replayed (`jit/cuda_graph.py`, used by inference/serving/engine.py); the
+train step is next, once its kernels take their dropout (seed, offset)
+and AdamW's lr and bias corrections from device memory.
 """
 from __future__ import annotations
 

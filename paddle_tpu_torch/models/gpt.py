@@ -61,15 +61,18 @@ def _paged_decode_attention(q, k, v, view):
     """Single-token attention against the static-shape paged KV cache.
 
     q/k/v: [B, nh, 1, hd]; view (inference/serving/cache.LayerCacheView)
-    carries this layer's k/v buffers [B, nh, T_max, hd] (+ int8 scales) and
-    the per-slot lengths int32 [B]. The kernel appends k/v at each slot's
+    carries this layer's k/v buffers [B, nh, T_max, hd] (+ int8 scales),
+    the per-slot lengths int32 [B] and the kernel's workspace, which the
+    cache owns so that a captured decode step holds no memory the kernel
+    module may replace. The kernel appends k/v at each slot's
     length IN PLACE and attends over positions <= lens (path counter
     paged_flash). With `paged_flash_decode` off the plain PyTorch version
     does the same over the full T_max (path counter xla_paged); the
     reference's windowed einsum attends a bucket-sized window instead,
     which gives the same result."""
     out = ck.paged_decode_attention_or_none(
-        q, view.k, view.v, view.lens, k, v, view.k_scale, view.v_scale)
+        q, view.k, view.v, view.lens, k, v, view.k_scale, view.v_scale,
+        view.workspace)
     if out is None:
         ck._note_attn_path("xla_paged")
         out = ck.paged_decode_plain(q, view.k, view.v, view.lens, k, v,

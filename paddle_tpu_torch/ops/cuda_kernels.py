@@ -69,8 +69,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
            "adamw_plain",
            "fused_adamw_or_none", "paged_decode", "paged_decode_plain",
            "paged_split_geometry", "paged_int8_geometry",
-           "paged_decode_attention_or_none", "quantize_kv", "dequantize_kv",
-           "launch_counts", "attention_path_counts"]
+           "paged_workspace_numel", "paged_decode_attention_or_none",
+           "quantize_kv", "dequantize_kv", "launch_counts", "launch_delta",
+           "add_launches", "attention_path_counts"]
 
 _NEG_INF = -1e30
 
@@ -95,6 +96,20 @@ def launch_counts(reset=False):
         for k in _LAUNCHES:
             _LAUNCHES[k] = 0
     return out
+
+
+def launch_delta(before):
+    """The launches counted since `before` (a `launch_counts()` reading),
+    kernel by kernel."""
+    return {k: n - before[k] for k, n in _LAUNCHES.items()}
+
+
+def add_launches(delta, times=1):
+    """Add `times` x `delta` to the launch counts. A CUDA graph counts the
+    launches it captured once per replay this way, and takes back those
+    its capture counted, which ran nothing (jit/cuda_graph.py)."""
+    for k, n in delta.items():
+        _LAUNCHES[k] += times * n
 
 
 def _note_attn_path(path):
@@ -1047,7 +1062,9 @@ def fused_adamw_or_none(param, grad, lr, t, m1, m2, *, beta1, beta2,
 # updates the cache in place (the reference returns new buffers). For
 # either cache the kernel splits each (slot, head)'s keys into chunks, one
 # CTA each, whose partial softmax sums the last CTA to arrive combines
-# (csrc/paged_decode.cu); its workspace and tickets live here. Nothing in
+# (csrc/paged_decode.cu). Its workspace (partials and tickets) is the
+# caller's where the caller owns one (the serving cache: a CUDA graph holds
+# its addresses), else one cached here per device and stream. Nothing in
 # it grows with the cache depth T, so it takes any T.
 
 # the kernel's warps a CTA and key loads in flight a lane
@@ -1079,10 +1096,23 @@ def paged_int8_geometry(D, vec4=True):
     return paged_split_geometry(D, vec4)
 
 
+def paged_workspace_numel(B, H, T, D):
+    """(partial floats, tickets) of a workspace that serves the kernel on
+    either cache at [B, H, T, D], whatever the caches' alignment: B * H *
+    ceil(T / chunk) * (D + 2) floats at the smaller chunk of the two row
+    widths (`paged_int8_geometry` is the same rule), and B * H
+    tickets."""
+    chunk = min(paged_split_geometry(D, vec4)[1] for vec4 in (True, False))
+    return B * H * -(-T // chunk) * (D + 2), B * H
+
+
 def _paged_workspace(q, stream, B, H, T, D, chunk):
     """The kernel's partial sums (B * H * ceil(T / chunk) * (D + 2)
     floats) and its tickets (uint32 [B * H], zeroed once; each call leaves
-    them 0), cached per device and stream and grown when too small."""
+    them 0) for a call that brings no workspace of its own, cached per
+    device and stream and replaced when too small. A CUDA graph must not
+    capture these (a replacement would free what it holds), so a capture
+    brings its own."""
     key = (q.device, stream)
     need = B * H * -(-T // chunk) * (D + 2)
     ws = _PAGED_WS.get(key)
@@ -1197,30 +1227,46 @@ def _paged_check(q, k_cache, v_cache, lens, new_k, new_v, k_scale,
 
 
 def paged_decode(q, k_cache, v_cache, lens, new_k, new_v, k_scale=None,
-                 v_scale=None):
-    """The paged-decode kernel (in place on the caches). Inputs the kernel
-    does not take raise ValueError on every device; CPU tensors then take
-    the plain version. Returns out [B, H, 1, D] float32."""
+                 v_scale=None, workspace=None):
+    """The paged-decode kernel (in place on the caches). `workspace` is the
+    caller's (partials float32, tickets int32 all 0; sizes from
+    `paged_workspace_numel`), or None for the one cached here. Inputs the
+    kernel does not take raise ValueError on every device; CPU tensors then
+    take the plain version, which needs no workspace. Returns out [B, H, 1,
+    D] float32."""
     _paged_check(q, k_cache, v_cache, lens, new_k, new_v, k_scale, v_scale)
-    if q.device.type == "cpu":
-        return paged_decode_plain(q, k_cache, v_cache, lens, new_k, new_v,
-                                  k_scale, v_scale)
-    _need(q.device.type == "cuda", "paged_decode: tensors on %s" % q.device)
     quantized = k_scale is not None
     B, H, _, D = q.shape
     T = k_cache.shape[2]
-    out = torch.empty((B, H, 1, D), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 6)(
-        *(s for t in (q, new_k, new_v) for s in t.stride()[:2]))
-    stream = _stream(q)
     # 4 elements a lane load: float4 rows (16 bytes) or char4 (4 bytes)
     align = 4 if quantized else 16
     vec4 = (D % 4 == 0 and k_cache.data_ptr() % align == 0
             and v_cache.data_ptr() % align == 0)
     lanes, chunk = (paged_int8_geometry if quantized
                     else paged_split_geometry)(D, vec4)
-    part, ticket = (t.data_ptr() for t in
-                    _paged_workspace(q, stream, B, H, T, D, chunk))
+    if workspace is not None:
+        part, ticket = workspace
+        _need(part.dtype == torch.float32 and ticket.dtype == torch.int32
+              and part.numel() >= B * H * -(-T // chunk) * (D + 2)
+              and ticket.numel() >= B * H and part.device == q.device
+              and ticket.device == q.device
+              and part.is_contiguous() and ticket.is_contiguous(),
+              "paged_decode: the workspace must be float32 partials and "
+              "int32 tickets on q's device, sized by paged_workspace_numel")
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_cache, v_cache, lens, new_k, new_v,
+                                  k_scale, v_scale)
+    _need(q.device.type == "cuda", "paged_decode: tensors on %s" % q.device)
+    out = torch.empty((B, H, 1, D), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 6)(
+        *(s for t in (q, new_k, new_v) for s in t.stride()[:2]))
+    stream = _stream(q)
+    if workspace is None:
+        _need(not torch.cuda.is_current_stream_capturing(),
+              "paged_decode: a CUDA graph capture needs a workspace its "
+              "caller owns (the cached one may be replaced)")
+        workspace = _paged_workspace(q, stream, B, H, T, D, chunk)
+    part, ticket = (t.data_ptr() for t in workspace)
     lib = _build.load("paged_decode")
     err = lib.paged_decode(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
@@ -1235,7 +1281,8 @@ def paged_decode(q, k_cache, v_cache, lens, new_k, new_v, k_scale=None,
 
 
 def paged_decode_attention_or_none(q, k_cache, v_cache, lens, new_k, new_v,
-                                   k_scale=None, v_scale=None):
+                                   k_scale=None, v_scale=None,
+                                   workspace=None):
     """Gate (reference: pallas_kernels.py paged_decode_attention_or_none
     :1921): None when `paged_flash_decode` is off (the caller then runs the
     plain version), else the kernel's output with the cache updated in
@@ -1245,6 +1292,6 @@ def paged_decode_attention_or_none(q, k_cache, v_cache, lens, new_k, new_v,
     if not flag("paged_flash_decode"):
         return None
     out = paged_decode(q, k_cache, v_cache, lens, new_k, new_v, k_scale,
-                       v_scale)
+                       v_scale, workspace)
     _note_attn_path("paged_flash")
     return out

@@ -16,7 +16,8 @@ and prints, each line tagged LABEL:
     (as the main path takes it; with the device queue drained before each
     step, so no prefill work left in the queue is counted; in a loop of
     decode steps with no prefill between them) and its kernel time a step
-    (torch.profiler), with the paged kernel's share.
+    (torch.profiler), with the paged kernel's share; and the main path's
+    tokens/s and TTFT p50.
 With --tiles (a tree whose float32 flash forward takes a tile size), the
 float32 flash forward also runs at every tile size its kernel takes, at 12
 heads and at 1, three times in turn. All times are CUDA-event or
@@ -42,7 +43,9 @@ def serving_lines(torch, np, cs, serving, model, tag):
         rq = reqs if kv == "float32" else [(p, min(m, 24))
                                            for p, m in reqs[:8]]
         eng = serving.GenerationEngine(model, kv_dtype=kv, **cfg)
-        _, _, steps = cs.serve(serving, eng, rq)
+        done, wall, steps = cs.serve(serving, eng, rq)
+        ntok = sum(len(r.tokens) for r in done)
+        ttft = med(r.ttft_s for r in done) * 1e3
         drained_eng = serving.GenerationEngine(model, kv_dtype=kv, **cfg)
         decode = drained_eng.decode
 
@@ -61,9 +64,10 @@ def serving_lines(torch, np, cs, serving, model, tag):
         paged = ["%.1f us" % (t_us / 10) for t_us, key, _ in top
                  if "paged" in key]
         print("%s: %s decode step wall %.2f ms (main path), %.2f ms "
-              "(drained), %.2f ms (loop); kernels %.3f ms a step, paged %s"
+              "(drained), %.2f ms (loop); kernels %.3f ms a step, paged %s; "
+              "%.1f tokens/s, TTFT p50 %.1f ms"
               % (tag, kv, med(steps), med(drained_steps), med(loop[5:]),
-                 dev_ms, paged), flush=True)
+                 dev_ms, paged, ntok / wall, ttft), flush=True)
         del eng, drained_eng
 
 
