@@ -16,7 +16,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      dropout-residual(+LN) kernels at float32, bfloat16 and mixed input
      types, Hd 64, 768 and 1000, p 0, 0.1 and 1, both dropout modes, and
      at the training paths' shapes, fed the kernels' own dropout bits,
-     with the tolerances stated below;
+     with the tolerances stated below; the dropout kernels read their key
+     from a Philox word on the card (seed, base) and a delta, held to the
+     plain versions at (seed, base + delta); AdamW reads lr, c1 and c2
+     from a scalar buffer on the card, also over t = 1..5 with the lr
+     changed; F.dropout's keep-mask kernel against its plain version;
      the backward's mask equal to the forward's; and each gate raising
      on inputs its kernel does not take;
   4. each kernel's device time (CUDA events, median of 25 runs of 10
@@ -48,21 +52,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shapes (flash forward with lse and dropout, flash backward dq and
      dk/dv: B=16, H=12, T=512, D=64, bfloat16, causal, p=0.1; AdamW over
      every gpt2-small parameter), each beside its bound, its plain
-     version's time and one library call's time; the flash forward and
-     backward also at p=0 (their Philox share) and at ERNIE's attention
-     (B=32, T=128, not causal, p=0.1);
+     version's time and one library call's time (AdamW's 148 launches
+     replayed from one CUDA graph, and enqueued one by one); the flash
+     forward and backward also at p=0 (their Philox share) and at ERNIE's
+     attention (B=32, T=128, not causal, p=0.1); the keep-mask kernel at
+     a hidden dropout's shape;
   9. the training main path: the JAX package's GPT-2 train bench
      (benchmarks/train_bench.py) on the port: gpt2-small at full width and
      depth (seeded weights, both dropouts 0.1) -> amp.decorate(O2,
      bfloat16) -> AdamW(lr=1e-4, weight_decay=0.01) -> make_train_step,
      fed by DataLoader(prefetch_to_device=2) over the bench's synthetic
-     token stream, B=16, T=512, 3 warm-up and 10 timed steps; the launch
-     and path counters are zeroed just before and read just after; then a
-     torch.profiler breakdown of one step;
- 10. the same float32 weights with both dropouts 0, B=4, T=512, 3 steps,
-     once with the kernels and once with use_flash_attention and
-     use_fused_optimizer off (which must launch nothing): the losses and
-     the parameters must agree within the stated tolerances;
+     token stream, B=16, T=512: first 2 + 5 steps through the step's
+     bodies run eagerly (the step as it ran before it was captured), then
+     the captured step, one CUDA graph built at its first call and
+     replayed, 3 warm-up and 10 timed steps, the launch and path counters
+     zeroed just before and read just after (launches a step, launches
+     through replays, capture ms, graph pool); each with a torch.profiler
+     breakdown of one step; then, from one saved state, two steps through
+     the captured step and two through its eager bodies (twice), at
+     dropout 0.1 and on a fresh model at 0: losses, parameters and
+     moments bit-equal, the steps' Philox words and masks different, a
+     restored RNG state repeating the first;
+ 10. the same float32 weights with both dropouts 0, B=4, T=512, 3 steps
+     through the captured step, once with the kernels and once with
+     use_flash_attention and use_fused_optimizer off (which must launch
+     nothing): the losses and the parameters must agree within the
+     stated tolerances;
  11. the fused dropout-residual(+LN) kernels' device times at path B's
      shape (N=8192, Hd=768, bfloat16) and path A's (N=4096, Hd=768,
      float32), beside their bounds, their plain versions and the composed
@@ -76,9 +91,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      on the port: ernie-base at full width and depth (seeded weights,
      dropouts 0.1), B=32, T=128, AdamW(lr=1e-4, weight_decay=0.01),
      make_train_step with the MLM + NSP criterion, under
-     amp.auto_cast(level="O2"), FLAGS_use_fused_dropout_ln on, 3 warm-up
-     and 10 timed steps, counters zeroed just before and read just after,
-     one step profiled;
+     amp.auto_cast(level="O2"), FLAGS_use_fused_dropout_ln on, eager
+     bodies, captured step and graph against eager as in 9;
  14. path A's kernels vs plain: float32, no dropout, 3 steps, as in 10.
 
 The line before the last is the kernel table as JSON; the last line is
@@ -108,9 +122,21 @@ TOL = {
 # the chance that a K/V element rounds to the other int8 neighbour.
 TIE_TOL = {"float32": 1e-3, "int8": 1e-2}
 
-# NVIDIA H100 SXM data-sheet peaks (dense), as the bound's denominators
+# NVIDIA H100 SXM data-sheet peaks (dense), as the bound's denominators.
+# int32: instructions a second, from the float32 rate: 67 TFLOP/s counts
+# an FMA as 2 operations on 128 float32 lanes an SM a clock, and an SM of
+# compute capability 9.0 has 64 int32 lanes a clock (the CUDA C++
+# Programming Guide's arithmetic-instruction throughput table)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,
+              "int32": 67e12 / 2 / 2}
+# int32 operations a lane makes in one Philox-4x32-10 call
+# (attn_dropout.cuh), as nvcc compiles it for sm_90a (cuobjdump -sass of
+# fdrln_bits_kernel<true>): a round is two IMAD.WIDE.U32, each a low and a
+# high 32-bit product (4), and two LOP3 three-way XORs (2). The key
+# schedule runs once a warp on the uniform datapath (UIADD3) and is not
+# counted, nor are indexing and the stores.
+PHILOX_INT_OPS = 10 * 6
 
 # training-kernel checks, max abs error relative to the largest |value| of
 # the plain version's output (at least 1):
@@ -162,6 +188,8 @@ TPU_KERNELS = {
     "fused_dropout_residual_fwd": "paddle_tpu/ops/pallas_kernels.py:792",
     "fused_dropout_ln_bwd": "paddle_tpu/ops/pallas_kernels.py:800",
     "adamw": "paddle_tpu/ops/pallas_kernels.py:1044",
+    # no TPU kernel: the reference draws a dropout's mask with jax.random
+    "dropout_keep": "paddle_tpu/ops/nn_ops.py:577",
     "paged_decode": "paddle_tpu/ops/pallas_kernels.py:1738",
     "paged_decode_int8": "paddle_tpu/ops/pallas_kernels.py:1746",
 }
@@ -175,18 +203,22 @@ SOURCES = {
         "paddle_tpu_torch/ops/csrc/fused_dropout_ln.cu",
     "fused_dropout_ln_bwd": "paddle_tpu_torch/ops/csrc/fused_dropout_ln.cu",
     "adamw": "paddle_tpu_torch/ops/csrc/adamw.cu",
+    "dropout_keep": "paddle_tpu_torch/ops/csrc/fused_dropout_ln.cu",
     "paged_decode": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
     "paged_decode_int8": "paddle_tpu_torch/ops/csrc/paged_decode.cu",
 }
 KERNEL_ORDER = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq",
                 "flash_bwd_dkv", "fused_dropout_ln_fwd",
                 "fused_dropout_residual_fwd", "fused_dropout_ln_bwd", "adamw",
-                "paged_decode", "paged_decode_int8")
+                "dropout_keep", "paged_decode", "paged_decode_int8")
 FUSED_KERNELS = ("fused_dropout_ln_fwd", "fused_dropout_residual_fwd",
                  "fused_dropout_ln_bwd")
 
 # the training main path: the JAX package's GPT-2 train bench
 TRAIN_B, TRAIN_T, TRAIN_WARMUP, TRAIN_STEPS = 16, 512, 3, 10
+# the same paths' step bodies run eagerly, for the step as it ran before
+# it was captured
+EAGER_WARMUP, EAGER_STEPS = 2, 5
 # the ERNIE-base pretraining path: the JAX package's ERNIE bench
 ERNIE_B, ERNIE_T = 32, 128
 # the serving main path's prefill buckets (GenerationEngine's
@@ -194,6 +226,10 @@ ERNIE_B, ERNIE_T = 32, 128
 BUCKETS = (32, 128, 256)
 DROPOUT = 0.1
 SEED, OFFSET = 0x1234_5678_9ABC_DEF0, 7       # kernel checks' dropout key
+# ... which the kernels read from a Philox word on the card holding (SEED,
+# OFFSET - DELTA), with the call's delta DELTA (made in main)
+DELTA = 3
+WORD = None
 
 VOCAB_TOKENS = 50257          # GPT-2's tokenizer; the table is padded
 
@@ -328,12 +364,12 @@ def check_dropout_bits(torch, ck):
     """The kernel's bits equal the plain Philox bit for bit, and drop at
     rate p at the main path's shapes."""
     for BH, Tq, Tk in ((6, 37, 50), (2, 4, 1)):
-        got = ck.attn_dropout_bits(SEED, OFFSET, BH, Tq, Tk)
+        got = ck.attn_dropout_bits(WORD, DELTA, BH, Tq, Tk)
         want = ck.attn_dropout_bits_plain(SEED, OFFSET, BH, Tq, Tk,
                                           device="cuda")
         require(torch.equal(got, want), "attn_dropout_bits %s differ from "
                 "the plain Philox" % ((BH, Tq, Tk),))
-    bits = ck.attn_dropout_bits(SEED, OFFSET, TRAIN_B * 12, TRAIN_T, TRAIN_T)
+    bits = ck.attn_dropout_bits(WORD, DELTA, TRAIN_B * 12, TRAIN_T, TRAIN_T)
     thr = min(int(DROPOUT * 2 ** 32), 2 ** 32 - 1)
     rate = (bits < thr).double().mean().item()
     require(abs(rate - DROPOUT) <= DROP_RATE_TOL,
@@ -379,13 +415,13 @@ def check_flash_train(torch, ck, gen):
         _, k, v = qkv_views(torch, B, Tk, H, D, dtype, gen)
         do = torch.randn((B, H, Tq, D), generator=gen,
                          device="cuda").to(dtype)
-        bits = (ck.attn_dropout_bits(SEED, OFFSET, B * H, Tq, Tk)
+        bits = (ck.attn_dropout_bits(WORD, DELTA, B * H, Tq, Tk)
                 if p else None)
-        o, lse = ck.flash_fwd_train(q, k, v, causal, p, SEED, OFFSET)
-        dq, delta = ck.flash_bwd_dq(q, k, v, o, do, lse, causal, p, SEED,
-                                    OFFSET)
-        dk, dv = ck.flash_bwd_dkv(q, k, v, do, lse, delta, causal, p, SEED,
-                                  OFFSET)
+        o, lse = ck.flash_fwd_train(q, k, v, causal, p, WORD, DELTA)
+        dq, delta = ck.flash_bwd_dq(q, k, v, o, do, lse, causal, p, WORD,
+                                    DELTA)
+        dk, dv = ck.flash_bwd_dkv(q, k, v, do, lse, delta, causal, p, WORD,
+                                  DELTA)
         o_ref, lse_ref = ck.flash_fwd_train_plain(q, k, v, causal, p, bits)
         dq_ref, delta_ref = ck.flash_bwd_dq_plain(q, k, v, o, do, lse,
                                                   causal, p, bits)
@@ -418,12 +454,25 @@ def check_flash_train(torch, ck, gen):
     return worst_abs
 
 
+def step_scalars(torch, ck, lr, t):
+    """A scalar buffer on the card holding the step's (lr, c1, c2), as the
+    optimizer stages it."""
+    from paddle_tpu_torch.framework.device import write_values
+    sc = torch.empty(3, device="cuda")
+    write_values(sc, ck.adam_step_scalars(lr, t, 0.9, 0.999))
+    return sc
+
+
 def check_adamw(torch, ck, gen):
-    """The kernel against the plain rule: parameter bit-equal, moments
-    within one float32 ulp. Each case runs at lr 1e-4 on parameters of
-    size ~1 (the main path's lr, where a bfloat16 parameter mostly does
-    not move) and at lr 1e-2 on parameters of size ~1e-2, where it
-    must."""
+    """The kernel, reading lr, c1 and c2 from a scalar buffer on the card,
+    against the plain rule with host lr and t: parameter bit-equal,
+    moments within one float32 ulp. Each case runs at lr 1e-4 on
+    parameters of size ~1 (the main path's lr, where a bfloat16 parameter
+    mostly does not move) and at lr 1e-2 on parameters of size ~1e-2,
+    where it must. Then five steps t = 1..5 with the lr changed after the
+    second, the buffer rewritten before each: the kernel and the plain
+    rule reading the same buffer (the route with use_fused_optimizer off)
+    against the plain rule with host arguments."""
     worst_p = worst_m = 0.0
     moved_min = 1.0
     n = 0
@@ -445,7 +494,7 @@ def check_adamw(torch, ck, gen):
                                   coeff=coeff)
                         ka = [x.clone() for x in (p, g, m1, m2)]
                         pa = [x.clone() for x in (p, g, m1, m2)]
-                        ck.adamw(*ka, lr, t, **kw)
+                        ck.adamw(*ka, step_scalars(torch, ck, lr, t), **kw)
                         ck.adamw_plain(*pa, lr, t, **kw)
                         torch.cuda.synchronize()
                         what = "adamw %s lr=%g coeff=%g t=%d numel=%d" % (
@@ -475,7 +524,66 @@ def check_adamw(torch, ck, gen):
         "rel err %.3g (tol %.3g) over %d cases; bfloat16 at lr 1e-2 moved "
         ">= %.4f of the elements (want >= %.2f)"
         % (worst_m, ADAMW_MOMENT_REL_TOL, n, moved_min, ADAMW_MOVED_MIN))
+    from paddle_tpu_torch.framework.device import write_values
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.01)
+    for dtype in (torch.float32, torch.bfloat16):
+        numel = 2304 * 768
+        p = (torch.randn(numel, generator=gen, device="cuda") * 1e-2).to(dtype)
+        ka, sa, pa = ([p.clone(), torch.zeros(numel, device="cuda"),
+                       torch.zeros(numel, device="cuda")] for _ in range(3))
+        sc = torch.empty(3, device="cuda")
+        for t in range(1, 6):
+            lr = 1e-2 if t <= 2 else 3e-3
+            g = (torch.randn(numel, generator=gen, device="cuda")
+                 * 1e-2).to(dtype)
+            write_values(sc, ck.adam_step_scalars(lr, t, 0.9, 0.999))
+            ck.adamw(ka[0], g, ka[1], ka[2], sc, **kw)
+            ck.adamw_plain_scalars(sa[0], g, sa[1], sa[2], sc, **kw)
+            ck.adamw_plain(pa[0], g, pa[1], pa[2], lr, t, **kw)
+            torch.cuda.synchronize()
+            what = "adamw %s t=%d lr=%g (scalar buffer)" % (dtype, t, lr)
+            require(torch.equal(ka[0], pa[0]) and torch.equal(sa[0], pa[0]),
+                    "%s: parameter differs from the plain rule" % what)
+            require(all(torch.equal(a, b) for a, b in ((sa[1], pa[1]),
+                                                       (sa[2], pa[2]))),
+                    "%s: the plain rule on the buffer differs from it with "
+                    "host arguments" % what)
+            err_m = max(((ka[i] - pa[i]).abs()
+                         / pa[i].abs().clamp_min(1e-30)).max().item()
+                        for i in (1, 2))
+            require(err_m <= ADAMW_MOMENT_REL_TOL, "%s: moment rel err %.3g"
+                    % (what, err_m))
+            n += 1
+    say("check adamw over t = 1..5 (lr 1e-2, then 3e-3 from t = 3) through "
+        "the scalar buffer, float32 and bfloat16: kernel parameters and the "
+        "plain rule on the buffer bit-equal to the plain rule with host lr "
+        "and t")
     return worst_p
+
+
+def check_dropout_keep(torch, ck):
+    """The keep mask of F.dropout on the card (`dropout_keep`: the fused
+    bits kernel under its own tag) bit-equal to its plain version at the
+    training paths' shapes (hidden; ERNIE's feed-forward activation), at
+    the kernels' drop rate."""
+    shapes = ((TRAIN_B, TRAIN_T, 768), (ERNIE_B, ERNIE_T, 768),
+              (ERNIE_B, ERNIE_T, 3072), (3, 5, 7))
+    for shape in shapes:
+        for p in (DROPOUT, 0.5):
+            got = ck.dropout_keep(WORD, DELTA, shape, p)
+            want = ck.dropout_keep_plain(SEED, OFFSET, shape, p,
+                                         device="cuda")
+            require(got.dtype == torch.bool and torch.equal(got, want),
+                    "dropout_keep %s p=%g differs from its plain version"
+                    % (shape, p))
+    rate = 1.0 - ck.dropout_keep(WORD, DELTA, (TRAIN_B, TRAIN_T, 768),
+                                 DROPOUT).double().mean().item()
+    require(abs(rate - DROPOUT) <= DROP_RATE_TOL, "dropout_keep rate %.5f"
+            % rate)
+    say("check dropout_keep: bit-equal to the plain Philox mask at %s, p "
+        "%g and 0.5; drop rate %.5f (want %.3f +- %.3f)"
+        % (list(shapes), DROPOUT, rate, DROPOUT, DROP_RATE_TOL))
+    return 0.0
 
 
 def paged_inputs(torch, quantized, lens, gen, nan_tail=True, B=8, H=12,
@@ -567,8 +675,9 @@ def check_gates(torch, ck, gen):
         qh, qh, qh, qh, qh, torch.zeros(64, device="cuda"), True)))
     w = torch.zeros(16, device="cuda", dtype=torch.float16)
     m = torch.zeros(16, device="cuda")
+    sc = torch.zeros(3, device="cuda")
     bad.append(("float16 adamw", lambda: ck.fused_adamw_or_none(
-        w, w, 1e-3, 1, m, m, beta1=0.9, beta2=0.999, epsilon=1e-8,
+        w, w, sc, m, m, beta1=0.9, beta2=0.999, epsilon=1e-8,
         coeff=0.0)))
     args = paged_inputs(torch, False, [3, 4], gen, B=2, H=2, T=64, D=64)
     args[3] = args[3].long()
@@ -658,9 +767,9 @@ def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
     H, D, dt = 12, 64, torch.bfloat16
     q, k, v = qkv_views(torch, B, T, H, D, dt, gen)
     do = torch.randn((B, H, T, D), generator=gen, device="cuda").to(dt)
-    bits = ck.attn_dropout_bits(SEED, OFFSET, B * H, T, T) if p else None
-    o, lse = ck.flash_fwd_train(q, k, v, causal, p, SEED, OFFSET)
-    _, delta = ck.flash_bwd_dq(q, k, v, o, do, lse, causal, p, SEED, OFFSET)
+    bits = ck.attn_dropout_bits(WORD, DELTA, B * H, T, T) if p else None
+    o, lse = ck.flash_fwd_train(q, k, v, causal, p, WORD, DELTA)
+    _, delta = ck.flash_bwd_dq(q, k, v, o, do, lse, causal, p, WORD, DELTA)
     lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
     lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
                                         dropout_p=p)
@@ -672,13 +781,13 @@ def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
     # dk/dv: reads q, k, v, dO, lse, Delta; writes dk, dv; 4 products.
     kernels = (
         ("flash_bwd_dq", 3,
-         lambda: ck.flash_bwd_dq(q, k, v, o, do, lse, causal, p, SEED,
-                                 OFFSET),
+         lambda: ck.flash_bwd_dq(q, k, v, o, do, lse, causal, p, WORD,
+                                 DELTA),
          lambda: ck.flash_bwd_dq_plain(q, k, v, o, do, lse, causal, p,
                                        bits)),
         ("flash_bwd_dkv", 4,
-         lambda: ck.flash_bwd_dkv(q, k, v, do, lse, delta, causal, p, SEED,
-                                  OFFSET),
+         lambda: ck.flash_bwd_dkv(q, k, v, do, lse, delta, causal, p, WORD,
+                                  DELTA),
          lambda: ck.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, p,
                                         bits)))
     out = {}
@@ -708,13 +817,13 @@ def fwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
     version, its bound and PyTorch's sdpa forward on the same inputs."""
     H, D = 12, 64
     q, k, v = qkv_views(torch, B, T, H, D, torch.bfloat16, gen)
-    bits = ck.attn_dropout_bits(SEED, OFFSET, B * H, T, T) if p else None
+    bits = ck.attn_dropout_bits(WORD, DELTA, B * H, T, T) if p else None
     bhtd, bht = B * H * T * D * 2, B * H * T * 4
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     # reads q, k, v; writes o, lse; 2 products of 2 D flops a live pair
     b, by = bound_ms(4 * bhtd + bht, 4 * D * pairs, "bfloat16")
-    t = {"ms": timer.ms(lambda: ck.flash_fwd_train(q, k, v, causal, p, SEED,
-                                                   OFFSET)),
+    t = {"ms": timer.ms(lambda: ck.flash_fwd_train(q, k, v, causal, p, WORD,
+                                                   DELTA)),
          "plain_ms": timer.ms(lambda: ck.flash_fwd_train_plain(
              q, k, v, causal, p, bits)),
          "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
@@ -745,18 +854,31 @@ def train_timings(torch, ck, F, timer, gen):
 def time_adamw(torch, ck, timer, gen, shapes):
     """One AdamW step over tensors shaped like every gpt2-small parameter,
     bfloat16 parameters and gradients, float32 moments, as the O2 main
-    path runs it: one launch per parameter."""
+    path runs it: one launch per parameter, lr and the bias corrections
+    from the scalar buffer. The row's time is the launches replayed from
+    one CUDA graph, as the captured train step runs them: device time
+    alone. The same launches enqueued one by one from the host are timed
+    too (the time this row reported before the step was captured)."""
     ps = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
           for s in shapes]
     gs = [(torch.randn(s, generator=gen, device="cuda") * 1e-2).to(
         torch.bfloat16) for s in shapes]
     m1 = [torch.zeros(s, device="cuda") for s in shapes]
     m2 = [torch.zeros(s, device="cuda") for s in shapes]
+    sc = step_scalars(torch, ck, 1e-4, 10)
     kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.01)
 
-    def run(fn):
+    def run(fn, *args):
         for p, g, a, b in zip(ps, gs, m1, m2):
-            fn(p, g, a, b, 1e-4, 10, **kw)
+            fn(p, g, a, b, *args, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(ck.adamw, sc)                 # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run(ck.adamw, sc)
     lib_p = [p.clone().requires_grad_() for p in ps]
     for p, g in zip(lib_p, gs):
         p.grad = g.clone()
@@ -765,14 +887,35 @@ def time_adamw(torch, ck, timer, gen, shapes):
     # each element: param read + write (2 + 2), grad read (2), m1 and m2
     # read + write (8 + 8)
     b, by = bound_ms(22 * n, 10 * n, "float32")
-    out = {"ms": timer.ms(lambda: run(ck.adamw)),
-           "plain_ms": timer.ms(lambda: run(ck.adamw_plain)),
+    eager_ms = timer.ms(lambda: run(ck.adamw, sc))
+    out = {"ms": timer.ms(graph.replay),
+           "plain_ms": timer.ms(lambda: run(ck.adamw_plain, 1e-4, 10)),
            "library_ms": timer.ms(lib.step), "bound_ms": b, "bound_by": by}
     say("time adamw %d parameters, %d elements, bf16 param+grad, f32 "
-        "moments: %.4f ms/step, plain %.4f ms, torch AdamW(fused=True) "
-        "%.4f ms, bound %.4f ms (%s)" % (len(shapes), n, out["ms"],
+        "moments: %.4f ms/step replayed from a CUDA graph (%.4f ms enqueued "
+        "one launch at a time), plain %.4f ms, torch AdamW(fused=True) "
+        "%.4f ms, bound %.4f ms (%s)" % (len(shapes), n, out["ms"], eager_ms,
                                          out["plain_ms"], out["library_ms"],
                                          b, by))
+    return out
+
+
+def time_dropout_keep(torch, ck, timer, shape):
+    """Device time of the keep-mask kernel at a hidden dropout's shape
+    beside its bound (one bool written an element; one Philox call,
+    PHILOX_INT_OPS int32 operations a lane, a 4 elements at the card's
+    int32 rate) and its plain version. No PyTorch call
+    draws this function (torch.rand's bits are another generator's):
+    library_ms is null."""
+    n = int(np.prod(shape))
+    b, by = bound_ms(n, PHILOX_INT_OPS * n / 4, "int32")
+    out = {"ms": timer.ms(lambda: ck.dropout_keep(WORD, DELTA, shape,
+                                                  DROPOUT)),
+           "plain_ms": timer.ms(lambda: ck.dropout_keep_plain(
+               SEED, OFFSET, shape, DROPOUT, device="cuda")),
+           "library_ms": None, "bound_ms": b, "bound_by": by}
+    say("time dropout_keep %s p=%g: %.4f ms, plain %.4f ms, bound %.4f ms "
+        "(%s)" % (shape, DROPOUT, out["ms"], out["plain_ms"], b, by))
     return out
 
 
@@ -791,6 +934,7 @@ def token_stream(io, vocab, T):
 
 # kernel-name patterns of the training step's profile groups, first match
 PROFILE_GROUPS = (("flash kernels (port)", ("flash_fwd_", "flash_bwd_")),
+                  ("dropout keep mask (port)", ("fdrln_bits_kernel",)),
                   ("fused dropout-LN (port)", ("fdrln_",)),
                   ("adamw (port)", ("adamw_kernel",)),
                   ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "cublas")),
@@ -842,29 +986,221 @@ def report_profile(label, dev_ms, step_ms, top):
         say("  %9.1f us/step  %5d launches  %s" % (t_us, count, key[:90]))
 
 
+def eager_train_step(TrainStep):
+    class EagerTrainStep(TrainStep):
+        """The train step's body run eagerly on every call: no program is
+        built, captured or replayed (the step as it ran before it was
+        captured, and the reference the programs are held to)."""
+
+        def _run(self, key, body):
+            return body()
+    return EagerTrainStep
+
+
+def timed_steps(torch, step, batch, warmup, timed):
+    """warmup + timed calls of `step` on `batch()`, each ended by a
+    synchronize: (losses, ms of each timed call, the last outputs)."""
+    losses, times = [], []
+    for _ in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss, outs = step(*batch())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    return [float(x) for x in losses], times[warmup:], outs
+
+
+def step_line(label, times, tokens, flops, peak, dev_ms, card):
+    """One path's step numbers: median step, tokens/s, MFU, peak memory,
+    and the kernel time and device idle share of one profiled step."""
+    step_ms = statistics.median(times)
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    idle = ("%.3f ms of kernels in one profiled step, device idle %.1f %%"
+            % (dev_ms, 100.0 * (1.0 - dev_ms / step_ms)) if dev_ms > 0
+            else "kernel time not measured (the profiler saw no device "
+            "activity)")
+    say("%s: step %.2f ms median (%.2f mean) over %d timed steps, %.0f "
+        "tokens/s, MFU %.4f of 989 TFLOP/s bf16, peak memory %.1f MiB; %s "
+        "(%s)" % (label, step_ms, statistics.mean(times), len(times),
+                  tokens / (step_ms / 1e3), mfu, peak / 2 ** 20, idle, card))
+    return step_ms
+
+
+def run_path(torch, ck, label, card, model, opt, loss_fn, batch, ctx,
+             tokens, flops, want):
+    """One training path: its step's bodies run eagerly (EAGER_WARMUP +
+    EAGER_STEPS steps, one profiled), then the captured step, the main
+    path: the launch and path counters zeroed just before its TRAIN_WARMUP
+    + TRAIN_STEPS steps and read just after; one program built, every
+    later step a replay; the launches a step `want` (kernel: count), all
+    of them through replays; one replay profiled. Returns (launches,
+    attention paths, median step ms, the last outputs, the runs of the
+    step's body in Python: on the card the build's eager run and its
+    capture, on the CPU every step)."""
+    from paddle_tpu_torch.jit import TrainStep, make_train_step
+    eager = eager_train_step(TrainStep)(model, loss_fn, opt)
+    with ctx():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, times, _ = timed_steps(torch, eager, batch, EAGER_WARMUP,
+                                  EAGER_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        dev_ms, top = profile_step(torch, eager, batch)
+    step_line("%s eager bodies" % label, times, tokens, flops, peak, dev_ms,
+              card)
+    report_profile("%s eager" % label, dev_ms, statistics.median(times), top)
+    del eager
+    step = make_train_step(model, loss_fn, opt)
+    with ctx():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.launch_counts(reset=True)
+        ck.attention_path_counts(reset=True)
+        losses, times, outs = timed_steps(torch, step, batch, TRAIN_WARMUP,
+                                          TRAIN_STEPS)
+        launches = ck.launch_counts()
+        paths = ck.attention_path_counts()
+        peak = torch.cuda.max_memory_allocated()
+        progs = step.programs
+        (key,) = progs.builds
+        replayed = {k: progs.replays[key] * n for k, n in
+                    progs.launches[key].items()}
+        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        require(step.compiles == 1 and step.replays == n_steps - 1,
+                "%s: %d programs and %d replays in %d steps (want one "
+                "build, then replays)" % (label, step.compiles, step.replays,
+                                          n_steps))
+        dev_ms, top = profile_step(torch, step, batch)
+    require(all(math.isfinite(x) for x in losses),
+            "%s: non-finite loss %s" % (label, losses))
+    say("%s main path: %d steps, losses %s" % (
+        label, n_steps, ["%.4f" % x for x in losses]))
+    per_step = {k: launches[k] / n_steps for k in launches}
+    say("%s main path launches %s, attention paths %s" % (label, launches,
+                                                         paths))
+    require(all(per_step[k] == v for k, v in want.items()),
+            "%s: launches per step %s, want %s" % (label, per_step, want))
+    require(all(replayed[k] > 0 for k, v in want.items() if v),
+            "%s: kernels launched in no replay: %s" % (label, replayed))
+    say("%s program %s: %d build + %d replays (compiles %d), captured in "
+        "%.1f ms, graph pool %.1f MiB, launches a step %s, launches through "
+        "replays %s (%s)"
+        % (label, key, progs.builds[key], progs.replays[key], step.compiles,
+           progs.capture_s[key] * 1e3, progs.pool_bytes() / 2 ** 20,
+           {k: n for k, n in progs.launches[key].items() if n},
+           {k: n for k, n in replayed.items() if n}, card))
+    step_ms = step_line("%s captured step" % label, times, tokens, flops,
+                        peak, dev_ms, card)
+    report_profile("%s captured" % label, dev_ms, step_ms, top)
+    bodies = 2 if next(model.parameters()).is_cuda else n_steps
+    return launches, paths, step_ms, outs, bodies
+
+
+def graph_against_eager_train(torch, ck, label, model, opt, loss_fn,
+                              batches, ctx, p):
+    """From one saved state (parameters, moments, step count, RNG), the two
+    steps of `batches` through the captured step and through its bodies
+    run eagerly, twice (the eager step must repeat itself bit for bit for
+    the comparison to mean anything): losses, parameters and moments
+    bit-equal. At p > 0 the two steps' Philox words differ and so do the
+    bits they give a flash call and a fused call, and the restored state
+    gives step 1's word again."""
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import TrainStep, make_train_step
+    step = make_train_step(model, loss_fn, opt)
+    eager = eager_train_step(TrainStep)(model, loss_fn, opt)
+    params = [t for t in model.parameters() if t.requires_grad]
+    moments = lambda: [a for t in params
+                       for a in opt._get_accumulators(t).values()]
+    with ctx():
+        step(*batches[0])                 # the build; later calls replay
+        torch.cuda.synchronize()
+        saved = ([t.detach().clone() for t in params],
+                 [a.clone() for a in moments()], opt._step_count,
+                 prandom.get_rng_state())
+
+        def two_steps(fn):
+            with torch.no_grad():
+                for t, v in zip(params + moments(), saved[0] + saved[1]):
+                    t.copy_(v)
+            opt._step_count = saved[2]
+            prandom.set_rng_state(saved[3])
+            losses, words = [], []
+            for b in batches:
+                losses.append(fn(*b)[0])
+                words.append(prandom.RNG.word(params[0].device).clone())
+            torch.cuda.synchronize()
+            return (losses, [t.detach().clone() for t in params],
+                    [a.clone() for a in moments()], words)
+        e1, e2 = two_steps(eager), two_steps(eager)
+        replays = step.replays
+        g = two_steps(step)
+        require(step.replays == replays + len(batches),
+                "%s: the captured steps did not replay" % label)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    for i, what in enumerate(("losses", "parameters", "moments")):
+        require(same(e1[i], e2[i]), "%s p=%g: two eager runs from one state "
+                "differ in their %s (the eager step is not deterministic)"
+                % (label, p, what))
+        require(same(g[i], e1[i]), "%s p=%g: the captured step's %s differ "
+                "from the eager bodies'" % (label, p, what))
+    note = ""
+    if p > 0:
+        w1, w2 = g[3]
+        require(not torch.equal(w1, w2), "%s: steps 1 and 2 ran on one "
+                "Philox word %s" % (label, w1.tolist()))
+        require(torch.equal(w1, e1[3][0]) and torch.equal(w2, e1[3][1]),
+                "%s: the restored RNG state did not give step 1's word "
+                "again" % label)
+        bits = [(ck.attn_dropout_bits(w, 0, 12, 64, 64),
+                 ck.fused_dropout_bits(w, 1, 64, 768)) for w in (w1, w2)]
+        require(not torch.equal(bits[0][0], bits[1][0])
+                and not torch.equal(bits[0][1], bits[1][1]),
+                "%s: steps 1 and 2 drew the same masks" % label)
+        note = (", words (seed, base) %s then %s: a flash call's and a "
+                "fused call's bits differ between the steps, the restored "
+                "state repeats step 1's" % (w1.tolist()[1], w2.tolist()[1]))
+    say("%s graph against eager p=%g: 2 steps from one state, losses %s, "
+        "parameters and moments bit-equal to the eager bodies (which repeat "
+        "themselves bit for bit)%s"
+        % (label, p, ["%.6f" % float(x) for x in g[0]], note))
+
+
+def free_memory(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def train_main(torch, ck, flags, card, fused=False):
     """The GPT-2 training path, with both fused flags (use_fused_dropout_ln,
-    fused_block) off (phase 9) or on (path B); returns (launch counts,
-    parameter shapes, median step ms)."""
+    fused_block) off (phase 9) or on (path B), through `run_path`; then
+    the captured step against its eager bodies at the path's dropout 0.1
+    and, on a fresh model, at 0. Returns (launch counts, parameter shapes,
+    median step ms)."""
+    import contextlib
     from paddle_tpu_torch import amp, io, optimizer
     from paddle_tpu_torch.framework import random as prandom
     from paddle_tpu_torch.io.prefetch import FEED_STALL
-    from paddle_tpu_torch.jit import make_train_step
     from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
 
     label = "train fused" if fused else "train"
     saved = flags.get_flags(["use_fused_dropout_ln", "fused_block"])
     flags.set_flags({"use_fused_dropout_ln": fused, "fused_block": fused})
-    try:
+    crit = GPTPretrainingCriterion()
+    loss_fn = lambda o, l: crit(o, l)  # noqa: E731
+
+    def build(**kw):
         prandom.seed(0)
-        t0 = time.perf_counter()
-        model = gpt2_small(seed=0)
+        model = gpt2_small(seed=0, **kw)
         model.train()
         opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
                               parameters=model.parameters())
-        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
-        crit = GPTPretrainingCriterion()
-        step = make_train_step(model, lambda o, l: crit(o, l), opt)
+        return amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    try:
+        t0 = time.perf_counter()
+        model, opt = build()
         vocab = model.gpt.vocab_size
         loader = io.DataLoader(token_stream(io, vocab, TRAIN_T),
                                batch_size=TRAIN_B, prefetch_to_device=2)
@@ -874,67 +1210,46 @@ def train_main(torch, ck, flags, card, fused=False):
             ids = next(it)
             return [ids[:, :-1]], [ids[:, 1:]]
         n_params = sum(p.numel() for p in model.parameters())
+        n_tensors = len(list(model.parameters()))
         say("%s: gpt2-small %d parameters (%d tensors) in %s, built in %.1f "
             "s, use_fused_dropout_ln and fused_block %s"
-            % (label, n_params, len(list(model.parameters())),
-               next(model.parameters()).dtype, time.perf_counter() - t0,
-               "on" if fused else "off"))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ck.launch_counts(reset=True)
-        ck.attention_path_counts(reset=True)
-        losses, times = [], []
-        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
-            if i == TRAIN_WARMUP:
-                stall0 = (FEED_STALL.sum, FEED_STALL.count)
-            t0 = time.perf_counter()
-            loss, _ = step(*batch())
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            losses.append(loss)
-        stall_ms = (FEED_STALL.sum - stall0[0]) / (FEED_STALL.count
-                                                   - stall0[1])
-        launches = ck.launch_counts()
-        paths = ck.attention_path_counts()
-        peak = torch.cuda.max_memory_allocated()
-        losses = [float(x) for x in losses]
-        require(all(math.isfinite(x) for x in losses),
-                "%s: non-finite loss %s" % (label, losses))
-        n_steps = TRAIN_WARMUP + TRAIN_STEPS
-        say("%s main path: %d steps, losses %s" % (
-            label, n_steps, ["%.4f" % x for x in losses]))
-        say("%s main path launches %s, attention paths %s"
-            % (label, launches, paths))
-        require(paths["flash_dropout"] > 0 and paths["xla_sdpa"] == 0,
-                "%s: attention paths %s" % (label, paths))
+            % (label, n_params, n_tensors, next(model.parameters()).dtype,
+               time.perf_counter() - t0, "on" if fused else "off"))
         L = len(model.gpt.layers)
-        per_step = {k: launches[k] / n_steps for k in launches}
         want = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-                "adamw": len(list(model.parameters())),
+                "adamw": n_tensors,
                 "fused_dropout_ln_fwd": L if fused else 0,
                 "fused_dropout_residual_fwd": L if fused else 0,
-                "fused_dropout_ln_bwd": 2 * L if fused else 0}
-        require(all(per_step[k] == v for k, v in want.items()),
-                "%s: launches per step %s, want %s" % (label, per_step, want))
-        step_ms = statistics.median(times[TRAIN_WARMUP:])
+                "fused_dropout_ln_bwd": 2 * L if fused else 0,
+                # the hidden dropouts (2 a layer, unfused) and the
+                # embeddings' dropout
+                "dropout_keep": 1 if fused else 2 * L + 1}
         tokens = TRAIN_B * TRAIN_T
         d = model.gpt.hidden_size
         flops = 6 * n_params * tokens + 12 * L * d * TRAIN_T * tokens
-        mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
-        say("%s main path: B=%d T=%d, step %.2f ms median (%.2f mean) over "
-            "%d timed steps, %.0f tokens/s, MFU %.4f of 989 TFLOP/s bf16 "
-            "(%s), peak memory %.1f MiB, feed stall %.3f ms a batch, "
-            "launches per step %s"
-            % (label, TRAIN_B, TRAIN_T, step_ms,
-               statistics.mean(times[TRAIN_WARMUP:]), TRAIN_STEPS,
-               tokens / (step_ms / 1e3), mfu, card, peak / 2 ** 20, stall_ms,
-               {k: v for k, v in per_step.items() if v}))
-        dev_ms, top = profile_step(torch, step, batch)
+        stall0 = (FEED_STALL.sum, FEED_STALL.count)
+        launches, paths, step_ms, _, _ = run_path(
+            torch, ck, label, card, model, opt, loss_fn, batch,
+            contextlib.nullcontext, tokens, flops, want)
+        say("%s feed stall %.3f ms a batch" % (label, (
+            FEED_STALL.sum - stall0[0]) / (FEED_STALL.count - stall0[1])))
+        require(paths["flash_dropout"] > 0 and paths["xla_sdpa"] == 0,
+                "%s: attention paths %s" % (label, paths))
+        fixed = [batch() for _ in range(2)]
         it.close()
-        report_profile(label, dev_ms, step_ms, top)
+        free_memory(torch)
+        graph_against_eager_train(torch, ck, label, model, opt, loss_fn,
+                                  fixed, contextlib.nullcontext, DROPOUT)
+        shapes = [tuple(p.shape) for p in model.parameters()]
+        del model, opt
+        free_memory(torch)
+        model, opt = build(attn_dropout_prob=0.0, hidden_dropout_prob=0.0)
+        graph_against_eager_train(torch, ck, label, model, opt, loss_fn,
+                                  fixed, contextlib.nullcontext, 0.0)
+        del model, opt
+        free_memory(torch)
     finally:
         flags.set_flags(saved)
-    shapes = [tuple(p.shape) for p in model.parameters()]
     return launches, shapes, step_ms
 
 
@@ -963,14 +1278,15 @@ def compare_runs(torch, ck, flags, label, build, kernel_flags, must_launch,
                                      for p in model.parameters()]
             first = []
             if noise_floor is not None and not on:
-                apply = opt.apply_gradients
+                apply = opt.apply_updates
 
                 def recording(pairs):
+                    # the step's first run is its eager build
                     pairs = list(pairs)
                     if not first:
                         first.extend(g.abs() <= noise_floor for _, g in pairs)
                     return apply(pairs)
-                opt.apply_gradients = recording
+                opt.apply_updates = recording
             ck.launch_counts(reset=True)
             losses = [float(step(i)[0]) for i in range(steps)]
             torch.cuda.synchronize()
@@ -1100,7 +1416,7 @@ def check_fused(torch, ck, flags, gen):
              ("mixed", torch.float32, torch.bfloat16))
     n = 0
     for N, Hd in ((301, 64), (4096, 768), (67, 1000)):
-        bits = ck.fused_dropout_bits(SEED, OFFSET, N, Hd)
+        bits = ck.fused_dropout_bits(WORD, DELTA, N, Hd)
         require(torch.equal(bits, ck.fused_dropout_bits_plain(
             SEED, OFFSET, N, Hd, device="cuda")), "fused_dropout_bits "
             "[%d, %d] differ from the plain Philox" % (N, Hd))
@@ -1120,9 +1436,9 @@ def check_fused(torch, ck, flags, gen):
                     what = "%s x=%s res=%s N=%d Hd=%d p=%g %s" % (
                         "%s", xdt, rdt, N, Hd, p, mode)
                     y, z = ck.fused_dropout_ln_fwd(x, res, bias, gamma, beta,
-                                                   p, s, 1e-5, SEED, OFFSET)
+                                                   p, s, 1e-5, WORD, DELTA)
                     z1 = ck.fused_dropout_residual_fwd(x, res, bias, p, s,
-                                                       SEED, OFFSET)
+                                                       WORD, DELTA)
                     yp, zp = ck.fused_dropout_ln_fwd_plain(
                         x, res, bias, gamma, beta, p, s, 1e-5, bits=bits)
                     z1p = ck.fused_dropout_residual_fwd_plain(
@@ -1132,7 +1448,7 @@ def check_fused(torch, ck, flags, gen):
                             "fused_dropout_ln_bwd": []}
                     for g, dzx in ((gamma, dz), (None, dz), (gamma, None)):
                         got = ck.fused_dropout_ln_bwd(z, dy, dzx, g, p, s,
-                                                      1e-5, SEED, OFFSET)
+                                                      1e-5, WORD, DELTA)
                         want = ck.fused_dropout_ln_bwd_plain(
                             z, dy, dzx, g, p, s, 1e-5, bits=bits)
                         outs["fused_dropout_ln_bwd"] += [
@@ -1156,7 +1472,7 @@ def check_fused(torch, ck, flags, gen):
                        torch.zeros((N, Hd), device="cuda"))
         for p in (DROPOUT, 0.5):
             z1 = ck.fused_dropout_residual_fwd(ones, zeros, None, p, 1.0,
-                                               SEED, OFFSET)
+                                               WORD, DELTA)
             require(torch.equal(z1 != 0, bits >= int(p * 2 ** 32)),
                     "fused_dropout_residual_fwd: keep mask differs from the "
                     "bits at p=%g" % p)
@@ -1169,7 +1485,7 @@ def check_fused(torch, ck, flags, gen):
     # N=4096 f32, is in the cases above), where a warp of its persistent
     # grid may take more than one group.
     N, Hd, s = 8192, 768, fdrln_scale(DROPOUT, "upscale_in_train")
-    bits = ck.fused_dropout_bits(SEED, OFFSET, N, Hd)
+    bits = ck.fused_dropout_bits(WORD, DELTA, N, Hd)
     nb = 0
     for dt in (torch.bfloat16, torch.float32):
         tol = FDRLN_F32_REL_TOL if dt == torch.float32 else FDRLN_BF16_REL_TOL
@@ -1178,7 +1494,7 @@ def check_fused(torch, ck, flags, gen):
         gamma = (torch.randn(Hd, generator=gen, device="cuda") * 0.1
                  + 1.0).to(dt)
         got = ck.fused_dropout_ln_fwd(x, res, None, gamma, beta, DROPOUT, s,
-                                      1e-5, SEED, OFFSET)
+                                      1e-5, WORD, DELTA)
         want = ck.fused_dropout_ln_fwd_plain(x, res, None, gamma, beta,
                                              DROPOUT, s, 1e-5, bits=bits)
         hold("fused_dropout_ln_fwd %s N=%d Hd=%d p=%g" % (dt, N, Hd, DROPOUT),
@@ -1187,7 +1503,7 @@ def check_fused(torch, ck, flags, gen):
                      for _ in range(3))
         for g, dzx in ((gamma, dz), (None, None), (None, dz)):
             got = ck.fused_dropout_ln_bwd(z, dy, dzx, g, DROPOUT, s, 1e-5,
-                                          SEED, OFFSET)
+                                          WORD, DELTA)
             want = ck.fused_dropout_ln_bwd_plain(z, dy, dzx, g, DROPOUT, s,
                                                  1e-5, bits=bits)
             hold("fused_dropout_ln_bwd %s N=%d Hd=%d p=%g LN=%s dz_extra=%s"
@@ -1208,7 +1524,7 @@ def check_fused(torch, ck, flags, gen):
             % (name, worst[name], FDRLN_F32_REL_TOL, FDRLN_BF16_REL_TOL,
                worst_abs[name], n, DROPOUT, extra.get(name, "")))
     # the drop rate and the gates
-    bits = ck.fused_dropout_bits(SEED, OFFSET, 8192, 768)
+    bits = ck.fused_dropout_bits(WORD, DELTA, 8192, 768)
     rate = (bits < int(DROPOUT * 2 ** 32)).double().mean().item()
     require(abs(rate - DROPOUT) <= DROP_RATE_TOL,
             "fused dropout rate %.5f, want %.3f +- %.3f"
@@ -1267,14 +1583,14 @@ def check_mask_identity(torch, ck):
         zeros = torch.zeros((N, Hd), device="cuda", dtype=dt)
         g, b = ones[0].clone(), zeros[0].clone()
         _, z = ck.fused_dropout_ln_fwd(ones, zeros, None, g, b, DROPOUT, s,
-                                       1e-5, SEED, OFFSET)
+                                       1e-5, WORD, DELTA)
         dropped = z == 0
-        bits = ck.fused_dropout_bits(SEED, OFFSET, N, Hd)
+        bits = ck.fused_dropout_bits(WORD, DELTA, N, Hd)
         require(torch.equal(dropped, bits < int(DROPOUT * 2 ** 32)),
                 "fused_dropout_ln_fwd %s N=%d: dropped elements differ from "
                 "the bits" % (dt, N))
         dx = ck.fused_dropout_ln_bwd(z, zeros, ones, g, DROPOUT, s, 1e-5,
-                                     SEED, OFFSET)[0]
+                                     WORD, DELTA)[0]
         require(torch.equal(dx == 0, dropped),
                 "fused_dropout_ln_bwd %s N=%d: dx is not zero exactly where "
                 "the forward dropped h" % (dt, N))
@@ -1299,9 +1615,9 @@ def time_fused(torch, ck, timer, gen, N, Hd, dtype, dz_extra, label):
     g = (1.0 + 0.1 * torch.randn(Hd, generator=gen, device="cuda")).to(dtype)
     b = torch.randn(Hd, generator=gen, device="cuda").to(dtype)
     p, s = DROPOUT, fdrln_scale(DROPOUT, "upscale_in_train")
-    bits = ck.fused_dropout_bits(SEED, OFFSET, N, Hd)
-    y, z = ck.fused_dropout_ln_fwd(x, res, None, g, b, p, s, 1e-5, SEED,
-                                   OFFSET)
+    bits = ck.fused_dropout_bits(WORD, DELTA, N, Hd)
+    y, z = ck.fused_dropout_ln_fwd(x, res, None, g, b, p, s, 1e-5, WORD,
+                                   DELTA)
     dzx = dz if dz_extra else None
     esize = x.element_size()
     rows = N * Hd * esize
@@ -1319,7 +1635,7 @@ def time_fused(torch, ck, timer, gen, N, Hd, dtype, dz_extra, label):
     bound, by = bound_ms(4 * rows + 2 * vecs, 10 * flop, "float32")
     out["fused_dropout_ln_fwd"] = {
         "ms": timer.ms(lambda: ck.fused_dropout_ln_fwd(
-            x, res, None, g, b, p, s, 1e-5, SEED, OFFSET)),
+            x, res, None, g, b, p, s, 1e-5, WORD, DELTA)),
         "plain_ms": timer.ms(lambda: ck.fused_dropout_ln_fwd_plain(
             x, res, None, g, b, p, s, 1e-5, bits=bits)),
         "library_ms": timer.ms(lambda: tF.layer_norm(
@@ -1329,7 +1645,7 @@ def time_fused(torch, ck, timer, gen, N, Hd, dtype, dz_extra, label):
     bound, by = bound_ms(3 * rows, 2 * flop, "float32")
     out["fused_dropout_residual_fwd"] = {
         "ms": timer.ms(lambda: ck.fused_dropout_residual_fwd(
-            x, res, None, p, s, SEED, OFFSET)),
+            x, res, None, p, s, WORD, DELTA)),
         "plain_ms": timer.ms(lambda: ck.fused_dropout_residual_fwd_plain(
             x, res, None, p, s, bits=bits)),
         "library_ms": timer.ms(lambda: res + tF.dropout(x, p)),
@@ -1340,14 +1656,14 @@ def time_fused(torch, ck, timer, gen, N, Hd, dtype, dz_extra, label):
     bound, by = bound_ms(nrows * rows + 4 * vecs, 16 * flop, "float32")
     out["fused_dropout_ln_bwd"] = {
         "ms": timer.ms(lambda: ck.fused_dropout_ln_bwd(
-            z, dy, dzx, g, p, s, 1e-5, SEED, OFFSET)),
+            z, dy, dzx, g, p, s, 1e-5, WORD, DELTA)),
         "plain_ms": timer.ms(lambda: ck.fused_dropout_ln_bwd_plain(
             z, dy, dzx, g, p, s, 1e-5, bits=bits)),
         "library_ms": timer.ms(lambda: torch.autograd.grad(
             outs, (lx, lr, lg, lb), cot, retain_graph=True)),
         "bound_ms": bound, "bound_by": by}
     noln = {"ms": timer.ms(lambda: ck.fused_dropout_ln_bwd(
-                z, dy, None, None, p, s, 1e-5, SEED, OFFSET)),
+                z, dy, None, None, p, s, 1e-5, WORD, DELTA)),
             "bound_ms": bound_ms(3 * rows + vecs, 2 * flop, "float32")[0]}
     for name, t in out.items():
         say("time %s %s N=%d Hd=%d %s p=%g%s: %.4f ms, plain %.4f ms, "
@@ -1394,26 +1710,28 @@ def ernie_main(torch, ck, flags, card):
     width and depth (seeded weights, dropouts 0.1), B=32, T=128,
     AdamW(lr=1e-4, weight_decay=0.01), make_train_step with the MLM + NSP
     criterion, under amp.auto_cast(level="O2") with float32 parameters,
-    FLAGS_use_fused_dropout_ln on; 3 warm-up and 10 timed steps, the
-    counters zeroed just before and read just after; then one step under
-    torch.profiler. Returns the launch counts."""
+    FLAGS_use_fused_dropout_ln on, through `run_path`; then the captured
+    step against its eager bodies at dropout 0.1 and, on a fresh model, at
+    0. Returns the launch counts."""
     from paddle_tpu_torch import amp, optimizer
     from paddle_tpu_torch.framework import random as prandom
-    from paddle_tpu_torch.jit import make_train_step
     from paddle_tpu_torch.models import BertPretrainingCriterion, ernie_base
 
     saved = flags.get_flags(["use_fused_dropout_ln"])
     flags.set_flags({"use_fused_dropout_ln": True})
-    try:
-        t0 = time.perf_counter()
-        net = ernie_base(seed=0)
+    crit = BertPretrainingCriterion()
+    loss_fn = lambda lg, nl, y1, y2: crit(lg, nl, y1, y2)  # noqa: E731
+    ctx = lambda: amp.auto_cast(level="O2")  # noqa: E731
+
+    def build(**kw):
+        net = ernie_base(seed=0, **kw)
         net.train()
         prandom.seed(0)
-        crit = BertPretrainingCriterion()
-        opt = optimizer.AdamW(parameters=net.parameters(),
-                              learning_rate=1e-4, weight_decay=0.01)
-        step = make_train_step(
-            net, lambda lg, nl, y1, y2: crit(lg, nl, y1, y2), opt)
+        return net, optimizer.AdamW(parameters=net.parameters(),
+                                    learning_rate=1e-4, weight_decay=0.01)
+    try:
+        t0 = time.perf_counter()
+        net, opt = build()
         vocab = net.bert.embeddings.word_embeddings.weight.shape[0]
         batch = ernie_batch(torch, vocab, ERNIE_B, ERNIE_T)
         n_params = sum(p.numel() for p in net.parameters())
@@ -1421,55 +1739,37 @@ def ernie_main(torch, ck, flags, card):
         say("ernie: ernie-base %d parameters (%d tensors) in %s, built in "
             "%.1f s" % (n_params, n_tensors, next(net.parameters()).dtype,
                         time.perf_counter() - t0))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ck.launch_counts(reset=True)
-        ck.attention_path_counts(reset=True)
-        losses, times = [], []
-        with amp.auto_cast(level="O2"):
-            for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
-                t0 = time.perf_counter()
-                loss, (logits, _) = step(*batch)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-                losses.append(loss)
-            launches = ck.launch_counts()
-            paths = ck.attention_path_counts()
-            peak = torch.cuda.max_memory_allocated()
-            dev_ms, top = profile_step(torch, step, lambda: batch)
-        losses = [float(x) for x in losses]
-        require(all(math.isfinite(x) for x in losses),
-                "ernie: non-finite loss %s" % losses)
-        require(logits.dtype == torch.float32
-                and tuple(logits.shape) == (ERNIE_B, ERNIE_T, vocab),
-                "ernie: logits %s %s" % (logits.dtype, tuple(logits.shape)))
-        n_steps = TRAIN_WARMUP + TRAIN_STEPS
         L = len(net.bert.layers)
-        per_step = {k: launches[k] / n_steps for k in launches}
-        say("ernie main path: %d steps, losses %s" % (
-            n_steps, ["%.4f" % x for x in losses]))
-        say("ernie main path launches per step %s, attention paths %s"
-            % ({k: v for k, v in per_step.items() if v}, paths))
         want = {"fused_dropout_ln_fwd": 2 * L, "fused_dropout_ln_bwd": 2 * L,
                 "flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-                "adamw": n_tensors, "fused_dropout_residual_fwd": 0}
-        require(all(per_step[k] == v for k, v in want.items()),
-                "ernie: launches per step %s, want %s" % (per_step, want))
-        require(paths["flash_dropout"] == L * n_steps
-                and paths["xla_sdpa"] == 0 and paths["flash"] == 0,
-                "ernie: attention paths %s" % paths)
-        step_ms = statistics.median(times[TRAIN_WARMUP:])
+                "adamw": n_tensors, "fused_dropout_residual_fwd": 0,
+                # the feed-forward's activation dropout a layer and the
+                # embeddings' dropout
+                "dropout_keep": L + 1}
         tokens = ERNIE_B * ERNIE_T
         d = net.bert.hidden_size
         flops = 6 * n_params * tokens + 12 * L * d * ERNIE_T * tokens
-        mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
-        say("ernie main path: B=%d T=%d, step %.2f ms median (%.2f mean) "
-            "over %d timed steps, %.0f tokens/s, MFU %.4f of 989 TFLOP/s "
-            "bf16 (%s), peak memory %.1f MiB"
-            % (ERNIE_B, ERNIE_T, step_ms,
-               statistics.mean(times[TRAIN_WARMUP:]), TRAIN_STEPS,
-               tokens / (step_ms / 1e3), mfu, card, peak / 2 ** 20))
-        report_profile("ernie", dev_ms, step_ms, top)
+        launches, paths, _, (logits, _), bodies = run_path(
+            torch, ck, "ernie", card, net, opt, loss_fn, lambda: batch, ctx,
+            tokens, flops, want)
+        require(logits.dtype == torch.float32
+                and tuple(logits.shape) == (ERNIE_B, ERNIE_T, vocab),
+                "ernie: logits %s %s" % (logits.dtype, tuple(logits.shape)))
+        # the path counters count bodies run in Python, as the reference's
+        # count rises at trace time
+        require(paths["flash_dropout"] == L * bodies
+                and paths["xla_sdpa"] == 0 and paths["flash"] == 0,
+                "ernie: attention paths %s" % paths)
+        free_memory(torch)
+        graph_against_eager_train(torch, ck, "ernie", net, opt, loss_fn,
+                                  [batch, batch], ctx, DROPOUT)
+        del net, opt
+        free_memory(torch)
+        net, opt = build(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+        graph_against_eager_train(torch, ck, "ernie", net, opt, loss_fn,
+                                  [batch, batch], ctx, 0.0)
+        del net, opt
+        free_memory(torch)
     finally:
         flags.set_flags(saved)
     return launches
@@ -1790,6 +2090,9 @@ def main():
         say("registers %s %s: %d (%s)" % (src, entry, regs, spill))
 
     # 3. kernels against their plain versions
+    from paddle_tpu_torch.framework.random import philox_word
+    global WORD
+    WORD = philox_word(SEED, OFFSET - DELTA, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"flash_fwd": check_flash(torch, ck, gen),
             "paged_decode": check_paged(torch, ck, False, gen),
@@ -1797,6 +2100,7 @@ def main():
     check_dropout_bits(torch, ck)
     errs.update(check_flash_train(torch, ck, gen))
     errs["adamw"] = check_adamw(torch, ck, gen)
+    errs["dropout_keep"] = check_dropout_keep(torch, ck)
     check_gates(torch, ck, gen)
     errs.update(check_fused(torch, ck, flags, gen))
     if opts.kernels_only:
@@ -1944,6 +2248,8 @@ def main():
     times.update(train_timings(torch, ck, F, timer, gen))
     tlaunches, shapes, off_ms = train_main(torch, ck, flags, card)
     times["adamw"] = time_adamw(torch, ck, timer, gen, shapes)
+    times["dropout_keep"] = time_dropout_keep(torch, ck, timer,
+                                              (TRAIN_B, TRAIN_T, 768))
     train_compare(torch, ck, flags)
 
     # 11-12. rows 4-6 at the paths' shapes; path B: GPT-2 training with
@@ -1966,7 +2272,7 @@ def main():
               "paged_decode": launches["paged_decode"],
               "paged_decode_int8": launches8["paged_decode_int8"]}
     for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
-                 "adamw"):
+                 "adamw", "dropout_keep"):
         counts[name] = tlaunches[name]
     for name in FUSED_KERNELS:
         counts[name] = blaunches[name] + alaunches[name]

@@ -14,19 +14,27 @@ the key's program on its first call and runs it on every later one:
     stream;
   * on the CPU every call runs `body()` eagerly, under the same counters.
 
-A body takes no arguments and returns nothing: it reads and writes only
-tensors that outlive the program (the caller's static buffers, which the
-host fills before a call, and the model's weights). A graph therefore
-owns no output that another graph's scratch could overwrite, and one pool
-serves every program in any order, one at a time on one stream.
+A body takes no arguments. It reads and writes tensors that outlive the
+program (the caller's static buffers, which the host fills before a call,
+and the model's weights) and may return a result: a call returns the
+build's eager result, then, on each replay, the result of the capture run,
+whose tensors the replay has just rewritten in the graph's pool. Such a
+result is valid until the next call of any program of this object: a
+caller that keeps it copies it out (the train step clones its loss and
+outputs). The serving bodies return nothing and write only static
+buffers. Either way one pool serves every program in any order, one at a
+time on one stream. A body may allocate inside the capture, as the train
+step's backward allocates its gradients: the pool keeps those blocks for
+the graph.
 
 What a program freezes at its build, as a trace does: the flags (on the
 CPU each later call runs under the flags of the build) and the addresses
 of the tensors it holds. Every call checks that `held()` still gives the
-addresses of the first build and raises RuntimeError if one moved: a
-weight loaded with `copy_` is seen by the next replay, a rebound one would
-not be. There is no eager fallback and no switch: a capture or a replay
-that fails raises.
+addresses of the first build, and that the key's own `buffers` (a call's
+static inputs) give those of its build, and raises RuntimeError if one
+moved: a weight loaded with `copy_` is seen by the next replay, a rebound
+one would not be. There is no eager fallback and no switch: a capture or
+a replay that fails raises.
 
 Launch accounting: a capture's kernel launches ran nothing, so they are
 taken back out of `ops.cuda_kernels.launch_counts()` and kept as the
@@ -38,7 +46,7 @@ rises at trace time.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Hashable, Iterable
+from typing import Any, Callable, Dict, Hashable, Iterable
 
 import torch
 
@@ -62,6 +70,8 @@ class StepPrograms:
         self._addresses = None
         self._graphs: Dict[Hashable, torch.cuda.CUDAGraph] = {}
         self._flags: Dict[Hashable, dict] = {}
+        self._results: Dict[Hashable, Any] = {}
+        self._buffers: Dict[Hashable, tuple] = {}
         self.builds: Dict[Hashable, int] = {}
         self.replays: Dict[Hashable, int] = {}
         self.launches: Dict[Hashable, Dict[str, int]] = {}
@@ -73,25 +83,31 @@ class StepPrograms:
         else:
             self.pool = self._stream = None
 
-    def __call__(self, key: Hashable, body: Callable[[], None]) -> None:
+    def __call__(self, key: Hashable, body: Callable[[], Any],
+                 buffers: Iterable[torch.Tensor] = ()) -> Any:
+        """Build or replay the key's program; returns the body's result
+        (see the module's note). `buffers`: tensors of this key alone that
+        the program holds (its static inputs)."""
         addresses = tuple(t.data_ptr() for t in self._held())
         if self._addresses is None:
             self._addresses = addresses
-        elif addresses != self._addresses:
+        own = tuple(t.data_ptr() for t in buffers)
+        if addresses != self._addresses or own != self._buffers.get(key,
+                                                                    own):
             raise RuntimeError(
                 "a tensor held by the step programs moved since they were "
                 "built (a parameter or buffer rebound, not copied into); "
-                "build a new engine")
+                "build a new engine or train step")
         if key not in self.builds:
-            self._build(key, body)
-            return
+            self._buffers[key] = own
+            return self._build(key, body)
         self.replays[key] += 1
         if self._cuda:
             self._graphs[key].replay()
             ck.add_launches(self.launches[key])
-        else:
-            with flags.flags_as(self._flags[key]):
-                body()
+            return self._results[key]
+        with flags.flags_as(self._flags[key]):
+            return body()
 
     def _build(self, key, body):
         before = ck.launch_counts()
@@ -102,10 +118,10 @@ class StepPrograms:
             current = torch.cuda.current_stream(self.device)
             self._stream.wait_stream(current)
             with torch.cuda.stream(self._stream):
-                body()
+                result = body()
             current.wait_stream(self._stream)
         else:
-            body()
+            result = body()
         eager = ck.launch_delta(before)
         capture_s = 0.0
         if self._cuda:
@@ -116,7 +132,7 @@ class StepPrograms:
             # copy stream) may allocate while this thread captures
             with torch.cuda.graph(graph, pool=self.pool, stream=self._stream,
                                   capture_error_mode="thread_local"):
-                body()
+                self._results[key] = body()
             captured = ck.launch_delta(mark)
             ck.add_launches(captured, -1)
             capture_s = time.perf_counter() - t0
@@ -131,6 +147,7 @@ class StepPrograms:
         self.capture_s[key] = capture_s
         self.builds[key] = 1
         self.replays[key] = 0
+        return result
 
     def runs(self, key) -> int:
         """Times the key's program ran: its build and its replays."""

@@ -87,9 +87,14 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
 
 
 def _keep(shape, p, device):
-    """Bernoulli(1 - p) keep mask drawn from the framework generator of
-    `device`."""
-    u = torch.rand(shape, generator=RNG.generator(device), device=device)
+    """Bernoulli(1 - p) keep mask. On CUDA the Philox bits kernel draws it
+    from the device's Philox word (`ck.dropout_keep`: keep iff bits >=
+    floor(p * 2^32), the fused kernels' rule), so every draw of a train
+    step reads the step's word and a captured step draws new masks on
+    replay; on the CPU it comes from the CPU generator."""
+    if device.type == "cuda":
+        return ck.dropout_keep(*RNG.draw(device), shape, p)
+    u = torch.rand(shape, generator=RNG.cpu, device=device)
     return u >= p
 
 
@@ -97,9 +102,9 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
     """paddle's dropout (reference: nn/functional dropout, ops/nn_ops.py
     _dropout). upscale_in_train: kept values scaled by 1/(1-p) in
     training, the identity in eval. downscale_in_infer: kept values as
-    they are in training, x * (1-p) in eval. The mask is drawn from the
-    framework's generator for x's device (framework/random.py), so it is
-    not the reference's jax.random mask."""
+    they are in training, x * (1-p) in eval. The mask is drawn by `_keep`
+    (framework/random.py's Philox word on CUDA, its CPU generator on the
+    CPU), so it is not the reference's jax.random mask."""
     if mode not in ck.DROPOUT_MODES:
         raise ValueError("dropout mode %r (one of %s)" % (mode,
                                                           ck.DROPOUT_MODES))
@@ -127,7 +132,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     raising on an additive mask or a shape the kernels do not take; else
     the dense plain version `flash_attention_plain` (path xla_sdpa), which
     also takes an additive mask and drops the probabilities with a mask
-    from the framework generator, as the reference's XLA path does. The
+    from `_keep`, as the reference's XLA path does. The
     reference's blockwise tier for keys >= 2048 is not ported: no shape of
     the ported paths reaches it (max_position_embeddings is 1024)."""
     p = float(dropout_p) if training else 0.0

@@ -38,17 +38,18 @@ KERNEL_SOURCES = {
                  "fused_dropout_ln")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U, _U64, _I64 = ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong
-# dropout arguments of the flash kernels: on, threshold, scale, seed, offset
-_DROP = [_I, _U, _F, _U64, _U]
+_U, _I64 = ctypes.c_uint, ctypes.c_longlong
+# dropout arguments of the flash kernels: on, threshold, scale, the Philox
+# word (seed, base offset) in device memory, the call's delta
+_DROP = [_I, _U, _F, _P, _U]
 # library -> {C entry: argtypes}
 _SIGNATURES = {
     "flash_fwd": {
         # q, k, v, o, lse, strides*, B, H, Tq, Tk, D, causal, sm_scale,
         # dtype, warps, tile, dropout..., stream
         "flash_fwd": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + _DROP + [_P],
-        # out, seed, offset, BH, Tq, Tk, stream
-        "attn_dropout_bits": [_P, _U64, _U, _I, _I, _I, _P],
+        # out, word, delta, BH, Tq, Tk, stream
+        "attn_dropout_bits": [_P, _P, _U, _I, _I, _I, _P],
     },
     "flash_bwd": {
         # q, k, v, o, dO, lse, dq, delta, strides*, B, H, Tq, Tk, D,
@@ -58,9 +59,9 @@ _SIGNATURES = {
         "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I] + _DROP + [_P],
     },
     "adamw": {
-        # param, grad, m1, m2, n, ptype, gtype, lr, decay, use_decay, b1,
-        # 1-b1, b2, 1-b2, eps, c1, c2, stream
-        "adamw": [_P] * 4 + [_I64, _I, _I, _F, _F, _I] + [_F] * 7 + [_P],
+        # param, grad, m1, m2, n, ptype, gtype, scalars (lr, c1, c2 in
+        # device memory), coeff, use_decay, b1, 1-b1, b2, 1-b2, eps, stream
+        "adamw": [_P] * 4 + [_I64, _I, _I, _P, _F, _I] + [_F] * 5 + [_P],
     },
     "paged_decode": {
         # q, nk, nv, strides*, kc, vc, ks, vs, lens, out, part, ticket, B,
@@ -69,15 +70,15 @@ _SIGNATURES = {
     },
     "fused_dropout_ln": {
         # x, res, bias, gamma, beta, y, z, n, h, dtypes, with_ln, on, thr,
-        # scale, eps, seed, offset, stream
-        "fused_dropout_ln_fwd": [_P] * 7 + [_I] * 5 + [_U, _F, _F, _U64, _U,
+        # scale, eps, word, delta, stream
+        "fused_dropout_ln_fwd": [_P] * 7 + [_I] * 5 + [_U, _F, _F, _P, _U,
                                                       _P],
         # z, dy, dz_extra, gamma, dx, dres, part, sums, n, h, grid, dtypes,
-        # with_ln, on, thr, scale, eps, seed, offset, stream
-        "fused_dropout_ln_bwd": [_P] * 8 + [_I] * 6 + [_U, _F, _F, _U64, _U,
+        # with_ln, on, thr, scale, eps, word, delta, stream
+        "fused_dropout_ln_bwd": [_P] * 8 + [_I] * 6 + [_U, _F, _F, _P, _U,
                                                       _P],
-        # out, seed, offset, n, h, stream
-        "fused_dropout_bits": [_P, _U64, _U, _I, _I, _P],
+        # out, word, delta, tag, n, h, thr, mask, stream
+        "fused_dropout_bits": [_P, _P, _U, _U, _I, _I, _U, _I, _P],
     },
 }
 

@@ -8,10 +8,15 @@
 //     m1 = b1 * m1 + (1 - b1) * g                   (g = float(grad))
 //     m2 = b2 * m2 + (1 - b2) * (g * g)
 //     param = p - lr * (m1 / c1) / (sqrt(m2 / c2) + eps)
-// with c1 = 1 - b1^t and c2 = 1 - b2^t computed on the host in float32 and
-// passed in, as the TPU wrapper passes them. Every operation is rounded
-// on its own (__fmul_rn, __fdiv_rn, __fsqrt_rn, ...: no FMA contraction),
-// so the kernel equals the plain PyTorch version op for op.
+// with c1 = 1 - b1^t and c2 = 1 - b2^t computed on the host in float32.
+// lr, c1 and c2 change every step, so the kernel reads them from a float32
+// device buffer [lr, c1, c2] that the host fills before the step, as the
+// TPU kernel reads `lr_ref` and `c_ref` from SMEM: a CUDA graph that
+// captured the launch then applies each step's values on replay. The
+// kernel forms 1 - lr * coeff itself (__fmul_rn, __fsub_rn), the host's
+// float32 value bit for bit. Every operation is rounded on its own
+// (__fmul_rn, __fdiv_rn, __fsqrt_rn, ...: no FMA contraction), so the
+// kernel equals the plain PyTorch version op for op.
 //
 // The parameter is float32 or bfloat16, the gradient float32 or bfloat16
 // (converted to float32 here), the moments float32. Any numel: the TPU's
@@ -39,8 +44,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// the per-step values live in device memory (`sc`: lr, c1, c2)
 struct Hyper {
-  float lr, decay, b1, omb1, b2, omb2, eps, c1, c2;
+  float coeff, b1, omb1, b2, omb2, eps;
   int use_decay;
 };
 
@@ -48,19 +54,21 @@ template <typename P, typename G>
 __global__ void __launch_bounds__(256)
 adamw_kernel(P* __restrict__ param, const G* __restrict__ grad,
              float* __restrict__ m1, float* __restrict__ m2, long long n,
-             Hyper hp) {
+             const float* __restrict__ sc, Hyper hp) {
+  const float lr = __ldg(sc), c1 = __ldg(sc + 1), c2 = __ldg(sc + 2);
+  const float decay = __fsub_rn(1.f, __fmul_rn(lr, hp.coeff));
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const float g = to_f(grad[i]);
     float p = to_f(param[i]);
-    if (hp.use_decay) p = __fmul_rn(p, hp.decay);
+    if (hp.use_decay) p = __fmul_rn(p, decay);
     const float a = __fadd_rn(__fmul_rn(hp.b1, m1[i]), __fmul_rn(hp.omb1, g));
     const float b = __fadd_rn(__fmul_rn(hp.b2, m2[i]),
                               __fmul_rn(hp.omb2, __fmul_rn(g, g)));
     const float step = __fdiv_rn(
-        __fmul_rn(hp.lr, __fdiv_rn(a, hp.c1)),
-        __fadd_rn(__fsqrt_rn(__fdiv_rn(b, hp.c2)), hp.eps));
+        __fmul_rn(lr, __fdiv_rn(a, c1)),
+        __fadd_rn(__fsqrt_rn(__fdiv_rn(b, c2)), hp.eps));
     store(param + i, __fsub_rn(p, step));
     m1[i] = a;
     m2[i] = b;
@@ -69,36 +77,36 @@ adamw_kernel(P* __restrict__ param, const G* __restrict__ grad,
 
 template <typename P, typename G>
 int launch(void* param, const void* grad, float* m1, float* m2, long long n,
-           const Hyper& hp, cudaStream_t stream) {
+           const float* sc, const Hyper& hp, cudaStream_t stream) {
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
   if (blocks > 132 * 16) blocks = 132 * 16;    // 16 blocks per SM, then loop
   adamw_kernel<P, G><<<(int)blocks, threads, 0, stream>>>(
-      static_cast<P*>(param), static_cast<const G*>(grad), m1, m2, n, hp);
+      static_cast<P*>(param), static_cast<const G*>(grad), m1, m2, n, sc, hp);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// ptype / gtype: 0 float32, 1 bfloat16. lr, decay (= 1 - lr * coeff),
-// the betas, 1 - beta, eps, c1 and c2 are float32 values computed by the
-// caller. use_decay: 0 for Adam (no decay multiply). Returns
-// cudaGetLastError() after the launch.
+// ptype / gtype: 0 float32, 1 bfloat16. sc: float32 [3] in device memory,
+// the step's lr, c1 and c2. coeff (AdamW's decoupled decay), the betas,
+// 1 - beta and eps are float32 values computed by the caller. use_decay: 0
+// for Adam (no decay multiply). Returns cudaGetLastError() after the
+// launch.
 extern "C" int adamw(void* param, const void* grad, float* m1, float* m2,
-                     long long n, int ptype, int gtype, float lr,
-                     float decay, int use_decay, float b1, float omb1,
-                     float b2, float omb2, float eps, float c1, float c2,
-                     cudaStream_t stream) {
+                     long long n, int ptype, int gtype, const float* sc,
+                     float coeff, int use_decay, float b1, float omb1,
+                     float b2, float omb2, float eps, cudaStream_t stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  const Hyper hp{lr, decay, b1, omb1, b2, omb2, eps, c1, c2, use_decay};
+  const Hyper hp{coeff, b1, omb1, b2, omb2, eps, use_decay};
   if (ptype == 0 && gtype == 0)
-    return launch<float, float>(param, grad, m1, m2, n, hp, stream);
+    return launch<float, float>(param, grad, m1, m2, n, sc, hp, stream);
   if (ptype == 0 && gtype == 1)
-    return launch<float, __nv_bfloat16>(param, grad, m1, m2, n, hp, stream);
+    return launch<float, __nv_bfloat16>(param, grad, m1, m2, n, sc, hp, stream);
   if (ptype == 1 && gtype == 0)
-    return launch<__nv_bfloat16, float>(param, grad, m1, m2, n, hp, stream);
+    return launch<__nv_bfloat16, float>(param, grad, m1, m2, n, sc, hp, stream);
   if (ptype == 1 && gtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(param, grad, m1, m2, n, hp,
-                                                stream);
+    return launch<__nv_bfloat16, __nv_bfloat16>(param, grad, m1, m2, n, sc,
+                                                hp, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,6 +14,13 @@
 // Philox call: a warp that owns 4 aligned rows (forward, dq) gets all its
 // bits from one call per lane. keep <=> bits >= thr, thr = min(floor(p *
 // 2^32), 2^32 - 1); kept values are scaled by 1 / (1 - p).
+//
+// A kernel takes its (seed, offset) from device memory, as the reference's
+// kernels read `rng_ref`: a Philox word (two 64-bit values, seed and base
+// offset, that the host writes before a train step) and a per-call delta,
+// offset = base + delta (mod 2^32). A CUDA graph replay then draws new bits
+// each step from the same captured launch. `load_key` reads the word once,
+// at the kernel's start, into registers.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -40,6 +47,15 @@ __device__ __forceinline__ uint4 bits4(unsigned long long seed,
   return philox4x32_10(
       make_uint4((unsigned)col, (unsigned)group, (unsigned)bh, offset),
       make_uint2((unsigned)seed, (unsigned)(seed >> 32)));
+}
+
+// (seed, offset) of the call: word[0] is the seed, word[1] the base offset
+__device__ __forceinline__ void load_key(const unsigned long long* word,
+                                         unsigned delta,
+                                         unsigned long long& seed,
+                                         unsigned& offset) {
+  seed = __ldg(word);
+  offset = (unsigned)__ldg(word + 1) + delta;
 }
 
 __device__ __forceinline__ unsigned word(uint4 r, int i) {

@@ -162,7 +162,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ delta, Strides st, int H, int Tq,
                     int Tk, int D, int causal, float sm_scale,
                     unsigned drop_thr, float drop_scale,
-                    unsigned long long seed, unsigned offset) {
+                    const unsigned long long* __restrict__ rng,
+                    unsigned rng_delta) {
+  unsigned long long seed = 0;            // the call's dropout key, read
+  unsigned offset = 0;                    // once from the Philox word
+  if (DROP) attn_dropout::load_key(rng, rng_delta, seed, offset);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D4 = pad4(D);
@@ -329,8 +333,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, Strides st, int H, int Tq, int Tk,
                      int D, int causal, float sm_scale, unsigned drop_thr,
-                     float drop_scale, unsigned long long seed,
-                     unsigned offset) {
+                     float drop_scale,
+                     const unsigned long long* __restrict__ rng,
+                     unsigned rng_delta) {
+  unsigned long long seed = 0;            // the call's dropout key, read
+  unsigned offset = 0;                    // once from the Philox word
+  if (DROP) attn_dropout::load_key(rng, rng_delta, seed, offset);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D4 = pad4(D);
@@ -555,7 +563,11 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  bf16* __restrict__ dq, float* __restrict__ delta, Strides st,
                  int H, int Tq, int Tk, int D, int causal, float sm_scale,
                  int vec, unsigned drop_thr, float drop_scale,
-                 unsigned long long seed, unsigned offset) {
+                 const unsigned long long* __restrict__ rng,
+                 unsigned rng_delta) {
+  unsigned long long seed = 0;            // the call's dropout key, read
+  unsigned offset = 0;                    // once from the Philox word
+  if (DROP) attn_dropout::load_key(rng, rng_delta, seed, offset);
   using C = DqCfg<DP>;
   constexpr int BN = C::BN, LD = C::LD, NT = C::NT, KS = C::KS, DT = C::DT;
   extern __shared__ uint4 smem_u4[];
@@ -760,7 +772,11 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   bf16* __restrict__ dv, Strides st, int H, int Tq, int Tk,
                   int D, int causal, float sm_scale, int vec,
                   unsigned drop_thr, float drop_scale,
-                  unsigned long long seed, unsigned offset) {
+                  const unsigned long long* __restrict__ rng,
+                  unsigned rng_delta) {
+  unsigned long long seed = 0;            // the call's dropout key, read
+  unsigned offset = 0;                    // once from the Philox word
+  if (DROP) attn_dropout::load_key(rng, rng_delta, seed, offset);
   using C = DkvCfg<DP>;
   constexpr int BN = C::BN, LD = C::LD, NT = C::NT, KS = C::KS, DT = C::DT;
   extern __shared__ uint4 smem_u4[];
@@ -963,8 +979,8 @@ struct Args {
   int dropout;
   unsigned drop_thr;
   float drop_scale;
-  unsigned long long seed;
-  unsigned offset;
+  const unsigned long long* rng;
+  unsigned rng_delta;
 };
 
 // float32 route: the CUDA-core kernels
@@ -984,7 +1000,7 @@ struct DqLauncher {
         static_cast<const float*>(a.v), static_cast<const float*>(a.o),
         static_cast<const float*>(a.dout), a.lse, static_cast<float*>(a.dq),
         a.delta, a.st, a.H, a.Tq, a.Tk, a.D, a.causal, a.sm_scale,
-        a.drop_thr, a.drop_scale, a.seed, a.offset);
+        a.drop_thr, a.drop_scale, a.rng, a.rng_delta);
     return (int)cudaGetLastError();
   }
 };
@@ -1004,7 +1020,7 @@ struct DkvLauncher {
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
         a.st, a.H, a.Tq, a.Tk, a.D, a.causal, a.sm_scale, a.drop_thr,
-        a.drop_scale, a.seed, a.offset);
+        a.drop_scale, a.rng, a.rng_delta);
     return (int)cudaGetLastError();
   }
 };
@@ -1040,7 +1056,7 @@ struct DqTc {
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
         static_cast<const bf16*>(a.dout), a.lse, static_cast<bf16*>(a.dq),
         a.delta, a.st, a.H, a.Tq, a.Tk, a.D, a.causal, a.sm_scale,
-        tc_vec(a), a.drop_thr, a.drop_scale, a.seed, a.offset);
+        tc_vec(a), a.drop_thr, a.drop_scale, a.rng, a.rng_delta);
     return (int)cudaGetLastError();
   }
 };
@@ -1059,7 +1075,7 @@ struct DkvTc {
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
         a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
         a.st, a.H, a.Tq, a.Tk, a.D, a.causal, a.sm_scale, tc_vec(a),
-        a.drop_thr, a.drop_scale, a.seed, a.offset);
+        a.drop_thr, a.drop_scale, a.rng, a.rng_delta);
     return (int)cudaGetLastError();
   }
 };
@@ -1091,7 +1107,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* o,
                void* dk, void* dv, const long long* strides, int B, int H,
                int Tq, int Tk, int D, int causal, float sm_scale,
                int dropout, unsigned drop_thr, float drop_scale,
-               unsigned long long seed, unsigned offset) {
+               const unsigned long long* rng, unsigned rng_delta) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.lse = lse; a.delta = delta;
@@ -1100,7 +1116,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* o,
     for (int j = 0; j < 3; ++j) a.st.s[t][j] = strides[3 * t + j];
   a.B = B; a.H = H; a.Tq = Tq; a.Tk = Tk; a.D = D; a.causal = causal;
   a.sm_scale = sm_scale; a.dropout = dropout; a.drop_thr = drop_thr;
-  a.drop_scale = drop_scale; a.seed = seed; a.offset = offset;
+  a.drop_scale = drop_scale; a.rng = rng; a.rng_delta = rng_delta;
   return a;
 }
 
@@ -1110,20 +1126,22 @@ Args make_args(const void* q, const void* k, const void* v, const void* o,
 // dk, dv in turn (entries of tensors a kernel does not touch are ignored);
 // every head_dim stride must be 1. dtype: 0 float32, 1 bfloat16. lse and
 // delta: [B*H, Tq] float32 (flash_bwd_dq writes delta, flash_bwd_dkv reads
-// it). dropout as in flash_fwd. Each returns cudaGetLastError() after its
-// launch.
+// it). dropout as in flash_fwd: (seed, offset) = (rng[0], rng[1] +
+// rng_delta), from the forward's word and delta. Each returns
+// cudaGetLastError() after its launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
                             const float* lse, void* dq, float* delta,
                             const long long* strides, int B, int H, int Tq,
                             int Tk, int D, int causal, float sm_scale,
                             int dtype, int dropout, unsigned drop_thr,
-                            float drop_scale, unsigned long long seed,
-                            unsigned offset, cudaStream_t stream) {
+                            float drop_scale,
+                            const unsigned long long* rng,
+                            unsigned rng_delta, cudaStream_t stream) {
   const Args a = make_args(q, k, v, o, dout, lse, delta, dq, nullptr,
                            nullptr, strides, B, H, Tq, Tk, D, causal,
-                           sm_scale, dropout, drop_thr, drop_scale, seed,
-                           offset);
+                           sm_scale, dropout, drop_thr, drop_scale, rng,
+                           rng_delta);
   return dispatch<DqLauncher, DqTc>(a, dtype, stream);
 }
 
@@ -1133,11 +1151,12 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const long long* strides, int B, int H, int Tq,
                              int Tk, int D, int causal, float sm_scale,
                              int dtype, int dropout, unsigned drop_thr,
-                             float drop_scale, unsigned long long seed,
-                             unsigned offset, cudaStream_t stream) {
+                             float drop_scale,
+                             const unsigned long long* rng,
+                             unsigned rng_delta, cudaStream_t stream) {
   const Args a = make_args(q, k, v, nullptr, dout, lse,
                            const_cast<float*>(delta), nullptr, dk, dv,
                            strides, B, H, Tq, Tk, D, causal, sm_scale,
-                           dropout, drop_thr, drop_scale, seed, offset);
+                           dropout, drop_thr, drop_scale, rng, rng_delta);
   return dispatch<DkvLauncher, DkvTc>(a, dtype, stream);
 }

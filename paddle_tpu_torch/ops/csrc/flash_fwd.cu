@@ -184,8 +184,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               long long vsb, long long vsh, long long vst, long long osb,
               long long osh, long long ost, int H, int Tq, int Tk, int D,
               int causal, float sm_scale, int vec, unsigned drop_thr,
-              float drop_scale, unsigned long long seed, unsigned offset) {
+              float drop_scale, const unsigned long long* __restrict__ rng,
+              unsigned rng_delta) {
   constexpr int BK = 8 * KI, NT = NW * 32;
+  unsigned long long seed = 0;            // the call's dropout key, read
+  unsigned offset = 0;                    // once from the Philox word
+  if (DROP) attn_dropout::load_key(rng, rng_delta, seed, offset);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D4 = pad4(D), KP = D4 + 4, VP = 32 * DC;
@@ -404,7 +408,8 @@ template <int DC, int KI, int NW, bool DROP>
 int launch_dc(const float* q, const float* k, const float* v, float* o,
               float* lse, const long long* st, int B, int H, int Tq, int Tk,
               int D, int causal, float sm_scale, int vec, unsigned drop_thr,
-              float drop_scale, unsigned long long seed, unsigned offset,
+              float drop_scale, const unsigned long long* rng,
+              unsigned rng_delta,
               cudaStream_t stream) {
   const size_t smem = smem_bytes(D, DC, 8 * KI, NW);
   auto kern = flash_fwd_f32<DC, KI, NW, DROP>;
@@ -418,7 +423,7 @@ int launch_dc(const float* q, const float* k, const float* v, float* o,
   kern<<<grid, NW * 32, smem, stream>>>(
       q, k, v, o, lse, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], H, Tq, Tk, D, causal, sm_scale,
-      vec, drop_thr, drop_scale, seed, offset);
+      vec, drop_thr, drop_scale, rng, rng_delta);
   return (int)cudaGetLastError();
 }
 
@@ -429,14 +434,14 @@ int launch_tile(const float* q, const float* k, const float* v, float* o,
                 float* lse, const long long* st, int B, int H, int Tq,
                 int Tk, int D, int causal, float sm_scale, int vec,
                 int warps, int tile, unsigned drop_thr, float drop_scale,
-                unsigned long long seed, unsigned offset,
+                const unsigned long long* rng, unsigned rng_delta,
                 cudaStream_t stream) {
   constexpr int NW = DC <= 2 ? 8 : 4;
   if (warps != NW) return (int)cudaErrorInvalidValue;
 #define F32_TILE(KI)                                                         \
   return launch_dc<DC, KI, NW, DROP>(q, k, v, o, lse, st, B, H, Tq, Tk, D,   \
                                      causal, sm_scale, vec, drop_thr,        \
-                                     drop_scale, seed, offset, stream)
+                                     drop_scale, rng, rng_delta, stream)
   switch (tile) {
     case 8: F32_TILE(1);
     case 16: F32_TILE(2);
@@ -455,7 +460,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, const long long* st, int B, int H, int Tq, int Tk,
                int D, int causal, float sm_scale, int warps, int tile,
                int dropout, unsigned drop_thr, float drop_scale,
-               unsigned long long seed, unsigned offset,
+               const unsigned long long* rng, unsigned rng_delta,
                cudaStream_t stream) {
   if (D < 1 || D > 128 || Tq < 1 || Tk < 1 ||
       (Tq + f32::kBQ - 1) / f32::kBQ > 65535 || (causal && Tk < Tq))
@@ -476,11 +481,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
     return dropout                                                           \
         ? f32::launch_tile<DC, true>(qq, kk, vv, oo, lse, st, B, H, Tq, Tk,  \
                                      D, causal, sm_scale, vec, warps, tile,  \
-                                     drop_thr, drop_scale, seed, offset,     \
+                                     drop_thr, drop_scale, rng, rng_delta,   \
                                      stream)                                 \
         : f32::launch_tile<DC, false>(qq, kk, vv, oo, lse, st, B, H, Tq, Tk, \
                                       D, causal, sm_scale, vec, warps, tile, \
-                                      drop_thr, drop_scale, seed, offset,    \
+                                      drop_thr, drop_scale, rng, rng_delta,  \
                                       stream);
   FWD_F32_CASE(1) FWD_F32_CASE(2) FWD_F32_CASE(3) FWD_F32_CASE(4)
 #undef FWD_F32_CASE
@@ -489,12 +494,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // Bits of the dropout mask, [B*H, Tq, Tk] uint32: one thread per (column,
 // 4-row group), the counter layout of attn_dropout.cuh.
-__global__ void attn_dropout_bits_kernel(unsigned* __restrict__ out,
-                                         unsigned long long seed,
-                                         unsigned offset, int Tq, int Tk) {
+__global__ void attn_dropout_bits_kernel(
+    unsigned* __restrict__ out, const unsigned long long* __restrict__ rng,
+    unsigned rng_delta, int Tq, int Tk) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int group = blockIdx.y, bh = blockIdx.z;
   if (col >= Tk) return;
+  unsigned long long seed;
+  unsigned offset;
+  attn_dropout::load_key(rng, rng_delta, seed, offset);
   const uint4 r = attn_dropout::bits4(seed, offset, bh, group, col);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -540,8 +548,12 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               long long vsb, long long vsh, long long vst, long long osb,
               long long osh, long long ost, int H, int Tq, int Tk, int D,
               int causal, float sm_scale, int vec, unsigned drop_thr,
-              float drop_scale, unsigned long long seed, unsigned offset) {
+              float drop_scale, const unsigned long long* __restrict__ rng,
+              unsigned rng_delta) {
   constexpr int BN = kFwdBN, LD = DP + 8, NT = BN / 8, KS = DP / 16;
+  unsigned long long seed = 0;            // the call's dropout key, read
+  unsigned offset = 0;                    // once from the Philox word
+  if (DROP) attn_dropout::load_key(rng, rng_delta, seed, offset);
   constexpr int DT = DP / 8;
   extern __shared__ uint4 smem_u4[];
   bf16* qs = reinterpret_cast<bf16*>(smem_u4);     // [kRes][LD]
@@ -728,8 +740,9 @@ template <int DP, bool DROP>
 int launch_tc(const tc::bf16* q, const tc::bf16* k, const tc::bf16* v,
               tc::bf16* o, float* lse, const long long* st, int B, int H,
               int Tq, int Tk, int D, int causal, float sm_scale, int vec,
-              unsigned drop_thr, float drop_scale, unsigned long long seed,
-              unsigned offset, cudaStream_t stream) {
+              unsigned drop_thr, float drop_scale,
+              const unsigned long long* rng, unsigned rng_delta,
+              cudaStream_t stream) {
   const size_t smem = tc::fwd_smem_bytes<DP>();
   auto kern = tc::flash_fwd_mma<DP, DROP>;
   if (smem > 48 * 1024) {
@@ -742,7 +755,7 @@ int launch_tc(const tc::bf16* q, const tc::bf16* k, const tc::bf16* v,
   kern<<<grid, tc::kThreads, smem, stream>>>(
       q, k, v, o, lse, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], H, Tq, Tk, D, causal, sm_scale,
-      vec, drop_thr, drop_scale, seed, offset);
+      vec, drop_thr, drop_scale, rng, rng_delta);
   return (int)cudaGetLastError();
 }
 
@@ -753,8 +766,9 @@ int launch_tc(const tc::bf16* q, const tc::bf16* k, const tc::bf16* v,
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, const long long* st, int B, int H, int Tq,
                 int Tk, int D, int causal, float sm_scale, int dropout,
-                unsigned drop_thr, float drop_scale, unsigned long long seed,
-                unsigned offset, cudaStream_t stream) {
+                unsigned drop_thr, float drop_scale,
+                const unsigned long long* rng, unsigned rng_delta,
+                cudaStream_t stream) {
   if (D < 1 || D > 128 || Tq < 1 || Tk < 1 || (Tq + tc::kRes - 1) /
       tc::kRes > 65535 || (causal && Tk < Tq))
     return (int)cudaErrorInvalidValue;
@@ -774,12 +788,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (D <= DP)                                                               \
     return dropout ? launch_tc<DP, true>(qq, kk, vv, oo, lse, st, B, H, Tq,  \
                                          Tk, D, causal, sm_scale, vec,       \
-                                         drop_thr, drop_scale, seed, offset, \
-                                         stream)                             \
+                                         drop_thr, drop_scale, rng,          \
+                                         rng_delta, stream)                  \
                    : launch_tc<DP, false>(qq, kk, vv, oo, lse, st, B, H, Tq, \
                                           Tk, D, causal, sm_scale, vec,      \
-                                          drop_thr, drop_scale, seed,        \
-                                          offset, stream);
+                                          drop_thr, drop_scale, rng,         \
+                                          rng_delta, stream);
   FWD_TC_CASE(32) FWD_TC_CASE(64) FWD_TC_CASE(96) FWD_TC_CASE(128)
 #undef FWD_TC_CASE
   return (int)cudaErrorInvalidValue;
@@ -790,7 +804,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // strides: 12 element strides, (batch, head, time) for q, k, v, o in turn;
 // the head_dim stride must be 1. dtype: 0 float32, 1 bfloat16. lse: null,
 // or [B*H, Tq] float32. dropout: 0 off, else keep iff bits >= drop_thr and
-// kept values times drop_scale, bits keyed by (seed, offset). float32 only:
+// kept values times drop_scale, bits keyed by (seed, offset) = (rng[0],
+// rng[1] + rng_delta), read from the Philox word in device memory (null
+// without dropout; attn_dropout.cuh). float32 only:
 // `warps` and `tile` (8 or 16 keys), cuda_kernels.flash_f32_geometry's; the
 // bfloat16 route ignores them.
 // Returns cudaGetLastError() after the launch.
@@ -799,27 +815,28 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int B, int H, int Tq, int Tk, int D, int causal,
                          float sm_scale, int dtype, int warps, int tile,
                          int dropout, unsigned drop_thr, float drop_scale,
-                         unsigned long long seed, unsigned offset,
+                         const unsigned long long* rng, unsigned rng_delta,
                          cudaStream_t stream) {
   if (dtype == 0)
     return launch_f32(q, k, v, o, lse, strides, B, H, Tq, Tk, D, causal,
                       sm_scale, warps, tile, dropout, drop_thr, drop_scale,
-                      seed, offset, stream);
+                      rng, rng_delta, stream);
   if (dtype == 1)
     return launch_bf16(q, k, v, o, lse, strides, B, H, Tq, Tk, D, causal,
-                       sm_scale, dropout, drop_thr, drop_scale, seed, offset,
+                       sm_scale, dropout, drop_thr, drop_scale, rng, rng_delta,
                        stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// out: [BH, Tq, Tk] uint32 (stored in an int32 tensor).
-extern "C" int attn_dropout_bits(void* out, unsigned long long seed,
-                                 unsigned offset, int BH, int Tq, int Tk,
+// out: [BH, Tq, Tk] uint32 (stored in an int32 tensor), the bits of the
+// key (rng[0], rng[1] + rng_delta).
+extern "C" int attn_dropout_bits(void* out, const unsigned long long* rng,
+                                 unsigned rng_delta, int BH, int Tq, int Tk,
                                  cudaStream_t stream) {
   if (BH < 1 || Tq < 1 || Tk < 1 || BH > 65535 || (Tq + 3) / 4 > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Tk + 127) / 128, (Tq + 3) / 4, BH);
   attn_dropout_bits_kernel<<<grid, 128, 0, stream>>>(
-      static_cast<unsigned*>(out), seed, offset, Tq, Tk);
+      static_cast<unsigned*>(out), rng, rng_delta, Tq, Tk);
   return (int)cudaGetLastError();
 }

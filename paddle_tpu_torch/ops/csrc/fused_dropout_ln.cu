@@ -25,8 +25,9 @@
 // The dropout bits are Philox-4x32-10 (attn_dropout.cuh) keyed by the
 // call's 64-bit seed with the counter (col, row / 4, kTag, call offset) and
 // word row % 4 of the result: a function of the element alone, so the
-// backward regenerates the forward's mask from the saved (seed, offset)
-// whatever its launch shape. The TPU kernels seed their PRNG with seed +
+// backward regenerates the forward's mask from the saved Philox word and
+// delta (offset = the word's base + delta, read in the kernel) whatever its
+// launch shape. The TPU kernels seed their PRNG with seed +
 // program id, so there forward and backward must share the row block
 // (:917-919); here they need not. kTag is above any batch*head index, so
 // no attention call draws the same counter.
@@ -101,6 +102,20 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHd = 8192;
 constexpr unsigned kTag = 0xFD1D0000u;   // counter word 2; > any b*h index
 
+// a call's dropout as the host passes it: the Philox word in device memory
+// (seed, base offset) and the call's delta, read by `resolve` once at each
+// kernel's start (attn_dropout.cuh), so a replayed CUDA graph draws the
+// bits of the word's current base
+struct DropArgs {
+  int on;
+  unsigned thr;
+  float scale;
+  const unsigned long long* rng;
+  unsigned delta;
+  unsigned tag;
+};
+
+// ... and as the kernels use it: offset = base + delta
 struct Drop {
   int on;
   unsigned thr;
@@ -108,6 +123,12 @@ struct Drop {
   unsigned long long seed;
   unsigned offset;
 };
+
+__device__ __forceinline__ Drop resolve(const DropArgs& a) {
+  Drop d{a.on, a.thr, a.scale, 0ull, 0u};
+  if (a.on) attn_dropout::load_key(a.rng, a.delta, d.seed, d.offset);
+  return d;
+}
 
 __device__ __forceinline__ float ld(const void* p, int bf, size_t i) {
   return bf ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
@@ -121,9 +142,10 @@ __device__ __forceinline__ void st(void* p, int bf, size_t i, float v) {
     static_cast<float*>(p)[i] = v;
 }
 
-__device__ __forceinline__ uint4 bits4(const Drop& d, int group, int col) {
+__device__ __forceinline__ uint4 bits4(const Drop& d, int group, int col,
+                                       unsigned tag = kTag) {
   return attn_dropout::philox4x32_10(
-      make_uint4((unsigned)col, (unsigned)group, kTag, d.offset),
+      make_uint4((unsigned)col, (unsigned)group, tag, d.offset),
       make_uint2((unsigned)d.seed, (unsigned)(d.seed >> 32)));
 }
 
@@ -161,8 +183,9 @@ fdrln_fwd_kernel(const void* __restrict__ x, const void* __restrict__ res,
                  const void* __restrict__ bias,
                  const void* __restrict__ gamma,
                  const void* __restrict__ beta, void* __restrict__ y,
-                 void* __restrict__ z, int n, int h, int dt, Drop d,
+                 void* __restrict__ z, int n, int h, int dt, DropArgs da,
                  float eps) {
+  const Drop d = resolve(da);
   extern __shared__ float zs[];            // LN: kRows * h float32 z
   __shared__ float red[kRows * 32];
   const int xb = dt & 1, rb = (dt >> 1) & 1, bb = (dt >> 2) & 1;
@@ -381,8 +404,9 @@ fdrln_fwd_ln_kernel(const TX* __restrict__ x, const TR* __restrict__ res,
                     const void* __restrict__ bias,
                     const void* __restrict__ gamma,
                     const void* __restrict__ beta, TX* __restrict__ y,
-                    TX* __restrict__ z, int n, int h, int vec, int dt, Drop d,
-                    float eps) {
+                    TX* __restrict__ z, int n, int h, int vec, int dt,
+                    DropArgs da, float eps) {
+  const Drop d = resolve(da);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int groups = (n + kRows - 1) / kRows;
   const int col0 = lane * kChunk;
@@ -495,8 +519,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 fdrln_bwd_kernel(const TZ* __restrict__ z, const TY* __restrict__ dy,
                  const TE* __restrict__ dzx, const TG* __restrict__ gamma,
                  TZ* __restrict__ dx, TZ* __restrict__ dres,
-                 float* __restrict__ part, int n, int h, int vec, Drop d,
-                 float eps) {
+                 float* __restrict__ part, int n, int h, int vec,
+                 DropArgs da, float eps) {
+  const Drop d = resolve(da);
   constexpr int nacc = LN ? 3 : 1;
   __shared__ float sums[nacc * kColBlock];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -713,7 +738,7 @@ struct BwdArgs {
   void *dx, *dres;
   float* part;
   int n, h, grid, vec;
-  Drop d;
+  DropArgs d;
   float eps;
   cudaStream_t stream;
 };
@@ -758,7 +783,7 @@ struct FwdArgs {
   const void *x, *res, *bias, *gamma, *beta;
   void *y, *z;
   int n, h, vec, dt;
-  Drop d;
+  DropArgs d;
   float eps;
   cudaStream_t stream;
 };
@@ -788,16 +813,26 @@ int launch_fwd_ln(const FwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-__global__ void fdrln_bits_kernel(unsigned* __restrict__ out, Drop d, int n,
+// MASK: out is bool [n, h], bits >= d.thr (a dropout keep mask); else out
+// is uint32 [n, h], the bits
+template <bool MASK>
+__global__ void fdrln_bits_kernel(void* __restrict__ out, DropArgs da, int n,
                                   int h) {
+  const Drop d = resolve(da);
   const int groups = (n + kRows - 1) / kRows;
   const long long total = (long long)groups * h;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        t < total; t += (long long)gridDim.x * blockDim.x) {
     const int group = (int)(t / h), c = (int)(t % h);
-    const uint4 w = bits4(d, group, c);
-    for (int r = 0; r < kRows && group * kRows + r < n; ++r)
-      out[(size_t)(group * kRows + r) * h + c] = attn_dropout::word(w, r);
+    const uint4 w = bits4(d, group, c, da.tag);
+    for (int r = 0; r < kRows && group * kRows + r < n; ++r) {
+      const size_t i = (size_t)(group * kRows + r) * h + c;
+      const unsigned b = attn_dropout::word(w, r);
+      if (MASK)
+        static_cast<bool*>(out)[i] = b >= d.thr;
+      else
+        static_cast<unsigned*>(out)[i] = b;
+    }
   }
 }
 
@@ -814,10 +849,10 @@ extern "C" int fused_dropout_ln_fwd(const void* x, const void* res,
                                     const void* beta, void* y, void* z,
                                     int n, int h, int dtypes, int with_ln,
                                     int on, unsigned thr, float scale,
-                                    float eps, unsigned long long seed,
-                                    unsigned offset, cudaStream_t stream) {
+                                    float eps, const unsigned long long* rng,
+                                    unsigned rng_delta, cudaStream_t stream) {
   if (n < 1 || h < 1 || h > kMaxHd) return (int)cudaErrorInvalidValue;
-  const Drop d{on, thr, scale, seed, offset};
+  const DropArgs d{on, thr, scale, rng, rng_delta, kTag};
   const int groups = (n + kRows - 1) / kRows;
   if (with_ln && h <= kColBlock) {
     // 16-byte accesses as in the backward
@@ -861,8 +896,8 @@ extern "C" int fused_dropout_ln_bwd(const void* z, const void* dy,
                                     void* sums, int n, int h, int grid,
                                     int dtypes, int with_ln, int on,
                                     unsigned thr, float scale, float eps,
-                                    unsigned long long seed, unsigned offset,
-                                    cudaStream_t stream) {
+                                    const unsigned long long* rng,
+                                    unsigned rng_delta, cudaStream_t stream) {
   if (n < 1 || h < 1 || h > kMaxHd || grid < 1)
     return (int)cudaErrorInvalidValue;
   // 16-byte accesses: h % 8 == 0 (rows of 8-column chunks stay aligned)
@@ -872,7 +907,8 @@ extern "C" int fused_dropout_ln_bwd(const void* z, const void* dy,
   for (const void* p : rows)
     if (reinterpret_cast<unsigned long long>(p) % 16) vec = 0;
   const BwdArgs a{z, dy, dzx, gamma, dx, dres, part, n, h, grid, vec,
-                  Drop{on, thr, scale, seed, offset}, eps, stream};
+                  DropArgs{on, thr, scale, rng, rng_delta, kTag}, eps,
+                  stream};
   const int err = pick(a, dtypes, with_ln);
   if (err) return err;
   const int m = (with_ln ? 3 : 1) * h;
@@ -885,16 +921,23 @@ extern "C" int fused_dropout_ln_bwd(const void* z, const void* dy,
   return (int)cudaGetLastError();
 }
 
-// The dropout bits the kernels draw for (seed, offset), written out as
-// uint32 [n, h] for the checks.
-extern "C" int fused_dropout_bits(unsigned* out, unsigned long long seed,
-                                  unsigned offset, int n, int h,
+// The dropout bits of the counter layout above for the key (rng[0],
+// rng[1] + rng_delta) and counter word 2 `tag` (0: the fused kernels'
+// kTag), [n, h]: with mask = 0 the bits as uint32 (the fused kernels' own
+// for the checks), else the keep mask bits >= thr as bool (a dropout's
+// mask drawn on the card: cuda_kernels.dropout_keep).
+extern "C" int fused_dropout_bits(void* out, const unsigned long long* rng,
+                                  unsigned rng_delta, unsigned tag, int n,
+                                  int h, unsigned thr, int mask,
                                   cudaStream_t stream) {
   if (n < 1 || h < 1) return (int)cudaErrorInvalidValue;
-  const Drop d{1, 0u, 1.f, seed, offset};
+  const DropArgs d{1, thr, 1.f, rng, rng_delta, tag ? tag : kTag};
   const long long total = (long long)((n + kRows - 1) / kRows) * h;
   long long blocks = (total + 255) / 256;
   if (blocks > 132 * 16) blocks = 132 * 16;
-  fdrln_bits_kernel<<<(int)blocks, 256, 0, stream>>>(out, d, n, h);
+  if (mask)
+    fdrln_bits_kernel<true><<<(int)blocks, 256, 0, stream>>>(out, d, n, h);
+  else
+    fdrln_bits_kernel<false><<<(int)blocks, 256, 0, stream>>>(out, d, n, h);
   return (int)cudaGetLastError();
 }

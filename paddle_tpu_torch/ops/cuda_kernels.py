@@ -18,6 +18,9 @@ the serving and training paths run:
     `FusedDropoutResidualLNFunction` (the counterpart of the custom vjp
     `_fbdrln_pair`); `fused_dropout_bits` writes its dropout bits out;
   * fused AdamW (csrc/adamw.cu), replacing `_adamw_kernel`;
+  * the dropout keep mask of `nn.functional.dropout` on CUDA tensors
+    (`dropout_keep`, the fused kernels' Philox bits under a tag of its
+    own), so that every draw of a train step reads the step's Philox word;
   * paged decode (csrc/paged_decode.cu) — one decode step's KV append plus
     single-query attention over the paged cache, float32 or int8, replacing
     `_paged_f_kernel` / `_paged_q_kernel` (`_paged_core`).
@@ -36,6 +39,16 @@ The int8 KV rule (`quantize_kv` / `dequantize_kv`) lives here too: the
 paged-decode kernel's in-kernel append must match it bit for bit, and the
 serving cache imports it from this module.
 
+The dropout kernels take their (seed, offset) from device memory: a
+Philox word (int64 [seed, base offset], framework/random.py) and a
+per-call delta, offset = base + delta, as the reference's kernels read
+`rng_ref`; AdamW takes lr and the bias corrections from a float32 device
+buffer, as `_adamw_kernel` reads `lr_ref` and `c_ref`. So a CUDA graph
+that captured a train step draws new masks and applies each step's lr and
+t on replay (jit/engine.py). The plain versions keep host (seed, offset)
+and scalar arguments; on CPU tensors the wrappers read the word or the
+buffer on the host and call them.
+
 Launch counters (`launch_counts`) count kernel launches and nothing else.
 Path counters (`attention_path_counts`) count which implementation the
 gates chose, on any device, and feed `pt_attn_path_total{path}`.
@@ -50,7 +63,7 @@ import torch
 
 from ..amp import amp_cast_inputs
 from ..framework.flags import flag
-from ..framework.random import next_seed_offset
+from ..framework.random import RNG
 from ..observability import metrics
 from . import _build
 
@@ -63,10 +76,11 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
            "fused_dropout_ln_fwd_plain", "fused_dropout_residual_fwd",
            "fused_dropout_residual_fwd_plain", "fused_dropout_ln_bwd",
            "fused_dropout_ln_bwd_plain", "FusedDropoutResidualLNFunction",
-           "fused_dropout_bits", "fused_dropout_bits_plain",
+           "fused_dropout_bits", "fused_dropout_bits_plain", "dropout_keep",
+           "dropout_keep_plain",
            "fused_bias_dropout_residual_ln",
            "fused_dropout_residual_ln_or_none", "DROPOUT_MODES", "adamw",
-           "adamw_plain",
+           "adamw_plain", "adamw_plain_scalars", "adam_step_scalars",
            "fused_adamw_or_none", "paged_decode", "paged_decode_plain",
            "paged_split_geometry", "paged_int8_geometry",
            "paged_workspace_numel", "paged_decode_attention_or_none",
@@ -79,8 +93,9 @@ _NEG_INF = -1e30
 _LAUNCHES = {"flash_fwd": 0, "flash_fwd_train": 0, "flash_bwd_dq": 0,
              "flash_bwd_dkv": 0, "attn_dropout_bits": 0,
              "fused_dropout_ln_fwd": 0, "fused_dropout_residual_fwd": 0,
-             "fused_dropout_ln_bwd": 0, "fused_dropout_bits": 0, "adamw": 0,
-             "paged_decode": 0, "paged_decode_int8": 0}
+             "fused_dropout_ln_bwd": 0, "fused_dropout_bits": 0,
+             "dropout_keep": 0, "adamw": 0, "paged_decode": 0,
+             "paged_decode_int8": 0}
 
 # attention implementation chosen by the gates (reference:
 # pallas_kernels.py _ATTN_PATHS / _note_attn_path)
@@ -152,6 +167,23 @@ def _on_cuda(t, name):
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _word_check(word, like, name):
+    """A call's Philox word: int64 [2] (seed, base offset) on `like`'s
+    device."""
+    _need(isinstance(word, torch.Tensor) and word.dtype == torch.int64
+          and tuple(word.shape) == (2,) and word.device == like.device
+          and word.is_contiguous(),
+          "%s: dropout needs the Philox word, an int64 [2] tensor on %s "
+          "(framework.random)" % (name, like.device))
+
+
+def _key(word, delta):
+    """(seed, offset) of a draw, read from a word on the CPU: the host
+    numbers the plain versions take."""
+    seed, base = (int(v) for v in word.tolist())
+    return seed % 2 ** 64, (base + int(delta)) % 2 ** 32
+
+
 # ---------------------------------------------------------------------------
 # Attention dropout bits
 #
@@ -205,19 +237,20 @@ def attn_dropout_bits_plain(seed, offset, BH, Tq, Tk, device="cpu"):
     return bits[:, :Tq].contiguous()
 
 
-def attn_dropout_bits(seed, offset, BH, Tq, Tk, device="cuda"):
-    """The dropout bits the flash kernels draw for (seed, offset), written
-    out by a small kernel; the plain version on the CPU. Not on the main
-    path: the checks hand these bits to the plain versions."""
-    dev = torch.device(device)
-    _need(0 <= int(seed) < 2 ** 64 and 0 <= int(offset) < 2 ** 32,
-          "attn_dropout_bits: seed must fit 64 bits and offset 32")
-    probe = torch.empty(0, device=dev)
-    if not _on_cuda(probe, "attn_dropout_bits"):
-        return attn_dropout_bits_plain(seed, offset, BH, Tq, Tk, dev)
-    out = torch.empty((BH, Tq, Tk), dtype=torch.int32, device=dev)
+def attn_dropout_bits(word, delta, BH, Tq, Tk):
+    """The dropout bits the flash kernels draw for the Philox word `word`
+    and delta `delta` (the key (seed, base + delta)), written out by a
+    small kernel on the word's device; the plain version on the CPU. Not
+    on the main path: the checks hand these bits to the plain versions."""
+    _word_check(word, word, "attn_dropout_bits")
+    _need(0 <= int(delta) < 2 ** 32, "attn_dropout_bits: delta must fit 32 "
+          "bits")
+    if not _on_cuda(word, "attn_dropout_bits"):
+        return attn_dropout_bits_plain(*_key(word, delta), BH, Tq, Tk)
+    out = torch.empty((BH, Tq, Tk), dtype=torch.int32, device=word.device)
     err = _build.load("flash_fwd").attn_dropout_bits(
-        out.data_ptr(), int(seed), int(offset), BH, Tq, Tk, _stream(out))
+        out.data_ptr(), word.data_ptr(), int(delta), BH, Tq, Tk,
+        _stream(out))
     _check_launch(err, "attn_dropout_bits")
     _LAUNCHES["attn_dropout_bits"] += 1
     return out.to(torch.int64) & _U32
@@ -363,15 +396,17 @@ def _bhtd_empty(B, H, T, D, like):
                        device=like.device).transpose(1, 2)
 
 
-def _flash_fwd(q, k, v, causal, dropout_p, seed, offset, need_lse):
+def _flash_fwd(q, k, v, causal, dropout_p, word, delta, need_lse):
     """The forward kernel, or its plain version on CPU tensors; counts a
     launch as flash_fwd_train when it writes lse or drops, else as
     flash_fwd. Returns (out, lse or None)."""
     _flash_check(q, k, v, causal, dropout_p)
+    if dropout_p > 0.0:
+        _word_check(word, q, "flash_attention")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if not _on_cuda(q, "flash_attention"):
-        bits = (attn_dropout_bits_plain(seed, offset, B * H, Tq, Tk)
+        bits = (attn_dropout_bits_plain(*_key(word, delta), B * H, Tq, Tk)
                 if dropout_p > 0.0 else None)
         out, lse = flash_fwd_train_plain(q, k, v, causal, dropout_p, bits)
         return out, (lse if need_lse else None)
@@ -388,7 +423,8 @@ def _flash_fwd(q, k, v, causal, dropout_p, seed, offset, need_lse):
         lse.data_ptr() if need_lse else None, ctypes.addressof(strides),
         B, H, Tq, Tk, D, int(bool(causal)), float(D) ** -0.5,
         _DTYPE_CODE[q.dtype], warps, tile, int(dropout_p > 0.0), thr,
-        scale, int(seed), int(offset), _stream(q))
+        scale, _ptr(word) if dropout_p > 0.0 else None, int(delta),
+        _stream(q))
     name = "flash_fwd_train" if (need_lse or dropout_p > 0.0) else \
         "flash_fwd"
     _check_launch(err, name)
@@ -401,14 +437,15 @@ def flash_attention(q, k, v, causal):
     [B, H, T, D]; any strides with a unit head_dim stride. Inputs the
     kernel does not take raise ValueError on every device; CPU tensors
     then take the plain version."""
-    return _flash_fwd(q, k, v, causal, 0.0, 0, 0, False)[0]
+    return _flash_fwd(q, k, v, causal, 0.0, None, 0, False)[0]
 
 
-def flash_fwd_train(q, k, v, causal, dropout_p=0.0, seed=0, offset=0,
+def flash_fwd_train(q, k, v, causal, dropout_p=0.0, word=None, delta=0,
                     need_lse=True):
     """The training forward: (out, lse [B*H, Tq] float32 or None), with
-    attention dropout at `dropout_p` drawn from (seed, offset)."""
-    return _flash_fwd(q, k, v, causal, float(dropout_p), seed, offset,
+    attention dropout at `dropout_p` drawn from the Philox word `word`
+    (int64 [2] on q's device) and the call's `delta`."""
+    return _flash_fwd(q, k, v, causal, float(dropout_p), word, delta,
                       need_lse)
 
 
@@ -466,9 +503,11 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, dropout_p=0.0,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_check(q, k, v, rows, lse, causal, dropout_p):
+def _bwd_check(q, k, v, rows, lse, causal, dropout_p, word):
     """`rows`: the [B, H, Tq, D] tensors beside q (o, dO)."""
     _flash_check(q, k, v, causal, dropout_p)
+    if dropout_p > 0.0:
+        _word_check(word, q, "flash backward")
     B, H, Tq, _ = q.shape
     for t in rows:
         _need(t.shape == q.shape and t.dtype == q.dtype
@@ -482,60 +521,61 @@ def _bwd_check(q, k, v, rows, lse, causal, dropout_p):
               "[B*H, Tq]")
 
 
-def _bwd_launch(fn, name, ptrs, q, k, causal, dropout_p, seed, offset,
+def _bwd_launch(fn, name, ptrs, q, k, causal, dropout_p, word, delta,
                 strides):
     B, H, Tq, D = q.shape
     thr, scale = _drop_args(dropout_p)
     err = getattr(_build.load("flash_bwd"), fn)(
         *ptrs, ctypes.addressof(strides), B, H, Tq, k.shape[2], D,
         int(bool(causal)), float(D) ** -0.5, _DTYPE_CODE[q.dtype],
-        int(dropout_p > 0.0), thr, scale, int(seed), int(offset),
-        _stream(q))
+        int(dropout_p > 0.0), thr, scale,
+        _ptr(word) if dropout_p > 0.0 else None, int(delta), _stream(q))
     _check_launch(err, name)
     _LAUNCHES[name] += 1
 
 
-def flash_bwd_dq(q, k, v, o, do, lse, causal, dropout_p=0.0, seed=0,
-                 offset=0):
-    """dq kernel: (dq, Delta). Dropout bits are regenerated from (seed,
-    offset), which must be the forward's."""
+def flash_bwd_dq(q, k, v, o, do, lse, causal, dropout_p=0.0, word=None,
+                 delta=0):
+    """dq kernel: (dq, Delta). Dropout bits are regenerated from the word
+    and delta, which must be the forward's (the word's base unmoved)."""
     dropout_p = float(dropout_p)
-    _bwd_check(q, k, v, (o, do), (lse,), causal, dropout_p)
+    _bwd_check(q, k, v, (o, do), (lse,), causal, dropout_p, word)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if not _on_cuda(q, "flash_bwd_dq"):
-        bits = (attn_dropout_bits_plain(seed, offset, B * H, Tq, Tk)
+        bits = (attn_dropout_bits_plain(*_key(word, delta), B * H, Tq, Tk)
                 if dropout_p > 0.0 else None)
         return flash_bwd_dq_plain(q, k, v, o, do, lse, causal, dropout_p,
                                   bits)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    delta = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+    dsum = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     _bwd_launch("flash_bwd_dq", "flash_bwd_dq",
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                 delta.data_ptr()), q, k, causal, dropout_p, seed, offset,
+                 dsum.data_ptr()), q, k, causal, dropout_p, word, delta,
                 _strides(q, k, v, o, do, dq, None, None))
-    return dq, delta
+    return dq, dsum
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal, dropout_p=0.0, seed=0,
-                  offset=0):
-    """dk/dv kernel: (dk, dv); `delta` from flash_bwd_dq."""
+def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, dropout_p=0.0, word=None,
+                  delta=0):
+    """dk/dv kernel: (dk, dv); `dsum` is Delta from flash_bwd_dq, `word`
+    and `delta` the forward's dropout draw."""
     dropout_p = float(dropout_p)
-    _bwd_check(q, k, v, (do,), (lse, delta), causal, dropout_p)
+    _bwd_check(q, k, v, (do,), (lse, dsum), causal, dropout_p, word)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if not _on_cuda(q, "flash_bwd_dkv"):
-        bits = (attn_dropout_bits_plain(seed, offset, B * H, Tq, Tk)
+        bits = (attn_dropout_bits_plain(*_key(word, delta), B * H, Tq, Tk)
                 if dropout_p > 0.0 else None)
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+        return flash_bwd_dkv_plain(q, k, v, do, lse, dsum, causal,
                                    dropout_p, bits)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _bwd_launch("flash_bwd_dkv", "flash_bwd_dkv",
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr()), q, k, causal, dropout_p, seed, offset,
+                 lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr()), q, k, causal, dropout_p, word, delta,
                 _strides(q, k, v, None, do, None, dk, dv))
     return dk, dv
 
@@ -544,30 +584,32 @@ class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its backward (the counterpart of the custom vjp
     `_flash` :675 with `defvjp` :703). The forward runs the forward
     kernel, writing lse only when an input needs a gradient; the backward
-    runs the dq and dk/dv kernels with the forward's dropout (seed,
-    offset). CPU tensors take the plain versions through the same
-    Function, so the graph is the same on every device."""
+    runs the dq and dk/dv kernels with the forward's dropout draw (the
+    Philox word and delta: the word's base moves only between train steps,
+    so the backward regenerates the forward's mask). CPU tensors take the
+    plain versions through the same Function, so the graph is the same on
+    every device."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, dropout_p, seed, offset):
+    def forward(ctx, q, k, v, causal, dropout_p, word, delta):
         need_lse = any(ctx.needs_input_grad[:3])
-        o, lse = flash_fwd_train(q, k, v, causal, dropout_p, seed, offset,
+        o, lse = flash_fwd_train(q, k, v, causal, dropout_p, word, delta,
                                  need_lse)
         if need_lse:
             ctx.save_for_backward(q, k, v, o, lse)
-            ctx.args = (causal, dropout_p, seed, offset)
+            ctx.args = (causal, dropout_p, word, delta)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, dropout_p, seed, offset = ctx.args
+        causal, dropout_p, word, delta = ctx.args
         if do.stride(-1) != 1:
             do = do.contiguous()
-        dq, delta = flash_bwd_dq(q, k, v, o, do, lse, causal, dropout_p,
-                                 seed, offset)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, dropout_p,
-                               seed, offset)
+        dq, dsum = flash_bwd_dq(q, k, v, o, do, lse, causal, dropout_p,
+                                word, delta)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, dsum, causal, dropout_p,
+                               word, delta)
         return dq, dk, dv, None, None, None, None
 
 
@@ -590,9 +632,10 @@ def flash_attention_or_none(query, key, value, attn_mask, is_causal,
           "flash_attention: the kernel takes no additive mask; set the "
           "use_flash_attention flag to False for the plain version")
     dropout_p = float(dropout_p)
-    seed, offset = next_seed_offset() if dropout_p > 0.0 else (0, 0)
+    word, delta = (RNG.draw(query.device) if dropout_p > 0.0
+                   else (None, 0))
     out = FlashAttentionFunction.apply(query, key, value, bool(is_causal),
-                                       dropout_p, seed, offset)
+                                       dropout_p, word, delta)
     _note_attn_path("flash_dropout" if dropout_p > 0.0 else "flash")
     return out
 
@@ -607,10 +650,14 @@ def flash_attention_or_none(query, key, value, attn_mask, is_causal,
 # dropout bits are Philox-4x32-10 keyed by the call's 64-bit seed, counter
 # (col, row // 4, _FDRLN_TAG, call offset), word row % 4 (csrc/
 # fused_dropout_ln.cu); the backward regenerates the forward's mask from
-# the saved (seed, offset). The plain versions take the bits as an int64
-# tensor [N, Hd] holding values in [0, 2^32), or draw the kernels' own.
+# the saved Philox word and delta. The plain versions take the bits as an
+# int64 tensor [N, Hd] holding values in [0, 2^32), or draw the kernels'
+# own for a host (seed, offset).
 
 _FDRLN_TAG = 0xFD1D0000
+# counter word 2 of `dropout_keep`'s bits: apart from the fused kernels'
+# and above any batch*head index of the attention bits
+_KEEP_TAG = 0xD0E00000
 # the forward kernel with LN keeps 4 float32 values per column in shared
 # memory
 FDRLN_MAX_HD = 8192
@@ -620,8 +667,10 @@ _FDRLN_BWD_CTAS_PER_SM = 1
 _SM_COUNT = {}
 
 
-def fused_dropout_bits_plain(seed, offset, N, Hd, device="cpu"):
-    """The fused kernels' dropout bits, [N, Hd] int64 in [0, 2^32)."""
+def fused_dropout_bits_plain(seed, offset, N, Hd, device="cpu",
+                             tag=_FDRLN_TAG):
+    """The fused kernels' dropout bits, [N, Hd] int64 in [0, 2^32) (with
+    `tag` _KEEP_TAG: `dropout_keep`'s)."""
     G = (N + 3) // 4
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
     shape = (G, Hd)
@@ -629,27 +678,65 @@ def fused_dropout_bits_plain(seed, offset, N, Hd, device="cpu"):
                                 device=device)
     words = _philox4x32_10(
         ar(Hd).view(1, Hd).expand(shape), ar(G).view(G, 1).expand(shape),
-        full(_FDRLN_TAG), full(offset), int(seed) & _U32,
-        (int(seed) >> 32) & _U32)
+        full(tag), full(offset), int(seed) & _U32, (int(seed) >> 32) & _U32)
     bits = torch.stack(words, dim=1).reshape(4 * G, Hd)
     return bits[:N].contiguous()
 
 
-def fused_dropout_bits(seed, offset, N, Hd, device="cuda"):
-    """The dropout bits the fused kernels draw for (seed, offset), written
-    out by a small kernel; the plain version on the CPU. Not on the main
-    path: the checks hand these bits to the plain versions."""
-    dev = torch.device(device)
-    _need(0 <= int(seed) < 2 ** 64 and 0 <= int(offset) < 2 ** 32,
-          "fused_dropout_bits: seed must fit 64 bits and offset 32")
-    if not _on_cuda(torch.empty(0, device=dev), "fused_dropout_bits"):
-        return fused_dropout_bits_plain(seed, offset, N, Hd, dev)
-    out = torch.empty((N, Hd), dtype=torch.int32, device=dev)
+def fused_dropout_bits(word, delta, N, Hd):
+    """The dropout bits the fused kernels draw for the Philox word `word`
+    and delta `delta`, written out by a small kernel on the word's device;
+    the plain version on the CPU. Not on the main path: the checks hand
+    these bits to the plain versions."""
+    _word_check(word, word, "fused_dropout_bits")
+    _need(0 <= int(delta) < 2 ** 32, "fused_dropout_bits: delta must fit "
+          "32 bits")
+    if not _on_cuda(word, "fused_dropout_bits"):
+        return fused_dropout_bits_plain(*_key(word, delta), N, Hd)
+    out = torch.empty((N, Hd), dtype=torch.int32, device=word.device)
     err = _build.load("fused_dropout_ln").fused_dropout_bits(
-        out.data_ptr(), int(seed), int(offset), N, Hd, _stream(out))
+        out.data_ptr(), word.data_ptr(), int(delta), 0, N, Hd, 0, 0,
+        _stream(out))
     _check_launch(err, "fused_dropout_bits")
     _LAUNCHES["fused_dropout_bits"] += 1
     return out.to(torch.int64) & _U32
+
+
+def dropout_keep_plain(seed, offset, shape, p, device="cpu"):
+    """`dropout_keep`'s mask in plain PyTorch: bool `shape`, the bits of
+    (seed, offset) under _KEEP_TAG (the rows the leading axes flattened,
+    the columns the last axis) >= floor(p * 2^32)."""
+    shape = tuple(shape)
+    n = int(np.prod(shape[:-1], dtype=np.int64))
+    bits = fused_dropout_bits_plain(seed, offset, n, shape[-1], device,
+                                    _KEEP_TAG)
+    return (bits >= _threshold(p)).reshape(shape)
+
+
+def dropout_keep(word, delta, shape, p):
+    """The keep mask of a dropout at p, bool `shape` on the word's
+    device, drawn by the Philox bits kernel of fused_dropout_ln.cu under a
+    tag of its own from the Philox word and delta: keep iff bits >=
+    floor(p * 2^32), the fused kernels' rule. Bound on the H100: the
+    Philox calls (one per 4 elements, ~90 integer instructions each)
+    against one byte written an element. The plain version on the CPU."""
+    shape = tuple(int(x) for x in shape)
+    _word_check(word, word, "dropout_keep")
+    _need(len(shape) >= 1 and all(x >= 1 for x in shape)
+          and 0.0 <= float(p) <= 1.0,
+          "dropout_keep: shape %s, p %r" % (shape, p))
+    if not _on_cuda(word, "dropout_keep"):
+        return dropout_keep_plain(*_key(word, delta), shape, p)
+    h = shape[-1]
+    n = int(np.prod(shape[:-1], dtype=np.int64))
+    _need(n < 2 ** 31 and h < 2 ** 31, "dropout_keep: shape %s" % (shape,))
+    out = torch.empty(shape, dtype=torch.bool, device=word.device)
+    err = _build.load("fused_dropout_ln").fused_dropout_bits(
+        out.data_ptr(), word.data_ptr(), int(delta), _KEEP_TAG, n, h,
+        _threshold(p), 1, _stream(out))
+    _check_launch(err, "dropout_keep")
+    _LAUNCHES["dropout_keep"] += 1
+    return out
 
 
 def _fdrln_drop(h, p, scale, seed, offset, bits):
@@ -773,7 +860,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, seed, offset):
+def _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, word, delta):
     """The forward kernels, or their plain versions on CPU tensors: (y, z)
     with gamma, (None, z) without."""
     p = float(p)
@@ -782,7 +869,10 @@ def _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, seed, offset):
     _fdrln_check(name, [x, residual], [bias, gamma, beta], p)
     _need(with_ln == (beta is not None),
           "%s: gamma and beta come together" % name)
+    if p > 0.0:
+        _word_check(word, x, name)
     if not _on_cuda(x, name):
+        seed, offset = _key(word, delta) if p > 0.0 else (0, 0)
         if with_ln:
             return fused_dropout_ln_fwd_plain(x, residual, bias, gamma, beta,
                                               p, scale, eps, seed, offset)
@@ -795,29 +885,29 @@ def _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, seed, offset):
         x.data_ptr(), residual.data_ptr(), _ptr(bias), _ptr(gamma),
         _ptr(beta), _ptr(y), z.data_ptr(), N, Hd,
         _bf16_bits(x, residual, bias, gamma, beta), int(with_ln),
-        int(p > 0.0), _threshold(p), float(scale), float(eps), int(seed),
-        int(offset), _stream(x))
+        int(p > 0.0), _threshold(p), float(scale), float(eps),
+        _ptr(word) if p > 0.0 else None, int(delta), _stream(x))
     _check_launch(err, name)
     _LAUNCHES[name] += 1
     return y, z
 
 
 def fused_dropout_ln_fwd(x, residual, bias, gamma, beta, p, scale, eps,
-                         seed=0, offset=0):
+                         word=None, delta=0):
     """Row 4's kernel: (y, z) for x, residual [N, Hd] (contiguous, each
     float32 or bfloat16), bias [Hd] or None, gamma and beta [Hd]; dropout
-    at p from (seed, offset), kept values times `scale`. Inputs the kernel
-    does not take raise ValueError on every device; CPU tensors then take
-    the plain version."""
-    return _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, seed,
-                      offset)
+    at p from the Philox word `word` and delta `delta`, kept values times
+    `scale`. Inputs the kernel does not take raise ValueError on every
+    device; CPU tensors then take the plain version."""
+    return _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, word,
+                      delta)
 
 
-def fused_dropout_residual_fwd(x, residual, bias, p, scale, seed=0,
-                               offset=0):
+def fused_dropout_residual_fwd(x, residual, bias, p, scale, word=None,
+                               delta=0):
     """Row 5's kernel: z = residual + dropout(x + bias), one output."""
-    return _fdrln_fwd(x, residual, bias, None, None, p, scale, 0.0, seed,
-                      offset)[1]
+    return _fdrln_fwd(x, residual, bias, None, None, p, scale, 0.0, word,
+                      delta)[1]
 
 
 def _fdrln_bwd_grid(N, device):
@@ -830,8 +920,8 @@ def _fdrln_bwd_grid(N, device):
     return min((N + 3) // 4, _FDRLN_BWD_CTAS_PER_SM * _SM_COUNT[dev])
 
 
-def fused_dropout_ln_bwd(z, dy, dz_extra, gamma, p, scale, eps, seed=0,
-                         offset=0):
+def fused_dropout_ln_bwd(z, dy, dz_extra, gamma, p, scale, eps, word=None,
+                         delta=0):
     """Row 6's kernel, with LN (gamma given) or without: (dx, dres, dbias,
     dgamma, dbeta) as `fused_dropout_ln_bwd_plain` computes them, dgamma
     and dbeta None without LN. dz_extra may be None (0). The kernel folds
@@ -840,7 +930,10 @@ def fused_dropout_ln_bwd(z, dy, dz_extra, gamma, p, scale, eps, seed=0,
     p = float(p)
     name = "fused_dropout_ln_bwd"
     _fdrln_check(name, [z, dy, dz_extra], [gamma], p)
+    if p > 0.0:
+        _word_check(word, z, name)
     if not _on_cuda(z, name):
+        seed, offset = _key(word, delta) if p > 0.0 else (0, 0)
         return fused_dropout_ln_bwd_plain(z, dy, dz_extra, gamma, p, scale,
                                           eps, seed, offset)
     N, Hd = z.shape
@@ -855,8 +948,8 @@ def fused_dropout_ln_bwd(z, dy, dz_extra, gamma, p, scale, eps, seed=0,
         z.data_ptr(), dy.data_ptr(), _ptr(dz_extra), _ptr(gamma),
         dx.data_ptr(), dres.data_ptr(), part.data_ptr(), sums.data_ptr(), N,
         Hd, grid, _bf16_bits(z, dy, dz_extra, gamma), int(with_ln),
-        int(p > 0.0), _threshold(p), float(scale), float(eps), int(seed),
-        int(offset), _stream(z))
+        int(p > 0.0), _threshold(p), float(scale), float(eps),
+        _ptr(word) if p > 0.0 else None, int(delta), _stream(z))
     _check_launch(err, name)
     _LAUNCHES[name] += 1
     if not with_ln:
@@ -871,19 +964,19 @@ class FusedDropoutResidualLNFunction(torch.autograd.Function):
     (y, z), so both cotangents reach the backward (dy, and dz_extra for z:
     the residual stream); without it returns z alone, whose one cotangent
     holds both of the reference's (there y is z). It saves z and the
-    call's (seed, offset): the backward recomputes the LN statistics from
-    the stored z and regenerates the mask. CPU tensors take the plain
-    versions through the same Function."""
+    call's dropout draw (the Philox word and delta): the backward
+    recomputes the LN statistics from the stored z and regenerates the
+    mask. CPU tensors take the plain versions through the same Function."""
 
     @staticmethod
-    def forward(ctx, x, residual, bias, gamma, beta, p, scale, eps, seed,
-                offset):
+    def forward(ctx, x, residual, bias, gamma, beta, p, scale, eps, word,
+                delta):
         shape, Hd = x.shape, x.shape[-1]
         y, z = _fdrln_fwd(x.reshape(-1, Hd).contiguous(),
                           residual.reshape(-1, Hd).contiguous(), bias, gamma,
-                          beta, p, scale, eps, seed, offset)
+                          beta, p, scale, eps, word, delta)
         ctx.save_for_backward(z, gamma)
-        ctx.args = (p, scale, eps, seed, offset, shape, residual.shape,
+        ctx.args = (p, scale, eps, word, delta, shape, residual.shape,
                     None if bias is None else bias.shape)
         ctx.set_materialize_grads(False)
         if gamma is None:
@@ -893,13 +986,13 @@ class FusedDropoutResidualLNFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dz=None):
         z, gamma = ctx.saved_tensors
-        p, scale, eps, seed, offset, shape, res_shape, bias_shape = ctx.args
+        p, scale, eps, word, delta, shape, res_shape, bias_shape = ctx.args
         Hd = shape[-1]
         flat = lambda g: None if g is None else g.reshape(-1, Hd).contiguous()
         if dy is None:                  # only z's cotangent arrived
             dy = torch.zeros_like(z)
         dx, dres, dbias, dgamma, dbeta = fused_dropout_ln_bwd(
-            z, flat(dy), flat(dz), gamma, p, scale, eps, seed, offset)
+            z, flat(dy), flat(dz), gamma, p, scale, eps, word, delta)
         need = ctx.needs_input_grad
         return (dx.reshape(shape), dres.reshape(res_shape),
                 dbias.reshape(bias_shape) if need[2] else None,
@@ -919,8 +1012,8 @@ def fused_bias_dropout_residual_ln(x, residual, bias, gamma, beta, p, eps,
     gamma is None. paddle's modes: upscale_in_train scales kept values by
     1 / (1 - p) in training (0 at p = 1); downscale_in_infer keeps them as
     they are in training and, in eval, multiplies x and bias by 1 - p.
-    Eval runs the kernels at p = 0 and draws no seed, so the flash
-    kernels' call offsets do not move."""
+    Eval runs the kernels at p = 0 and draws nothing, so the call offsets
+    do not move."""
     _need(mode in DROPOUT_MODES, "dropout mode %r (one of %s)"
           % (mode, DROPOUT_MODES))
     p = float(p)
@@ -936,10 +1029,10 @@ def fused_bias_dropout_residual_ln(x, residual, bias, gamma, beta, p, eps,
             scale = 1.0
         else:
             scale = float(np.float32(1.0 / (1.0 - p))) if p < 1.0 else 0.0
-    seed, offset = next_seed_offset() if p_eff > 0.0 else (0, 0)
+    word, delta = RNG.draw(x.device) if p_eff > 0.0 else (None, 0)
     return FusedDropoutResidualLNFunction.apply(
-        x, residual, bias, gamma, beta, p_eff, scale, float(eps), seed,
-        offset)
+        x, residual, bias, gamma, beta, p_eff, scale, float(eps), word,
+        delta)
 
 
 def fused_dropout_residual_ln_or_none(x, residual, bias, gamma, beta, p, eps,
@@ -963,7 +1056,10 @@ def fused_dropout_residual_ln_or_none(x, residual, bias, gamma, beta, p, eps,
 # Replaces pallas_kernels.py `_adamw_kernel` (:1044, via
 # `fused_adamw_or_none` :1067). Bound on the H100: bytes (22 per element
 # for a bfloat16 parameter and gradient, 28 for float32). One pass, in
-# place; one launch per parameter.
+# place; one launch per parameter. lr and the bias corrections c1 = 1 -
+# beta1^t, c2 = 1 - beta2^t change every step, so the kernel reads them
+# from a float32 device buffer [lr, c1, c2] (`adam_step_scalars`, filled
+# by the optimizer once a step), as `_adamw_kernel` reads its SMEM refs.
 
 
 def _adam_scalars(lr, t, beta1, beta2, epsilon, coeff):
@@ -980,28 +1076,63 @@ def _adam_scalars(lr, t, beta1, beta2, epsilon, coeff):
                 c2=f(1) - f(beta2) ** f(t))
 
 
-def adamw_plain(param, grad, m1, m2, lr, t, *, beta1, beta2, epsilon,
-                coeff):
-    """The update in plain PyTorch, in place on param, m1 and m2: the
-    reference's jnp rule (optimizer Adam/AdamW `_update_rule`) line for
-    line, each operation rounded on its own as the kernel rounds it."""
-    sc = _adam_scalars(lr, t, beta1, beta2, epsilon, coeff)
-    dev = param.device
-    # tensor divisors, filled on the device: dividing by a python number,
-    # torch may multiply by its reciprocal instead
-    c1 = torch.full((), float(sc["c1"]), device=dev)
-    c2 = torch.full((), float(sc["c2"]), device=dev)
+def adam_step_scalars(lr, t, beta1, beta2):
+    """The step's values of the scalar buffer, float32 [lr, c1, c2] as
+    `_adam_scalars` rounds them."""
+    sc = _adam_scalars(lr, t, beta1, beta2, 0.0, 0.0)
+    return np.array([sc["lr"], sc["c1"], sc["c2"]], dtype=np.float32)
+
+
+def _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc):
+    """The reference's jnp rule (optimizer Adam/AdamW `_update_rule`) line
+    for line, in place, each operation rounded on its own as the kernel
+    rounds it; lr, c1, c2 and decay (None: no decay) are float32 values,
+    host numbers or 0-d tensors, c1 and c2 tensors (dividing by a python
+    number, torch may multiply by its reciprocal instead)."""
     g = grad.float()
     p32 = param.float()
-    if coeff:
-        p32 = p32 * float(sc["decay"])
+    if decay is not None:
+        p32 = p32 * decay
     m1n = float(sc["b1"]) * m1 + float(sc["omb1"]) * g
     m2n = float(sc["b2"]) * m2 + float(sc["omb2"]) * (g * g)
-    step = float(sc["lr"]) * (m1n / c1) / (torch.sqrt(m2n / c2)
-                                           + float(sc["eps"]))
+    step = lr * (m1n / c1) / (torch.sqrt(m2n / c2) + float(sc["eps"]))
     param.copy_(p32 - step)
     m1.copy_(m1n)
     m2.copy_(m2n)
+
+
+def adamw_plain(param, grad, m1, m2, lr, t, *, beta1, beta2, epsilon,
+                coeff):
+    """The update in plain PyTorch, in place on param, m1 and m2, from
+    host lr and step t."""
+    sc = _adam_scalars(lr, t, beta1, beta2, epsilon, coeff)
+    dev = param.device
+    c1 = torch.full((), float(sc["c1"]), device=dev)
+    c2 = torch.full((), float(sc["c2"]), device=dev)
+    _adamw_rule(param, grad, m1, m2, float(sc["lr"]), c1, c2,
+                float(sc["decay"]) if coeff else None, sc)
+
+
+def adamw_plain_scalars(param, grad, m1, m2, scalars, *, beta1, beta2,
+                        epsilon, coeff):
+    """The same update with lr, c1 and c2 read from the scalar buffer
+    `scalars` (float32 [3] on param's device) on the device, 1 - lr *
+    coeff formed there in float32: equal to `adamw_plain` at the buffer's
+    lr and t bit for bit. The optimizer's route with use_fused_optimizer
+    off, so that a captured plain step also advances."""
+    _scalars_check(scalars, param)
+    sc = _adam_scalars(0.0, 1, beta1, beta2, epsilon, 0.0)
+    lr, c1, c2 = scalars[0], scalars[1], scalars[2]
+    decay = (1.0 - lr * float(np.float32(coeff))) if coeff else None
+    _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc)
+
+
+def _scalars_check(scalars, param):
+    _need(isinstance(scalars, torch.Tensor)
+          and scalars.dtype == torch.float32 and tuple(scalars.shape) == (3,)
+          and scalars.device == param.device and scalars.is_contiguous(),
+          "adamw: the step's scalars must be a float32 [3] tensor (lr, c1, "
+          "c2) on the parameter's device")
 
 
 def _adamw_check(param, grad, m1, m2):
@@ -1019,35 +1150,39 @@ def _adamw_check(param, grad, m1, m2):
     _need(param.numel() > 0, "adamw: empty parameter")
 
 
-def adamw(param, grad, m1, m2, lr, t, *, beta1, beta2, epsilon, coeff):
-    """The fused update kernel, in place on param, m1, m2 (plain version
-    on CPU tensors). coeff 0 is Adam."""
+def adamw(param, grad, m1, m2, scalars, *, beta1, beta2, epsilon, coeff):
+    """The fused update kernel, in place on param, m1, m2, with the step's
+    lr, c1 and c2 from `scalars` (float32 [3] on param's device,
+    `adam_step_scalars`); the plain version on CPU tensors. coeff 0 is
+    Adam."""
     _adamw_check(param, grad, m1, m2)
+    _scalars_check(scalars, param)
     if not _on_cuda(param, "adamw"):
-        return adamw_plain(param, grad, m1, m2, lr, t, beta1=beta1,
-                           beta2=beta2, epsilon=epsilon, coeff=coeff)
-    sc = _adam_scalars(lr, t, beta1, beta2, epsilon, coeff)
+        return adamw_plain_scalars(param, grad, m1, m2, scalars, beta1=beta1,
+                                   beta2=beta2, epsilon=epsilon, coeff=coeff)
+    sc = _adam_scalars(0.0, 1, beta1, beta2, epsilon, coeff)
     err = _build.load("adamw").adamw(
         param.data_ptr(), grad.data_ptr(), m1.data_ptr(), m2.data_ptr(),
         param.numel(), _DTYPE_CODE[param.dtype], _DTYPE_CODE[grad.dtype],
-        float(sc["lr"]), float(sc["decay"]), int(bool(coeff)),
+        scalars.data_ptr(), float(np.float32(coeff)), int(bool(coeff)),
         float(sc["b1"]), float(sc["omb1"]), float(sc["b2"]),
-        float(sc["omb2"]), float(sc["eps"]), float(sc["c1"]),
-        float(sc["c2"]), _stream(param))
+        float(sc["omb2"]), float(sc["eps"]), _stream(param))
     _check_launch(err, "adamw")
     _LAUNCHES["adamw"] += 1
 
 
-def fused_adamw_or_none(param, grad, lr, t, m1, m2, *, beta1, beta2,
+def fused_adamw_or_none(param, grad, scalars, m1, m2, *, beta1, beta2,
                         epsilon, coeff):
     """Gate (reference: pallas_kernels.py fused_adamw_or_none :1067): None
     when `use_fused_optimizer` is off (the caller runs the plain rule),
-    else the kernel's update, in place, returning (param, m1, m2). The
-    kernel takes any numel, so the reference's rows-of-128 rule is not
-    carried over; an input it does not take raises ValueError."""
+    else the kernel's update, in place, returning (param, m1, m2); lr and
+    the bias corrections come from the step's `scalars` (the reference's
+    lr_ref and c_ref). The kernel takes any numel, so the reference's
+    rows-of-128 rule is not carried over; an input it does not take raises
+    ValueError."""
     if not flag("use_fused_optimizer"):
         return None
-    adamw(param, grad, m1, m2, lr, t, beta1=beta1, beta2=beta2,
+    adamw(param, grad, m1, m2, scalars, beta1=beta1, beta2=beta2,
           epsilon=epsilon, coeff=coeff)
     return param, m1, m2
 

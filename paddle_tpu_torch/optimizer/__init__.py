@@ -10,7 +10,13 @@ in float32 arithmetic and stored back in bfloat16, as in the reference.
 
 Adam and AdamW go through `fused_adamw_or_none` (the hand-written update
 kernel, csrc/adamw.cu) and, with `use_fused_optimizer` off, through the
-plain rule `adamw_plain`, the reference's jnp rule line for line.
+plain rule `adamw_plain_scalars`, the reference's jnp rule line for line.
+Both read the step's lr and bias corrections from a float32 device buffer
+(`_scalars`: lr, 1 - beta1^t, 1 - beta2^t), as the reference's kernel
+reads `lr_ref` and `c_ref`: `apply_gradients` is `stage_step` (count the
+step, fill the buffer with one non-blocking copy) then `apply_updates`
+(the updates, which read the buffer). A captured train step replays only
+the updates, after the host has staged each step's values.
 
 Not ported yet (raise NotImplementedError when asked for): LR schedulers,
 grad_clip, lazy_mode (row-sparse gradients), lr_ratio, a callable
@@ -23,8 +29,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..framework.device import resolve_device
-from ..ops.cuda_kernels import adamw_plain, fused_adamw_or_none
+from ..framework.device import resolve_device, write_values
+from ..ops.cuda_kernels import (adam_step_scalars, adamw_plain_scalars,
+                                fused_adamw_or_none)
 
 __all__ = ["Optimizer", "Adam", "AdamW", "L2Decay"]
 
@@ -55,9 +62,12 @@ class Optimizer:
     """Base optimizer: lr, per-parameter accumulators, the step count, and
     the state dict keys of the reference (`@acc_{i}_{name}`,
     `{qualname}_{name}`, `@step_count`). Parameters must lie on
-    `device` (default "cuda", which raises without CUDA)."""
+    `device` (default "cuda", which raises without CUDA). `_scalars` is
+    the device buffer of the per-step values the rule reads
+    (`_step_scalars`), made once: a captured step holds its address."""
 
     _accumulator_names: List[str] = []
+    _n_scalars = 0
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -82,6 +92,8 @@ class Optimizer:
             self._regularization = weight_decay
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
+        self._scalars = torch.zeros(self._n_scalars, dtype=torch.float32,
+                                    device=self._device)
 
     # -- lr ----------------------------------------------------------------
     def get_lr(self) -> float:
@@ -107,26 +119,42 @@ class Optimizer:
         """The rule's hyper-parameters for parameter p."""
         return ()
 
+    def _step_scalars(self, lr, t):
+        """The values of `_scalars` for a step at lr and step count t."""
+        return []
+
     @staticmethod
-    def _update_rule(static_args, param, grad, lr, t, *accs):
+    def _update_rule(static_args, param, grad, scalars, *accs):
         raise NotImplementedError
 
     def _regularized(self, p, g):
         return g if self._regularization is None else \
             self._regularization(p, g)
 
-    @torch.no_grad()
-    def apply_gradients(self, params_grads):
-        """One step over (parameter, gradient) pairs: counts the step,
-        takes the lr, and applies the regularizer and then the rule to
-        each parameter, in place."""
+    def stage_step(self):
+        """Count the step and fill `_scalars` with its values (lr and t), in
+        stream order and without waiting for the device."""
         self._step_count += 1
-        lr = self.get_lr()
+        if self._n_scalars:
+            write_values(self._scalars,
+                         self._step_scalars(self.get_lr(), self._step_count))
+
+    @torch.no_grad()
+    def apply_updates(self, params_grads):
+        """The regularizer and then the rule on each (parameter, gradient)
+        pair, in place, at the values `stage_step` staged."""
         for p, g in params_grads:
             accs = self._get_accumulators(p)
             self._update_rule(self._static_args(p), p,
-                              self._regularized(p, g), lr, self._step_count,
+                              self._regularized(p, g), self._scalars,
                               *[accs[n] for n in self._accumulator_names])
+
+    def apply_gradients(self, params_grads):
+        """One step over (parameter, gradient) pairs: counts the step,
+        stages the lr and t, and applies the regularizer and then the rule
+        to each parameter, in place."""
+        self.stage_step()
+        self.apply_updates(params_grads)
 
     def step(self):
         params = self._parameter_list
@@ -180,6 +208,7 @@ class Optimizer:
 
 class Adam(Optimizer):
     _accumulator_names = ["moment1", "moment2"]
+    _n_scalars = 3                      # lr, c1, c2
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -200,18 +229,21 @@ class Adam(Optimizer):
     def _static_args(self, p):
         return (self._beta1, self._beta2, self._epsilon, self._coeff(p))
 
+    def _step_scalars(self, lr, t):
+        return adam_step_scalars(lr, t, self._beta1, self._beta2)
+
     def _create_accumulators(self, p):
         return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for n in self._accumulator_names}
 
     @staticmethod
-    def _update_rule(static_args, param, grad, lr, t, m1, m2):
+    def _update_rule(static_args, param, grad, scalars, m1, m2):
         """Adam (coeff 0) and AdamW in one rule; static_args is (beta1,
-        beta2, epsilon, coeff)."""
+        beta2, epsilon, coeff), scalars the step's (lr, c1, c2)."""
         b1, b2, eps, coeff = static_args
         kw = dict(beta1=b1, beta2=b2, epsilon=eps, coeff=coeff)
-        if fused_adamw_or_none(param, grad, lr, t, m1, m2, **kw) is None:
-            adamw_plain(param, grad, m1, m2, lr, t, **kw)
+        if fused_adamw_or_none(param, grad, scalars, m1, m2, **kw) is None:
+            adamw_plain_scalars(param, grad, m1, m2, scalars, **kw)
         return param, m1, m2
 
 

@@ -120,7 +120,8 @@ def test_forward_kernels_match_the_reference(N, Hd, p, mode):
     before = ck.launch_counts()
     wy, wz = ck.fused_dropout_ln_fwd(
         _t(d["x"]), _t(d["res"]), _t(d["bias"]), _t(d["gamma"]),
-        _t(d["beta"]), p, scale, 1e-5, seed=5, offset=9)
+        _t(d["beta"]), p, scale, 1e-5, word=prandom.philox_word(5, 7, "cpu"),
+        delta=2)
     want = ck.fused_dropout_ln_fwd_plain(
         _t(d["x"]), _t(d["res"]), _t(d["bias"]), _t(d["gamma"]),
         _t(d["beta"]), p, scale, 1e-5, seed=5, offset=9)

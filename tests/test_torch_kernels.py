@@ -16,6 +16,7 @@ import torch
 from paddle_tpu.inference.serving import cache as jcache
 from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu_torch.framework.flags import get_flags, set_flags
+from paddle_tpu_torch.framework import random as prandom
 from paddle_tpu_torch.inference.serving import cache as tcache
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
@@ -436,7 +437,6 @@ def test_sdpa_training_grads_flow_through_flash_function(causal):
 def test_flash_function_with_dropout_regenerates_one_mask():
     # forward and backward draw the same Philox bits: the Function's
     # gradients equal autograd through the plain forward fed those bits
-    from paddle_tpu_torch.framework import random as prandom
     q, k, v, g, _ = _train_inputs(1, 2, 20, 20, 8, seed=6)
     prandom.seed(11)
     tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
@@ -446,7 +446,8 @@ def test_flash_function_with_dropout_regenerates_one_mask():
     out.backward(_t(g))
     prandom.seed(11)
     seed, offset = prandom.next_seed_offset()
-    bits = ck.attn_dropout_bits(seed, offset, 2, 20, 20, device="cpu")
+    bits = ck.attn_dropout_bits(prandom.philox_word(seed, offset, "cpu"), 0,
+                                2, 20, 20)
     rq, rk, rv = (_t(a).requires_grad_() for a in (q, k, v))
     want = ck.flash_attention_plain(
         rq, rk, rv, True, keep=ck._keep_mask(bits, 0.25, (1, 2, 20, 20)),
@@ -463,7 +464,7 @@ def test_flash_function_without_grad_skips_lse():
     # the serving path: no input needs a gradient, so nothing is saved
     q, k, v, _, _ = _train_inputs(1, 2, 8, 8, 16)
     out = ck.FlashAttentionFunction.apply(_t(q), _t(k), _t(v), True, 0.0,
-                                          0, 0)
+                                          None, 0)
     assert out.grad_fn is None
     np.testing.assert_allclose(
         out.numpy(), ck.flash_attention(_t(q), _t(k), _t(v), True).numpy())
@@ -495,7 +496,8 @@ def test_philox_known_answers():
 
 def test_dropout_bits_layout_and_rate():
     seed, offset = 0x0123456789ABCDEF, 5
-    bits = ck.attn_dropout_bits(seed, offset, 3, 10, 7, device="cpu")
+    word = prandom.philox_word(seed, offset, "cpu")
+    bits = ck.attn_dropout_bits(word, 0, 3, 10, 7)
     assert bits.shape == (3, 10, 7) and bits.dtype == torch.int64
     assert int(bits.min()) >= 0 and int(bits.max()) < 2 ** 32
     # element (bh, row, col) is word row % 4 of the counter
@@ -505,10 +507,10 @@ def test_dropout_bits_layout_and_rate():
                               torch.tensor([bh]), torch.tensor([offset]),
                               seed & 0xFFFFFFFF, seed >> 32)
     assert int(bits[bh, row, col]) == int(words[row % 4])
-    # another offset is another mask; the keep rate follows p
-    assert not torch.equal(bits, ck.attn_dropout_bits(seed, offset + 1, 3,
-                                                      10, 7, device="cpu"))
-    big = ck.attn_dropout_bits(seed, offset, 4, 128, 128, device="cpu")
+    # another offset (the word's base + delta 1) is another mask; the keep
+    # rate follows p
+    assert not torch.equal(bits, ck.attn_dropout_bits(word, 1, 3, 10, 7))
+    big = ck.attn_dropout_bits(word, 0, 4, 128, 128)
     drop = (big < int(0.1 * 2 ** 32)).double().mean().item()
     n = big.numel()
     assert abs(drop - 0.1) < 5 * (0.1 * 0.9 / n) ** 0.5
@@ -571,7 +573,8 @@ def test_adamw_gate_and_launch_counter():
     ck.adamw_plain(*want, 1e-3, 2, beta1=0.9, beta2=0.999, epsilon=1e-8,
                    coeff=0.0)
     before = ck.launch_counts()["adamw"]
-    out = ck.fused_adamw_or_none(p, g, 1e-3, 2, m1, m2, beta1=0.9,
+    sc = torch.from_numpy(ck.adam_step_scalars(1e-3, 2, 0.9, 0.999))
+    out = ck.fused_adamw_or_none(p, g, sc, m1, m2, beta1=0.9,
                                  beta2=0.999, epsilon=1e-8, coeff=0.0)
     assert out[0] is p and out[1] is m1 and out[2] is m2      # in place
     assert ck.launch_counts()["adamw"] == before              # CPU: plain
@@ -580,13 +583,13 @@ def test_adamw_gate_and_launch_counter():
     saved = get_flags("use_fused_optimizer")
     set_flags({"use_fused_optimizer": False})
     try:
-        assert ck.fused_adamw_or_none(p, g, 1e-3, 3, m1, m2, beta1=0.9,
+        assert ck.fused_adamw_or_none(p, g, sc, m1, m2, beta1=0.9,
                                       beta2=0.999, epsilon=1e-8,
                                       coeff=0.0) is None
     finally:
         set_flags(saved)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        ck.fused_adamw_or_none(p.half(), g.half(), 1e-3, 3, m1, m2,
+        ck.fused_adamw_or_none(p.half(), g.half(), sc, m1, m2,
                                beta1=0.9, beta2=0.999, epsilon=1e-8,
                                coeff=0.0)
 

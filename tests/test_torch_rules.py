@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.framework.random import philox_word
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,9 +111,11 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero():
     qg = q.clone().requires_grad_()
     ck.flash_attention_or_none(qg, qg, qg, None, True,
                                dropout_p=0.2).sum().backward()
-    ck.attn_dropout_bits(1, 2, 2, 8, 8, device="cpu")
+    word = philox_word(1, 2, "cpu")
+    ck.attn_dropout_bits(word, 0, 2, 8, 8)
     w, m = torch.zeros(9), torch.zeros(9)
-    ck.adamw(w, w.clone(), m, m.clone(), 1e-3, 1, beta1=0.9, beta2=0.999,
+    sc = torch.from_numpy(ck.adam_step_scalars(1e-3, 1, 0.9, 0.999))
+    ck.adamw(w, w.clone(), m, m.clone(), sc, beta1=0.9, beta2=0.999,
              epsilon=1e-8, coeff=0.01)
     kc = torch.zeros(1, 2, 16, 16)
     lens = torch.tensor([3], dtype=torch.int32)
@@ -129,7 +132,8 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero():
     (y.sum() + z.sum()).backward()
     ck.fused_bias_dropout_residual_ln(xg, x, v, None, None, 0.3, 1e-5, True,
                                       "upscale_in_train").sum().backward()
-    ck.fused_dropout_bits(1, 2, 6, 32, device="cpu")
+    ck.fused_dropout_bits(word, 0, 6, 32)
+    ck.dropout_keep(word, 0, (6, 32), 0.3)
     from paddle_tpu_torch.framework import set_flags
     from paddle_tpu_torch.models import bert_tiny
     set_flags({"use_fused_dropout_ln": True, "fused_block": True})
@@ -151,7 +155,8 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero():
         "flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
         "attn_dropout_bits", "fused_dropout_ln_fwd",
         "fused_dropout_residual_fwd", "fused_dropout_ln_bwd",
-        "fused_dropout_bits", "adamw", "paged_decode", "paged_decode_int8"}
+        "fused_dropout_bits", "dropout_keep", "adamw", "paged_decode",
+        "paged_decode_int8"}
     assert set(ck.launch_counts().values()) == {0}
 
 
@@ -167,13 +172,14 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="meta"):
         ck.flash_bwd_dq(q, q, q, q, q, lse, True)
     with pytest.raises(ValueError, match="meta"):
-        ck.adamw(q, q, q, q, 1e-3, 1, beta1=0.9, beta2=0.999, epsilon=1e-8,
-                 coeff=0.0)
+        ck.adamw(q, q, q, q, torch.zeros(3, device="meta"), beta1=0.9,
+                 beta2=0.999, epsilon=1e-8, coeff=0.0)
     rows = torch.zeros(4, 16, device="meta")
     with pytest.raises(ValueError, match="meta"):
         ck.fused_dropout_ln_bwd(rows, rows, None, None, 0.0, 1.0, 1e-5)
     with pytest.raises(ValueError, match="meta"):
-        ck.fused_dropout_bits(1, 2, 4, 16, device="meta")
+        ck.fused_dropout_bits(torch.zeros(2, dtype=torch.int64,
+                                          device="meta"), 0, 4, 16)
 
 
 def test_kernel_sources_are_listed_for_the_build():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Parent-against-change timing of the port's serving kernels, one GPU.
 
-    python3 tools/port_ab.py TREE LABEL [--tiles]
+    python3 tools/port_ab.py TREE LABEL [--tiles | --train]
 
 TREE is a checkout of this repository (for example a commit's `git
 archive` unpacked into a directory that .gitignore lists). The script
@@ -20,7 +20,11 @@ and prints, each line tagged LABEL:
     tokens/s and TTFT p50.
 With --tiles (a tree whose float32 flash forward takes a tile size), the
 float32 flash forward also runs at every tile size its kernel takes, at 12
-heads and at 1, three times in turn. All times are CUDA-event or
+heads and at 1, three times in turn. With --train, only the training
+kernels are timed instead, through the tree's own chip_smoke.py (so each
+tree passes its dropout key its own way): rows 1t, 2 and 3 at GPT-2's and
+ERNIE's shapes (`train_timings`), rows 4-6 at path B's and path A's
+(`time_fused`). All times are CUDA-event or
 torch.profiler device times unless called wall. Run it in turns (change,
 parent, parent, change, ...) in one command to compare two trees on one
 card; each tree builds its own kernels.
@@ -100,6 +104,19 @@ def tile_lines(torch, cs, ck, timer, gen, tag):
                       for t, v in res.items()), chosen), flush=True)
 
 
+def train_lines(torch, cs, ck, F, timer, gen):
+    """The training kernels' times, as the tree's chip_smoke.py prints
+    them ("time ..." lines)."""
+    if hasattr(cs, "WORD"):             # the dropout key in device memory
+        from paddle_tpu_torch.framework.random import philox_word
+        cs.WORD = philox_word(cs.SEED, cs.OFFSET - cs.DELTA, "cuda")
+    cs.train_timings(torch, ck, F, timer, gen)
+    cs.time_fused(torch, ck, timer, gen, cs.TRAIN_B * cs.TRAIN_T, 768,
+                  torch.bfloat16, True, "gpt2 (path B)")
+    cs.time_fused(torch, ck, timer, gen, cs.ERNIE_B * cs.ERNIE_T, 768,
+                  torch.float32, False, "ernie (path A)")
+
+
 def main():
     tree, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
     sys.path.insert(0, tree)
@@ -119,6 +136,9 @@ def main():
                                     _build.build()), flush=True)
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "--train" in sys.argv:
+        train_lines(torch, cs, ck, F, timer, gen)
+        return
     for T in (32, 128, 256):
         t = cs.time_flash(torch, ck, F, timer, gen, T)
         print("%s: row 1 T=%d %.4f ms (sdpa %.4f ms)"
