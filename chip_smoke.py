@@ -48,7 +48,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      where the plain run's top-2 logit gap is a near tie;
   7. a shorter int8-cache run, checked, profiled and held to the eager
      bodies (scales too) the same way, and to the plain int8 path;
-  8. the training kernels' device times at the training main path's
+  8. the server: the same model behind InferenceServer (the same engine
+     settings, http_port=0, the flight recorder's and the heartbeat's
+     directories in a temporary folder), requests submitted from 4
+     threads: (a) one worker, the 16 requests of phase 5; (b) two
+     workers, the same, both engines' programs built; (c) an int8 cache,
+     one worker, phase 7's 8 requests. Each: tokens held to phase 6's (or
+     7's) plain run by its rule; /healthz (200) and /metrics scraped while
+     it serves, /statusz before and after (completed requests and tokens
+     equal to the handles', ttft_ms present, hbm in_use in (0, memory
+     reserved], retraces by engine equal to the programs built); the
+     heartbeat file fresh; the launch counts zeroed just before and read
+     just after, the flash forward and the paged decode kernel launched,
+     also through replays; tokens/s, TTFT p50, the decode step, the graph
+     pools and peak memory printed. (d) the crash drill: a worker whose
+     decode raises on its third call: its handles fail with the fault
+     chained, a crash bundle with its six files (memory.json too), and
+     /healthz 503 naming the dead worker, 200 after stop(). (e) the
+     built engine's decode step with telemetry off and on, in turns;
+  9. the training kernels' device times at the training main path's
      shapes (flash forward with lse and dropout, flash backward dq and
      dk/dv: B=16, H=12, T=512, D=64, bfloat16, causal, p=0.1; AdamW over
      every gpt2-small parameter), each beside its bound, its plain
@@ -57,7 +75,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      forward and backward also at p=0 (their Philox share) and at ERNIE's
      attention (B=32, T=128, not causal, p=0.1); the keep-mask kernel at
      a hidden dropout's shape;
-  9. the training main path: the JAX package's GPT-2 train bench
+ 10. the training main path: the JAX package's GPT-2 train bench
      (benchmarks/train_bench.py) on the port: gpt2-small at full width and
      depth (seeded weights, both dropouts 0.1) -> amp.decorate(O2,
      bfloat16) -> AdamW(lr=1e-4, weight_decay=0.01) -> make_train_step,
@@ -73,27 +91,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      dropout 0.1 and on a fresh model at 0: losses, parameters and
      moments bit-equal, the steps' Philox words and masks different, a
      restored RNG state repeating the first;
- 10. the same float32 weights with both dropouts 0, B=4, T=512, 3 steps
+ 11. the same float32 weights with both dropouts 0, B=4, T=512, 3 steps
      through the captured step, once with the kernels and once with
      use_flash_attention and use_fused_optimizer off (which must launch
      nothing): the losses and the parameters must agree within the
      stated tolerances;
- 11. the fused dropout-residual(+LN) kernels' device times at path B's
+ 12. the fused dropout-residual(+LN) kernels' device times at path B's
      shape (N=8192, Hd=768, bfloat16) and path A's (N=4096, Hd=768,
      float32), beside their bounds, their plain versions and the composed
      PyTorch route the flag replaces, and the backward's grid and the
      bytes of its partial rows;
- 12. path B: phase 9 with FLAGS_use_fused_dropout_ln and FLAGS_fused_block
+ 13. path B: phase 10 with FLAGS_use_fused_dropout_ln and FLAGS_fused_block
      on (12 / 12 / 24 launches of the fused forward, no-LN forward and
-     backward a step), its step beside phase 9's; then phase 10 with the
+     backward a step), its step beside phase 10's; then phase 11 with the
      fused flags on in the kernel run;
- 13. path A: the JAX package's ERNIE bench (train_bench.py bench_ernie)
+ 14. path A: the JAX package's ERNIE bench (train_bench.py bench_ernie)
      on the port: ernie-base at full width and depth (seeded weights,
      dropouts 0.1), B=32, T=128, AdamW(lr=1e-4, weight_decay=0.01),
      make_train_step with the MLM + NSP criterion, under
      amp.auto_cast(level="O2"), FLAGS_use_fused_dropout_ln on, eager
-     bodies, captured step and graph against eager as in 9;
- 14. path A's kernels vs plain: float32, no dropout, 3 steps, as in 10.
+     bodies, captured step and graph against eager as in 10;
+ 15. path A's kernels vs plain: float32, no dropout, 3 steps, as in 11.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -101,10 +119,12 @@ The line before the last is the kernel table as JSON; the last line is
 import argparse
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1175,7 +1195,7 @@ def free_memory(torch):
 
 def train_main(torch, ck, flags, card, fused=False):
     """The GPT-2 training path, with both fused flags (use_fused_dropout_ln,
-    fused_block) off (phase 9) or on (path B), through `run_path`; then
+    fused_block) off (phase 10) or on (path B), through `run_path`; then
     the captured step against its eager bodies at the path's dropout 0.1
     and, on a fresh model, at 0. Returns (launch counts, parameter shapes,
     median step ms)."""
@@ -1920,22 +1940,23 @@ def profile_decode(torch, engine, n=10):
     return total_us / n / 1e3, rows[:5]
 
 
-def program_launches(eng, launches):
-    """Launch accounting through the engine's step programs: each
+def program_launches(engines, launches):
+    """Launch accounting through the engines' step programs: each
     program's runs (its build's eager run and its replays) times its
     launches a run must add up to `launches`, the counts of the run.
     Returns (the flash forward's launches by prefill bucket, the launches
     that replays made)."""
-    progs = eng._programs
     total = dict.fromkeys(launches, 0)
     replayed = dict.fromkeys(launches, 0)
     by_t = {}
-    for key, per_run in progs.launches.items():
-        for name, n in per_run.items():
-            total[name] += progs.runs(key) * n
-            replayed[name] += progs.replays[key] * n
-        if key[0] == "prefill":
-            by_t[key[1]] = progs.runs(key) * per_run["flash_fwd"]
+    for progs in (eng._programs for eng in engines):
+        for key, per_run in progs.launches.items():
+            for name, n in per_run.items():
+                total[name] += progs.runs(key) * n
+                replayed[name] += progs.replays[key] * n
+            if key[0] == "prefill":
+                by_t[key[1]] = (by_t.get(key[1], 0)
+                                + progs.runs(key) * per_run["flash_fwd"])
     require(total == launches,
             "launch counts %s are not the programs' runs x launches %s"
             % (launches, total))
@@ -1987,6 +2008,7 @@ def serve_again(serving, eng, rq, first, label, card):
             "%s: the second pass gave other tokens" % label)
     serve_line("%s again (every program built, same tokens)" % label, rs,
                wall, steps, card)
+    return sum(len(r.tokens) for r in rs) / wall
 
 
 def graph_against_eager(torch, serving, model, cfg, rq, graph_reqs,
@@ -2044,6 +2066,294 @@ def compare_tokens(kernel_reqs, plain_reqs, gaps, kv_dtype):
     say("compare %s: %d/%d requests token-identical to the plain run, the "
         "rest first differ at near ties" % (kv_dtype, same, len(kernel_reqs)))
     return same
+
+
+# ---------------------------------------------------------------------------
+# the server: InferenceServer on the card
+
+
+# request i is submitted from thread i % SERVER_THREADS, each thread pausing
+# SERVER_STAGGER_S between its submissions
+SERVER_THREADS = 4
+SERVER_STAGGER_S = 0.005
+TELEMETRY_STEPS = 50
+
+
+def scrape(url, route):
+    """(status, body) of a GET on the server's live plane."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url + route, timeout=30) as r:
+            return r.status, r.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8")
+
+
+def statusz(url):
+    code, body = scrape(url, "/statusz")
+    require(code == 200, "/statusz answered %d" % code)
+    return json.loads(body)
+
+
+def submit_from_threads(srv, reqs):
+    """Submit `reqs` from SERVER_THREADS threads; the handles in request
+    order."""
+    import threading
+    handles = [None] * len(reqs)
+
+    def submitter(k):
+        for i in range(k, len(reqs), SERVER_THREADS):
+            p, m = reqs[i]
+            handles[i] = srv.submit(p.tolist(), max_new_tokens=m)
+            time.sleep(SERVER_STAGGER_S)
+    threads = [threading.Thread(target=submitter, args=(k,))
+               for k in range(SERVER_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    require(all(h is not None for h in handles),
+            "a submitting thread did not submit its requests")
+    return handles
+
+
+def timed_decodes(engines):
+    """Record each engine's decode step wall times (ms) into one list."""
+    steps = []
+    for eng in engines:
+        def timed(decode=eng.decode):
+            t0 = time.perf_counter()
+            out = decode()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            return out
+        eng.decode = timed
+    return steps
+
+
+def server_pass(torch, srv, reqs, plain, gaps, label, kv_dtype, steps,
+                card):
+    """Serve `reqs` once through the started server `srv`, submitted from
+    SERVER_THREADS threads; scrape /healthz and /metrics while it serves
+    and /statusz before and after; hold the tokens to the plain run's rule
+    and /statusz's serving and hbm blocks to the run. Returns (tokens/s,
+    /statusz before, after)."""
+    url = srv._http.url
+    before = statusz(url)
+    del steps[:]
+    t0 = time.perf_counter()
+    handles = submit_from_threads(srv, reqs)
+    code, _ = scrape(url, "/healthz")
+    require(code == 200, "%s: /healthz answered %d while serving"
+            % (label, code))
+    code, text = scrape(url, "/metrics")
+    require(code == 200 and "pt_serve_queue_depth" in text,
+            "%s: /metrics answered %d without the queue gauge"
+            % (label, code))
+    rs = [h.request for h in handles]
+    for h, (_, m) in zip(handles, reqs):
+        require(len(h.result(timeout=600)) == m,
+                "%s: request %d gave %d of %d tokens"
+                % (label, h.request.rid, len(h.request.tokens), m))
+    wall = time.perf_counter() - t0
+    after = statusz(url)
+    reserved = torch.cuda.memory_reserved()
+    code, body = scrape(url, "/healthz")
+    require(code == 200, "%s: /healthz answered %d after serving: %s"
+            % (label, code, body))
+    ntok = sum(len(r.tokens) for r in rs)
+    now, then = after["serving"], before["serving"]
+    done = now["completed"] - then.get("completed", 0)
+    toks = now["tokens"] - then.get("tokens", 0)
+    require(done == len(reqs) and toks == ntok,
+            "%s: /statusz counted %d requests and %d tokens, the handles "
+            "%d and %d" % (label, done, toks, len(reqs), ntok))
+    require("ttft_ms" in now, "%s: /statusz has no ttft_ms" % label)
+    hbm = after.get("hbm_bytes", {})
+    require(0 < hbm.get("in_use", 0) <= reserved,
+            "%s: /statusz hbm in_use %s not in (0, reserved %d]"
+            % (label, hbm.get("in_use"), reserved))
+    compare_tokens(rs, plain, gaps, kv_dtype)
+    say("%s: %d requests from %d threads, %d tokens in %.3f s: %.1f "
+        "tokens/s; TTFT p50 %.1f ms; %d decode steps, %.2f ms/step median; "
+        "/statusz: TTFT p50 %s ms, hbm in_use %.1f MiB (%s)"
+        % (label, len(rs), SERVER_THREADS, ntok, wall, ntok / wall,
+           statistics.median(r.ttft_s for r in rs) * 1e3, len(steps),
+           statistics.median(steps), now["ttft_ms"].get("p50"),
+           hbm["in_use"] / 2**20, card))
+    return ntok / wall, before, after
+
+
+def programs_built(engines):
+    """Programs the engines built, by StepTelemetry engine label."""
+    built = {"serve_prefill": sum(e.prefill_compiles for e in engines),
+             "serve_suffix": sum(e.suffix_prefill_compiles for e in engines),
+             "serve_decode": sum(e.decode_compiles for e in engines)}
+    return {k: n for k, n in built.items() if n}
+
+
+def retraced(before, after):
+    """Programs built between two /statusz reads, by engine."""
+    then = before.get("train", {}).get("retraces", {})
+    now = after.get("train", {}).get("retraces", {})
+    return {e: n - then.get(e, 0) for e, n in now.items() if n - then.get(e, 0)}
+
+
+def server_run(torch, ck, serving, model, cfg, reqs, plain, gaps, label,
+               card, hb_path, workers=1, kv_dtype="float32"):
+    """`reqs` through a fresh InferenceServer(workers, http_port=0) twice:
+    on fresh engines (each builds its programs), then again with fresh
+    prefix caches (one worker: every program built). /statusz's retraces
+    must equal the programs built, the heartbeat must be fresh, and the
+    launch counts,
+    zeroed before the first pass and read after the second, must add up
+    to the programs' runs, with the kernels launched through replays.
+    Returns (the server, its launches, tokens/s of each pass)."""
+    from paddle_tpu_torch.resilience import health
+    srv = serving.InferenceServer(model, workers=workers, http_port=0,
+                                  kv_dtype=kv_dtype, **cfg)
+    engines = srv.engines
+    steps = timed_decodes(engines)
+    srv.start()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ck.launch_counts(reset=True)
+        tps1, before, after = server_pass(torch, srv, reqs, plain, gaps,
+                                          label, kv_dtype, steps, card)
+        built = programs_built(engines)
+        require(retraced(before, after) == built,
+                "%s: /statusz retraces %s are not the programs built %s"
+                % (label, retraced(before, after), built))
+        require(all(e.decode_compiles == 1 for e in engines),
+                "%s: an engine built no decode program: %s"
+                % (label, [e.decode_compiles for e in engines]))
+        for e in engines:
+            e.prefix_cache = serving.PrefixCache(e.prefix_cache.max_bytes,
+                                                 e.buckets)
+        # two workers may deal the requests out otherwise the second time,
+        # and a worker then builds a program for a bucket new to it
+        tps2, before2, after2 = server_pass(
+            torch, srv, reqs, plain, gaps, label + " again", kv_dtype,
+            steps, card)
+        built2 = programs_built(engines)
+        new = {k: n - built.get(k, 0) for k, n in built2.items()
+               if n != built.get(k, 0)}
+        require(retraced(before2, after2) == new,
+                "%s: /statusz retraces %s of the second pass are not the "
+                "programs it built %s" % (label, retraced(before2, after2),
+                                          new))
+        require(workers > 1 or not new,
+                "%s: the second pass built programs %s" % (label, new))
+        say("%s: the second pass built %s" % (label, new or "nothing"))
+        launches = ck.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        srv.stop()
+    hb = health.read_heartbeat(hb_path)
+    stale = health.stale_seconds(hb_path)
+    require(hb is not None and hb["pid"] == os.getpid() and stale < 30,
+            "%s: heartbeat %s is stale (%s s)" % (label, hb, stale))
+    _, replayed = program_launches(engines, launches)
+    say("%s launches (both passes) %s, through replays %s" % (
+        label, {k: n for k, n in launches.items() if n},
+        {k: n for k, n in replayed.items() if n}))
+    kernel = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
+    for name in ("flash_fwd", kernel):
+        require(launches[name] > 0 and replayed[name] > 0,
+                "%s: %s launched %d times, %d through replays"
+                % (label, name, launches[name], replayed[name]))
+    say("%s: retraces %s; graph pools %s MiB; peak memory %.1f MiB over "
+        "both passes (%s)"
+        % (label, retraced(before, after),
+           ", ".join("%.1f" % (e._programs.pool_bytes() / 2**20)
+                     for e in engines), peak / 2**20, card))
+    return srv, launches, tps1, tps2
+
+
+def crash_drill(serving, model, cfg, flight_dir):
+    """A worker whose decode raises on its third call: its handles fail
+    with the fault chained, a crash bundle with memory.json is written,
+    /healthz reads 503 naming the dead worker, then 200 after stop()."""
+    import glob
+
+    class InjectedFault(RuntimeError):
+        pass
+    srv = serving.InferenceServer(model, workers=1, http_port=0, **cfg)
+    eng = srv.engines[0]
+    calls = []
+
+    def failing_decode(decode=eng.decode):
+        calls.append(1)
+        if len(calls) == 3:
+            raise InjectedFault("injected decode fault (crash drill)")
+        return decode()
+    eng.decode = failing_decode
+    srv.start()
+    try:
+        url = srv._http.url
+        handles = [srv.submit([1, 2, 3 + i], max_new_tokens=8)
+                   for i in range(2)]
+        for h in handles:
+            try:
+                h.result(timeout=120)
+                cause = None
+            except RuntimeError as e:     # the drill's expected failure
+                cause = e.__cause__
+            require(isinstance(cause, InjectedFault),
+                    "crash drill: a handle did not fail with the fault")
+        srv._threads[0].join(30)
+        code, body = scrape(url, "/healthz")
+        check = json.loads(body)["checks"]["serve_loop"]
+        require(code == 503 and "pt-serve-0" in check["detail"],
+                "crash drill: /healthz answered %d: %s" % (code, check))
+    finally:
+        srv.stop()
+    code, _ = scrape(url, "/healthz")
+    require(code == 200, "crash drill: /healthz answered %d after stop()"
+            % code)
+    bundles = glob.glob(os.path.join(flight_dir, "crash", "*"))
+    files = sorted(os.listdir(bundles[0])) if len(bundles) == 1 else []
+    require(files == sorted(["MANIFEST.json", "ring.jsonl", "stacks.txt",
+                             "metrics.json", "env.json", "memory.json"]),
+            "crash drill: bundles %s, files %s" % (bundles, files))
+    with open(os.path.join(bundles[0], "memory.json")) as f:
+        memory = json.load(f)
+    require(memory.get("device_kind") and memory.get("buffers"),
+            "crash drill: memory.json lacks the device or its buffers")
+    say("crash drill: both handles failed with the injected fault, "
+        "/healthz 503 (%s), 200 after stop(); bundle %s with %s; "
+        "memory.json: %d live blocks, %.1f MiB, %d samples"
+        % (check["detail"], os.path.basename(bundles[0]), ", ".join(files),
+           memory["buffers"]["n_arrays"],
+           memory["buffers"]["total_bytes"] / 2**20,
+           len(memory["hbm_history"])))
+
+
+def telemetry_cost(torch, tracing, eng, card):
+    """The built engine's decode step wall time with telemetry off and on,
+    in turns (off, on, on, off), TELEMETRY_STEPS steps each way. On, the
+    phase samples device memory after every step, telemetry's dearest
+    setting (the default samples every 0.5 s)."""
+    times = {False: [], True: []}
+    decode = type(eng).decode          # not the server run's timing wrapper
+    for on in (False, True, True, False):
+        tracing.enable(on)
+        try:
+            for _ in range(TELEMETRY_STEPS // 2):
+                t0 = time.perf_counter()
+                decode(eng)
+                times[on].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            tracing.enable(True)
+    off, on = (statistics.median(times[k]) for k in (False, True))
+    say("telemetry cost: decode step %.4f ms with tracing off, %.4f ms on "
+        "(median of %d each, in turns): %+.2f %% (%s)"
+        % (off, on, TELEMETRY_STEPS, 100.0 * (on - off) / off, card))
+    # the same steps' kernels: idle slots keep decoding into their tails,
+    # so the paged kernel's work grows with each step here
+    dev_ms, top = profile_decode(torch, eng)
+    report_decode_profile("server (a) engine, idle slots", dev_ms, on, top,
+                          card)
 
 
 def main():
@@ -2154,6 +2464,7 @@ def main():
     peak = torch.cuda.max_memory_allocated()
     serve_line("main path (16 submitted at once on 8 slots, step programs "
                "replayed)", kreqs, wall, steps, card)
+    direct_tps = sum(len(r.tokens) for r in kreqs) / wall
     say("main path: prefix hits %d; peak memory %.1f MiB (KV cache %.1f "
         "MiB)" % (sum(1 for r in kreqs if r.prefix_len > 0), peak / 2**20,
                   eng.kv.nbytes / 2**20))
@@ -2165,7 +2476,7 @@ def main():
     require(any(r.prefix_len > 0 for r in kreqs),
             "no prefix-cache hit: the suffix path did not run")
     report_programs("float32", eng, card)
-    flash_by_t, replayed = program_launches(eng, launches)
+    flash_by_t, replayed = program_launches([eng], launches)
     say("main path launches through replays %s"
         % {k: n for k, n in replayed.items() if n})
     require(replayed["flash_fwd"] > 0 and replayed["paged_decode"] > 0,
@@ -2186,7 +2497,8 @@ def main():
     dev_ms, top = profile_decode(torch, eng)
     report_decode_profile("float32", dev_ms, statistics.median(steps), top,
                           card)
-    serve_again(serving, eng, reqs, kreqs, "main path", card)
+    direct_again_tps = serve_again(serving, eng, reqs, kreqs, "main path",
+                                   card)
     del eng
     graph_against_eager(torch, serving, model, cfg, reqs, kreqs, kstate,
                         "float32", card)
@@ -2229,7 +2541,7 @@ def main():
     require(paths8["xla_sdpa"] == 0 and paths8["xla_paged"] == 0,
             "the int8 run took a plain attention path: %s" % paths8)
     report_programs("int8", e8, card)
-    _, replayed8 = program_launches(e8, launches8)
+    _, replayed8 = program_launches([e8], launches8)
     say("int8 run launches through replays %s"
         % {k: n for k, n in replayed8.items() if n})
     require(replayed8["paged_decode_int8"] > 0,
@@ -2244,7 +2556,45 @@ def main():
     p8, gaps8 = plain_run(ireqs, kv_dtype="int8")
     compare_tokens(k8, p8, gaps8, "int8")
 
-    # 8-10. training: kernel times, the main path, kernels vs plain
+    # 8. the server: InferenceServer on the card, its live plane scraped
+    from paddle_tpu_torch.observability import flight, httpd, tracing
+    from paddle_tpu_torch.resilience import health
+    with tempfile.TemporaryDirectory() as tele_dir:
+        # a memory sample after every step, so /statusz's is the run's last
+        env = {flight.ENV_DIR: tele_dir, health.ENV_DIR: tele_dir,
+               flight.ENV_HBM_INTERVAL: "0"}
+        os.environ.update(env)
+        hb_path = health.heartbeat_path(tele_dir, 0)
+        try:
+            srv, slaunch_a, tps_a, tps_a2 = server_run(
+                torch, ck, serving, model, cfg, reqs, preqs, gaps,
+                "server (a), 1 worker", card, hb_path)
+            say("server (a) against the engine alone (phase 5, 16 "
+                "submitted at once): fresh %.1f / %.1f tokens/s = %.3f; "
+                "built %.1f / %.1f = %.3f"
+                % (tps_a, direct_tps, tps_a / direct_tps, tps_a2,
+                   direct_again_tps, tps_a2 / direct_again_tps))
+            telemetry_cost(torch, tracing, srv.engines[0], card)
+            del srv
+            srv, slaunch_b, tps_b, tps_b2 = server_run(
+                torch, ck, serving, model, cfg, reqs, preqs, gaps,
+                "server (b), 2 workers", card, hb_path, workers=2)
+            say("server (b) against (a): fresh %.1f / %.1f tokens/s = "
+                "%.3f; built %.1f / %.1f = %.3f"
+                % (tps_b, tps_a, tps_b / tps_a, tps_b2, tps_a2,
+                   tps_b2 / tps_a2))
+            del srv
+            srv, slaunch_c, _, _ = server_run(
+                torch, ck, serving, model, cfg, ireqs, p8, gaps8,
+                "server (c), int8 cache", card, hb_path, kv_dtype="int8")
+            del srv
+            crash_drill(serving, model, cfg, tele_dir)
+        finally:
+            httpd.shutdown()
+            for var in env:
+                os.environ.pop(var, None)
+
+    # 9-11. training: kernel times, the main path, kernels vs plain
     times.update(train_timings(torch, ck, F, timer, gen))
     tlaunches, shapes, off_ms = train_main(torch, ck, flags, card)
     times["adamw"] = time_adamw(torch, ck, timer, gen, shapes)
@@ -2252,7 +2602,7 @@ def main():
                                               (TRAIN_B, TRAIN_T, 768))
     train_compare(torch, ck, flags)
 
-    # 11-12. rows 4-6 at the paths' shapes; path B: GPT-2 training with
+    # 12-13. rows 4-6 at the paths' shapes; path B: GPT-2 training with
     # both fused flags on, then its kernels vs the flags-off plain run
     times.update(time_fused(torch, ck, timer, gen, TRAIN_B * TRAIN_T, 768,
                             torch.bfloat16, True, "gpt2 (path B)"))
@@ -2264,13 +2614,18 @@ def main():
         % (TRAIN_B, TRAIN_T, card, off_ms, on_ms, TRAIN_STEPS))
     train_compare(torch, ck, flags, fused=True)
 
-    # 13-14. path A: ERNIE-base pretraining, then kernels vs plain
+    # 14-15. path A: ERNIE-base pretraining, then kernels vs plain
     alaunches = ernie_main(torch, ck, flags, card)
     ernie_compare(torch, ck, flags)
 
-    counts = {"flash_fwd": launches["flash_fwd"],
-              "paged_decode": launches["paged_decode"],
-              "paged_decode_int8": launches8["paged_decode_int8"]}
+    counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
+                            + slaunch_b["flash_fwd"]
+                            + slaunch_c["flash_fwd"]),
+              "paged_decode": (launches["paged_decode"]
+                               + slaunch_a["paged_decode"]
+                               + slaunch_b["paged_decode"]),
+              "paged_decode_int8": (launches8["paged_decode_int8"]
+                                    + slaunch_c["paged_decode_int8"])}
     for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
                  "adamw", "dropout_keep"):
         counts[name] = tlaunches[name]

@@ -36,6 +36,13 @@ donates its cache and gets new buffers back, the port updates the cache
 in place. Flags are read when a program is built and stay frozen in it.
 `_DISPATCH_LOCK` serializes every dispatch and capture in the process.
 
+Every program run is wrapped in `StepTelemetry("serve_prefill" |
+"serve_suffix" | "serve_decode")` keyed by the program, so
+`pt_jit_retraces_total{engine}` counts the programs built, as the
+reference's counts its traces. Each program built is banked in memprof
+(held tensors as argument bytes, the graphs' pool as temp bytes), and an
+out-of-memory error leaves memprof's post-mortem before it unwinds.
+
 Eager outside the programs, as in the reference: the bucket counters,
 `admit_info` and the prefix store's copies.
 
@@ -52,7 +59,7 @@ import torch
 from ...framework.device import resolve_device
 from ...jit.cuda_graph import StepPrograms
 from ...models.gpt import _lm_logits
-from ...observability import metrics
+from ...observability import memprof, metrics, tracing
 from . import cache as cache_mod
 
 __all__ = ["GenerationEngine"]
@@ -141,6 +148,10 @@ class GenerationEngine:
         held = (list(model.parameters()) + list(model.buffers())
                 + [*self.kv.state(), *self.kv.workspace])
         self._programs = StepPrograms(dev, lambda: held)
+        self._held = held
+        self._prefill_tel = tracing.StepTelemetry("serve_prefill")
+        self._suffix_tel = tracing.StepTelemetry("serve_suffix")
+        self._decode_tel = tracing.StepTelemetry("serve_decode")
         budget = cache_mod.prefix_cache_budget(prefix_cache_bytes)
         self.prefix_cache = (cache_mod.PrefixCache(budget, self.buckets)
                              if budget > 0 else None)
@@ -151,6 +162,26 @@ class GenerationEngine:
     def _run(self, key, body):
         """Dispatch the program `key`, built from `body` on first use."""
         self._programs(key, body)
+
+    def _dispatch(self, tel, signature, key, body):
+        """`_run` under `tel`'s span (caller holds `_DISPATCH_LOCK`). A
+        program built by this call is banked in memprof; an OOM leaves its
+        post-mortem (host-side reads and files only) before it unwinds."""
+        built = key in self._programs.builds
+        try:
+            with tel.step(signature):
+                self._run(key, body)
+        except Exception as e:
+            if memprof.is_oom(e):
+                memprof.on_oom(tel.engine, e)
+            raise
+        if not built and key in self._programs.builds:
+            analysis = memprof.analysis_from_arrays(self._held)
+            if self.device.type == "cuda":
+                pool = self._programs.pool_bytes()
+                analysis.update(source="cuda_graph", temp_bytes=pool,
+                                total_bytes=analysis["total_bytes"] + pool)
+            memprof.bank_executable(tel.engine, analysis)
 
     def _insert_kv(self, kvs, offset=0, prefix=None):
         """Copy fresh float K/V (per layer [1, nh, T', hd], quantized first
@@ -274,7 +305,8 @@ class GenerationEngine:
         PREFILL_BUCKET_HITS.labels(str(b)).inc()
         with _DISPATCH_LOCK, torch.no_grad():
             self._feed(b, prompt, n, slot)
-            self._run(("prefill", b), lambda: self._prefill_fn(b))
+            self._dispatch(self._prefill_tel, ("prefill", b),
+                           ("prefill", b), lambda: self._prefill_fn(b))
             tok = int(self._last[slot, 0])
             if self.prefix_cache is not None:
                 self._store_prefix(prompt, n, slot)
@@ -293,7 +325,8 @@ class GenerationEngine:
             for buf, a in zip(self._prefix[p], entry):
                 buf.copy_(a)
             self._feed(sb, prompt[p:], n, slot)
-            self._run(("suffix", p, sb), lambda: self._suffix_fn(p, sb))
+            self._dispatch(self._suffix_tel, ("suffix", p, sb),
+                           ("suffix", p, sb), lambda: self._suffix_fn(p, sb))
             return int(self._last[slot, 0])
 
     def _store_prefix(self, prompt, n: int, slot: int) -> None:
@@ -314,7 +347,8 @@ class GenerationEngine:
     def decode(self) -> np.ndarray:
         """One decode step for the whole batch; next token per slot."""
         with _DISPATCH_LOCK, torch.no_grad():
-            self._run(("decode",), self._decode_fn)
+            self._dispatch(self._decode_tel, "decode", ("decode",),
+                           self._decode_fn)
             tok = self._last.cpu()
         return tok.numpy().reshape(-1)
 

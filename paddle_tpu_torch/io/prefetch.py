@@ -14,7 +14,8 @@ feeder passes the batches through in order.
 
 Every `next()` that returns a batch observes the milliseconds the
 consumer waited into `pt_feed_stall_ms` (0 included, so the mean is the
-stall per batch), as the reference does.
+stall per batch; `observability.tracing` owns the histogram), as the
+reference does.
 
 Errors in the feeder, including the source's, are raised in the consumer;
 `close()` stops and joins the feeder, then closes the source.
@@ -28,16 +29,12 @@ from typing import Iterator
 
 import torch
 
-from ..observability import metrics
+from ..observability import tracing
+from ..observability.tracing import FEED_STALL
 
 __all__ = ["DevicePrefetcher", "prefetch_to_device", "FEED_STALL"]
 
 _STOP_POLL_S = 0.05
-
-FEED_STALL = metrics.histogram(
-    "pt_feed_stall_ms",
-    "Per-batch milliseconds the consumer waited on the input feed; mean "
-    "~0 when prefetch keeps the device fed")
 
 
 def _tensors(obj):
@@ -117,7 +114,7 @@ class DevicePrefetcher:
         t0 = time.perf_counter()
         kind, payload = self._q.get()
         if kind == "item":
-            FEED_STALL.observe((time.perf_counter() - t0) * 1e3)
+            tracing.record_feed_stall((time.perf_counter() - t0) * 1e3)
             batch, event = payload
             if event is not None:
                 stream = torch.cuda.current_stream(self._device)

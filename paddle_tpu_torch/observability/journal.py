@@ -9,9 +9,10 @@ with a shared envelope
 
 Module-level `emit()` routes through the process-wide active journal
 (installed with `set_journal`) and is a cheap no-op when none is
-installed, so deep callers emit unconditionally. The reference also
-mirrors each record into its flight recorder; the port has no flight
-recorder yet, so that tap is left out. Pure stdlib.
+installed, so deep callers emit unconditionally. Every record, with or
+without a journal file, is also mirrored into the flight recorder's ring
+(observability/flight.py), so a crash bundle carries the recent event
+history. Pure stdlib.
 """
 from __future__ import annotations
 
@@ -26,6 +27,23 @@ from typing import Optional
 __all__ = ["RunJournal", "set_journal", "get_journal", "emit"]
 
 logger = logging.getLogger("paddle_tpu_torch.journal")
+
+_flight = None  # unresolved → module or False after first tap
+
+
+def _flight_tap(rec: dict) -> None:
+    """Mirror a journal record into the flight recorder's ring. Lazy and
+    resolved once (a standalone load without the package resolves to
+    False and skips for good)."""
+    global _flight
+    if _flight is None:
+        try:
+            from . import flight as _mod
+            _flight = _mod
+        except Exception:
+            _flight = False
+    if _flight:
+        _flight.record_raw(rec)
 
 
 def _default_rank() -> int:
@@ -71,6 +89,10 @@ class RunJournal:
                "rank": self.rank, "host": self.host, "pid": os.getpid(),
                "event": event}
         rec.update(fields)
+        try:
+            _flight_tap(rec)
+        except Exception:
+            pass
         try:
             line = json.dumps(rec, default=str) + "\n"
         except (TypeError, ValueError) as e:
@@ -137,5 +159,12 @@ def emit(event: str, **fields) -> bool:
     if logger.isEnabledFor(logging.DEBUG):
         logger.debug("%s %s", event, fields)
     if j is None:
+        # no journal file, but the flight ring still wants the event
+        try:
+            rec = {"ts": round(time.time(), 6), "event": event}
+            rec.update(fields)
+            _flight_tap(rec)
+        except Exception:
+            pass
         return False
     return j.emit(event, **fields)

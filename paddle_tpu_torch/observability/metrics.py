@@ -1,17 +1,26 @@
 """Thread-safe metrics registry: Counter / Gauge / Histogram with labels.
 
-The port's own copy of the parts of paddle_tpu/observability/metrics.py
-the serving path calls (same metric names, same series semantics), so it
-records into one in-process registry without importing the reference
-package. The reference's exporters (Prometheus text, JSON snapshots) come
-with the port's server. Pure stdlib.
+The port's own copy of paddle_tpu/observability/metrics.py (same metric
+names, same series semantics, the same exposition text), so it records
+into one in-process registry without importing the reference package.
+Two exporters:
+
+  * Prometheus text exposition (`to_prometheus`), which the live plane's
+    /metrics serves (observability/httpd.py);
+  * JSON / JSONL snapshots (`snapshot` / `to_jsonl` / `write_json`), which
+    a crash bundle keeps as its metrics.json (observability/flight.py).
+
+Pure stdlib.
 """
 from __future__ import annotations
 
 import bisect
+import json
+import math
 import os
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
@@ -42,6 +51,19 @@ def _default_max_series() -> int:
             "PADDLE_TPU_METRICS_MAX_SERIES", "") or 1000))
     except ValueError:
         return 1000
+
+
+def _escape(v: str) -> str:
+    return (str(v).replace("\\", r"\\").replace("\n", r"\n")
+            .replace('"', r'\"'))
+
+
+def _fmt(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    return repr(float(v))
 
 
 class _Metric:
@@ -236,6 +258,17 @@ class _HistogramChild:
     def mean(self) -> Optional[float]:
         return self.sum / self.count if self.count else None
 
+    def cumulative(self) -> List[Tuple[float, int]]:
+        """[(le, cumulative_count), ...] ending with (+Inf, total)."""
+        out = []
+        acc = 0
+        with self._lock:
+            counts = list(self.counts)
+        for le, c in zip(tuple(self.edges) + (math.inf,), counts):
+            acc += c
+            out.append((le, acc))
+        return out
+
 
 class Histogram(_Metric):
     kind = "histogram"
@@ -302,6 +335,87 @@ class MetricsRegistry:
                   buckets=None) -> Histogram:
         return self._get_or_create(Histogram, name, help, labelnames,
                                    buckets=buckets)
+
+    def get(self, name) -> Optional[_Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
+    def unregister(self, name):
+        with self._lock:
+            self._metrics.pop(name, None)
+
+    def reset(self):
+        """Drop every metric (tests / bench isolation)."""
+        with self._lock:
+            self._metrics.clear()
+
+    def _sorted(self):
+        with self._lock:
+            return sorted(self._metrics.items())
+
+    # -- exporters -----------------------------------------------------------
+    def snapshot(self) -> dict:
+        """JSON-serializable dump of every series."""
+        out = {}
+        for name, m in self._sorted():
+            series = []
+            for lbls, child in m._series():
+                if m.kind == "histogram":
+                    # +Inf serialized as a string so the dump is STRICT
+                    # JSON (json.dumps would emit the nonstandard Infinity)
+                    series.append({"labels": lbls, "sum": child.sum,
+                                   "count": child.count,
+                                   "buckets": [
+                                       [("+Inf" if le == math.inf else le),
+                                        c]
+                                       for le, c in child.cumulative()]})
+                else:
+                    series.append({"labels": lbls, "value": child.value})
+            out[name] = {"type": m.kind, "help": m.help,
+                         "labelnames": list(m.labelnames), "series": series}
+        return out
+
+    def to_jsonl(self) -> str:
+        """One JSON line per series (grep-able snapshot flavor)."""
+        lines = []
+        for name, meta in self.snapshot().items():
+            for s in meta["series"]:
+                lines.append(json.dumps({"name": name,
+                                         "type": meta["type"], **s}))
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        out = []
+
+        def lblstr(lbls, extra=()):
+            items = [(k, v) for k, v in lbls.items()] + list(extra)
+            if not items:
+                return ""
+            return ("{" + ",".join(f'{k}="{_escape(v)}"' for k, v in items)
+                    + "}")
+
+        for name, m in self._sorted():
+            if m.help:
+                out.append(f"# HELP {name} {_escape(m.help)}")
+            out.append(f"# TYPE {name} {m.kind}")
+            for lbls, child in m._series():
+                if m.kind == "histogram":
+                    for le, c in child.cumulative():
+                        out.append(f"{name}_bucket"
+                                   f"{lblstr(lbls, [('le', _fmt(le))])} {c}")
+                    out.append(f"{name}_sum{lblstr(lbls)} "
+                               f"{_fmt(child.sum)}")
+                    out.append(f"{name}_count{lblstr(lbls)} {child.count}")
+                else:
+                    out.append(f"{name}{lblstr(lbls)} {_fmt(child.value)}")
+        return "\n".join(out) + ("\n" if out else "")
+
+    def write_json(self, path: str):
+        with open(path, "w") as f:
+            json.dump({"ts": time.time(), "metrics": self.snapshot()}, f,
+                      indent=1, default=lambda o: str(o))
+        return path
 
 
 #: process-wide default registry — every subsystem records here

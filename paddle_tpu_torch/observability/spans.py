@@ -18,9 +18,8 @@ journal is active, emits a ``span`` journal event
 ``PADDLE_TPU_TRACE_ID`` so one multi-process run correlates; standalone
 processes mint their own.
 
-With telemetry off (``PADDLE_TPU_TELEMETRY=0`` or ``enable(False)``, a
-local switch here; the reference keeps it in its tracing module) every
-entry point is a no-op. Pure stdlib.
+With telemetry off (``PADDLE_TPU_TELEMETRY=0`` or
+``tracing.enable(False)``) every entry point is a no-op.
 """
 from __future__ import annotations
 
@@ -30,23 +29,9 @@ import time
 import uuid
 from typing import Optional
 
-from . import journal, metrics
+from . import journal, metrics, tracing
 
-__all__ = ["begin", "end", "record", "trace_id", "Span", "SPAN_MS",
-           "enable", "enabled"]
-
-_enabled = os.environ.get("PADDLE_TPU_TELEMETRY", "1") != "0"
-
-
-def enabled() -> bool:
-    return _enabled
-
-
-def enable(on: bool = True):
-    """Flip span recording globally."""
-    global _enabled
-    _enabled = bool(on)
-
+__all__ = ["begin", "end", "record", "trace_id", "Span", "SPAN_MS"]
 
 # millisecond scale: 10us .. ~84s upper edges
 SPAN_MS = metrics.histogram(
@@ -100,7 +85,7 @@ def begin(name: str, parent: Optional[str] = None, **attrs
     """Start a cross-thread span; pair with ``end(handle)`` anywhere.
     Returns None when tracing is disabled (end(None) is a no-op), so call
     sites need no enabled() check of their own."""
-    if not _enabled:
+    if not tracing.enabled():
         return None
     return Span(name, parent, attrs)
 
@@ -119,6 +104,6 @@ def end(handle: Optional[Span], **attrs) -> None:
 def record(name: str, dur_ms: float, parent: Optional[str] = None,
            **attrs) -> None:
     """Bank a caller-measured interval as a span (no clock reads here)."""
-    if not _enabled:
+    if not tracing.enabled():
         return
     _emit(name, float(dur_ms), parent, attrs)

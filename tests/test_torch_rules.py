@@ -55,7 +55,10 @@ def test_package_imports_with_jax_blocked():
         "models,\n"
         "                              nn, ops, optimizer)\n"
         "from paddle_tpu_torch.inference import serving\n"
-        "from paddle_tpu_torch.observability import journal, metrics, spans\n"
+        "from paddle_tpu_torch.observability import (flight, httpd, journal,"
+        " memprof, metrics, spans, tracing)\n"
+        "from paddle_tpu_torch.resilience import health\n"
+        "from paddle_tpu_torch.inference.serving import InferenceServer\n"
         "import torch\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
         "print('ok')\n")
@@ -87,6 +90,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GenerationEngine(model, max_batch=1, max_seq_len=32,
                          prefill_buckets=(8,))
+    from paddle_tpu_torch.inference.serving import InferenceServer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceServer(model, max_batch=1, max_seq_len=32,
+                        prefill_buckets=(8,))
     from paddle_tpu_torch.io import DataLoader
     from paddle_tpu_torch.jit import make_train_step
     from paddle_tpu_torch.optimizer import Adam, AdamW
