@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build: every kernel source in paddle_tpu_torch/ops/csrc, one nvcc
      each, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
-     serving shapes and at the edge cases (ragged T, idle slot, block
+     serving shapes, the flash forward also at the training main path's
+     (B=16, T=512, 12 heads, bfloat16, causal, as make_eval_step gives
+     it), and at the edge cases (ragged T, idle slot, block
      edge, the paged kernel's chunk edges for each cache, T-1, full clamp,
      every slot full, NaN tail, a 16384-row cache), and the fused
      dropout-residual(+LN) kernels at float32, bfloat16 and mixed input
@@ -20,9 +22,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      from a Philox word on the card (seed, base) and a delta, held to the
      plain versions at (seed, base + delta); AdamW reads lr, c1 and c2
      from a scalar buffer on the card, also over t = 1..5 with the lr
-     changed; F.dropout's keep-mask kernel against its plain version;
-     the backward's mask equal to the forward's; and each gate raising
-     on inputs its kernel does not take;
+     changed; with the scalar buffer's guard word at 0 the kernel and the
+     plain rule leave the parameter and both moments bit-equal to their
+     inputs (float32 and bfloat16); F.dropout's keep-mask kernel against
+     its plain version; the backward's mask equal to the forward's; each
+     gate raising on inputs its kernel does not take, and the flash gate
+     handing an additive mask and dropout p=1 to the plain attention;
   4. each kernel's device time (CUDA events, median of 25 runs of 10
      back-to-back launches queued behind a sleep kernel) beside its bound,
      its plain version's time and one library call's time;
@@ -71,7 +76,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      dk/dv: B=16, H=12, T=512, D=64, bfloat16, causal, p=0.1; AdamW over
      every gpt2-small parameter), each beside its bound, its plain
      version's time and one library call's time (AdamW's 148 launches
-     replayed from one CUDA graph, and enqueued one by one); the flash
+     replayed from one CUDA graph, beside PERF.md's time before the
+     guard word, and enqueued one by one); the flash
      forward and backward also at p=0 (their Philox share) and at ERNIE's
      attention (B=32, T=128, not causal, p=0.1); the keep-mask kernel at
      a hidden dropout's shape;
@@ -110,8 +116,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
      dropouts 0.1), B=32, T=128, AdamW(lr=1e-4, weight_decay=0.01),
      make_train_step with the MLM + NSP criterion, under
      amp.auto_cast(level="O2"), FLAGS_use_fused_dropout_ln on, eager
-     bodies, captured step and graph against eager as in 10;
- 15. path A's kernels vs plain: float32, no dropout, 3 steps, as in 11.
+     bodies, captured step and graph against eager as in 10; then one
+     forward in eval mode with a [B, T] padding mask (half of one row
+     padded) and use_flash_attention on: every layer takes the plain
+     attention (xla_sdpa), no flash kernel launches, and the output is
+     bit-equal to the same call with the flag off;
+ 15. path A's kernels vs plain: float32, no dropout, 3 steps, as in 11;
+ 16. guards and eval on the training main path (phase 10's model,
+     optimizer and loader, built again): (1) captured steps made with
+     FLAGS_skip_nonfinite_steps off and on, 3 + 10 steps each (launches
+     a step equal to phase 10's), then 20 pairs of steps and 20 pairs of
+     the graph's replays alone (CUDA events), one of each way a pair, the
+     order flipped every pair: step times and the pairs' differences
+     beside phase 10's step, the card's clock and temperature before and
+     after, one profiled step each way (the guard's kernels, and the
+     device's idle time, off and on);
+     (2) the NaN drill,
+     PADDLE_TPU_CHAOS=nan_at_step:3 over 5 steps from a saved state
+     through the captured graph: the loss NaN at step 3 only, that step
+     alone skipped, parameters and both moments after it bit-equal to
+     their values after step 2, AdamW launched 148 times every step, and
+     steps 4-5 bit-equal to the same drill through the eager bodies; (3)
+     the watchdog, step_watchdog_s=0.5 with hang_at_step:2:1.5 (warn):
+     the dump names compiled train step 2 and the step finishes finite;
+     (4) the OOM drill, oom:2: the call raises, a crash bundle with
+     memory.json names jit_train and step 2, pt_oom_total rises by 1,
+     and the next call replays with no build; (5) make_eval_step with
+     the criterion in eval mode, B=16, T=512: one program, 10 timed
+     replays (ms, tokens/s), the loss bit-equal to its eager body, the
+     loss and logits held to the eager body with use_flash_attention off
+     (the plain attention: 12 xla_sdpa, no flash launch), 12
+     flash forward launches a call through replays, no backward or AdamW
+     launch, the parameters untouched; (6) the jit_train and jit_eval
+     retraces equal the programs built, pt_train_steps_total the steps
+     run, and the flight recorder's last dispatch the last step.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -121,6 +159,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -182,6 +221,9 @@ ADAMW_MOMENT_REL_TOL = 2 ** -23
 # the bfloat16 cases at lr 1e-2 on parameters of size ~1e-2 must move at
 # least this share of the elements, or the bit-equality shows nothing
 ADAMW_MOVED_MIN = 0.9
+# row 7's time in PERF.md before the guard word (148 launches replayed from
+# one graph, on an H100 80GB HBM3 at 700 W), printed beside the re-time
+ADAMW_EARLIER_MS = 1.3959
 # train_compare: max parameter difference after 3 float32 steps at lr
 # 1e-4, between a sound reading (~1e-5: float32 sums in another order,
 # amplified by Adam's normalised step) and the whole 3-step movement
@@ -350,9 +392,13 @@ def check_flash(torch, ck, gen):
         (1, 100, 100, 4, 64, False),
         (1, 64, 64, 2, 128, True),           # widest head the kernel takes
         (1, 33, 33, 2, 24, True)]            # head_dim not a multiple of 32
+    # the training main path's attention, which make_eval_step's forward
+    # (phase 16) sends through this wrapper: gpt2-small in bfloat16
+    train_case = (TRAIN_B, TRAIN_T, TRAIN_T, 12, 64, True)
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
-        for B, Tq, Tk, H, D, causal in cases:
+        for B, Tq, Tk, H, D, causal in cases + (
+                [train_case] if dtype_name == "bfloat16" else []):
             q, _, _ = qkv_views(torch, B, Tq, H, D, dtype, gen)
             _, k, v = qkv_views(torch, B, Tk, H, D, dtype, gen)
             got = ck.flash_attention(q, k, v, causal)
@@ -368,8 +414,10 @@ def check_flash(torch, ck, gen):
                                                  TOL[dtype_name]))
             worst[dtype_name] = max(worst[dtype_name], err)
     for name, err in worst.items():
-        say("check flash_fwd %s: max abs err %.3g (tol %.0e) over %d cases"
-            % (name, err, TOL[name], len(cases)))
+        say("check flash_fwd %s: max abs err %.3g (tol %.0e) over %d cases%s"
+            % (name, err, TOL[name], len(cases) + (name == "bfloat16"),
+               ", one at B=%d T=%d H=12 D=64 causal" % (TRAIN_B, TRAIN_T)
+               if name == "bfloat16" else ""))
     return worst["float32"]
 
 
@@ -478,7 +526,7 @@ def step_scalars(torch, ck, lr, t):
     """A scalar buffer on the card holding the step's (lr, c1, c2), as the
     optimizer stages it."""
     from paddle_tpu_torch.framework.device import write_values
-    sc = torch.empty(3, device="cuda")
+    sc = torch.empty(4, device="cuda")
     write_values(sc, ck.adam_step_scalars(lr, t, 0.9, 0.999))
     return sc
 
@@ -551,7 +599,7 @@ def check_adamw(torch, ck, gen):
         p = (torch.randn(numel, generator=gen, device="cuda") * 1e-2).to(dtype)
         ka, sa, pa = ([p.clone(), torch.zeros(numel, device="cuda"),
                        torch.zeros(numel, device="cuda")] for _ in range(3))
-        sc = torch.empty(3, device="cuda")
+        sc = torch.empty(4, device="cuda")
         for t in range(1, 6):
             lr = 1e-2 if t <= 2 else 3e-3
             g = (torch.randn(numel, generator=gen, device="cuda")
@@ -578,6 +626,26 @@ def check_adamw(torch, ck, gen):
         "the scalar buffer, float32 and bfloat16: kernel parameters and the "
         "plain rule on the buffer bit-equal to the plain rule with host lr "
         "and t")
+    for dtype in (torch.float32, torch.bfloat16):
+        numel = 2304 * 768
+        p = (torch.randn(numel, generator=gen, device="cuda") * 1e-2).to(dtype)
+        g = (torch.randn(numel, generator=gen, device="cuda") * 1e-2).to(dtype)
+        m1 = torch.randn(numel, generator=gen, device="cuda") * 1e-3
+        m2 = torch.rand(numel, generator=gen, device="cuda") * 1e-5
+        sc = step_scalars(torch, ck, 1e-2, 3)
+        sc[3].zero_()                   # the guard skipped this step
+        for fn in (ck.adamw, ck.adamw_plain_scalars):
+            args = [x.clone() for x in (p, g, m1, m2)]
+            fn(*args, sc, **kw)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in
+                        zip(args, (p, g, m1, m2))),
+                    "%s %s with the guard word at 0 changed its state"
+                    % (fn.__name__, dtype))
+    say("check adamw guard word: at 0 the kernel and the plain rule leave "
+        "the parameter and both moments bit-equal to their inputs (float32 "
+        "and bfloat16, %d elements); at 1 (every case above) the kernel is "
+        "bit-equal to the plain rule" % (2304 * 768))
     return worst_p
 
 
@@ -679,23 +747,27 @@ def check_paged(torch, ck, quantized, gen):
 
 def check_gates(torch, ck, gen):
     """On the card a gate gives way to the plain version only when its
-    flag is off: an input its kernel does not take raises."""
+    flag is off, or, for the flash gate, where the reference's gate does
+    for what the call computes (an additive mask, dropout p=1): an input
+    its kernel does not take raises."""
     q, k, v = qkv_views(torch, 1, 32, 2, 64, torch.float32, gen)
-    bad = [("additive mask", lambda: ck.flash_attention_or_none(
-                q, k, v, torch.zeros(32, 32, device="cuda"), True)),
-           ("float16", lambda: ck.flash_attention_or_none(
+    routed = [("additive mask", lambda: ck.flash_attention_or_none(
+                  q, k, v, torch.zeros(32, 32, device="cuda"), True)),
+              ("dropout p=1", lambda: ck.flash_attention_or_none(
+                  q, k, v, None, True, dropout_p=1.0))]
+    bad = [("float16", lambda: ck.flash_attention_or_none(
                 q.half(), k.half(), v.half(), None, True)),
            ("D=160", lambda: ck.flash_attention_or_none(
                 *qkv_views(torch, 1, 8, 1, 160, torch.float32, gen), None,
                 True))]
-    bad.append(("dropout p=1", lambda: ck.flash_attention_or_none(
-        q, k, v, None, True, dropout_p=1.0)))
+    bad.append(("dropout p=-0.1", lambda: ck.flash_attention_or_none(
+        q, k, v, None, True, dropout_p=-0.1)))
     qh = q.detach().half()
     bad.append(("float16 backward", lambda: ck.flash_bwd_dq(
         qh, qh, qh, qh, qh, torch.zeros(64, device="cuda"), True)))
     w = torch.zeros(16, device="cuda", dtype=torch.float16)
     m = torch.zeros(16, device="cuda")
-    sc = torch.zeros(3, device="cuda")
+    sc = torch.zeros(4, device="cuda")
     bad.append(("float16 adamw", lambda: ck.fused_adamw_or_none(
         w, w, sc, m, m, beta1=0.9, beta2=0.999, epsilon=1e-8,
         coeff=0.0)))
@@ -711,9 +783,12 @@ def check_gates(torch, ck, gen):
             continue
         raise SystemExit("chip_smoke FAILED: a gate took %s on the card "
                          "without raising" % what)
+    for what, call in routed:
+        require(call() is None, "the flash gate took %s on the card" % what)
     require(ck.launch_counts() == before, "a rejected input launched")
-    say("check gates: %d inputs the kernels do not take raise on the card"
-        % len(bad))
+    say("check gates: %d inputs the kernels do not take raise on the card; "
+        "%s go to the plain attention, launching nothing"
+        % (len(bad), " and ".join(w for w, _ in routed)))
 
 
 # ---------------------------------------------------------------------------
@@ -871,7 +946,7 @@ def train_timings(torch, ck, F, timer, gen):
     return out
 
 
-def time_adamw(torch, ck, timer, gen, shapes):
+def time_adamw(torch, ck, timer, gen, shapes, card):
     """One AdamW step over tensors shaped like every gpt2-small parameter,
     bfloat16 parameters and gradients, float32 moments, as the O2 main
     path runs it: one launch per parameter, lr and the bias corrections
@@ -917,6 +992,9 @@ def time_adamw(torch, ck, timer, gen, shapes):
         "%.4f ms, bound %.4f ms (%s)" % (len(shapes), n, out["ms"], eager_ms,
                                          out["plain_ms"], out["library_ms"],
                                          b, by))
+    say("time adamw with the guard word: %.4f ms/step replayed, %.2f of its "
+        "bound; PERF.md's time before the word %.4f ms (another run) (%s)"
+        % (out["ms"], b / out["ms"], ADAMW_EARLIER_MS, card))
     return out
 
 
@@ -1006,15 +1084,19 @@ def report_profile(label, dev_ms, step_ms, top):
         say("  %9.1f us/step  %5d launches  %s" % (t_us, count, key[:90]))
 
 
-def eager_train_step(TrainStep):
-    class EagerTrainStep(TrainStep):
-        """The train step's body run eagerly on every call: no program is
-        built, captured or replayed (the step as it ran before it was
-        captured, and the reference the programs are held to)."""
+def eager_train_step(Step):
+    class EagerStep(Step):
+        """The step's body run eagerly on every call: no program is built,
+        captured or replayed (the step as it ran before it was captured,
+        and the reference the programs are held to). Its telemetry counts
+        under an engine of its own, so that the jit_train and jit_eval
+        retraces count program builds."""
+
+        engine = "eager_bodies"
 
         def _run(self, key, body):
             return body()
-    return EagerTrainStep
+    return EagerStep
 
 
 def timed_steps(torch, step, batch, warmup, timed):
@@ -1783,6 +1865,7 @@ def ernie_main(torch, ck, flags, card):
         free_memory(torch)
         graph_against_eager_train(torch, ck, "ernie", net, opt, loss_fn,
                                   [batch, batch], ctx, DROPOUT)
+        ernie_masked(torch, ck, flags, net, batch[0][0], ctx)
         del net, opt
         free_memory(torch)
         net, opt = build(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
@@ -1793,6 +1876,49 @@ def ernie_main(torch, ck, flags, card):
     finally:
         flags.set_flags(saved)
     return launches
+
+
+def ernie_masked(torch, ck, flags, net, ids, ctx):
+    """One ERNIE forward in eval mode with a [B, T] padding mask (half of
+    row 1 padded) and use_flash_attention on: every layer takes the plain
+    attention (path xla_sdpa), as the reference's gate hands a masked call
+    to its composed attention; no flash kernel launches; the output is
+    bit-equal to the same call with the flag off."""
+    B, T = ids.shape
+    pad = torch.ones((B, T), dtype=torch.int64, device="cuda")
+    pad[1, T // 2:] = 0
+    L = len(net.bert.layers)
+    outs = {}
+    net.eval()
+    try:
+        for on in (True, False):
+            flags.set_flags({"use_flash_attention": on})
+            launches0 = ck.launch_counts()
+            paths0 = ck.attention_path_counts()
+            with torch.no_grad(), ctx():
+                seq, _ = net.bert(ids, attention_mask=pad)
+            torch.cuda.synchronize()
+            paths = {k: v - paths0[k]
+                     for k, v in ck.attention_path_counts().items()}
+            outs[on] = (seq, ck.launch_delta(launches0), paths)
+    finally:
+        flags.set_flags({"use_flash_attention": True})
+        net.train()
+    seq, launches, paths = outs[True]
+    require(paths["xla_sdpa"] == L and paths["flash"] == 0
+            and paths["flash_dropout"] == 0,
+            "ernie masked forward: attention paths %s, want %d xla_sdpa"
+            % (paths, L))
+    require(not any(n for k, n in launches.items() if k.startswith("flash")),
+            "ernie masked forward launched a flash kernel: %s" % launches)
+    require(torch.equal(seq, outs[False][0]),
+            "ernie masked forward: flag on and off differ")
+    require(bool(torch.isfinite(seq).all()), "ernie masked forward: "
+            "non-finite output")
+    say("ernie masked forward: [B=%d, T=%d] padding mask (row 1 half "
+        "padded), use_flash_attention on: %d xla_sdpa, no flash launch, "
+        "output %s %s bit-equal to the flag off"
+        % (B, T, paths["xla_sdpa"], tuple(seq.shape), seq.dtype))
 
 
 def ernie_compare(torch, ck, flags):
@@ -1823,6 +1949,476 @@ def ernie_compare(torch, ck, flags):
                  ("flash_fwd_train", "flash_bwd_dkv", "adamw",
                   "fused_dropout_ln_fwd", "fused_dropout_ln_bwd"),
                  noise_floor=ADAM_NOISE_FLOOR)
+# ---------------------------------------------------------------------------
+# guards and eval on the training main path (phase 16)
+
+GUARD_WATCHDOG_S, GUARD_HANG_S = 0.5, 1.5
+EVAL_STEPS = 10
+# make_eval_step's bfloat16 logits against the same forward through the
+# plain attention: each of the 12 layers rounds its attention output to
+# bfloat16 from float32 sums in another order (REL_TOL["bfloat16"] for one
+# call), and the residual stream carries every layer's difference on to
+# the logits, so the whole forward is held to four times one call's
+# tolerance, relative to the largest logit
+EVAL_LOGITS_REL_TOL = 4 * REL_TOL["bfloat16"]
+
+
+def check_all_finite(torch, all_finite):
+    """The guard's test on the card: no NaN, no inf, with float32 and
+    bfloat16 gradients, alone or in one of 150 tensors (several launches
+    of the multi-tensor pass); 3e38 (finite, where a norm or a sum
+    overflows) is no false skip."""
+    big = torch.full((4096,), 3e38, device="cuda")
+    one = torch.ones((), device="cuda")
+    require(bool(all_finite(one, [big, big.bfloat16()])),
+            "all_finite: 3e38 read as non-finite")
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.randn(768 * 768, device="cuda").to(dtype)
+            g[12345] = bad
+            require(not bool(all_finite(one, [big, g])),
+                    "all_finite missed %r in %s" % (bad, dtype))
+            many = [torch.randn(65536 + i, device="cuda").to(dtype)
+                    for i in range(150)]
+            require(bool(all_finite(one, many)),
+                    "all_finite: finite %s tensors read as non-finite"
+                    % dtype)
+            many[97][40000] = bad
+            require(not bool(all_finite(one, many)),
+                    "all_finite missed %r in tensor 97 of 150 %s"
+                    % (bad, dtype))
+        require(not bool(all_finite(torch.tensor(bad, device="cuda"),
+                                    [big])),
+                "all_finite missed a %r loss" % bad)
+
+
+def gpu_state():
+    """The card's SM clock, its maximum, temperature and power draw, as
+    nvidia-smi reads them now."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+         "temperature.gpu,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return (smi.stdout.strip().splitlines() or ["not read"])[0] \
+        if smi.returncode == 0 else "not read"
+
+
+def replay_ms(torch, programs, n):
+    """Device ms of each of n replays of `programs`' one graph (CUDA
+    events around the replay alone), with no host work between them."""
+    (graph,) = programs._graphs.values()
+    out = []
+    for _ in range(n):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
+def guard_profile(torch, steps, batch):
+    """One profiled step made with the guard off and one with it on:
+    ({on: (kernel ms, kernels launched)}, the guard-on step's kernels
+    that the guard-off step does not run, as (us, count, name) rows)."""
+    out, rows = {}, {}
+    for on in (False, True):
+        dev_ms, rows[on] = profile_step(torch, steps[on], batch)
+        out[on] = (dev_ms, sum(n for _, _, n in rows[on]))
+    known = {key for _, key, _ in rows[False]}
+    return out, [(t, n, key) for t, key, n in rows[True] if key not in known]
+
+
+def guards_main(torch, ck, flags, card, off_ms, off_launches):
+    """Phase 16 (see the module's note): the non-finite guard, its NaN
+    drill, the watchdog and OOM drills through the captured GPT-2 step,
+    and make_eval_step, on phase 10's configuration built again."""
+    import glob
+    from paddle_tpu_torch import amp, io, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import (EvalStep, TrainStep, make_eval_step,
+                                      make_train_step)
+    from paddle_tpu_torch.jit.engine import all_finite
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
+    from paddle_tpu_torch.observability import flight, metrics, tracing
+    from paddle_tpu_torch.resilience import chaos, watchdog
+
+    check_all_finite(torch, all_finite)
+    names = ["skip_nonfinite_steps", "step_watchdog_s",
+             "step_watchdog_action"]
+    saved = flags.get_flags(names)
+    crit = GPTPretrainingCriterion()
+    loss_fn = lambda o, l: crit(o, l)  # noqa: E731
+    prandom.seed(0)
+    model = gpt2_small(seed=0)
+    model.train()
+    opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                          parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    L = len(model.gpt.layers)
+    n_tensors = len(list(model.parameters()))
+    loader = io.DataLoader(token_stream(io, model.gpt.vocab_size, TRAIN_T),
+                           batch_size=TRAIN_B, prefetch_to_device=2)
+    it = iter(loader)
+
+    def batch():
+        ids = next(it)
+        return [ids[:, :-1]], [ids[:, 1:]]
+    params = list(model.parameters())
+
+    def snapshot():
+        moments = [a for p in params
+                   for a in opt._get_accumulators(p).values()]
+        return ([p.detach().clone() for p in params],
+                [m.clone() for m in moments])
+
+    def restore(state, rng):
+        with torch.no_grad():
+            moments = [a for p in params
+                       for a in opt._get_accumulators(p).values()]
+            for t, v in zip(params + moments, state[0] + state[1]):
+                t.copy_(v)
+        opt._step_count = 0
+        prandom.set_rng_state(rng)
+
+    same = lambda a, b: all(torch.equal(x, y)  # noqa: E731
+                            for x, y in zip(a[0] + a[1], b[0] + b[1]))
+    counters0 = (tracing.RETRACES.labels("jit_train").value,
+                 tracing.RETRACES.labels("jit_eval").value,
+                 tracing.TRAIN_STEPS.value)
+    ran = 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_guards_")
+    try:
+        # (1) the guard's cost: steps made with the guard off and on, each
+        # first run as phase 10's (3 warm-up + 10 timed; its launches
+        # checked against phase 10's), then in pairs, one step of each
+        # with the order flipped every pair, so that a card or a host that
+        # drifts during the phase moves both alike
+        steps = {}
+        for on in (False, True):
+            flags.set_flags({"skip_nonfinite_steps": on})
+            steps[on] = make_train_step(model, loss_fn, opt)
+        n = TRAIN_WARMUP + TRAIN_STEPS
+        for on in (False, True):
+            before = ck.launch_counts()
+            losses, _, _ = timed_steps(torch, steps[on], batch, TRAIN_WARMUP,
+                                       TRAIN_STEPS)
+            launches = ck.launch_delta(before)
+            ran += n
+            require(all(math.isfinite(x) for x in losses),
+                    "guards (1): losses %s" % losses)
+            require(launches == off_launches,
+                    "guards (1) guard %s: launches %s, phase 10's %s"
+                    % (on, launches, off_launches))
+        state0 = gpu_state()
+        times = {False: [], True: []}
+        for i in range(2 * TRAIN_STEPS):
+            for on in (False, True) if i % 2 == 0 else (True, False):
+                times[on] += timed_steps(torch, steps[on], batch, 0, 1)[1]
+                ran += 1
+        # the replays alone, in the same pairs: the step's device time with
+        # the gaps between its kernels, and none of the host's work
+        rep = {False: [], True: []}
+        for i in range(2 * TRAIN_STEPS):
+            for on in (False, True) if i % 2 == 0 else (True, False):
+                rep[on] += replay_ms(torch, steps[on].programs, 1)
+        state1 = gpu_state()
+        require(steps[True].skipped_steps == 0,
+                "guards (1): %d steps skipped" % steps[True].skipped_steps)
+        step_g = steps[True]
+        off_t, on_t = (statistics.median(times[k]) for k in (False, True))
+        off_r, on_r = (statistics.median(rep[k]) for k in (False, True))
+        pair_t = statistics.median(b - a for a, b in zip(times[False],
+                                                        times[True]))
+        pair_r = statistics.median(b - a for a, b in zip(rep[False],
+                                                        rep[True]))
+        prof, added = guard_profile(torch, steps, batch)
+        ran += 2
+        progs = step_g.programs
+        (key,) = progs.builds
+        say("guards (1) captured step, skip_nonfinite_steps off / on, %d "
+            "pairs of steps: %.2f / %.2f ms median, the pairs' difference "
+            "%+.3f ms median (%+.2f %%); phase 10's guard off %.2f ms; the "
+            "graph's replay alone (CUDA events, %d pairs) %.3f / %.3f ms "
+            "median, difference %+.3f ms median; port kernel launches a "
+            "step %s, as phase 10's, both ways; captured in %.1f ms, graph "
+            "pool %.1f MiB; card (SM clock, max SM clock, temperature, "
+            "power draw) before the pairs %s, after %s (%s)"
+            % (2 * TRAIN_STEPS, off_t, on_t, pair_t, 100.0 * pair_t / off_t,
+               off_ms, 2 * TRAIN_STEPS, off_r, on_r, pair_r,
+               {k: v // n for k, v in launches.items() if v},
+               progs.capture_s[key] * 1e3, progs.pool_bytes() / 2 ** 20,
+               state0, state1, card))
+        if prof[False][0] > 0 and prof[True][0] > 0:
+            (off_dev, off_n), (on_dev, on_n) = prof[False], prof[True]
+            say("guards (1) one profiled step each way (torch.profiler): "
+                "kernels %.3f / %.3f ms (%+.3f ms; the kernels only the "
+                "guard-on step runs %.3f ms), %d / %d kernels launched "
+                "(%+d); device idle against the median steps %.3f / %.3f "
+                "ms (%+.3f ms) (%s)"
+                % (off_dev, on_dev, on_dev - off_dev,
+                   sum(t for t, _, _ in added) / 1e3, off_n, on_n,
+                   on_n - off_n, off_t - off_dev, on_t - on_dev,
+                   (on_t - on_dev) - (off_t - off_dev), card))
+            for t_us, cnt, name in sorted(added, reverse=True):
+                say("  guard kernel %9.1f us/step %4d launches  %s"
+                    % (t_us, cnt, name[:90]))
+        else:
+            say("guards (1) step profiles: not measured (the profiler saw "
+                "no device activity)")
+        train_built = steps[False].compiles
+        del steps
+        free_memory(torch)
+
+        # (2) the NaN drill, captured and through the eager bodies
+        state0, rng0 = snapshot(), prandom.get_rng_state()
+        fixed = [batch() for _ in range(5)]
+        it.close()
+        chaos.configure("nan_at_step:3")
+
+        def drill(step):
+            out = {"loss": [], "skipped": [], "adamw": [], "state": []}
+            for b in fixed:
+                mark = ck.launch_counts()
+                loss, _ = step(*b)
+                torch.cuda.synchronize()
+                out["adamw"].append(ck.launch_delta(mark)["adamw"])
+                out["loss"].append(loss)
+                out["skipped"].append(step.last_step_skipped)
+                out["state"].append(snapshot())
+            return out
+        restore(state0, rng0)
+        step_n = make_train_step(model, loss_fn, opt)
+        require(step_n.guard and step_n.nan_step == 3,
+                "guards (2): the step did not read the drill")
+        g = drill(step_n)
+        restore(state0, rng0)
+        e = drill(eager_train_step(TrainStep)(model, loss_fn, opt))
+        chaos.reset()
+        ran += 10
+        nan = [math.isnan(float(x)) for x in g["loss"]]
+        require(nan == [False, False, True, False, False],
+                "guards (2): NaN losses at %s" % nan)
+        require(g["skipped"] == e["skipped"] == nan
+                and step_n.skipped_steps == 1,
+                "guards (2): skipped %s (eager %s), skipped_steps %d"
+                % (g["skipped"], e["skipped"], step_n.skipped_steps))
+        require(same(g["state"][2], g["state"][1]),
+                "guards (2): the skipped step changed parameters or moments")
+        require(not same(g["state"][3], g["state"][2]),
+                "guards (2): step 4 did not move the model")
+        require(g["adamw"] == [n_tensors] * 5,
+                "guards (2): AdamW launches a step %s" % g["adamw"])
+        same_loss = lambda a, b: (torch.equal(a, b)  # noqa: E731
+                                  or bool(a.isnan() and b.isnan()))
+        require(all(same_loss(a, b) for a, b in zip(g["loss"], e["loss"]))
+                and all(same(a, b) for a, b in zip(g["state"], e["state"])),
+                "guards (2): the captured drill differs from the eager "
+                "bodies'")
+        say("guards (2) NaN drill (nan_at_step:3, 5 steps through the "
+            "captured graph): losses %s, skipped %s, skipped_steps %d; "
+            "parameters and moments after step 3 bit-equal to after step 2; "
+            "AdamW launches a step %s; every step's loss, parameters and "
+            "moments bit-equal to the eager bodies' drill"
+            % (["%.4f" % float(x) for x in g["loss"]], g["skipped"],
+               step_n.skipped_steps, g["adamw"]))
+        del step_n, g, e
+        free_memory(torch)
+
+        # (3) the watchdog
+        restore(state0, rng0)
+        dump = os.path.join(tmp, "watchdog.txt")
+        os.environ[watchdog.ENV_FILE] = dump
+        flags.set_flags({"step_watchdog_s": GUARD_WATCHDOG_S,
+                         "step_watchdog_action": "warn"})
+        chaos.configure("hang_at_step:2:%g" % GUARD_HANG_S)
+        try:
+            wd = [step_g(*fixed[i]) for i in range(2)]
+        finally:
+            chaos.reset()
+            flags.set_flags({"step_watchdog_s": 0.0})
+            os.environ.pop(watchdog.ENV_FILE, None)
+        ran += 2
+        text = open(dump).read() if os.path.exists(dump) else ""
+        require("'compiled train step 2' exceeded" in text,
+                "guards (3): no watchdog dump names compiled train step 2")
+        require(all(math.isfinite(float(x[0])) for x in wd),
+                "guards (3): losses %s" % [float(x[0]) for x in wd])
+        say("guards (3) watchdog: step_watchdog_s=%g, hang_at_step:2:%g, "
+            "warn: %s dumps %d bytes naming compiled train step 2; losses "
+            "%s" % (GUARD_WATCHDOG_S, GUARD_HANG_S, os.path.basename(dump),
+                    len(text), ["%.4f" % float(x[0]) for x in wd]))
+
+        # (4) the OOM drill
+        restore(state0, rng0)
+        flight_dir = os.path.join(tmp, "flight")
+        os.environ[flight.ENV_DIR] = flight_dir
+        flight.reset()
+        oom = metrics.REGISTRY.get("pt_oom_total")
+        oom0 = oom.value if oom is not None else 0
+        chaos.configure("oom:2")
+        try:
+            step_g(*fixed[0])
+            try:
+                step_g(*fixed[1])
+                raised = None
+            except RuntimeError as err:    # the drill's expected failure
+                raised = str(err)
+            built = (step_g.compiles, step_g.replays)
+            after, _ = step_g(*fixed[2])
+        finally:
+            chaos.reset()
+        ran += 2
+        require(raised is not None and "RESOURCE_EXHAUSTED" in raised,
+                "guards (4): the oom:2 call raised %r" % raised)
+        require((step_g.compiles, step_g.replays) == (built[0], built[1] + 1)
+                and math.isfinite(float(after)),
+                "guards (4): the call after the OOM built %d programs"
+                % (step_g.compiles - built[0]))
+        bundles = glob.glob(os.path.join(flight_dir, "crash", "*"))
+        require(len(bundles) == 1 and os.path.exists(
+            os.path.join(bundles[0], "memory.json")),
+            "guards (4): bundles %s" % bundles)
+        with open(os.path.join(bundles[0], "memory.json")) as f:
+            mem = json.load(f)
+        n_oom = metrics.REGISTRY.get("pt_oom_total").value - oom0
+        require(mem["engine"] == "jit_train" and mem["step"] == 2
+                and n_oom == 1 and mem.get("buffers"),
+                "guards (4): memory.json engine %s step %s, pt_oom_total "
+                "+%d" % (mem["engine"], mem["step"], n_oom))
+        say("guards (4) OOM drill (oom:2): the call raised RESOURCE_EXHAUSTED"
+            ", bundle %s with memory.json (engine %s, step %d, %d live "
+            "blocks, %.1f MiB; jit_train banked %.1f MiB held + %.1f MiB "
+            "pool), pt_oom_total +%d; the next call replayed with no build"
+            % (os.path.basename(bundles[0]), mem["engine"], mem["step"],
+               mem["buffers"]["n_arrays"],
+               mem["buffers"]["total_bytes"] / 2 ** 20,
+               mem["executables"]["jit_train"]["args_bytes"] / 2 ** 20,
+               mem["executables"]["jit_train"]["temp_bytes"] / 2 ** 20,
+               n_oom))
+        last = dict(flight._last_dispatch or {})
+        require(last.get("engine") == "jit_train"
+                and last.get("step") == opt._step_count,
+                "guards (6): the flight recorder's last dispatch %s, last "
+                "step %d" % (last, opt._step_count))
+        flight.reset()
+        os.environ.pop(flight.ENV_DIR, None)
+        train_built += step_g.compiles + 1         # step_n's one program
+        del step_g
+        free_memory(torch)
+
+        # (5) make_eval_step
+        model.eval()
+        ev = make_eval_step(model, loss_fn)
+        x, y = fixed[0]
+        w0 = [p.detach().clone() for p in params]
+        mark = ck.launch_counts()
+        t0 = time.perf_counter()
+        ev(x, y)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        times = []
+        for _ in range(EVAL_STEPS):
+            t0 = time.perf_counter()
+            loss, (logits,) = ev(x, y)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = ck.launch_delta(mark)
+        progs = ev.programs
+        (key,) = progs.builds
+        replayed = {k: progs.replays[key] * v
+                    for k, v in progs.launches[key].items()}
+        eager_loss, _ = eager_train_step(EvalStep)(model, loss_fn)(x, y)
+        # the same forward through the plain attention (the flag off):
+        # holds the flash forward's 12 calls a replay to their plain
+        # version, through the whole model
+        flags.set_flags({"use_flash_attention": False})
+        try:
+            paths0 = ck.attention_path_counts()
+            mark_plain = ck.launch_counts()
+            plain_loss, (plain_logits,) = eager_train_step(EvalStep)(
+                model, loss_fn)(x, y)
+            torch.cuda.synchronize()
+            plain_paths = {k: v - paths0[k]
+                           for k, v in ck.attention_path_counts().items()}
+            plain_launches = ck.launch_delta(mark_plain)
+        finally:
+            flags.set_flags({"use_flash_attention": True})
+        model.train()
+        loss_err = abs(float(loss) - float(plain_loss)) / abs(
+            float(plain_loss))
+        _, logits_err = abs_rel_err(logits, plain_logits)
+        del plain_logits
+        require(ev.compiles == 1 and ev.replays == EVAL_STEPS,
+                "guards (5): %d programs, %d replays" % (ev.compiles,
+                                                         ev.replays))
+        require(progs.launches[key]["flash_fwd"] == L
+                and replayed["flash_fwd"] == EVAL_STEPS * L,
+                "guards (5): flash forward launches %s, through replays %s"
+                % (progs.launches[key], replayed))
+        require(not any(launches[k] for k in ("flash_fwd_train",
+                                              "flash_bwd_dq",
+                                              "flash_bwd_dkv", "adamw")),
+                "guards (5): the eval step launched %s" % launches)
+        require(torch.equal(loss, eager_loss)
+                and math.isfinite(float(loss)),
+                "guards (5): loss %r, eager body %r" % (float(loss),
+                                                        float(eager_loss)))
+        require(plain_paths["xla_sdpa"] == L and plain_paths["flash"] == 0
+                and not any(n for k, n in plain_launches.items()
+                            if k.startswith("flash")),
+                "guards (5): the flag-off forward took paths %s, launched %s"
+                % (plain_paths, plain_launches))
+        require(loss_err <= REL_TOL["bfloat16"]
+                and logits_err <= EVAL_LOGITS_REL_TOL,
+                "guards (5): against the plain attention, loss %.4g vs %.4g "
+                "(relative %.3g > %.0e) or logits relative %.3g > %.0e"
+                % (float(loss), float(plain_loss), loss_err,
+                   REL_TOL["bfloat16"], logits_err, EVAL_LOGITS_REL_TOL))
+        require(all(torch.equal(a, b) for a, b in zip(params, w0)),
+                "guards (5): the eval step changed a parameter")
+        eval_ms = statistics.median(times)
+        say("guards (5) make_eval_step gpt2-small B=%d T=%d O2 bf16, eval "
+            "mode, with the criterion: built in %.1f s, %.2f ms median over "
+            "%d replays (%.2f mean), %.0f tokens/s; loss %.4f bit-equal to "
+            "the eager body; against the plain attention (flag off, %d "
+            "xla_sdpa): loss %.4f (relative %.3g, tol %.0e), logits max "
+            "abs err %.3g of the largest (tol %.0e); logits %s %s; "
+            "launches %s (through replays %s); parameters unchanged (%s)"
+            % (TRAIN_B, TRAIN_T, build_s, eval_ms, EVAL_STEPS,
+               statistics.mean(times), TRAIN_B * TRAIN_T / (eval_ms / 1e3),
+               float(loss), plain_paths["xla_sdpa"], float(plain_loss),
+               loss_err, REL_TOL["bfloat16"], logits_err,
+               EVAL_LOGITS_REL_TOL, tuple(logits.shape), logits.dtype,
+               {k: v for k, v in launches.items() if v},
+               {k: v for k, v in replayed.items() if v}, card))
+        eval_built = ev.compiles
+        del ev
+
+        # (6) telemetry
+        got = (tracing.RETRACES.labels("jit_train").value - counters0[0],
+               tracing.RETRACES.labels("jit_eval").value - counters0[1],
+               tracing.TRAIN_STEPS.value - counters0[2])
+        require(got == (train_built, eval_built, ran),
+                "guards (6): retraces jit_train %d, jit_eval %d, train steps "
+                "%d; want %d, %d, %d" % (got + (train_built, eval_built,
+                                                ran)))
+        say("guards (6) telemetry: jit_train retraces %d = programs built, "
+            "jit_eval %d = programs built, pt_train_steps_total +%d = steps "
+            "run; the flight recorder's last dispatch named the last step"
+            % got)
+    finally:
+        chaos.reset()
+        flags.set_flags(saved)
+        os.environ.pop(watchdog.ENV_FILE, None)
+        os.environ.pop(flight.ENV_DIR, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, opt
+    free_memory(torch)
+    return on_t, eval_ms
+
+
 # ---------------------------------------------------------------------------
 # serving
 
@@ -2597,7 +3193,7 @@ def main():
     # 9-11. training: kernel times, the main path, kernels vs plain
     times.update(train_timings(torch, ck, F, timer, gen))
     tlaunches, shapes, off_ms = train_main(torch, ck, flags, card)
-    times["adamw"] = time_adamw(torch, ck, timer, gen, shapes)
+    times["adamw"] = time_adamw(torch, ck, timer, gen, shapes, card)
     times["dropout_keep"] = time_dropout_keep(torch, ck, timer,
                                               (TRAIN_B, TRAIN_T, 768))
     train_compare(torch, ck, flags)
@@ -2617,6 +3213,10 @@ def main():
     # 14-15. path A: ERNIE-base pretraining, then kernels vs plain
     alaunches = ernie_main(torch, ck, flags, card)
     ernie_compare(torch, ck, flags)
+
+    # 16. guards and eval on the training main path
+    free_memory(torch)
+    guards_main(torch, ck, flags, card, off_ms, tlaunches)
 
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]

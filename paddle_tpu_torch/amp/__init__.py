@@ -5,7 +5,8 @@
 `decorate` (O2) casts every floating parameter and buffer of the models to
 the compute dtype, layer norms included, as the reference's
 Layer.to(dtype) does; the optimizers' moments stay float32 and no master
-weights are kept, as in the reference.
+weights are kept, as in the reference. At O0 and O1 it returns the models
+(and optimizers) as they are.
 
 `auto_cast` is the reference's per-op input casting, by the reference's op
 names, not torch.autocast (whose lists and output rules differ): inside
@@ -112,12 +113,11 @@ def amp_cast_inputs(op_name, tensors):
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None):
     """Cast the models' floating parameters and buffers to `dtype` in place
-    (level O2; O0 leaves them as they are). Returns the models, or
-    (models, optimizers) when optimizers are given, as the reference
-    does."""
-    if level not in ("O0", "O2"):
-        raise NotImplementedError("amp level %r is not ported: O1 needs "
-                                  "auto_cast (see ROADMAP.md)" % (level,))
+    at level O2; O0 and O1 leave them as they are (at O1 the casting is
+    auto_cast's, per op). Returns the models, or (models, optimizers) when
+    optimizers are given, as the reference does."""
+    if level not in ("O0", "O1", "O2"):
+        raise ValueError("level must be O0/O1/O2, got %s" % (level,))
     if dtype not in _DTYPES:
         raise ValueError("amp dtype %r: the port's kernels take bfloat16 "
                          "or float32" % (dtype,))

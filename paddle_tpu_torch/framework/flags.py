@@ -92,3 +92,18 @@ define_flag("fused_block", False,
             "GPTDecoderLayer: the attention epilogue and ln_2 as one fused "
             "kernel pass with two outputs (the residual stream z and "
             "ln_2(z)); False takes the layer's unfused route")
+define_flag("skip_nonfinite_steps", False,
+            "a train step whose loss or gradients are non-finite keeps the "
+            "old parameters and optimizer state (the update is skipped). "
+            "The choice is made on the device inside the captured step (no "
+            "host round-trip before the update); read when the step is "
+            "made, as the reference reads it at trace time")
+define_flag("step_watchdog_s", 0.0,
+            "when > 0, wrap each train-step replay and the synchronize "
+            "after it in a resilience.StepWatchdog that dumps all-thread "
+            "stacks after this many seconds instead of hanging silently. "
+            "0 disables")
+define_flag("step_watchdog_action", "warn",
+            "watchdog behavior on fire: 'warn' (dump diagnostics, keep "
+            "waiting) or 'abort' (dump then os._exit(124) so a supervisor "
+            "restarts the process)")

@@ -176,12 +176,8 @@ class GenerationEngine:
                 memprof.on_oom(tel.engine, e)
             raise
         if not built and key in self._programs.builds:
-            analysis = memprof.analysis_from_arrays(self._held)
-            if self.device.type == "cuda":
-                pool = self._programs.pool_bytes()
-                analysis.update(source="cuda_graph", temp_bytes=pool,
-                                total_bytes=analysis["total_bytes"] + pool)
-            memprof.bank_executable(tel.engine, analysis)
+            memprof.bank_executable(tel.engine,
+                                    self._programs.memory_analysis())
 
     def _insert_kv(self, kvs, offset=0, prefix=None):
         """Copy fresh float K/V (per layer [1, nh, T', hd], quantized first

@@ -51,6 +51,7 @@ from typing import Any, Callable, Dict, Hashable, Iterable
 import torch
 
 from ..framework import flags
+from ..observability import memprof
 from ..ops import cuda_kernels as ck
 
 __all__ = ["StepPrograms"]
@@ -152,6 +153,17 @@ class StepPrograms:
     def runs(self, key) -> int:
         """Times the key's program ran: its build and its replays."""
         return self.builds.get(key, 0) + self.replays.get(key, 0)
+
+    def memory_analysis(self) -> dict:
+        """memprof's analysis of these programs: the held tensors as
+        argument bytes and, on CUDA, the graphs' pool as temp bytes
+        (source "cuda_graph"; "avals" on the CPU)."""
+        analysis = memprof.analysis_from_arrays(list(self._held()))
+        if self._cuda:
+            pool = self.pool_bytes()
+            analysis.update(source="cuda_graph", temp_bytes=pool,
+                            total_bytes=analysis["total_bytes"] + pool)
+        return analysis
 
     def pool_bytes(self):
         """Bytes of device memory in the graphs' pool (the allocator's

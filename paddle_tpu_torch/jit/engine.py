@@ -1,5 +1,6 @@
-"""The training step (counterpart of paddle_tpu/jit/engine.py
-make_train_step, minus buffer donation, the mesh and ZeRO).
+"""The training and evaluation steps (counterpart of
+paddle_tpu/jit/engine.py make_train_step and make_eval_step, minus buffer
+donation, the mesh and ZeRO).
 
 The reference compiles forward, loss, backward and the optimizer update
 into one XLA executable per input signature (`jax.jit(step_fn,
@@ -10,21 +11,36 @@ replays it (`jit/cuda_graph.StepPrograms`, as the serving steps are), and
 updates the parameters and moments in place. The per-call state reaches
 the kernels through device memory, written by the host before each
 replay: the RNG's Philox word (framework/random.py: each dropout draw of
-the step reads (seed, base + i) for its index i in the step) and the
-optimizer's scalar buffer (lr and the bias corrections). On the CPU the
-same bodies run eagerly under the same counters.
+the step reads (seed, base + i) for its index i in the step), the
+optimizer's scalar buffer (lr, the bias corrections and the guard's word)
+and, for the chaos drill's `nan_at_step`, the step count t. On the CPU
+the same bodies run eagerly under the same counters.
+
+Each dispatch is wired as the reference's: `flight.note_dispatch`, a
+`StepTelemetry` span ("jit_train" / "jit_eval"; a retrace is a program
+build), the memory bank of the first build (its held tensors, and on
+CUDA the graphs' pool as temp bytes), `memprof.on_oom` before an OOM
+unwinds, `tracing.TRAIN_STEPS`, and, for the train step, the
+`StepWatchdog` of FLAGS_step_watchdog_s around the replay and a
+synchronize, with the chaos hooks `hang_at_step` and `oom` inside it.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Sequence
 
 import torch
 
-from ..framework.device import resolve_device
+from ..framework.device import resolve_device, write_values
+from ..framework.flags import flag
 from ..framework.random import RNG
+from ..observability import flight, memprof, tracing
+from ..resilience import chaos
+from ..resilience.watchdog import StepWatchdog
 from .cuda_graph import StepPrograms
 
-__all__ = ["make_train_step", "TrainStep"]
+__all__ = ["make_train_step", "TrainStep", "make_eval_step", "EvalStep",
+           "all_finite"]
 
 
 def _signature(tensors):
@@ -33,33 +49,49 @@ def _signature(tensors):
     return tuple((tuple(t.shape), str(t.dtype)) for t in tensors)
 
 
-class TrainStep:
-    """call(inputs, labels) -> (loss, outputs); see `make_train_step`.
+def all_finite(loss, grads):
+    """0-d bool on the device: the loss and every gradient hold no NaN and
+    no inf. Exact: a NaN or an inf shows in a tensor's largest magnitude
+    (its inf-norm, a max that propagates NaN), and no sum is taken that a
+    large finite gradient could overflow. One multi-tensor pass a gradient
+    dtype (`torch._foreach_norm` at ord inf), which reads the gradients
+    and writes nothing: a few launches for all of them, not one a
+    tensor."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    ok = torch.isfinite(loss.detach()).reshape(())
+    for group in by_dtype.values():
+        peaks = torch._foreach_norm(group, float("inf"))
+        ok = ok & torch.isfinite(torch.stack(peaks)).all()
+    return ok
 
-    Counters: `compiles` (programs built, one per input signature) and
-    `replays` (calls that ran a built program). `programs` is the
-    `StepPrograms` (capture time, launches and the graph pool by key)."""
 
-    def __init__(self, network, loss_fn, optimizer, device="cuda"):
+class _ProgramStep:
+    """What the train and eval steps share: the static buffers of each
+    input signature, the `StepPrograms` that build and replay one program
+    a signature, and the dispatch's telemetry, memory bank and OOM
+    post-mortem. Counters: `compiles` (programs built) and `replays`
+    (calls that ran a built program); `telemetry` is the StepTelemetry of
+    `engine`."""
+
+    engine = ""
+
+    def __init__(self, network, device):
         self.device = resolve_device(device)
-        self.network, self.loss_fn, self.optimizer = (network, loss_fn,
-                                                      optimizer)
-        self.params = [p for p in network.parameters() if p.requires_grad]
-        for p in self.params:
+        self.network = network
+        for p in network.parameters():
             if p.device.type != self.device.type:
-                raise ValueError("parameter on %s, train step on %s"
+                raise ValueError("parameter on %s, step on %s"
                                  % (p.device, self.device))
         self.programs = StepPrograms(self.device, self._held)
+        self.telemetry = tracing.StepTelemetry(self.engine)
         self._static: Dict[tuple, List[torch.Tensor]] = {}
         self._draws: Dict[tuple, int] = {}
+        self._banked = False
 
     def _held(self):
-        """The parameters, their moments (made here at the first call,
-        before any build), the Philox word and the scalar buffer."""
-        accs = [a for p in self.params
-                for a in self.optimizer._get_accumulators(p).values()]
-        return self.params + accs + [RNG.word(self.device),
-                                     self.optimizer._scalars]
+        raise NotImplementedError
 
     @property
     def compiles(self) -> int:
@@ -69,33 +101,9 @@ class TrainStep:
     def replays(self) -> int:
         return sum(self.programs.replays.values())
 
-    def _body(self, key, n_inputs):
-        """One step on the key's static buffers: forward, loss, backward,
-        the updates at the staged scalars; every gradient dropped."""
-        RNG.rewind_step()
-        static = self._static[key]
-        outputs = self.network(*static[:n_inputs])
-        outs = list(outputs) if isinstance(outputs, (list, tuple)) \
-            else [outputs]
-        loss = self.loss_fn(*outs, *static[n_inputs:])
-        loss.backward()
-        self.optimizer.apply_updates(
-            [(p, p.grad if p.grad is not None else torch.zeros_like(p))
-             for p in self.params])
-        for p in self.params:
-            p.grad = None
-        self._draws[key] = RNG.step_draws()
-        return loss.detach(), [o.detach() for o in outs]
-
-    def _run(self, key, body):
-        """Run the key's program: built at the first call, then replayed.
-        A subclass may run `body()` eagerly instead (to hold the programs
-        to their bodies)."""
-        return self.programs(key, body, self._static[key])
-
-    def __call__(self, inputs: Sequence[torch.Tensor],
-                 labels: Sequence[torch.Tensor]):
-        batch = list(inputs) + list(labels)
+    def _stage(self, batch):
+        """Copy the batch into its signature's static buffers (made at the
+        signature's first call), on the compute stream; returns the key."""
         key = _signature(batch)
         static = self._static.get(key)
         if static is None:
@@ -104,17 +112,149 @@ class TrainStep:
                 for t in batch]
         for s, t in zip(static, batch):
             s.copy_(t, non_blocking=True)
+        return key
+
+    def _run(self, key, body):
+        """Run the key's program: built at the first call, then replayed.
+        A subclass may run `body()` eagerly instead (to hold the programs
+        to their bodies)."""
+        return self.programs(key, body, self._static[key])
+
+    def _dispatch(self, key, run, step=None):
+        """`run()` inside one RNG step and the telemetry span of `key` (a
+        miss is the key's program build). An OOM leaves its post-mortem
+        (host-side reads and files only) before it unwinds; a failed
+        dispatch leaves the RNG where it was, as the reference keeps its
+        key. The first program built banks its memory analysis."""
         RNG.begin_step(self.device)
-        self.optimizer.stage_step()
         try:
-            loss, outs = self._run(key, lambda: self._body(key, len(inputs)))
-        finally:
-            RNG.end_step(self._draws.get(key, 0))
-        if self.device.type == "cuda":
-            # a replay rewrites the graph's outputs: the caller's copies
-            # outlive the next step, as the reference's arrays do
-            loss, outs = loss.clone(), [o.clone() for o in outs]
-        return loss, outs
+            with self.telemetry.step(key):
+                out = run()
+        except Exception as e:
+            RNG.end_step(0)
+            if memprof.is_oom(e):
+                memprof.on_oom(self.engine, e, step=step)
+            raise
+        RNG.end_step(self._draws.get(key, 0))
+        if not self._banked and self.programs.builds:
+            self._banked = True
+            memprof.bank_executable(self.engine,
+                                    self.programs.memory_analysis())
+        return out
+
+    def _outlive(self, loss, outs):
+        """On CUDA a replay rewrites the graph's outputs: the caller gets
+        copies that outlive the next call, as the reference's arrays do."""
+        if self.device.type != "cuda":
+            return loss, outs
+        return (loss.clone() if loss is not None else None,
+                [o.clone() for o in outs])
+
+
+class TrainStep(_ProgramStep):
+    """call(inputs, labels) -> (loss, outputs); see `make_train_step`.
+
+    Besides `compiles`, `replays`, `programs` and `telemetry`:
+    `guard` (FLAGS_skip_nonfinite_steps when the step was made),
+    `last_step_skipped` and `skipped_steps` (the guard's skips, kept on
+    the device and read when asked)."""
+
+    engine = "jit_train"
+
+    def __init__(self, network, loss_fn, optimizer, device="cuda"):
+        super().__init__(network, device)
+        self.loss_fn, self.optimizer = loss_fn, optimizer
+        self.params = [p for p in network.parameters() if p.requires_grad]
+        # read once, when the step is made, as the reference reads them at
+        # trace time: a step made with both off captures no extra work
+        self.guard = bool(flag("skip_nonfinite_steps"))
+        self.nan_step = chaos.nan_at_step()
+        self._t = (torch.zeros((), dtype=torch.int64, device=self.device)
+                   if self.nan_step is not None else None)
+        # the guard's answers, written by the program: the last step
+        # skipped, and the skips so far
+        self._skip = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._skips = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    @property
+    def last_step_skipped(self) -> bool:
+        """The guard skipped the last step that ran (waits for it)."""
+        return self.guard and bool(self._skip)
+
+    @property
+    def skipped_steps(self) -> int:
+        """Steps the guard skipped (waits for the last one)."""
+        return int(self._skips) if self.guard else 0
+
+    def _held(self):
+        """The parameters, their moments (made here at the first call,
+        before any build), the Philox word, the scalar buffer, the guard's
+        answers and, for the NaN drill, the step count t."""
+        accs = [a for p in self.params
+                for a in self.optimizer._get_accumulators(p).values()]
+        return (self.params + accs
+                + [RNG.word(self.device), self.optimizer._scalars,
+                   self._skip, self._skips]
+                + ([self._t] if self._t is not None else []))
+
+    def _body(self, key, n_inputs):
+        """One step on the key's static buffers: forward, loss, backward,
+        the guard's test, the updates at the staged scalars; every gradient
+        dropped."""
+        RNG.rewind_step()
+        static = self._static[key]
+        outputs = self.network(*static[:n_inputs])
+        outs = list(outputs) if isinstance(outputs, (list, tuple)) \
+            else [outputs]
+        loss = self.loss_fn(*outs, *static[n_inputs:])
+        if self.nan_step is not None:
+            # multiplying (not replacing) poisons the gradients too, as a
+            # real divergence propagates backward
+            loss = loss * torch.where(self._t == self.nan_step,
+                                      float("nan"), 1.0)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        if self.guard:
+            ok = all_finite(loss, grads)
+            self.optimizer.gate_update(ok)
+            torch.logical_not(ok, out=self._skip)
+            self._skips.add_(self._skip)
+        self.optimizer.apply_updates(list(zip(self.params, grads)))
+        for p in self.params:
+            p.grad = None
+        self._draws[key] = RNG.step_draws()
+        return loss.detach(), [o.detach() for o in outs]
+
+    def _watched_run(self, key, body, step):
+        """The chaos hooks, then the program; under the watchdog (with a
+        synchronize, so that a hang on the device falls inside its scope)
+        when FLAGS_step_watchdog_s > 0."""
+        wd_s = float(flag("step_watchdog_s") or 0.0)
+        with (StepWatchdog(wd_s, context="compiled train step %d" % step,
+                           action=str(flag("step_watchdog_action")))
+              if wd_s > 0 else contextlib.nullcontext()):
+            chaos.hang_before_dispatch(step)
+            chaos.oom_at_dispatch(step)
+            out = self._run(key, body)
+            if wd_s > 0 and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return out
+
+    def __call__(self, inputs: Sequence[torch.Tensor],
+                 labels: Sequence[torch.Tensor]):
+        key = self._stage(list(inputs) + list(labels))
+        self.optimizer.stage_step()
+        step = self.optimizer._step_count
+        if self._t is not None:
+            write_values(self._t, [step])
+        flight.note_dispatch(self.engine, step)
+        body = lambda: self._body(key, len(inputs))  # noqa: E731
+        loss, outs = self._dispatch(
+            key, lambda: self._watched_run(key, body, step), step)
+        if tracing.enabled():
+            tracing.TRAIN_STEPS.inc()
+        return self._outlive(loss, outs)
 
 
 def make_train_step(network, loss_fn, optimizer, device="cuda"):
@@ -128,13 +268,24 @@ def make_train_step(network, loss_fn, optimizer, device="cuda"):
     updates the parameters and moments IN PLACE under torch.no_grad()
     (weight decay regularizer first, as the reference's step does), and
     drops every gradient. The step count and the lr are taken per call,
-    as the reference takes them (engine.py:286-290). A parameter the loss
-    does not reach gets a zero gradient, as in the reference's functional
+    as the reference takes them (engine.py:286-290): the count advances
+    on every call, a skipped or failed one too. A parameter the loss does
+    not reach gets a zero gradient, as in the reference's functional
     grad. On CUDA the program is a CUDA graph captured at the signature's
     first call and replayed after (no eager fallback: a capture or replay
     that fails raises); the returned loss and outputs are copies that
     outlive the next call. Rebinding a parameter (not copying into it)
     makes the next call raise.
+
+    With FLAGS_skip_nonfinite_steps on when the step is made, the program
+    also tests the loss and every gradient for NaN and inf (`all_finite`)
+    and gates the update on the answer (`optimizer.gate_update`), so that
+    a non-finite step leaves the parameters and moments as they were, on
+    the device, with no copy of them; the program also keeps the answer
+    on the device, which `last_step_skipped` and `skipped_steps` read
+    when asked, so that the call itself never waits for the device.
+    PADDLE_TPU_CHAOS's `nan_at_step:K` (also read when the step is made)
+    multiplies the loss by NaN at optimizer step K, on the device.
 
     The DataLoader's device feed allocates each batch on its own copy
     stream, makes the compute stream wait for it and marks it used by the
@@ -145,3 +296,49 @@ def make_train_step(network, loss_fn, optimizer, device="cuda"):
     The network's parameters must lie on `device` (default "cuda", which
     raises without CUDA)."""
     return TrainStep(network, loss_fn, optimizer, device)
+
+
+class EvalStep(_ProgramStep):
+    """call(inputs, labels=()) -> (loss or None, outputs); see
+    `make_eval_step`."""
+
+    engine = "jit_eval"
+
+    def __init__(self, network, loss_fn=None, device="cuda"):
+        super().__init__(network, device)
+        self.loss_fn = loss_fn
+
+    def _held(self):
+        return (list(self.network.parameters())
+                + list(self.network.buffers()) + [RNG.word(self.device)])
+
+    def _body(self, key, n_inputs):
+        RNG.rewind_step()
+        static = self._static[key]
+        with torch.no_grad():
+            outputs = self.network(*static[:n_inputs])
+            outs = list(outputs) if isinstance(outputs, (list, tuple)) \
+                else [outputs]
+            loss = (self.loss_fn(*outs, *static[n_inputs:])
+                    if self.loss_fn is not None else None)
+        self._draws[key] = RNG.step_draws()
+        return loss, outs
+
+    def __call__(self, inputs: Sequence[torch.Tensor],
+                 labels: Sequence[torch.Tensor] = ()):
+        key = self._stage(list(inputs) + list(labels))
+        body = lambda: self._body(key, len(inputs))  # noqa: E731
+        loss, outs = self._dispatch(key, lambda: self._run(key, body))
+        return self._outlive(loss, outs)
+
+
+def make_eval_step(network, loss_fn=None, device="cuda"):
+    """Returns an `EvalStep`: call(inputs, labels=()) -> (loss or None,
+    outputs), the network's forward and `loss_fn(*outputs, *labels)` when
+    a loss is given, under torch.no_grad(), as one program per input
+    signature (on CUDA a CUDA graph captured at the signature's first call,
+    then replayed). The parameters are not touched. The RNG advances by
+    the draws of the network's mode, as the reference's eval step advances
+    its key: none in eval mode. The returned loss and outputs outlive the
+    next call. The network's parameters must lie on `device`."""
+    return EvalStep(network, loss_fn, device)

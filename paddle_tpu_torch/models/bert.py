@@ -9,8 +9,8 @@ the word-embedding table itself (one parameter, two uses): the embeddings
 are registered before the heads, so `named_parameters` lists it once,
 under `bert.embeddings.word_embeddings.weight`, as the reference does.
 
-An `attention_mask` needs FLAGS_use_flash_attention off: the flash gate
-raises on an additive mask (see nn/transformer.py).
+With an `attention_mask` the attention takes the plain route (path
+xla_sdpa), as the reference's does (see nn/transformer.py).
 """
 from __future__ import annotations
 

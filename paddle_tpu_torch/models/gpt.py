@@ -232,8 +232,9 @@ class GPTModel(nn.Module):
 
 
 def _lm_logits(hidden, word_embedding_weight):
-    """Tied LM head: logits = h @ W_e^T."""
-    return torch.matmul(hidden, word_embedding_weight.t())
+    """Tied LM head: logits = h @ W_e^T, the op matmul_v2 (white-listed
+    under amp.auto_cast), as the reference's `m.matmul`."""
+    return F.matmul(hidden, word_embedding_weight, transpose_y=True)
 
 
 class GPTForPretraining(nn.Module):

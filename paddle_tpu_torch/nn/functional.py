@@ -128,11 +128,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     Gate order of the reference (nn/functional/__init__.py
     scaled_dot_product_attention): attention dropout counts only in
     training; the flash kernels (`FlashAttentionFunction`, dropout drawn in
-    the kernel) while the flag `use_flash_attention` is on, their gate
-    raising on an additive mask or a shape the kernels do not take; else
-    the dense plain version `flash_attention_plain` (path xla_sdpa), which
-    also takes an additive mask and drops the probabilities with a mask
-    from `_keep`, as the reference's XLA path does. The
+    the kernel) while the flag `use_flash_attention` is on and the call
+    has no additive mask and p < 1, their gate raising on a shape or dtype
+    the kernels do not take; else the dense plain version
+    `flash_attention_plain` (path xla_sdpa), which adds the mask and drops
+    the probabilities with a mask from `_keep` (all of them at p >= 1), as
+    the reference's XLA path does. The
     reference's blockwise tier for keys >= 2048 is not ported: no shape of
     the ported paths reaches it (max_position_embeddings is 1024)."""
     p = float(dropout_p) if training else 0.0

@@ -3,12 +3,11 @@
 `TransformerEncoderLayer`, `TransformerEncoder`).
 
 Attention runs through F.scaled_dot_product_attention: the flash kernels
-while `use_flash_attention` is on, which take no additive mask (their gate
-raises on one), else the plain attention, which adds it. So a padding
-mask (BertModel's `attention_mask`) needs `use_flash_attention` off; a
-masked flash kernel is later work (ROADMAP.md). Mask semantics follow the
-reference: bool/int masks keep True/nonzero positions, float masks are
-added to the scores.
+while `use_flash_attention` is on and no mask is given; a call with an
+additive mask takes the plain attention, which adds it (path xla_sdpa),
+as the reference's masked attention is composed XLA ops outside its flash
+kernel. Mask semantics follow the reference: bool/int masks keep
+True/nonzero positions, float masks are added to the scores.
 
 Not ported yet: MultiHeadAttention's caches (`Cache`, `StaticCache`,
 `gen_cache`) and `need_weights`, and the decoder classes.

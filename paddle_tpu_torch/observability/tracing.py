@@ -34,7 +34,7 @@ from typing import Optional
 from . import flight, journal, metrics
 
 __all__ = ["enabled", "enable", "StepTelemetry", "record_sync",
-           "record_feed_stall", "SYNC_SECONDS", "FEED_STALL"]
+           "record_feed_stall", "SYNC_SECONDS", "TRAIN_STEPS", "FEED_STALL"]
 
 _enabled = os.environ.get("PADDLE_TPU_TELEMETRY", "1") != "0"
 
@@ -68,6 +68,8 @@ STEP_INTERVAL = metrics.histogram(
 SYNC_SECONDS = metrics.counter(
     "pt_device_sync_seconds_total",
     "Wall time blocked on device sync (host reads of device values)")
+TRAIN_STEPS = metrics.counter(
+    "pt_train_steps_total", "Train steps dispatched")
 FEED_STALL = metrics.histogram(
     "pt_feed_stall_ms",
     "Per-batch milliseconds the consumer waited on the input feed; mean "

@@ -10,9 +10,14 @@
 //     param = p - lr * (m1 / c1) / (sqrt(m2 / c2) + eps)
 // with c1 = 1 - b1^t and c2 = 1 - b2^t computed on the host in float32.
 // lr, c1 and c2 change every step, so the kernel reads them from a float32
-// device buffer [lr, c1, c2] that the host fills before the step, as the
-// TPU kernel reads `lr_ref` and `c_ref` from SMEM: a CUDA graph that
-// captured the launch then applies each step's values on replay. The
+// device buffer [lr, c1, c2, go] that the host fills before the step, as
+// the TPU kernel reads `lr_ref` and `c_ref` from SMEM: a CUDA graph that
+// captured the launch then applies each step's values on replay. `go` is
+// the non-finite guard's word: the host stages 1, and a train step made
+// with FLAGS_skip_nonfinite_steps overwrites it on the device with 0 when
+// the loss or a gradient is not finite; at 0 the kernel writes nothing,
+// so the parameter and both moments keep their values (the reference
+// selects the old ones with jnp.where inside its executable). The
 // kernel forms 1 - lr * coeff itself (__fmul_rn, __fsub_rn), the host's
 // float32 value bit for bit. Every operation is rounded on its own
 // (__fmul_rn, __fdiv_rn, __fsqrt_rn, ...: no FMA contraction), so the
@@ -44,7 +49,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// the per-step values live in device memory (`sc`: lr, c1, c2)
+// the per-step values live in device memory (`sc`: lr, c1, c2, go)
 struct Hyper {
   float coeff, b1, omb1, b2, omb2, eps;
   int use_decay;
@@ -55,6 +60,7 @@ __global__ void __launch_bounds__(256)
 adamw_kernel(P* __restrict__ param, const G* __restrict__ grad,
              float* __restrict__ m1, float* __restrict__ m2, long long n,
              const float* __restrict__ sc, Hyper hp) {
+  if (__ldg(sc + 3) == 0.f) return;        // the guard skipped this step
   const float lr = __ldg(sc), c1 = __ldg(sc + 1), c2 = __ldg(sc + 2);
   const float decay = __fsub_rn(1.f, __fmul_rn(lr, hp.coeff));
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -88,8 +94,8 @@ int launch(void* param, const void* grad, float* m1, float* m2, long long n,
 
 }  // namespace
 
-// ptype / gtype: 0 float32, 1 bfloat16. sc: float32 [3] in device memory,
-// the step's lr, c1 and c2. coeff (AdamW's decoupled decay), the betas,
+// ptype / gtype: 0 float32, 1 bfloat16. sc: float32 [4] in device memory,
+// the step's lr, c1, c2 and go (0: write nothing). coeff (AdamW's decoupled decay), the betas,
 // 1 - beta and eps are float32 values computed by the caller. use_decay: 0
 // for Adam (no decay multiply). Returns cudaGetLastError() after the
 // launch.

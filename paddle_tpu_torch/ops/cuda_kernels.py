@@ -32,8 +32,12 @@ then runs the plain version for tensors that lie on the CPU and launches
 the kernel for CUDA tensors. There is no probe and no quiet fallback: a
 gate returns None (the caller's plain route) only when the kernel's flag
 is off (`use_flash_attention`, `use_fused_optimizer`,
-`paged_flash_decode`, `use_fused_dropout_ln`), which the attention
-callers report in the path counters (`xla_sdpa`, `xla_paged`).
+`paged_flash_decode`, `use_fused_dropout_ln`), or where the reference's
+gate does so for what the call computes rather than for what its kernel
+takes: the flash gate on an additive mask or dropout p >= 1 (the
+reference's Pallas kernel takes neither, and the composed XLA attention
+runs such a call). The attention callers report the plain route in the
+path counters (`xla_sdpa`, `xla_paged`).
 
 The int8 KV rule (`quantize_kv` / `dequantize_kv`) lives here too: the
 paged-decode kernel's in-kernel append must match it bit for bit, and the
@@ -331,7 +335,9 @@ def flash_attention_plain(q, k, v, causal, attn_mask=None, keep=None,
     aligned bottom-right, returned in q's dtype (reference:
     pallas_kernels.py `_xla_attention`). With `keep` (bool, [B, H, Tq, Tk])
     the probabilities are dropped where keep is False and the rest scaled
-    by 1 / (1 - dropout_p). The one dense attention body of the port: the
+    by 1 / (1 - dropout_p); at dropout_p >= 1 every probability is
+    dropped and the output is zeros, as the reference's where(keep, w /
+    (1 - p), 0) gives. The one dense attention body of the port: the
     kernels' CPU path, the plain sdpa route and the suffix-prefill
     attention all run it."""
     s = _scores(q, k, causal)
@@ -339,7 +345,8 @@ def flash_attention_plain(q, k, v, causal, attn_mask=None, keep=None,
         s = s + attn_mask.float()
     w = torch.softmax(s, dim=-1)
     if keep is not None:
-        w = torch.where(keep, w * _drop_args(dropout_p)[1], 0.0)
+        w = (torch.where(keep, w * _drop_args(dropout_p)[1], 0.0)
+             if dropout_p < 1.0 else torch.zeros_like(w))
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
 
@@ -616,22 +623,24 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention_or_none(query, key, value, attn_mask, is_causal,
                             dropout_p=0.0):
     """Gate (reference: pallas_kernels.py flash_attention_or_none :1534):
-    None when `use_flash_attention` is off (the caller then runs the plain
-    version), else the output of `FlashAttentionFunction`, with attention
+    None, so that the caller runs the plain version (path xla_sdpa), when
+    `use_flash_attention` is off, and where the reference's gate returns
+    None for what the call computes: an additive mask (the reference's
+    kernel takes none; its masked attention is composed XLA ops) and
+    dropout p >= 1 (everything dropped; the reference's XLA path returns
+    zeros). Else the output of `FlashAttentionFunction`, with attention
     dropout at `dropout_p` drawn in the kernel (path counter
-    flash_dropout) or without (flash). An additive mask, p >= 1, or an
-    input the kernel does not take raises ValueError: unlike the
-    reference's gate, this one never hands such a call to the plain
-    version on its own. Under amp.auto_cast this is the op
-    flash_attention (white list): q, k and v enter in the amp dtype."""
-    if not flag("use_flash_attention"):
+    flash_dropout) or without (flash). An input the kernel does not take
+    (shape, dtype, device) raises ValueError: unlike the reference's gate,
+    this one never hands such a call to the plain version. Under
+    amp.auto_cast this is the op flash_attention (white list): q, k and v
+    enter in the amp dtype."""
+    dropout_p = float(dropout_p)
+    if (not flag("use_flash_attention") or attn_mask is not None
+            or dropout_p >= 1.0):
         return None
     query, key, value = amp_cast_inputs("flash_attention",
                                         [query, key, value])
-    _need(attn_mask is None,
-          "flash_attention: the kernel takes no additive mask; set the "
-          "use_flash_attention flag to False for the plain version")
-    dropout_p = float(dropout_p)
     word, delta = (RNG.draw(query.device) if dropout_p > 0.0
                    else (None, 0))
     out = FlashAttentionFunction.apply(query, key, value, bool(is_causal),
@@ -1058,8 +1067,12 @@ def fused_dropout_residual_ln_or_none(x, residual, bias, gamma, beta, p, eps,
 # for a bfloat16 parameter and gradient, 28 for float32). One pass, in
 # place; one launch per parameter. lr and the bias corrections c1 = 1 -
 # beta1^t, c2 = 1 - beta2^t change every step, so the kernel reads them
-# from a float32 device buffer [lr, c1, c2] (`adam_step_scalars`, filled
-# by the optimizer once a step), as `_adamw_kernel` reads its SMEM refs.
+# from a float32 device buffer [lr, c1, c2, go] (`adam_step_scalars`,
+# filled by the optimizer once a step), as `_adamw_kernel` reads its SMEM
+# refs. `go` is the non-finite guard's word (`Adam.gate_update`): staged 1
+# by the host, set to 0 on the device by a guarded train step whose loss or
+# gradients are not finite, and then the update writes nothing.
+GO = 3                          # the guard word's index in the buffer
 
 
 def _adam_scalars(lr, t, beta1, beta2, epsilon, coeff):
@@ -1077,18 +1090,21 @@ def _adam_scalars(lr, t, beta1, beta2, epsilon, coeff):
 
 
 def adam_step_scalars(lr, t, beta1, beta2):
-    """The step's values of the scalar buffer, float32 [lr, c1, c2] as
-    `_adam_scalars` rounds them."""
+    """The step's values of the scalar buffer, float32 [lr, c1, c2, go] as
+    `_adam_scalars` rounds them, with the guard's word go = 1 (the update
+    applies)."""
     sc = _adam_scalars(lr, t, beta1, beta2, 0.0, 0.0)
-    return np.array([sc["lr"], sc["c1"], sc["c2"]], dtype=np.float32)
+    return np.array([sc["lr"], sc["c1"], sc["c2"], 1.0], dtype=np.float32)
 
 
-def _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc):
+def _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc, go=None):
     """The reference's jnp rule (optimizer Adam/AdamW `_update_rule`) line
     for line, in place, each operation rounded on its own as the kernel
     rounds it; lr, c1, c2 and decay (None: no decay) are float32 values,
     host numbers or 0-d tensors, c1 and c2 tensors (dividing by a python
-    number, torch may multiply by its reciprocal instead)."""
+    number, torch may multiply by its reciprocal instead). `go` (a 0-d
+    bool tensor, or None for always): where it is False, param, m1 and m2
+    keep their values, as the kernel writes nothing at go = 0."""
     g = grad.float()
     p32 = param.float()
     if decay is not None:
@@ -1096,7 +1112,12 @@ def _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc):
     m1n = float(sc["b1"]) * m1 + float(sc["omb1"]) * g
     m2n = float(sc["b2"]) * m2 + float(sc["omb2"]) * (g * g)
     step = lr * (m1n / c1) / (torch.sqrt(m2n / c2) + float(sc["eps"]))
-    param.copy_(p32 - step)
+    new = p32 - step
+    if go is not None:
+        new = torch.where(go, new, param.float())
+        m1n = torch.where(go, m1n, m1)
+        m2n = torch.where(go, m2n, m2)
+    param.copy_(new)
     m1.copy_(m1n)
     m2.copy_(m2n)
 
@@ -1116,23 +1137,26 @@ def adamw_plain(param, grad, m1, m2, lr, t, *, beta1, beta2, epsilon,
 def adamw_plain_scalars(param, grad, m1, m2, scalars, *, beta1, beta2,
                         epsilon, coeff):
     """The same update with lr, c1 and c2 read from the scalar buffer
-    `scalars` (float32 [3] on param's device) on the device, 1 - lr *
+    `scalars` (float32 [4] on param's device) on the device, 1 - lr *
     coeff formed there in float32: equal to `adamw_plain` at the buffer's
-    lr and t bit for bit. The optimizer's route with use_fused_optimizer
-    off, so that a captured plain step also advances."""
+    lr and t bit for bit; where the buffer's guard word is 0, param and
+    the moments keep their values, as in the kernel. The optimizer's
+    route with use_fused_optimizer off, so that a captured plain step also
+    advances."""
     _scalars_check(scalars, param)
     sc = _adam_scalars(0.0, 1, beta1, beta2, epsilon, 0.0)
     lr, c1, c2 = scalars[0], scalars[1], scalars[2]
     decay = (1.0 - lr * float(np.float32(coeff))) if coeff else None
-    _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc)
+    _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc,
+                go=scalars[GO] != 0)
 
 
 def _scalars_check(scalars, param):
     _need(isinstance(scalars, torch.Tensor)
-          and scalars.dtype == torch.float32 and tuple(scalars.shape) == (3,)
+          and scalars.dtype == torch.float32 and tuple(scalars.shape) == (4,)
           and scalars.device == param.device and scalars.is_contiguous(),
-          "adamw: the step's scalars must be a float32 [3] tensor (lr, c1, "
-          "c2) on the parameter's device")
+          "adamw: the step's scalars must be a float32 [4] tensor (lr, c1, "
+          "c2, go) on the parameter's device")
 
 
 def _adamw_check(param, grad, m1, m2):
@@ -1152,9 +1176,9 @@ def _adamw_check(param, grad, m1, m2):
 
 def adamw(param, grad, m1, m2, scalars, *, beta1, beta2, epsilon, coeff):
     """The fused update kernel, in place on param, m1, m2, with the step's
-    lr, c1 and c2 from `scalars` (float32 [3] on param's device,
-    `adam_step_scalars`); the plain version on CPU tensors. coeff 0 is
-    Adam."""
+    lr, c1 and c2 from `scalars` (float32 [4] on param's device,
+    `adam_step_scalars`; its guard word at 0: nothing written); the plain
+    version on CPU tensors. coeff 0 is Adam."""
     _adamw_check(param, grad, m1, m2)
     _scalars_check(scalars, param)
     if not _on_cuda(param, "adamw"):

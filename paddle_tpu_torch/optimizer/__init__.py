@@ -12,11 +12,13 @@ Adam and AdamW go through `fused_adamw_or_none` (the hand-written update
 kernel, csrc/adamw.cu) and, with `use_fused_optimizer` off, through the
 plain rule `adamw_plain_scalars`, the reference's jnp rule line for line.
 Both read the step's lr and bias corrections from a float32 device buffer
-(`_scalars`: lr, 1 - beta1^t, 1 - beta2^t), as the reference's kernel
+(`_scalars`: lr, 1 - beta1^t, 1 - beta2^t, go), as the reference's kernel
 reads `lr_ref` and `c_ref`: `apply_gradients` is `stage_step` (count the
 step, fill the buffer with one non-blocking copy) then `apply_updates`
 (the updates, which read the buffer). A captured train step replays only
-the updates, after the host has staged each step's values.
+the updates, after the host has staged each step's values. `go`, staged
+1, is the word a train step's non-finite guard sets to 0 on the device to
+skip the update (`gate_update`; jit/engine.py).
 
 Not ported yet (raise NotImplementedError when asked for): LR schedulers,
 grad_clip, lazy_mode (row-sparse gradients), lr_ratio, a callable
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from ..framework.device import resolve_device, write_values
-from ..ops.cuda_kernels import (adam_step_scalars, adamw_plain_scalars,
+from ..ops.cuda_kernels import (GO, adam_step_scalars, adamw_plain_scalars,
                                 fused_adamw_or_none)
 
 __all__ = ["Optimizer", "Adam", "AdamW", "L2Decay"]
@@ -139,6 +141,13 @@ class Optimizer:
             write_values(self._scalars,
                          self._step_scalars(self.get_lr(), self._step_count))
 
+    def gate_update(self, ok):
+        """Make the staged step's updates apply only where the 0-d bool
+        tensor `ok` holds, decided on the device (the non-finite guard)."""
+        raise NotImplementedError(
+            "%s has no guard word: skip_nonfinite_steps takes Adam or AdamW"
+            % type(self).__name__)
+
     @torch.no_grad()
     def apply_updates(self, params_grads):
         """The regularizer and then the rule on each (parameter, gradient)
@@ -208,7 +217,7 @@ class Optimizer:
 
 class Adam(Optimizer):
     _accumulator_names = ["moment1", "moment2"]
-    _n_scalars = 3                      # lr, c1, c2
+    _n_scalars = 4                      # lr, c1, c2, go
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -232,6 +241,11 @@ class Adam(Optimizer):
     def _step_scalars(self, lr, t):
         return adam_step_scalars(lr, t, self._beta1, self._beta2)
 
+    def gate_update(self, ok):
+        """Write `ok` into the scalar buffer's guard word: at 0 the kernel
+        and the plain rule write nothing."""
+        self._scalars[GO].copy_(ok)
+
     def _create_accumulators(self, p):
         return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for n in self._accumulator_names}
@@ -239,7 +253,7 @@ class Adam(Optimizer):
     @staticmethod
     def _update_rule(static_args, param, grad, scalars, m1, m2):
         """Adam (coeff 0) and AdamW in one rule; static_args is (beta1,
-        beta2, epsilon, coeff), scalars the step's (lr, c1, c2)."""
+        beta2, epsilon, coeff), scalars the step's (lr, c1, c2, go)."""
         b1, b2, eps, coeff = static_args
         kw = dict(beta1=b1, beta2=b2, epsilon=eps, coeff=coeff)
         if fused_adamw_or_none(param, grad, scalars, m1, m2, **kw) is None:

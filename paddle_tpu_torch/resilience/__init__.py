@@ -2,12 +2,17 @@
 
   health      per-rank heartbeat files that the launcher's hang detector
               and /healthz read (PADDLE_TPU_HEARTBEAT_DIR)
+  watchdog    StepWatchdog: a train step that outlives its bound dumps
+              every thread's stack (FLAGS_step_watchdog_s)
+  chaos       deterministic fault injection for the drills
+              (PADDLE_TPU_CHAOS: nan_at_step, hang_at_step, oom)
 
-The reference's `retry`, `preemption`, `watchdog`, `anomaly` and `chaos`
-are still to be ported.
+The reference's `retry`, `preemption` and `anomaly` are still to be
+ported.
 """
 from __future__ import annotations
 
-from . import health  # noqa: F401
+from . import chaos, health, watchdog  # noqa: F401
+from .watchdog import StepWatchdog  # noqa: F401
 
-__all__ = ["health"]
+__all__ = ["chaos", "health", "watchdog", "StepWatchdog"]

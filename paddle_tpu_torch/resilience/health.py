@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Optional
 
@@ -108,7 +109,10 @@ class HeartbeatWriter:
             return False
         rec = {"pid": os.getpid(), "rank": self.rank,
                "step": self.last_step, "ts": round(time.time(), 6)}
-        tmp = "%s.tmp.%d" % (self.path, os.getpid())
+        # a temporary file per thread: serving workers tick from their
+        # own threads, and two writing one file would tear it
+        tmp = "%s.tmp.%d.%d" % (self.path, os.getpid(),
+                                threading.get_ident())
         try:
             os.makedirs(self.directory, exist_ok=True)
             with open(tmp, "w") as f:

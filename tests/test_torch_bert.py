@@ -33,6 +33,7 @@ from paddle_tpu.jit.engine import _functional_fwd
 from paddle_tpu.jit.engine import make_train_step as jmake_train_step
 from paddle_tpu.models import BertPretrainingCriterion as JCriterion
 from paddle_tpu.models import bert_tiny as jbert_tiny
+from paddle_tpu.nn import functional as JF
 from paddle_tpu.nn.transformer import MultiHeadAttention as JMHA
 from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.framework import flags
@@ -41,7 +42,9 @@ from paddle_tpu_torch.models import BertPretrainingCriterion
 from paddle_tpu_torch.models import bert_tiny as tbert_tiny
 from paddle_tpu_torch.models import load_reference_state
 from paddle_tpu_torch.nn import MultiHeadAttention
+from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.transformer import _convert_attention_mask
+from paddle_tpu_torch.ops import cuda_kernels as ck
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -178,7 +181,6 @@ def test_auto_cast_dtypes_and_loss_match(monkeypatch):
                                rtol=2e-3)
     # the bfloat16 casts happened: flash attention saw bfloat16 inputs
     seen = []
-    from paddle_tpu_torch.ops import cuda_kernels as ck
     real = ck.FlashAttentionFunction.apply
     monkeypatch.setattr(ck.FlashAttentionFunction, "apply",
                         lambda *a: seen.append(a[0].dtype) or real(*a))
@@ -253,8 +255,10 @@ def test_criterion_ignore_index_and_the_tied_decoder_weight():
 @pytest.mark.parametrize("kind", ["bool", "int", "float"])
 def test_attention_masks_match_the_reference(kind):
     """bool/int masks keep True/nonzero positions ((1 - m) * -1e9 is
-    added), float masks are added as they are; the flash kernels take no
-    mask, so the port runs with use_flash_attention off."""
+    added), float masks are added as they are; with use_flash_attention
+    off, and on, where a masked call takes the plain attention (path
+    xla_sdpa) as the reference's gate hands it to its composed
+    attention."""
     flags.set_flags({"use_flash_attention": False})
     rs = np.random.RandomState(2)
     paddle.seed(0)
@@ -285,7 +289,41 @@ def test_attention_masks_match_the_reference(kind):
                         attention_mask=torch.from_numpy(pad))
     np.testing.assert_allclose(tseq.detach().numpy(), np.asarray(jseq.numpy()),
                                rtol=1e-4, atol=1e-5)
-    # with the flash kernels on, a mask raises rather than run elsewhere
+    # the same with the flash kernels on: the masked calls run the plain
+    # attention, and no flash kernel
     flags.set_flags({"use_flash_attention": True})
-    with pytest.raises(ValueError, match="mask"):
-        mha(torch.from_numpy(x), attn_mask=torch.from_numpy(mask))
+    before = ck.attention_path_counts()
+    got = mha(torch.from_numpy(x), attn_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want.numpy()),
+                               rtol=1e-5, atol=1e-5)
+    tseq, _ = port.bert(torch.from_numpy(ids),
+                        attention_mask=torch.from_numpy(pad))
+    np.testing.assert_allclose(tseq.detach().numpy(), np.asarray(jseq.numpy()),
+                               rtol=1e-4, atol=1e-5)
+    after = ck.attention_path_counts()
+    n_layers = len(port.bert.encoder.layers)
+    assert after["xla_sdpa"] - before["xla_sdpa"] == 1 + n_layers
+    assert all(after[k] == before[k] for k in ("flash", "flash_dropout"))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_attention_dropout_one_matches_the_reference(causal):
+    """dropout_p=1 in training with use_flash_attention on: the reference's
+    gate hands the call to its XLA attention, whose where(keep, w / (1 -
+    p), 0) drops every probability, and the port's gate hands it to the
+    plain attention, which drops them all too: zeros on both sides. The
+    forward only (the reference's gradient there is 0 * inf)."""
+    rs = np.random.RandomState(3)
+    q, k, v = (rs.randn(2, 4, 8, 16).astype(np.float32) for _ in range(3))
+    paddle.seed(0)
+    want, _ = JF.scaled_dot_product_attention(
+        *(paddle.to_tensor(a) for a in (q, k, v)), dropout_p=1.0,
+        is_causal=causal, training=True)
+    before = ck.attention_path_counts()
+    got = F.scaled_dot_product_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), dropout_p=1.0,
+        is_causal=causal, training=True)
+    after = ck.attention_path_counts()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want.numpy()))
+    assert after["xla_sdpa"] == before["xla_sdpa"] + 1
+    assert after["flash_dropout"] == before["flash_dropout"]

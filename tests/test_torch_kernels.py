@@ -105,21 +105,34 @@ class TestFlashGate:
         finally:
             set_flags(saved)
 
-    @pytest.mark.parametrize("case", ["mask", "tq_above_tk", "wide_head",
-                                      "float16"])
+    @pytest.mark.parametrize("case", ["negative_p", "tq_above_tk",
+                                      "wide_head", "float16"])
     def test_rejected_input_raises(self, case):
         # the checks run before the device branch, so what the card's
         # kernel refuses raises here too instead of turning into None
         Tq, Tk, D = {"tq_above_tk": (16, 8, 16),
                      "wide_head": (8, 8, 160)}.get(case, (8, 8, 16))
         q, k, v = (_t(a) for a in _qkv(1, 2, Tq, Tk, D, seed=0))
-        mask = torch.zeros(Tq, Tk) if case == "mask" else None
+        p = -0.1 if case == "negative_p" else 0.0
         if case == "float16":
             q, k, v = q.half(), k.half(), v.half()
         before = ck.attention_path_counts()["flash"]
         with pytest.raises(ValueError):
-            ck.flash_attention_or_none(q, k, v, mask, True)
+            ck.flash_attention_or_none(q, k, v, None, True, dropout_p=p)
         assert ck.attention_path_counts()["flash"] == before
+
+    @pytest.mark.parametrize("case", ["mask", "p_one"])
+    def test_mask_and_p_one_take_the_plain_route(self, case):
+        # as the reference's gate: None with the flag on, for an additive
+        # mask (its kernel takes none) and p >= 1 (everything dropped);
+        # the caller's composed attention then runs (path xla_sdpa)
+        q, k, v = (_t(a) for a in _qkv(1, 2, 8, 8, 16, seed=0))
+        mask = torch.zeros(8, 8) if case == "mask" else None
+        p = 1.0 if case == "p_one" else 0.0
+        before = ck.attention_path_counts()
+        assert ck.flash_attention_or_none(q, k, v, mask, True,
+                                          dropout_p=p) is None
+        assert ck.attention_path_counts() == before
 
 
 # ---------------------------------------------------------------------------
@@ -471,9 +484,17 @@ def test_flash_function_without_grad_skips_lse():
 
 
 def test_flash_gate_refuses_dropout_one():
+    # the gate hands p = 1 to the caller's plain attention, as the
+    # reference's does, launching nothing; the kernel's own wrapper still
+    # refuses it
     q, k, v = (_t(a) for a in _qkv(1, 2, 8, 8, 16, seed=0))
+    before = ck.launch_counts()
+    assert ck.flash_attention_or_none(q, k, v, None, True,
+                                      dropout_p=1.0) is None
+    assert ck.launch_counts() == before
+    word = prandom.philox_word(1, 0, "cpu")
     with pytest.raises(ValueError, match="dropout_p"):
-        ck.flash_attention_or_none(q, k, v, None, True, dropout_p=1.0)
+        ck.flash_fwd_train(q, k, v, True, 1.0, word, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -163,6 +163,31 @@ def test_heartbeats_read_across_the_packages(tmp_path):
     assert health.stale_seconds(str(tmp_path / "missing.json")) is None
 
 
+def test_heartbeat_ticks_from_threads_never_tear_the_file(tmp_path):
+    """Serving workers tick one writer from their own threads: no read may
+    find the file torn (each thread writes a temporary file of its own
+    before the rename) and no tick may fail."""
+    w = health.HeartbeatWriter(str(tmp_path), 0, min_interval_s=0.0)
+    assert w.tick(0)
+    failed = []
+
+    def ticker(i):
+        for step in range(300):
+            if not w.tick(i * 1000 + step, force=True):
+                failed.append((i, step))
+
+    threads = [threading.Thread(target=ticker, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    torn = 0
+    while any(t.is_alive() for t in threads):
+        torn += health.read_heartbeat(w.path) is None
+    for t in threads:
+        t.join()
+    assert torn == 0 and not failed
+    assert health.read_heartbeat(w.path)["pid"] == os.getpid()
+
+
 def test_module_tick_follows_the_environment(tmp_path, monkeypatch):
     monkeypatch.delenv(health.ENV_DIR, raising=False)
     monkeypatch.setenv("PADDLE_TRAINER_ID", "0")

@@ -179,7 +179,7 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="meta"):
         ck.flash_bwd_dq(q, q, q, q, q, lse, True)
     with pytest.raises(ValueError, match="meta"):
-        ck.adamw(q, q, q, q, torch.zeros(3, device="meta"), beta1=0.9,
+        ck.adamw(q, q, q, q, torch.zeros(4, device="meta"), beta1=0.9,
                  beta2=0.999, epsilon=1e-8, coeff=0.0)
     rows = torch.zeros(4, 16, device="meta")
     with pytest.raises(ValueError, match="meta"):

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+import paddle_tpu.amp as jamp
 from paddle_tpu.io import DataLoader as JDataLoader
 from paddle_tpu.io import Dataset as JDataset
 from paddle_tpu.jit.engine import make_train_step as jmake_train_step
@@ -155,6 +156,52 @@ def test_o2_bf16_three_steps():
     assert len(accs) == 2 * 28
     assert {a.dtype for a in accs} == {torch.float32}
     assert all(p.grad is None for p in port.parameters())
+
+
+def test_auto_cast_o2_loss_and_logits_dtype_match():
+    """Under auto_cast(level="O2") with float32 parameters the tied LM head
+    is matmul_v2 (white list) on both sides: bfloat16 logits from
+    bfloat16 operands; the criterion (softmax_with_cross_entropy, black
+    list) in float32. The loss within rtol 2e-3: both sides round every
+    matmul output to bfloat16 (2^-8 relative), and where their float32
+    sums differ in order a product can land on the neighbouring bfloat16
+    value."""
+    ref, port = _pair()
+    x, y = _batches(1, seed=5)[0]
+    with jamp.auto_cast(level="O2"):
+        jlogits = ref(paddle.to_tensor(x))
+        jloss = JCriterion()(jlogits, paddle.to_tensor(y))
+    with amp.auto_cast(level="O2"):
+        tlogits = port(torch.from_numpy(x))
+        tloss = GPTPretrainingCriterion()(tlogits, torch.from_numpy(y))
+    for got, want in ((tlogits, jlogits), (tloss, jloss)):
+        assert str(got.dtype).split(".")[-1] == \
+            str(want.dtype).split(".")[-1]
+    assert tlogits.dtype == torch.bfloat16 and tloss.dtype == torch.float32
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss.numpy()),
+                               rtol=2e-3)
+    assert {p.dtype for p in port.parameters()} == {torch.float32}
+
+
+def test_decorate_o1_and_o0_return_the_models_as_they_are():
+    """The reference's decorate casts only at O2: at O1 and O0 the same
+    objects come back (a model, a list of them, with or without the
+    optimizers) and no parameter changes its dtype."""
+    ref, port = _pair()
+    jopt = paddle.optimizer.AdamW(parameters=ref.parameters(),
+                                  learning_rate=LR)
+    topt = optimizer.AdamW(parameters=port.parameters(), learning_rate=LR,
+                           device="cpu")
+    for level in ("O1", "O0"):
+        for lib, model, opt in ((jamp, ref, jopt), (amp, port, topt)):
+            assert lib.decorate(model, level=level) is model
+            got_m, got_o = lib.decorate(model, opt, level=level)
+            assert got_m is model and got_o is opt
+            (got,) = lib.decorate([model], level=level)
+            assert got is model
+    assert {str(p.dtype).split(".")[-1] for p in ref.parameters()} == {
+        "float32"}
+    assert {p.dtype for p in port.parameters()} == {torch.float32}
 
 
 class TokenStream:
