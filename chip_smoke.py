@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # the whole run, one card
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
+    python3 chip_smoke.py --resume-drill JSON   # one run of phase 17's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card: name and power limit as nvidia-smi reports them, torch and
@@ -24,7 +25,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      from a scalar buffer on the card, also over t = 1..5 with the lr
      changed; with the scalar buffer's guard word at 0 the kernel and the
      plain rule leave the parameter and both moments bit-equal to their
-     inputs (float32 and bfloat16); F.dropout's keep-mask kernel against
+     inputs (float32 and bfloat16); with the clip's scale word at 0.3711
+     the kernel and the plain rule bit-equal to the composed float32
+     product g * scale; F.dropout's keep-mask kernel against
      its plain version; the backward's mask equal to the forward's; each
      gate raising on inputs its kernel does not take, and the flash gate
      handing an additive mask and dropout p=1 to the plain attention;
@@ -76,8 +79,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      dk/dv: B=16, H=12, T=512, D=64, bfloat16, causal, p=0.1; AdamW over
      every gpt2-small parameter), each beside its bound, its plain
      version's time and one library call's time (AdamW's 148 launches
-     replayed from one CUDA graph, beside PERF.md's time before the
-     guard word, and enqueued one by one); the flash
+     with the clip's scale word replayed from one CUDA graph, beside the
+     same launches without it, PERF.md's time before the word, and the
+     launches enqueued one by one); the flash
      forward and backward also at p=0 (their Philox share) and at ERNIE's
      attention (B=32, T=128, not causal, p=0.1); the keep-mask kernel at
      a hidden dropout's shape;
@@ -149,7 +153,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      flash forward launches a call through replays, no backward or AdamW
      launch, the parameters untouched; (6) the jit_train and jit_eval
      retraces equal the programs built, pt_train_steps_total the steps
-     run, and the flight recorder's last dispatch the last step.
+     run, and the flight recorder's last dispatch the last step;
+ 17. resumable training on the GPT-2 configuration: phase 10's model,
+     O2 and loader with AdamW(LinearWarmup(CosineAnnealingDecay(1e-4,
+     T_max=100), warmup_steps=4), weight_decay=0.01,
+     ClipGradByGlobalNorm(1.0)) (`gpt2_recipe`): (a) the captured step,
+     3 + 10 steps (one program, launches equal to phase 10's, the clip's
+     scale in (0, 1]), its ms beside phase 10's, then the clip's cost as
+     20 pairs of steps with an optimizer without the clip on the same
+     model, in turns; (b) a sync save (host capture s, total s, bytes),
+     one step, an async save (s it blocks, the steps while its write is
+     in flight), a load of the sync save into the built step (s; the
+     state bit-equal to the saved one) and the step after it bit-equal
+     to the step after the save with no new build, the pt_ckpt_*
+     counters; (c) the resume drill, each run a fresh process
+     (`chip_smoke.py --resume-drill`, `resume_drill`): 3 epochs x 2
+     steps in TrainEpochRange uninterrupted, then under
+     PADDLE_TPU_CHAOS=sigterm_at_step:3 (exit 0 after epoch 1's save),
+     then a relaunch that resumes at epoch 2: its losses and the sha256
+     of its final parameters and moments bit-equal to the uninterrupted
+     run's, dropout on; (d) bitflip_ckpt:1 on the newer of two saves:
+     load_latest quarantines it and falls back (pt_ckpt_corrupt_total
+     and pt_ckpt_fallback_total +1), then torn_write in epoch 1's save
+     (the run dies by SIGKILL) and a relaunch from epoch 0 whose losses
+     and final state equal the uninterrupted run's. Checkpoints go under
+     a temporary directory, removed at the end of the phase.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -221,9 +249,12 @@ ADAMW_MOMENT_REL_TOL = 2 ** -23
 # the bfloat16 cases at lr 1e-2 on parameters of size ~1e-2 must move at
 # least this share of the elements, or the bit-equality shows nothing
 ADAMW_MOVED_MIN = 0.9
-# row 7's time in PERF.md before the guard word (148 launches replayed from
-# one graph, on an H100 80GB HBM3 at 700 W), printed beside the re-time
-ADAMW_EARLIER_MS = 1.3959
+# row 7's time in PERF.md before the clip's scale word (148 launches
+# replayed from one graph, on an H100 80GB HBM3 at 700 W), printed beside
+# the re-time
+ADAMW_EARLIER_MS = 1.3858
+# the clip scale the row-7 checks stage in the buffer's fifth word
+ADAMW_CHECK_SCALE = 0.3711
 # train_compare: max parameter difference after 3 float32 steps at lr
 # 1e-4, between a sound reading (~1e-5: float32 sums in another order,
 # amplified by Adam's normalised step) and the whole 3-step movement
@@ -522,12 +553,15 @@ def check_flash_train(torch, ck, gen):
     return worst_abs
 
 
-def step_scalars(torch, ck, lr, t):
-    """A scalar buffer on the card holding the step's (lr, c1, c2), as the
-    optimizer stages it."""
+def step_scalars(torch, ck, lr, t, scale=1.0):
+    """A scalar buffer on the card holding the step's (lr, c1, c2, go,
+    scale), as the optimizer stages it, with the clip's scale written
+    over the staged 1."""
     from paddle_tpu_torch.framework.device import write_values
-    sc = torch.empty(4, device="cuda")
-    write_values(sc, ck.adam_step_scalars(lr, t, 0.9, 0.999))
+    sc = torch.empty(5, device="cuda")
+    vals = ck.adam_step_scalars(lr, t, 0.9, 0.999)
+    vals[ck.SCALE] = scale
+    write_values(sc, vals)
     return sc
 
 
@@ -599,7 +633,7 @@ def check_adamw(torch, ck, gen):
         p = (torch.randn(numel, generator=gen, device="cuda") * 1e-2).to(dtype)
         ka, sa, pa = ([p.clone(), torch.zeros(numel, device="cuda"),
                        torch.zeros(numel, device="cuda")] for _ in range(3))
-        sc = torch.empty(4, device="cuda")
+        sc = torch.empty(5, device="cuda")
         for t in range(1, 6):
             lr = 1e-2 if t <= 2 else 3e-3
             g = (torch.randn(numel, generator=gen, device="cuda")
@@ -646,7 +680,60 @@ def check_adamw(torch, ck, gen):
         "the parameter and both moments bit-equal to their inputs (float32 "
         "and bfloat16, %d elements); at 1 (every case above) the kernel is "
         "bit-equal to the plain rule" % (2304 * 768))
+    check_adamw_scale(torch, ck, gen)
     return worst_p
+
+
+def check_adamw_scale(torch, ck, gen):
+    """The clip's scale word (ClipGradByGlobalNorm): the kernel launched
+    with scaled=True on a buffer whose fifth word is ADAMW_CHECK_SCALE,
+    against the plain rule on the same buffer and against the composed
+    route, the gradient widened and multiplied by the scale in float32
+    (the reference's product) and then the unscaled plain rule with host
+    lr and t: parameters bit-equal, moments within one float32 ulp; the
+    plain rule on the buffer bit-equal to the composed route. Float32 and
+    bfloat16 gradients, lr 1e-2 on parameters of size ~1e-2, t = 3."""
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.01)
+    worst_m = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for numel in (7, 2304 * 768):
+            p = (torch.randn(numel, generator=gen, device="cuda")
+                 * 1e-2).to(dtype)
+            g = torch.randn(numel, generator=gen, device="cuda").to(dtype)
+            m1 = torch.randn(numel, generator=gen, device="cuda") * 1e-3
+            m2 = torch.rand(numel, generator=gen, device="cuda") * 1e-5
+            sc = step_scalars(torch, ck, 1e-2, 3, ADAMW_CHECK_SCALE)
+            ka, sa, pa = ([x.clone() for x in (p, m1, m2)] for _ in range(3))
+            ck.adamw(ka[0], g, ka[1], ka[2], sc, scaled=True, **kw)
+            ck.adamw_plain_scalars(sa[0], g, sa[1], sa[2], sc, scaled=True,
+                                   **kw)
+            composed = g.float() * sc[ck.SCALE]
+            ck.adamw_plain(pa[0], composed, pa[1], pa[2], 1e-2, 3, **kw)
+            unscaled = p.clone()
+            ck.adamw(unscaled, g, m1.clone(), m2.clone(), sc, **kw)
+            torch.cuda.synchronize()
+            what = "adamw %s numel=%d scale=%g" % (dtype, numel,
+                                                  ADAMW_CHECK_SCALE)
+            require(torch.equal(ka[0], pa[0]) and torch.equal(sa[0], pa[0]),
+                    "%s: parameter differs from the composed float32 "
+                    "product" % what)
+            require(all(torch.equal(a, b) for a, b in ((sa[1], pa[1]),
+                                                       (sa[2], pa[2]))),
+                    "%s: the plain rule on the buffer differs from the "
+                    "composed route" % what)
+            err_m = max(((ka[i] - pa[i]).abs()
+                         / pa[i].abs().clamp_min(1e-30)).max().item()
+                        for i in (1, 2))
+            require(err_m <= ADAMW_MOMENT_REL_TOL,
+                    "%s: moment rel err %.3g" % (what, err_m))
+            require(numel == 7 or not torch.equal(unscaled, ka[0]),
+                    "%s: the scale changed nothing" % what)
+            worst_m = max(worst_m, err_m)
+    say("check adamw clip scale word (%g, t = 3, lr 1e-2): kernel and the "
+        "plain rule on the buffer bit-equal to the composed float32 product "
+        "g * scale and the plain rule (float32 and bfloat16 gradients), "
+        "moments max rel err %.3g; the scale moved the parameters"
+        % (ADAMW_CHECK_SCALE, worst_m))
 
 
 def check_dropout_keep(torch, ck):
@@ -950,51 +1037,63 @@ def time_adamw(torch, ck, timer, gen, shapes, card):
     """One AdamW step over tensors shaped like every gpt2-small parameter,
     bfloat16 parameters and gradients, float32 moments, as the O2 main
     path runs it: one launch per parameter, lr and the bias corrections
-    from the scalar buffer. The row's time is the launches replayed from
-    one CUDA graph, as the captured train step runs them: device time
-    alone. The same launches enqueued one by one from the host are timed
-    too (the time this row reported before the step was captured)."""
+    from the scalar buffer, each gradient times the clip's scale word (the
+    GPT-2 configuration's ClipGradByGlobalNorm, phase 17). The row's time
+    is the launches replayed from one CUDA graph, as the captured train
+    step runs them: device time alone. The same launches without the
+    scale (phase 10's optimizer) are replayed too, and enqueued one by one
+    from the host (the time this row reported before the step was
+    captured)."""
     ps = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
           for s in shapes]
     gs = [(torch.randn(s, generator=gen, device="cuda") * 1e-2).to(
         torch.bfloat16) for s in shapes]
     m1 = [torch.zeros(s, device="cuda") for s in shapes]
     m2 = [torch.zeros(s, device="cuda") for s in shapes]
-    sc = step_scalars(torch, ck, 1e-4, 10)
+    sc = step_scalars(torch, ck, 1e-4, 10, ADAMW_CHECK_SCALE)
     kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.01)
 
-    def run(fn, *args):
+    def run(fn, *args, **extra):
         for p, g, a, b in zip(ps, gs, m1, m2):
-            fn(p, g, a, b, *args, **kw)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        run(ck.adamw, sc)                 # warm-up on the capture stream
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        run(ck.adamw, sc)
+            fn(p, g, a, b, *args, **kw, **extra)
+
+    def captured(**extra):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run(ck.adamw, sc, **extra)    # warm-up on the capture stream
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run(ck.adamw, sc, **extra)
+        return graph
+    graph, unscaled = captured(scaled=True), captured()
     lib_p = [p.clone().requires_grad_() for p in ps]
     for p, g in zip(lib_p, gs):
         p.grad = g.clone()
     lib = torch.optim.AdamW(lib_p, lr=1e-4, weight_decay=0.01, fused=True)
     n = sum(p.numel() for p in ps)
     # each element: param read + write (2 + 2), grad read (2), m1 and m2
-    # read + write (8 + 8)
-    b, by = bound_ms(22 * n, 10 * n, "float32")
+    # read + write (8 + 8); 10 operations and the scale's product
+    b, by = bound_ms(22 * n, 11 * n, "float32")
     eager_ms = timer.ms(lambda: run(ck.adamw, sc))
+    unscaled_ms = timer.ms(unscaled.replay)
     out = {"ms": timer.ms(graph.replay),
-           "plain_ms": timer.ms(lambda: run(ck.adamw_plain, 1e-4, 10)),
+           "plain_ms": timer.ms(lambda: run(ck.adamw_plain_scalars, sc,
+                                            scaled=True)),
            "library_ms": timer.ms(lib.step), "bound_ms": b, "bound_by": by}
     say("time adamw %d parameters, %d elements, bf16 param+grad, f32 "
-        "moments: %.4f ms/step replayed from a CUDA graph (%.4f ms enqueued "
-        "one launch at a time), plain %.4f ms, torch AdamW(fused=True) "
-        "%.4f ms, bound %.4f ms (%s)" % (len(shapes), n, out["ms"], eager_ms,
-                                         out["plain_ms"], out["library_ms"],
-                                         b, by))
-    say("time adamw with the guard word: %.4f ms/step replayed, %.2f of its "
-        "bound; PERF.md's time before the word %.4f ms (another run) (%s)"
-        % (out["ms"], b / out["ms"], ADAMW_EARLIER_MS, card))
+        "moments, the clip's scale word: %.4f ms/step replayed from a CUDA "
+        "graph (without the scale %.4f ms replayed, %.4f ms enqueued one "
+        "launch at a time), plain %.4f ms, torch AdamW(fused=True) %.4f ms, "
+        "bound %.4f ms (%s)" % (len(shapes), n, out["ms"], unscaled_ms,
+                                eager_ms, out["plain_ms"], out["library_ms"],
+                                b, by))
+    say("time adamw with the scale word: %.4f ms/step replayed, %.2f of its "
+        "bound, %+.4f ms against the unscaled launches in this run; "
+        "PERF.md's time before the word %.4f ms (another run) (%s)"
+        % (out["ms"], b / out["ms"], out["ms"] - unscaled_ms,
+           ADAMW_EARLIER_MS, card))
     return out
 
 
@@ -2420,6 +2519,473 @@ def guards_main(torch, ck, flags, card, off_ms, off_launches):
 
 
 # ---------------------------------------------------------------------------
+# resumable training on the training main path (phase 17)
+
+# the resume drill: epochs x steps a run; the preempted run's SIGTERM
+# lands before this global step (0-based, in epoch 1), so the run saves
+# epoch 1 and stops at its boundary
+DRILL_EPOCHS, DRILL_STEPS, DRILL_SIGTERM_STEP = 3, 2, 3
+DRILL_TIMEOUT_S = 600
+CLIP_PAIRS = 20
+# steps timed while an async save's write is in flight, at least
+INFLIGHT_STEPS_MIN = 3
+
+
+def gpt2_recipe(optimizer, parameters, device="cuda", clip=True):
+    """The GPT-2 configuration's optimizer: the bench's AdamW(1e-4, weight
+    decay 0.01) with the public GPT-2 recipe's warm-up, cosine schedule
+    and global-norm clip (nanoGPT's train.py). Returns (optimizer,
+    scheduler); the caller steps the scheduler after each train step."""
+    from paddle_tpu_torch.optimizer import lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=100),
+                            warmup_steps=4, start_lr=0.0, end_lr=1e-4)
+    opt = optimizer.AdamW(
+        learning_rate=sched, weight_decay=0.01, parameters=parameters,
+        grad_clip=optimizer.ClipGradByGlobalNorm(1.0) if clip else None,
+        device=device)
+    return opt, sched
+
+
+def state_digest(torch, model, opt):
+    """sha256 of every parameter and both its moments, in parameter
+    order, bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in model.parameters():
+        for t in [p] + list(opt._get_accumulators(p).values()):
+            h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()
+
+
+def epoch_tokens(io, stream, start, n):
+    class EpochTokens(io.Dataset):
+        """Items start .. start + n of the bench's token stream: epoch e
+        of the drill reads the same batches in every run."""
+
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return stream[start + i]
+    return EpochTokens()
+
+
+def resume_drill(cfg):
+    """One run of the resume drill (`--resume-drill JSON`; phase 17 (c)
+    and (d), and tests/test_torch_resilience.py on the CPU): the GPT-2
+    configuration (`cfg["model"]` from paddle_tpu_torch.models at
+    cfg["device"], seed 0, dropouts 0.1, `amp.decorate` O2 when
+    cfg["dtype"] is bfloat16, `gpt2_recipe`, make_train_step) in a
+    TrainEpochRange of cfg["epochs"] epochs under cfg["root"], each epoch
+    cfg["steps"] batches of cfg["B"] x cfg["T"] from a DataLoader over its
+    slice of the bench's token stream. It restores the newest intact
+    epoch (and the RNG state in its meta), calls chaos.step_hook with the
+    global step before each step (as Model.fit does), appends each step's
+    loss to cfg["log"], saves every epoch with the RNG state in its meta,
+    and prints DRILL_RESTORED <epoch> <step count>, DRILL_SAVED <epoch>
+    and, at the end, DRILL_DONE or DRILL_PREEMPTED with `state_digest`."""
+    import torch
+    from paddle_tpu_torch import amp, io, models, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.incubate.checkpoint import TrainEpochRange
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.resilience import chaos
+
+    dev, B, T, per = cfg["device"], cfg["B"], cfg["T"], cfg["steps"]
+    prandom.seed(0)
+    model = getattr(models, cfg["model"])(seed=0, device=dev)
+    model.train()
+    opt, sched = gpt2_recipe(optimizer, model.parameters(), dev)
+    if cfg["dtype"] == "bfloat16":
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    crit = models.GPTPretrainingCriterion()
+    step = make_train_step(model, lambda o, l: crit(o, l), opt, device=dev)
+    tr = TrainEpochRange(cfg["epochs"], "drill", checkpoint_dir=cfg["root"])
+    meta = tr.restore(model, opt)
+    if meta:
+        prandom.set_rng_state(meta["rng"])
+    say("DRILL_RESTORED %d %d" % (tr.restored_epoch, opt._step_count))
+    stream = token_stream(io, model.gpt.vocab_size, T)
+    with open(cfg["log"], "a") as log:
+        for epoch in tr.get():
+            loader = io.DataLoader(
+                epoch_tokens(io, stream, epoch * per * B, per * B),
+                batch_size=B, device=dev,
+                prefetch_to_device=2 if dev == "cuda" else 0)
+            for i, ids in enumerate(loader):
+                g = epoch * per + i
+                chaos.step_hook(g)
+                loss, _ = step([ids[:, :-1]], [ids[:, 1:]])
+                sched.step()
+                log.write(json.dumps({"step": g, "loss": float(loss)})
+                          + "\n")
+                log.flush()
+            tr.save(layer=model, optimizer=opt,
+                    meta={"rng": prandom.get_rng_state()})
+            say("DRILL_SAVED %d" % epoch)
+    say("DRILL_%s %s" % ("PREEMPTED" if tr.preempted else "DONE",
+                         state_digest(torch, model, opt)))
+    return 0
+
+
+def run_drill(root, log, chaos_spec="", **cfg):
+    """`resume_drill` in a fresh process (this script with --resume-drill)
+    under PADDLE_TPU_CHAOS=chaos_spec: (exit code, stdout, stderr, wall
+    seconds, its losses by step from the log)."""
+    cfg = dict(cfg, root=root, log=log)
+    env = dict(os.environ, PADDLE_TPU_CHAOS=chaos_spec)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--resume-drill",
+         json.dumps(cfg)], env=env, capture_output=True, text=True,
+        timeout=DRILL_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(
+            __file__)))
+    losses = {}
+    if os.path.exists(log):
+        with open(log) as f:
+            for line in f:
+                rec = json.loads(line)
+                losses[rec["step"]] = rec["loss"]
+    return (out.returncode, out.stdout, out.stderr,
+            time.perf_counter() - t0, losses)
+
+
+def drill_digest(stdout, word):
+    """The digest of the DRILL_<word> line of a drill's output, or None."""
+    for line in stdout.splitlines():
+        if line.startswith("DRILL_%s " % word):
+            return line.split()[1]
+    return None
+
+
+def ckpt_counters(metrics):
+    """The pt_ckpt_* counters of the registry, by name (and mode)."""
+    out = {}
+    for name in ("pt_ckpt_bytes_total", "pt_ckpt_corrupt_total",
+                 "pt_ckpt_fallback_total", "pt_ckpt_gc_total"):
+        m = metrics.REGISTRY.get(name)
+        out[name] = m.value if m is not None else 0.0
+    saves = metrics.REGISTRY.get("pt_ckpt_saves_total")
+    for mode in ("sync", "async"):
+        out["pt_ckpt_saves_total{%s}" % mode] = (
+            saves.labels(mode).value if saves is not None else 0.0)
+    return out
+
+
+def timed_step(torch, step, sched, batch):
+    t0 = time.perf_counter()
+    loss, _ = step(*batch)
+    torch.cuda.synchronize()
+    sched.step()
+    return float(loss), (time.perf_counter() - t0) * 1e3
+
+
+def resume_main(torch, ck, card, off_ms, off_launches):
+    """Phase 17 (see the module's note): the GPT-2 configuration's captured
+    step and the clip's cost, sync and async saves and a load into the
+    built step, the resume drill and the corruption drills."""
+    from paddle_tpu_torch import amp, io, optimizer
+    from paddle_tpu_torch.checkpoint import engine, store
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.resilience import chaos
+
+    tmp = tempfile.mkdtemp(prefix="pt-resume-")
+    crit = GPTPretrainingCriterion()
+    loss_fn = lambda o, l: crit(o, l)  # noqa: E731
+    try:
+        prandom.seed(0)
+        model = gpt2_small(seed=0)
+        model.train()
+        opt, sched = gpt2_recipe(optimizer, model.parameters())
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        loader = io.DataLoader(token_stream(io, model.gpt.vocab_size,
+                                            TRAIN_T),
+                               batch_size=TRAIN_B, prefetch_to_device=2)
+        it = iter(loader)
+
+        def batch():
+            ids = next(it)
+            return [ids[:, :-1]], [ids[:, 1:]]
+
+        # (a) the captured step with the schedule and the clip
+        step = make_train_step(model, loss_fn, opt)
+        ck.launch_counts(reset=True)
+        res = [timed_step(torch, step, sched, batch())
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+        launches = ck.launch_counts()
+        losses = [r[0] for r in res]
+        times = [r[1] for r in res[TRAIN_WARMUP:]]
+        require(all(math.isfinite(x) for x in losses),
+                "resume (a): non-finite loss %s" % losses)
+        require(step.compiles == 1 and step.replays
+                == TRAIN_WARMUP + TRAIN_STEPS - 1,
+                "resume (a): %d programs built, %d replays"
+                % (step.compiles, step.replays))
+        for k in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
+                  "adamw", "dropout_keep"):
+            require(launches[k] == off_launches[k],
+                    "resume (a): %s launched %d times, phase 10 %d"
+                    % (k, launches[k], off_launches[k]))
+        scale = float(opt._scalars[ck.SCALE])
+        require(0.0 < scale <= 1.0, "resume (a): clip scale %g" % scale)
+        step_ms = statistics.median(times)
+        say("resume (a) gpt2-small B=%d T=%d O2 bf16, LinearWarmup(4) over "
+            "CosineAnnealingDecay(1e-4, 100), ClipGradByGlobalNorm(1.0), "
+            "captured: step %.2f ms median over %d timed steps (%.2f mean), "
+            "%.0f tokens/s; phase 10's step (constant lr, no clip) %.2f ms; "
+            "launches as phase 10's %s; lr staged %.4g at step %d, last "
+            "clip scale %.4f; losses %s (%s)"
+            % (TRAIN_B, TRAIN_T, step_ms, len(times), statistics.mean(times),
+               TRAIN_B * TRAIN_T / (step_ms / 1e3), off_ms,
+               {k: v for k, v in launches.items() if v},
+               float(opt._scalars[0]), opt._step_count, scale,
+               ["%.4f" % x for x in losses], card))
+
+        # the clip's cost: the same model under an optimizer without the
+        # clip (its own moments), one step each way a pair, order flipped
+        opt_off, sched_off = gpt2_recipe(optimizer, model.parameters(),
+                                         clip=False)
+        step_off = make_train_step(model, loss_fn, opt_off)
+        for _ in range(TRAIN_WARMUP):
+            timed_step(torch, step_off, sched_off, batch())
+        on_t, off_t = [], []
+        state0 = gpu_state()
+        for i in range(CLIP_PAIRS):
+            ways = ((step, sched, on_t), (step_off, sched_off, off_t))
+            for st, sc, acc in (ways if i % 2 else ways[::-1]):
+                acc.append(timed_step(torch, st, sc, batch())[1])
+        # the replays alone, in the same pairs: device time and the gaps
+        # between the kernels, none of the host's work
+        rep = {True: [], False: []}
+        for i in range(CLIP_PAIRS):
+            for on in ((True, False) if i % 2 else (False, True)):
+                rep[on] += replay_ms(torch, (step if on else
+                                             step_off).programs, 1)
+        state1 = gpu_state()
+        diffs = [a - b for a, b in zip(on_t, off_t)]
+        rdiffs = [a - b for a, b in zip(rep[True], rep[False])]
+        say("resume (a) the clip's cost, %d pairs of steps in turns: on "
+            "%.2f ms, off %.2f ms median, pair difference %+.3f ms median "
+            "(%+.2f %%), min %+.3f, max %+.3f; the graph's replay alone "
+            "(CUDA events, %d pairs) on %.3f, off %.3f ms median, "
+            "difference %+.3f ms median; card (SM clock, max SM clock, "
+            "temperature, power draw) before %s, after %s (%s)"
+            % (CLIP_PAIRS, statistics.median(on_t), statistics.median(off_t),
+               statistics.median(diffs),
+               100 * statistics.median(diffs) / statistics.median(off_t),
+               min(diffs), max(diffs), CLIP_PAIRS,
+               statistics.median(rep[True]), statistics.median(rep[False]),
+               statistics.median(rdiffs), state0, state1, card))
+        prof, added = guard_profile(torch, {False: step_off, True: step},
+                                    batch)
+        if prof[False][0] > 0 and prof[True][0] > 0:
+            (off_dev, off_n), (on_dev, on_n) = prof[False], prof[True]
+            say("resume (a) one profiled step each way (torch.profiler): "
+                "kernels clip off %.3f / on %.3f ms (%+.3f ms; the kernels "
+                "only the clipped step runs %.3f ms), %d / %d kernels (%+d) "
+                "(%s)" % (off_dev, on_dev, on_dev - off_dev,
+                          sum(t for t, _, _ in added) / 1e3, off_n, on_n,
+                          on_n - off_n, card))
+            for t_us, cnt, name in sorted(added, reverse=True):
+                say("  clip kernel %9.1f us/step %4d launches  %s"
+                    % (t_us, cnt, name[:90]))
+        del step_off, opt_off
+        free_memory(torch)
+
+        # (b) saves and a load into the built step
+        c0 = ckpt_counters(metrics)
+        fixed = batch()
+        it.close()
+        capture_s = []
+        for _ in range(2):          # the first allocates the pinned buffer
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = engine.snapshot(model, opt)
+            capture_s.append(time.perf_counter() - t0)
+            snap_bytes = sum(int(a.numel()) * a.element_size()
+                             for a in snap["arrays"].values())
+            n_arrays = len(snap["arrays"])
+            del snap
+        sync_path = os.path.join(tmp, "sync")
+        meta = {"rng": prandom.get_rng_state()}
+        saved = state_digest(torch, model, opt)
+        saved_t = opt._step_count
+        t0 = time.perf_counter()
+        engine.save_checkpoint(sync_path, model, opt, meta)
+        sync_s = time.perf_counter() - t0
+        c1 = ckpt_counters(metrics)
+        sync_bytes = c1["pt_ckpt_bytes_total"] - c0["pt_ckpt_bytes_total"]
+        require(sync_bytes == snap_bytes and store.is_complete(sync_path),
+                "resume (b): %d bytes committed, snapshot %d"
+                % (sync_bytes, snap_bytes))
+        after_loss, _ = timed_step(torch, step, sched, fixed)
+        after = state_digest(torch, model, opt)
+        # the same batch's steps with no write in flight, for the in-flight
+        # ones below (no loader in either)
+        quiet = [timed_step(torch, step, sched, fixed)[1]
+                 for _ in range(TRAIN_STEPS)]
+        t0 = time.perf_counter()
+        pending = engine.save_checkpoint(os.path.join(tmp, "async"), model,
+                                         opt, meta, async_=True)
+        blocked_s = time.perf_counter() - t0
+        inflight = []
+        while not pending.done or len(inflight) < INFLIGHT_STEPS_MIN:
+            inflight.append(timed_step(torch, step, sched, fixed)[1])
+            if len(inflight) >= 200:
+                break
+        pending.wait(120)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_meta = engine.load_checkpoint(sync_path, model, opt)
+        load_s = time.perf_counter() - t0
+        prandom.set_rng_state(got_meta["rng"])
+        require(state_digest(torch, model, opt) == saved
+                and opt._step_count == saved_t,
+                "resume (b): the load did not restore the saved state")
+        again_loss, _ = timed_step(torch, step, sched, fixed)
+        require(again_loss == after_loss
+                and state_digest(torch, model, opt) == after
+                and step.compiles == 1,
+                "resume (b): the step after the load gave loss %r (%r "
+                "after the save), %d programs built"
+                % (again_loss, after_loss, step.compiles))
+        c2 = ckpt_counters(metrics)
+        say("resume (b) sync save: %d arrays, %d bytes (%.3f GB), host "
+            "capture %.3f s (the first, which allocates the pinned buffer, "
+            "%.3f s), total %.3f s (%.2f GB/s); async save: blocked %.3f s, "
+            "committed after %.3f s, %d steps on one batch while its write "
+            "was in flight, %.2f ms median (%.2f max) against %.2f ms with "
+            "no write (%d steps, the same batch); load %.3f s (verified, "
+            "copied into the built step); the step after the load bit-equal "
+            "to the step after the save (loss %.6f, parameters and moments), "
+            "%d program built; counters %s (%s)"
+            % (n_arrays, sync_bytes, sync_bytes / 1e9, capture_s[1],
+               capture_s[0], sync_s, sync_bytes / 1e9 / sync_s, blocked_s,
+               write_s, len(inflight), statistics.median(inflight),
+               max(inflight), statistics.median(quiet), len(quiet), load_s,
+               after_loss, step.compiles,
+               {k: v - c0[k] for k, v in c2.items() if v != c0[k]}, card))
+        n_state = len(model.state_dict())
+        n_params = len(list(model.parameters()))
+        del step, model, opt, fixed, loader, it
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp, exist_ok=True)
+        free_memory(torch)
+
+        # (c) the resume drill, each run a fresh process
+        cfg = dict(device="cuda", model="gpt2_small", B=TRAIN_B, T=TRAIN_T,
+                   epochs=DRILL_EPOCHS, steps=DRILL_STEPS, dtype="bfloat16")
+        total = DRILL_EPOCHS * DRILL_STEPS
+
+        def drill(name, spec="", root=None):
+            rc, out, err, wall, losses = run_drill(
+                root or os.path.join(tmp, name),
+                os.path.join(tmp, name + ".jsonl"), spec, **cfg)
+            return rc, out, err, wall, losses
+
+        rc, out, err, wall_u, ref = drill("uninterrupted")
+        ref_digest = drill_digest(out, "DONE")
+        require(rc == 0 and ref_digest and len(ref) == total,
+                "resume (c) uninterrupted run: rc %d, %d losses\n%s"
+                % (rc, len(ref), err[-2000:]))
+        shutil.rmtree(os.path.join(tmp, "uninterrupted"), ignore_errors=True)
+        root = os.path.join(tmp, "preempted")
+        rc, out, err, wall_p, part1 = drill(
+            "preempted", "sigterm_at_step:%d" % DRILL_SIGTERM_STEP, root)
+        stop = (DRILL_SIGTERM_STEP // DRILL_STEPS + 1) * DRILL_STEPS
+        require(rc == 0 and drill_digest(out, "PREEMPTED")
+                and "DRILL_SAVED %d" % (stop // DRILL_STEPS - 1) in out
+                and sorted(part1) == list(range(stop)),
+                "resume (c) preempted run: rc %d, steps %s\n%s"
+                % (rc, sorted(part1), err[-2000:]))
+        rc, out, err, wall_r, both = drill("preempted", root=root)
+        restored = "DRILL_RESTORED %d %d" % (stop // DRILL_STEPS - 1, stop)
+        got_digest = drill_digest(out, "DONE")
+        require(rc == 0 and restored in out,
+                "resume (c) relaunch: rc %d, want %r\n%s\n%s"
+                % (rc, restored, out[-1000:], err[-2000:]))
+        require(both == ref and got_digest == ref_digest,
+                "resume (c) relaunch differs from the uninterrupted run: "
+                "losses %s against %s, digest %s against %s"
+                % (both, ref, got_digest, ref_digest))
+        say("resume (c) drill, gpt2-small B=%d T=%d O2 bf16, dropout %g, %d "
+            "epochs x %d steps, a fresh process each: the uninterrupted run "
+            "(%.1f s); under PADDLE_TPU_CHAOS=sigterm_at_step:%d the run "
+            "saved epoch %d and exited 0 at its boundary (%.1f s); the "
+            "relaunch restored it (step count %d) and ran on (%.1f s): "
+            "losses %s bit-equal, final parameters and moments sha256 %s "
+            "equal to the uninterrupted run's (%s)"
+            % (TRAIN_B, TRAIN_T, DROPOUT, DRILL_EPOCHS, DRILL_STEPS, wall_u,
+               DRILL_SIGTERM_STEP, stop // DRILL_STEPS - 1, wall_p, stop,
+               wall_r, [ref[k] for k in sorted(ref)], ref_digest[:16], card))
+        shutil.rmtree(root, ignore_errors=True)
+
+        # (d) bitflip: load_latest quarantines and falls back
+        prandom.seed(0)
+        model = gpt2_small(seed=0)
+        opt, _ = gpt2_recipe(optimizer, model.parameters())
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        p0, p1 = os.path.join(tmp, "epoch_0"), os.path.join(tmp, "epoch_1")
+        good = state_digest(torch, model, opt)       # makes the moments
+        engine.save_checkpoint(p0, model, opt, {"epoch": 0})
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(2)
+        chaos.configure("bitflip_ckpt:1")
+        try:
+            engine.save_checkpoint(p1, model, opt, {"epoch": 1})
+        finally:
+            chaos.reset()
+        c0 = ckpt_counters(metrics)
+        path, got = engine.load_latest([p1, p0], model, opt)
+        c1 = ckpt_counters(metrics)
+        corrupt = c1["pt_ckpt_corrupt_total"] - c0["pt_ckpt_corrupt_total"]
+        fallback = (c1["pt_ckpt_fallback_total"]
+                    - c0["pt_ckpt_fallback_total"])
+        require(path == p0 and got == {"epoch": 0} and corrupt == 1
+                and fallback == 1 and os.path.isdir(p1 + ".corrupt")
+                and state_digest(torch, model, opt) == good,
+                "resume (d) bitflip: loaded %s, corrupt +%d, fallback +%d"
+                % (path, corrupt, fallback))
+        del model, opt
+        free_memory(torch)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp, exist_ok=True)
+        # torn write: the blob after one and a half saves, in epoch 1's
+        blobs = n_state + 2 * n_params
+        spec = "torn_write:%d" % (blobs + blobs // 2)
+        root = os.path.join(tmp, "torn")
+        rc, out, err, wall_t, part1 = drill("torn", spec, root)
+        require(rc == -9 and "DRILL_SAVED 0" in out
+                and "DRILL_SAVED 1" not in out,
+                "resume (d) torn write: rc %d (want -9, SIGKILL)\n%s\n%s"
+                % (rc, out[-1000:], err[-2000:]))
+        os.remove(os.path.join(tmp, "torn.jsonl"))
+        rc, out, err, wall_t2, again = drill("torn", root=root)
+        require(rc == 0 and "DRILL_RESTORED 0 %d" % DRILL_STEPS in out
+                and again == {k: v for k, v in ref.items()
+                              if k >= DRILL_STEPS}
+                and drill_digest(out, "DONE") == ref_digest,
+                "resume (d) torn-write relaunch: rc %d, losses %s\n%s"
+                % (rc, again, err[-2000:]))
+        say("resume (d) bitflip_ckpt:1 on epoch 1's save: load_latest "
+            "quarantined it and fell back to epoch 0 (pt_ckpt_corrupt_total "
+            "+%d, pt_ckpt_fallback_total +%d), state bit-equal to epoch 0's; "
+            "PADDLE_TPU_CHAOS=%s (%d blobs a save): the run died by SIGKILL "
+            "in epoch 1's save (%.1f s), the relaunch resumed from epoch 0 "
+            "(%.1f s) and its losses and final state equal the "
+            "uninterrupted run's (%s)"
+            % (corrupt, fallback, spec, blobs, wall_t, wall_t2, card))
+    finally:
+        chaos.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # serving
 
 
@@ -2957,7 +3523,12 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="build the kernels, check them against their "
                     "plain versions and stop")
+    ap.add_argument("--resume-drill", metavar="JSON",
+                    help="one run of phase 17's resume drill, its settings "
+                    "as JSON (see resume_drill); phase 17 starts these")
     opts = ap.parse_args()
+    if opts.resume_drill:
+        return resume_drill(json.loads(opts.resume_drill))
 
     import torch
     require(torch.cuda.is_available(), "CUDA is not available")
@@ -3217,6 +3788,10 @@ def main():
     # 16. guards and eval on the training main path
     free_memory(torch)
     guards_main(torch, ck, flags, card, off_ms, tlaunches)
+
+    # 17. resumable training: schedule, clip, checkpoints, preemption
+    free_memory(torch)
+    resume_main(torch, ck, card, off_ms, tlaunches)
 
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]

@@ -52,5 +52,6 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["amp", "framework", "incubate", "inference", "io", "jit",
-           "models", "nn", "observability", "ops", "optimizer"]
+__all__ = ["amp", "checkpoint", "framework", "incubate", "inference", "io",
+           "jit", "models", "nn", "observability", "ops", "optimizer",
+           "resilience"]

@@ -23,7 +23,10 @@ captured the step bakes the deltas, not the offsets, and each replay
 draws new bits from the base written before it. After the step the count
 advances by the step's draws. `get_rng_state` / `set_rng_state` read and
 set host state only; a restored state writes its base into the word
-before the next step, which then repeats the masks of the saved one.
+before the next step, which then repeats the masks of the saved one. The
+state is JSON-able, so that a checkpoint's meta carries it;
+`set_rng_state` takes nothing else (not the JAX package's key: the two
+packages' generators differ, so their states never cross).
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ __all__ = ["GlobalRNG", "RNG", "seed", "get_rng_state", "set_rng_state",
            "next_seed_offset", "philox_word"]
 
 _U32 = 2 ** 32
+# the tag of a `GlobalRNG.state()`
+STATE_KIND = "paddle_tpu_torch.GlobalRNG"
 
 
 def _device(device) -> torch.device:
@@ -148,16 +153,31 @@ class GlobalRNG:
         self._offset = (self._offset + 1) % _U32
         return self._kseed(), off
 
-    def state(self):
-        return {"cpu": self.cpu.get_state(),
+    def state(self) -> dict:
+        """The host state as JSON-able data (it goes into a checkpoint's
+        meta): the CPU generator's state bytes as hex, the kernel seed, the
+        offset count and the seed."""
+        return {"kind": STATE_KIND,
+                "cpu": bytes(self.cpu.get_state().numpy()).hex(),
                 "kernel_seed": self._kernel_seed, "offset": self._offset,
                 "seed": self._seed}
 
     def set_state(self, state):
-        self._seed = state["seed"]
-        self.cpu.set_state(state["cpu"])
-        self._kernel_seed = state["kernel_seed"]
-        self._offset = state["offset"]
+        """Restore a `state()`. Raises ValueError on anything else, the
+        JAX package's key among them: its generator is another one, whose
+        state this one cannot take."""
+        if not isinstance(state, dict) or state.get("kind") != STATE_KIND:
+            raise ValueError(
+                "not an RNG state of paddle_tpu_torch (got %s): the JAX "
+                "package's key and other generators' states do not carry "
+                "over" % type(state).__name__)
+        cpu = torch.frombuffer(bytearray.fromhex(state["cpu"]),
+                               dtype=torch.uint8)
+        self.cpu.set_state(cpu)
+        self._seed = int(state["seed"])
+        ks = state["kernel_seed"]
+        self._kernel_seed = None if ks is None else int(ks)
+        self._offset = int(state["offset"]) % _U32
 
 
 RNG = GlobalRNG(0)

@@ -12,8 +12,10 @@ updates the parameters and moments in place. The per-call state reaches
 the kernels through device memory, written by the host before each
 replay: the RNG's Philox word (framework/random.py: each dropout draw of
 the step reads (seed, base + i) for its index i in the step), the
-optimizer's scalar buffer (lr, the bias corrections and the guard's word)
-and, for the chaos drill's `nan_at_step`, the step count t. On the CPU
+optimizer's scalar buffer (lr, from a scheduler too, the bias
+corrections, the guard's word and the clip's scale, the last two
+rewritten on the device inside the graph) and, for the chaos drill's
+`nan_at_step`, the step count t. On the CPU
 the same bodies run eagerly under the same counters.
 
 Each dispatch is wired as the reference's: `flight.note_dispatch`, a
@@ -199,8 +201,9 @@ class TrainStep(_ProgramStep):
 
     def _body(self, key, n_inputs):
         """One step on the key's static buffers: forward, loss, backward,
-        the guard's test, the updates at the staged scalars; every gradient
-        dropped."""
+        the guard's test (on the raw gradients), the updates at the staged
+        scalars (regularizer, grad clip and rule, the clip's norm taken on
+        the device: no host read); every gradient dropped."""
         RNG.rewind_step()
         static = self._static[key]
         outputs = self.network(*static[:n_inputs])
@@ -266,10 +269,12 @@ def make_train_step(network, loss_fn, optimizer, device="cuda"):
     network on `inputs`, `loss_fn(*outputs, *labels)`, `loss.backward()`,
     then `optimizer.apply_updates` over every trainable parameter, which
     updates the parameters and moments IN PLACE under torch.no_grad()
-    (weight decay regularizer first, as the reference's step does), and
-    drops every gradient. The step count and the lr are taken per call,
-    as the reference takes them (engine.py:286-290): the count advances
-    on every call, a skipped or failed one too. A parameter the loss does
+    (the regularizer, then the optimizer's grad_clip over the whole list,
+    then the rule, as the reference's step does), and drops every
+    gradient. The step count and the lr (a scheduler's current value) are
+    taken per call, as the reference takes them (engine.py:286-290): the
+    count advances on every call, a skipped or failed one too; the caller
+    steps the scheduler. A parameter the loss does
     not reach gets a zero gradient, as in the reference's functional
     grad. On CUDA the program is a CUDA graph captured at the signature's
     first call and replayed after (no eager fallback: a capture or replay

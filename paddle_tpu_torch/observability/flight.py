@@ -26,8 +26,9 @@ Env knobs, the reference's:
     PADDLE_TPU_HBM_SAMPLE_S         min seconds between memory samples
                                     (default 0.5; first call always
                                     samples)
-    PADDLE_TPU_FLIGHT_DUMP_ON_TERM  "1": also dump on SIGTERM (off by
-                                    default)
+    PADDLE_TPU_FLIGHT_DUMP_ON_TERM  "1": also dump on SIGTERM, and on a
+                                    preemption a PreemptionGuard caught
+                                    (`on_preemption`; off by default)
 
 Nothing here calls the CUDA runtime: the memory reads are the
 allocator's host-side books, so a sample or a bundle written from one
@@ -53,7 +54,7 @@ from . import memprof, metrics
 
 __all__ = ["record", "record_raw", "note_compile", "note_dispatch",
            "step_finished", "sample_hbm", "configure",
-           "dump_crash_bundle", "ring_events", "reset"]
+           "dump_crash_bundle", "on_preemption", "ring_events", "reset"]
 
 ENV_DIR = "PADDLE_TPU_FLIGHT_DIR"
 ENV_EVENTS = "PADDLE_TPU_FLIGHT_EVENTS"
@@ -379,6 +380,15 @@ def dump_crash_bundle(reason: str, exc: Optional[BaseException] = None,
     except Exception:
         pass
     return bdir
+
+
+def on_preemption(signum: int) -> None:
+    """PreemptionGuard hook: a preemption is an orderly exit (the guard
+    checkpoints and exits 0), so no bundle unless the operator opted in
+    with PADDLE_TPU_FLIGHT_DUMP_ON_TERM=1. The ring gets the event through
+    the journal's tap either way."""
+    if os.environ.get(ENV_DUMP_ON_TERM) == "1":
+        dump_crash_bundle("preemption", signum=int(signum))
 
 
 def reset() -> None:

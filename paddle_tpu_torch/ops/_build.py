@@ -59,9 +59,11 @@ _SIGNATURES = {
         "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I] + _DROP + [_P],
     },
     "adamw": {
-        # param, grad, m1, m2, n, ptype, gtype, scalars (lr, c1, c2 in
-        # device memory), coeff, use_decay, b1, 1-b1, b2, 1-b2, eps, stream
-        "adamw": [_P] * 4 + [_I64, _I, _I, _P, _F, _I] + [_F] * 5 + [_P],
+        # param, grad, m1, m2, n, ptype, gtype, scalars (lr, c1, c2, go,
+        # scale in device memory), coeff, use_decay, use_scale, b1, 1-b1,
+        # b2, 1-b2, eps, stream
+        "adamw": [_P] * 4 + [_I64, _I, _I, _P, _F, _I, _I] + [_F] * 5
+                 + [_P],
     },
     "paged_decode": {
         # q, nk, nv, strides*, kc, vc, ks, vs, lens, out, part, ticket, B,

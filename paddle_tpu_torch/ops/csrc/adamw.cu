@@ -5,23 +5,31 @@
 // `fused_adamw_or_none`), whose arithmetic is the jnp rule of
 // paddle_tpu/optimizer Adam/AdamW `_update_rule`:
 //     p  = float(param) [* (1 - lr * coeff)]        (AdamW's decoupled decay)
-//     m1 = b1 * m1 + (1 - b1) * g                   (g = float(grad))
+//     m1 = b1 * m1 + (1 - b1) * g                   (g = float(grad)
+//                                                    [* scale], the clip's)
 //     m2 = b2 * m2 + (1 - b2) * (g * g)
 //     param = p - lr * (m1 / c1) / (sqrt(m2 / c2) + eps)
 // with c1 = 1 - b1^t and c2 = 1 - b2^t computed on the host in float32.
 // lr, c1 and c2 change every step, so the kernel reads them from a float32
-// device buffer [lr, c1, c2, go] that the host fills before the step, as
-// the TPU kernel reads `lr_ref` and `c_ref` from SMEM: a CUDA graph that
-// captured the launch then applies each step's values on replay. `go` is
-// the non-finite guard's word: the host stages 1, and a train step made
-// with FLAGS_skip_nonfinite_steps overwrites it on the device with 0 when
-// the loss or a gradient is not finite; at 0 the kernel writes nothing,
-// so the parameter and both moments keep their values (the reference
-// selects the old ones with jnp.where inside its executable). The
-// kernel forms 1 - lr * coeff itself (__fmul_rn, __fsub_rn), the host's
-// float32 value bit for bit. Every operation is rounded on its own
-// (__fmul_rn, __fdiv_rn, __fsqrt_rn, ...: no FMA contraction), so the
-// kernel equals the plain PyTorch version op for op.
+// device buffer [lr, c1, c2, go, scale] that the host fills before the
+// step, as the TPU kernel reads `lr_ref` and `c_ref` from SMEM: a CUDA
+// graph that captured the launch then applies each step's values on
+// replay. `go` is the non-finite guard's word: the host stages 1, and a
+// train step made with FLAGS_skip_nonfinite_steps overwrites it on the
+// device with 0 when the loss or a gradient is not finite; at 0 the
+// kernel writes nothing, so the parameter and both moments keep their
+// values (the reference selects the old ones with jnp.where inside its
+// executable). `scale` is
+// ClipGradByGlobalNorm's clip_norm / max(global norm, clip_norm): the host
+// stages 1, and a clipped step writes it on the device before the update;
+// a launch with use_scale takes g = float(grad) * scale, one float32
+// rounding, the reference's float32 product of the gradient and its 0-d
+// float32 scale (which a bfloat16 gradient is never rounded back from),
+// at no extra pass over the gradients. A launch without use_scale reads
+// four words only. The kernel forms 1 - lr * coeff itself (__fmul_rn,
+// __fsub_rn), the host's float32 value bit for bit. Every operation is
+// rounded on its own (__fmul_rn, __fdiv_rn, __fsqrt_rn, ...: no FMA
+// contraction), so the kernel equals the plain PyTorch version op for op.
 //
 // The parameter is float32 or bfloat16, the gradient float32 or bfloat16
 // (converted to float32 here), the moments float32. Any numel: the TPU's
@@ -49,10 +57,10 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// the per-step values live in device memory (`sc`: lr, c1, c2, go)
+// the per-step values live in device memory (`sc`: lr, c1, c2, go, scale)
 struct Hyper {
   float coeff, b1, omb1, b2, omb2, eps;
-  int use_decay;
+  int use_decay, use_scale;
 };
 
 template <typename P, typename G>
@@ -63,10 +71,12 @@ adamw_kernel(P* __restrict__ param, const G* __restrict__ grad,
   if (__ldg(sc + 3) == 0.f) return;        // the guard skipped this step
   const float lr = __ldg(sc), c1 = __ldg(sc + 1), c2 = __ldg(sc + 2);
   const float decay = __fsub_rn(1.f, __fmul_rn(lr, hp.coeff));
+  const float scale = hp.use_scale ? __ldg(sc + 4) : 1.f;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float g = to_f(grad[i]);
+    float g = to_f(grad[i]);
+    if (hp.use_scale) g = __fmul_rn(g, scale);
     float p = to_f(param[i]);
     if (hp.use_decay) p = __fmul_rn(p, decay);
     const float a = __fadd_rn(__fmul_rn(hp.b1, m1[i]), __fmul_rn(hp.omb1, g));
@@ -94,17 +104,19 @@ int launch(void* param, const void* grad, float* m1, float* m2, long long n,
 
 }  // namespace
 
-// ptype / gtype: 0 float32, 1 bfloat16. sc: float32 [4] in device memory,
-// the step's lr, c1, c2 and go (0: write nothing). coeff (AdamW's decoupled decay), the betas,
+// ptype / gtype: 0 float32, 1 bfloat16. sc: float32 [4] or [5] in device
+// memory, the step's lr, c1, c2, go (0: write nothing) and the clip scale
+// (read only with use_scale). coeff (AdamW's decoupled decay), the betas,
 // 1 - beta and eps are float32 values computed by the caller. use_decay: 0
 // for Adam (no decay multiply). Returns cudaGetLastError() after the
 // launch.
 extern "C" int adamw(void* param, const void* grad, float* m1, float* m2,
                      long long n, int ptype, int gtype, const float* sc,
-                     float coeff, int use_decay, float b1, float omb1,
-                     float b2, float omb2, float eps, cudaStream_t stream) {
+                     float coeff, int use_decay, int use_scale, float b1,
+                     float omb1, float b2, float omb2, float eps,
+                     cudaStream_t stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  const Hyper hp{coeff, b1, omb1, b2, omb2, eps, use_decay};
+  const Hyper hp{coeff, b1, omb1, b2, omb2, eps, use_decay, use_scale};
   if (ptype == 0 && gtype == 0)
     return launch<float, float>(param, grad, m1, m2, n, sc, hp, stream);
   if (ptype == 0 && gtype == 1)

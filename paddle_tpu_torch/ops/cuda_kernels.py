@@ -1067,12 +1067,17 @@ def fused_dropout_residual_ln_or_none(x, residual, bias, gamma, beta, p, eps,
 # for a bfloat16 parameter and gradient, 28 for float32). One pass, in
 # place; one launch per parameter. lr and the bias corrections c1 = 1 -
 # beta1^t, c2 = 1 - beta2^t change every step, so the kernel reads them
-# from a float32 device buffer [lr, c1, c2, go] (`adam_step_scalars`,
+# from a float32 device buffer [lr, c1, c2, go, scale] (`adam_step_scalars`,
 # filled by the optimizer once a step), as `_adamw_kernel` reads its SMEM
 # refs. `go` is the non-finite guard's word (`Adam.gate_update`): staged 1
 # by the host, set to 0 on the device by a guarded train step whose loss or
-# gradients are not finite, and then the update writes nothing.
+# gradients are not finite, and then the update writes nothing. `scale` is
+# ClipGradByGlobalNorm's: staged 1, written on the device by a clipped
+# step; an update made with scaled=True takes g = float(grad) * scale, one
+# float32 rounding, the reference's product of a gradient and its float32
+# 0-d scale. A buffer of 4 words serves an update that is not scaled.
 GO = 3                          # the guard word's index in the buffer
+SCALE = 4                       # the clip scale's index
 
 
 def _adam_scalars(lr, t, beta1, beta2, epsilon, coeff):
@@ -1090,22 +1095,27 @@ def _adam_scalars(lr, t, beta1, beta2, epsilon, coeff):
 
 
 def adam_step_scalars(lr, t, beta1, beta2):
-    """The step's values of the scalar buffer, float32 [lr, c1, c2, go] as
-    `_adam_scalars` rounds them, with the guard's word go = 1 (the update
-    applies)."""
+    """The step's values of the scalar buffer, float32 [lr, c1, c2, go,
+    scale] as `_adam_scalars` rounds them, with the guard's word go = 1
+    (the update applies) and the clip scale 1."""
     sc = _adam_scalars(lr, t, beta1, beta2, 0.0, 0.0)
-    return np.array([sc["lr"], sc["c1"], sc["c2"], 1.0], dtype=np.float32)
+    return np.array([sc["lr"], sc["c1"], sc["c2"], 1.0, 1.0],
+                    dtype=np.float32)
 
 
-def _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc, go=None):
+def _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc, go=None,
+                scale=None):
     """The reference's jnp rule (optimizer Adam/AdamW `_update_rule`) line
     for line, in place, each operation rounded on its own as the kernel
     rounds it; lr, c1, c2 and decay (None: no decay) are float32 values,
     host numbers or 0-d tensors, c1 and c2 tensors (dividing by a python
     number, torch may multiply by its reciprocal instead). `go` (a 0-d
     bool tensor, or None for always): where it is False, param, m1 and m2
-    keep their values, as the kernel writes nothing at go = 0."""
+    keep their values, as the kernel writes nothing at go = 0. `scale` (a
+    0-d float32 tensor, or None): the gradient is float(grad) * scale."""
     g = grad.float()
+    if scale is not None:
+        g = g * scale
     p32 = param.float()
     if decay is not None:
         p32 = p32 * decay
@@ -1135,28 +1145,32 @@ def adamw_plain(param, grad, m1, m2, lr, t, *, beta1, beta2, epsilon,
 
 
 def adamw_plain_scalars(param, grad, m1, m2, scalars, *, beta1, beta2,
-                        epsilon, coeff):
+                        epsilon, coeff, scaled=False):
     """The same update with lr, c1 and c2 read from the scalar buffer
-    `scalars` (float32 [4] on param's device) on the device, 1 - lr *
-    coeff formed there in float32: equal to `adamw_plain` at the buffer's
-    lr and t bit for bit; where the buffer's guard word is 0, param and
-    the moments keep their values, as in the kernel. The optimizer's
+    `scalars` (float32 [4] or [5] on param's device) on the device, 1 - lr
+    * coeff formed there in float32: equal to `adamw_plain` at the
+    buffer's lr and t bit for bit; where the buffer's guard word is 0,
+    param and the moments keep their values, as in the kernel; with
+    `scaled`, the gradient times the buffer's clip scale. The optimizer's
     route with use_fused_optimizer off, so that a captured plain step also
     advances."""
-    _scalars_check(scalars, param)
+    _scalars_check(scalars, param, scaled)
     sc = _adam_scalars(0.0, 1, beta1, beta2, epsilon, 0.0)
     lr, c1, c2 = scalars[0], scalars[1], scalars[2]
     decay = (1.0 - lr * float(np.float32(coeff))) if coeff else None
     _adamw_rule(param, grad, m1, m2, lr, c1, c2, decay, sc,
-                go=scalars[GO] != 0)
+                go=scalars[GO] != 0,
+                scale=scalars[SCALE] if scaled else None)
 
 
-def _scalars_check(scalars, param):
+def _scalars_check(scalars, param, scaled=False):
     _need(isinstance(scalars, torch.Tensor)
-          and scalars.dtype == torch.float32 and tuple(scalars.shape) == (4,)
+          and scalars.dtype == torch.float32 and scalars.dim() == 1
+          and scalars.numel() in ((5,) if scaled else (4, 5))
           and scalars.device == param.device and scalars.is_contiguous(),
           "adamw: the step's scalars must be a float32 [4] tensor (lr, c1, "
-          "c2, go) on the parameter's device")
+          "c2, go), or [5] with the clip scale (needed when scaled), on the "
+          "parameter's device")
 
 
 def _adamw_check(param, grad, m1, m2):
@@ -1174,29 +1188,32 @@ def _adamw_check(param, grad, m1, m2):
     _need(param.numel() > 0, "adamw: empty parameter")
 
 
-def adamw(param, grad, m1, m2, scalars, *, beta1, beta2, epsilon, coeff):
+def adamw(param, grad, m1, m2, scalars, *, beta1, beta2, epsilon, coeff,
+          scaled=False):
     """The fused update kernel, in place on param, m1, m2, with the step's
-    lr, c1 and c2 from `scalars` (float32 [4] on param's device,
-    `adam_step_scalars`; its guard word at 0: nothing written); the plain
-    version on CPU tensors. coeff 0 is Adam."""
+    lr, c1 and c2 from `scalars` (float32 [4] or [5] on param's device,
+    `adam_step_scalars`; its guard word at 0: nothing written; with
+    `scaled`, each gradient element times its fifth word, the clip scale);
+    the plain version on CPU tensors. coeff 0 is Adam."""
     _adamw_check(param, grad, m1, m2)
-    _scalars_check(scalars, param)
+    _scalars_check(scalars, param, scaled)
     if not _on_cuda(param, "adamw"):
         return adamw_plain_scalars(param, grad, m1, m2, scalars, beta1=beta1,
-                                   beta2=beta2, epsilon=epsilon, coeff=coeff)
+                                   beta2=beta2, epsilon=epsilon, coeff=coeff,
+                                   scaled=scaled)
     sc = _adam_scalars(0.0, 1, beta1, beta2, epsilon, coeff)
     err = _build.load("adamw").adamw(
         param.data_ptr(), grad.data_ptr(), m1.data_ptr(), m2.data_ptr(),
         param.numel(), _DTYPE_CODE[param.dtype], _DTYPE_CODE[grad.dtype],
         scalars.data_ptr(), float(np.float32(coeff)), int(bool(coeff)),
-        float(sc["b1"]), float(sc["omb1"]), float(sc["b2"]),
-        float(sc["omb2"]), float(sc["eps"]), _stream(param))
+        int(bool(scaled)), float(sc["b1"]), float(sc["omb1"]),
+        float(sc["b2"]), float(sc["omb2"]), float(sc["eps"]), _stream(param))
     _check_launch(err, "adamw")
     _LAUNCHES["adamw"] += 1
 
 
 def fused_adamw_or_none(param, grad, scalars, m1, m2, *, beta1, beta2,
-                        epsilon, coeff):
+                        epsilon, coeff, scaled=False):
     """Gate (reference: pallas_kernels.py fused_adamw_or_none :1067): None
     when `use_fused_optimizer` is off (the caller runs the plain rule),
     else the kernel's update, in place, returning (param, m1, m2); lr and
@@ -1207,7 +1224,7 @@ def fused_adamw_or_none(param, grad, scalars, m1, m2, *, beta1, beta2,
     if not flag("use_fused_optimizer"):
         return None
     adamw(param, grad, m1, m2, scalars, beta1=beta1, beta2=beta2,
-          epsilon=epsilon, coeff=coeff)
+          epsilon=epsilon, coeff=coeff, scaled=scaled)
     return param, m1, m2
 
 

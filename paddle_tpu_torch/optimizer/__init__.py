@@ -1,5 +1,6 @@
 """Optimizers (counterpart of paddle_tpu/optimizer/__init__.py: Optimizer,
-Adam, AdamW, with the reference's semantics).
+Adam, AdamW, the gradient clips and the regularizers, with the
+reference's semantics; the LR schedulers are in `lr`).
 
 The reference's update is a pure function (param, grad, lr, t, *accs) ->
 (new param, *new accs); the port's `_update_rule` updates the parameter
@@ -20,9 +21,22 @@ the updates, after the host has staged each step's values. `go`, staged
 1, is the word a train step's non-finite guard sets to 0 on the device to
 skip the update (`gate_update`; jit/engine.py).
 
-Not ported yet (raise NotImplementedError when asked for): LR schedulers,
-grad_clip, lazy_mode (row-sparse gradients), lr_ratio, a callable
-weight_decay.
+`learning_rate` is a number or an `lr.LRScheduler`, whose current value
+`stage_step` stages, so a captured step follows the schedule with no
+rebuild; the scheduler's state rides in the state dict under
+"LR_Scheduler", as in the reference. `apply_updates` takes the
+reference's order: the regularizer on every gradient, then `grad_clip`
+over the whole list, then the rule. `ClipGradByGlobalNorm` gives the
+reference's float32 product g * scale with no pass of its own over the
+gradients: for Adam and AdamW it computes the scale on the device (one
+multi-tensor norm pass) and writes it into the scalar buffer's fifth word,
+which the update multiplies each gradient by as it reads it (staged 1.0,
+so an unclipped step is unchanged). `ClipGradByNorm` and
+`ClipGradByValue` are composed PyTorch ops in the gradient's dtype, as
+the reference's are.
+
+Not ported yet (raise NotImplementedError when asked for): lazy_mode
+(row-sparse gradients), lr_ratio, a callable weight_decay.
 """
 from __future__ import annotations
 
@@ -32,20 +46,118 @@ import numpy as np
 import torch
 
 from ..framework.device import resolve_device, write_values
-from ..ops.cuda_kernels import (GO, adam_step_scalars, adamw_plain_scalars,
-                                fused_adamw_or_none)
+from ..ops.cuda_kernels import (GO, SCALE, adam_step_scalars,
+                                adamw_plain_scalars, fused_adamw_or_none)
+from . import lr  # noqa: F401
+from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW", "L2Decay"]
+__all__ = ["Optimizer", "Adam", "AdamW", "L1Decay", "L2Decay", "lr",
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
 
 
+# ---------------------------------------------------------------------------
+# grad clip (reference: optimizer ClipGradByValue / ByNorm / ByGlobalNorm)
+
+
+def _need_clip(p):
+    return getattr(p, "need_clip", True)
+
+
+def _true_div(num, den):
+    """num / den as one rounded division (a python number over a tensor
+    would become den's reciprocal times num)."""
+    return torch.full_like(den, num).div_(den)
+
+
+class ClipGradBase:
+    def __call__(self, params_grads):
+        raise NotImplementedError
+
+
+class ClipGradByValue(ClipGradBase):
+    """Each gradient clamped to [min, max], in its own dtype."""
+
+    def __init__(self, max, min=None):  # noqa: A002
+        self.max = float(max)
+        self.min = float(min) if min is not None else -float(max)
+
+    def __call__(self, params_grads):
+        return [(p, torch.clamp(g, self.min, self.max))
+                for p, g in params_grads]
+
+
+class ClipGradByNorm(ClipGradBase):
+    """Each gradient times min(clip_norm / max(||g||, 1e-12), 1), its norm
+    and the product in the gradient's dtype, as the reference's weak
+    python floats keep them."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def __call__(self, params_grads):
+        out = []
+        for p, g in params_grads:
+            norm = g.square().sum().sqrt()
+            scale = torch.clamp_max(
+                _true_div(self.clip_norm, torch.clamp_min(norm, 1e-12)), 1.0)
+            out.append((p, g * scale))
+        return out
+
+
+class ClipGradByGlobalNorm(ClipGradBase):
+    """Every gradient of a parameter with `need_clip` (default True) times
+    clip_norm / max(global norm, clip_norm), the global norm summed in
+    float32 over those gradients; the product is float32, as the
+    reference's non-weak float32 scale makes it."""
+
+    def __init__(self, clip_norm, group_name="default_group"):
+        self.clip_norm = float(clip_norm)
+
+    def scale(self, params_grads) -> torch.Tensor:
+        """The 0-d float32 scale on the gradients' device, with no read on
+        the host: one multi-tensor pass a gradient dtype
+        (`torch._foreach_norm` with float32 norms: without dtype= it
+        returns a bfloat16 gradient's norm in bfloat16)."""
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for p, g in params_grads:
+            if _need_clip(p):
+                by_dtype.setdefault(g.dtype, []).append(g)
+        if not by_dtype:
+            return torch.ones((), dtype=torch.float32,
+                              device=params_grads[0][1].device
+                              if params_grads else None)
+        norms = [n for group in by_dtype.values()
+                 for n in torch._foreach_norm(group, 2,
+                                              dtype=torch.float32)]
+        total = torch.linalg.vector_norm(torch.stack(norms))
+        return _true_div(self.clip_norm,
+                         torch.clamp_min(total, self.clip_norm))
+
+    def __call__(self, params_grads):
+        scale = self.scale(params_grads)
+        return [(p, g.float() * scale if _need_clip(p) else g)
+                for p, g in params_grads]
+
+
+# regularizers (reference: optimizer L1Decay / L2Decay)
 class L2Decay:
-    """g + coeff * p (reference: optimizer L2Decay)."""
+    """g + coeff * p."""
 
     def __init__(self, coeff=0.0):
         self.coeff = float(coeff)
 
     def __call__(self, p, g):
         return g + self.coeff * p
+
+
+class L1Decay:
+    """g + coeff * sign(p)."""
+
+    def __init__(self, coeff=0.0):
+        self.coeff = float(coeff)
+
+    def __call__(self, p, g):
+        return g + self.coeff * torch.sign(p)
 
 
 def _name(p):
@@ -66,20 +178,29 @@ class Optimizer:
     `{qualname}_{name}`, `@step_count`). Parameters must lie on
     `device` (default "cuda", which raises without CUDA). `_scalars` is
     the device buffer of the per-step values the rule reads
-    (`_step_scalars`), made once: a captured step holds its address."""
+    (`_step_scalars`), made once: a captured step holds its address.
+    `_clip_word`: the rule multiplies each gradient by the buffer's SCALE
+    word, which ClipGradByGlobalNorm writes."""
 
     _accumulator_names: List[str] = []
     _n_scalars = 0
+    _clip_word = False
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
                  device="cuda"):
-        if not isinstance(learning_rate, (int, float)):
-            _not_ported("an LR scheduler")
-        if grad_clip is not None:
-            _not_ported("grad_clip")
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
+            raise TypeError("learning_rate must be a number or an "
+                            "LRScheduler (got %s)"
+                            % type(learning_rate).__name__)
+        if grad_clip is not None and not callable(grad_clip):
+            raise TypeError("grad_clip must be a clip (a callable over "
+                            "(parameter, gradient) pairs), got %s"
+                            % type(grad_clip).__name__)
         self._device = resolve_device(device)
-        self._lr = float(learning_rate)
+        self._lr = (learning_rate if isinstance(learning_rate, LRScheduler)
+                    else float(learning_rate))
+        self._grad_clip = grad_clip
         self._parameter_list = (list(parameters) if parameters is not None
                                 else None)
         for p in self._parameter_list or []:
@@ -99,10 +220,17 @@ class Optimizer:
 
     # -- lr ----------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return float(self._lr())
         return float(self._lr)
 
     def set_lr(self, value):
+        if isinstance(self._lr, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._lr = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self._lr = scheduler
 
     # -- accumulators ------------------------------------------------------
     def _get_accumulators(self, p):
@@ -130,8 +258,21 @@ class Optimizer:
         raise NotImplementedError
 
     def _regularized(self, p, g):
-        return g if self._regularization is None else \
-            self._regularization(p, g)
+        """The parameter's own `regularizer`, else the optimizer's."""
+        reg = getattr(p, "regularizer", None) or self._regularization
+        return g if reg is None else reg(p, g)
+
+    def _clipped(self, params_grads):
+        """`grad_clip` over the whole list. ClipGradByGlobalNorm with a
+        scale word writes its scale there, on the device, and leaves the
+        gradients to the rule."""
+        clip = self._grad_clip
+        if clip is None:
+            return params_grads
+        if self._clip_word and isinstance(clip, ClipGradByGlobalNorm):
+            self._scalars[SCALE].copy_(clip.scale(params_grads))
+            return params_grads
+        return clip(params_grads)
 
     def stage_step(self):
         """Count the step and fill `_scalars` with its values (lr and t), in
@@ -150,18 +291,21 @@ class Optimizer:
 
     @torch.no_grad()
     def apply_updates(self, params_grads):
-        """The regularizer and then the rule on each (parameter, gradient)
-        pair, in place, at the values `stage_step` staged."""
-        for p, g in params_grads:
+        """The reference's order over (parameter, gradient) pairs: the
+        regularizer on every gradient, then the clip over the whole list,
+        then the rule on each pair, in place, at the values `stage_step`
+        staged."""
+        pairs = self._clipped([(p, self._regularized(p, g))
+                               for p, g in params_grads])
+        for p, g in pairs:
             accs = self._get_accumulators(p)
-            self._update_rule(self._static_args(p), p,
-                              self._regularized(p, g), self._scalars,
+            self._update_rule(self._static_args(p), p, g, self._scalars,
                               *[accs[n] for n in self._accumulator_names])
 
     def apply_gradients(self, params_grads):
         """One step over (parameter, gradient) pairs: counts the step,
-        stages the lr and t, and applies the regularizer and then the rule
-        to each parameter, in place."""
+        stages the lr and t, and applies the regularizer, the clip and the
+        rule, in place."""
         self.stage_step()
         self.apply_updates(params_grads)
 
@@ -186,7 +330,8 @@ class Optimizer:
 
     def state_dict(self):
         """Snapshot (copies) of the accumulators keyed by parameter order
-        and, where the parameter has a name, by name; plus the step
+        and, where the parameter has a name, by name (one tensor under
+        both keys); the scheduler's state under "LR_Scheduler"; the step
         count."""
         sd = {}
         for i, p in enumerate(self._parameter_list or []):
@@ -195,10 +340,19 @@ class Optimizer:
                 sd["@acc_%d_%s" % (i, name)] = snap
                 if _name(p):
                     sd["%s_%s" % (_name(p), name)] = snap
+        if isinstance(self._lr, LRScheduler):
+            sd["LR_Scheduler"] = self._lr.state_dict()
         sd["@step_count"] = self._step_count
         return sd
 
     def set_state_dict(self, state_dict):
+        """Load a state dict (this package's or the reference's) IN PLACE:
+        the accumulators are copied into, never rebound, so a captured
+        step that holds them replays on from the loaded values. The next
+        step stages t = the loaded step count + 1."""
+        sched = state_dict.get("LR_Scheduler")
+        if sched and isinstance(self._lr, LRScheduler):
+            self._lr.set_state_dict(dict(sched))
         if "@step_count" in state_dict:
             self._step_count = int(np.asarray(state_dict["@step_count"]))
         for i, p in enumerate(self._parameter_list or []):
@@ -217,7 +371,8 @@ class Optimizer:
 
 class Adam(Optimizer):
     _accumulator_names = ["moment1", "moment2"]
-    _n_scalars = 4                      # lr, c1, c2, go
+    _n_scalars = 5                      # lr, c1, c2, go, scale
+    _clip_word = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -236,7 +391,13 @@ class Adam(Optimizer):
         return 0.0
 
     def _static_args(self, p):
-        return (self._beta1, self._beta2, self._epsilon, self._coeff(p))
+        """(beta1, beta2, epsilon, coeff, scaled): `scaled`, the gradient
+        takes the buffer's clip scale (ClipGradByGlobalNorm and the
+        parameter's need_clip)."""
+        scaled = (isinstance(self._grad_clip, ClipGradByGlobalNorm)
+                  and _need_clip(p))
+        return (self._beta1, self._beta2, self._epsilon, self._coeff(p),
+                scaled)
 
     def _step_scalars(self, lr, t):
         return adam_step_scalars(lr, t, self._beta1, self._beta2)
@@ -253,9 +414,11 @@ class Adam(Optimizer):
     @staticmethod
     def _update_rule(static_args, param, grad, scalars, m1, m2):
         """Adam (coeff 0) and AdamW in one rule; static_args is (beta1,
-        beta2, epsilon, coeff), scalars the step's (lr, c1, c2, go)."""
-        b1, b2, eps, coeff = static_args
-        kw = dict(beta1=b1, beta2=b2, epsilon=eps, coeff=coeff)
+        beta2, epsilon, coeff, scaled), scalars the step's (lr, c1, c2, go,
+        scale)."""
+        b1, b2, eps, coeff, scaled = static_args
+        kw = dict(beta1=b1, beta2=b2, epsilon=eps, coeff=coeff,
+                  scaled=scaled)
         if fused_adamw_or_none(param, grad, scalars, m1, m2, **kw) is None:
             adamw_plain_scalars(param, grad, m1, m2, scalars, **kw)
         return param, m1, m2

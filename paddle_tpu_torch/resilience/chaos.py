@@ -1,6 +1,6 @@
 """Deterministic fault injection, controlled by the environment (the
-port's copy of paddle_tpu/resilience/chaos.py: its spec parser and the
-train step's hooks).
+port's copy of paddle_tpu/resilience/chaos.py: its spec parser, the
+train step's hooks and the checkpoint drills' hooks).
 
     PADDLE_TPU_CHAOS="nan_at_step:3;hang_at_step:2:1.5;oom:2"
 
@@ -29,11 +29,13 @@ process at its configured step. Standard library only.
 from __future__ import annotations
 
 import os
+import signal
 import time
 from typing import Dict, Optional, Tuple
 
 __all__ = ["ENV_VAR", "configure", "reset", "get", "nan_at_step",
-           "hang_before_dispatch", "oom_at_dispatch"]
+           "hang_before_dispatch", "oom_at_dispatch", "step_hook",
+           "torn_write_blob", "bitflip_blob"]
 
 ENV_VAR = "PADDLE_TPU_CHAOS"
 
@@ -111,3 +113,35 @@ def oom_at_dispatch(step: int) -> None:
         raise RuntimeError(
             "RESOURCE_EXHAUSTED: injected by %s=oom:%d — synthetic device "
             "memory exhaustion (chaos drill)" % (ENV_VAR, step))
+
+
+def step_hook(step: int) -> None:
+    """Per-train-step host hook: fires `sigterm_at_step`. Call with the
+    global step (the loop's 0-based batch counter, as Model.fit counts)."""
+    args = get("sigterm_at_step")
+    if args and int(args[0]) == step and not _counts.get("sigterm"):
+        _counts["sigterm"] = 1
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def torn_write_blob() -> bool:
+    """True when the current checkpoint blob write must be torn
+    (torn_write:K, a 1-based blob count over the process's life). The
+    store then writes half the payload and SIGKILLs the process."""
+    args = get("torn_write")
+    if not args:
+        return False
+    n = _counts.get("torn_write", 0) + 1
+    _counts["torn_write"] = n
+    return n == int(args[0])
+
+
+def bitflip_blob() -> bool:
+    """True when the current checkpoint blob must have one bit flipped
+    after its checksum is recorded (bitflip_ckpt:K, 1-based)."""
+    args = get("bitflip_ckpt")
+    if not args:
+        return False
+    n = _counts.get("bitflip_ckpt", 0) + 1
+    _counts["bitflip_ckpt"] = n
+    return n == int(args[0])
