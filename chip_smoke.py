@@ -178,8 +178,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (the run dies by SIGKILL) and a relaunch from epoch 0 whose losses
      and final state equal the uninterrupted run's. Checkpoints go under
      a temporary directory, removed at the end of the phase.
+ 18. float16, GradScaler and the other optimizers: (a) the float16
+     instances of rows 1t, 2, 3, 4-6 and 7 timed at the main path's shapes
+     beside their bounds and PyTorch's float16 calls (phase 3 holds each
+     against its plain version, and the flash backward under a loss scale
+     of 2^15), then phase 10's GPT-2 path in float16 (decorate O2 float16,
+     every step under auto_cast(O2, float16)) with the fused flags off and
+     as path B: launches a step of the float16 instances only, graph
+     against eager at dropout 0.1; (b) the reference's eager GradScaler
+     recipe at full width (scale, backward, step, clear_grad; 20 steps,
+     GradScaler(init_loss_scaling=2**15), no auto_cast as the recipe runs
+     in the reference: a float16 loss): skipped steps, scale history,
+     then the overflow drill (scale 2^24: the step skipped, parameters and
+     moments bit-equal, the scale halved); (c) ERNIE-base (path A's
+     setup) with Lamb(1e-4, lamb_weight_decay=0.01, LayerNorm and biases
+     excluded) through the captured step, and 3 steps bit-equal to its
+     eager bodies; (d) SGD, Momentum (and Nesterov), Lars, Adamax, Adagrad,
+     Adadelta, RMSProp (and centered), Ftrl, DecayedAdagrad, ProximalGD and
+     ProximalAdagrad on gpt2-small at 2 layers and full width, B=16, T=512,
+     O2 bf16, LinearWarmup over CosineAnnealingDecay: 3 captured steps
+     bit-equal to their eager bodies and a nan_at_step:2 drill under
+     FLAGS_skip_nonfinite_steps (the state bit-equal across the skipped
+     step); Dpsgd 3 eager steps, and make_train_step refusing it.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (the float16
+instances under their names + "_f16"); the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
@@ -203,6 +226,8 @@ TOL = {
     # one bfloat16 rounding of outputs of magnitude up to ~3 (one ulp at
     # |o| in [2, 4) is 0.0156; at |o| >= 4 it is 0.031, which fails)
     "bfloat16": 2e-2,
+    # float16 rounds 8 times finer; held to bfloat16's bound all the same
+    "float16": 2e-2,
 }
 # greedy tokens may first differ only where the plain run's top-2 logit
 # gap is below this: a near tie that summation order can flip. int8 adds
@@ -215,8 +240,9 @@ TIE_TOL = {"float32": 1e-3, "int8": 1e-2}
 # compute capability 9.0 has 64 int32 lanes a clock (the CUDA C++
 # Programming Guide's arithmetic-instruction throughput table)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
               "int32": 67e12 / 2 / 2}
+SHORT = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
 # int32 operations a lane makes in one Philox-4x32-10 call
 # (attn_dropout.cuh), as nvcc compiles it for sm_90a (cuobjdump -sass of
 # fdrln_bits_kernel<true>): a round is two IMAD.WIDE.U32, each a low and a
@@ -240,7 +266,15 @@ REL_TOL = {
     # tests/test_torch_flash_bwd.py and test_torch_flash_fwd.py; the
     # latter also holds check_flash's bfloat16 cases to TOL)
     "bfloat16": 1e-2,
+    # float16 outputs: one rounding is 2^-11, four times finer than
+    # bfloat16's; held to bfloat16's tolerance, the reading printed beside
+    # it
+    "float16": 1e-2,
 }
+# the float16 backward under a loss scale: dO times this (GradScaler's
+# default init_loss_scaling) must give finite dq, dk and dv wherever the
+# plain float32 arithmetic rounds to a finite float16
+LOSS_SCALE = 2.0 ** 15
 # AdamW: the kernel rounds every operation on its own, as the plain rule
 # does (no FMA contraction), so the parameter must be bit-equal; each
 # moment element may differ from the plain one by at most this share of
@@ -306,6 +340,11 @@ KERNEL_ORDER = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq",
                 "dropout_keep", "paged_decode", "paged_decode_int8")
 FUSED_KERNELS = ("fused_dropout_ln_fwd", "fused_dropout_residual_fwd",
                  "fused_dropout_ln_bwd")
+# the training kernels' float16 instances, counted apart from the others
+# (cuda_kernels.F16), each in the kernels line under its own name
+F16_ORDER = tuple(n + "_f16" for n in (
+    "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv", "fused_dropout_ln_fwd",
+    "fused_dropout_residual_fwd", "fused_dropout_ln_bwd", "adamw"))
 
 # the training main path: the JAX package's GPT-2 train bench
 TRAIN_B, TRAIN_T, TRAIN_WARMUP, TRAIN_STEPS = 16, 512, 3, 10
@@ -416,7 +455,7 @@ def qkv_views(torch, B, T, H, D, dtype, gen):
 
 
 def check_flash(torch, ck, gen):
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
     cases = [(1, T, T, 12, 64, True) for T in (32, 128, 256)] + [
         (2, 40, 40, 12, 64, True),           # ragged edge
         (1, 16, 48, 4, 64, True),            # bottom-right causal, Tq < Tk
@@ -427,9 +466,10 @@ def check_flash(torch, ck, gen):
     # (phase 16) sends through this wrapper: gpt2-small in bfloat16
     train_case = (TRAIN_B, TRAIN_T, TRAIN_T, 12, 64, True)
     for dtype_name, dtype in (("float32", torch.float32),
-                              ("bfloat16", torch.bfloat16)):
+                              ("bfloat16", torch.bfloat16),
+                              ("float16", torch.float16)):
         for B, Tq, Tk, H, D, causal in cases + (
-                [train_case] if dtype_name == "bfloat16" else []):
+                [train_case] if dtype_name != "float32" else []):
             q, _, _ = qkv_views(torch, B, Tq, H, D, dtype, gen)
             _, k, v = qkv_views(torch, B, Tk, H, D, dtype, gen)
             got = ck.flash_attention(q, k, v, causal)
@@ -446,9 +486,9 @@ def check_flash(torch, ck, gen):
             worst[dtype_name] = max(worst[dtype_name], err)
     for name, err in worst.items():
         say("check flash_fwd %s: max abs err %.3g (tol %.0e) over %d cases%s"
-            % (name, err, TOL[name], len(cases) + (name == "bfloat16"),
+            % (name, err, TOL[name], len(cases) + (name != "float32"),
                ", one at B=%d T=%d H=12 D=64 causal" % (TRAIN_B, TRAIN_T)
-               if name == "bfloat16" else ""))
+               if name != "float32" else ""))
     return worst["float32"]
 
 
@@ -482,11 +522,15 @@ def check_dropout_bits(torch, ck):
 def check_flash_train(torch, ck, gen):
     """Training forward (o, lse) and backward (dq, dk, dv) against the
     plain versions fed the kernels' own dropout bits; the backward plain
-    versions take the kernel's o and lse, so each kernel is held alone."""
+    versions take the kernel's o and lse, so each kernel is held alone.
+    The float16 instances (names + ck.F16) at every case the bfloat16 ones
+    take."""
     names = ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
+    names += tuple(n + ck.F16 for n in names)
     worst = {n: 0.0 for n in names}            # relative, for the checks
     worst_abs = {n: 0.0 for n in names}        # absolute, for the table
     worst_at = {n: "" for n in names}          # the case of the worst
+    count = {n: 0 for n in names}
     cases = [(2, 64, 64, 4, 64, True),
              (1, 200, 200, 2, 64, True),          # ragged T
              (1, 48, 96, 2, 64, True),            # bottom-right, Tq < Tk
@@ -507,8 +551,10 @@ def check_flash_train(torch, ck, gen):
                                            False), DROPOUT)]
     runs += [("bfloat16", torch.bfloat16, (1, 72, 72, 2, 20, True), p)
              for p in (0.0, DROPOUT)]
-    n = 0
+    runs += [("float16", torch.float16) + r[2:] for r in runs
+             if r[0] == "bfloat16"]
     for dtype_name, dtype, (B, Tq, Tk, H, D, causal), p in runs:
+        sfx = ck.F16 if dtype == torch.float16 else ""
         tol = REL_TOL[dtype_name]
         q, _, _ = qkv_views(torch, B, Tq, H, D, dtype, gen)
         _, k, v = qkv_views(torch, B, Tk, H, D, dtype, gen)
@@ -527,9 +573,9 @@ def check_flash_train(torch, ck, gen):
         dk_ref, dv_ref = ck.flash_bwd_dkv_plain(q, k, v, do, lse, delta_ref,
                                                 causal, p, bits)
         torch.cuda.synchronize()
-        pairs = {"flash_fwd_train": ((o, o_ref), (lse, lse_ref)),
-                 "flash_bwd_dq": ((dq, dq_ref), (delta, delta_ref)),
-                 "flash_bwd_dkv": ((dk, dk_ref), (dv, dv_ref))}
+        pairs = {"flash_fwd_train" + sfx: ((o, o_ref), (lse, lse_ref)),
+                 "flash_bwd_dq" + sfx: ((dq, dq_ref), (delta, delta_ref)),
+                 "flash_bwd_dkv" + sfx: ((dk, dk_ref), (dv, dv_ref))}
         for t in (o, dq, dk, dv):
             require(t.dtype == dtype
                     and bool(torch.isfinite(t.float()).all()),
@@ -544,13 +590,76 @@ def check_flash_train(torch, ck, gen):
             if er > worst[name] or not worst_at[name]:
                 worst[name], worst_at[name] = er, case
             worst_abs[name] = max(worst_abs[name], ea)
-        n += 1
+            count[name] += 1
     for name, err in worst.items():
-        say("check %s: max rel err %.3g at %s (tol f32 %.0e, bf16 %.0e), "
-            "max abs err %.3g, over %d cases, p in {0, %g}"
+        say("check %s: max rel err %.3g at %s (tol f32 %.0e, bf16 %.0e, "
+            "f16 %.0e), max abs err %.3g, over %d cases, p in {0, %g}"
             % (name, err, worst_at[name], REL_TOL["float32"],
-               REL_TOL["bfloat16"], worst_abs[name], n, DROPOUT))
+               REL_TOL["bfloat16"], REL_TOL["float16"], worst_abs[name],
+               count[name], DROPOUT))
     return worst_abs
+
+
+def check_flash_f16_range(torch, ck, gen):
+    """The float16 flash backward under a loss scale: dO of a GradScaler
+    step (LOSS_SCALE times a gradient of unit size, clamped to float16's
+    range, which is all dO can hold) against values of size ~4, so that
+    dS = p (dP - Delta) / 8 reaches past float16's 65504 in some rows: the
+    kernels' per-row power-of-two scaling of dS must absorb it. The main
+    path's T and head size, causal, p in {0, 0.1}. Where the plain
+    version's float32 dq, dk and dv round to finite float16 values, the
+    kernels' must be finite and within REL_TOL["float16"] of them
+    (relative to the largest finite value); where the plain version
+    overflows float16, so may the kernels. Prints the largest |dS| of the
+    plain arithmetic and how many of its elements pass 65504."""
+    B, H, T, D = 2, 4, TRAIN_T, 64
+    dt = torch.float16
+    worst, ds_max, n_big, n_fin = 0.0, 0.0, 0, 0
+    for p in (0.0, DROPOUT):
+        q, k, v = qkv_views(torch, B, T, H, D, dt, gen)
+        v = (v.float() * 4.0).to(dt)
+        do = (torch.randn((B, H, T, D), generator=gen, device="cuda")
+              * LOSS_SCALE).clamp(-60000, 60000).to(dt)
+        bits = ck.attn_dropout_bits(WORD, DELTA, B * H, T, T) if p else None
+        o, lse = ck.flash_fwd_train(q, k, v, True, p, WORD, DELTA)
+        dq, delta = ck.flash_bwd_dq(q, k, v, o, do, lse, True, p, WORD,
+                                    DELTA)
+        dk, dv = ck.flash_bwd_dkv(q, k, v, do, lse, delta, True, p, WORD,
+                                  DELTA)
+        dq_ref, delta_ref = ck.flash_bwd_dq_plain(q, k, v, o, do, lse, True,
+                                                  p, bits)
+        dk_ref, dv_ref = ck.flash_bwd_dkv_plain(q, k, v, do, lse, delta_ref,
+                                                True, p, bits)
+        pr, _, dpr = ck._bwd_terms(q, k, v, do, lse, True, p, bits)
+        ds = (pr * (dpr - delta_ref.reshape(B, H, T, 1)) * (D ** -0.5)).abs()
+        ds_max = max(ds_max, ds.max().item())
+        n_big += int((ds > 65504).sum().item())
+        del pr, dpr, ds
+        torch.cuda.synchronize()
+        for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                                ("dv", dv, dv_ref)):
+            fin = torch.isfinite(want.float())
+            require(bool(torch.isfinite(got.float())[fin].all()),
+                    "flash backward f16 under a loss scale of %g, p=%g: %s "
+                    "non-finite where the plain version is finite"
+                    % (LOSS_SCALE, p, name))
+            w = want.float()[fin]
+            err = (got.float()[fin] - w).abs().max().item() / max(
+                1.0, w.abs().max().item())
+            require(err <= REL_TOL["float16"], "flash backward f16 under a "
+                    "loss scale, p=%g: %s rel err %.3g > %.3g"
+                    % (p, name, err, REL_TOL["float16"]))
+            worst = max(worst, err)
+            n_fin += int(fin.sum().item())
+    require(n_big > 0, "the loss-scale check's dS stayed below 65504: it "
+            "shows nothing")
+    say("check flash backward f16 under a loss scale of %g (dO = %g x "
+        "N(0, 1) clamped to 60000, |v| ~ 4, B=%d H=%d T=%d D=%d causal, p 0 "
+        "and %g): largest |dS| %.6g, %d elements past float16's 65504; dq, "
+        "dk, dv finite wherever the plain float32 arithmetic rounds finite "
+        "(%d elements), max rel err %.3g (tol %.0e)"
+        % (LOSS_SCALE, LOSS_SCALE, B, H, T, D, DROPOUT, ds_max, n_big,
+           n_fin, worst, REL_TOL["float16"]))
 
 
 def step_scalars(torch, ck, lr, t, scale=1.0):
@@ -575,11 +684,13 @@ def check_adamw(torch, ck, gen):
     second, the buffer rewritten before each: the kernel and the plain
     rule reading the same buffer (the route with use_fused_optimizer off)
     against the plain rule with host arguments."""
-    worst_p = worst_m = 0.0
+    worst_p = {"adamw": 0.0, "adamw" + ck.F16: 0.0}
+    worst_m = 0.0
     moved_min = 1.0
     n = 0
     for dtype_name, dtype in (("float32", torch.float32),
-                              ("bfloat16", torch.bfloat16)):
+                              ("bfloat16", torch.bfloat16),
+                              ("float16", torch.float16)):
         for lr, pscale in ((1e-4, 1.0), (1e-2, 1e-2)):
             for coeff in (0.0, 0.01):
                 for t in (1, 1000):
@@ -606,7 +717,9 @@ def check_adamw(torch, ck, gen):
                         require(torch.equal(ka[0], pa[0]),
                                 "%s: parameter differs from the plain rule "
                                 "by %.3g" % (what, err_p))
-                        worst_p = max(worst_p, err_p)
+                        key = "adamw" + (ck.F16 if dtype == torch.float16
+                                         else "")
+                        worst_p[key] = max(worst_p[key], err_p)
                         err_m = max(((ka[i] - pa[i]).abs()
                                      / pa[i].abs().clamp_min(1e-30)).max()
                                     .item() for i in (2, 3))
@@ -614,7 +727,7 @@ def check_adamw(torch, ck, gen):
                                 "%s: moment rel err %.3g > %.3g"
                                 % (what, err_m, ADAMW_MOMENT_REL_TOL))
                         worst_m = max(worst_m, err_m)
-                        if dtype == torch.bfloat16 and lr == 1e-2 \
+                        if dtype != torch.float32 and lr == 1e-2 \
                                 and numel > 7:
                             moved = (ka[0] != p).double().mean().item()
                             require(moved >= ADAMW_MOVED_MIN,
@@ -623,12 +736,13 @@ def check_adamw(torch, ck, gen):
                             moved_min = min(moved_min, moved)
                         n += 1
     say("check adamw: parameters bit-equal to the plain rule, moments max "
-        "rel err %.3g (tol %.3g) over %d cases; bfloat16 at lr 1e-2 moved "
-        ">= %.4f of the elements (want >= %.2f)"
+        "rel err %.3g (tol %.3g) over %d cases (float32, bfloat16, "
+        "float16); bfloat16 and float16 at lr 1e-2 moved >= %.4f of the "
+        "elements (want >= %.2f)"
         % (worst_m, ADAMW_MOMENT_REL_TOL, n, moved_min, ADAMW_MOVED_MIN))
     from paddle_tpu_torch.framework.device import write_values
     kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.01)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         numel = 2304 * 768
         p = (torch.randn(numel, generator=gen, device="cuda") * 1e-2).to(dtype)
         ka, sa, pa = ([p.clone(), torch.zeros(numel, device="cuda"),
@@ -657,10 +771,11 @@ def check_adamw(torch, ck, gen):
                     % (what, err_m))
             n += 1
     say("check adamw over t = 1..5 (lr 1e-2, then 3e-3 from t = 3) through "
-        "the scalar buffer, float32 and bfloat16: kernel parameters and the "
+        "the scalar buffer, float32, bfloat16 and float16: kernel "
+        "parameters and the "
         "plain rule on the buffer bit-equal to the plain rule with host lr "
         "and t")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         numel = 2304 * 768
         p = (torch.randn(numel, generator=gen, device="cuda") * 1e-2).to(dtype)
         g = (torch.randn(numel, generator=gen, device="cuda") * 1e-2).to(dtype)
@@ -677,8 +792,9 @@ def check_adamw(torch, ck, gen):
                     "%s %s with the guard word at 0 changed its state"
                     % (fn.__name__, dtype))
     say("check adamw guard word: at 0 the kernel and the plain rule leave "
-        "the parameter and both moments bit-equal to their inputs (float32 "
-        "and bfloat16, %d elements); at 1 (every case above) the kernel is "
+        "the parameter and both moments bit-equal to their inputs (float32, "
+        "bfloat16 and float16, %d elements); at 1 (every case above) the "
+        "kernel is "
         "bit-equal to the plain rule" % (2304 * 768))
     check_adamw_scale(torch, ck, gen)
     return worst_p
@@ -692,10 +808,11 @@ def check_adamw_scale(torch, ck, gen):
     (the reference's product) and then the unscaled plain rule with host
     lr and t: parameters bit-equal, moments within one float32 ulp; the
     plain rule on the buffer bit-equal to the composed route. Float32 and
-    bfloat16 gradients, lr 1e-2 on parameters of size ~1e-2, t = 3."""
+    bfloat16 and float16 gradients, lr 1e-2 on parameters of size ~1e-2,
+    t = 3."""
     kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.01)
     worst_m = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for numel in (7, 2304 * 768):
             p = (torch.randn(numel, generator=gen, device="cuda")
                  * 1e-2).to(dtype)
@@ -731,7 +848,8 @@ def check_adamw_scale(torch, ck, gen):
             worst_m = max(worst_m, err_m)
     say("check adamw clip scale word (%g, t = 3, lr 1e-2): kernel and the "
         "plain rule on the buffer bit-equal to the composed float32 product "
-        "g * scale and the plain rule (float32 and bfloat16 gradients), "
+        "g * scale and the plain rule (float32, bfloat16 and float16 "
+        "gradients), "
         "moments max rel err %.3g; the scale moved the parameters"
         % (ADAMW_CHECK_SCALE, worst_m))
 
@@ -842,20 +960,20 @@ def check_gates(torch, ck, gen):
                   q, k, v, torch.zeros(32, 32, device="cuda"), True)),
               ("dropout p=1", lambda: ck.flash_attention_or_none(
                   q, k, v, None, True, dropout_p=1.0))]
-    bad = [("float16", lambda: ck.flash_attention_or_none(
-                q.half(), k.half(), v.half(), None, True)),
+    bad = [("float16 q with float32 k, v", lambda: ck.flash_attention_or_none(
+                q.half(), k, v, None, True)),
            ("D=160", lambda: ck.flash_attention_or_none(
                 *qkv_views(torch, 1, 8, 1, 160, torch.float32, gen), None,
                 True))]
     bad.append(("dropout p=-0.1", lambda: ck.flash_attention_or_none(
         q, k, v, None, True, dropout_p=-0.1)))
-    qh = q.detach().half()
-    bad.append(("float16 backward", lambda: ck.flash_bwd_dq(
+    qh = q.detach().double()
+    bad.append(("float64 backward", lambda: ck.flash_bwd_dq(
         qh, qh, qh, qh, qh, torch.zeros(64, device="cuda"), True)))
-    w = torch.zeros(16, device="cuda", dtype=torch.float16)
+    w = torch.zeros(16, device="cuda", dtype=torch.float64)
     m = torch.zeros(16, device="cuda")
     sc = torch.zeros(4, device="cuda")
-    bad.append(("float16 adamw", lambda: ck.fused_adamw_or_none(
+    bad.append(("float64 adamw", lambda: ck.fused_adamw_or_none(
         w, w, sc, m, m, beta1=0.9, beta2=0.999, epsilon=1e-8,
         coeff=0.0)))
     args = paged_inputs(torch, False, [3, 4], gen, B=2, H=2, T=64, D=64)
@@ -941,12 +1059,13 @@ def time_paged(torch, ck, F, timer, gen, quantized, lens):
 # training
 
 
-def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
+def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p,
+                dt_name="bfloat16"):
     """Device times of the flash backward kernels (rows 2 and 3) at
-    B x 12 heads x T x 64, bfloat16, beside their plain versions, their
-    bounds and PyTorch's sdpa backward (dq, dk and dv in one call) on the
-    same inputs."""
-    H, D, dt = 12, 64, torch.bfloat16
+    B x 12 heads x T x 64, bfloat16 (or float16: their float16 instances),
+    beside their plain versions, their bounds and PyTorch's sdpa backward
+    (dq, dk and dv in one call) on the same inputs."""
+    H, D, dt = 12, 64, getattr(torch, dt_name)
     q, k, v = qkv_views(torch, B, T, H, D, dt, gen)
     do = torch.randn((B, H, T, D), generator=gen, device="cuda").to(dt)
     bits = ck.attn_dropout_bits(WORD, DELTA, B * H, T, T) if p else None
@@ -975,11 +1094,11 @@ def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
     out = {}
     for name, products, fn, plain in kernels:
         b, by = bound_ms(6 * bhtd + 2 * bht, 2 * products * D * pairs,
-                         "bfloat16")
+                         dt_name)
         out[name] = {"ms": timer.ms(fn), "plain_ms": timer.ms(plain),
                      "library_ms": lib_bwd, "bound_ms": b, "bound_by": by}
-    shape = "B=%d H=%d T=%d D=%d bf16 %s p=%g" % (
-        B, H, T, D, "causal" if causal else "not causal", p)
+    shape = "B=%d H=%d T=%d D=%d %s %s p=%g" % (
+        B, H, T, D, SHORT[dt_name], "causal" if causal else "not causal", p)
     for name, t in out.items():
         say("time %s %s: %.4f ms, plain %.4f ms, torch sdpa bwd (dq+dk+dv) "
             "%.4f ms, bound %.4f ms (%s)"
@@ -993,17 +1112,19 @@ def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
     return out
 
 
-def fwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
+def fwd_timings(torch, ck, F, timer, gen, B, T, causal, p,
+                dt_name="bfloat16"):
     """Device time of the training flash forward (row 1t: lse and
-    in-kernel dropout) at B x 12 heads x T x 64, bfloat16, beside its plain
-    version, its bound and PyTorch's sdpa forward on the same inputs."""
+    in-kernel dropout) at B x 12 heads x T x 64, bfloat16 (or float16: its
+    float16 instance), beside its plain version, its bound and PyTorch's
+    sdpa forward on the same inputs."""
     H, D = 12, 64
-    q, k, v = qkv_views(torch, B, T, H, D, torch.bfloat16, gen)
+    q, k, v = qkv_views(torch, B, T, H, D, getattr(torch, dt_name), gen)
     bits = ck.attn_dropout_bits(WORD, DELTA, B * H, T, T) if p else None
     bhtd, bht = B * H * T * D * 2, B * H * T * 4
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     # reads q, k, v; writes o, lse; 2 products of 2 D flops a live pair
-    b, by = bound_ms(4 * bhtd + bht, 4 * D * pairs, "bfloat16")
+    b, by = bound_ms(4 * bhtd + bht, 4 * D * pairs, dt_name)
     t = {"ms": timer.ms(lambda: ck.flash_fwd_train(q, k, v, causal, p, WORD,
                                                    DELTA)),
          "plain_ms": timer.ms(lambda: ck.flash_fwd_train_plain(
@@ -1011,9 +1132,10 @@ def fwd_timings(torch, ck, F, timer, gen, B, T, causal, p):
          "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
              q, k, v, is_causal=causal, dropout_p=p)),
          "bound_ms": b, "bound_by": by}
-    say("time flash_fwd_train B=%d H=%d T=%d D=%d bf16 %s p=%g: %.4f ms, "
+    say("time flash_fwd_train B=%d H=%d T=%d D=%d %s %s p=%g: %.4f ms, "
         "plain %.4f ms, torch sdpa fwd %.4f ms, bound %.4f ms (%s)"
-        % (B, H, T, D, "causal" if causal else "not causal", p, t["ms"],
+        % (B, H, T, D, SHORT[dt_name], "causal" if causal else "not causal",
+           p, t["ms"],
            t["plain_ms"], t["library_ms"], t["bound_ms"], t["bound_by"]))
     return t
 
@@ -1033,7 +1155,7 @@ def train_timings(torch, ck, F, timer, gen):
     return out
 
 
-def time_adamw(torch, ck, timer, gen, shapes, card):
+def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16"):
     """One AdamW step over tensors shaped like every gpt2-small parameter,
     bfloat16 parameters and gradients, float32 moments, as the O2 main
     path runs it: one launch per parameter, lr and the bias corrections
@@ -1043,11 +1165,14 @@ def time_adamw(torch, ck, timer, gen, shapes, card):
     step runs them: device time alone. The same launches without the
     scale (phase 10's optimizer) are replayed too, and enqueued one by one
     from the host (the time this row reported before the step was
-    captured)."""
-    ps = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+    captured). With dt_name float16: the same for the kernel's float16
+    instance; PyTorch's AdamW(fused=True) keeps float16 moments there, so it
+    is no yardstick of the same function (library_ms None)."""
+    dt = getattr(torch, dt_name)
+    ps = [torch.randn(s, generator=gen, device="cuda").to(dt)
           for s in shapes]
-    gs = [(torch.randn(s, generator=gen, device="cuda") * 1e-2).to(
-        torch.bfloat16) for s in shapes]
+    gs = [(torch.randn(s, generator=gen, device="cuda") * 1e-2).to(dt)
+          for s in shapes]
     m1 = [torch.zeros(s, device="cuda") for s in shapes]
     m2 = [torch.zeros(s, device="cuda") for s in shapes]
     sc = step_scalars(torch, ck, 1e-4, 10, ADAMW_CHECK_SCALE)
@@ -1078,21 +1203,23 @@ def time_adamw(torch, ck, timer, gen, shapes, card):
     b, by = bound_ms(22 * n, 11 * n, "float32")
     eager_ms = timer.ms(lambda: run(ck.adamw, sc))
     unscaled_ms = timer.ms(unscaled.replay)
+    lib_ms = timer.ms(lib.step)
     out = {"ms": timer.ms(graph.replay),
            "plain_ms": timer.ms(lambda: run(ck.adamw_plain_scalars, sc,
                                             scaled=True)),
-           "library_ms": timer.ms(lib.step), "bound_ms": b, "bound_by": by}
-    say("time adamw %d parameters, %d elements, bf16 param+grad, f32 "
+           "library_ms": lib_ms if dt == torch.bfloat16 else None,
+           "bound_ms": b, "bound_by": by}
+    say("time adamw %d parameters, %d elements, %s param+grad, f32 "
         "moments, the clip's scale word: %.4f ms/step replayed from a CUDA "
         "graph (without the scale %.4f ms replayed, %.4f ms enqueued one "
-        "launch at a time), plain %.4f ms, torch AdamW(fused=True) %.4f ms, "
-        "bound %.4f ms (%s)" % (len(shapes), n, out["ms"], unscaled_ms,
-                                eager_ms, out["plain_ms"], out["library_ms"],
-                                b, by))
-    say("time adamw with the scale word: %.4f ms/step replayed, %.2f of its "
-        "bound, %+.4f ms against the unscaled launches in this run; "
-        "PERF.md's time before the word %.4f ms (another run) (%s)"
-        % (out["ms"], b / out["ms"], out["ms"] - unscaled_ms,
+        "launch at a time), plain %.4f ms, torch AdamW(fused=True) %.4f ms "
+        "(%s moments), bound %.4f ms (%s)"
+        % (len(shapes), n, SHORT[dt_name], out["ms"], unscaled_ms, eager_ms,
+           out["plain_ms"], lib_ms, SHORT[dt_name], b, by))
+    say("time adamw %s with the scale word: %.4f ms/step replayed, %.2f of "
+        "its bound, %+.4f ms against the unscaled launches in this run; "
+        "PERF.md's bf16 time before the word %.4f ms (another run) (%s)"
+        % (SHORT[dt_name], out["ms"], b / out["ms"], out["ms"] - unscaled_ms,
            ADAMW_EARLIER_MS, card))
     return out
 
@@ -1299,13 +1426,13 @@ def run_path(torch, ck, label, card, model, opt, loss_fn, batch, ctx,
 
 def graph_against_eager_train(torch, ck, label, model, opt, loss_fn,
                               batches, ctx, p):
-    """From one saved state (parameters, moments, step count, RNG), the two
-    steps of `batches` through the captured step and through its bodies
-    run eagerly, twice (the eager step must repeat itself bit for bit for
-    the comparison to mean anything): losses, parameters and moments
-    bit-equal. At p > 0 the two steps' Philox words differ and so do the
-    bits they give a flash call and a fused call, and the restored state
-    gives step 1's word again."""
+    """From one saved state (parameters, moments, step count, RNG), the steps
+    of `batches` (two or more) through the captured step and through its bodies
+    run eagerly, twice (the eager step must repeat itself bit for bit for the
+    comparison to mean anything): losses, parameters and moments bit-equal. At
+    p > 0 the two steps' Philox words differ and so do the bits they give a
+    flash call and a fused call, and the restored state gives step 1's word
+    again."""
     from paddle_tpu_torch.framework import random as prandom
     from paddle_tpu_torch.jit import TrainStep, make_train_step
     step = make_train_step(model, loss_fn, opt)
@@ -1347,7 +1474,7 @@ def graph_against_eager_train(torch, ck, label, model, opt, loss_fn,
                 "from the eager bodies'" % (label, p, what))
     note = ""
     if p > 0:
-        w1, w2 = g[3]
+        w1, w2 = g[3][:2]
         require(not torch.equal(w1, w2), "%s: steps 1 and 2 ran on one "
                 "Philox word %s" % (label, w1.tolist()))
         require(torch.equal(w1, e1[3][0]) and torch.equal(w2, e1[3][1]),
@@ -1361,10 +1488,10 @@ def graph_against_eager_train(torch, ck, label, model, opt, loss_fn,
         note = (", words (seed, base) %s then %s: a flash call's and a "
                 "fused call's bits differ between the steps, the restored "
                 "state repeats step 1's" % (w1.tolist()[1], w2.tolist()[1]))
-    say("%s graph against eager p=%g: 2 steps from one state, losses %s, "
+    say("%s graph against eager p=%g: %d steps from one state, losses %s, "
         "parameters and moments bit-equal to the eager bodies (which repeat "
         "themselves bit for bit)%s"
-        % (label, p, ["%.6f" % float(x) for x in g[0]], note))
+        % (label, p, len(batches), ["%.6f" % float(x) for x in g[0]], note))
 
 
 def free_memory(torch):
@@ -1374,19 +1501,26 @@ def free_memory(torch):
     torch.cuda.empty_cache()
 
 
-def train_main(torch, ck, flags, card, fused=False):
+def train_main(torch, ck, flags, card, fused=False, dtype="bfloat16"):
     """The GPT-2 training path, with both fused flags (use_fused_dropout_ln,
     fused_block) off (phase 10) or on (path B), through `run_path`; then
     the captured step against its eager bodies at the path's dropout 0.1
-    and, on a fresh model, at 0. Returns (launch counts, parameter shapes,
-    median step ms)."""
+    and, on a fresh model, at 0. With dtype float16 (phase 18 (a)):
+    decorate O2 float16 and every step under auto_cast(O2, float16), the
+    kernels' float16 instances counted (names + ck.F16), the check at 0
+    left out. Returns (launch counts, parameter shapes, median step
+    ms)."""
     import contextlib
     from paddle_tpu_torch import amp, io, optimizer
     from paddle_tpu_torch.framework import random as prandom
     from paddle_tpu_torch.io.prefetch import FEED_STALL
     from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
 
-    label = "train fused" if fused else "train"
+    f16 = dtype == "float16"
+    label = ("train fused" if fused else "train") + (" f16" if f16 else "")
+    sfx = ck.F16 if f16 else ""
+    ctx = ((lambda: amp.auto_cast(level="O2", dtype="float16")) if f16
+           else contextlib.nullcontext)
     saved = flags.get_flags(["use_fused_dropout_ln", "fused_block"])
     flags.set_flags({"use_fused_dropout_ln": fused, "fused_block": fused})
     crit = GPTPretrainingCriterion()
@@ -1398,7 +1532,7 @@ def train_main(torch, ck, flags, card, fused=False):
         model.train()
         opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
                               parameters=model.parameters())
-        return amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        return amp.decorate(model, opt, level="O2", dtype=dtype)
     try:
         t0 = time.perf_counter()
         model, opt = build()
@@ -1417,21 +1551,26 @@ def train_main(torch, ck, flags, card, fused=False):
             % (label, n_params, n_tensors, next(model.parameters()).dtype,
                time.perf_counter() - t0, "on" if fused else "off"))
         L = len(model.gpt.layers)
-        want = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-                "adamw": n_tensors,
-                "fused_dropout_ln_fwd": L if fused else 0,
-                "fused_dropout_residual_fwd": L if fused else 0,
-                "fused_dropout_ln_bwd": 2 * L if fused else 0,
+        want = {"flash_fwd_train" + sfx: L, "flash_bwd_dq" + sfx: L,
+                "flash_bwd_dkv" + sfx: L, "adamw" + sfx: n_tensors,
+                "fused_dropout_ln_fwd" + sfx: L if fused else 0,
+                "fused_dropout_residual_fwd" + sfx: L if fused else 0,
+                "fused_dropout_ln_bwd" + sfx: 2 * L if fused else 0,
                 # the hidden dropouts (2 a layer, unfused) and the
                 # embeddings' dropout
                 "dropout_keep": 1 if fused else 2 * L + 1}
+        if f16:                         # and no bfloat16 instance runs
+            want.update({k: 0 for k in (
+                "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
+                "fused_dropout_ln_fwd", "fused_dropout_residual_fwd",
+                "fused_dropout_ln_bwd")})
         tokens = TRAIN_B * TRAIN_T
         d = model.gpt.hidden_size
         flops = 6 * n_params * tokens + 12 * L * d * TRAIN_T * tokens
         stall0 = (FEED_STALL.sum, FEED_STALL.count)
         launches, paths, step_ms, _, _ = run_path(
-            torch, ck, label, card, model, opt, loss_fn, batch,
-            contextlib.nullcontext, tokens, flops, want)
+            torch, ck, label, card, model, opt, loss_fn, batch, ctx, tokens,
+            flops, want)
         say("%s feed stall %.3f ms a batch" % (label, (
             FEED_STALL.sum - stall0[0]) / (FEED_STALL.count - stall0[1])))
         require(paths["flash_dropout"] > 0 and paths["xla_sdpa"] == 0,
@@ -1440,15 +1579,17 @@ def train_main(torch, ck, flags, card, fused=False):
         it.close()
         free_memory(torch)
         graph_against_eager_train(torch, ck, label, model, opt, loss_fn,
-                                  fixed, contextlib.nullcontext, DROPOUT)
+                                  fixed, ctx, DROPOUT)
         shapes = [tuple(p.shape) for p in model.parameters()]
         del model, opt
         free_memory(torch)
-        model, opt = build(attn_dropout_prob=0.0, hidden_dropout_prob=0.0)
-        graph_against_eager_train(torch, ck, label, model, opt, loss_fn,
-                                  fixed, contextlib.nullcontext, 0.0)
-        del model, opt
-        free_memory(torch)
+        if not f16:
+            model, opt = build(attn_dropout_prob=0.0,
+                               hidden_dropout_prob=0.0)
+            graph_against_eager_train(torch, ck, label, model, opt, loss_fn,
+                                      fixed, ctx, 0.0)
+            del model, opt
+            free_memory(torch)
     finally:
         flags.set_flags(saved)
     return launches, shapes, step_ms
@@ -1597,10 +1738,14 @@ def check_fused(torch, ck, flags, gen):
     take."""
     names = ("fused_dropout_ln_fwd", "fused_dropout_residual_fwd",
              "fused_dropout_ln_bwd")
+    names += tuple(n + ck.F16 for n in names)
     worst = {n: 0.0 for n in names}             # relative, for the checks
     worst_abs = {n: 0.0 for n in names}         # absolute, for the table
 
     def hold(what, name, pairs, tol):
+        # the instance launched is named by the rows' type (x, or z)
+        if pairs and pairs[0][0].dtype == torch.float16:
+            name += ck.F16
         torch.cuda.synchronize()
         for a, b in pairs:
             require(a.dtype == b.dtype and a.shape == b.shape
@@ -1614,7 +1759,10 @@ def check_fused(torch, ck, flags, gen):
     types = (("float32", torch.float32, torch.float32),
              ("bfloat16", torch.bfloat16, torch.bfloat16),
              ("mixed", torch.bfloat16, torch.float32),
-             ("mixed", torch.float32, torch.bfloat16))
+             ("mixed", torch.float32, torch.bfloat16),
+             ("float16", torch.float16, torch.float16),
+             ("mixed", torch.float16, torch.float32),
+             ("mixed", torch.float32, torch.float16))
     n = 0
     for N, Hd in ((301, 64), (4096, 768), (67, 1000)):
         bits = ck.fused_dropout_bits(WORD, DELTA, N, Hd)
@@ -1688,7 +1836,7 @@ def check_fused(torch, ck, flags, gen):
     N, Hd, s = 8192, 768, fdrln_scale(DROPOUT, "upscale_in_train")
     bits = ck.fused_dropout_bits(WORD, DELTA, N, Hd)
     nb = 0
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, torch.float32, torch.float16):
         tol = FDRLN_F32_REL_TOL if dt == torch.float32 else FDRLN_BF16_REL_TOL
         x, res, beta = (torch.randn(shape, generator=gen, device="cuda")
                         .to(dt) for shape in ((N, Hd), (N, Hd), Hd))
@@ -1713,17 +1861,19 @@ def check_fused(torch, ck, flags, gen):
                  [(a, b) for a, b in zip(got, want) if b is not None], tol)
             nb += 1
     check_mask_identity(torch, ck)
-    extra = {"fused_dropout_ln_fwd": " and 2 at path B's N=8192, Hd=768, "
-             "p=%g (bf16, f32)" % DROPOUT,
+    extra = {"fused_dropout_ln_fwd": " and 3 at path B's N=8192, Hd=768, "
+             "p=%g (bf16, f32, f16)" % DROPOUT,
              "fused_dropout_ln_bwd": " and %d at path B's N=8192, Hd=768, "
-             "p=%g (bf16, f32; with LN and dz_extra, without LN with and "
-             "without dz_extra)" % (nb, DROPOUT)}
+             "p=%g (bf16, f32, f16; with LN and dz_extra, without LN with "
+             "and without dz_extra)" % (nb, DROPOUT)}
     for name in names:
-        say("check %s: max rel err %.3g (tol f32 %.0e, bf16 %.0e, by the "
-            "output's type), max abs err %.3g, over %d cases (f32, bf16, "
-            "mixed; Hd 64, 768, 1000; p 0, %g, 1; both modes)%s"
+        say("check %s: max rel err %.3g (tol f32 %.0e, bf16 and f16 %.0e, "
+            "by the output's type), max abs err %.3g, over %d cases (f32, "
+            "bf16, f16, mixed with f32; Hd 64, 768, 1000; p 0, %g, 1; both "
+            "modes; the _f16 instance where the rows are float16)%s"
             % (name, worst[name], FDRLN_F32_REL_TOL, FDRLN_BF16_REL_TOL,
-               worst_abs[name], n, DROPOUT, extra.get(name, "")))
+               worst_abs[name], n, DROPOUT,
+               extra.get(name.replace(ck.F16, ""), "")))
     # the drop rate and the gates
     bits = ck.fused_dropout_bits(WORD, DELTA, 8192, 768)
     rate = (bits < int(DROPOUT * 2 ** 32)).double().mean().item()
@@ -1743,8 +1893,9 @@ def check_fused(torch, ck, flags, gen):
     bad = [("Hd above the limit", lambda: gate(big, big, None, None, None,
                                                 0.1, 1e-5, True,
                                                 "upscale_in_train")),
-           ("float16", lambda: gate(x.half(), x, None, v, v, 0.1, 1e-5, True,
-                                    "upscale_in_train")),
+           ("bfloat16 with float16", lambda: gate(
+               x.half(), x.bfloat16(), None, v, v, 0.1, 1e-5, True,
+               "upscale_in_train")),
            ("mismatched shapes", lambda: gate(x, x[:4], None, v, v, 0.1,
                                               1e-5, True,
                                               "upscale_in_train")),
@@ -1752,8 +1903,10 @@ def check_fused(torch, ck, flags, gen):
             lambda: ck.fused_bias_dropout_residual_ln(
                 x, x, None, v[:32], v, 0.1, 1e-5, True,
                 "upscale_in_train")),
-           ("float16 backward", lambda: ck.fused_dropout_ln_bwd(
-               x.half(), x.half(), None, v, 0.1, 1.0, 1e-5))]
+           ("bfloat16 with float16 backward", lambda: ck.fused_dropout_ln_bwd(
+               x.half(), x.half(), None, v.bfloat16(), 0.1, 1.0, 1e-5)),
+           ("float64", lambda: gate(x.double(), x, None, v, v, 0.1, 1e-5,
+                                    True, "upscale_in_train"))]
     before = ck.launch_counts()
     try:
         for what, call in bad:
@@ -2986,6 +3139,364 @@ def resume_main(torch, ck, card, off_ms, off_launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: float16 on the card, GradScaler, the other optimizers
+
+
+# (b): the eager GradScaler loop's steps, and the overflow drill's scale
+SCALER_STEPS = 20
+SCALER_DRILL_SCALE = 2.0 ** 24
+# (d): the rules through the captured step at reduced depth; each with
+# the lr of LinearWarmup(CosineAnnealingDecay(base lr, 100), 2) from base
+# lr / 10
+OPT_LAYERS, OPT_STEPS = 2, 3
+OPT_RULES = (("SGD", {}, 1e-3), ("Momentum", {"momentum": 0.9}, 1e-3),
+             ("Momentum", {"momentum": 0.9, "use_nesterov": True}, 1e-3),
+             ("Lars", {"lars_weight_decay": 5e-4}, 1e-2),
+             ("Adamax", {}, 1e-4), ("Adagrad", {}, 1e-3),
+             ("Adadelta", {}, 1.0), ("RMSProp", {"momentum": 0.9}, 1e-4),
+             ("RMSProp", {"centered": True}, 1e-4),
+             ("Ftrl", {"l1": 1e-4, "l2": 1e-4}, 1e-2),
+             ("DecayedAdagrad", {}, 1e-3),
+             ("ProximalGD", {"l1": 1e-5, "l2": 1e-5}, 1e-3),
+             ("ProximalAdagrad", {"l1": 1e-5, "l2": 1e-5}, 1e-3))
+
+
+def no_decay(p):
+    """LayerNorm weights and every bias, by qualified name: the weight
+    decay exclusion of BERT's LAMB recipe."""
+    name = getattr(p, "qualname", "") or ""
+    return name.endswith(".bias") or "norm" in name or ".ln_" in name
+
+
+def f16_main(torch, ck, F, flags, timer, gen, shapes, card):
+    """Phase 18 (a): the float16 instances' device times at the main
+    path's shapes (rows 1t, 2, 3 at B=16, H=12, T=512, D=64, causal,
+    p=0.1; row 7 over every gpt2-small parameter; rows 4-6 at path B's
+    N=8192, Hd=768), each beside its bound (the same bytes as bfloat16)
+    and PyTorch's float16 call; then GPT-2 training in float16 (decorate
+    O2 float16, auto_cast O2 float16) through `train_main` with the fused
+    flags off and on (path B). Returns (times, launches flags off,
+    launches path B)."""
+    sfx = ck.F16
+    times = {"flash_fwd_train" + sfx: fwd_timings(
+        torch, ck, F, timer, gen, TRAIN_B, TRAIN_T, True, DROPOUT,
+        "float16")}
+    times.update({k + sfx: v for k, v in bwd_timings(
+        torch, ck, F, timer, gen, TRAIN_B, TRAIN_T, True, DROPOUT,
+        "float16").items()})
+    times["adamw" + sfx] = time_adamw(torch, ck, timer, gen, shapes, card,
+                                      "float16")
+    times.update({k + sfx: v for k, v in time_fused(
+        torch, ck, timer, gen, TRAIN_B * TRAIN_T, 768, torch.float16, True,
+        "gpt2 (path B)").items()})
+    free_memory(torch)
+    off, _, off_ms = train_main(torch, ck, flags, card, dtype="float16")
+    on, _, on_ms = train_main(torch, ck, flags, card, fused=True,
+                              dtype="float16")
+    say("train step, gpt2-small B=%d T=%d O2 f16 under auto_cast f16 (%s): "
+        "fused flags off %.2f ms, on %.2f ms (median of %d steps each, this "
+        "run)" % (TRAIN_B, TRAIN_T, card, off_ms, on_ms, TRAIN_STEPS))
+    return times, off, on
+
+
+def scaler_main(torch, ck, card):
+    """Phase 18 (b): the reference's dygraph AMP recipe at full width:
+    gpt2-small (dropouts 0.1), decorate O2 float16, AdamW(lr=1e-4,
+    weight_decay=0.01), GradScaler(init_loss_scaling=2**15), the bench's
+    token stream through DataLoader(prefetch_to_device=2), each step
+    `scaler.scale(loss).backward(); scaler.step(opt); opt.clear_grad()`,
+    SCALER_STEPS steps, the launch counters zeroed just before and read
+    just after: the skipped steps and the scale history, the step ms
+    (eager: one found_inf read on the host a step). No auto_cast, as the
+    recipe runs in the reference (its eager tape fails under auto_cast,
+    ROADMAP.md section 3): the loss is float16, and a float16 loss near
+    11 times 2^15 overflows, so the first steps are skipped until the
+    scale has halved enough, as in the reference. Then the overflow
+    drill: the scale set to 2^24, one step: it must be skipped
+    (found_inf), the parameters and moments bit-equal to before it, the
+    optimizer's step count unmoved and the scale halved."""
+    from paddle_tpu_torch import amp, io, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
+
+    prandom.seed(0)
+    model = gpt2_small(seed=0)
+    model.train()
+    opt = optimizer.AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                          parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    crit = GPTPretrainingCriterion()
+    loader = io.DataLoader(token_stream(io, model.gpt.vocab_size, TRAIN_T),
+                           batch_size=TRAIN_B, prefetch_to_device=2)
+    it = iter(loader)
+    params = list(model.parameters())
+
+    def one_step():
+        ids = next(it)
+        loss = crit(model(ids[:, :-1]), ids[:, 1:])
+        scaler.scale(loss).backward()
+        t = opt._step_count
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss.detach(), opt._step_count == t
+
+    torch.cuda.synchronize()
+    ck.launch_counts(reset=True)
+    losses, skipped, times = [], [], []
+    scales = [scaler.get_init_loss_scaling()]
+    for _ in range(SCALER_STEPS):
+        t0 = time.perf_counter()
+        loss, sk = one_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        skipped.append(sk)
+        scales.append(scaler.get_init_loss_scaling())
+    launches = ck.launch_counts()
+    taken = SCALER_STEPS - sum(skipped)
+    require(all(math.isfinite(x) for x in losses) and taken > 0,
+            "scaler (b): losses %s, %d steps taken" % (losses, taken))
+    require(launches["adamw" + ck.F16] == len(params) * taken
+            and launches["flash_fwd_train" + ck.F16] > 0
+            and launches["adamw"] == 0,
+            "scaler (b): launches %s for %d steps taken" % (launches, taken))
+    say("scaler (b) eager GradScaler loop, gpt2-small B=%d T=%d O2 f16 (a "
+        "float16 loss), %d steps: skipped %d (steps %s), scale history %s, "
+        "losses %.4f .. %.4f, step %.2f ms median (eager, one found_inf read "
+        "a step), %.0f tokens/s, launches %s (%s)"
+        % (TRAIN_B, TRAIN_T, SCALER_STEPS, sum(skipped),
+           [i + 1 for i, s in enumerate(skipped) if s], scales,
+           losses[0], losses[-1], statistics.median(times),
+           TRAIN_B * TRAIN_T / (statistics.median(times) / 1e3),
+           {k: n for k, n in launches.items() if n}, card))
+    # the overflow drill
+    moments = [a for p in params for a in opt._get_accumulators(p).values()]
+    before = [t.detach().clone() for t in params + moments]
+    count = opt._step_count
+    scaler.set_init_loss_scaling(SCALER_DRILL_SCALE)
+    loss, sk = one_step()
+    torch.cuda.synchronize()
+    it.close()
+    require(sk and opt._step_count == count,
+            "scaler (b) drill: a scale of 2^24 did not skip the step")
+    require(all(torch.equal(a, b) for a, b in zip(params + moments, before)),
+            "scaler (b) drill: the skipped step changed parameters or "
+            "moments")
+    require(scaler.get_init_loss_scaling() == SCALER_DRILL_SCALE / 2,
+            "scaler (b) drill: scale %g after the skip"
+            % scaler.get_init_loss_scaling())
+    say("scaler (b) overflow drill: scale 2^24, loss %.4f, the step skipped "
+        "(found_inf), parameters and moments (%d tensors) bit-equal to "
+        "before it, step count %d unmoved, scale now %g"
+        % (float(loss), len(params + moments), count,
+           scaler.get_init_loss_scaling()))
+    del model, opt, params, moments, before
+    free_memory(torch)
+    return launches
+
+
+def ernie_lamb(torch, ck, flags, card):
+    """Phase 18 (c): ERNIE-base pretraining with LAMB (You et al. 2019,
+    its own use): path A's setup (ernie_base at full width and depth,
+    seeded, dropouts 0.1, B=32, T=128, auto_cast(level="O2"),
+    FLAGS_use_fused_dropout_ln on) with Lamb(learning_rate=1e-4,
+    lamb_weight_decay=0.01, exclude_from_weight_decay_fn=no_decay),
+    through `run_path` (no AdamW launch), then the captured step against
+    its eager bodies over 3 steps from one state: bit-equal. Returns the
+    launch counts."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.models import BertPretrainingCriterion, ernie_base
+
+    saved = flags.get_flags(["use_fused_dropout_ln"])
+    flags.set_flags({"use_fused_dropout_ln": True})
+    crit = BertPretrainingCriterion()
+    loss_fn = lambda lg, nl, y1, y2: crit(lg, nl, y1, y2)  # noqa: E731
+    ctx = lambda: amp.auto_cast(level="O2")  # noqa: E731
+    try:
+        net = ernie_base(seed=0)
+        net.train()
+        prandom.seed(0)
+        opt = optimizer.Lamb(learning_rate=1e-4, lamb_weight_decay=0.01,
+                             exclude_from_weight_decay_fn=no_decay,
+                             parameters=net.parameters())
+        vocab = net.bert.embeddings.word_embeddings.weight.shape[0]
+        batch = ernie_batch(torch, vocab, ERNIE_B, ERNIE_T)
+        n_params = sum(p.numel() for p in net.parameters())
+        excluded = sum(1 for p in net.parameters() if no_decay(p))
+        L = len(net.bert.layers)
+        want = {"fused_dropout_ln_fwd": 2 * L, "fused_dropout_ln_bwd": 2 * L,
+                "flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "adamw": 0, "fused_dropout_residual_fwd": 0,
+                "dropout_keep": L + 1}
+        tokens = ERNIE_B * ERNIE_T
+        d = net.bert.hidden_size
+        flops = 6 * n_params * tokens + 12 * L * d * ERNIE_T * tokens
+        say("ernie lamb: ernie-base %d parameters, %d of %d tensors excluded "
+            "from the decay (LayerNorm, biases)"
+            % (n_params, excluded, len(list(net.parameters()))))
+        launches, _, _, _, _ = run_path(
+            torch, ck, "ernie lamb", card, net, opt, loss_fn, lambda: batch,
+            ctx, tokens, flops, want)
+        free_memory(torch)
+        graph_against_eager_train(torch, ck, "ernie lamb", net, opt,
+                                  loss_fn, [batch] * 3, ctx, DROPOUT)
+        del net, opt
+        free_memory(torch)
+    finally:
+        flags.set_flags(saved)
+    return launches
+
+
+def optimizer_sweep(torch, ck, flags, card):
+    """Phase 18 (d): each capturable rule but Adam/AdamW (OPT_RULES) in the
+    captured step on gpt2-small at OPT_LAYERS layers and full width (768),
+    B=16, T=512, dropouts 0.1, decorate O2 bfloat16, the lr from
+    LinearWarmup over CosineAnnealingDecay stepped after every step; from
+    one state (parameters, accumulators, step count, schedule, RNG),
+    OPT_STEPS steps through the captured step and twice through its
+    bodies run eagerly: losses, parameters and accumulators bit-equal
+    (the eager runs to each other first), one program; then a step made
+    with FLAGS_skip_nonfinite_steps and nan_at_step:2 from the same
+    state: step 2 skipped, its parameters and accumulators bit-equal to
+    after step 1, step 3 moving them again. Dpsgd: OPT_STEPS eager steps
+    (finite, the parameters moved) and make_train_step's first call must
+    raise NotImplementedError."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import TrainStep, make_train_step
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt2_small
+    from paddle_tpu_torch.optimizer import lr as tlr
+    from paddle_tpu_torch.resilience import chaos
+
+    prandom.seed(0)
+    model = gpt2_small(seed=0, num_layers=OPT_LAYERS)
+    model.train()
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    params = [p for p in model.parameters() if p.requires_grad]
+    init = [p.detach().clone() for p in params]
+    vocab = model.gpt.vocab_size
+    batches = []
+    for n in range(OPT_STEPS):
+        ids = torch.from_numpy(token_stream_batch(
+            np, vocab, TRAIN_B, TRAIN_T, n)).cuda()
+        batches.append(([ids[:, :-1]], [ids[:, 1:]]))
+    crit = GPTPretrainingCriterion()
+    loss_fn = lambda o, l: crit(o, l)  # noqa: E731
+    rng0 = prandom.get_rng_state()
+    Eager = eager_train_step(TrainStep)
+    same = lambda a, b: all(torch.equal(x, y)  # noqa: E731
+                            for x, y in zip(a, b))
+    rows = []
+    t_all = time.perf_counter()
+    for name, kw, base_lr in OPT_RULES:
+        label = name + "".join(" %s=%s" % kv for kv in kw.items()
+                               if kv[0] in ("use_nesterov", "centered"))
+        sched = tlr.LinearWarmup(tlr.CosineAnnealingDecay(base_lr, T_max=100),
+                                 warmup_steps=2, start_lr=base_lr / 10,
+                                 end_lr=base_lr)
+        opt = getattr(optimizer, name)(learning_rate=sched,
+                                       parameters=params, **kw)
+        accs = [a for p in params for a in opt._get_accumulators(p).values()]
+        accs0 = [a.clone() for a in accs]
+        sched0 = sched.state_dict()
+
+        def run(step):
+            with torch.no_grad():
+                for t, v in zip(params + accs, init + accs0):
+                    t.copy_(v)
+            opt._step_count = 0
+            sched.set_state_dict(dict(sched0))
+            prandom.set_rng_state(rng0)
+            losses, states, skips, lrs = [], [], [], []
+            for b in batches:
+                loss, _ = step(*b)
+                lrs.append(opt.get_lr())
+                sched.step()
+                losses.append(loss)
+                states.append([t.detach().clone() for t in params + accs])
+                skips.append(step.last_step_skipped
+                             if isinstance(step, TrainStep) else False)
+            torch.cuda.synchronize()
+            return losses, states, skips, lrs
+
+        t0 = time.perf_counter()
+        step = make_train_step(model, loss_fn, opt)
+        g = run(step)
+        e1, e2 = run(Eager(model, loss_fn, opt)), run(Eager(model, loss_fn,
+                                                            opt))
+        require(same(e1[0], e2[0]) and all(same(a, b) for a, b in
+                                           zip(e1[1], e2[1])),
+                "optimizers (d) %s: two eager runs from one state differ"
+                % label)
+        require(same(g[0], e1[0]) and all(same(a, b) for a, b in
+                                          zip(g[1], e1[1])),
+                "optimizers (d) %s: the captured steps differ from the eager "
+                "bodies'" % label)
+        require(step.compiles == 1 and step.replays == OPT_STEPS - 1,
+                "optimizers (d) %s: %d programs, %d replays"
+                % (label, step.compiles, step.replays))
+        require(not same(g[1][-1][:len(params)], init)
+                and all(math.isfinite(float(x)) for x in g[0]),
+                "optimizers (d) %s: the parameters did not move, or a loss "
+                "is not finite" % label)
+        del step
+        flags.set_flags({"skip_nonfinite_steps": True})
+        chaos.configure("nan_at_step:2")
+        try:
+            gstep = make_train_step(model, loss_fn, opt)
+        finally:
+            chaos.reset()
+            flags.set_flags({"skip_nonfinite_steps": False})
+        d = run(gstep)
+        require(d[2] == [False, True, False] and gstep.skipped_steps == 1,
+                "optimizers (d) %s drill: skipped %s" % (label, d[2]))
+        require(same(d[1][1], d[1][0]) and not same(d[1][2], d[1][1]),
+                "optimizers (d) %s drill: the skipped step changed the state, "
+                "or step 3 did not move it" % label)
+        rows.append((label, ["%.4f" % float(x) for x in g[0]],
+                     ["%.3g" % x for x in g[3]], len(accs),
+                     (time.perf_counter() - t0) * 1e3))
+        del gstep, opt, accs, accs0, g, e1, e2, d
+        free_memory(torch)
+    for label, losses, lrs, n_acc, ms in rows:
+        say("optimizers (d) %s: %d captured steps bit-equal to the eager "
+            "bodies (losses %s, lr %s), %d accumulators; nan_at_step:2 "
+            "skipped with the state bit-equal across it (%.0f ms for the "
+            "rule's runs)" % (label, OPT_STEPS, losses, lrs, n_acc, ms))
+    # Dpsgd: eager only
+    with torch.no_grad():
+        for p, v in zip(params, init):
+            p.copy_(v)
+    opt = optimizer.Dpsgd(learning_rate=1e-3, clip=10.0,
+                          batch_size=float(TRAIN_B), sigma=1e-3,
+                          parameters=params, seed=5)
+    dl = []
+    for x, y in batches:
+        loss = loss_fn(model(*x), *y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        dl.append(float(loss.detach()))
+    require(all(math.isfinite(x) for x in dl)
+            and not same(params, init), "optimizers (d) Dpsgd: %s" % dl)
+    try:
+        make_train_step(model, loss_fn, opt)(*batches[0])
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise SystemExit("chip_smoke FAILED: make_train_step took Dpsgd")
+    say("optimizers (d) Dpsgd: %d eager steps, losses %s; make_train_step "
+        "refused it: %s" % (OPT_STEPS, ["%.4f" % x for x in dl], refused))
+    say("optimizers (d): %d rules on gpt2-small at %d layers, B=%d T=%d bf16 "
+        "O2, in %.1f s (%s)" % (len(OPT_RULES), OPT_LAYERS, TRAIN_B, TRAIN_T,
+                                time.perf_counter() - t_all, card))
+    del model, opt, params, init
+    free_memory(torch)
+
+
+# ---------------------------------------------------------------------------
 # serving
 
 
@@ -3555,8 +4066,10 @@ def main():
 
     # 2. build
     secs = _build.build()
-    say("build: %d kernel sources in %.1f s (parallel nvcc)"
-        % (len(_build.KERNEL_SOURCES), secs))
+    say("build: %d kernel sources in %.1f s (parallel nvcc%s)"
+        % (len(_build.KERNEL_SOURCES), secs,
+           ", " + " ".join(_build._split_flag()) if _build._split_flag()
+           else ""))
     for name, log in sorted(_build.build_logs().items()):
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
@@ -3576,7 +4089,8 @@ def main():
             "paged_decode_int8": check_paged(torch, ck, True, gen)}
     check_dropout_bits(torch, ck)
     errs.update(check_flash_train(torch, ck, gen))
-    errs["adamw"] = check_adamw(torch, ck, gen)
+    check_flash_f16_range(torch, ck, gen)
+    errs.update(check_adamw(torch, ck, gen))
     errs["dropout_keep"] = check_dropout_keep(torch, ck)
     check_gates(torch, ck, gen)
     errs.update(check_fused(torch, ck, flags, gen))
@@ -3793,6 +4307,15 @@ def main():
     free_memory(torch)
     resume_main(torch, ck, card, off_ms, tlaunches)
 
+    # 18. float16 on the card, GradScaler, the other optimizers
+    free_memory(torch)
+    f16_times, f16_off, f16_on = f16_main(torch, ck, F, flags, timer, gen,
+                                          shapes, card)
+    times.update(f16_times)
+    scaler_main(torch, ck, card)
+    ernie_lamb(torch, ck, flags, card)
+    optimizer_sweep(torch, ck, flags, card)
+
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]
                             + slaunch_c["flash_fwd"]),
@@ -3808,14 +4331,20 @@ def main():
         counts[name] = blaunches[name] + alaunches[name]
         say("launches %s: %d on path B (gpt2, fused flags), %d on path A "
             "(ernie)" % (name, blaunches[name], alaunches[name]))
-    table = [{"name": name, "route": "cuda", "source": SOURCES[name],
-              "replaces": TPU_KERNELS[name], "launches": counts[name],
+    for name in F16_ORDER:
+        counts[name] = f16_off[name] + f16_on[name]
+        say("launches %s: %d with the fused flags off, %d on path B (gpt2 "
+            "f16)" % (name, f16_off[name], f16_on[name]))
+    table = [{"name": name, "route": "cuda",
+              "source": SOURCES[name.replace(ck.F16, "")],
+              "replaces": TPU_KERNELS[name.replace(ck.F16, "")],
+              "launches": counts[name],
               "max_abs_err": errs[name], "ms": times[name]["ms"],
               "plain_ms": times[name]["plain_ms"],
               "bound_ms": times[name]["bound_ms"],
               "bound_by": times[name]["bound_by"],
               "library_ms": times[name]["library_ms"]}
-             for name in KERNEL_ORDER]
+             for name in KERNEL_ORDER + F16_ORDER]
     next(e for e in table if e["name"] == "flash_fwd")["buckets"] = \
         times["flash_fwd"]["buckets"]
     say(card)

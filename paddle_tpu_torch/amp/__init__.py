@@ -3,10 +3,11 @@
 `amp_cast_inputs`).
 
 `decorate` (O2) casts every floating parameter and buffer of the models to
-the compute dtype, layer norms included, as the reference's
-Layer.to(dtype) does; the optimizers' moments stay float32 and no master
-weights are kept, as in the reference. At O0 and O1 it returns the models
-(and optimizers) as they are.
+the compute dtype (bfloat16 or float16), layer norms included, as the
+reference's Layer.to(dtype) does; the optimizers' moments stay float32 and
+no master weights are kept, as in the reference. At O0 and O1 it returns
+the models (and optimizers) as they are. The kernels take either 16-bit
+type (each has a float16 instance beside its bfloat16 one).
 
 `auto_cast` is the reference's per-op input casting, by the reference's op
 names, not torch.autocast (whose lists and output rules differ): inside
@@ -22,7 +23,15 @@ change the casting, as in the reference. The port's functions that call
 (softmax_with_cross_entropy) and the flash-attention gate
 (flash_attention). Not hooked yet (ROADMAP.md): the other listed ops.
 
-Not ported yet: `GradScaler` (bfloat16 needs no loss scaling).
+`GradScaler` is the reference's loss-scaling state machine (dygraph:
+scale, unscale_, step, minimize, update, the getters and the state dict):
+`unscale_` tests every gradient for NaN and inf in one multi-tensor pass
+on the device (`jit.engine.all_finite`) and multiplies each by 1 / scale
+rounded to the gradient's dtype, as the reference's weak python float
+rounds it; `step` reads the answer on the host once a step (the
+reference reads it once a parameter) and skips `optimizer.step()` on an
+inf or NaN, so a skipped step does not advance the optimizer's step
+count, as in the reference's control flow.
 """
 from __future__ import annotations
 
@@ -30,8 +39,8 @@ import contextlib
 
 import torch
 
-__all__ = ["decorate", "auto_cast", "AmpState", "amp_cast_inputs",
-           "WHITE_LIST", "BLACK_LIST"]
+__all__ = ["decorate", "auto_cast", "GradScaler", "AmpState",
+           "amp_cast_inputs", "WHITE_LIST", "BLACK_LIST"]
 
 # the reference's lists (paddle_tpu/amp/__init__.py:29-39)
 WHITE_LIST = {
@@ -46,7 +55,9 @@ BLACK_LIST = {
     "nll_loss_op", "square_error_cost_op",
 }
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float32": torch.float32}
+_DTYPE_WORDS = "bfloat16, float16 or float32"
 _LOW = (torch.bfloat16, torch.float16)
 
 
@@ -57,8 +68,8 @@ class AmpState:
     def __init__(self, enable=True, level="O1", dtype="bfloat16",
                  custom_white_list=None, custom_black_list=None):
         if dtype not in _DTYPES:
-            raise ValueError("amp dtype %r: the port's kernels take "
-                             "bfloat16 or float32" % (dtype,))
+            raise ValueError("amp dtype %r: the port's kernels take %s"
+                             % (dtype, _DTYPE_WORDS))
         self.enable = enable
         self.level = level
         self.dtype = _DTYPES[dtype]
@@ -119,8 +130,8 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     if level not in ("O0", "O1", "O2"):
         raise ValueError("level must be O0/O1/O2, got %s" % (level,))
     if dtype not in _DTYPES:
-        raise ValueError("amp dtype %r: the port's kernels take bfloat16 "
-                         "or float32" % (dtype,))
+        raise ValueError("amp dtype %r: the port's kernels take %s"
+                         % (dtype, _DTYPE_WORDS))
     if master_weight:
         raise NotImplementedError("master weights are not kept, as in the "
                                   "reference")
@@ -137,3 +148,129 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     if optimizers is None:
         return models
     return models, optimizers
+
+
+class GradScaler:
+    """Loss scaling (reference: paddle_tpu/amp GradScaler :92-180, over the
+    reference's check_finite_and_unscale / update_loss_scaling kernels).
+
+    Dygraph use, as the reference's recipe:
+
+        scaled = scaler.scale(loss)
+        scaled.backward()
+        scaler.step(opt)          # or scaler.minimize(opt, scaled)
+        opt.clear_grad()
+
+    `scale` multiplies the loss by the scale (a python float; in the
+    loss's dtype, so a float16 loss may overflow to inf, as the
+    reference's does). `unscale_` decides found_inf on the device, in one
+    multi-tensor pass over the gradients before they are touched, and
+    multiplies every gradient in place by 1 / scale rounded to its dtype.
+    `step` unscales, reads found_inf once, runs `optimizer.step()` unless
+    it is set, and updates the scale: after `decr_every_n_nan_or_inf`
+    consecutive bad steps the scale times decr_ratio (at least 1.0), after
+    `incr_every_n_steps` consecutive good ones times incr_ratio (with
+    use_dynamic_loss_scaling; else the scale stays)."""
+
+    def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
+                 incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=1000,
+                 decr_every_n_nan_or_inf=1, use_dynamic_loss_scaling=True):
+        self._enable = enable
+        self._scale = float(init_loss_scaling)
+        self._incr_ratio = incr_ratio
+        self._decr_ratio = decr_ratio
+        self._incr_every_n_steps = incr_every_n_steps
+        self._decr_every_n = decr_every_n_nan_or_inf
+        self._dynamic = use_dynamic_loss_scaling
+        self._good_steps = 0
+        self._bad_steps = 0
+        # False, or a 0-d bool tensor on the device until step reads it
+        self._found_inf = False
+
+    def scale(self, var):
+        if not self._enable:
+            return var
+        return var * self._scale
+
+    @torch.no_grad()
+    def unscale_(self, optimizer):
+        """found_inf over every gradient of the optimizer's parameters (on
+        the device, not read here), then each gradient times 1 / scale in
+        its own dtype."""
+        if not self._enable:
+            return
+        from ..jit.engine import all_finite
+        from ..optimizer import _weak
+        grads = [p.grad for p in optimizer._parameter_list or []
+                 if p.grad is not None]
+        if not grads:
+            self._found_inf = False
+            return
+        ok = all_finite(torch.zeros((), device=grads[0].device), grads)
+        inv = 1.0 / self._scale
+        by_dtype = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for dtype, group in by_dtype.items():
+            # the weak python float meets each gradient in its own dtype
+            torch._foreach_mul_(group, _weak(inv, dtype))
+        self._found_inf = torch.logical_not(ok)
+
+    def _read_found_inf(self):
+        found = self._found_inf
+        if isinstance(found, torch.Tensor):
+            found = bool(found)
+            self._found_inf = found
+        return found
+
+    def step(self, optimizer):
+        if not self._enable:
+            optimizer.step()
+            return
+        self.unscale_(optimizer)
+        if not self._read_found_inf():
+            optimizer.step()
+        self.update()
+
+    def minimize(self, optimizer, loss):
+        self.step(optimizer)
+
+    def update(self):
+        if not (self._enable and self._dynamic):
+            return
+        if self._read_found_inf():
+            self._bad_steps += 1
+            self._good_steps = 0
+            if self._bad_steps >= self._decr_every_n:
+                self._scale = max(self._scale * self._decr_ratio, 1.0)
+                self._bad_steps = 0
+        else:
+            self._good_steps += 1
+            self._bad_steps = 0
+            if self._good_steps >= self._incr_every_n_steps:
+                self._scale *= self._incr_ratio
+                self._good_steps = 0
+        self._found_inf = False
+
+    def is_enable(self):
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self):
+        return self._dynamic
+
+    def get_init_loss_scaling(self):
+        return self._scale
+
+    def set_init_loss_scaling(self, v):
+        self._scale = float(v)
+
+    def state_dict(self):
+        return {"scale": self._scale, "incr_ratio": self._incr_ratio,
+                "decr_ratio": self._decr_ratio,
+                "good_steps": self._good_steps, "bad_steps": self._bad_steps}
+
+    def load_state_dict(self, sd):
+        self._scale = sd.get("scale", self._scale)
+        self._good_steps = sd.get("good_steps", 0)
+        self._bad_steps = sd.get("bad_steps", 0)
+

@@ -246,6 +246,9 @@ class TrainStep(_ProgramStep):
 
     def __call__(self, inputs: Sequence[torch.Tensor],
                  labels: Sequence[torch.Tensor]):
+        if self.optimizer._dygraph_only:
+            # the reference's rule raises when its step is traced
+            raise NotImplementedError(self.optimizer._captured_error)
         key = self._stage(list(inputs) + list(labels))
         self.optimizer.stage_step()
         step = self.optimizer._step_count
@@ -282,9 +285,15 @@ def make_train_step(network, loss_fn, optimizer, device="cuda"):
     outlive the next call. Rebinding a parameter (not copying into it)
     makes the next call raise.
 
+    The optimizer is any of the port's rules but Dpsgd, whose host-side
+    noise draw cannot be captured: a call with it raises
+    NotImplementedError, as the reference's does. A parameter's
+    optimize_attr["learning_rate"] scales lr for it on the device.
+
     With FLAGS_skip_nonfinite_steps on when the step is made, the program
     also tests the loss and every gradient for NaN and inf (`all_finite`)
-    and gates the update on the answer (`optimizer.gate_update`), so that
+    and gates the update on the answer (`optimizer.gate_update`: every
+    rule's guard word), so that
     a non-finite step leaves the parameters and moments as they were, on
     the device, with no copy of them; the program also keeps the answer
     on the device, which `last_step_skipped` and `skipped_steps` read

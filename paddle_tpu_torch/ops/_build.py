@@ -10,6 +10,12 @@ it is.
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o ops/build/lib<name>-<hash>.so csrc/<name>.cu
 
+Where the toolkit's nvcc offers it (`nvcc --help` lists it), each nvcc
+also runs with --split-compile=0: the device compiler's optimizer works on
+the source's kernels in parallel, one thread a CPU. flash_bwd.cu and
+fused_dropout_ln.cu hold dozens of template instances (by element type,
+head size and dropout), which one thread compiles in turn.
+
 There is deliberately no --use_fast_math: the int8 append must equal
 cuda_kernels.quantize_kv bit for bit (IEEE division, rintf). Every
 pointer and the stream are declared c_void_p, and each C entry returns
@@ -105,6 +111,19 @@ def _nvcc() -> str:
     return found
 
 
+_split = []
+
+
+def _split_flag():
+    """["--split-compile=0"] where nvcc takes it, else []: asked once."""
+    if not _split:
+        out = subprocess.run([_nvcc(), "--help"], capture_output=True,
+                             text=True)
+        _split.append(["--split-compile=0"]
+                      if "--split-compile" in out.stdout else [])
+    return _split[0]
+
+
 def _target(name: str) -> str:
     h = hashlib.sha256()
     headers = sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh"))
@@ -129,7 +148,8 @@ def build(names: Iterable[str] = None) -> float:
         if os.path.exists(out):
             continue
         tmp = out + ".tmp%d" % os.getpid()
-        cmd = [_nvcc()] + _NVCC_FLAGS + ["-o", tmp, KERNEL_SOURCES[name]]
+        cmd = ([_nvcc()] + _NVCC_FLAGS + _split_flag()
+               + ["-o", tmp, KERNEL_SOURCES[name]])
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -31,8 +31,11 @@
 // rounded on its own (__fmul_rn, __fdiv_rn, __fsqrt_rn, ...: no FMA
 // contraction), so the kernel equals the plain PyTorch version op for op.
 //
-// The parameter is float32 or bfloat16, the gradient float32 or bfloat16
-// (converted to float32 here), the moments float32. Any numel: the TPU's
+// The parameter is float32, bfloat16 or float16, the gradient any of the
+// three (converted to float32 here), the moments float32: one template
+// instance a (parameter, gradient) pair of types. A float16 parameter
+// takes the update rounded once from float32, as the reference's
+// `.astype(param.dtype)` rounds it. Any numel: the TPU's
 // rows-of-128 rule (`_adamw_rows_ok`) is not carried over. One launch per
 // parameter, as the JAX step makes one pallas_call per parameter.
 //
@@ -45,6 +48,7 @@
 // parameters are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace {
 
@@ -52,9 +56,13 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // the per-step values live in device memory (`sc`: lr, c1, c2, go, scale)
@@ -102,14 +110,27 @@ int launch(void* param, const void* grad, float* m1, float* m2, long long n,
   return (int)cudaGetLastError();
 }
 
+template <typename P>
+int pick_g(int gtype, void* param, const void* grad, float* m1, float* m2,
+           long long n, const float* sc, const Hyper& hp,
+           cudaStream_t stream) {
+  if (gtype == 0)
+    return launch<P, float>(param, grad, m1, m2, n, sc, hp, stream);
+  if (gtype == 1)
+    return launch<P, __nv_bfloat16>(param, grad, m1, m2, n, sc, hp, stream);
+  if (gtype == 2)
+    return launch<P, __half>(param, grad, m1, m2, n, sc, hp, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// ptype / gtype: 0 float32, 1 bfloat16. sc: float32 [4] or [5] in device
-// memory, the step's lr, c1, c2, go (0: write nothing) and the clip scale
-// (read only with use_scale). coeff (AdamW's decoupled decay), the betas,
-// 1 - beta and eps are float32 values computed by the caller. use_decay: 0
-// for Adam (no decay multiply). Returns cudaGetLastError() after the
-// launch.
+// ptype / gtype: 0 float32, 1 bfloat16, 2 float16. sc: float32 [4] or [5] in
+// device memory, the step's lr, c1, c2, go (0: write nothing) and the clip
+// scale (read only with use_scale). coeff (AdamW's decoupled decay), the
+// betas, 1 - beta and eps are float32 values computed by the caller.
+// use_decay: 0 for Adam (no decay multiply). Returns cudaGetLastError() after
+// the launch.
 extern "C" int adamw(void* param, const void* grad, float* m1, float* m2,
                      long long n, int ptype, int gtype, const float* sc,
                      float coeff, int use_decay, int use_scale, float b1,
@@ -117,14 +138,12 @@ extern "C" int adamw(void* param, const void* grad, float* m1, float* m2,
                      cudaStream_t stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   const Hyper hp{coeff, b1, omb1, b2, omb2, eps, use_decay, use_scale};
-  if (ptype == 0 && gtype == 0)
-    return launch<float, float>(param, grad, m1, m2, n, sc, hp, stream);
-  if (ptype == 0 && gtype == 1)
-    return launch<float, __nv_bfloat16>(param, grad, m1, m2, n, sc, hp, stream);
-  if (ptype == 1 && gtype == 0)
-    return launch<__nv_bfloat16, float>(param, grad, m1, m2, n, sc, hp, stream);
-  if (ptype == 1 && gtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(param, grad, m1, m2, n, sc,
-                                                hp, stream);
+  if (ptype == 0) return pick_g<float>(gtype, param, grad, m1, m2, n, sc, hp,
+                                       stream);
+  if (ptype == 1)
+    return pick_g<__nv_bfloat16>(gtype, param, grad, m1, m2, n, sc, hp,
+                                 stream);
+  if (ptype == 2)
+    return pick_g<__half>(gtype, param, grad, m1, m2, n, sc, hp, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dq, and dk/dv, with
-// optional attention dropout. bfloat16 inputs run on the tensor cores;
-// float32 inputs keep the CUDA-core kernels.
+// optional attention dropout. bfloat16 and float16 inputs run on the
+// tensor cores; float32 inputs keep the CUDA-core kernels.
 //
 // Replaces paddle_tpu/ops/pallas_kernels.py `_flash_bwd_dq_kernel` (:462)
 // and `_flash_bwd_dkv_kernel` (:524), both launched by `_flash_bwd`
@@ -74,6 +74,23 @@
 //   * Edges. With D % 8 == 0 and every row 16-byte aligned the tiles come
 //     by cp.async (rows past T and columns past D zero-filled); otherwise
 //     by element loads, and outputs by element stores.
+//
+// float16 route: the same kernels, one template instance an element type
+// (tc_mma.cuh's Elt<T>; mma.sync .f16 in place of .bf16), with one
+// difference. The reference keeps p and dS in float32 (its Pallas kernels
+// take float32 products of any input type), and float16's largest finite
+// value is 65504 where bfloat16's is float32's: under a loss scale of
+// 2^15, dO and so dS grow 32768-fold, and a dS rounded to float16 as it
+// stands would become inf where the reference stays finite (and a
+// GradScaler would skip a step the reference takes). So dS enters its
+// products scaled per accumulator row by a power of two
+// (tc_mma.cuh range_scale: its largest element below 2^15, each row's
+// running exponent the largest seen, the accumulator shrunk by the power
+// of two in between when a tile raises it), and the output takes the
+// inverse power at the end: exact in the float32 sums. M o p lies in [0,
+// 1 / (1 - p)] and enters as it is. The hi + lo pairs stay: in float16
+// they hold dS to 2^-22 relative where one rounding holds 2^-11, and the
+// pair costs what it costs in bfloat16.
 //
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s):
 //   * GPT-2 training (B=16, H=12, T=512, D=64, causal): 25.2 M live
@@ -538,6 +555,10 @@ struct Cfg {
 // On the H100 both ran faster at 3 CTAs an SM than at 2 (dk/dv with
 // 64-row tiles takes 255 registers and spills); dk/dv spills at 4, and dq
 // with 32-key tiles at 4 was no faster.
+// float16 A operands without a bound of their own take range_scale
+template <typename T>
+constexpr bool kRanged = std::is_same<T, f16>::value;
+
 template <int DP>
 using DqCfg = Cfg<DP, (DP <= 64 ? 64 : 32)>;
 template <int DP>
@@ -549,18 +570,18 @@ struct DkvBlocks {              // past D = 64 dk/dv takes ~250 registers
 };
 
 template <typename C>
-constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (2 * kRes + 4 * C::BN) * C::LD +
+constexpr size_t smem_bytes() {            // 2-byte elements
+  return 2 * (2 * kRes + 4 * C::BN) * C::LD +
          sizeof(float) * 4 * C::BN + sizeof(uint4) * kThreads;
 }
 
 // dq = dS K and Delta. Grid (B*H, query tiles), last query tile first.
-template <int DP, bool DROP>
+template <typename T, int DP, bool DROP>
 __global__ void __launch_bounds__(kThreads, kDqBlocks)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ o,
-                 const bf16* __restrict__ dout, const float* __restrict__ lse,
-                 bf16* __restrict__ dq, float* __restrict__ delta, Strides st,
+flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ o,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 T* __restrict__ dq, float* __restrict__ delta, Strides st,
                  int H, int Tq, int Tk, int D, int causal, float sm_scale,
                  int vec, unsigned drop_thr, float drop_scale,
                  const unsigned long long* __restrict__ rng,
@@ -571,9 +592,9 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using C = DqCfg<DP>;
   constexpr int BN = C::BN, LD = C::LD, NT = C::NT, KS = C::KS, DT = C::DT;
   extern __shared__ uint4 smem_u4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_u4);     // [kRes][LD]
-  bf16* dos = qs + kRes * LD;                      // [kRes][LD]
-  bf16* kvs = dos + kRes * LD;                     // [2][K, V][BN][LD]
+  T* qs = reinterpret_cast<T*>(smem_u4);           // [kRes][LD]
+  T* dos = qs + kRes * LD;                         // [kRes][LD]
+  T* kvs = dos + kRes * LD;                        // [2][K, V][BN][LD]
   float* delta_s = reinterpret_cast<float*>(kvs + 4 * BN * LD);  // [kRes]
   uint4* bits_s = reinterpret_cast<uint4*>(delta_s + 4 * BN);    // [4][32]
 
@@ -581,11 +602,11 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRes;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* qp = head(q, st, kQ, b, h);
-  const bf16* kp = head(k, st, kK, b, h);
-  const bf16* vp = head(v, st, kV, b, h);
-  const bf16* op = head(o, st, kO, b, h);
-  const bf16* dop = head(dout, st, kDO, b, h);
+  const T* qp = head(q, st, kQ, b, h);
+  const T* kp = head(k, st, kK, b, h);
+  const T* vp = head(v, st, kV, b, h);
+  const T* op = head(o, st, kO, b, h);
+  const T* dop = head(dout, st, kDO, b, h);
   const long long kst = st.s[kK][2], vst = st.s[kV][2];
   const int shift = Tk - Tq;
   const int kend = causal ? min(Tk, q0 + kRes + shift) : Tk;
@@ -605,28 +626,28 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = tid >> 1, row = q0 + r;
     float dd = 0.f;
     if (row < Tq) {
-      const bf16* orow = op + row * st.s[kO][2];
-      const bf16* grow = dos + r * LD;
+      const T* orow = op + row * st.s[kO][2];
+      const T* grow = dos + r * LD;
       for (int d = (tid & 1) * 8; d < D; d += 16) {
         float ov[8];
         if (vec) {
           const uint4 u = *reinterpret_cast<const uint4*>(orow + d);
-          const __nv_bfloat162* h2 =
-              reinterpret_cast<const __nv_bfloat162*>(&u);
+          const typename Elt<T>::T2* h2 =
+              reinterpret_cast<const typename Elt<T>::T2*>(&u);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(h2[e]);
+            const float2 f = Elt<T>::widen(h2[e]);
             ov[2 * e] = f.x;
             ov[2 * e + 1] = f.y;
           }
         } else {
 #pragma unroll
           for (int e = 0; e < 8; ++e)
-            ov[e] = d + e < D ? __bfloat162float(orow[d + e]) : 0.f;
+            ov[e] = d + e < D ? Elt<T>::to(orow[d + e]) : 0.f;
         }
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          dd = fmaf(__bfloat162float(grow[d + e]), ov[e], dd);
+          dd = fmaf(Elt<T>::to(grow[d + e]), ov[e], dd);
       }
     }
     dd += __shfl_xor_sync(0xffffffffu, dd, 1);
@@ -646,8 +667,8 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     dlt[i] = delta_s[warp * 16 + g + 8 * i];
   }
   const float scale_log2 = sm_scale * kLog2e;
-  const bf16* qw = qs + warp * 16 * LD;
-  const bf16* dow = dos + warp * 16 * LD;
+  const T* qw = qs + warp * 16 * LD;
+  const T* dow = dos + warp * 16 * LD;
   uint4* wbits = bits_s + warp * 32;
   // lane offsets of ldmatrix: a_off for an A fragment (16 rows x k16) and
   // for two B fragments transposed (k16 rows x 16 columns), b_off for two
@@ -661,19 +682,21 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < DT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  // float16: the running exponents of dS's rows g, g + 8 (range_scale)
+  int ex[2] = {kMinExp, kMinExp};
 
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = it * BN;
     if (it + 1 < ntiles) {
-      bf16* nxt = kvs + ((it + 1) & 1) * 2 * BN * LD;
+      T* nxt = kvs + ((it + 1) & 1) * 2 * BN * LD;
       load_tile<BN, DP>(nxt, kp, kst, k0 + BN, Tk, D, vec);
       load_tile<BN, DP>(nxt + BN * LD, vp, vst, k0 + BN, Tk, D, vec);
     }
     cp_commit();
     cp_wait_prev();
     __syncthreads();
-    const bf16* ks = kvs + (it & 1) * 2 * BN * LD;
-    const bf16* vs = ks + BN * LD;
+    const T* ks = kvs + (it & 1) * 2 * BN * LD;
+    const T* vs = ks + BN * LD;
 
     // S = Q K^T and dP = dO V^T over this tile's keys
     float s[NT][4], dp[NT][4];
@@ -691,10 +714,10 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         unsigned bk[4], bv[4];
         ldsm(bk, ks + jn * 16 * LD + b_off + kk * 16);
         ldsm(bv, vs + jn * 16 * LD + b_off + kk * 16);
-        mma(s[2 * jn], aq, bk[0], bk[1]);
-        mma(s[2 * jn + 1], aq, bk[2], bk[3]);
-        mma(dp[2 * jn], ag, bv[0], bv[1]);
-        mma(dp[2 * jn + 1], ag, bv[2], bv[3]);
+        mma<T>(s[2 * jn], aq, bk[0], bk[1]);
+        mma<T>(s[2 * jn + 1], aq, bk[2], bk[3]);
+        mma<T>(dp[2 * jn], ag, bv[0], bv[1]);
+        mma<T>(dp[2 * jn + 1], ag, bv[2], bv[3]);
       }
     }
 
@@ -727,49 +750,52 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (DROP) __syncwarp();
     }
 
+    if constexpr (kRanged<T>) range_scale(s, ex, acc);
+
     // dq += dS K: dS from registers (hi and lo), K transposed from shared
     // memory
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       unsigned hi[4], lo[4];
-      a_from_acc(hi, lo, s[2 * kk], s[2 * kk + 1]);
+      a_from_acc<T>(hi, lo, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dn = 0; dn < DT / 2; ++dn) {
         unsigned bk[4];
         ldsm_t(bk, ks + kk * 16 * LD + a_off + dn * 16);
-        mma(acc[2 * dn], hi, bk[0], bk[1]);
-        mma(acc[2 * dn + 1], hi, bk[2], bk[3]);
-        mma(acc[2 * dn], lo, bk[0], bk[1]);
-        mma(acc[2 * dn + 1], lo, bk[2], bk[3]);
+        mma<T>(acc[2 * dn], hi, bk[0], bk[1]);
+        mma<T>(acc[2 * dn + 1], hi, bk[2], bk[3]);
+        mma<T>(acc[2 * dn], lo, bk[0], bk[1]);
+        mma<T>(acc[2 * dn + 1], lo, bk[2], bk[3]);
       }
     }
     __syncthreads();                     // this stage is refilled next
   }
 
-  bf16* dqp = dq + b * st.s[kDQ][0] + h * st.s[kDQ][1];
+  T* dqp = dq + b * st.s[kDQ][0] + h * st.s[kDQ][1];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + g + 8 * i;
     if (row >= Tq) continue;
+    const float un = kRanged<T> ? exp2i(ex[i] - kTop) : 1.f;
 #pragma unroll
     for (int dn = 0; dn < DT; ++dn) {
       const int d = dn * 8 + 2 * t;
       if (d < D)
-        store_pair(dqp + row * st.s[kDQ][2] + d, acc[dn][2 * i],
-                   acc[dn][2 * i + 1], d, D, vec);
+        store_pair(dqp + row * st.s[kDQ][2] + d, acc[dn][2 * i] * un,
+                   acc[dn][2 * i + 1] * un, d, D, vec);
     }
   }
 }
 
 // dk = dS^T Q, dv = (M o p)^T dO. Grid (B*H, key tiles), first key tile
 // first.
-template <int DP, bool DROP>
+template <typename T, int DP, bool DROP>
 __global__ void __launch_bounds__(kThreads, DkvBlocks<DP>::value)
-flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, Strides st, int H, int Tq, int Tk,
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv, Strides st, int H, int Tq, int Tk,
                   int D, int causal, float sm_scale, int vec,
                   unsigned drop_thr, float drop_scale,
                   const unsigned long long* __restrict__ rng,
@@ -780,9 +806,9 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using C = DkvCfg<DP>;
   constexpr int BN = C::BN, LD = C::LD, NT = C::NT, KS = C::KS, DT = C::DT;
   extern __shared__ uint4 smem_u4[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_u4);     // [kRes][LD]
-  bf16* vs = ks + kRes * LD;                       // [kRes][LD]
-  bf16* qgs = vs + kRes * LD;                      // [2][Q, dO][BN][LD]
+  T* ks = reinterpret_cast<T*>(smem_u4);           // [kRes][LD]
+  T* vs = ks + kRes * LD;                          // [kRes][LD]
+  T* qgs = vs + kRes * LD;                         // [2][Q, dO][BN][LD]
   // ld_s: [2][lse, Delta][BN]
   float* ld_s = reinterpret_cast<float*>(qgs + 4 * BN * LD);
   uint4* bits_s = reinterpret_cast<uint4*>(ld_s + 4 * BN);  // [4][32]
@@ -791,10 +817,10 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kb0 = blockIdx.y * kRes;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* qp = head(q, st, kQ, b, h);
-  const bf16* kp = head(k, st, kK, b, h);
-  const bf16* vp = head(v, st, kV, b, h);
-  const bf16* dop = head(dout, st, kDO, b, h);
+  const T* qp = head(q, st, kQ, b, h);
+  const T* kp = head(k, st, kK, b, h);
+  const T* vp = head(v, st, kV, b, h);
+  const T* dop = head(dout, st, kDO, b, h);
   const float* lse_h = lse + (long long)bh * Tq;
   const float* delta_h = delta + (long long)bh * Tq;
   const long long qst = st.s[kQ][2], dost = st.s[kDO][2];
@@ -813,8 +839,8 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int kw = kb0 + warp * 16;        // the warp's first key
   const float scale_log2 = sm_scale * kLog2e;
-  const bf16* kwp = ks + warp * 16 * LD;
-  const bf16* vwp = vs + warp * 16 * LD;
+  const T* kwp = ks + warp * 16 * LD;
+  const T* vwp = vs + warp * 16 * LD;
   uint4* wbits = bits_s + warp * 32;
   // lane offsets of ldmatrix: a_off for an A fragment (16 rows x k16) and
   // for two B fragments transposed (k16 rows x 16 columns), b_off for two
@@ -828,12 +854,15 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < DT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+  // float16: the running exponents of dS^T's rows (the warp's keys g,
+  // g + 8; range_scale). M o p lies in [0, 1 / (1 - p)] and needs none.
+  int ex[2] = {kMinExp, kMinExp};
 
   for (int it = 0; it < ntiles; ++it) {
     const int i0 = start + it * BN;
     if (it + 1 < ntiles) {
       const int nx = (it + 1) & 1;
-      bf16* nxt = qgs + nx * 2 * BN * LD;
+      T* nxt = qgs + nx * 2 * BN * LD;
       load_tile<BN, DP>(nxt, qp, qst, i0 + BN, Tq, D, vec);
       load_tile<BN, DP>(nxt + BN * LD, dop, dost, i0 + BN, Tq, D, vec);
       load_vec(ld_s + nx * 2 * BN, lse_h, i0 + BN, Tq, BN);
@@ -842,8 +871,8 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_commit();
     cp_wait_prev();
     __syncthreads();
-    const bf16* qs = qgs + (it & 1) * 2 * BN * LD;
-    const bf16* gs = qs + BN * LD;
+    const T* qs = qgs + (it & 1) * 2 * BN * LD;
+    const T* gs = qs + BN * LD;
     const float* ls = ld_s + (it & 1) * 2 * BN;
     const float* dls = ls + BN;
 
@@ -863,10 +892,10 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         unsigned bq[4], bg[4];
         ldsm(bq, qs + jn * 16 * LD + b_off + kk * 16);
         ldsm(bg, gs + jn * 16 * LD + b_off + kk * 16);
-        mma(s[2 * jn], ak, bq[0], bq[1]);
-        mma(s[2 * jn + 1], ak, bq[2], bq[3]);
-        mma(dp[2 * jn], av, bg[0], bg[1]);
-        mma(dp[2 * jn + 1], av, bg[2], bg[3]);
+        mma<T>(s[2 * jn], ak, bq[0], bq[1]);
+        mma<T>(s[2 * jn + 1], ak, bq[2], bq[3]);
+        mma<T>(dp[2 * jn], av, bg[0], bg[1]);
+        mma<T>(dp[2 * jn + 1], av, bg[2], bg[3]);
       }
     }
 
@@ -908,47 +937,50 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (DROP) __syncwarp();
     }
 
+    if constexpr (kRanged<T>) range_scale(dp, ex, dka);
+
     // dv += (M o p)^T dO, then dk += dS^T Q: A from registers (hi and
     // lo), dO and Q transposed from shared memory
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       unsigned hi[4], lo[4];
-      a_from_acc(hi, lo, s[2 * kk], s[2 * kk + 1]);
+      a_from_acc<T>(hi, lo, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dn = 0; dn < DT / 2; ++dn) {
         unsigned bg[4];
         ldsm_t(bg, gs + kk * 16 * LD + a_off + dn * 16);
-        mma(dva[2 * dn], hi, bg[0], bg[1]);
-        mma(dva[2 * dn + 1], hi, bg[2], bg[3]);
-        mma(dva[2 * dn], lo, bg[0], bg[1]);
-        mma(dva[2 * dn + 1], lo, bg[2], bg[3]);
+        mma<T>(dva[2 * dn], hi, bg[0], bg[1]);
+        mma<T>(dva[2 * dn + 1], hi, bg[2], bg[3]);
+        mma<T>(dva[2 * dn], lo, bg[0], bg[1]);
+        mma<T>(dva[2 * dn + 1], lo, bg[2], bg[3]);
       }
-      a_from_acc(hi, lo, dp[2 * kk], dp[2 * kk + 1]);
+      a_from_acc<T>(hi, lo, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int dn = 0; dn < DT / 2; ++dn) {
         unsigned bq[4];
         ldsm_t(bq, qs + kk * 16 * LD + a_off + dn * 16);
-        mma(dka[2 * dn], hi, bq[0], bq[1]);
-        mma(dka[2 * dn + 1], hi, bq[2], bq[3]);
-        mma(dka[2 * dn], lo, bq[0], bq[1]);
-        mma(dka[2 * dn + 1], lo, bq[2], bq[3]);
+        mma<T>(dka[2 * dn], hi, bq[0], bq[1]);
+        mma<T>(dka[2 * dn + 1], hi, bq[2], bq[3]);
+        mma<T>(dka[2 * dn], lo, bq[0], bq[1]);
+        mma<T>(dka[2 * dn + 1], lo, bq[2], bq[3]);
       }
     }
     __syncthreads();                     // this stage is refilled next
   }
 
-  bf16* dkp = dk + b * st.s[kDK][0] + h * st.s[kDK][1];
-  bf16* dvp = dv + b * st.s[kDV][0] + h * st.s[kDV][1];
+  T* dkp = dk + b * st.s[kDK][0] + h * st.s[kDK][1];
+  T* dvp = dv + b * st.s[kDV][0] + h * st.s[kDV][1];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = kw + g + 8 * i;
     if (key >= Tk) continue;
+    const float un = kRanged<T> ? exp2i(ex[i] - kTop) : 1.f;
 #pragma unroll
     for (int dn = 0; dn < DT; ++dn) {
       const int d = dn * 8 + 2 * t;
       if (d >= D) continue;
-      store_pair(dkp + key * st.s[kDK][2] + d, dka[dn][2 * i],
-                 dka[dn][2 * i + 1], d, D, vec);
+      store_pair(dkp + key * st.s[kDK][2] + d, dka[dn][2 * i] * un,
+                 dka[dn][2 * i + 1] * un, d, D, vec);
       store_pair(dvp + key * st.s[kDV][2] + d, dva[dn][2 * i],
                  dva[dn][2 * i + 1], d, D, vec);
     }
@@ -1042,50 +1074,54 @@ int tc_vec(const Args& a) {
   return 1;
 }
 
-template <int DP, bool DROP>
+template <typename T>
 struct DqTc {
-  static int run(const Args& a, cudaStream_t stream) {
-    typedef tc::bf16 bf16;
-    const size_t smem = tc::smem_bytes<tc::DqCfg<DP> >();
-    auto kern = tc::flash_bwd_dq_mma<DP, DROP>;
-    cudaError_t err = allow_smem(kern, smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(a.B * a.H, (a.Tq + tc::kRes - 1) / tc::kRes);
-    kern<<<grid, tc::kThreads, smem, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
-        static_cast<const bf16*>(a.dout), a.lse, static_cast<bf16*>(a.dq),
-        a.delta, a.st, a.H, a.Tq, a.Tk, a.D, a.causal, a.sm_scale,
-        tc_vec(a), a.drop_thr, a.drop_scale, a.rng, a.rng_delta);
-    return (int)cudaGetLastError();
-  }
+  template <int DP, bool DROP>
+  struct L {
+    static int run(const Args& a, cudaStream_t stream) {
+      const size_t smem = tc::smem_bytes<tc::DqCfg<DP> >();
+      auto kern = tc::flash_bwd_dq_mma<T, DP, DROP>;
+      cudaError_t err = allow_smem(kern, smem);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid(a.B * a.H, (a.Tq + tc::kRes - 1) / tc::kRes);
+      kern<<<grid, tc::kThreads, smem, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.o),
+          static_cast<const T*>(a.dout), a.lse, static_cast<T*>(a.dq),
+          a.delta, a.st, a.H, a.Tq, a.Tk, a.D, a.causal, a.sm_scale,
+          tc_vec(a), a.drop_thr, a.drop_scale, a.rng, a.rng_delta);
+      return (int)cudaGetLastError();
+    }
+  };
 };
 
-template <int DP, bool DROP>
+template <typename T>
 struct DkvTc {
-  static int run(const Args& a, cudaStream_t stream) {
-    typedef tc::bf16 bf16;
-    const size_t smem = tc::smem_bytes<tc::DkvCfg<DP> >();
-    auto kern = tc::flash_bwd_dkv_mma<DP, DROP>;
-    cudaError_t err = allow_smem(kern, smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(a.B * a.H, (a.Tk + tc::kRes - 1) / tc::kRes);
-    kern<<<grid, tc::kThreads, smem, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-        a.st, a.H, a.Tq, a.Tk, a.D, a.causal, a.sm_scale, tc_vec(a),
-        a.drop_thr, a.drop_scale, a.rng, a.rng_delta);
-    return (int)cudaGetLastError();
-  }
+  template <int DP, bool DROP>
+  struct L {
+    static int run(const Args& a, cudaStream_t stream) {
+      const size_t smem = tc::smem_bytes<tc::DkvCfg<DP> >();
+      auto kern = tc::flash_bwd_dkv_mma<T, DP, DROP>;
+      cudaError_t err = allow_smem(kern, smem);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid(a.B * a.H, (a.Tk + tc::kRes - 1) / tc::kRes);
+      kern<<<grid, tc::kThreads, smem, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+          a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+          a.st, a.H, a.Tq, a.Tk, a.D, a.causal, a.sm_scale, tc_vec(a),
+          a.drop_thr, a.drop_scale, a.rng, a.rng_delta);
+      return (int)cudaGetLastError();
+    }
+  };
 };
 
-// dtype 0 (float32): F<ceil(D / 32), dropout>; dtype 1 (bfloat16):
-// TC<D rounded up to 32, dropout>
-template <template <int, bool> class F, template <int, bool> class TC>
+// dtype 0 (float32): F<ceil(D / 32), dropout>; dtype 1 (bfloat16) and 2
+// (float16): TC<T>::L<D rounded up to 32, dropout>
+template <template <int, bool> class F, template <typename> class TC>
 int dispatch(const Args& a, int dtype, cudaStream_t stream) {
   if (a.D < 1 || a.D > 128 || a.Tq < 1 || a.Tk < 1 || dtype < 0 ||
-      dtype > 1 || (a.causal && a.Tk < a.Tq))
+      dtype > 2 || (a.causal && a.Tk < a.Tq))
     return (int)cudaErrorInvalidValue;
   const int dc = (a.D + 31) / 32;
 #define BWD_CASE(L, DC, N)                                                   \
@@ -1094,9 +1130,16 @@ int dispatch(const Args& a, int dtype, cudaStream_t stream) {
                      : L<N, false>::run(a, stream);
   if (dtype == 0) {
     BWD_CASE(F, 1, 1) BWD_CASE(F, 2, 2) BWD_CASE(F, 3, 3) BWD_CASE(F, 4, 4)
+  } else if (dtype == 1) {
+    BWD_CASE(TC<tc::bf16>::template L, 1, 32)
+    BWD_CASE(TC<tc::bf16>::template L, 2, 64)
+    BWD_CASE(TC<tc::bf16>::template L, 3, 96)
+    BWD_CASE(TC<tc::bf16>::template L, 4, 128)
   } else {
-    BWD_CASE(TC, 1, 32) BWD_CASE(TC, 2, 64) BWD_CASE(TC, 3, 96)
-    BWD_CASE(TC, 4, 128)
+    BWD_CASE(TC<tc::f16>::template L, 1, 32)
+    BWD_CASE(TC<tc::f16>::template L, 2, 64)
+    BWD_CASE(TC<tc::f16>::template L, 3, 96)
+    BWD_CASE(TC<tc::f16>::template L, 4, 128)
   }
 #undef BWD_CASE
   return (int)cudaErrorInvalidValue;
@@ -1124,7 +1167,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* o,
 
 // strides: 24 element strides, (batch, head, time) for q, k, v, o, dO, dq,
 // dk, dv in turn (entries of tensors a kernel does not touch are ignored);
-// every head_dim stride must be 1. dtype: 0 float32, 1 bfloat16. lse and
+// every head_dim stride must be 1. dtype: 0 float32, 1 bfloat16, 2
+// float16. lse and
 // delta: [B*H, Tq] float32 (flash_bwd_dq writes delta, flash_bwd_dkv reads
 // it). dropout as in flash_fwd: (seed, offset) = (rng[0], rng[1] +
 // rng_delta), from the forward's word and delta. Each returns

@@ -21,9 +21,13 @@
 //     denominator l sums the undropped scores, which equals
 //     dropout(softmax(s)) V exactly, as `_flash_fwd_kernel` computes it.
 //
-// bfloat16 route (namespace tc): FlashAttention-2's forward on
-// mma.sync.m16n8k16 bf16 x bf16 -> f32, with the building blocks of
-// tc_mma.cuh that the backward kernels (flash_bwd.cu) use too.
+// bfloat16 and float16 route (namespace tc): FlashAttention-2's forward on
+// mma.sync.m16n8k16 bf16 x bf16 -> f32 (f16 x f16 -> f32 for float16, one
+// template instance a type: the notes below say bf16 for either), with
+// the building blocks of tc_mma.cuh that the backward kernels
+// (flash_bwd.cu) use too. P lies in [0, 1], so float16's narrower range
+// takes it as it is (a p below 2^-24 rounds to 0, as it would in the
+// float16 output).
 //   * Tiles. A CTA of 4 warps owns 64 query rows, 16 a warp; each warp
 //     loads its Q fragments once (ldmatrix) and keeps them in registers.
 //     K/V tiles of 64 keys stream through two cp.async stages, shared rows
@@ -529,20 +533,20 @@ struct FwdBlocks {
   static constexpr int value = DP <= 64 ? 3 : 2;
 };
 
-// Q, two stages of K and V, the warps' Philox stages
+// Q, two stages of K and V (2-byte elements), the warps' Philox stages
 template <int DP>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(bf16) * (kRes + 4 * kFwdBN) * (DP + 8) +
+  return 2 * (kRes + 4 * kFwdBN) * (DP + 8) +
          sizeof(uint4) * kThreads;
 }
 
 // out (and lse) for 64 query rows of one (batch, head). Grid (B*H, query
 // tiles), last query tile first. Strides: (batch, head, time) of q, k, v,
 // o in turn, in elements.
-template <int DP, bool DROP>
+template <typename T, int DP, bool DROP>
 __global__ void __launch_bounds__(kThreads, FwdBlocks<DP>::value)
-flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o,
               float* __restrict__ lse, long long qsb, long long qsh,
               long long qst, long long ksb, long long ksh, long long kst,
               long long vsb, long long vsh, long long vst, long long osb,
@@ -556,17 +560,17 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (DROP) attn_dropout::load_key(rng, rng_delta, seed, offset);
   constexpr int DT = DP / 8;
   extern __shared__ uint4 smem_u4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_u4);     // [kRes][LD]
-  bf16* kvs = qs + kRes * LD;                      // [2][K, V][BN][LD]
+  T* qs = reinterpret_cast<T*>(smem_u4);           // [kRes][LD]
+  T* kvs = qs + kRes * LD;                         // [2][K, V][BN][LD]
   uint4* bits_s = reinterpret_cast<uint4*>(kvs + 4 * BN * LD);  // [4][32]
 
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRes;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* qp = q + b * qsb + h * qsh;
-  const bf16* kp = k + b * ksb + h * ksh;
-  const bf16* vp = v + b * vsb + h * vsh;
+  const T* qp = q + b * qsb + h * qsh;
+  const T* kp = k + b * ksb + h * ksh;
+  const T* vp = v + b * vsb + h * vsh;
   const int shift = Tk - Tq;
   const int kend = causal ? min(Tk, q0 + kRes + shift) : Tk;
   const int ntiles = (kend + BN - 1) / BN;
@@ -606,15 +610,15 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = it * BN;
     if (it + 1 < ntiles) {
-      bf16* nxt = kvs + ((it + 1) & 1) * 2 * BN * LD;
+      T* nxt = kvs + ((it + 1) & 1) * 2 * BN * LD;
       load_tile<BN, DP>(nxt, kp, kst, k0 + BN, Tk, D, vec);
       load_tile<BN, DP>(nxt + BN * LD, vp, vst, k0 + BN, Tk, D, vec);
     }
     cp_commit();
     cp_wait_prev();
     __syncthreads();
-    const bf16* ks = kvs + (it & 1) * 2 * BN * LD;
-    const bf16* vs = ks + BN * LD;
+    const T* ks = kvs + (it & 1) * 2 * BN * LD;
+    const T* vs = ks + BN * LD;
 
     if (!causal || k0 <= wlast) {        // else the warp's rows see none
       // S = Q K^T over this tile's keys
@@ -629,8 +633,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int jn = 0; jn < NT / 2; ++jn) {
           unsigned bk[4];
           ldsm(bk, ks + jn * 16 * LD + b_off + kk * 16);
-          mma(s[2 * jn], qf[kk], bk[0], bk[1]);
-          mma(s[2 * jn + 1], qf[kk], bk[2], bk[3]);
+          mma<T>(s[2 * jn], qf[kk], bk[0], bk[1]);
+          mma<T>(s[2 * jn + 1], qf[kk], bk[2], bk[3]);
         }
       }
 
@@ -693,25 +697,25 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 
-      // acc += P V: P from registers (rounded once to bf16), V transposed
+      // acc += P V: P from registers (rounded once to T), V transposed
       // from shared memory
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         unsigned a[4];
-        a_from_acc(a, s[2 * kk], s[2 * kk + 1]);
+        a_from_acc<T>(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
         for (int dn = 0; dn < DT / 2; ++dn) {
           unsigned bv[4];
           ldsm_t(bv, vs + kk * 16 * LD + a_off + dn * 16);
-          mma(acc[2 * dn], a, bv[0], bv[1]);
-          mma(acc[2 * dn + 1], a, bv[2], bv[3]);
+          mma<T>(acc[2 * dn], a, bv[0], bv[1]);
+          mma<T>(acc[2 * dn + 1], a, bv[2], bv[3]);
         }
       }
     }
     __syncthreads();                     // this stage is refilled next
   }
 
-  bf16* op = o + b * osb + h * osh;
+  T* op = o + b * osb + h * osh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -736,15 +740,15 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 namespace {
 
-template <int DP, bool DROP>
-int launch_tc(const tc::bf16* q, const tc::bf16* k, const tc::bf16* v,
-              tc::bf16* o, float* lse, const long long* st, int B, int H,
+template <typename T, int DP, bool DROP>
+int launch_tc(const T* q, const T* k, const T* v, T* o, float* lse,
+              const long long* st, int B, int H,
               int Tq, int Tk, int D, int causal, float sm_scale, int vec,
               unsigned drop_thr, float drop_scale,
               const unsigned long long* rng, unsigned rng_delta,
               cudaStream_t stream) {
   const size_t smem = tc::fwd_smem_bytes<DP>();
-  auto kern = tc::flash_fwd_mma<DP, DROP>;
+  auto kern = tc::flash_fwd_mma<T, DP, DROP>;
   if (smem > 48 * 1024) {
     // above 48 KB a block's dynamic shared memory needs an opt-in
     const cudaError_t err = cudaFuncSetAttribute(
@@ -759,11 +763,13 @@ int launch_tc(const tc::bf16* q, const tc::bf16* k, const tc::bf16* v,
   return (int)cudaGetLastError();
 }
 
-// The bfloat16 route: tc::flash_fwd_mma<D rounded up to 32, dropout>. The
-// tiles come by 16-byte cp.async and the output is stored in pairs when
-// D % 8 == 0 and every pointer and (batch, head, time) stride is a
-// multiple of 16 bytes; otherwise by element loads and stores.
-int launch_bf16(const void* q, const void* k, const void* v, void* o,
+// The 16-bit route (T bfloat16 or float16): tc::flash_fwd_mma<T, D rounded
+// up to 32, dropout>. The tiles come by 16-byte cp.async and the output is
+// stored in pairs when D % 8 == 0 and every pointer and (batch, head,
+// time) stride is a multiple of 16 bytes; otherwise by element loads and
+// stores.
+template <typename T>
+int launch_16(const void* q, const void* k, const void* v, void* o,
                 float* lse, const long long* st, int B, int H, int Tq,
                 int Tk, int D, int causal, float sm_scale, int dropout,
                 unsigned drop_thr, float drop_scale,
@@ -779,21 +785,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     for (int j = 0; j < 3; ++j)
       if (st[3 * i + j] % 8) vec = 0;
   }
-  typedef tc::bf16 bf16;
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  bf16* oo = static_cast<bf16*>(o);
+  const T* qq = static_cast<const T*>(q);
+  const T* kk = static_cast<const T*>(k);
+  const T* vv = static_cast<const T*>(v);
+  T* oo = static_cast<T*>(o);
 #define FWD_TC_CASE(DP)                                                      \
   if (D <= DP)                                                               \
-    return dropout ? launch_tc<DP, true>(qq, kk, vv, oo, lse, st, B, H, Tq,  \
+    return dropout                                                           \
+               ? launch_tc<T, DP, true>(qq, kk, vv, oo, lse, st, B, H, Tq,   \
+                                        Tk, D, causal, sm_scale, vec,        \
+                                        drop_thr, drop_scale, rng,           \
+                                        rng_delta, stream)                   \
+               : launch_tc<T, DP, false>(qq, kk, vv, oo, lse, st, B, H, Tq,  \
                                          Tk, D, causal, sm_scale, vec,       \
                                          drop_thr, drop_scale, rng,          \
-                                         rng_delta, stream)                  \
-                   : launch_tc<DP, false>(qq, kk, vv, oo, lse, st, B, H, Tq, \
-                                          Tk, D, causal, sm_scale, vec,      \
-                                          drop_thr, drop_scale, rng,         \
-                                          rng_delta, stream);
+                                         rng_delta, stream);
   FWD_TC_CASE(32) FWD_TC_CASE(64) FWD_TC_CASE(96) FWD_TC_CASE(128)
 #undef FWD_TC_CASE
   return (int)cudaErrorInvalidValue;
@@ -802,13 +808,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // strides: 12 element strides, (batch, head, time) for q, k, v, o in turn;
-// the head_dim stride must be 1. dtype: 0 float32, 1 bfloat16. lse: null,
+// the head_dim stride must be 1. dtype: 0 float32, 1 bfloat16, 2 float16.
+// lse: null,
 // or [B*H, Tq] float32. dropout: 0 off, else keep iff bits >= drop_thr and
 // kept values times drop_scale, bits keyed by (seed, offset) = (rng[0],
 // rng[1] + rng_delta), read from the Philox word in device memory (null
 // without dropout; attn_dropout.cuh). float32 only:
 // `warps` and `tile` (8 or 16 keys), cuda_kernels.flash_f32_geometry's; the
-// bfloat16 route ignores them.
+// 16-bit routes ignore them.
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, const long long* strides,
@@ -822,9 +829,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                       sm_scale, warps, tile, dropout, drop_thr, drop_scale,
                       rng, rng_delta, stream);
   if (dtype == 1)
-    return launch_bf16(q, k, v, o, lse, strides, B, H, Tq, Tk, D, causal,
-                       sm_scale, dropout, drop_thr, drop_scale, rng, rng_delta,
-                       stream);
+    return launch_16<tc::bf16>(q, k, v, o, lse, strides, B, H, Tq, Tk, D,
+                               causal, sm_scale, dropout, drop_thr,
+                               drop_scale, rng, rng_delta, stream);
+  if (dtype == 2)
+    return launch_16<tc::f16>(q, k, v, o, lse, strides, B, H, Tq, Tk, D,
+                              causal, sm_scale, dropout, drop_thr,
+                              drop_scale, rng, rng_delta, stream);
   return (int)cudaErrorInvalidValue;
 }
 

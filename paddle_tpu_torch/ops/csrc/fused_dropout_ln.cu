@@ -16,11 +16,15 @@
 //             dz = dy; then dz += dz_extra (absent: 0). dres = dz, and
 //             dx = dz under the forward's keep mask and scale, both in z's
 //             type.
-// All arithmetic is float32; each of x, residual, bias, gamma, beta (and
-// z, dy, dz_extra, gamma) is float32 or bfloat16 on its own (bit i of
-// `dtypes`). Hd <= 8192 (the forward's shared memory; the wrapper
-// refuses more). IEEE division and square root (no --use_fast_math), so
-// rstd is 1 / sqrtf, not the approximate rsqrtf.
+// All arithmetic is float32; each of x, residual, bias, gamma, beta (and z,
+// dy, dz_extra, gamma) is float32, bfloat16 or float16 on its own (the 2-bit
+// code i of `dtypes`: 0 float32, 1 bfloat16, 2 float16), with one 16-bit type
+// a call: the row kernels are template instances by type, each tensor float32
+// or the call's 16-bit type, which keeps their count to twice the bfloat16 set
+// rather than three to the power of the tensors. A call that mixes bfloat16
+// and float16 is refused. Hd <= 8192 (the forward's shared memory; the wrapper
+// refuses more). IEEE division and square root (no --use_fast_math), so rstd
+// is 1 / sqrtf, not the approximate rsqrtf.
 //
 // The dropout bits are Philox-4x32-10 (attn_dropout.cuh) keyed by the
 // call's 64-bit seed with the counter (col, row / 4, kTag, call offset) and
@@ -91,6 +95,7 @@
 // reaches half its bound.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "attn_dropout.cuh"
 
@@ -130,14 +135,23 @@ __device__ __forceinline__ Drop resolve(const DropArgs& a) {
   return d;
 }
 
-__device__ __forceinline__ float ld(const void* p, int bf, size_t i) {
-  return bf ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-            : static_cast<const float*>(p)[i];
+// tensor i's type code in a call's `dtypes`: 0 float32, 1 bfloat16, 2
+// float16
+__host__ __device__ __forceinline__ int code(int dt, int i) {
+  return (dt >> (2 * i)) & 3;
 }
 
-__device__ __forceinline__ void st(void* p, int bf, size_t i, float v) {
-  if (bf)
+__device__ __forceinline__ float ld(const void* p, int c, size_t i) {
+  if (c == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  if (c == 2) return __half2float(static_cast<const __half*>(p)[i]);
+  return static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void st(void* p, int c, size_t i, float v) {
+  if (c == 1)
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  else if (c == 2)
+    static_cast<__half*>(p)[i] = __float2half_rn(v);
   else
     static_cast<float*>(p)[i] = v;
 }
@@ -188,8 +202,8 @@ fdrln_fwd_kernel(const void* __restrict__ x, const void* __restrict__ res,
   const Drop d = resolve(da);
   extern __shared__ float zs[];            // LN: kRows * h float32 z
   __shared__ float red[kRows * 32];
-  const int xb = dt & 1, rb = (dt >> 1) & 1, bb = (dt >> 2) & 1;
-  const int gb = (dt >> 3) & 1, eb = (dt >> 4) & 1;
+  const int xb = code(dt, 0), rb = code(dt, 1), bb = code(dt, 2);
+  const int gb = code(dt, 3), eb = code(dt, 4);
   const int group = blockIdx.x, row0 = group * kRows;
   const int rows = min(kRows, n - row0);
   float s[kRows] = {0.f, 0.f, 0.f, 0.f};
@@ -275,21 +289,70 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[kChunk],
     for (int e = 0; e < kChunk; ++e) v[e] = e < n ? p[e] : 0.f;
   }
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&v)[kChunk], bool vec, int n) {
+// the 16-bit types' pair type and conversions
+template <typename T>
+struct Half;
+template <>
+struct Half<__nv_bfloat16> {
+  typedef __nv_bfloat162 T2;
+  static __device__ __forceinline__ float2 widen(T2 v) {
+    return __bfloat1622float2(v);
+  }
+  static __device__ __forceinline__ T2 pair(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ float to(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from(float x) {
+    return __float2bfloat16(x);
+  }
+  static __device__ __forceinline__ T2 join(__nv_bfloat16 a,
+                                            __nv_bfloat16 b) {
+    return __halves2bfloat162(a, b);
+  }
+  static __device__ __forceinline__ float lo(T2 v) { return __low2float(v); }
+  static __device__ __forceinline__ float hi(T2 v) { return __high2float(v); }
+};
+template <>
+struct Half<__half> {
+  typedef __half2 T2;
+  static __device__ __forceinline__ float2 widen(T2 v) {
+    return __half22float2(v);
+  }
+  static __device__ __forceinline__ T2 pair(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+  static __device__ __forceinline__ float to(__half x) {
+    return __half2float(x);
+  }
+  static __device__ __forceinline__ __half from(float x) {
+    return __float2half_rn(x);
+  }
+  static __device__ __forceinline__ T2 join(__half a, __half b) {
+    return __halves2half2(a, b);
+  }
+  static __device__ __forceinline__ float lo(T2 v) { return __low2float(v); }
+  static __device__ __forceinline__ float hi(T2 v) { return __high2float(v); }
+};
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&v)[kChunk],
+                                      bool vec, int n) {
   if (vec) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const typename Half<T>::T2* h2 =
+        reinterpret_cast<const typename Half<T>::T2*>(&u);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h2[e]);
+      const float2 f = Half<T>::widen(h2[e]);
       v[2 * e] = f.x;
       v[2 * e + 1] = f.y;
     }
   } else {
 #pragma unroll
     for (int e = 0; e < kChunk; ++e)
-      v[e] = e < n ? __bfloat162float(p[e]) : 0.f;
+      v[e] = e < n ? Half<T>::to(p[e]) : 0.f;
   }
 }
 
@@ -304,27 +367,41 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[kChunk],
       if (e < n) p[e] = v[e];
   }
 }
-__device__ __forceinline__ void store8(__nv_bfloat16* p,
-                                       const float (&v)[kChunk], bool vec,
-                                       int n) {
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&v)[kChunk],
+                                       bool vec, int n) {
   if (vec) {
     uint4 u;
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+    typename Half<T>::T2* h2 = reinterpret_cast<typename Half<T>::T2*>(&u);
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      h2[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    for (int e = 0; e < 4; ++e) h2[e] = Half<T>::pair(v[2 * e], v[2 * e + 1]);
     *reinterpret_cast<uint4*>(p) = u;
   } else {
 #pragma unroll
     for (int e = 0; e < kChunk; ++e)
-      if (e < n) p[e] = __float2bfloat16(v[e]);
+      if (e < n) p[e] = Half<T>::from(v[e]);
   }
 }
 
-// 8 values of a row as loaded, in their own type (bfloat16 stays packed:
-// 4 registers, widened where it is read)
+// 8 values of a row as loaded, in their own type (16-bit types stay
+// packed: 4 registers, widened where they are read)
 template <typename T>
-struct Chunk;
+struct Chunk {
+  typename Half<T>::T2 v[kChunk / 2];
+  __device__ __forceinline__ void load(const T* p, bool vec, int n) {
+    if (vec) {
+      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kChunk; e += 2)
+        v[e / 2] = Half<T>::join(e < n ? p[e] : Half<T>::from(0.f),
+                                 e + 1 < n ? p[e + 1] : Half<T>::from(0.f));
+    }
+  }
+  __device__ __forceinline__ float operator[](int e) const {
+    return e & 1 ? Half<T>::hi(v[e / 2]) : Half<T>::lo(v[e / 2]);
+  }
+};
 template <>
 struct Chunk<float> {
   float v[kChunk];
@@ -333,37 +410,20 @@ struct Chunk<float> {
   }
   __device__ __forceinline__ float operator[](int e) const { return v[e]; }
 };
-template <>
-struct Chunk<__nv_bfloat16> {
-  __nv_bfloat162 v[kChunk / 2];
-  __device__ __forceinline__ void load(const __nv_bfloat16* p, bool vec,
-                                       int n) {
-    if (vec) {
-      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kChunk; e += 2)
-        v[e / 2] = __halves2bfloat162(
-            e < n ? p[e] : __float2bfloat16(0.f),
-            e + 1 < n ? p[e + 1] : __float2bfloat16(0.f));
-    }
-  }
-  __device__ __forceinline__ float operator[](int e) const {
-    return e & 1 ? __high2float(v[e / 2]) : __low2float(v[e / 2]);
-  }
-};
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+template <typename T>
+__device__ __forceinline__ void store1(T* p, float v) {
+  *p = Half<T>::from(v);
 }
 
 // v as stored in T, widened back
 __device__ __forceinline__ float as_stored(float v, const float*) {
   return v;
 }
-__device__ __forceinline__ float as_stored(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
+template <typename T>
+__device__ __forceinline__ float as_stored(float v, const T*) {
+  return Half<T>::to(Half<T>::from(v));
 }
 
 // keep bits of a group: bit 4 e + r of keep[c] is row r of column
@@ -411,7 +471,7 @@ fdrln_fwd_ln_kernel(const TX* __restrict__ x, const TR* __restrict__ res,
   const int groups = (n + kRows - 1) / kRows;
   const int col0 = lane * kChunk;
   auto ncols = [&](int c) { return min(kChunk, h - (col0 + c * 32 * kChunk)); };
-  const int bb = (dt >> 2) & 1, gb = (dt >> 3) & 1, eb = (dt >> 4) & 1;
+  const int bb = code(dt, 2), gb = code(dt, 3), eb = code(dt, 4);
   float vb[kLaneChunks][kChunk], vg[kLaneChunks][kChunk],
       ve[kLaneChunks][kChunk];
 #pragma unroll
@@ -753,30 +813,51 @@ int launch_bwd(const BwdArgs& a) {
       a.vec, a.d, a.eps);
   return (int)cudaGetLastError();
 }
-// the element types from `dtypes` (bit 0 z, 1 dy, 2 dz_extra, 3 gamma set
-// for bfloat16); without LN gamma is unused and float
+// The element types from `dtypes` (code 0 z, 1 dy, 2 dz_extra, 3 gamma),
+// each float or the call's 16-bit type L; without LN gamma is unused and
+// float
 typedef __nv_bfloat16 bf16;
-template <bool LN, typename TZ, typename TY, typename TE>
-int pick_g(const BwdArgs& a, int dt) {
-  if constexpr (LN) {
-    if ((dt >> 3) & 1) return launch_bwd<LN, TZ, TY, TE, bf16>(a);
+template <typename L>
+struct BwdPick {
+  template <bool LN, typename TZ, typename TY, typename TE>
+  static int g(const BwdArgs& a, int dt) {
+    if constexpr (LN) {
+      if (code(dt, 3)) return launch_bwd<LN, TZ, TY, TE, L>(a);
+    }
+    return launch_bwd<LN, TZ, TY, TE, float>(a);
   }
-  return launch_bwd<LN, TZ, TY, TE, float>(a);
+  template <bool LN, typename TZ, typename TY>
+  static int e(const BwdArgs& a, int dt) {
+    return code(dt, 2) ? g<LN, TZ, TY, L>(a, dt) : g<LN, TZ, TY, float>(a, dt);
+  }
+  template <bool LN, typename TZ>
+  static int y(const BwdArgs& a, int dt) {
+    return code(dt, 1) ? e<LN, TZ, L>(a, dt) : e<LN, TZ, float>(a, dt);
+  }
+  static int pick(const BwdArgs& a, int dt, int with_ln) {
+    if (with_ln)
+      return code(dt, 0) ? y<true, L>(a, dt) : y<true, float>(a, dt);
+    return code(dt, 0) ? y<false, L>(a, dt) : y<false, float>(a, dt);
+  }
+};
+
+// the call's 16-bit type: 2 for float16 when any of the first n codes is
+// 2, else 1; -1 when bfloat16 and float16 are mixed (refused)
+int low_code(int dt, int n) {
+  int low = 0;
+  for (int i = 0; i < n; ++i) {
+    const int c = code(dt, i);
+    if (c == 3 || (c && low && c != low)) return -1;
+    if (c) low = c;
+  }
+  return low ? low : 1;
 }
-template <bool LN, typename TZ, typename TY>
-int pick_e(const BwdArgs& a, int dt) {
-  return (dt >> 2) & 1 ? pick_g<LN, TZ, TY, bf16>(a, dt)
-                       : pick_g<LN, TZ, TY, float>(a, dt);
-}
-template <bool LN, typename TZ>
-int pick_y(const BwdArgs& a, int dt) {
-  return (dt >> 1) & 1 ? pick_e<LN, TZ, bf16>(a, dt)
-                       : pick_e<LN, TZ, float>(a, dt);
-}
+
 int pick(const BwdArgs& a, int dt, int with_ln) {
-  if (with_ln)
-    return dt & 1 ? pick_y<true, bf16>(a, dt) : pick_y<true, float>(a, dt);
-  return dt & 1 ? pick_y<false, bf16>(a, dt) : pick_y<false, float>(a, dt);
+  const int low = low_code(dt, 4);
+  if (low < 0) return (int)cudaErrorInvalidValue;
+  return low == 2 ? BwdPick<__half>::pick(a, dt, with_ln)
+                  : BwdPick<bf16>::pick(a, dt, with_ln);
 }
 
 struct FwdArgs {
@@ -839,8 +920,9 @@ __global__ void fdrln_bits_kernel(void* __restrict__ out, DropArgs da, int n,
 }  // namespace
 
 // Forward. x, res [n, h]; bias, gamma, beta [h] (bias may be null: 0);
-// with_ln = 0 writes z only (y, gamma, beta unused). dtypes: bit 0 x,
-// 1 res, 2 bias, 3 gamma, 4 beta set for bfloat16; y and z take x's type.
+// with_ln = 0 writes z only (y, gamma, beta unused). dtypes: 2-bit codes
+// 0 x, 1 res, 2 bias, 3 gamma, 4 beta (0 float32, 1 bfloat16, 2 float16;
+// one 16-bit type a call); y and z take x's type.
 // on: dropout with keep iff bits >= thr, kept values times scale. With LN
 // at h <= 768 the warp-per-group kernel runs, else the CTA-per-group one.
 // Returns cudaGetLastError() after the launch.
@@ -851,7 +933,9 @@ extern "C" int fused_dropout_ln_fwd(const void* x, const void* res,
                                     int on, unsigned thr, float scale,
                                     float eps, const unsigned long long* rng,
                                     unsigned rng_delta, cudaStream_t stream) {
-  if (n < 1 || h < 1 || h > kMaxHd) return (int)cudaErrorInvalidValue;
+  const int low = low_code(dtypes, 5);
+  if (n < 1 || h < 1 || h > kMaxHd || low < 0)
+    return (int)cudaErrorInvalidValue;
   const DropArgs d{on, thr, scale, rng, rng_delta, kTag};
   const int groups = (n + kRows - 1) / kRows;
   if (with_ln && h <= kColBlock) {
@@ -862,11 +946,19 @@ extern "C" int fused_dropout_ln_fwd(const void* x, const void* res,
       if (reinterpret_cast<unsigned long long>(p) % 16) vec = 0;
     const FwdArgs a{x, res, bias, gamma, beta, y, z, n, h, vec, dtypes, d,
                     eps, stream};
-    if (dtypes & 1)
-      return dtypes & 2 ? launch_fwd_ln<bf16, bf16>(a)
-                        : launch_fwd_ln<bf16, float>(a);
-    return dtypes & 2 ? launch_fwd_ln<float, bf16>(a)
-                      : launch_fwd_ln<float, float>(a);
+    const int cx = code(dtypes, 0), cr = code(dtypes, 1);
+    if (low == 2) {
+      if (cx)
+        return cr ? launch_fwd_ln<__half, __half>(a)
+                  : launch_fwd_ln<__half, float>(a);
+      if (cr) return launch_fwd_ln<float, __half>(a);
+    } else {
+      if (cx)
+        return cr ? launch_fwd_ln<bf16, bf16>(a)
+                  : launch_fwd_ln<bf16, float>(a);
+      if (cr) return launch_fwd_ln<float, bf16>(a);
+    }
+    return launch_fwd_ln<float, float>(a);
   }
   if (with_ln) {
     const size_t smem = (size_t)kRows * h * sizeof(float);
@@ -883,13 +975,14 @@ extern "C" int fused_dropout_ln_fwd(const void* x, const void* res,
 }
 
 // Backward. z, dy [n, h], dz_extra [n, h] or null (0), gamma [h] (with_ln).
-// dtypes: bit 0 z, 1 dy, 2 dz_extra, 3 gamma for bfloat16; dx and dres
-// take z's type. part: float32 scratch [grid, 3 or 1, h], the CTAs' column
-// sums of dx, dy * x^ and dy (with LN) or of dx alone; sums: [3 or 1, h]
-// in z's type, their totals over the CTAs (a second, small kernel adds
-// the partial rows in CTA order). grid: CTAs along the rows (one an SM,
-// at most one per 4-row group), each warp walking the 4-row groups
-// grid * 8 apart; past h = 768 the grid has a second axis of 768-column blocks.
+// dtypes: 2-bit codes 0 z, 1 dy, 2 dz_extra, 3 gamma as in the forward (one
+// 16-bit type a call); dx and dres take z's type. part: float32 scratch [grid,
+// 3 or 1, h], the CTAs' column sums of dx, dy * x^ and dy (with LN) or of dx
+// alone; sums: [3 or 1, h] in z's type, their totals over the CTAs (a second,
+// small kernel adds the partial rows in CTA order). grid: CTAs along the rows
+// (one an SM, at most one per 4-row group), each warp walking the 4-row groups
+// grid * 8 apart; past h = 768 the grid has a second axis of 768-column
+// blocks.
 extern "C" int fused_dropout_ln_bwd(const void* z, const void* dy,
                                     const void* dzx, const void* gamma,
                                     void* dx, void* dres, float* part,
@@ -912,9 +1005,12 @@ extern "C" int fused_dropout_ln_bwd(const void* z, const void* dy,
   const int err = pick(a, dtypes, with_ln);
   if (err) return err;
   const int m = (with_ln ? 3 : 1) * h;
-  if (dtypes & 1)
+  if (code(dtypes, 0) == 1)
     fdrln_colsum_kernel<<<(m + 255) / 256, 256, 0, stream>>>(
         part, static_cast<__nv_bfloat16*>(sums), grid, m);
+  else if (code(dtypes, 0) == 2)
+    fdrln_colsum_kernel<<<(m + 255) / 256, 256, 0, stream>>>(
+        part, static_cast<__half*>(sums), grid, m);
   else
     fdrln_colsum_kernel<<<(m + 255) / 256, 256, 0, stream>>>(
         part, static_cast<float*>(sums), grid, m);

@@ -53,7 +53,13 @@ t on replay (jit/engine.py). The plain versions keep host (seed, offset)
 and scalar arguments; on CPU tensors the wrappers read the word or the
 buffer on the host and call them.
 
-Launch counters (`launch_counts`) count kernel launches and nothing else.
+The training kernels take float32, bfloat16 and float16 tensors (their
+16-bit routes one template instance a type: the float16 ones replace the
+bfloat16 mma.sync with its .f16 form, and the flash backward scales dS by
+a power of two a row for float16's range; csrc/flash_bwd.cu).
+
+Launch counters (`launch_counts`) count kernel launches and nothing else;
+a float16 instance counts under its kernel's name + F16 ("_f16").
 Path counters (`attention_path_counts`) count which implementation the
 gates chose, on any device, and feed `pt_attn_path_total{path}`.
 """
@@ -93,13 +99,19 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
 
 _NEG_INF = -1e30
 
-# kernel launches, bumped by the wrappers right after a successful launch
+# kernel launches, bumped by the wrappers right after a successful launch;
+# a kernel's float16 instance counts under its name + F16 (`_count`)
+F16 = "_f16"
+_F16_KERNELS = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq",
+                "flash_bwd_dkv", "fused_dropout_ln_fwd",
+                "fused_dropout_residual_fwd", "fused_dropout_ln_bwd", "adamw")
 _LAUNCHES = {"flash_fwd": 0, "flash_fwd_train": 0, "flash_bwd_dq": 0,
              "flash_bwd_dkv": 0, "attn_dropout_bits": 0,
              "fused_dropout_ln_fwd": 0, "fused_dropout_residual_fwd": 0,
              "fused_dropout_ln_bwd": 0, "fused_dropout_bits": 0,
              "dropout_keep": 0, "adamw": 0, "paged_decode": 0,
              "paged_decode_int8": 0}
+_LAUNCHES.update({k + F16: 0 for k in _F16_KERNELS})
 
 # attention implementation chosen by the gates (reference:
 # pallas_kernels.py _ATTN_PATHS / _note_attn_path)
@@ -144,6 +156,11 @@ def attention_path_counts(reset=False):
     return out
 
 
+def _count(name, dtype):
+    """One launch of kernel `name`'s instance for `dtype`."""
+    _LAUNCHES[name + F16 if dtype == torch.float16 else name] += 1
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -168,7 +185,10 @@ def _on_cuda(t, name):
     return True
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' dtype codes: float32 on the CUDA cores (the flash kernels)
+# or in float32 arithmetic, the 16-bit types as template instances
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_WORDS = "float32, bfloat16 or float16"
 
 
 def _word_check(word, like, name):
@@ -282,9 +302,10 @@ def _keep_mask(bits, dropout_p, shape):
 # Flash-attention forward
 #
 # Replaces pallas_kernels.py `_flash_fwd_kernel` (:324, via `_flash_fwd`
-# :412). bfloat16 inputs (every training path, under O2 or auto_cast, and
-# bf16 prefill) run on the tensor cores: bf16 mma.sync with float32 sums,
-# S and P kept in registers, P rounded once to bf16 for the P V product.
+# :412). bfloat16 and float16 inputs (every training path, under O2 or
+# auto_cast, and 16-bit prefill) run on the tensor cores: mma.sync on the
+# 16-bit type with float32 sums, S and P kept in registers, P rounded once
+# to the 16-bit type for the P V product.
 # float32 inputs (the serving path's float32 cache) run on the CUDA cores
 # in full float32, each CTA's causal key range dealt out to its warps in
 # tiles (`flash_f32_geometry`), the warps' softmax states combined at the
@@ -372,8 +393,8 @@ def _flash_check(q, k, v, causal, dropout_p=0.0):
     ValueError on anything else."""
     _need(q.ndim == 4 and k.ndim == 4 and q.dtype in _DTYPE_CODE
           and q.shape[-1] <= 128 and not (causal and k.shape[2] < q.shape[2]),
-          "flash_attention: unsupported input %s %s %s causal=%s (float32 "
-          "or bfloat16, [B,H,T,D] with D<=128, Tk>=Tq when causal)"
+          "flash_attention: unsupported input %s %s %s causal=%s (float32, "
+          "bfloat16 or float16, [B,H,T,D] with D<=128, Tk>=Tq when causal)"
           % (tuple(q.shape), tuple(k.shape), q.dtype, causal))
     B, H, Tq, D = q.shape
     _need(tuple(k.shape) == (B, H, k.shape[2], D) and v.shape == k.shape
@@ -435,7 +456,7 @@ def _flash_fwd(q, k, v, causal, dropout_p, word, delta, need_lse):
     name = "flash_fwd_train" if (need_lse or dropout_p > 0.0) else \
         "flash_fwd"
     _check_launch(err, name)
-    _LAUNCHES[name] += 1
+    _count(name, q.dtype)
     return o, lse
 
 
@@ -461,9 +482,12 @@ def flash_fwd_train(q, k, v, causal, dropout_p=0.0, word=None, delta=0,
 #
 # Replaces pallas_kernels.py `_flash_bwd_dq_kernel` (:462) and
 # `_flash_bwd_dkv_kernel` (:524), launched by `_flash_bwd` (:589).
-# bfloat16 inputs (every training path, under O2 or auto_cast) run on the
-# tensor cores: bf16 mma.sync with float32 sums, M o p and dS kept in
-# registers as bf16 hi + lo operand pairs. At the training shapes
+# bfloat16 and float16 inputs (every training path, under O2 or auto_cast)
+# run on the tensor cores: mma.sync on the 16-bit type with float32 sums,
+# M o p and dS kept in registers as hi + lo operand pairs of that type
+# (float16's dS scaled a row by a power of two, undone in the float32
+# sums, so that a loss-scaled dS stays finite where the reference's
+# float32 one does). At the training shapes
 # they are bound by bytes on paper, and in practice by the dropout's
 # Philox calls and mma.sync's share of the tensor-core peak (see the
 # source's note). float32 inputs keep the CUDA-core kernels in full
@@ -538,7 +562,7 @@ def _bwd_launch(fn, name, ptrs, q, k, causal, dropout_p, word, delta,
         int(dropout_p > 0.0), thr, scale,
         _ptr(word) if dropout_p > 0.0 else None, int(delta), _stream(q))
     _check_launch(err, name)
-    _LAUNCHES[name] += 1
+    _count(name, q.dtype)
 
 
 def flash_bwd_dq(q, k, v, o, do, lse, causal, dropout_p=0.0, word=None,
@@ -852,17 +876,23 @@ def _fdrln_check(name, rows, vecs, p):
     for t in rows + vecs:
         if t is None:
             continue
-        _need(t.dtype in _DTYPE_CODE, "%s: float32 or bfloat16 tensors, got "
-              "%s" % (name, t.dtype))
+        _need(t.dtype in _DTYPE_CODE, "%s: %s tensors, got %s"
+              % (name, _DTYPE_WORDS, t.dtype))
         _need(t.device == first.device, "%s: mixed devices" % name)
         _need(t.is_contiguous(), "%s: tensors must be contiguous" % name)
+    low = {t.dtype for t in rows + vecs
+           if t is not None and t.dtype != torch.float32}
+    _need(len(low) <= 1, "%s: one 16-bit type a call (the kernels' "
+          "instances pair float32 with bfloat16 or with float16), got %s"
+          % (name, sorted(str(d) for d in low)))
     _need(0.0 <= p <= 1.0, "%s: dropout p %r (0 <= p <= 1)" % (name, p))
 
 
-def _bf16_bits(*ts):
-    """Bit i set where tensor i is bfloat16: the kernels' dtype word."""
-    return sum(1 << i for i, t in enumerate(ts)
-               if t is not None and t.dtype == torch.bfloat16)
+def _dtype_codes(*ts):
+    """The kernels' dtype word: tensor i's `_DTYPE_CODE` in bits 2i and
+    2i + 1 (an absent tensor 0)."""
+    return sum(_DTYPE_CODE[t.dtype] << (2 * i) for i, t in enumerate(ts)
+               if t is not None)
 
 
 def _ptr(t):
@@ -893,20 +923,20 @@ def _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, word, delta):
     err = _build.load("fused_dropout_ln").fused_dropout_ln_fwd(
         x.data_ptr(), residual.data_ptr(), _ptr(bias), _ptr(gamma),
         _ptr(beta), _ptr(y), z.data_ptr(), N, Hd,
-        _bf16_bits(x, residual, bias, gamma, beta), int(with_ln),
+        _dtype_codes(x, residual, bias, gamma, beta), int(with_ln),
         int(p > 0.0), _threshold(p), float(scale), float(eps),
         _ptr(word) if p > 0.0 else None, int(delta), _stream(x))
     _check_launch(err, name)
-    _LAUNCHES[name] += 1
+    _count(name, x.dtype)
     return y, z
 
 
 def fused_dropout_ln_fwd(x, residual, bias, gamma, beta, p, scale, eps,
                          word=None, delta=0):
-    """Row 4's kernel: (y, z) for x, residual [N, Hd] (contiguous, each
-    float32 or bfloat16), bias [Hd] or None, gamma and beta [Hd]; dropout
-    at p from the Philox word `word` and delta `delta`, kept values times
-    `scale`. Inputs the kernel does not take raise ValueError on every
+    """Row 4's kernel: (y, z) for x, residual [N, Hd] (contiguous, each float32
+    or the call's one 16-bit type), bias [Hd] or None, gamma and beta [Hd];
+    dropout at p from the Philox word `word` and delta `delta`, kept values
+    times `scale`. Inputs the kernel does not take raise ValueError on every
     device; CPU tensors then take the plain version."""
     return _fdrln_fwd(x, residual, bias, gamma, beta, p, scale, eps, word,
                       delta)
@@ -956,11 +986,11 @@ def fused_dropout_ln_bwd(z, dy, dz_extra, gamma, p, scale, eps, word=None,
     err = _build.load("fused_dropout_ln").fused_dropout_ln_bwd(
         z.data_ptr(), dy.data_ptr(), _ptr(dz_extra), _ptr(gamma),
         dx.data_ptr(), dres.data_ptr(), part.data_ptr(), sums.data_ptr(), N,
-        Hd, grid, _bf16_bits(z, dy, dz_extra, gamma), int(with_ln),
+        Hd, grid, _dtype_codes(z, dy, dz_extra, gamma), int(with_ln),
         int(p > 0.0), _threshold(p), float(scale), float(eps),
         _ptr(word) if p > 0.0 else None, int(delta), _stream(z))
     _check_launch(err, name)
-    _LAUNCHES[name] += 1
+    _count(name, z.dtype)
     if not with_ln:
         return dx, dres, sums[0], None, None
     return dx, dres, sums[0], sums[1], sums[2]
@@ -1062,20 +1092,20 @@ def fused_dropout_residual_ln_or_none(x, residual, bias, gamma, beta, p, eps,
 # ---------------------------------------------------------------------------
 # Fused AdamW
 #
-# Replaces pallas_kernels.py `_adamw_kernel` (:1044, via
-# `fused_adamw_or_none` :1067). Bound on the H100: bytes (22 per element
-# for a bfloat16 parameter and gradient, 28 for float32). One pass, in
-# place; one launch per parameter. lr and the bias corrections c1 = 1 -
-# beta1^t, c2 = 1 - beta2^t change every step, so the kernel reads them
-# from a float32 device buffer [lr, c1, c2, go, scale] (`adam_step_scalars`,
-# filled by the optimizer once a step), as `_adamw_kernel` reads its SMEM
-# refs. `go` is the non-finite guard's word (`Adam.gate_update`): staged 1
-# by the host, set to 0 on the device by a guarded train step whose loss or
-# gradients are not finite, and then the update writes nothing. `scale` is
-# ClipGradByGlobalNorm's: staged 1, written on the device by a clipped
-# step; an update made with scaled=True takes g = float(grad) * scale, one
-# float32 rounding, the reference's product of a gradient and its float32
-# 0-d scale. A buffer of 4 words serves an update that is not scaled.
+# Replaces pallas_kernels.py `_adamw_kernel` (:1044, via `fused_adamw_or_none`
+# :1067). Bound on the H100: bytes (22 per element for a bfloat16 or float16
+# parameter and gradient, 28 for float32). One pass, in place; one launch per
+# parameter. lr and the bias corrections c1 = 1 - beta1^t, c2 = 1 - beta2^t
+# change every step, so the kernel reads them from a float32 device buffer [lr,
+# c1, c2, go, scale] (`adam_step_scalars`, filled by the optimizer once a
+# step), as `_adamw_kernel` reads its SMEM refs. `go` is the non-finite guard's
+# word (`Optimizer.gate_update`): staged 1 by the host, set to 0 on the device
+# by a guarded train step whose loss or gradients are not finite, and then the
+# update writes nothing. `scale` is ClipGradByGlobalNorm's: staged 1, written
+# on the device by a clipped step; an update made with scaled=True takes g =
+# float(grad) * scale, one float32 rounding, the reference's product of a
+# gradient and its float32 0-d scale. A buffer of 4 words serves an update that
+# is not scaled.
 GO = 3                          # the guard word's index in the buffer
 SCALE = 4                       # the clip scale's index
 
@@ -1175,8 +1205,8 @@ def _scalars_check(scalars, param, scaled=False):
 
 def _adamw_check(param, grad, m1, m2):
     _need(param.dtype in _DTYPE_CODE and grad.dtype in _DTYPE_CODE,
-          "adamw: param and grad must be float32 or bfloat16 (got %s, %s)"
-          % (param.dtype, grad.dtype))
+          "adamw: param and grad must be %s (got %s, %s)"
+          % (_DTYPE_WORDS, param.dtype, grad.dtype))
     for t in (grad, m1, m2):
         _need(t.shape == param.shape and t.device == param.device,
               "adamw: grad and moments must match the parameter's shape "
@@ -1209,7 +1239,7 @@ def adamw(param, grad, m1, m2, scalars, *, beta1, beta2, epsilon, coeff,
         int(bool(scaled)), float(sc["b1"]), float(sc["omb1"]),
         float(sc["b2"]), float(sc["omb2"]), float(sc["eps"]), _stream(param))
     _check_launch(err, "adamw")
-    _LAUNCHES["adamw"] += 1
+    _count("adamw", param.dtype)
 
 
 def fused_adamw_or_none(param, grad, scalars, m1, m2, *, beta1, beta2,

@@ -85,6 +85,11 @@ def guards_off_after():
     jset_flags(jsaved)
     chaos.reset()
     jchaos.reset()
+    # a fired watchdog makes /healthz answer 503 for the rest of the
+    # process, in either package: drop both counters so that no later
+    # test in this worker (the servers' and the live planes') inherits it
+    for registry in (metrics.REGISTRY, jmetrics.REGISTRY):
+        registry.unregister("pt_watchdog_fires_total")
 
 
 def _gpt_pair(**kw):

@@ -248,8 +248,8 @@ def test_mask_rate_and_backward_mask_equal_forward():
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.zeros(4, 16)
     v = torch.zeros(16)
-    bad = [lambda: ck.fused_dropout_ln_fwd(x.half(), x, v, v, v, 0.0, 1.0,
-                                           1e-5),
+    bad = [lambda: ck.fused_dropout_ln_fwd(x.half(), x.bfloat16(), v, v, v,
+                                           0.0, 1.0, 1e-5),
            lambda: ck.fused_dropout_residual_fwd(x, torch.zeros(4, 8), v, 0.0,
                                                  1.0),
            lambda: ck.fused_dropout_residual_fwd(

@@ -115,7 +115,9 @@ class TestFlashGate:
         q, k, v = (_t(a) for a in _qkv(1, 2, Tq, Tk, D, seed=0))
         p = -0.1 if case == "negative_p" else 0.0
         if case == "float16":
-            q, k, v = q.half(), k.half(), v.half()
+            # float16 is taken (its own kernel instances); a float16 q
+            # with float32 k and v is not
+            q = q.half()
         before = ck.attention_path_counts()["flash"]
         with pytest.raises(ValueError):
             ck.flash_attention_or_none(q, k, v, None, True, dropout_p=p)
@@ -609,8 +611,8 @@ def test_adamw_gate_and_launch_counter():
                                       coeff=0.0) is None
     finally:
         set_flags(saved)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        ck.fused_adamw_or_none(p.half(), g.half(), sc, m1, m2,
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        ck.fused_adamw_or_none(p.double(), g.double(), sc, m1, m2,
                                beta1=0.9, beta2=0.999, epsilon=1e-8,
                                coeff=0.0)
 

@@ -158,12 +158,26 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero():
         b = ContinuousBatcher(eng)
         b.submit(Request(prompt=[1, 2, 3], max_new_tokens=4))
         b.run_until_idle()
+    # the float16 instances, counted under their own names on the card
+    qh = qg.detach().half().requires_grad_()
+    ck.flash_attention_or_none(qh, qh, qh, None, True,
+                               dropout_p=0.2).sum().backward()
+    wh = torch.zeros(9, dtype=torch.float16)
+    ck.adamw(wh, wh.clone(), m, m.clone(), sc[0, 0, :5].clone().fill_(1.0),
+             beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.01)
+    ck.fused_bias_dropout_residual_ln(xg.half(), x.half(), v.half(),
+                                      v.half(), v.half(), 0.3, 1e-5, True,
+                                      "upscale_in_train")
+    f16 = {n + ck.F16 for n in (
+        "flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
+        "fused_dropout_ln_fwd", "fused_dropout_residual_fwd",
+        "fused_dropout_ln_bwd", "adamw")}
     assert set(ck.launch_counts()) == {
         "flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
         "attn_dropout_bits", "fused_dropout_ln_fwd",
         "fused_dropout_residual_fwd", "fused_dropout_ln_bwd",
         "fused_dropout_bits", "dropout_keep", "adamw", "paged_decode",
-        "paged_decode_int8"}
+        "paged_decode_int8"} | f16
     assert set(ck.launch_counts().values()) == {0}
 
 
