@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # the whole run, one card
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
+    python3 chip_smoke.py --resnet-only    # the card, then phase 19 alone
     python3 chip_smoke.py --resume-drill JSON   # one run of phase 17's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -200,6 +201,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bit-equal to their eager bodies and a nan_at_step:2 drill under
      FLAGS_skip_nonfinite_steps (the state bit-equal across the skipped
      step); Dpsgd 3 eager steps, and make_train_step refusing it.
+ 19. ResNet-50 (`resnet_main`), the JAX package's bench_resnet50 at its
+     on-chip shapes (train_bench.py:317-388) through the dygraph step:
+     resnet50(num_classes=100), seeded weights, Momentum(0.01, 0.9),
+     make_train_step, the batch RandomState(0) rand(B, 3, 224, 224) and
+     randint(0, 100, (B, 1)). (a) float32, B=8, 3 steps from one state
+     (parameters, velocities, running statistics, step count) through the
+     captured step and twice through its eager bodies: losses,
+     parameters, velocities and running statistics bit-equal; if the two
+     eager runs or the graph differ, the check is made again with
+     torch.backends.cudnn.deterministic on (cuDNN's weight-gradient
+     algorithms may sum with atomics), and the run says so; (b) B=64 under
+     auto_cast(level="O1", dtype="bfloat16") (the bench's amp_bf16_pass),
+     3 warm-up and 20 timed steps of the captured step: step ms, images/s,
+     MFU (3 x 4.1e9 x B FLOPs a step, train_bench.py:379-381), peak
+     memory, one profiled step's device idle share and its groups
+     (cuDNN convolutions, pooling, batch norm's reductions, elementwise),
+     the Momentum update's device time alone (a graph replay); every
+     parameter, velocity and running statistic float32; none of the
+     port's kernels launched (the reference reaches no pl.pallas_call on
+     this path); (c) the guard drill, FLAGS_skip_nonfinite_steps with
+     nan_at_step:2 at B=16: step 2 skipped, parameters, velocities and
+     every running statistic after it bit-equal to their values before
+     it, step 3 moving them; (d) make_eval_step in eval() mode on the
+     trained network: one program, replays timed, the loss and logits
+     held to the eager eval forward, no running statistic written.
 
 The line before the last is the kernel table as JSON (the float16
 instances under their names + "_f16"); the last line is
@@ -1266,12 +1292,18 @@ PROFILE_GROUPS = (("flash kernels (port)", ("flash_fwd_", "flash_bwd_")),
                   ("elementwise", ("elementwise", "vectorized")))
 
 
-def profile_groups(rows):
-    """Device ms per PROFILE_GROUPS group (and "other") of profiler rows."""
+def group_of(kernel, groups=PROFILE_GROUPS):
+    """The first group of `groups` whose patterns a kernel name holds, else
+    "other"."""
+    return next((g for g, pats in groups if any(p in kernel for p in pats)),
+                "other")
+
+
+def profile_groups(rows, groups=PROFILE_GROUPS):
+    """Device ms per group of `groups` (and "other") of profiler rows."""
     out = {}
     for t_us, key, _ in rows:
-        name = next((g for g, pats in PROFILE_GROUPS
-                     if any(p in key for p in pats)), "other")
+        name = group_of(key, groups)
         out[name] = out.get(name, 0.0) + t_us / 1e3
     return out
 
@@ -1293,7 +1325,7 @@ def profile_step(torch, step, batch):
     return sum(t for t, _, _ in rows) / 1e3, rows
 
 
-def report_profile(label, dev_ms, step_ms, top):
+def report_profile(label, dev_ms, step_ms, top, groups=PROFILE_GROUPS):
     """Print one profiled step: its kernel time against the median step
     (the device's idle share), the groups and the largest kernels."""
     if dev_ms <= 0:
@@ -1303,7 +1335,7 @@ def report_profile(label, dev_ms, step_ms, top):
     say("%s step profile: %.3f ms of kernels in one step (torch.profiler) "
         "vs %.2f ms median step: device idle %.1f %%"
         % (label, dev_ms, step_ms, 100.0 * (1.0 - dev_ms / step_ms)))
-    for name, ms in sorted(profile_groups(top).items(),
+    for name, ms in sorted(profile_groups(top, groups).items(),
                            key=lambda kv: -kv[1]):
         say("  group %-26s %8.3f ms/step" % (name, ms))
     for t_us, key, count in top[:12]:
@@ -3143,6 +3175,373 @@ def resume_main(torch, ck, card, off_ms, off_launches):
 
 
 # (b): the eager GradScaler loop's steps, and the overflow drill's scale
+# phase 19: bench_resnet50's on-chip shapes (train_bench.py:317-388)
+RESNET_B, RESNET_HW, RESNET_CLASSES = 64, 224, 100
+RESNET_WARMUP, RESNET_STEPS = 3, 20
+RESNET_LR, RESNET_MOMENTUM = 0.01, 0.9
+# train_bench.py:379-381: a 224x224 forward is ~4.1 GFLOPs, a step 3x that
+RESNET_FLOPS_PER_IMAGE = 3 * 4.1e9
+RESNET_PARITY_B, RESNET_PARITY_STEPS = 8, 3
+RESNET_GUARD_B, RESNET_GUARD_NAN, RESNET_GUARD_STEPS = 16, 2, 3
+RESNET_EVAL_REPLAYS = 10
+# kernel-name patterns of the ResNet step's profile groups, first match:
+# cuDNN's convolution kernels (implicit GEMMs, their layout transforms)
+# before cuBLAS's GEMMs (the classifier)
+RESNET_PROFILE_GROUPS = (
+    ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                              "implicit", "nchwToNhwc", "nhwcToNchw")),
+    ("pooling", ("max_pool", "avg_pool", "adaptive")),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cublas", "cutlass")),
+    ("reductions (batch norm statistics)", ("reduce_kernel",)),
+    ("elementwise (batch norm, ReLU, casts, Momentum)",
+     ("elementwise", "vectorized")))
+
+
+def resnet_batch(torch, B, seed=0):
+    """bench_resnet50's feed on the card: RandomState(seed) images
+    rand(B, 3, 224, 224) float32 and labels randint(0, 100, (B, 1))
+    int64."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(B, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    y = rs.randint(0, RESNET_CLASSES, (B, 1)).astype(np.int64)
+    return [torch.from_numpy(x).cuda()], [torch.from_numpy(y).cuda()]
+
+
+def resnet_setup(seed=0):
+    """resnet50(num_classes=100) on the card in train() mode, seeded, with
+    Momentum(0.01, 0.9) and the cross entropy over [B, 1] labels."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import resnet50
+    model = resnet50(num_classes=RESNET_CLASSES, seed=seed)
+    model.train()
+    opt = optimizer.Momentum(learning_rate=RESNET_LR,
+                             momentum=RESNET_MOMENTUM,
+                             parameters=model.parameters())
+    return model, opt, lambda o, y: F.cross_entropy(o, y)
+
+
+def resnet_tensors(model, opt):
+    """The tensors a step updates: parameters, their velocities, the
+    running statistics."""
+    params = list(model.parameters())
+    return (params + [opt._get_accumulators(p)["velocity"] for p in params]
+            + list(model.buffers()))
+
+
+def resnet_copies(model, opt):
+    """Copies of `resnet_tensors`, detached: a copy with autograd history
+    would keep the parameters' gradient accumulators alive, made on the
+    stream of the step that made them, and a later capture's backward on
+    the capture stream would then fail."""
+    return [t.detach().clone() for t in resnet_tensors(model, opt)]
+
+
+def resnet_parity(torch, label, model, opt, loss_fn, batches):
+    """From one saved state, the steps of `batches` through a captured step
+    and twice through its eager bodies: (the eager runs equal each other,
+    the captured run equal the first eager one, the runs' losses and
+    tensors)."""
+    from paddle_tpu_torch.jit import TrainStep, make_train_step
+    step = make_train_step(model, loss_fn, opt)
+    step(*batches[0])                        # the build; later calls replay
+    torch.cuda.synchronize()
+    saved = resnet_copies(model, opt), opt._step_count
+
+    def run(fn):
+        with torch.no_grad():
+            for t, v in zip(resnet_tensors(model, opt), saved[0]):
+                t.copy_(v)
+        opt._step_count = saved[1]
+        losses = [fn(*b)[0] for b in batches]
+        torch.cuda.synchronize()
+        return losses, resnet_copies(model, opt)
+    eager = eager_train_step(TrainStep)(model, loss_fn, opt)
+    e1, e2 = run(eager), run(eager)
+    replays = step.replays
+    g = run(step)
+    require(step.replays == replays + len(batches) and step.compiles == 1,
+            "%s: the captured steps did not replay" % label)
+    same = lambda a, b: all(torch.equal(x, y)  # noqa: E731
+                            for x, y in zip(a[0] + a[1], b[0] + b[1]))
+    return same(e1, e2), same(g, e1), g, e1
+
+
+def resnet_float32_parity(torch, card):
+    """Phase 19 (a): float32 ResNet-50 at B=8, captured against eager."""
+    model, opt, loss_fn = resnet_setup()
+    batches = [resnet_batch(torch, RESNET_PARITY_B, seed=s)
+               for s in range(RESNET_PARITY_STEPS)]
+    eager_same, graph_same, g, e = resnet_parity(
+        torch, "resnet (a)", model, opt, loss_fn, batches)
+    note = "cudnn.deterministic off"
+    if not (eager_same and graph_same):
+        # cuDNN's weight-gradient algorithms may sum with atomics, in an
+        # order that changes from run to run: this check alone runs with
+        # deterministic algorithms, the timed run (b) without
+        worst = max(float((a.double() - b.double()).abs().max())
+                    for a, b in zip(g[1], e[1]))
+        say("resnet (a) float32: with cudnn.deterministic off the two eager "
+            "runs are %s and the captured run %s the eager one (largest "
+            "difference %.3g): made again with "
+            "torch.backends.cudnn.deterministic = True for this check only"
+            % ("equal" if eager_same else "not equal",
+               "equals" if graph_same else "differs from", worst))
+        note = "cudnn.deterministic on for this check"
+        torch.backends.cudnn.deterministic = True
+        try:
+            eager_same, graph_same, g, e = resnet_parity(
+                torch, "resnet (a)", model, opt, loss_fn, batches)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    require(eager_same, "resnet (a): two eager runs from one state differ "
+            "with deterministic cuDNN algorithms")
+    require(graph_same, "resnet (a): the captured step's losses, parameters, "
+            "velocities or running statistics differ from its eager "
+            "bodies'")
+    n_buf = len(list(model.buffers()))
+    say("resnet (a) float32 resnet50 B=%d %dx%d, %d steps from one state "
+        "(%s): losses %s; parameters (%d), velocities and running "
+        "statistics (%d buffers) bit-equal to the eager bodies, which "
+        "repeat themselves bit for bit (%s)"
+        % (RESNET_PARITY_B, RESNET_HW, RESNET_HW, RESNET_PARITY_STEPS, note,
+           ["%.6f" % float(x) for x in g[0]],
+           len(list(model.parameters())), n_buf, card))
+    del model, opt
+
+
+def momentum_ms(torch, model, n=20):
+    """Device ms of one Momentum update over `model`'s parameter shapes,
+    replayed from a CUDA graph as in the captured step (CUDA events around
+    the replay, median of n), on copies of the parameters."""
+    from paddle_tpu_torch import optimizer
+    params = [torch.nn.Parameter(p.detach().clone())
+              for p in model.parameters()]
+    pairs = [(p, torch.full_like(p, 1e-3)) for p in params]
+    opt = optimizer.Momentum(learning_rate=RESNET_LR,
+                             momentum=RESNET_MOMENTUM, parameters=params)
+    opt.stage_step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        opt.apply_updates(pairs)             # the velocities made, warm
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.apply_updates(pairs)
+    out = []
+    for _ in range(n):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return statistics.median(out), len(params)
+
+
+def resnet_timed(torch, ck, card):
+    """Phase 19 (b): the bench's run under auto_cast O1 bfloat16."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.nn import functional as F
+    model, opt, loss_fn = resnet_setup()
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = resnet_batch(torch, RESNET_B)
+    step = make_train_step(model, loss_fn, opt)
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.launch_counts(reset=True)
+        F.conv_path_counts(reset=True)
+        losses, times, outs = timed_steps(torch, step, lambda: batch,
+                                          RESNET_WARMUP, RESNET_STEPS)
+        launches = ck.launch_counts()
+        convs = F.conv_path_counts()
+        peak = torch.cuda.max_memory_allocated()
+        dev_ms, top = profile_step(torch, step, lambda: batch)
+    n_steps = RESNET_WARMUP + RESNET_STEPS
+    require(step.compiles == 1 and step.replays == n_steps,
+            "resnet (b): %d programs, %d replays in %d + 1 steps"
+            % (step.compiles, step.replays, n_steps))
+    require(all(math.isfinite(x) for x in losses),
+            "resnet (b): non-finite loss %s" % losses)
+    require(sum(launches.values()) == 0,
+            "resnet (b): the port's kernels launched on a path that reaches "
+            "none: %s" % {k: n for k, n in launches.items() if n})
+    n_conv = sum(1 for m in model.modules()
+                 if type(m).__name__ == "Conv2D")
+    # the body runs in Python at the build (its eager run and its capture)
+    # on the card, at every step on the CPU
+    bodies = 2 if batch[0][0].is_cuda else n_steps
+    require(convs == {"direct": bodies * n_conv, "im2col": 0, "nhwc": 0},
+            "resnet (b): conv paths %s (want direct, %d convs in each of "
+            "%d body runs)" % (convs, n_conv, bodies))
+    dtypes = {str(t.dtype) for t in resnet_tensors(model, opt)}
+    require(dtypes == {"torch.float32"} and outs[0].dtype == torch.float32,
+            "resnet (b): parameter, velocity or buffer dtypes %s, logits %s "
+            "(auto_cast O1 keeps them float32)" % (dtypes, outs[0].dtype))
+    progs = step.programs
+    (key,) = progs.builds
+    step_ms = statistics.median(times)
+    mfu = (RESNET_FLOPS_PER_IMAGE * RESNET_B / (step_ms / 1e3)
+           / PEAK_FLOPS["bfloat16"])
+    say("resnet (b) main path: resnet50 %d parameters, %d convs (conv_algo "
+        "direct: %s), B=%d %dx%d, auto_cast O1 bf16, Momentum(%g, %g); "
+        "%d timed and warm-up steps (and 1 profiled), losses %s; launches "
+        "of the port's kernels %d (no Pallas counterpart on this path)"
+        % (n_params, n_conv, convs, RESNET_B, RESNET_HW, RESNET_HW,
+           RESNET_LR, RESNET_MOMENTUM, n_steps,
+           ["%.4f" % x for x in losses], sum(launches.values())))
+    say("resnet (b) program: 1 build + %d replays, captured in %.1f ms, "
+        "graph pool %.1f MiB (%s)"
+        % (progs.replays[key], progs.capture_s[key] * 1e3,
+           progs.pool_bytes() / 2 ** 20, card))
+    idle = ("device idle %.1f %% (%.3f ms of kernels in one profiled step)"
+            % (100.0 * (1.0 - dev_ms / step_ms), dev_ms) if dev_ms > 0
+            else "device idle not measured (the profiler saw no device "
+            "activity)")
+    say("resnet (b) captured step: %.2f ms median (%.2f mean, min %.2f, max "
+        "%.2f) over %d timed steps after %d warm-up, %.1f images/s, MFU "
+        "%.4f of 989 TFLOP/s bf16 (3 x 4.1e9 x %d FLOPs a step), peak "
+        "memory %.1f MiB, %s (%s)"
+        % (step_ms, statistics.mean(times), min(times), max(times),
+           len(times), RESNET_WARMUP, RESNET_B / (step_ms / 1e3), mfu,
+           RESNET_B, peak / 2 ** 20, idle, card))
+    report_profile("resnet (b) captured", dev_ms, step_ms, top,
+                   RESNET_PROFILE_GROUPS)
+    by_group = {}
+    for t_us, name, count in top:            # largest first
+        by_group.setdefault(group_of(name, RESNET_PROFILE_GROUPS),
+                            []).append((t_us, count, name))
+    for group, rows in by_group.items():
+        for t_us, count, name in rows[:3]:
+            say("  %-10s %9.1f us/step %5d launches  %s"
+                % (group.split()[0], t_us, count, name[:110]))
+    mom_ms, n_tensors = momentum_ms(torch, model)
+    say("resnet (b) Momentum update alone: %.4f ms a step over %d tensors "
+        "(%.1f M float32 elements), replayed from a CUDA graph (%s)"
+        % (mom_ms, n_tensors, n_params / 1e6, card))
+    return model
+
+
+def resnet_guard(torch, ck, flags, card, model):
+    """Phase 19 (c): the NaN drill on the trained network at B=16."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.resilience import chaos
+    opt = optimizer.Momentum(learning_rate=RESNET_LR,
+                             momentum=RESNET_MOMENTUM,
+                             parameters=model.parameters())
+    loss_fn = lambda o, y: F.cross_entropy(o, y)  # noqa: E731
+    saved = flags.get_flags(["skip_nonfinite_steps"])
+    flags.set_flags({"skip_nonfinite_steps": True})
+    chaos.reset()
+    chaos.configure("nan_at_step:%d" % RESNET_GUARD_NAN)
+    try:
+        step = make_train_step(model, loss_fn, opt)
+        require(step.guard and step.nan_step == RESNET_GUARD_NAN,
+                "resnet (c): the step did not read the drill")
+        states, losses, skipped = [], [], []
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            for s in range(RESNET_GUARD_STEPS):
+                loss, _ = step(*resnet_batch(torch, RESNET_GUARD_B, seed=s))
+                torch.cuda.synchronize()
+                losses.append(float(loss))
+                skipped.append(step.last_step_skipped)
+                states.append(resnet_copies(model, opt))
+    finally:
+        chaos.reset()
+        flags.set_flags(saved)
+    want = [i + 1 == RESNET_GUARD_NAN for i in range(RESNET_GUARD_STEPS)]
+    require([math.isnan(x) for x in losses] == want and skipped == want
+            and step.skipped_steps == 1,
+            "resnet (c): losses %s, skipped %s" % (losses, skipped))
+    k = RESNET_GUARD_NAN - 1
+    n_p = len(list(model.parameters()))
+    groups = (("parameters", 0, n_p), ("velocities", n_p, 2 * n_p),
+              ("running statistics", 2 * n_p, len(states[k])))
+    for name, a, b in groups:
+        require(all(torch.equal(x, y) for x, y in
+                    zip(states[k][a:b], states[k - 1][a:b])),
+                "resnet (c): the skipped step changed the %s" % name)
+        require(not all(torch.equal(x, y) for x, y in
+                        zip(states[k + 1][a:b], states[k][a:b])),
+                "resnet (c): the step after the skip did not move the %s"
+                % name)
+    say("resnet (c) guard drill, B=%d, nan_at_step:%d: losses %s, skipped "
+        "%s; after the skipped step the parameters, velocities and %d "
+        "running statistics are bit-equal to their values before it, and "
+        "the next step moves each group (%s)"
+        % (RESNET_GUARD_B, RESNET_GUARD_NAN, ["%.4f" % x for x in losses],
+           skipped, len(list(model.buffers())), card))
+
+
+def resnet_eval(torch, ck, card, model):
+    """Phase 19 (d): make_eval_step in eval() mode against the eager
+    forward."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import make_eval_step
+    from paddle_tpu_torch.nn import functional as F
+    model.eval()
+    loss_fn = lambda o, y: F.cross_entropy(o, y)  # noqa: E731
+    x, y = resnet_batch(torch, RESNET_B, seed=7)
+    bufs = [b.clone() for b in model.buffers()]
+    ev = make_eval_step(model, loss_fn)
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        ck.launch_counts(reset=True)
+        loss, outs = ev(x, y)
+        times = []
+        for _ in range(RESNET_EVAL_REPLAYS):
+            t0 = time.perf_counter()
+            loss, outs = ev(x, y)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = ck.launch_counts()
+        with torch.no_grad():
+            want = model(*x)
+            want_loss = loss_fn(want, *y)
+    require(ev.compiles == 1 and ev.replays == RESNET_EVAL_REPLAYS,
+            "resnet (d): %d programs, %d replays" % (ev.compiles,
+                                                     ev.replays))
+    require(sum(launches.values()) == 0,
+            "resnet (d): the port's kernels launched: %s" % launches)
+    require(all(torch.equal(a, b) for a, b in zip(model.buffers(), bufs)),
+            "resnet (d): the eval step wrote a running statistic")
+    _, err = abs_rel_err(outs[0], want)
+    lerr = abs(float(loss) - float(want_loss)) / max(1.0,
+                                                     abs(float(want_loss)))
+    require(err <= REL_TOL["bfloat16"] and lerr <= REL_TOL["bfloat16"],
+            "resnet (d): eval logits %.3g, loss %.3g from the eager forward "
+            "(tolerance %g)" % (err, lerr, REL_TOL["bfloat16"]))
+    ms = statistics.median(times)
+    say("resnet (d) make_eval_step, eval() mode, B=%d O1 bf16: 1 program, "
+        "%d replays, %.2f ms median, %.1f images/s; logits %s the eager "
+        "eval forward (max error %.3g of the largest, tolerance %g), loss "
+        "%.6f (eager %.6f); no running statistic written (%s)"
+        % (RESNET_B, RESNET_EVAL_REPLAYS, ms, RESNET_B / (ms / 1e3),
+           "bit-equal to" if torch.equal(outs[0], want) else "within",
+           err, REL_TOL["bfloat16"], float(loss), float(want_loss), card))
+    model.train()
+
+
+def resnet_main(torch, ck, flags, card):
+    """Phase 19: ResNet-50 training and evaluation on the card, (a)-(d)
+    (see the module's docstring)."""
+    t0 = time.perf_counter()
+    resnet_float32_parity(torch, card)
+    free_memory(torch)
+    model = resnet_timed(torch, ck, card)
+    free_memory(torch)
+    resnet_guard(torch, ck, flags, card, model)
+    free_memory(torch)
+    resnet_eval(torch, ck, card, model)
+    del model
+    free_memory(torch)
+    say("resnet phase 19: %.1f s" % (time.perf_counter() - t0))
+
+
 SCALER_STEPS = 20
 SCALER_DRILL_SCALE = 2.0 ** 24
 # (d): the rules through the captured step at reduced depth; each with
@@ -4034,6 +4433,10 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="build the kernels, check them against their "
                     "plain versions and stop")
+    ap.add_argument("--resnet-only", action="store_true",
+                    help="name the card, then run phase 19 (ResNet-50) "
+                    "alone: it launches none of the port's kernels, so "
+                    "nothing is built")
     ap.add_argument("--resume-drill", metavar="JSON",
                     help="one run of phase 17's resume drill, its settings "
                     "as JSON (see resume_drill); phase 17 starts these")
@@ -4063,6 +4466,11 @@ def main():
         % (torch.__version__, torch.version.cuda,
            torch.cuda.get_device_name(0), torch.cuda.device_count(),
            torch.backends.cuda.matmul.allow_tf32))
+
+    if opts.resnet_only:
+        resnet_main(torch, ck, flags, card)
+        say("resnet-only run: phase 19 passed")
+        return 0
 
     # 2. build
     secs = _build.build()
@@ -4316,6 +4724,10 @@ def main():
     ernie_lamb(torch, ck, flags, card)
     optimizer_sweep(torch, ck, flags, card)
 
+    # 19. ResNet-50 on the card
+    free_memory(torch)
+    resnet_main(torch, ck, flags, card)
+
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]
                             + slaunch_c["flash_fwd"]),
@@ -4348,7 +4760,10 @@ def main():
     next(e for e in table if e["name"] == "flash_fwd")["buckets"] = \
         times["flash_fwd"]["buckets"]
     say(card)
-    say(json.dumps({"kernels": table}))
+    say(json.dumps({"kernels": table, "no_pallas_counterpart": {
+        "19": "ResNet-50: cuDNN convolutions, composed batch norm and "
+              "pooling; the reference reaches no pl.pallas_call on this "
+              "path, so phase 19 launches none of the kernels above"}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""PyTorch + CUDA port of paddle_tpu's GPT serving and training paths and
-its BERT/ERNIE pretraining path.
+"""PyTorch + CUDA port of paddle_tpu's GPT serving and training paths, its
+BERT/ERNIE pretraining path and its ResNet training path.
 
 The JAX package `paddle_tpu` stays the reference; this package serves and
 trains the same models through the same host API on an NVIDIA H100, with
@@ -40,6 +40,16 @@ CUDA C++ for `sm_90a` (ops/csrc/).
     with amp.auto_cast(level="O2"):
         loss, _ = step([ids], [mlm_labels, nsp_labels])
 
+    # ResNet-50: the JAX package's ResNet bench, through the dygraph step
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50(num_classes=100)
+    opt = optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                             parameters=net.parameters())
+    step = make_train_step(net, lambda o, y: F.cross_entropy(o, y), opt)
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss, _ = step([images], [labels])
+
 Entry points take an explicit `device` that defaults to "cuda" and raise
 when CUDA is absent unless the caller passes device="cpu"; on CPU tensors
 every kernel wrapper runs its plain PyTorch version instead.
@@ -54,4 +64,4 @@ torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["amp", "checkpoint", "framework", "incubate", "inference", "io",
            "jit", "models", "nn", "observability", "ops", "optimizer",
-           "resilience"]
+           "resilience", "tensor", "vision"]

@@ -107,3 +107,12 @@ define_flag("step_watchdog_action", "warn",
             "watchdog behavior on fire: 'warn' (dump diagnostics, keep "
             "waiting) or 'abort' (dump then os._exit(124) so a supervisor "
             "restarts the process)")
+define_flag("conv_algo", "auto",
+            "convolution lowering (nn.functional.conv1d/2d/3d): 'direct' "
+            "(torch's convolution, cuDNN on the card, in the model's own "
+            "layout), 'im2col' (the patches, then one matmul over "
+            "cin*prod(kernel); groups=1, a grouped call takes 'direct' as "
+            "the reference routes it), 'nhwc' (4-D NCHW convs computed in "
+            "torch.channels_last) or 'auto' (= 'direct': the reference's "
+            "auto picks NHWC on a TPU only); counted in "
+            "pt_conv_path_total{algo}")

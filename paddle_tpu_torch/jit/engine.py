@@ -2,6 +2,13 @@
 paddle_tpu/jit/engine.py make_train_step and make_eval_step, minus buffer
 donation, the mesh and ZeRO).
 
+Module buffers (a batch norm's running statistics) are held as the
+parameters are: the train step's body collects their new values
+(`nn.functional.deferred_buffer_updates`) and writes them in place after
+the non-finite guard has decided, the old values kept on a skipped step,
+as the reference's guard keeps its old buffers; the eval step drops them,
+as the reference's eval step does.
+
 The reference compiles forward, loss, backward and the optimizer update
 into one XLA executable per input signature (`jax.jit(step_fn,
 donate_argnums=...)`, one executable an `_aval_sig`) and passes the
@@ -36,6 +43,7 @@ import torch
 from ..framework.device import resolve_device, write_values
 from ..framework.flags import flag
 from ..framework.random import RNG
+from ..nn.functional import deferred_buffer_updates
 from ..observability import flight, memprof, tracing
 from ..resilience import chaos
 from ..resilience.watchdog import StepWatchdog
@@ -190,11 +198,12 @@ class TrainStep(_ProgramStep):
 
     def _held(self):
         """The parameters, their moments (made here at the first call,
-        before any build), the Philox word, the scalar buffer, the guard's
-        answers and, for the NaN drill, the step count t."""
+        before any build), the module buffers, the Philox word, the scalar
+        buffer, the guard's answers and, for the NaN drill, the step count
+        t."""
         accs = [a for p in self.params
                 for a in self.optimizer._get_accumulators(p).values()]
-        return (self.params + accs
+        return (self.params + accs + list(self.network.buffers())
                 + [RNG.word(self.device), self.optimizer._scalars,
                    self._skip, self._skips]
                 + ([self._t] if self._t is not None else []))
@@ -203,13 +212,15 @@ class TrainStep(_ProgramStep):
         """One step on the key's static buffers: forward, loss, backward,
         the guard's test (on the raw gradients), the updates at the staged
         scalars (regularizer, grad clip and rule, the clip's norm taken on
-        the device: no host read); every gradient dropped."""
+        the device: no host read) and the buffers' new values, each kept
+        as it was where the guard said no; every gradient dropped."""
         RNG.rewind_step()
         static = self._static[key]
-        outputs = self.network(*static[:n_inputs])
-        outs = list(outputs) if isinstance(outputs, (list, tuple)) \
-            else [outputs]
-        loss = self.loss_fn(*outs, *static[n_inputs:])
+        with deferred_buffer_updates() as buffer_updates:
+            outputs = self.network(*static[:n_inputs])
+            outs = list(outputs) if isinstance(outputs, (list, tuple)) \
+                else [outputs]
+            loss = self.loss_fn(*outs, *static[n_inputs:])
         if self.nan_step is not None:
             # multiplying (not replacing) poisons the gradients too, as a
             # real divergence propagates backward
@@ -224,6 +235,9 @@ class TrainStep(_ProgramStep):
             torch.logical_not(ok, out=self._skip)
             self._skips.add_(self._skip)
         self.optimizer.apply_updates(list(zip(self.params, grads)))
+        with torch.no_grad():
+            for buf, new in buffer_updates.values():
+                buf.copy_(torch.where(ok, new, buf) if self.guard else new)
         for p in self.params:
             p.grad = None
         self._draws[key] = RNG.step_draws()
@@ -273,8 +287,10 @@ def make_train_step(network, loss_fn, optimizer, device="cuda"):
     then `optimizer.apply_updates` over every trainable parameter, which
     updates the parameters and moments IN PLACE under torch.no_grad()
     (the regularizer, then the optimizer's grad_clip over the whole list,
-    then the rule, as the reference's step does), and drops every
-    gradient. The step count and the lr (a scheduler's current value) are
+    then the rule, as the reference's step does), writes the module
+    buffers' new values (a batch norm's running statistics, computed in
+    the forward) in place, and drops every gradient. The step count and
+    the lr (a scheduler's current value) are
     taken per call, as the reference takes them (engine.py:286-290): the
     count advances on every call, a skipped or failed one too; the caller
     steps the scheduler. A parameter the loss does
@@ -283,7 +299,7 @@ def make_train_step(network, loss_fn, optimizer, device="cuda"):
     first call and replayed after (no eager fallback: a capture or replay
     that fails raises); the returned loss and outputs are copies that
     outlive the next call. Rebinding a parameter (not copying into it)
-    makes the next call raise.
+    makes the next call raise; so does rebinding a buffer.
 
     The optimizer is any of the port's rules but Dpsgd, whose host-side
     noise draw cannot be captured: a call with it raises
@@ -295,9 +311,11 @@ def make_train_step(network, loss_fn, optimizer, device="cuda"):
     and gates the update on the answer (`optimizer.gate_update`: every
     rule's guard word), so that
     a non-finite step leaves the parameters and moments as they were, on
-    the device, with no copy of them; the program also keeps the answer
-    on the device, which `last_step_skipped` and `skipped_steps` read
-    when asked, so that the call itself never waits for the device.
+    the device, with no copy of them, and the buffers as they were
+    (`torch.where(ok, new, old)` copied in place); the program also keeps
+    the answer on the device, which `last_step_skipped` and
+    `skipped_steps` read when asked, so that the call itself never waits
+    for the device.
     PADDLE_TPU_CHAOS's `nan_at_step:K` (also read when the step is made)
     multiplies the loss by NaN at optimizer step K, on the device.
 
@@ -329,7 +347,9 @@ class EvalStep(_ProgramStep):
     def _body(self, key, n_inputs):
         RNG.rewind_step()
         static = self._static[key]
-        with torch.no_grad():
+        # a network in train() mode computes new running statistics; the
+        # eval step drops them, as the reference's does
+        with torch.no_grad(), deferred_buffer_updates():
             outputs = self.network(*static[:n_inputs])
             outs = list(outputs) if isinstance(outputs, (list, tuple)) \
                 else [outputs]
@@ -354,5 +374,8 @@ def make_eval_step(network, loss_fn=None, device="cuda"):
     then replayed). The parameters are not touched. The RNG advances by
     the draws of the network's mode, as the reference's eval step advances
     its key: none in eval mode. The returned loss and outputs outlive the
-    next call. The network's parameters must lie on `device`."""
+    next call. The network's parameters must lie on `device`. Module
+    buffers are read, never written: a batch norm in train() mode
+    normalises by the batch and its running statistics stay as they
+    were."""
     return EvalStep(network, loss_fn, device)

@@ -1,8 +1,9 @@
 """Carry weights between the JAX package's model and the port's module.
 
-The port keeps the reference's parameter names and layouts (a Linear
-weight is [in, out] in both), so a state dict of numpy arrays taken from
-`paddle_tpu_model.state_dict()` maps one to one, and back:
+The port keeps the reference's parameter and buffer names and layouts (a
+Linear weight is [in, out] in both, a batch norm's running statistics are
+`<layer>._mean` and `<layer>._variance`), so a state dict of numpy arrays
+taken from `paddle_tpu_model.state_dict()` maps one to one, and back:
 
     state = {k: np.asarray(v.numpy()) for k, v in ref.state_dict().items()}
     load_reference_state(port_model, state)
@@ -23,13 +24,21 @@ import torch
 __all__ = ["load_reference_state", "export_reference_state"]
 
 
+def _tensors(module):
+    """The module's parameters and buffers by name (each once)."""
+    out = dict(module.named_parameters())
+    out.update(module.named_buffers())
+    return out
+
+
 def load_reference_state(module: torch.nn.Module,
                          state: Mapping[str, np.ndarray]) -> None:
-    """Copy every array of `state` into the parameter of the same name,
-    on the parameter's device. Raises when a name is missing on either
-    side or a shape differs: a silent skip would leave a weight at its
-    random init."""
-    params = dict(module.named_parameters())
+    """Copy every array of `state` into the parameter or buffer of the same
+    name, in place, on its device (a built step holds their addresses).
+    Raises when a name is missing on either side or a shape differs: a
+    silent skip would leave a weight at its random init or a running
+    statistic at its start."""
+    params = _tensors(module)
     missing = sorted(set(params) - set(state))
     extra = sorted(set(state) - set(params))
     if missing or extra:
@@ -45,12 +54,12 @@ def load_reference_state(module: torch.nn.Module,
 
 
 def export_reference_state(module: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """The way back: every parameter as a numpy array on the host, keyed
-    by the reference's names. numpy has no bfloat16, so a bfloat16
-    parameter comes back as float32 (exactly: bfloat16 widens without
-    rounding)."""
+    """The way back: every parameter and buffer as a numpy array on the
+    host, keyed by the reference's names. numpy has no bfloat16, so a
+    bfloat16 tensor comes back as float32 (exactly: bfloat16 widens
+    without rounding)."""
     out = {}
-    for name, p in module.named_parameters():
+    for name, p in _tensors(module).items():
         t = p.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()

@@ -1,9 +1,15 @@
 """Layers and functional ops of the ported paths."""
 from . import functional
-from .layers import Dropout, Embedding, LayerNorm, Linear, Tanh
+from .layers import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm, BatchNorm1D,
+                     BatchNorm2D, BatchNorm3D, Conv1D, Conv2D, Conv3D,
+                     CrossEntropyLoss, Dropout, Embedding, Flatten,
+                     LayerNorm, Linear, MaxPool2D, ReLU, Sequential, Tanh)
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["functional", "Dropout", "Embedding", "LayerNorm", "Linear",
-           "Tanh", "MultiHeadAttention", "TransformerEncoder",
+__all__ = ["functional", "AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm",
+           "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "Conv1D", "Conv2D",
+           "Conv3D", "CrossEntropyLoss", "Dropout", "Embedding", "Flatten",
+           "LayerNorm", "Linear", "MaxPool2D", "ReLU", "Sequential", "Tanh",
+           "MultiHeadAttention", "TransformerEncoder",
            "TransformerEncoderLayer"]

@@ -1,24 +1,38 @@
 """Functional ops of the serving and training paths (counterpart of
 paddle_tpu/nn/functional and the primitives in paddle_tpu/ops/nn_ops.py
-that GPT and BERT reach).
+that GPT, BERT and ResNet reach).
 
 Weights follow paddle's layout: a linear weight is [in, out] and the op is
-x @ W + b, not torch.nn.Linear's [out, in]. Inside `amp.auto_cast` the ops
-that the reference lists cast their inputs by the reference's op names
-(`amp_cast_inputs`).
+x @ W + b, not torch.nn.Linear's [out, in]; a convolution's weight is
+OIHW (for a channel-last call the reference's HWIO). Inside
+`amp.auto_cast` the ops that the reference lists cast their inputs by the
+reference's op names (`amp_cast_inputs`).
+
+`batch_norm` in training writes its running statistics in place, at once,
+as the reference's eager batch norm does; inside
+`deferred_buffer_updates()` (a train step's body) it hands them to the
+caller instead, which writes them after its non-finite guard decided.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
+import numpy as np
 import torch
 
 from ..amp import amp_cast_inputs
+from ..framework.flags import flag
 from ..framework.random import RNG
+from ..observability import metrics
 from ..ops import cuda_kernels as ck
 
 __all__ = ["linear", "matmul", "gelu", "relu", "tanh", "softmax",
            "log_softmax", "layer_norm", "dropout",
            "scaled_dot_product_attention", "cross_entropy",
-           "softmax_with_cross_entropy"]
+           "softmax_with_cross_entropy", "conv1d", "conv2d", "conv3d",
+           "batch_norm", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
+           "conv_path_counts", "deferred_buffer_updates", "CONV_ALGOS"]
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False):
@@ -40,9 +54,10 @@ def linear(x, weight, bias=None):
 
 
 def relu(x):
-    """relu (reference: ops/nn_ops.py:21), TransformerEncoderLayer's
-    default activation."""
-    return torch.relu(x)
+    """relu as the reference computes it, max(x, 0) (ops/nn_ops.py:21):
+    its gradient at exactly 0 is 1/2 (torch.relu's is 0), which
+    torch.maximum's tie rule gives too."""
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def tanh(x):
@@ -187,3 +202,366 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean",
         valid = (label.reshape(loss.shape) != ignore_index).to(input.dtype)
         return loss.sum() / torch.clamp_min(valid.sum(), 1e-8)
     return loss.mean()
+
+
+# ---------------------------------------------------------------------------
+# convolution (reference: nn/functional/__init__.py:118-170 over
+# ops/nn_ops.py conv :270)
+
+CONV_ALGOS = ("auto", "direct", "im2col", "nhwc")
+_CONV_PATHS = {"direct": 0, "im2col": 0, "nhwc": 0}
+_CONV_COUNTER = metrics.counter(
+    "pt_conv_path_total", "conv lowerings traced, by algorithm",
+    labelnames=("algo",))
+
+
+def _note_conv_path(algo):
+    _CONV_PATHS[algo] += 1
+    _CONV_COUNTER.labels(algo).inc()
+
+
+def conv_path_counts(reset=False):
+    """Convolutions run by lowering (pt_conv_path_total{algo}): bodies that
+    ran in Python, so a captured program counts its build, not a replay,
+    as the reference counts a trace."""
+    out = dict(_CONV_PATHS)
+    if reset:
+        for k in _CONV_PATHS:
+            _CONV_PATHS[k] = 0
+    return out
+
+
+def _pair(v, n):
+    if isinstance(v, (int, np.integer)):
+        return (int(v),) * n
+    v = tuple(int(i) for i in v)
+    return v if len(v) == n else v * n
+
+
+def _norm_padding(padding, n):
+    """paddle padding: int, list of n ints, list of 2n ints (lo, hi per
+    axis), list of n pairs, or 'SAME'/'VALID'."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, (int, np.integer)):
+        return ((int(padding), int(padding)),) * n
+    padding = list(padding)
+    if len(padding) == n and all(isinstance(p, (int, np.integer))
+                                 for p in padding):
+        return tuple((int(p), int(p)) for p in padding)
+    if len(padding) == 2 * n:
+        return tuple((int(padding[2 * i]), int(padding[2 * i + 1]))
+                     for i in range(n))
+    return tuple(tuple(int(q) for q in p) for p in padding)
+
+
+def _same_pairs(in_sp, ks, st):
+    """XLA's SAME: out = ceil(in / stride), the padding split lo <= hi."""
+    pairs = []
+    for size, k, s in zip(in_sp, ks, st):
+        out = -(-size // s)
+        total = max((out - 1) * s + k - size, 0)
+        pairs.append((total // 2, total - total // 2))
+    return tuple(pairs)
+
+
+def _pad(x, pairs, value=0.0):
+    """x padded (or, for a negative pair, cropped) on its trailing axes by
+    (lo, hi) pairs, the first pair the first of those axes."""
+    if all(lo == 0 and hi == 0 for lo, hi in pairs):
+        return x
+    flat = [v for lo, hi in reversed(pairs) for v in (lo, hi)]
+    return torch.nn.functional.pad(x, flat, value=value)
+
+
+def _symmetric(pairs):
+    return all(lo == hi and lo >= 0 for lo, hi in pairs)
+
+
+def _conv_direct(x, w, stride, pairs, dilation, groups):
+    conv = getattr(torch.nn.functional, "conv%dd" % (x.ndim - 2))
+    if _symmetric(pairs):
+        return conv(x, w, None, stride, [lo for lo, _ in pairs], dilation,
+                    groups)
+    return conv(_pad(x, pairs), w, None, stride, 0, dilation, groups)
+
+
+def _patches(x, ks, stride, pairs, dilation):
+    """im2col: [N, C, *sp] -> [N, C * prod(ks), *out], features in
+    (channel, *taps) order, as lax.conv_general_dilated_patches gives
+    them."""
+    n = len(ks)
+    x = _pad(x, pairs)
+    for i in range(n):
+        x = x.unfold(2 + i, (ks[i] - 1) * dilation[i] + 1, stride[i])
+        if dilation[i] > 1:
+            x = x[..., ::dilation[i]]
+    out_sp = tuple(x.shape[2:2 + n])
+    x = x.permute(0, 1, *range(2 + n, 2 + 2 * n), *range(2, 2 + n))
+    return x.reshape(x.shape[0], -1, *out_sp)
+
+
+def _conv_im2col(x, w, stride, pairs, dilation):
+    """The reference's `_conv_im2col` (ops/nn_ops.py:199): the patches,
+    then one matmul over (cin * prod(kernel)) taps with a float32 result
+    (its preferred_element_type), rounded back to x's dtype unless x is
+    bfloat16."""
+    p = _patches(x, tuple(w.shape[2:]), stride, pairs, dilation)
+    out_sp = p.shape[2:]
+    w2 = w.reshape(w.shape[0], -1).float()
+    out = torch.matmul(w2, p.reshape(p.shape[0], p.shape[1], -1).float())
+    out = out.reshape(out.shape[0], out.shape[1], *out_sp)
+    return out if x.dtype == torch.bfloat16 else out.to(x.dtype)
+
+
+def _conv(x, w, stride, padding, dilation, groups, channel_last, algo):
+    """ops/nn_ops.py conv: `algo` of CONV_ALGOS (auto is direct, as the
+    reference's auto is everywhere but a TPU); im2col with groups > 1 runs
+    direct, counted as im2col, as in the reference. A bfloat16 conv
+    returns float32, every other dtype its own."""
+    if algo not in CONV_ALGOS:
+        raise ValueError("conv_algo %r (one of %s)" % (algo, CONV_ALGOS))
+    n = x.ndim - 2
+    if algo == "auto":
+        algo = "direct"
+    if algo == "nhwc" and (n != 2 or channel_last):
+        raise ValueError("conv_algo 'nhwc' takes a 4-D NCHW input, not "
+                         "%d-D %s" % (x.ndim,
+                                      "channel-last" if channel_last
+                                      else "channel-first"))
+    _note_conv_path(algo)
+    if channel_last:
+        # the reference's channel-last spec: input [N, *sp, C], weight
+        # [*k, I, O]
+        x = x.movedim(-1, 1)
+        w = w.permute(n + 1, n, *range(n))
+    if isinstance(padding, str):
+        eff = [(k - 1) * d + 1 for k, d in zip(w.shape[2:], dilation)]
+        pairs = (_same_pairs(x.shape[2:], eff, stride)
+                 if padding == "SAME" else ((0, 0),) * n)
+    else:
+        pairs = padding
+    if algo == "im2col" and groups == 1:
+        out = _conv_im2col(x, w, stride, pairs, dilation)
+    elif algo == "nhwc":
+        cl = torch.channels_last
+        out = _conv_direct(_pad(x, pairs).contiguous(memory_format=cl),
+                           w.contiguous(memory_format=cl), stride,
+                           ((0, 0),) * n, dilation, groups)
+    else:
+        out = _conv_direct(x, w, stride, pairs, dilation, groups)
+    if channel_last:
+        out = out.movedim(1, -1)
+    return out.float() if out.dtype == torch.bfloat16 else out
+
+
+def _convnd(x, weight, bias, stride, padding, dilation, groups,
+            data_format, n):
+    """conv1d/2d/3d: conv2d_op under auto_cast (input and weight), the
+    flag's algorithm, then the bias in the layout's channel axis."""
+    channel_last = data_format[-1] == "C" and len(data_format) > 2
+    x, weight = amp_cast_inputs("conv2d_op", [x, weight])
+    out = _conv(x, weight, _pair(stride, n), _norm_padding(padding, n),
+                _pair(dilation, n), int(groups), channel_last,
+                str(flag("conv_algo")))
+    if bias is not None:
+        shape = ((1,) * (n + 1) + (-1,)) if channel_last \
+            else ((1, -1) + (1,) * n)
+        out = out + bias.reshape(shape)
+    return out
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL"):
+    return _convnd(x, weight, bias, stride, padding, dilation, groups,
+                   data_format, 1)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    return _convnd(x, weight, bias, stride, padding, dilation, groups,
+                   data_format, 2)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW"):
+    return _convnd(x, weight, bias, stride, padding, dilation, groups,
+                   data_format, 3)
+
+
+# ---------------------------------------------------------------------------
+# batch norm (reference: nn/functional/__init__.py:421 over ops/nn_ops.py
+# batch_norm_infer :461 and batch_norm_train :476)
+
+_DEFERRED = threading.local()
+
+
+@contextlib.contextmanager
+def deferred_buffer_updates():
+    """Inside the block, this thread's running-statistics updates are
+    collected instead of written: yields a dict whose values are
+    (buffer, new value) pairs, one a buffer (the last value), for the
+    caller to write. A later read of the buffer inside the block sees its
+    pending value, as a second use of the layer would see it in the
+    reference's trace."""
+    prev = getattr(_DEFERRED, "updates", None)
+    updates = _DEFERRED.updates = {}
+    try:
+        yield updates
+    finally:
+        _DEFERRED.updates = prev
+
+
+def _running(buf):
+    updates = getattr(_DEFERRED, "updates", None)
+    if updates is not None and id(buf) in updates:
+        return updates[id(buf)][1]
+    return buf
+
+
+def _set_running(buf, value):
+    updates = getattr(_DEFERRED, "updates", None)
+    if updates is None:
+        buf.copy_(value)
+    else:
+        updates[id(buf)] = (buf, value)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None):
+    """Batch norm with the reference's formulas: in training the batch
+    mean and the biased variance mean(x^2) - mean(x)^2 over every axis
+    but the channel's, y = (x - mean) * rsqrt(var + eps) * weight + bias,
+    and the running statistics m * run + (1 - m) * batch (m = momentum,
+    0.9: the weight of the old value; torch.nn.functional.batch_norm
+    reads it the other way round and feeds the unbiased variance); with
+    use_global_stats (default: not training) the running statistics
+    normalise and nothing is written."""
+    channel_last = data_format[-1] == "C" and len(data_format) > 2
+    c_axis = x.ndim - 1 if channel_last else 1
+    shape = [1] * x.ndim
+    shape[c_axis] = -1
+    if use_global_stats is None:
+        use_global_stats = not training
+    if use_global_stats:
+        mean, var = _running(running_mean), _running(running_var)
+    else:
+        axes = [i for i in range(x.ndim) if i != c_axis]
+        mean = x.mean(dim=axes)
+        var = x.square().mean(dim=axes) - mean.square()
+    y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + epsilon)
+    if weight is not None:
+        y = y * weight.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    if not use_global_stats and running_mean is not None:
+        m = float(momentum)
+        with torch.no_grad():
+            _set_running(running_mean, m * _running(running_mean)
+                         + (1 - m) * mean.detach())
+            _set_running(running_var, m * _running(running_var)
+                         + (1 - m) * var.detach())
+    return y
+
+
+# ---------------------------------------------------------------------------
+# pooling (reference: nn/functional/__init__.py:215-372 over ops/nn_ops.py
+# pool :339 and adaptive_pool :400)
+
+
+def _ceil_extend(in_sp, ks, st, pairs):
+    """paddle's ceil_mode: the high padding extended so that the trailing
+    partial window counts."""
+    ext = []
+    for size, k, s, (lo, hi) in zip(in_sp, ks, st, pairs):
+        padded = size + lo + hi
+        out = -(-(padded - k) // s) + 1
+        ext.append((lo, hi + max((out - 1) * s + k - padded, 0)))
+    return tuple(ext)
+
+
+def _pool2d(x, ptype, kernel, stride, padding, ceil_mode, exclusive,
+            data_format):
+    """ops/nn_ops.py pool over NCHW or NHWC: the padding resolved as the
+    reference resolves it (SAME, VALID, pairs; ceil_mode extends the high
+    side), max over -inf padding, avg as window sums divided by the count
+    of input elements in each window (exclusive) or by the window's
+    size."""
+    channel_last = data_format[-1] == "C" and len(data_format) > 2
+    ks = _pair(kernel, 2)
+    st = _pair(stride if stride is not None else kernel, 2)
+    if channel_last:
+        x = x.movedim(-1, 1)
+    sp = tuple(x.shape[2:])
+    pad = _norm_padding(padding, 2)
+    if pad == "VALID":
+        pairs = ((0, 0),) * 2
+    elif pad == "SAME":
+        pairs = _same_pairs(sp, ks, st)
+    else:
+        pairs = pad
+    if ceil_mode:
+        pairs = _ceil_extend(sp, ks, st, pairs)
+    F = torch.nn.functional
+    if ptype == "max":
+        if _symmetric(pairs) and all(lo <= k // 2
+                                     for (lo, _), k in zip(pairs, ks)):
+            out = F.max_pool2d(x, ks, st, [lo for lo, _ in pairs])
+        else:
+            low = (float("-inf") if x.is_floating_point()
+                   else torch.iinfo(x.dtype).min)
+            out = F.max_pool2d(_pad(x, pairs, low), ks, st)
+    else:
+        out = F.avg_pool2d(_pad(x, pairs), ks, st, divisor_override=1)
+        if exclusive:
+            ones = torch.ones((1, 1) + sp, dtype=out.dtype, device=x.device)
+            count = F.avg_pool2d(_pad(ones, pairs), ks, st,
+                                 divisor_override=1)
+            out = out / count.clamp_min(1)
+        else:
+            out = out / float(np.prod(ks))
+    return out.movedim(1, -1) if channel_last else out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               data_format="NCHW"):
+    """Max pool; the gradient goes to the first maximum of a window in
+    row-major order, as XLA's select-and-scatter (>=) sends it."""
+    return _pool2d(x, "max", kernel_size, stride, padding, ceil_mode, True,
+                   data_format)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, data_format="NCHW"):
+    return _pool2d(x, "avg", kernel_size, stride, padding, ceil_mode,
+                   exclusive, data_format)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """ops/nn_ops.py adaptive_pool: axis by axis, a mean over equal blocks
+    where the size divides, else over the buckets [floor(i * in / out),
+    ceil((i + 1) * in / out)); an output size of None keeps the axis."""
+    if isinstance(output_size, (int, np.integer)) or output_size is None:
+        sizes = (output_size,) * 2
+    else:
+        sizes = tuple(output_size)
+    channel_last = data_format[-1] == "C" and len(data_format) > 2
+    axes = (1, 2) if channel_last else (2, 3)
+    out = x
+    for ax, out_s in zip(axes, sizes):
+        in_s = out.shape[ax]
+        if out_s is None or out_s == in_s:
+            continue
+        out_s = int(out_s)
+        if in_s % out_s == 0:
+            shape = (tuple(out.shape[:ax]) + (out_s, in_s // out_s)
+                     + tuple(out.shape[ax + 1:]))
+            out = out.reshape(shape).mean(dim=ax + 1)
+        else:
+            starts = (np.arange(out_s) * in_s) // out_s
+            ends = ((np.arange(out_s) + 1) * in_s + out_s - 1) // out_s
+            out = torch.cat([out.narrow(ax, int(a), int(b - a))
+                             .mean(dim=ax, keepdim=True)
+                             for a, b in zip(starts, ends)], dim=ax)
+    return out
