@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --resnet-only    # the card, then phase 19 alone
     python3 chip_smoke.py --resume-drill JSON   # one run of phase 17's drill
+    python3 chip_smoke.py --fit-only       # the card, the build, phase 20
+    python3 chip_smoke.py --fit-drill JSON # one run of phase 20's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card: name and power limit as nvidia-smi reports them, torch and
@@ -226,6 +228,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
      it, step 3 moving them; (d) make_eval_step in eval() mode on the
      trained network: one program, replays timed, the loss and logits
      held to the eager eval forward, no running statistic written.
+ 20. Model.fit (`fit_main`), the hapi loop over the port's train step:
+     (a) GPT-2-small at full width and depth, phase 10's setup with
+     AdamW over LinearWarmup(1e-4, 4 steps), through
+     `Model(net).prepare(opt, criterion).fit(TokenPairs, batch_size=16,
+     shuffle=False, num_workers=2, num_iters=13, telemetry_dir=...,
+     callbacks=[LRScheduler(by_step=True)])`: the first 13 batches of 2
+     worker processes (spawned: CUDA is up) bit-equal to num_workers=0's
+     and pinned; one program, launches a step equal to phase 10's (rows
+     1t, 2, 3 12 each, row 7 148, row K 25), all through replays; the
+     per-step losses bit-equal to a make_train_step loop over the same
+     batches from the same seed; `tools/ptdoctor.py summary` over the
+     telemetry directory showing `retraces: jit_train=1` and the last
+     step; fit's step (host clock between batch ends, median of the last
+     10) beside the loop's and phase 10's, pt_feed_stall_ms at 2 workers
+     and at 0, one profiled fit step's device idle share; (b) the
+     preemption drill in fresh processes (`--fit-drill`): GPT-2 cut to 2
+     layers at full width, 2 epochs x 4 steps with auto_checkpoint_dir,
+     SIGTERM (chaos sigterm_at_step:5) mid-epoch -> rc 0 and a committed
+     preempt_ckpt; the relaunch resumes at epoch 1 step 2 and its losses
+     and the sha256 of its parameters and AdamW moments are bit-equal to
+     an uninterrupted fit's, dropout on; preempt_ckpt gone after; (c)
+     ResNet-50 (phase 19's setup, auto_cast O1 bf16) through fit over a
+     map-style set (`ImageSet`: sample i is RandomState(i)'s image) with
+     4 workers (38.5 MB a batch through shared memory) and
+     Accuracy(topk=(1, 5)), 3 + 20 steps: each step's top-1/top-5 equal
+     to the stable rank of its labels among its logits; `evaluate` over 4
+     batches equal to the eager eval forward, no running statistic
+     written; `predict` over 2 batches equal to the eager logits;
+     images/s beside phase 19's and the feed stall; (d) bench.py's
+     bench_lenet_fit (LeNet, Adam(1e-3), CrossEntropyLoss, MNIST with
+     PADDLE_TPU_SYNTH_SAMPLES=8192, B=256, 2 + 50 train_batch calls):
+     images/s; then a one-epoch fit with Accuracy and ModelCheckpoint,
+     and Model.load of its final.pdparams/.pdopt into a fresh Model: an
+     evaluate bit-equal to the trained one's.
 
 The line before the last is the kernel table as JSON (the float16
 instances under their names + "_f16"); the last line is
@@ -3422,7 +3458,7 @@ def resnet_timed(torch, ck, card):
     say("resnet (b) Momentum update alone: %.4f ms a step over %d tensors "
         "(%.1f M float32 elements), replayed from a CUDA graph (%s)"
         % (mom_ms, n_tensors, n_params / 1e6, card))
-    return model
+    return model, step_ms
 
 
 def resnet_guard(torch, ck, flags, card, model):
@@ -3528,11 +3564,11 @@ def resnet_eval(torch, ck, card, model):
 
 def resnet_main(torch, ck, flags, card):
     """Phase 19: ResNet-50 training and evaluation on the card, (a)-(d)
-    (see the module's docstring)."""
+    (see the module's docstring). Returns (b)'s median step ms."""
     t0 = time.perf_counter()
     resnet_float32_parity(torch, card)
     free_memory(torch)
-    model = resnet_timed(torch, ck, card)
+    model, step_ms = resnet_timed(torch, ck, card)
     free_memory(torch)
     resnet_guard(torch, ck, flags, card, model)
     free_memory(torch)
@@ -3540,6 +3576,7 @@ def resnet_main(torch, ck, flags, card):
     del model
     free_memory(torch)
     say("resnet phase 19: %.1f s" % (time.perf_counter() - t0))
+    return step_ms
 
 
 SCALER_STEPS = 20
@@ -4428,6 +4465,595 @@ def telemetry_cost(torch, tracing, eng, card):
                           card)
 
 
+# ---------------------------------------------------------------------------
+# 20. Model.fit on the card
+
+FIT_ITERS = 13                  # (a): fit's steps, num_iters
+FIT_TIMED = 10                  # (a): the last 10 step intervals
+FIT_WORKERS = 2                 # (a): DataLoader worker processes
+FIT_DRILL = dict(layers=2, B=TRAIN_B, T=TRAIN_T, epochs=2, steps=4,
+                 sigterm=5)     # (b): 2 epochs x 4 steps, SIGTERM before 6
+FIT_RESNET_WARMUP, FIT_RESNET_STEPS = 3, 20     # (c)
+FIT_RESNET_WORKERS = 4
+FIT_RESNET_EVAL, FIT_RESNET_PREDICT = 4, 2      # batches
+LENET_B, LENET_WARMUP, LENET_STEPS = 256, 2, 50  # (d): bench.py:27-53
+LENET_SYNTH = "8192"            # bench.py:17's PADDLE_TPU_SYNTH_SAMPLES
+
+
+class TokenPairs:
+    """The bench's synthetic token stream (benchmarks/train_bench.py) as
+    (input ids, next ids) pairs, items start .. start + n: a class at
+    module level, so that spawned DataLoader workers can unpickle it."""
+
+    def __init__(self, vocab, T, n=100000, start=0):
+        self.vocab, self.T, self.n, self.start = vocab, T, n, start
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rs = np.random.RandomState(self.start + i)
+        ids = rs.randint(0, self.vocab, (self.T + 1,)).astype(np.int64)
+        return ids[:-1], ids[1:]
+
+
+class ImageSet:
+    """bench_resnet50's data as a map-style dataset: sample i is
+    RandomState(i)'s float32 rand(3, 224, 224) image and a [1] int64
+    label below 100, or the image alone (`labels=False`, for predict); a
+    class at module level, for spawned workers."""
+
+    def __init__(self, n, hw=224, classes=100, labels=True):
+        self.n, self.hw, self.classes = n, hw, classes
+        self.labels = labels
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rs = np.random.RandomState(i)
+        x = rs.rand(3, self.hw, self.hw).astype(np.float32)
+        if not self.labels:
+            return x
+        return x, np.array([rs.randint(0, self.classes)], np.int64)
+
+
+def fit_recorder(Callback):
+    from paddle_tpu_torch.io.prefetch import FEED_STALL
+
+    class Recorder(Callback):
+        """Each train batch's logs, the host clock at its end and the feed
+        stall histogram's (sum, count) then; with `profile_at`, a
+        torch.profiler trace of that batch (its wall ms and kernel
+        rows)."""
+
+        def __init__(self, torch=None, profile_at=None):
+            super().__init__()
+            self.logs, self.ends, self.stalls = [], [], []
+            self.torch, self.profile_at = torch, profile_at
+            self.prof = self.prof_ms = None
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == self.profile_at:
+                from torch.profiler import ProfilerActivity, profile
+                self.torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            if step == self.profile_at and self.prof is not None:
+                self.torch.cuda.synchronize()
+                self.prof_ms = (time.perf_counter() - self._t0) * 1e3
+                self.prof.__exit__(None, None, None)
+            self.logs.append(dict(logs or {}))
+            self.ends.append(time.perf_counter())
+            self.stalls.append((FEED_STALL.sum, FEED_STALL.count))
+
+        def stall_after_first(self):
+            """pt_feed_stall_ms a batch over the batches after the first
+            (whose wait holds the workers' start)."""
+            (s0, n0), (s1, n1) = self.stalls[0], self.stalls[-1]
+            return (s1 - s0) / (n1 - n0) if n1 > n0 else float("nan")
+
+        def step_ms(self, last):
+            gaps = [(b - a) * 1e3 for a, b in zip(self.ends, self.ends[1:])]
+            return statistics.median(gaps[-last:]), gaps[-last:]
+
+        def profile_rows(self):
+            from torch.autograd import DeviceType
+            rows = sorted(((e.self_device_time_total, e.key, e.count)
+                           for e in self.prof.key_averages()
+                           if e.device_type == DeviceType.CUDA),
+                          reverse=True)
+            return sum(t for t, _, _ in rows) / 1e3, rows
+    return Recorder
+
+
+def first_batches(loader, n):
+    """The loader's first n host batches; its workers stopped after."""
+    it = loader._host_iter()
+    try:
+        return [next(it) for _ in range(n)]
+    finally:
+        it.close()
+
+
+def stall_since(FEED_STALL, before):
+    n = FEED_STALL.count - before[1]
+    return (FEED_STALL.sum - before[0]) / n if n else float("nan")
+
+
+def gpt2_fit_setup(torch, dev="cuda", name="gpt2_small", **kw):
+    """Phase 10's GPT-2 setup for fit: seed 0, gpt2_small (dropouts 0.1;
+    `name`: another factory of paddle_tpu_torch.models), AdamW(LinearWarmup
+    to 1e-4 over 4 steps, weight_decay=0.01), decorate O2 bfloat16, the
+    criterion."""
+    from paddle_tpu_torch import amp, models, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.optimizer import lr
+    prandom.seed(0)
+    model = getattr(models, name)(seed=0, device=dev, **kw)
+    model.train()
+    sched = lr.LinearWarmup(TRAIN_LR, warmup_steps=4, start_lr=0.0,
+                            end_lr=TRAIN_LR)
+    opt = optimizer.AdamW(learning_rate=sched, weight_decay=0.01,
+                          parameters=model.parameters(), device=dev)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    return model, opt, sched, models.GPTPretrainingCriterion()
+
+
+def fit_gpt2(torch, ck, card, off_ms, off_launches):
+    """Phase 20 (a): GPT-2-small at full width and depth through
+    Model.fit, against a make_train_step loop over the same batches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.hapi.callbacks import Callback, LRScheduler
+    from paddle_tpu_torch.io.prefetch import FEED_STALL
+    from paddle_tpu_torch.jit import make_train_step
+    Recorder = fit_recorder(Callback)
+    model, opt, sched, crit = gpt2_fit_setup(torch)
+    vocab = model.gpt.vocab_size
+    data = TokenPairs(vocab, TRAIN_T)
+    L, n_tensors = len(model.gpt.layers), len(list(model.parameters()))
+    want = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "adamw": n_tensors, "dropout_keep": 2 * L + 1}
+    # the loader's batches: 2 workers against the consumer's own, in order
+    loaders = [io.DataLoader(data, batch_size=TRAIN_B, num_workers=w)
+               for w in (FIT_WORKERS, 0)]
+    t0 = time.perf_counter()
+    host = [first_batches(ld, FIT_ITERS) for ld in loaders]
+    mp_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for x, y in zip(*host)
+               for a, b in zip(x, y))
+    require(len(host[0]) == len(host[1]) == FIT_ITERS and same,
+            "fit (a): the batches of %d workers differ from those of 0"
+            % FIT_WORKERS)
+    say("fit (a): %d batches from %d worker processes (start method %s) "
+        "bit-equal to num_workers=0's, in order; pinned: %s"
+        % (FIT_ITERS, FIT_WORKERS, "spawn" if torch.cuda.is_initialized()
+           else "fork", host[0][0][0].is_pinned()))
+    del host
+    rec = Recorder(torch, profile_at=FIT_ITERS - 1)
+    net = paddle.Model(model)
+    net.prepare(opt, crit)
+    tdir = tempfile.mkdtemp(prefix="fit_tele_")
+    try:
+        stall0 = (FEED_STALL.sum, FEED_STALL.count)
+        ck.launch_counts(reset=True)
+        t0 = time.perf_counter()
+        net.fit(data, batch_size=TRAIN_B, shuffle=False,
+                num_workers=FIT_WORKERS, num_iters=FIT_ITERS, verbose=0,
+                telemetry_dir=tdir,
+                callbacks=[LRScheduler(by_step=True), rec])
+        fit_s = time.perf_counter() - t0
+        launches = ck.launch_counts()
+        stall_mp = stall_since(FEED_STALL, stall0)
+        doctor = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "tools", "ptdoctor.py"),
+             "summary", tdir], capture_output=True, text=True, timeout=120)
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    step = net._train_step_fn
+    progs = step.programs
+    (key,) = progs.builds
+    replayed = {k: progs.replays[key] * n for k, n in
+                progs.launches[key].items()}
+    losses = [lg["loss"] for lg in rec.logs]
+    require(len(losses) == FIT_ITERS and all(map(math.isfinite, losses)),
+            "fit (a): losses %s" % losses)
+    require(step.compiles == 1 and step.replays == FIT_ITERS - 1,
+            "fit (a): %d programs and %d replays in %d steps"
+            % (step.compiles, step.replays, FIT_ITERS))
+    per_step = {k: launches[k] / FIT_ITERS for k in want}
+    require(per_step == {k: float(v) for k, v in want.items()},
+            "fit (a): launches a step %s, want %s (phase 10's)"
+            % (per_step, want))
+    if off_launches is not None:
+        ten = {k: off_launches[k] / (TRAIN_WARMUP + TRAIN_STEPS)
+               for k in want}
+        require(per_step == ten, "fit (a): launches a step %s, phase 10's "
+                "step %s" % (per_step, ten))
+    require(all(replayed[k] == v * (FIT_ITERS - 1) for k, v in want.items()),
+            "fit (a): launches through replays %s" % replayed)
+    require(doctor.returncode == 0, "fit (a): ptdoctor summary failed: "
+            + doctor.stderr[-400:])
+    require("retraces: jit_train=1" in doctor.stdout
+            and "last-alive step=%d" % FIT_ITERS in doctor.stdout,
+            "fit (a): ptdoctor summary: " + doctor.stdout[-600:])
+    fit_ms, gaps = rec.step_ms(FIT_TIMED)
+    dev_ms, top = rec.profile_rows()
+    lr_seen = opt.get_lr()
+    say("fit (a) GPT-2-small B=%d T=%d O2 bf16 through Model.fit "
+        "(num_workers=%d, LRScheduler by step, telemetry_dir): %d steps in "
+        "%.1f s, losses %s, lr after %.3g; one program (%d replays), "
+        "launches a step %s, all through replays; ptdoctor: %s"
+        % (TRAIN_B, TRAIN_T, FIT_WORKERS, FIT_ITERS, fit_s,
+           ["%.4f" % x for x in losses], lr_seen, step.replays,
+           {k: int(v) for k, v in per_step.items()},
+           " | ".join(ln.strip() for ln in doctor.stdout.splitlines()
+                      if "retraces" in ln or "last-alive" in ln)))
+    del net, step, progs
+    model, opt = None, None
+    free_memory(torch)
+
+    # the same batches through a make_train_step loop from the same seed
+    model, opt, sched, crit = gpt2_fit_setup(torch)
+    loop = make_train_step(model, lambda o, y: crit(o, y), opt)
+    loader = io.DataLoader(data, batch_size=TRAIN_B, prefetch_to_device=2)
+    stall0 = (FEED_STALL.sum, FEED_STALL.count)
+    ref, ends = [], []
+    feed = iter(loader)
+    for _ in range(FIT_ITERS):
+        x, y = next(feed)
+        loss, _ = loop([x], [y])
+        ref.append(float(loss))
+        sched.step()
+        ends.append(time.perf_counter())
+    feed.close()
+    stall_0 = stall_since(FEED_STALL, stall0)
+    loop_gaps = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])][-FIT_TIMED:]
+    loop_ms = statistics.median(loop_gaps)
+    require(losses == ref, "fit (a): fit's losses %s differ from the "
+            "make_train_step loop's %s" % (losses, ref))
+    say("fit (a): the per-step losses bit-equal to a make_train_step loop "
+        "over the same batches from the same seed and RNG state (%d steps)"
+        % FIT_ITERS)
+    idle = ("%.1f %% (%.3f ms of kernels in a %.2f ms profiled fit step)"
+            % (100.0 * (1.0 - dev_ms / rec.prof_ms), dev_ms, rec.prof_ms)
+            if dev_ms > 0 else "not measured (the profiler saw no device "
+            "activity)")
+    say("fit (a) step %.2f ms (host clock between batch ends, median of the "
+        "last %d; min %.2f max %.2f), the make_train_step loop over the "
+        "same batches %.2f ms (the same clock)%s; pt_feed_stall_ms %.3f a "
+        "batch at %d workers (%.3f after the first batch, whose wait holds "
+        "the workers' start), %.3f at 0 (the loop); device idle in one "
+        "profiled fit step %s (%s)"
+        % (fit_ms, FIT_TIMED, min(gaps), max(gaps), loop_ms,
+           "" if off_ms is None else ", phase 10's captured step %.2f ms"
+           % off_ms, stall_mp, FIT_WORKERS, rec.stall_after_first(),
+           stall_0, idle, card))
+    report_profile("fit (a) profiled", dev_ms, rec.prof_ms, top)
+    say("fit (a) host read of the batches from %d workers: %.2f s for %d "
+        "batches (with the workers' start)" % (FIT_WORKERS, mp_s, FIT_ITERS))
+    del loop, model, opt
+    free_memory(torch)
+    return {"fit_ms": fit_ms, "loop_ms": loop_ms, "stall_mp": stall_mp,
+            "stall_0": stall_0, "stall_later": rec.stall_after_first(),
+            "idle": idle}
+
+
+def fit_drill(cfg):
+    """One run of phase 20 (b)'s drill (`--fit-drill JSON`): gpt2_small
+    (or cfg["model"]) cut to cfg["layers"] layers at full width (phase
+    10's setup otherwise: `gpt2_fit_setup`) through Model.fit over cfg["epochs"] epochs of
+    cfg["steps"] batches of cfg["B"] x cfg["T"], with auto_checkpoint_dir
+    cfg["root"] and the LRScheduler callback; each step's loss is appended
+    to cfg["log"] under its global step (the optimizer's count). Under
+    PADDLE_TPU_CHAOS=sigterm_at_step:K fit checkpoints and exits 0; a
+    finished fit prints DRILL_DONE with `state_digest`."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi.callbacks import Callback, LRScheduler
+
+    dev, B = cfg["device"], cfg["B"]
+    model, opt, _, crit = gpt2_fit_setup(
+        torch, dev, cfg.get("model", "gpt2_small"), num_layers=cfg["layers"])
+
+    class Log(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            with open(cfg["log"], "a") as f:
+                f.write(json.dumps({"step": opt._step_count - 1,
+                                    "loss": logs["loss"]}) + "\n")
+
+    net = paddle.Model(model, device=dev)
+    net.prepare(opt, crit)
+    net.fit(TokenPairs(model.gpt.vocab_size, cfg["T"], n=cfg["steps"] * B),
+            batch_size=B, epochs=cfg["epochs"], shuffle=False, verbose=0,
+            auto_checkpoint_dir=cfg["root"],
+            callbacks=[LRScheduler(by_step=True), Log()])
+    say("DRILL_DONE %s" % state_digest(torch, model, opt))
+    return 0
+
+
+def run_fit_drill(root, log, chaos_spec="", **cfg):
+    """`fit_drill` in a fresh process: (exit code, stdout, stderr, wall s,
+    losses by step)."""
+    cfg = dict(cfg, root=root, log=log)
+    env = dict(os.environ, PADDLE_TPU_CHAOS=chaos_spec)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--fit-drill",
+         json.dumps(cfg)], env=env, capture_output=True, text=True,
+        timeout=DRILL_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(
+            __file__)))
+    losses = {}
+    if os.path.exists(log):
+        with open(log) as f:
+            for line in f:
+                rec = json.loads(line)
+                losses[rec["step"]] = rec["loss"]
+    return (out.returncode, out.stdout, out.stderr,
+            time.perf_counter() - t0, losses)
+
+
+def fit_preempt(torch, card, **over):
+    """Phase 20 (b): the preemption drill, each run a fresh process
+    (`over`: settings of the drill's JSON to change, for a rehearsal)."""
+    d = FIT_DRILL
+    cfg = dict(dict(device="cuda", layers=d["layers"], B=d["B"], T=d["T"],
+                    epochs=d["epochs"], steps=d["steps"]), **over)
+    total = d["epochs"] * d["steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, out, err, s_ref, ref = run_fit_drill(
+            os.path.join(tmp, "ref"), os.path.join(tmp, "ref.log"), **cfg)
+        require(rc == 0 and sorted(ref) == list(range(total)),
+                "fit (b): the uninterrupted fit failed (rc %d, steps %s): %s"
+                % (rc, sorted(ref), err[-1500:]))
+        want = drill_digest(out, "DONE")
+        root, log = os.path.join(tmp, "run"), os.path.join(tmp, "run.log")
+        rc1, out1, err1, s1, first = run_fit_drill(
+            root, log, "sigterm_at_step:%d" % d["sigterm"], **cfg)
+        ckpt = os.path.join(root, "preempt_ckpt")
+        require(rc1 == 0 and drill_digest(out1, "DONE") is None
+                and sorted(first) == list(range(d["sigterm"] + 1))
+                and os.path.isfile(os.path.join(ckpt, "COMMIT")),
+                "fit (b): the preempted fit (rc %d, steps %s, checkpoint %s)"
+                ": %s" % (rc1, sorted(first), os.path.isdir(ckpt),
+                          err1[-1500:]))
+        rc2, out2, err2, s2, losses = run_fit_drill(root, log, **cfg)
+        got = drill_digest(out2, "DONE")
+        require(rc2 == 0 and got is not None,
+                "fit (b): the relaunch failed (rc %d): %s" % (rc2,
+                                                             err2[-1500:]))
+        require(losses == ref, "fit (b): losses %s, uninterrupted %s"
+                % (losses, ref))
+        require(got == want, "fit (b): the resumed fit's parameters and "
+                "moments differ from the uninterrupted fit's")
+        require(not os.path.exists(ckpt), "fit (b): preempt_ckpt left "
+                "after the clean end")
+    say("fit (b) preemption drill (gpt2-small cut to %d layers at full "
+        "width, B=%d T=%d, dropouts 0.1, %d epochs x %d steps, "
+        "auto_checkpoint_dir): SIGTERM before global step %d -> rc 0 and a "
+        "committed preempt_ckpt after step %d; the relaunch resumed at "
+        "epoch %d step %d: losses and the sha256 of parameters and AdamW "
+        "moments bit-equal to the uninterrupted fit's, preempt_ckpt gone; "
+        "runs %.1f / %.1f / %.1f s (%s)"
+        % (d["layers"], d["B"], d["T"], d["epochs"], d["steps"],
+           d["sigterm"], d["sigterm"], (d["sigterm"] + 1) // d["steps"],
+           (d["sigterm"] + 1) % d["steps"], s_ref, s1, s2, card))
+
+
+def stable_rank(torch, logits, labels):
+    """Each row's label's place among its logits, largest first, ties by
+    the lower class index: the order of a stable descending sort, counted
+    without sorting."""
+    p = logits.float()
+    lab = labels.reshape(-1).long()
+    own = p.gather(1, lab[:, None])
+    idx = torch.arange(p.shape[1], device=p.device)
+    return ((p > own).sum(1)
+            + ((p == own) & (idx[None, :] < lab[:, None])).sum(1))
+
+
+def fit_resnet(torch, ck, card, resnet_ms):
+    """Phase 20 (c): ResNet-50 through fit, evaluate and predict."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, metric
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io.prefetch import FEED_STALL
+
+    class SeenAccuracy(metric.Accuracy):
+        """Accuracy that keeps the last logits and labels it was given."""
+
+        def compute(self, pred, label, *args):
+            self.last = (pred.detach().clone(), label.detach().clone())
+            return super().compute(pred, label, *args)
+
+    Recorder = fit_recorder(Callback)
+
+    class TopK(Recorder):
+        def on_train_batch_end(self, step, logs=None):
+            pred, lab = acc.last
+            rank = stable_rank(torch, pred, lab)
+            n = rank.numel()
+            want = [int((rank < k).sum()) / n for k in (1, 5)]
+            require(logs["acc_top1"] == want,
+                    "fit (c) step %d: top-1/top-5 %s, from the logits %s"
+                    % (step, logs["acc_top1"], want))
+            super().on_train_batch_end(step, logs)
+
+    model, opt, loss_fn = resnet_setup()
+    acc = SeenAccuracy(topk=(1, 5))
+    net = paddle.Model(model)
+    net.prepare(opt, loss_fn, metrics=acc)
+    n_fit = (FIT_RESNET_WARMUP + FIT_RESNET_STEPS) * RESNET_B
+    rec = TopK()
+    eval_set = ImageSet(FIT_RESNET_EVAL * RESNET_B, RESNET_HW,
+                        RESNET_CLASSES)
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        stall0 = (FEED_STALL.sum, FEED_STALL.count)
+        t0 = time.perf_counter()
+        net.fit(ImageSet(n_fit, RESNET_HW, RESNET_CLASSES),
+                batch_size=RESNET_B, shuffle=False,
+                num_workers=FIT_RESNET_WORKERS, verbose=0, callbacks=[rec])
+        fit_s = time.perf_counter() - t0
+        stall = stall_since(FEED_STALL, stall0)
+        step = net._train_step_fn
+        bufs = [b.detach().clone() for b in model.buffers()]
+        result = net.evaluate(eval_set, batch_size=RESNET_B,
+                              num_workers=FIT_RESNET_WORKERS, verbose=0)
+        kept = all(torch.equal(a, b) for a, b in zip(model.buffers(), bufs))
+        # the eager eval forward over the same batches
+        model.eval()
+        losses, hits, n, logits = [], [0, 0], 0, []
+        with torch.no_grad():
+            for b in range(FIT_RESNET_EVAL):
+                xs, ys = zip(*[eval_set[i] for i in range(
+                    b * RESNET_B, (b + 1) * RESNET_B)])
+                x = torch.from_numpy(np.stack(xs)).cuda()
+                y = torch.from_numpy(np.stack(ys)).cuda()
+                out = model(x)
+                losses.append(float(loss_fn(out, y)))
+                rank = stable_rank(torch, out, y)
+                hits = [h + int((rank < k).sum())
+                        for h, k in zip(hits, (1, 5))]
+                n += rank.numel()
+                if b < FIT_RESNET_PREDICT:
+                    logits.append(out.float().cpu().numpy())
+        pred = net.predict(ImageSet(FIT_RESNET_PREDICT * RESNET_B,
+                                    RESNET_HW, RESNET_CLASSES, False),
+                           batch_size=RESNET_B, stack_outputs=True,
+                           verbose=0)
+    model.train()
+    steps = FIT_RESNET_WARMUP + FIT_RESNET_STEPS
+    require(len(rec.logs) == steps and step.compiles == 1
+            and step.replays == steps - 1,
+            "fit (c): %d steps, %d programs, %d replays"
+            % (len(rec.logs), step.compiles, step.replays))
+    want = {"loss": float(np.mean(losses)),
+            "acc_top1": [hits[0] / n, hits[1] / n]}
+    require(result == want, "fit (c): evaluate %s, the eager eval forward "
+            "over the same batches %s" % (result, want))
+    require(kept, "fit (c): evaluate changed a running statistic")
+    require(len(pred) == 1 and np.array_equal(pred[0],
+                                              np.concatenate(logits)),
+            "fit (c): predict's logits differ from the eager forward's")
+    fit_ms, gaps = rec.step_ms(FIT_RESNET_STEPS)
+    say("fit (c) ResNet-50 B=%d %dx%d O1 bf16 Momentum through Model.fit "
+        "(num_workers=%d, %.1f MB a batch through shared memory, "
+        "Accuracy(topk=(1, 5))): %d steps in %.1f s, one program (%d "
+        "replays); every step's top-1/top-5 equal to the stable rank of "
+        "its labels among its logits; last losses %s"
+        % (RESNET_B, RESNET_HW, RESNET_HW, FIT_RESNET_WORKERS,
+           RESNET_B * 3 * RESNET_HW * RESNET_HW * 4 / 1e6, steps, fit_s,
+           step.replays, ["%.4f" % lg["loss"] for lg in rec.logs[-3:]]))
+    say("fit (c) evaluate over %d batches %s, bit-equal to the eager eval "
+        "forward; no running statistic written; predict over %d batches "
+        "bit-equal to the eager forward's logits" % (
+            FIT_RESNET_EVAL, result, FIT_RESNET_PREDICT))
+    say("fit (c) step %.2f ms (median of the last %d batch-end gaps, min "
+        "%.2f max %.2f): %.1f images/s%s; pt_feed_stall_ms %.3f a batch "
+        "(%.3f after the first batch) (%s)"
+        % (fit_ms, FIT_RESNET_STEPS, min(gaps), max(gaps),
+           RESNET_B / (fit_ms / 1e3), "" if resnet_ms is None else
+           " beside phase 19's captured step %.2f ms (%.1f images/s)"
+           % (resnet_ms, RESNET_B / (resnet_ms / 1e3)), stall,
+           rec.stall_after_first(), card))
+    del net, step, model, opt
+    free_memory(torch)
+    return {"fit_ms": fit_ms, "stall": stall}
+
+
+def fit_lenet(torch, card):
+    """Phase 20 (d): bench.py's bench_lenet_fit, then a one-epoch fit with
+    Accuracy and ModelCheckpoint, and Model.load into a fresh Model."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    old = os.environ.get("PADDLE_TPU_SYNTH_SAMPLES")
+    os.environ["PADDLE_TPU_SYNTH_SAMPLES"] = LENET_SYNTH
+    try:
+        train, test = MNIST(mode="train"), MNIST(mode="test")
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_SYNTH_SAMPLES")
+        else:
+            os.environ["PADDLE_TPU_SYNTH_SAMPLES"] = old
+
+    def build(seed):
+        prandom.seed(seed)
+        net = LeNet(seed=seed)
+        model = paddle.Model(net)
+        model.prepare(optimizer.Adam(parameters=model.parameters(),
+                                     learning_rate=1e-3),
+                      CrossEntropyLoss(), metrics=paddle.metric.Accuracy())
+        return model
+    model = build(0)
+    x = np.stack([train[i][0] for i in range(LENET_B)]).astype(np.float32)
+    y = np.asarray([train[i][1] for i in range(LENET_B)], np.int64)
+    for _ in range(LENET_WARMUP):
+        model.train_batch([x], [y])
+    t0 = time.perf_counter()
+    for _ in range(LENET_STEPS):
+        logs = model.train_batch([x], [y])
+    dt = time.perf_counter() - t0
+    ips = LENET_STEPS * LENET_B / dt
+    require(math.isfinite(logs["loss"]), "fit (d): loss %s" % logs)
+    say("fit (d) bench.py bench_lenet_fit on the port: LeNet, Adam(1e-3), "
+        "CrossEntropyLoss, B=%d, %d warm-up + %d train_batch calls: %.1f "
+        "images/s (%.3f ms a call, host clock; %s)"
+        % (LENET_B, LENET_WARMUP, LENET_STEPS, ips, dt / LENET_STEPS * 1e3,
+           card))
+    with tempfile.TemporaryDirectory() as save_dir:
+        model = build(0)
+        t0 = time.perf_counter()
+        model.fit(train, batch_size=LENET_B, epochs=1, verbose=0,
+                  num_workers=FIT_WORKERS, save_dir=save_dir)
+        fit_s = time.perf_counter() - t0
+        trained = model.evaluate(test, batch_size=LENET_B, verbose=0)
+        files = sorted(os.listdir(save_dir))
+        fresh = build(1)
+        fresh.load(os.path.join(save_dir, "final"))
+        loaded = fresh.evaluate(test, batch_size=LENET_B, verbose=0)
+    require(files == ["0.pdopt", "0.pdparams", "final.pdopt",
+                      "final.pdparams"], "fit (d): save_dir holds %s" % files)
+    require(loaded == trained, "fit (d): evaluate after Model.load %s, the "
+            "trained model's %s" % (loaded, trained))
+    n = len(train)
+    say("fit (d) one-epoch LeNet fit (%d samples, B=%d, %d workers, "
+        "Accuracy, ModelCheckpoint): %.1f s, %.1f images/s with the "
+        "workers' start; save_dir %s; evaluate %s, bit-equal after "
+        "Model.load of final.pdparams/.pdopt into a fresh Model (%s)"
+        % (n, LENET_B, FIT_WORKERS, fit_s, n / fit_s, files, trained, card))
+    return ips
+
+
+def fit_main(torch, ck, card, off_ms=None, off_launches=None,
+             resnet_ms=None):
+    """Phase 20: Model.fit on the card, (a)-(d) (see the module's
+    docstring)."""
+    t0 = time.perf_counter()
+    out = {"gpt2": fit_gpt2(torch, ck, card, off_ms, off_launches)}
+    t1 = time.perf_counter()
+    fit_preempt(torch, card)
+    t2 = time.perf_counter()
+    out["resnet"] = fit_resnet(torch, ck, card, resnet_ms)
+    t3 = time.perf_counter()
+    out["lenet_ips"] = fit_lenet(torch, card)
+    free_memory(torch)
+    say("fit phase 20: %.1f s ((a) %.1f, (b) %.1f, (c) %.1f, (d) %.1f)"
+        % (time.perf_counter() - t0, t1 - t0, t2 - t1, t3 - t2,
+           time.perf_counter() - t3))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4440,9 +5066,18 @@ def main():
     ap.add_argument("--resume-drill", metavar="JSON",
                     help="one run of phase 17's resume drill, its settings "
                     "as JSON (see resume_drill); phase 17 starts these")
+    ap.add_argument("--fit-only", action="store_true",
+                    help="name the card, build the kernels, then run phase "
+                    "20 (Model.fit) alone")
+    ap.add_argument("--fit-drill", metavar="JSON",
+                    help="one run of phase 20's preemption drill, its "
+                    "settings as JSON (see fit_drill); phase 20 starts "
+                    "these")
     opts = ap.parse_args()
     if opts.resume_drill:
         return resume_drill(json.loads(opts.resume_drill))
+    if opts.fit_drill:
+        return fit_drill(json.loads(opts.fit_drill))
 
     import torch
     require(torch.cuda.is_available(), "CUDA is not available")
@@ -4486,6 +5121,11 @@ def main():
     for src, entry, regs, spill in ptxas_registers(
             _build.build_logs(), ("paged_split_kernel", "flash_fwd_f32")):
         say("registers %s %s: %d (%s)" % (src, entry, regs, spill))
+
+    if opts.fit_only:
+        fit_main(torch, ck, card)
+        say("fit-only run: phase 20 passed")
+        return 0
 
     # 3. kernels against their plain versions
     from paddle_tpu_torch.framework.random import philox_word
@@ -4726,7 +5366,11 @@ def main():
 
     # 19. ResNet-50 on the card
     free_memory(torch)
-    resnet_main(torch, ck, flags, card)
+    resnet_ms = resnet_main(torch, ck, flags, card)
+
+    # 20. Model.fit on the card
+    free_memory(torch)
+    fit_main(torch, ck, card, off_ms, tlaunches, resnet_ms)
 
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]

@@ -50,6 +50,20 @@ CUDA C++ for `sm_90a` (ops/csrc/).
     with amp.auto_cast(level="O1", dtype="bfloat16"):
         loss, _ = step([images], [labels])
 
+    # Model.fit: the JAX package's LeNet fit (bench.py), on the card
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    net = LeNet()
+    model = paddle.Model(net)
+    model.prepare(optimizer.Adam(learning_rate=1e-3,
+                                 parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss(),
+                  metrics=paddle.metric.Accuracy())
+    model.fit(MNIST(mode="train"), batch_size=256, epochs=1,
+              num_workers=2, save_dir="ckpt")
+    paddle.save(net.state_dict(), "lenet.pdparams")
+
 Entry points take an explicit `device` that defaults to "cuda" and raise
 when CUDA is absent unless the caller passes device="cpu"; on CPU tensors
 every kernel wrapper runs its plain PyTorch version instead.
@@ -62,6 +76,13 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["amp", "checkpoint", "framework", "incubate", "inference", "io",
-           "jit", "models", "nn", "observability", "ops", "optimizer",
-           "resilience", "tensor", "vision"]
+from . import hapi, metric  # noqa: E402,F401
+from .framework.io import load, save  # noqa: E402,F401
+from .hapi import callbacks, flops, summary  # noqa: E402,F401
+from .hapi.model import Model  # noqa: E402,F401
+
+__all__ = ["amp", "checkpoint", "framework", "hapi", "incubate",
+           "inference", "io", "jit", "metric", "models", "nn",
+           "observability", "ops", "optimizer", "resilience", "tensor",
+           "vision", "Model", "callbacks", "flops", "summary", "save",
+           "load"]

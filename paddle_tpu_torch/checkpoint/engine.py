@@ -1,6 +1,6 @@
 """Durable checkpoint engine: verified, crash-consistent, async snapshots
 (the port's copy of paddle_tpu/checkpoint/engine.py, minus the sharded
-and resharded saves and the legacy `ckpt.pkl` read).
+and resharded saves).
 
 Orchestration over the `store` format (manifest + blobs + COMMIT), which
 is the reference's: a checkpoint written by either package loads in the
@@ -389,26 +389,49 @@ def _recover_sibling(path: str) -> bool:
     return False
 
 
-def _as_tensor(v) -> torch.Tensor:
-    return v if isinstance(v, torch.Tensor) else torch.from_numpy(
-        np.asarray(v))
+def _read_verified(path: str) -> Tuple[Dict, dict, dict]:
+    """read_store, or the legacy pickle payload of a pre-engine
+    checkpoint (a `ckpt.pkl` and no COMMIT)."""
+    if not store.is_complete(path) and \
+            os.path.isfile(os.path.join(path, "ckpt.pkl")):
+        return _read_legacy(path)
+    return store.read_store(path)
 
 
-@torch.no_grad()
+def _read_legacy(path: str) -> Tuple[Dict, dict, dict]:
+    """Pre-engine checkpoints (raw pickle payload): readable, but through
+    the restricted unpickler only; a payload that does not unpickle raises
+    CheckpointCorruptError with reason "legacy"."""
+    from ..framework.io import restricted_pickle_load
+    try:
+        with open(os.path.join(path, "ckpt.pkl"), "rb") as f:
+            payload = restricted_pickle_load(f)
+    except Exception as e:
+        raise CheckpointCorruptError(path, "legacy", str(e))
+    arrays = {}
+    for k, v in payload.get("state_dict", {}).items():
+        arrays["p/" + k] = v if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+    opt_extras = {}
+    for k, v in payload.get("opt_state", {}).items():
+        if isinstance(v, (np.ndarray, torch.Tensor)):
+            arrays["o/" + k] = v
+        else:
+            opt_extras[k] = v
+    extras = {"opt": opt_extras, "has_opt": "opt_state" in payload}
+    if payload.get("sharding_specs"):
+        extras["sharding_specs"] = payload["sharding_specs"]
+    return arrays, payload.get("meta", {}), extras
+
+
 def _restore(arrays, extras, layer=None, optimizer=None) -> None:
     """Copy a store's arrays into the module and the optimizer in place.
     As the reference's `set_state_dict`, names the module lacks are
     skipped, and a shape that differs raises."""
     if layer is not None:
-        own = layer.state_dict(keep_vars=True)
-        for k, v in arrays.items():
-            if not k.startswith("p/") or k[2:] not in own:
-                continue
-            dst, src = own[k[2:]], _as_tensor(v)
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError("shape mismatch for %s: got %s, expected %s"
-                                 % (k[2:], list(src.shape), list(dst.shape)))
-            dst.copy_(src)
+        from ..models.convert import set_state_dict
+        set_state_dict(layer, {k[2:]: v for k, v in arrays.items()
+                               if k.startswith("p/")})
     if optimizer is not None and extras.get("has_opt"):
         opt_state = {k[2:]: v for k, v in arrays.items()
                      if k.startswith("o/")}
@@ -424,7 +447,8 @@ def load_checkpoint(path: str, layer=None, optimizer=None, *,
     to recover a complete `.prev`/`.tmp` sibling of the SAME logical path;
     if none, re-raise `CheckpointCorruptError` — series-level walk-back to
     older checkpoints is `load_latest`."""
-    if not store.is_complete(path):
+    if not store.is_complete(path) and \
+            not os.path.isfile(os.path.join(path, "ckpt.pkl")):
         # never-committed dir (torn write): sweep, then try recovery
         if os.path.exists(path):
             shutil.rmtree(path, ignore_errors=True)
@@ -432,11 +456,11 @@ def load_checkpoint(path: str, layer=None, optimizer=None, *,
             raise CheckpointCorruptError(path, "incomplete",
                                          "no committed checkpoint")
     try:
-        arrays, meta, extras = store.read_store(path)
+        arrays, meta, extras = _read_verified(path)
     except CheckpointCorruptError as e:
         quarantine(path, reason=e.reason)
         if fallback and _recover_sibling(path):
-            arrays, meta, extras = store.read_store(path)
+            arrays, meta, extras = _read_verified(path)
         else:
             raise
     _restore(arrays, extras, layer, optimizer)

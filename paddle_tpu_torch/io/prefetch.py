@@ -2,8 +2,9 @@
 DevicePrefetcher / prefetch_to_device).
 
 A feeder thread pulls batches from the source iterator and, for a CUDA
-device, pins each host tensor and copies it to the card with
-non_blocking=True on a copy stream of its own, recording an event. A
+device, pins each host tensor (unless it is pinned already) and copies it
+to the card with non_blocking=True on a copy stream of its own, recording
+an event; a tensor already on the card passes as it is. A
 bounded queue (size 2: double buffering) holds at most `size` batches
 ahead. The consumer's `next()` makes its current stream wait on the
 batch's event (a device-side wait, no host sync) and marks each tensor
@@ -79,11 +80,19 @@ class DevicePrefetcher:
         if not self._cuda:
             return batch, None
         with torch.cuda.stream(self._copy_stream):
-            out = _map(batch, lambda t: t.pin_memory().to(
-                self._device, non_blocking=True))
+            out = _map(batch, self._place)
             event = torch.cuda.Event()
             event.record(self._copy_stream)
         return out, event
+
+    def _place(self, t):
+        """t on the card: a tensor already there as it is, a host tensor
+        through pinned memory (itself where it is pinned already: the
+        worker loader's batches are), so the copy is asynchronous."""
+        if t.device.type == "cuda":
+            return t
+        src = t if t.is_pinned() else t.pin_memory()
+        return src.to(self._device, non_blocking=True)
 
     def _feed(self):
         try:

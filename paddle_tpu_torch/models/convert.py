@@ -12,7 +12,13 @@ taken from `paddle_tpu_model.state_dict()` maps one to one, and back:
 
 Both sides list a parameter that is used twice (BERT's word embeddings,
 which are also its MLM decoder weight) once, under the name of its first
-use, so a tied weight maps one to one.
+use, so a tied weight maps one to one. GPT, BERT, the ResNets and LeNet
+(`features.<i>.weight`, `fc.<i>.weight`: OIHW convolutions, [in, out]
+Linears) carry over this way.
+
+`set_state_dict` is the reference's `Layer.set_state_dict`: names the
+module lacks are skipped and reported, not raised on; `Model.load` and
+the checkpoint engine load through it.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_reference_state", "export_reference_state"]
+__all__ = ["load_reference_state", "export_reference_state",
+           "set_state_dict"]
 
 
 def _tensors(module):
@@ -51,6 +58,30 @@ def load_reference_state(module: torch.nn.Module,
                 raise ValueError("%s: shape %s in the state dict, %s in the "
                                  "module" % (name, arr.shape, tuple(p.shape)))
             p.copy_(torch.tensor(arr, dtype=p.dtype))
+
+
+@torch.no_grad()
+def set_state_dict(module: torch.nn.Module, state_dict) -> tuple:
+    """The reference's Layer.set_state_dict, in place: each value (a
+    tensor or an array) is copied into the parameter or buffer of its
+    name, on its device (a built step holds their addresses); names the
+    module lacks are skipped, a shape that differs raises ValueError.
+    Returns (missing, unexpected) names."""
+    own = module.state_dict(keep_vars=True)
+    missing = [k for k in own if k not in state_dict]
+    unexpected = []
+    for k, v in state_dict.items():
+        if k not in own:
+            unexpected.append(k)
+            continue
+        dst = own[k]
+        src = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.require(v, requirements="C"))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError("shape mismatch for %s: got %s, expected %s"
+                             % (k, list(src.shape), list(dst.shape)))
+        dst.copy_(src)
+    return missing, unexpected
 
 
 def export_reference_state(module: torch.nn.Module) -> Dict[str, np.ndarray]:

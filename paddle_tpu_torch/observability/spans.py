@@ -1,10 +1,15 @@
-"""Span tracing: wall-time decomposition of serving requests.
+"""Span tracing: wall-time decomposition of train steps and serving
+requests.
 
-The port's copy of the parts of paddle_tpu/observability/spans.py the
-serving scheduler calls. A span is one named wall-clock interval with an
-optional parent, so a serving request decomposes into `queue_wait` /
+The port's copy of the parts of paddle_tpu/observability/spans.py that
+Model.fit and the serving scheduler call. A span is one named wall-clock
+interval with an optional parent, so a fit step decomposes into `feed` /
+`compile` / `host` under `step`, and a serving request into `queue_wait` /
 `prefill` / `decode_steps`.
 
+  * ``span(name, ...)`` — context manager, nested per thread (the
+    innermost open span is the parent); ``.cancel()`` abandons it
+    unrecorded, and an exception unwinding through it records nothing.
   * ``begin(name, ...)`` / ``end(handle, ...)`` — explicit pair for spans
     that START on one thread and FINISH on another (a serving request
     begins in the caller's ``submit()`` and ends in the worker loop).
@@ -31,7 +36,8 @@ from typing import Optional
 
 from . import journal, metrics, tracing
 
-__all__ = ["begin", "end", "record", "trace_id", "Span", "SPAN_MS"]
+__all__ = ["span", "current", "begin", "end", "record", "trace_id", "Span",
+           "SPAN_MS"]
 
 # millisecond scale: 10us .. ~84s upper edges
 SPAN_MS = metrics.histogram(
@@ -41,6 +47,7 @@ SPAN_MS = metrics.histogram(
     buckets=metrics.exponential_buckets(0.01, 2.0, 24))
 
 _trace_id: Optional[str] = None
+_tls = threading.local()
 
 
 def trace_id() -> str:
@@ -50,6 +57,19 @@ def trace_id() -> str:
         _trace_id = (os.environ.get("PADDLE_TPU_TRACE_ID")
                      or uuid.uuid4().hex[:12])
     return _trace_id
+
+
+def _stack() -> list:
+    s = getattr(_tls, "stack", None)
+    if s is None:
+        s = _tls.stack = []
+    return s
+
+
+def current() -> Optional[str]:
+    """Name of the innermost open span on THIS thread (else None)."""
+    s = getattr(_tls, "stack", None)
+    return s[-1] if s else None
 
 
 def _emit(name: str, dur_ms: float, parent: Optional[str], attrs) -> None:
@@ -68,16 +88,68 @@ def _emit(name: str, dur_ms: float, parent: Optional[str], attrs) -> None:
 
 
 class Span:
-    """One open interval: a begin()/end() handle."""
+    """One open interval: a context manager (stacked) or a begin()/end()
+    handle."""
 
-    __slots__ = ("name", "parent", "attrs", "t0", "_done")
+    __slots__ = ("name", "parent", "attrs", "t0", "_stacked", "_done")
 
-    def __init__(self, name: str, parent: Optional[str], attrs: dict):
+    def __init__(self, name: str, parent: Optional[str], attrs: dict,
+                 stacked: bool = False):
         self.name = name
         self.parent = parent
         self.attrs = attrs
+        self._stacked = stacked
         self._done = False
         self.t0 = time.perf_counter()
+
+    def cancel(self) -> None:
+        """Abandon without recording (the feed-exhausted last step)."""
+        self._done = True
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._stacked:
+            s = _stack()
+            if s and s[-1] is self.name:
+                s.pop()
+        if not self._done:
+            self._done = True
+            # an exception unwinding through the block is not a measured
+            # interval
+            if exc_type is None:
+                _emit(self.name, (time.perf_counter() - self.t0) * 1e3,
+                      self.parent, self.attrs)
+        return False
+
+
+class _NullSpan:
+    """Shared no-op for the disabled fast path."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+    def cancel(self) -> None:
+        pass
+
+
+_NULL = _NullSpan()
+
+
+def span(name: str, **attrs):
+    """Open a nested span on this thread: ``with spans.span("step"): ...``"""
+    if not tracing.enabled():
+        return _NULL
+    s = _stack()
+    sp = Span(name, s[-1] if s else None, attrs, stacked=True)
+    s.append(name)
+    return sp
 
 
 def begin(name: str, parent: Optional[str] = None, **attrs

@@ -10,17 +10,19 @@
   chaos       deterministic fault injection for the drills
               (PADDLE_TPU_CHAOS: nan_at_step, hang_at_step, oom,
               sigterm_at_step, torn_write, bitflip_ckpt)
-
-The reference's `anomaly` is still to be ported.
+  anomaly     AnomalyGuard: counts skipped non-finite steps, shrinks the
+              GradScaler's scale, raises NonFiniteLossError on a streak
 """
 from __future__ import annotations
 
 from . import chaos, health, watchdog  # noqa: F401
+from .anomaly import AnomalyGuard, NonFiniteLossError  # noqa: F401
 from .preemption import PreemptionGuard, active_guard  # noqa: F401
 from .retry import (DeadlineExceeded, RetryExhausted, RetryPolicy,  # noqa: F401
                     with_deadline)
 from .watchdog import StepWatchdog  # noqa: F401
 
-__all__ = ["chaos", "health", "watchdog", "StepWatchdog", "PreemptionGuard",
+__all__ = ["chaos", "health", "watchdog", "AnomalyGuard",
+           "NonFiniteLossError", "StepWatchdog", "PreemptionGuard",
            "active_guard", "DeadlineExceeded", "RetryExhausted",
            "RetryPolicy", "with_deadline"]

@@ -1,4 +1,5 @@
-"""Vision models of the port (counterpart of paddle_tpu/vision)."""
-from . import models
+"""Vision models and datasets of the port (counterpart of
+paddle_tpu/vision)."""
+from . import datasets, models
 
-__all__ = ["models"]
+__all__ = ["datasets", "models"]

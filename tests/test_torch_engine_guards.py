@@ -396,8 +396,15 @@ def test_ptdoctor_reads_a_port_run(tmp_path, monkeypatch):
     in one run directory, then the oom:2 drill: `ptdoctor summary` shows
     the jit_train retraces and the steps (the loop's `step` events, as
     the reference's fit emits them), `ptdoctor crash` the OOM bundle and
-    its step."""
+    its step.
+
+    The run is rank 0: the flight recorder and the heartbeat take their
+    rank from PADDLE_TRAINER_ID, the launcher's variable, so the test sets
+    it. A test that ran earlier in the same process may have left it set
+    (the reference's `health.configure(dir, rank=5)` exports it, as the
+    launcher would), and the bundle would then be rank 5's."""
     run = tmp_path / "run"
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "0")
     monkeypatch.setenv(flight.ENV_DIR, str(run))
     monkeypatch.setenv(health.ENV_DIR, str(run))
     monkeypatch.setenv(health.ENV_INTERVAL, "0")
