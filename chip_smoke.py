@@ -6,6 +6,7 @@
     python3 chip_smoke.py --resnet-only    # the card, then phase 19 alone
     python3 chip_smoke.py --resume-drill JSON   # one run of phase 17's drill
     python3 chip_smoke.py --fit-only       # the card, the build, phase 20
+    python3 chip_smoke.py --long-only      # the card, the build, phase 21
     python3 chip_smoke.py --fit-drill JSON # one run of phase 20's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -261,10 +262,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
      PADDLE_TPU_SYNTH_SAMPLES=8192, B=256, 2 + 50 train_batch calls):
      images/s; then a one-epoch fit with Accuracy and ModelCheckpoint,
      and Model.load of its final.pdparams/.pdopt into a fresh Model: an
-     evaluate bit-equal to the trained one's.
+     evaluate bit-equal to the trained one's. (d) is bench.py's body as
+     written against `import paddle_tpu_torch as paddle` (paddle.seed,
+     paddle.Model, paddle.optimizer.Adam, paddle.nn.CrossEntropyLoss);
+     after its timed loop two more builds after paddle.seed(0) give
+     bit-equal losses (under cuDNN's deterministic algorithms);
+ 21. GPT-2 long context (`long_main`, `--long-only`): (a) one layer's
+     attention at the long-context shape (B=1, H=12, T=8192, D=64,
+     bfloat16, causal): the flash forward and backward against their
+     plain versions at p=0 and p=0.1 under one Philox word (relative
+     1e-2, as phase 3 at T=512), then their device times beside their
+     bounds, their plain versions' and torch sdpa's forward and backward;
+     (b) benchmarks/train_bench.py bench_gpt2_long as written against
+     `import paddle_tpu_torch as paddle`: gpt2_small(
+     max_position_embeddings=8193), dropouts 0.1, paddle.seed(0),
+     paddle.to_tensor(ids), paddle.optimizer.AdamW(1e-4, wd 0.01),
+     paddle.amp.decorate(O2, bfloat16), make_train_step, 2 warm-up and 10
+     timed steps and float(loss.numpy()): one program, launches a step
+     (rows 1t, 2, 3 12 each, row 7 148, row K 25) through replays, path
+     flash_dropout, finite losses; step ms (median), tokens/s, MFU by
+     train_bench.py:139's formula, peak memory, one profiled step's idle
+     share and kernel groups; (c) the same model at dropout 0, 3 steps
+     from seed 0's weights and (b)'s batch, with the flash kernels and
+     with use_flash_attention off, FLAGS_sdpa_chunked_threshold at its
+     2048: the second run's attention all xla_chunked (the blockwise
+     online-softmax tier, ops/ring_attention.py), no flash launch, losses
+     within 2e-2 relative of the first's; both runs' step ms and peak
+     memory. The dense attention is never run at T=8192 (its saved
+     probabilities alone would take tens of GB).
 
 The line before the last is the kernel table as JSON (the float16
-instances under their names + "_f16"); the last line is
+instances under their names + "_f16"; rows 1t, 2, 3 with their times at
+phase 21's shape under "long_context"; the launches of phase 21 (b)
+counted in with phase 10's); the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
@@ -1122,11 +1152,12 @@ def time_paged(torch, ck, F, timer, gen, quantized, lens):
 
 
 def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p,
-                dt_name="bfloat16"):
+                dt_name="bfloat16", plain_runs=(25, 10)):
     """Device times of the flash backward kernels (rows 2 and 3) at
     B x 12 heads x T x 64, bfloat16 (or float16: their float16 instances),
-    beside their plain versions, their bounds and PyTorch's sdpa backward
-    (dq, dk and dv in one call) on the same inputs."""
+    beside their plain versions (timed over `plain_runs`: runs, calls a
+    run), their bounds and PyTorch's sdpa backward (dq, dk and dv in one
+    call) on the same inputs."""
     H, D, dt = 12, 64, getattr(torch, dt_name)
     q, k, v = qkv_views(torch, B, T, H, D, dt, gen)
     do = torch.randn((B, H, T, D), generator=gen, device="cuda").to(dt)
@@ -1157,7 +1188,8 @@ def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p,
     for name, products, fn, plain in kernels:
         b, by = bound_ms(6 * bhtd + 2 * bht, 2 * products * D * pairs,
                          dt_name)
-        out[name] = {"ms": timer.ms(fn), "plain_ms": timer.ms(plain),
+        out[name] = {"ms": timer.ms(fn),
+                     "plain_ms": timer.ms(plain, *plain_runs),
                      "library_ms": lib_bwd, "bound_ms": b, "bound_by": by}
     shape = "B=%d H=%d T=%d D=%d %s %s p=%g" % (
         B, H, T, D, SHORT[dt_name], "causal" if causal else "not causal", p)
@@ -1175,11 +1207,11 @@ def bwd_timings(torch, ck, F, timer, gen, B, T, causal, p,
 
 
 def fwd_timings(torch, ck, F, timer, gen, B, T, causal, p,
-                dt_name="bfloat16"):
+                dt_name="bfloat16", plain_runs=(25, 10)):
     """Device time of the training flash forward (row 1t: lse and
     in-kernel dropout) at B x 12 heads x T x 64, bfloat16 (or float16: its
-    float16 instance), beside its plain version, its bound and PyTorch's
-    sdpa forward on the same inputs."""
+    float16 instance), beside its plain version (timed over `plain_runs`),
+    its bound and PyTorch's sdpa forward on the same inputs."""
     H, D = 12, 64
     q, k, v = qkv_views(torch, B, T, H, D, getattr(torch, dt_name), gen)
     bits = ck.attn_dropout_bits(WORD, DELTA, B * H, T, T) if p else None
@@ -1190,7 +1222,7 @@ def fwd_timings(torch, ck, F, timer, gen, B, T, causal, p,
     t = {"ms": timer.ms(lambda: ck.flash_fwd_train(q, k, v, causal, p, WORD,
                                                    DELTA)),
          "plain_ms": timer.ms(lambda: ck.flash_fwd_train_plain(
-             q, k, v, causal, p, bits)),
+             q, k, v, causal, p, bits), *plain_runs),
          "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
              q, k, v, is_causal=causal, dropout_p=p)),
          "bound_ms": b, "bound_by": by}
@@ -4971,9 +5003,6 @@ def fit_lenet(torch, card):
     """Phase 20 (d): bench.py's bench_lenet_fit, then a one-epoch fit with
     Accuracy and ModelCheckpoint, and Model.load into a fresh Model."""
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch import optimizer
-    from paddle_tpu_torch.framework import random as prandom
-    from paddle_tpu_torch.nn import CrossEntropyLoss
     from paddle_tpu_torch.vision.datasets import MNIST
     from paddle_tpu_torch.vision.models import LeNet
 
@@ -4988,29 +5017,50 @@ def fit_lenet(torch, card):
             os.environ["PADDLE_TPU_SYNTH_SAMPLES"] = old
 
     def build(seed):
-        prandom.seed(seed)
-        net = LeNet(seed=seed)
-        model = paddle.Model(net)
-        model.prepare(optimizer.Adam(parameters=model.parameters(),
-                                     learning_rate=1e-3),
-                      CrossEntropyLoss(), metrics=paddle.metric.Accuracy())
+        # bench.py bench_lenet_fit's calls (:32-36), `paddle` the port
+        paddle.seed(seed)
+        model = paddle.Model(LeNet())
+        opt = paddle.optimizer.Adam(parameters=model.parameters(),
+                                    learning_rate=1e-3)
+        model.prepare(opt, paddle.nn.CrossEntropyLoss(),
+                      metrics=paddle.metric.Accuracy())
         return model
     model = build(0)
     x = np.stack([train[i][0] for i in range(LENET_B)]).astype(np.float32)
     y = np.asarray([train[i][1] for i in range(LENET_B)], np.int64)
-    for _ in range(LENET_WARMUP):
-        model.train_batch([x], [y])
+    warm = [model.train_batch([x], [y])["loss"] for _ in range(LENET_WARMUP)]
     t0 = time.perf_counter()
     for _ in range(LENET_STEPS):
         logs = model.train_batch([x], [y])
     dt = time.perf_counter() - t0
     ips = LENET_STEPS * LENET_B / dt
     require(math.isfinite(logs["loss"]), "fit (d): loss %s" % logs)
-    say("fit (d) bench.py bench_lenet_fit on the port: LeNet, Adam(1e-3), "
-        "CrossEntropyLoss, B=%d, %d warm-up + %d train_batch calls: %.1f "
-        "images/s (%.3f ms a call, host clock; %s)"
+    # after the timed loop, which runs as the bench's does: two builds
+    # after paddle.seed(0) give bit-equal losses. With cuDNN's
+    # deterministic algorithms only: the default weight-gradient
+    # algorithm sums with atomics, so its last bits vary from run to run
+    # (phase 19's float32 check needs the same for ResNet-50)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        seeded = []
+        for _ in range(2):
+            again = build(0)
+            seeded.append([again.train_batch([x], [y])["loss"]
+                           for _ in range(LENET_WARMUP)])
+            del again
+    finally:
+        torch.backends.cudnn.deterministic = det
+    require(seeded[0] == seeded[1], "fit (d): two builds after "
+            "paddle.seed(0) gave losses %s and %s" % tuple(seeded))
+    say("fit (d) bench.py bench_lenet_fit on the port (paddle.seed, "
+        "paddle.Model, paddle.optimizer.Adam(1e-3), "
+        "paddle.nn.CrossEntropyLoss): LeNet, B=%d, %d warm-up + %d "
+        "train_batch calls: %.1f images/s (%.3f ms a call, host clock; %s); "
+        "warm-up losses %s; two more builds after paddle.seed(0) (cuDNN "
+        "deterministic) bit-equal: %s"
         % (LENET_B, LENET_WARMUP, LENET_STEPS, ips, dt / LENET_STEPS * 1e3,
-           card))
+           card, warm, seeded[0]))
     with tempfile.TemporaryDirectory() as save_dir:
         model = build(0)
         t0 = time.perf_counter()
@@ -5054,6 +5104,259 @@ def fit_main(torch, ck, card, off_ms=None, off_launches=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: GPT-2 long context (benchmarks/train_bench.py bench_gpt2_long)
+
+LONG_B, LONG_T, LONG_WARMUP, LONG_STEPS = 1, 8192, 2, 10  # :229-230
+LONG_H, LONG_D = 12, 64
+# (c): the blockwise tier's steps from the flash path's weights and batch
+LONG_CHUNKED_STEPS = 3
+# (c): its losses against the flash path's under the same cut, relative
+LONG_LOSS_REL_TOL = 2e-2
+# (a): the plain versions' timing at T=8192 (runs, calls a run): one call
+# holds [12, 8192, 8192] float32 scores (3.2 GB) and takes tens of ms
+LONG_PLAIN_RUNS = (3, 1)
+CHUNK_FLAG = "FLAGS_sdpa_chunked_threshold"
+
+
+def long_kernels(torch, ck, F, timer, gen):
+    """Phase 21 (a): the flash forward and backward at one layer of the
+    long-context path (B=1, H=12, T=8192, D=64, bfloat16, causal) against
+    their plain versions at p=0 and p=0.1 under one Philox word (the plain
+    versions take the kernels' own bits), each held to REL_TOL bfloat16 as
+    phase 3 holds T=512; then their device times beside their bounds, the
+    plain versions' and torch sdpa's, at p=0.1 and p=0."""
+    B, T, H, D, dt = LONG_B, LONG_T, LONG_H, LONG_D, torch.bfloat16
+    tol = REL_TOL["bfloat16"]
+    q, k, v = qkv_views(torch, B, T, H, D, dt, gen)
+    do = torch.randn((B, H, T, D), generator=gen, device="cuda").to(dt)
+    errs = {}
+    for p in (0.0, DROPOUT):
+        bits = ck.attn_dropout_bits(WORD, DELTA, B * H, T, T) if p else None
+        o, lse = ck.flash_fwd_train(q, k, v, True, p, WORD, DELTA)
+        dq, dsum = ck.flash_bwd_dq(q, k, v, o, do, lse, True, p, WORD, DELTA)
+        dk, dv = ck.flash_bwd_dkv(q, k, v, do, lse, dsum, True, p, WORD,
+                                  DELTA)
+        for t in (o, dq, dk, dv):
+            require(bool(torch.isfinite(t.float()).all()),
+                    "long kernels p=%g: non-finite output" % p)
+        got = {"flash_fwd_train": (o, lse), "flash_bwd_dq": (dq, dsum),
+               "flash_bwd_dkv": (dk, dv)}
+        want = {"flash_fwd_train": lambda: ck.flash_fwd_train_plain(
+                    q, k, v, True, p, bits),
+                "flash_bwd_dq": lambda: ck.flash_bwd_dq_plain(
+                    q, k, v, o, do, lse, True, p, bits),
+                "flash_bwd_dkv": lambda: ck.flash_bwd_dkv_plain(
+                    q, k, v, do, lse, dsum, True, p, bits)}
+        for name, plain in want.items():
+            ref = plain()
+            ea, er = (max(x) for x in zip(*(abs_rel_err(g, w) for g, w in
+                                            zip(got[name], ref))))
+            del ref
+            free_memory(torch)
+            require(er <= tol, "%s B=1 H=12 T=%d D=64 bf16 causal p=%g: rel "
+                    "err %.3g > %.3g" % (name, T, p, er, tol))
+            errs[(name, p)] = (ea, er)
+            say("check %s B=1 H=12 T=%d D=64 bf16 causal p=%g: max rel err "
+                "%.3g (tol %.0e), max abs err %.3g" % (name, T, p, er, tol,
+                                                       ea))
+        del bits, o, lse, dq, dsum, dk, dv, got
+        free_memory(torch)
+    del q, k, v, do
+    times = {}
+    for p in (DROPOUT, 0.0):
+        t = {"flash_fwd_train": fwd_timings(
+            torch, ck, F, timer, gen, B, T, True, p,
+            plain_runs=LONG_PLAIN_RUNS)}
+        free_memory(torch)
+        t.update(bwd_timings(torch, ck, F, timer, gen, B, T, True, p,
+                             plain_runs=LONG_PLAIN_RUNS))
+        free_memory(torch)
+        times[p] = t
+    return errs, times
+
+
+def long_model(paddle, gpt2_small, **kw):
+    """bench_gpt2_long's model (:229-230) and its harness's optimizer and
+    AMP (`_gpt_train_bench` :52-73), written against `paddle` the port:
+    (network, optimizer, step)."""
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    net = gpt2_small(max_position_embeddings=LONG_T + 1, **kw)
+    paddle.seed(0)
+    crit = GPTPretrainingCriterion()
+    opt = paddle.optimizer.AdamW(parameters=net.parameters(),
+                                 learning_rate=1e-4, weight_decay=0.01)
+    net, opt = paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    return net, opt, make_train_step(net, lambda o, l: crit(o, l), opt)
+
+
+def long_bench(torch, ck, paddle, gpt2_small, card):
+    """Phase 21 (b): bench_gpt2_long on the card, the flash kernels on, the
+    dropouts at 0.1: LONG_WARMUP + LONG_STEPS steps of the captured step,
+    the launch and path counters zeroed just before and read just after;
+    step ms (median), tokens/s, MFU by train_bench.py:139's formula,
+    peak memory, one profiled step's idle share and kernel groups."""
+    paddle.seed(0)
+    net, opt, step = long_model(paddle, gpt2_small)
+    # bench_gpt2_long's batch (:244-247)
+    vocab = net.gpt.embeddings.word_embeddings.weight.shape[0]
+    rs = np.random.RandomState(0)
+    ids = paddle.to_tensor(rs.randint(0, vocab, (LONG_B, LONG_T + 1))
+                           .astype(np.int64))
+    args = ([ids[:, :-1]], [ids[:, 1:]])
+    L, d = len(net.gpt.layers), net.gpt.hidden_size
+    n_params = sum(int(np.prod(p.shape)) for p in net.parameters())
+    n_tensors = len(list(net.parameters()))
+    tokens = LONG_B * LONG_T
+    flops = 6 * n_params * tokens + 12 * L * d * LONG_T * tokens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.launch_counts(reset=True)
+    ck.attention_path_counts(reset=True)
+    losses, times, _ = timed_steps(torch, step, lambda: args, LONG_WARMUP,
+                                   LONG_STEPS)
+    launches = ck.launch_counts()
+    paths = ck.attention_path_counts()
+    peak = torch.cuda.max_memory_allocated()
+    last, _ = step(*args)
+    losses.append(float(last.numpy()))      # the bench's read
+    n_steps = LONG_WARMUP + LONG_STEPS + 1
+    progs = step.programs
+    (key,) = progs.builds
+    replayed = {k: progs.replays[key] * n for k, n in
+                progs.launches[key].items()}
+    require(all(math.isfinite(x) for x in losses),
+            "long (b): non-finite loss %s" % losses)
+    require(step.compiles == 1 and step.replays == n_steps - 1,
+            "long (b): %d programs, %d replays in %d steps"
+            % (step.compiles, step.replays, n_steps))
+    per_step = {k: launches[k] / (n_steps - 1) for k in launches}
+    want = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "adamw": n_tensors, "dropout_keep": 2 * L + 1}
+    say("long (b) launches %s, attention paths %s" % (launches, paths))
+    require(all(per_step[k] == v for k, v in want.items()),
+            "long (b): launches a step %s, want %s" % (per_step, want))
+    require(all(replayed[k] > 0 for k in want),
+            "long (b): kernels launched in no replay: %s" % replayed)
+    # the body runs twice on the card (the build's eager run and its
+    # capture), every step on the CPU
+    bodies = 2 if next(net.parameters()).is_cuda else n_steps - 1
+    require(paths["flash_dropout"] == bodies * L and paths["xla_sdpa"] == 0
+            and paths["xla_chunked"] == 0 and paths["flash"] == 0,
+            "long (b): attention paths %s" % paths)
+    dev_ms, top = profile_step(torch, step, lambda: args)
+    say("long (b) bench_gpt2_long on the port: gpt2-small "
+        "max_position_embeddings=%d, %d parameters (%d tensors), B=%d T=%d, "
+        "dropouts 0.1, O2 bf16, AdamW; %d steps, losses %s; program %s "
+        "captured in %.1f ms, graph pool %.1f MiB, launches a step %s; %s "
+        "%d a step (%s)"
+        % (LONG_T + 1, n_params, n_tensors, LONG_B, LONG_T, n_steps,
+           ["%.4f" % x for x in losses], key, progs.capture_s[key] * 1e3,
+           progs.pool_bytes() / 2 ** 20,
+           {k: n for k, n in progs.launches[key].items() if n},
+           "flash_dropout attention path", L, card))
+    step_ms = step_line("long (b) captured step", times, tokens, flops,
+                        peak, dev_ms, card)
+    report_profile("long (b) captured", dev_ms, step_ms, top)
+    del net, opt, step
+    free_memory(torch)
+    return {"launches": {k: launches[k] for k in want}, "step_ms": step_ms,
+            "peak": peak, "args": args}
+
+
+def long_chunked(torch, ck, flags, paddle, gpt2_small, args, card):
+    """Phase 21 (c): the same model at dropout 0, LONG_CHUNKED_STEPS steps from one seed's weights and the same batch,
+    once with the flash kernels and once with use_flash_attention off,
+    where the threshold (2048, unchanged) sends every layer's attention to
+    the blockwise tier: path xla_chunked, no flash launch, losses within
+    LONG_LOSS_REL_TOL of the flash run's; step ms and peak memory of
+    each."""
+    require(paddle.get_flags([CHUNK_FLAG])[CHUNK_FLAG] == 2048,
+            "long (c): %s is %s, not the reference's 2048"
+            % (CHUNK_FLAG, paddle.get_flags([CHUNK_FLAG])))
+    saved = flags.get_flags(["use_flash_attention"])
+    runs = {}
+    try:
+        for name, flash in (("flash", True), ("blockwise", False)):
+            flags.set_flags({"use_flash_attention": flash})
+            paddle.seed(0)
+            net, opt, step = long_model(paddle, gpt2_small,
+                                        attn_dropout_prob=0.0,
+                                        hidden_dropout_prob=0.0)
+            L = len(net.gpt.layers)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ck.launch_counts(reset=True)
+            ck.attention_path_counts(reset=True)
+            losses, times, _ = timed_steps(torch, step, lambda: args, 1,
+                                           LONG_CHUNKED_STEPS - 1)
+            bodies = (2 if next(net.parameters()).is_cuda
+                      else LONG_CHUNKED_STEPS)
+            runs[name] = dict(losses=losses, ms=statistics.median(times),
+                              peak=torch.cuda.max_memory_allocated(),
+                              paths=ck.attention_path_counts(),
+                              launches=ck.launch_counts(), L=L,
+                              calls=L * bodies)
+            del net, opt, step
+            free_memory(torch)
+    finally:
+        flags.set_flags(saved)
+    f, b = runs["flash"], runs["blockwise"]
+    require(f["paths"]["flash"] == f["calls"]
+            and f["paths"]["xla_chunked"] == 0,
+            "long (c) flash run: attention paths %s" % f["paths"])
+    require(b["paths"]["xla_chunked"] == b["calls"]
+            and b["paths"]["flash"] == b["paths"]["flash_dropout"] == 0
+            and b["paths"]["xla_sdpa"] == 0,
+            "long (c) blockwise run: attention paths %s" % b["paths"])
+    require(all(b["launches"][k] == 0 for k in
+                ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")),
+            "long (c): a flash kernel launched with its flag off: %s"
+            % b["launches"])
+    rel = [abs(x - y) / abs(y) for x, y in zip(b["losses"], f["losses"])]
+    require(all(math.isfinite(x) for x in b["losses"] + f["losses"])
+            and max(rel) <= LONG_LOSS_REL_TOL,
+            "long (c): blockwise losses %s against flash %s (rel %s > %g)"
+            % (b["losses"], f["losses"], rel, LONG_LOSS_REL_TOL))
+    say("long (c) blockwise tier (use_flash_attention off, %s %d): %d "
+        "layers at dropout 0, %d steps from seed 0's weights: attention "
+        "paths %s; losses %s against the flash kernels' %s (max rel %.3g, "
+        "tol %g); step %.2f ms against the flash kernels' %.2f ms (medians "
+        "of %d after the build); peak memory %.1f MiB against %.1f MiB (%s)"
+        % (CHUNK_FLAG, 2048, b["L"], LONG_CHUNKED_STEPS,
+           {k: n for k, n in b["paths"].items() if n},
+           ["%.5f" % x for x in b["losses"]],
+           ["%.5f" % x for x in f["losses"]], max(rel), LONG_LOSS_REL_TOL,
+           b["ms"], f["ms"], LONG_CHUNKED_STEPS - 1, b["peak"] / 2 ** 20,
+           f["peak"] / 2 ** 20, card))
+    return runs
+
+
+def long_main(torch, ck, F, flags, card):
+    """Phase 21: GPT-2 long context (see the module's docstring), (a)-(c).
+    Returns (b)'s launches and (a)'s times by kernel."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework.random import philox_word
+    from paddle_tpu_torch.models import gpt2_small
+    global WORD
+    if WORD is None:
+        WORD = philox_word(SEED, OFFSET - DELTA, "cuda")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    errs, times = long_kernels(torch, ck, F, Timer(torch), gen)
+    t1 = time.perf_counter()
+    bench = long_bench(torch, ck, paddle, gpt2_small, card)
+    t2 = time.perf_counter()
+    chunked = long_chunked(torch, ck, flags, paddle, gpt2_small,
+                           bench.pop("args"), card)
+    say("long phase 21: %.1f s ((a) %.1f, (b) %.1f, (c) %.1f)"
+        % (time.perf_counter() - t0, t1 - t0, t2 - t1,
+           time.perf_counter() - t2))
+    return {"launches": bench["launches"], "times": times, "errs": errs,
+            "bench": bench, "chunked": chunked}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5069,6 +5372,9 @@ def main():
     ap.add_argument("--fit-only", action="store_true",
                     help="name the card, build the kernels, then run phase "
                     "20 (Model.fit) alone")
+    ap.add_argument("--long-only", action="store_true",
+                    help="name the card, build the kernels, then run phase "
+                    "21 (GPT-2 long context, T=8192) alone")
     ap.add_argument("--fit-drill", metavar="JSON",
                     help="one run of phase 20's preemption drill, its "
                     "settings as JSON (see fit_drill); phase 20 starts "
@@ -5125,6 +5431,10 @@ def main():
     if opts.fit_only:
         fit_main(torch, ck, card)
         say("fit-only run: phase 20 passed")
+        return 0
+    if opts.long_only:
+        long_main(torch, ck, F, flags, card)
+        say("long-only run: phase 21 passed")
         return 0
 
     # 3. kernels against their plain versions
@@ -5372,6 +5682,11 @@ def main():
     free_memory(torch)
     fit_main(torch, ck, card, off_ms, tlaunches, resnet_ms)
 
+    # 21. GPT-2 long context: the flash kernels at T=8192, bench_gpt2_long,
+    # the blockwise tier
+    free_memory(torch)
+    long = long_main(torch, ck, F, flags, card)
+
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]
                             + slaunch_c["flash_fwd"]),
@@ -5382,7 +5697,10 @@ def main():
                                     + slaunch_c["paged_decode_int8"])}
     for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
                  "adamw", "dropout_keep"):
-        counts[name] = tlaunches[name]
+        counts[name] = tlaunches[name] + long["launches"][name]
+        say("launches %s: %d on the training main path (phase 10), %d on "
+            "the long-context path (phase 21 (b))"
+            % (name, tlaunches[name], long["launches"][name]))
     for name in FUSED_KERNELS:
         counts[name] = blaunches[name] + alaunches[name]
         say("launches %s: %d on path B (gpt2, fused flags), %d on path A "
@@ -5403,6 +5721,15 @@ def main():
              for name in KERNEL_ORDER + F16_ORDER]
     next(e for e in table if e["name"] == "flash_fwd")["buckets"] = \
         times["flash_fwd"]["buckets"]
+    for e in table:                     # rows 1t, 2, 3 at phase 21's shape
+        if e["name"] in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
+            e["long_context"] = [dict(
+                B=LONG_B, H=LONG_H, T=LONG_T, D=LONG_D, p=p,
+                launches=long["launches"][e["name"]],
+                max_abs_err=long["errs"][(e["name"], p)][0],
+                **{k: long["times"][p][e["name"]][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}) for p in (DROPOUT, 0.0)]
     say(card)
     say(json.dumps({"kernels": table, "no_pallas_counterpart": {
         "19": "ResNet-50: cuDNN convolutions, composed batch norm and "

@@ -64,9 +64,31 @@ CUDA C++ for `sm_90a` (ops/csrc/).
               num_workers=2, save_dir="ckpt")
     paddle.save(net.state_dict(), "lenet.pdparams")
 
-Entry points take an explicit `device` that defaults to "cuda" and raise
-when CUDA is absent unless the caller passes device="cpu"; on CPU tensors
-every kernel wrapper runs its plain PyTorch version instead.
+Entry points take a `device` that defaults to the current place: the
+card ("gpu:0") unless the caller chose the CPU (`set_device("cpu")` or
+device="cpu"); the card raises when CUDA is absent, never falling back to
+the CPU. On CPU tensors every kernel wrapper runs its plain PyTorch
+version instead.
+
+The top level binds the reference's names (`paddle_tpu/__init__.py:46-151`)
+whose modules the port has, so that the reference's scripts run with the
+import changed:
+
+    import paddle_tpu_torch as paddle
+    paddle.seed(0)
+    ids = paddle.to_tensor(np_ids)                   # on the card
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 parameters=net.parameters())
+    net, opt = paddle.amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    paddle.set_flags({"FLAGS_sdpa_chunked_threshold": 4096})
+    loss, _ = step([ids[:, :-1]], [ids[:, 1:]])
+    print(float(loss.numpy()))
+
+Names whose modules are not ported stay unbound: `static`,
+`enable_static`, `disable_static`, `distributed`, `fft`, `signal`,
+`linalg`, `distribution`, `text`, `onnx`, `quantization`, `fluid`,
+`utils`, `SelectedRows`, and the tensor-op surface (`paddle.add`,
+`paddle.matmul`, ...).
 
 Float32 matrix products run in full float32: the reference computes in
 float32, so TF32 is switched off for matmul and cuDNN at import.
@@ -76,13 +98,47 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from . import hapi, metric  # noqa: E402,F401
+# dtypes
+from .framework.dtype import bool_ as bool  # noqa: E402,F401,A004
+from .framework.dtype import (uint8, int8, int16, int32,  # noqa: E402,F401
+                              int64, float16, bfloat16, float32, float64,
+                              complex64, complex128, set_default_dtype,
+                              get_default_dtype)
+from torch import dtype  # noqa: E402,F401
+# places and the device
+from .framework.place import (CPUPlace, CUDAPinnedPlace,  # noqa: E402,F401
+                              CUDAPlace, NPUPlace, TPUPlace, XPUPlace,
+                              get_device, set_device, is_compiled_with_cuda,
+                              is_compiled_with_rocm, is_compiled_with_npu,
+                              is_compiled_with_xpu)
+# the tensor, grad mode, randomness, flags
+from .framework.tensor import Parameter, Tensor, to_tensor  # noqa: E402,F401
+from .framework.state import (in_dygraph_mode,  # noqa: E402,F401
+                              is_grad_enabled, no_grad, set_grad_enabled)
+from .framework.random import (get_rng_state, seed,  # noqa: E402,F401
+                               set_rng_state)
+from .framework.flags import get_flags, set_flags  # noqa: E402,F401
+from .framework.autograd import grad  # noqa: E402,F401
+
+from . import (amp, autograd, checkpoint, device,  # noqa: E402,F401
+               framework, hapi, incubate, inference, io, jit, metric,
+               models, nn, observability, optimizer, resilience, tensor,
+               vision)
 from .framework.io import load, save  # noqa: E402,F401
 from .hapi import callbacks, flops, summary  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401
 
-__all__ = ["amp", "checkpoint", "framework", "hapi", "incubate",
-           "inference", "io", "jit", "metric", "models", "nn",
+__all__ = ["amp", "autograd", "checkpoint", "device", "framework", "hapi",
+           "incubate", "inference", "io", "jit", "metric", "models", "nn",
            "observability", "ops", "optimizer", "resilience", "tensor",
            "vision", "Model", "callbacks", "flops", "summary", "save",
-           "load"]
+           "load", "bool", "uint8", "int8", "int16", "int32", "int64",
+           "float16", "bfloat16", "float32", "float64", "complex64",
+           "complex128", "dtype", "set_default_dtype", "get_default_dtype",
+           "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "TPUPlace",
+           "XPUPlace", "NPUPlace", "get_device", "set_device",
+           "is_compiled_with_cuda", "is_compiled_with_rocm",
+           "is_compiled_with_npu", "is_compiled_with_xpu", "Tensor",
+           "Parameter", "to_tensor", "no_grad", "in_dygraph_mode",
+           "is_grad_enabled", "set_grad_enabled", "seed", "get_rng_state",
+           "set_rng_state", "get_flags", "set_flags", "grad"]

@@ -1,7 +1,8 @@
 """Device resolution (counterpart of paddle_tpu/framework/place.py).
 
-Every entry point of the port takes an explicit `device` that defaults to
-"cuda". Asking for CUDA on a machine without it is an error, never a
+Every entry point of the port takes a `device` that defaults to the
+current place (`place.set_device`), "gpu:0" unless the caller chose
+another. Asking for CUDA on a machine without it is an error, never a
 silent move to the CPU: the CPU is used only when the caller names it.
 
 `write_values` fills a small device tensor from host numbers in stream
@@ -16,10 +17,21 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from .place import Place, get_place
+
 __all__ = ["resolve_device", "write_values"]
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device=None) -> torch.device:
+    """The torch device of `device`: a torch device or its name, a Place,
+    the reference's "gpu" / "gpu:N" for the card, or None for the current
+    place (`place.set_device`; "gpu:0" unless the caller chose another)."""
+    if device is None:
+        device = get_place()
+    if isinstance(device, Place):
+        device = device.torch_name()
+    elif isinstance(device, str) and device.split(":")[0] == "gpu":
+        device = "cuda" + device[3:]
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

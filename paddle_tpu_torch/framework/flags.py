@@ -74,6 +74,14 @@ define_flag("use_flash_attention", True,
             "route F.scaled_dot_product_attention to the hand-written "
             "flash-attention forward kernel (ops/csrc/flash_fwd.cu); False "
             "takes the plain PyTorch attention (path counter xla_sdpa)")
+define_flag("sdpa_chunked_threshold", 2048,
+            "key length at which F.scaled_dot_product_attention's plain "
+            "route (the flash kernels off or not taking the call) switches "
+            "to the blockwise online-softmax tier (ops/ring_attention.py, "
+            "path counter xla_chunked: K/V in blocks of 512, each block "
+            "recomputed in the backward, no [Tq, Tk] tensor in either "
+            "pass) instead of the dense [Tq, Tk] scores. Decided per call. "
+            "0 disables")
 define_flag("paged_flash_decode", True,
             "route serving paged-decode attention to the hand-written "
             "paged-decode kernel (ops/csrc/paged_decode.cu: KV append, "

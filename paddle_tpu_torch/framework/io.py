@@ -297,10 +297,10 @@ def _from_saveable(obj, device, return_numpy):
     return obj
 
 
-def load(path, device="cuda", **configs):
+def load(path, device=None, **configs):
     """Unpickle `path` through the allowlist. Tensors come back as torch
-    tensors on `device` (default "cuda", which raises without CUDA), or,
-    with `return_numpy=True`, as numpy arrays (bfloat16 and float8 as CPU
+    tensors on `device` (default the current place: the card unless
+    set_device("cpu"); raises without CUDA), or, with `return_numpy=True`, as numpy arrays (bfloat16 and float8 as CPU
     torch tensors) and no device is used."""
     return_numpy = bool(configs.get("return_numpy", False))
     dev = None if return_numpy else resolve_device(device)

@@ -37,8 +37,8 @@ import torch
 
 from .device import resolve_device, write_values
 
-__all__ = ["GlobalRNG", "RNG", "seed", "get_rng_state", "set_rng_state",
-           "next_seed_offset", "philox_word"]
+__all__ = ["GlobalRNG", "RNG", "seed", "init_seed", "get_rng_state",
+           "set_rng_state", "next_seed_offset", "philox_word"]
 
 _U32 = 2 ** 32
 # the tag of a `GlobalRNG.state()`
@@ -184,10 +184,22 @@ RNG = GlobalRNG(0)
 
 
 def seed(s: int):
-    """paddle.seed parity: reseeds every generator and numpy's."""
+    """paddle.seed parity: reseeds every generator (the port's, torch's
+    global ones) and numpy's; the port's model initialisers draw from
+    `init_seed()`'s seed, so that a model built after `seed(s)` has the
+    same weights every time."""
     RNG.manual_seed(int(s))
+    torch.manual_seed(int(s) % (2 ** 64))
     np.random.seed(int(s) % (2 ** 32))
     return RNG
+
+
+def init_seed(s=None) -> int:
+    """The seed of a model initialiser's generator: `s`, or else the
+    last `seed()`'s (0 before any call). Every build after one `seed(s)`
+    draws the same weights: the reference's builds continue one key
+    instead."""
+    return int(RNG._seed if s is None else s)
 
 
 def get_rng_state():

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..framework.device import resolve_device
+
 __all__ = ["flops", "summary"]
 
 
@@ -21,9 +23,11 @@ def _prod(xs):
 
 
 def _device(net):
+    """The network's device; for one without parameters the current
+    place (the card unless set_device("cpu"))."""
     for p in net.parameters():
         return p.device
-    return torch.device("cpu")
+    return resolve_device(None)
 
 
 def flops(net, input_size, custom_ops=None, print_detail=False):

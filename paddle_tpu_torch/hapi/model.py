@@ -21,8 +21,8 @@ no bfloat16 (the port does not use ml_dtypes), so a bfloat16 output comes
 back as float32, widened exactly.
 
 `Model(network, device=...)`: the device the batches are placed on
-(default "cuda", which raises without CUDA; the network's parameters must
-lie there).
+(default the current place: the card unless set_device("cpu"); raises
+without CUDA; the network's parameters must lie there).
 """
 from __future__ import annotations
 
@@ -70,7 +70,7 @@ def _host_numpy(t):
 
 
 class Model:
-    def __init__(self, network, inputs=None, labels=None, device="cuda"):
+    def __init__(self, network, inputs=None, labels=None, device=None):
         self.network = network
         self._inputs = inputs
         self._labels = labels
@@ -153,7 +153,7 @@ class Model:
                     self.network, self._loss, self._optimizer,
                     device=self._device)
         step = self._train_step_fn
-        loss, outputs = step(inputs, labels)
+        loss, outputs = step.run(inputs, labels)
         metrics = self._run_metrics(outputs, labels)
         logs = self._pack(loss, metrics)
         # the guard's answer lives on the device: read only where the

@@ -112,7 +112,7 @@ class PagedKVCache:
 
     def __init__(self, n_layers: int, max_batch: int, n_heads: int,
                  max_seq_len: int, head_dim: int, kv_dtype="float32",
-                 device="cuda"):
+                 device=None):
         dev = resolve_device(device)
         self.n_layers = int(n_layers)
         self.max_batch = int(max_batch)

@@ -94,7 +94,7 @@ class GenerationEngine:
     def __init__(self, model, max_batch=4, max_seq_len=128,
                  prefill_buckets=(32, 64, 128), pad_id=0,
                  kv_dtype="float32", prefix_cache_bytes=None,
-                 device="cuda"):
+                 device=None):
         self.device = resolve_device(device)
         gpt = getattr(model, "gpt", model)
         if not hasattr(gpt, "layers") or not hasattr(gpt, "embeddings"):

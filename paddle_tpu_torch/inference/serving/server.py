@@ -90,7 +90,7 @@ class InferenceServer:
                  pad_id: int = 0, workers: int = 1,
                  poll_s: float = 0.002, http_port=None,
                  kv_dtype: str = "float32", prefix_cache_bytes=None,
-                 slo=None, device="cuda"):
+                 slo=None, device=None):
         if workers < 1:
             raise ValueError("workers must be >= 1")
         # SLO admission control: explicit SLOPolicy/AdmissionController,

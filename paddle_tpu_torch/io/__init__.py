@@ -272,8 +272,9 @@ def get_worker_info():
 
 
 class DataLoader:
-    """Batches of `dataset` on `device` (default "cuda", which raises
-    without CUDA), in the reference's signature.
+    """Batches of `dataset` on `device` (default the current place: the
+    card unless set_device("cpu"); raises without CUDA), in the reference's
+    signature.
 
     num_workers > 0 loads a map-style dataset in that many worker
     processes (io/multiprocess.py; `timeout` seconds for a batch, 0 for
@@ -291,7 +292,7 @@ class DataLoader:
                  num_workers=0, use_buffer_reader=True, prefetch_factor=2,
                  use_shared_memory=True, timeout=0, worker_init_fn=None,
                  persistent_workers=False, prefetch_to_device=0,
-                 device_placement=None, device="cuda"):
+                 device_placement=None, device=None):
         self.dataset = dataset
         self.device = resolve_device(device)
         self.return_list = return_list

@@ -30,6 +30,7 @@ from typing import Iterator
 
 import torch
 
+from ..framework.device import resolve_device
 from ..observability import tracing
 from ..observability.tracing import FEED_STALL
 
@@ -62,9 +63,9 @@ def _map(obj, fn):
 class DevicePrefetcher:
     """Iterator over the source's batches, placed on `device`."""
 
-    def __init__(self, iterator: Iterator, size: int = 2, device="cuda"):
+    def __init__(self, iterator: Iterator, size: int = 2, device=None):
         self._src = iter(iterator)
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
         self._copy_stream = (torch.cuda.Stream(self._device) if self._cuda
                              else None)
@@ -159,5 +160,5 @@ class DevicePrefetcher:
 
 
 def prefetch_to_device(iterator: Iterator, size: int = 2,
-                       device="cuda") -> DevicePrefetcher:
+                       device=None) -> DevicePrefetcher:
     return DevicePrefetcher(iterator, size=size, device=device)

@@ -43,6 +43,7 @@ import torch
 from ..framework.device import resolve_device, write_values
 from ..framework.flags import flag
 from ..framework.random import RNG
+from ..framework.tensor import Tensor
 from ..nn.functional import deferred_buffer_updates
 from ..observability import flight, memprof, tracing
 from ..resilience import chaos
@@ -160,9 +161,18 @@ class _ProgramStep:
         return (loss.clone() if loss is not None else None,
                 [o.clone() for o in outs])
 
+    def __call__(self, inputs: Sequence[torch.Tensor],
+                 labels: Sequence[torch.Tensor] = ()):
+        """`run`'s loss and outputs as port Tensors (`Tensor.wrap`, a view:
+        `numpy()`, `stop_gradient`, ... as the reference's have), made
+        outside the program, which holds plain tensors only."""
+        loss, outs = self.run(inputs, labels)
+        return Tensor.wrap(loss), [Tensor.wrap(o) for o in outs]
+
 
 class TrainStep(_ProgramStep):
-    """call(inputs, labels) -> (loss, outputs); see `make_train_step`.
+    """call(inputs, labels) -> (loss, outputs) as port Tensors, `run` the
+    same as plain tensors; see `make_train_step`.
 
     Besides `compiles`, `replays`, `programs` and `telemetry`:
     `guard` (FLAGS_skip_nonfinite_steps when the step was made),
@@ -171,7 +181,7 @@ class TrainStep(_ProgramStep):
 
     engine = "jit_train"
 
-    def __init__(self, network, loss_fn, optimizer, device="cuda"):
+    def __init__(self, network, loss_fn, optimizer, device=None):
         super().__init__(network, device)
         self.loss_fn, self.optimizer = loss_fn, optimizer
         self.params = [p for p in network.parameters() if p.requires_grad]
@@ -258,8 +268,10 @@ class TrainStep(_ProgramStep):
                 torch.cuda.synchronize(self.device)
             return out
 
-    def __call__(self, inputs: Sequence[torch.Tensor],
-                 labels: Sequence[torch.Tensor]):
+    def run(self, inputs: Sequence[torch.Tensor],
+            labels: Sequence[torch.Tensor]):
+        """One step: (loss, outputs) as plain torch tensors (what a caller
+        inside the port, such as Model.fit, reads)."""
         if self.optimizer._dygraph_only:
             # the reference's rule raises when its step is traced
             raise NotImplementedError(self.optimizer._captured_error)
@@ -277,7 +289,7 @@ class TrainStep(_ProgramStep):
         return self._outlive(loss, outs)
 
 
-def make_train_step(network, loss_fn, optimizer, device="cuda"):
+def make_train_step(network, loss_fn, optimizer, device=None):
     """Returns a `TrainStep`: call(inputs, labels) -> (loss, outputs).
 
     One call copies the batch into the static buffers of its signature
@@ -325,18 +337,18 @@ def make_train_step(network, loss_fn, optimizer, device="cuda"):
     reads a batch that has landed and the allocator never hands its block
     to another copy while the step reads it.
 
-    The network's parameters must lie on `device` (default "cuda", which
-    raises without CUDA)."""
+    The network's parameters must lie on `device` (default the current
+    place: the card unless set_device("cpu"); raises without CUDA)."""
     return TrainStep(network, loss_fn, optimizer, device)
 
 
 class EvalStep(_ProgramStep):
-    """call(inputs, labels=()) -> (loss or None, outputs); see
-    `make_eval_step`."""
+    """call(inputs, labels=()) -> (loss or None, outputs) as port
+    Tensors, `run` the same as plain tensors; see `make_eval_step`."""
 
     engine = "jit_eval"
 
-    def __init__(self, network, loss_fn=None, device="cuda"):
+    def __init__(self, network, loss_fn=None, device=None):
         super().__init__(network, device)
         self.loss_fn = loss_fn
 
@@ -358,15 +370,16 @@ class EvalStep(_ProgramStep):
         self._draws[key] = RNG.step_draws()
         return loss, outs
 
-    def __call__(self, inputs: Sequence[torch.Tensor],
-                 labels: Sequence[torch.Tensor] = ()):
+    def run(self, inputs: Sequence[torch.Tensor],
+            labels: Sequence[torch.Tensor] = ()):
+        """One forward: (loss or None, outputs) as plain torch tensors."""
         key = self._stage(list(inputs) + list(labels))
         body = lambda: self._body(key, len(inputs))  # noqa: E731
         loss, outs = self._dispatch(key, lambda: self._run(key, body))
         return self._outlive(loss, outs)
 
 
-def make_eval_step(network, loss_fn=None, device="cuda"):
+def make_eval_step(network, loss_fn=None, device=None):
     """Returns an `EvalStep`: call(inputs, labels=()) -> (loss or None,
     outputs), the network's forward and `loss_fn(*outputs, *labels)` when
     a loss is given, under torch.no_grad(), as one program per input

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..framework.device import resolve_device
+from ..framework.random import init_seed
 from ..nn import functional as F
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear, Tanh
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
@@ -169,15 +170,16 @@ BERT_CONFIGS = {
 }
 
 
-def _make(name, pretraining=True, seed=0, device="cuda", **overrides):
+def _make(name, pretraining=True, seed=None, device=None, **overrides):
     """Build a config with weights drawn on the CPU from a torch.Generator
-    seeded with `seed`, then move it to `device` (resolved first, so a
-    missing CUDA raises before any work); each parameter's `qualname` is
+    seeded with `seed` (default: the last paddle.seed's), then move it to
+    `device` (default the current place; resolved first, so a missing CUDA
+    raises before any work); each parameter's `qualname` is
     its qualified name, as in models/gpt.py."""
     dev = resolve_device(device)
     cfg = dict(BERT_CONFIGS[name])
     cfg.update(overrides)
-    gen = torch.Generator().manual_seed(int(seed))
+    gen = torch.Generator().manual_seed(init_seed(seed))
     model = BertModel(generator=gen, **cfg)
     if pretraining:
         model = BertForPretraining(model, gen)

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..framework.device import resolve_device
+from ..framework.random import init_seed
 from ..framework.flags import flag
 from ..incubate.nn.functional import (fused_bias_dropout_residual,
                                       fused_bias_dropout_residual_ln_pair)
@@ -290,15 +291,16 @@ GPT_CONFIGS = {
 }
 
 
-def _make(name, pretraining=True, seed=0, device="cuda", **overrides):
+def _make(name, pretraining=True, seed=None, device=None, **overrides):
     """Build a config with weights drawn on the CPU from a torch.Generator
-    seeded with `seed`, then move it to `device` (resolved first, so a
-    missing CUDA raises before any work). Each parameter's `qualname` is its
+    seeded with `seed` (default: the last paddle.seed's), then move it to
+    `device` (default the current place; resolved first, so a missing CUDA
+    raises before any work). Each parameter's `qualname` is its
     qualified name, which the optimizer hands to apply_decay_param_fun."""
     dev = resolve_device(device)
     cfg = dict(GPT_CONFIGS[name])
     cfg.update(overrides)
-    gen = torch.Generator().manual_seed(int(seed))
+    gen = torch.Generator().manual_seed(init_seed(seed))
     model = GPTModel(generator=gen, **cfg)
     if pretraining:
         model = GPTForPretraining(model)

@@ -26,6 +26,7 @@ from ..framework.flags import flag
 from ..framework.random import RNG
 from ..observability import metrics
 from ..ops import cuda_kernels as ck
+from ..ops.ring_attention import blockwise_attention
 
 __all__ = ["linear", "matmul", "gelu", "relu", "tanh", "softmax",
            "log_softmax", "layer_norm", "dropout",
@@ -141,25 +142,33 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Attention entry point, q/k/v [B, H, T, D]; returns out [B, H, Tq, D].
 
     Gate order of the reference (nn/functional/__init__.py
-    scaled_dot_product_attention): attention dropout counts only in
-    training; the flash kernels (`FlashAttentionFunction`, dropout drawn in
-    the kernel) while the flag `use_flash_attention` is on and the call
-    has no additive mask and p < 1, their gate raising on a shape or dtype
-    the kernels do not take; else the dense plain version
-    `flash_attention_plain` (path xla_sdpa), which adds the mask and drops
-    the probabilities with a mask from `_keep` (all of them at p >= 1), as
-    the reference's XLA path does. The
-    reference's blockwise tier for keys >= 2048 is not ported: no shape of
-    the ported paths reaches it (max_position_embeddings is 1024)."""
+    scaled_dot_product_attention :873, ops/nn_ops.py sdpa :854):
+    attention dropout counts only in training; first the flash kernels
+    (`FlashAttentionFunction`, dropout drawn in the kernel) while the flag
+    `use_flash_attention` is on and the call has no additive mask and
+    p < 1, their gate raising on a shape or dtype the kernels do not take;
+    then, while `FLAGS_sdpa_chunked_threshold` (read per call) is non-zero
+    and the key length is at or above it, the blockwise online-softmax
+    tier (`ops.ring_attention.blockwise_attention`, path xla_chunked), for
+    a call with no mask, p < 1, and Tq == Tk when causal; else the dense
+    plain version `flash_attention_plain` (path xla_sdpa), which adds the
+    mask and drops the probabilities with a mask from `_keep` (all of them
+    at p >= 1), as the reference's XLA path does."""
     p = float(dropout_p) if training else 0.0
     out = ck.flash_attention_or_none(query, key, value, attn_mask,
                                      is_causal, dropout_p=p)
     if out is not None:
         return out
-    ck._note_attn_path("xla_sdpa")
     B, H, Tq, _ = query.shape
-    keep = (_keep((B, H, Tq, key.shape[2]), p, query.device) if p > 0.0
-            else None)
+    Tk = key.shape[2]
+    thr = flag("sdpa_chunked_threshold")
+    if (thr and Tk >= thr and attn_mask is None and p < 1.0
+            and (not is_causal or Tq == Tk)):
+        ck._note_attn_path("xla_chunked")
+        return blockwise_attention(query, key, value, bool(is_causal),
+                                   dropout_p=p)
+    ck._note_attn_path("xla_sdpa")
+    keep = _keep((B, H, Tq, Tk), p, query.device) if p > 0.0 else None
     return ck.flash_attention_plain(query, key, value, bool(is_causal),
                                     attn_mask, keep=keep, dropout_p=p)
 

@@ -116,7 +116,7 @@ _LAUNCHES.update({k + F16: 0 for k in _F16_KERNELS})
 # attention implementation chosen by the gates (reference:
 # pallas_kernels.py _ATTN_PATHS / _note_attn_path)
 _ATTN_PATHS = {"flash": 0, "flash_dropout": 0, "xla_sdpa": 0,
-               "paged_flash": 0, "xla_paged": 0}
+               "xla_chunked": 0, "paged_flash": 0, "xla_paged": 0}
 _ATTN_COUNTER = metrics.counter(
     "pt_attn_path_total", "Attention implementations run, by path",
     labelnames=("path",))

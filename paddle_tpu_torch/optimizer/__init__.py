@@ -241,10 +241,11 @@ class Optimizer:
     """Base optimizer: lr, per-parameter accumulators, the step count, and
     the state dict keys of the reference (`@acc_{i}_{name}`,
     `{qualname}_{name}`, `@step_count`). Parameters must lie on
-    `device` (default "cuda", which raises without CUDA). `_scalars` is
-    the float32 device buffer of the per-step values every rule reads
-    ([lr, c1, c2, go, scale], `_step_scalars`), made once: a captured step
-    holds its address. `_clip_word`: the rule multiplies each gradient by
+    `device` (default the current place: the card unless
+    set_device("cpu"); raises without CUDA). `_scalars` is the float32
+    device buffer of the per-step values every rule reads ([lr, c1, c2,
+    go, scale], `_step_scalars`), made once: a captured step holds its
+    address. `_clip_word`: the rule multiplies each gradient by
     the buffer's SCALE word, which ClipGradByGlobalNorm writes (Adam and
     AdamW). `_acc_dtypes`: an accumulator's dtype, "param" (the
     parameter's) or a torch dtype, by name. `_dygraph_only`: the rule
@@ -258,7 +259,7 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
-                 device="cuda"):
+                 device=None):
         if not isinstance(learning_rate, (int, float, LRScheduler)):
             raise TypeError("learning_rate must be a number or an "
                             "LRScheduler (got %s)"
@@ -486,7 +487,7 @@ class SGD(Optimizer):
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
-                 device="cuda"):
+                 device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
 
@@ -507,7 +508,7 @@ class Momentum(Optimizer):
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
-                 name=None, device="cuda"):
+                 name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._momentum = float(momentum)
@@ -545,7 +546,7 @@ class Lars(Optimizer):
     def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
                  lars_weight_decay=0.0005, epsilon=0.0, parameters=None,
                  exclude_from_weight_decay=None, grad_clip=None, name=None,
-                 device="cuda"):
+                 device=None):
         super().__init__(learning_rate, parameters, None, grad_clip, name,
                          device)
         self._momentum = float(momentum)
@@ -584,7 +585,7 @@ class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
-                 name=None, device="cuda"):
+                 name=None, device=None):
         if lazy_mode:
             _not_ported("lazy_mode (row-sparse gradients)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
@@ -633,7 +634,7 @@ class AdamW(Adam):
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode=False, multi_precision=False, name=None,
-                 device="cuda"):
+                 device=None):
         if callable(weight_decay):
             _not_ported("a callable weight_decay")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
@@ -658,7 +659,7 @@ class Adamax(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, name=None, device="cuda"):
+                 grad_clip=None, name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._beta1, self._beta2 = float(beta1), float(beta2)
@@ -694,7 +695,7 @@ class Adagrad(Optimizer):
 
     def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
                  weight_decay=None, grad_clip=None,
-                 initial_accumulator_value=0.0, name=None, device="cuda"):
+                 initial_accumulator_value=0.0, name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._epsilon = float(epsilon)
@@ -728,7 +729,7 @@ class Adadelta(Optimizer):
 
     def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
                  parameters=None, weight_decay=None, grad_clip=None,
-                 name=None, device="cuda"):
+                 name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._epsilon, self._rho = float(epsilon), float(rho)
@@ -759,7 +760,7 @@ class RMSProp(Optimizer):
 
     def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
                  centered=False, parameters=None, weight_decay=None,
-                 grad_clip=None, name=None, device="cuda"):
+                 grad_clip=None, name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._rho, self._epsilon = float(rho), float(epsilon)
@@ -804,7 +805,7 @@ class Lamb(Optimizer):
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
                  beta2=0.999, epsilon=1e-6, parameters=None, grad_clip=None,
                  exclude_from_weight_decay_fn=None, name=None,
-                 device="cuda"):
+                 device=None):
         super().__init__(learning_rate, parameters, None, grad_clip, name,
                          device)
         self._beta1, self._beta2 = float(beta1), float(beta2)
@@ -849,7 +850,7 @@ class Ftrl(Optimizer):
 
     def __init__(self, learning_rate=0.001, l1=0.0, l2=0.0, lr_power=-0.5,
                  parameters=None, weight_decay=None, grad_clip=None,
-                 name=None, device="cuda"):
+                 name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._l1, self._l2 = float(l1), float(l2)
@@ -890,7 +891,7 @@ class DecayedAdagrad(Optimizer):
 
     def __init__(self, learning_rate, decay=0.95, epsilon=1e-6,
                  parameters=None, weight_decay=None, grad_clip=None,
-                 name=None, device="cuda"):
+                 name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._decay, self._epsilon = float(decay), float(epsilon)
@@ -914,7 +915,7 @@ class ProximalGD(Optimizer):
 
     def __init__(self, learning_rate, l1=0.0, l2=0.0, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
-                 device="cuda"):
+                 device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._l1, self._l2 = float(l1), float(l2)
@@ -940,7 +941,7 @@ class ProximalAdagrad(Optimizer):
 
     def __init__(self, learning_rate, l1=0.0, l2=0.0, epsilon=1e-6,
                  parameters=None, weight_decay=None, grad_clip=None,
-                 name=None, device="cuda"):
+                 name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._l1, self._l2 = float(l1), float(l2)
@@ -981,7 +982,7 @@ class Dpsgd(Optimizer):
 
     def __init__(self, learning_rate=0.001, clip=10.0, batch_size=16.0,
                  sigma=1.0, parameters=None, seed=0, name=None,
-                 device="cuda"):
+                 device=None):
         super().__init__(learning_rate, parameters, None, None, name, device)
         self._clip = float(clip)
         self._batch_size = float(batch_size)

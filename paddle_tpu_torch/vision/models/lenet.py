@@ -7,6 +7,7 @@ import torch
 from torch import nn
 
 from ...framework.device import resolve_device
+from ...framework.random import init_seed
 from ...nn import Conv2D, Linear, MaxPool2D, ReLU, Sequential
 from ...tensor import flatten
 
@@ -14,18 +15,19 @@ __all__ = ["LeNet"]
 
 
 class LeNet(nn.Module):
-    """The reference's LeNet, on `device` (default "cuda", which raises
-    without CUDA), its weights drawn from `generator` or a generator
-    seeded with `seed`. The parameter names are the reference's
+    """The reference's LeNet, on `device` (default the current place: the
+    card unless set_device("cpu"); raises without CUDA), its weights drawn
+    from `generator` or a generator seeded with `seed` (default: the last
+    paddle.seed's). The parameter names are the reference's
     (`features.0.weight`, ..., `fc.2.bias`); each parameter's `qualname`
     is its name."""
 
-    def __init__(self, num_classes=10, device="cuda", seed=0,
+    def __init__(self, num_classes=10, device=None, seed=None,
                  generator=None):
         super().__init__()
         dev = resolve_device(device)
         g = generator if generator is not None \
-            else torch.Generator().manual_seed(int(seed))
+            else torch.Generator().manual_seed(init_seed(seed))
         self.num_classes = num_classes
         self.features = Sequential(
             Conv2D(1, 6, 3, stride=1, padding=1, generator=g),

@@ -4,11 +4,12 @@ layer names, so that a reference state dict (parameters and the batch
 norms' `_mean` / `_variance`) loads one to one (models/convert.py).
 
 Weights are drawn on the CPU from a torch.Generator (`generator`, else
-one seeded with `seed`), then the model moves to `device` (default
-"cuda", which raises without CUDA).
+one seeded with `seed`, by default the last paddle.seed's), then the
+model moves to `device` (default the current place, the card unless
+set_device("cpu"); raises without CUDA).
 
     from paddle_tpu_torch.vision.models import resnet50
-    net = resnet50(num_classes=100)              # device="cuda"
+    net = resnet50(num_classes=100)              # on the card
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from ... import nn
 from ...framework.device import resolve_device
+from ...framework.random import init_seed
 from ...tensor import flatten
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
@@ -144,7 +146,7 @@ class ResNet(torch.nn.Module):
         return x
 
 
-def _make(block, depth, pretrained=False, seed=0, device="cuda",
+def _make(block, depth, pretrained=False, seed=None, device=None,
           generator=None, **kwargs):
     """The model on `device` (resolved first, so that a missing CUDA raises
     before any work), weights drawn from `generator` or a generator seeded
@@ -157,7 +159,7 @@ def _make(block, depth, pretrained=False, seed=0, device="cuda",
                          "reference state dict)")
     dev = resolve_device(device)
     gen = generator if generator is not None \
-        else torch.Generator().manual_seed(int(seed))
+        else torch.Generator().manual_seed(init_seed(seed))
     model = ResNet(block, depth, generator=gen, **kwargs).to(dev)
     for pname, p in model.named_parameters():
         p.qualname = pname

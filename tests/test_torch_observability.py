@@ -442,7 +442,19 @@ COUNTED = ("admitted", "completed", "tokens", "prefix_cache_hits",
            "prefix_cache_misses")
 
 
-def test_statusz_serving_block_equals_the_jax_servers(models):
+@pytest.fixture
+def quiet_watchdogs():
+    """No watchdog fire from an earlier test of this worker: a fire stays
+    in its package's registry for the rest of the process and turns that
+    package's /healthz to 503 (the reference's own watchdog tests,
+    tests/test_resilience.py TestStepWatchdog, leave two)."""
+    for registry in (metrics.REGISTRY, jmetrics.REGISTRY):
+        registry.unregister("pt_watchdog_fires_total")
+    yield
+
+
+def test_statusz_serving_block_equals_the_jax_servers(models,
+                                                       quiet_watchdogs):
     rs = np.random.RandomState(11)
     head = rs.randint(0, VOCAB, 8)
     waves = [[np.concatenate([head, rs.randint(0, VOCAB, 4)])],

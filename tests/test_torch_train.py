@@ -376,6 +376,9 @@ def test_cross_entropy_ignore_index_and_reductions():
     got = F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(label),
                           ignore_index=3)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # the port's mean is 0-d; the reference's is label-shaped (its
+    # denominator broadcasts), which assert_allclose does not show
+    assert got.ndim == 0
     # computed in the logits' dtype, as the reference does
     assert F.cross_entropy(torch.from_numpy(logits).bfloat16(),
                            torch.from_numpy(label)).dtype == torch.bfloat16
