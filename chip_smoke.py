@@ -7,6 +7,7 @@
     python3 chip_smoke.py --resume-drill JSON   # one run of phase 17's drill
     python3 chip_smoke.py --fit-only       # the card, the build, phase 20
     python3 chip_smoke.py --long-only      # the card, the build, phase 21
+    python3 chip_smoke.py --static-only    # the card, the build, phase 22
     python3 chip_smoke.py --fit-drill JSON # one run of phase 20's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -290,11 +291,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
      within 2e-2 relative of the first's; both runs' step ms and peak
      memory. The dense attention is never run at T=8192 (its saved
      probabilities alone would take tens of GB).
+ 22. the static graph and the predictor (`static_main`, `--static-only`):
+     (a) the flash forward at the BERT predictors' attention (B=8,
+     H=12, T=128, D=64, not causal), row 1's float32 instance and the
+     bfloat16 one (row 1t's body without lse), each against its plain
+     version (phase 3's tolerance for its dtype), its device time beside
+     its bound, its plain version's and torch sdpa's forward; (b) benchmarks/train_bench.py
+     bench_resnet50's static body as written against `import
+     paddle_tpu_torch as paddle` (static.data, resnet50(num_classes=100),
+     cross_entropy, Momentum(0.01, 0.9).minimize, amp_bf16_pass,
+     static.Executor, B=64 224x224, 3 warm-up runs and 20 timed with
+     return_numpy=False, one float(lv.numpy())): first the program's 3
+     steps from one saved state through its captured program and twice
+     interpreted eagerly, bit-equal (cudnn.deterministic on for that
+     check); then the timed run: one program for the feed signature,
+     replayed, finite losses, the running statistics moved, no kernel of
+     the port launched; step ms, images/s, MFU by :379-381, peak memory,
+     one profiled run's idle share and kernel groups; (c)
+     inference_bench.py bench_resnet50 (:82, B=8 and 64 at 224x224) and
+     bench_bert (:114, bert-base, B=8, T=128) as written (`_export`
+     through save_inference_model and its fusion passes, Config,
+     create_predictor, `_serve_loop`'s 3 + 20 runs): one program a
+     signature, replayed; each output within INFER_REL_TOL of the same
+     model's dygraph eval forward on the card (BERT also with
+     use_flash_attention off); BERT launches row 1 12 times a run, through
+     replays, every attention call on path flash; latency and
+     images/s or tokens/s; each predictor's graph pool; (d) BERT's artifact through
+     Config.enable_mkldnn_bfloat16(): the bfloat16 flash forward's 12
+     launches a run, output within INFER_BF16_REL_TOL of (c)'s.
 
 The line before the last is the kernel table as JSON (the float16
 instances under their names + "_f16"; rows 1t, 2, 3 with their times at
 phase 21's shape under "long_context"; the launches of phase 21 (b)
-counted in with phase 10's); the last line is
+counted in with phase 10's; row 1 at phase 22's BERT shape under
+"static_bert", the float32 BERT predictor's launches counted in with the
+serving paths'; the bfloat16 instance as "flash_fwd_bf16", its launches
+those of the bfloat16 BERT predictor); the last line is
 {"ok": true, "device": {...}}.
 """
 import argparse
@@ -5357,6 +5389,473 @@ def long_main(torch, ck, F, flags, card):
             "bench": bench, "chunked": chunked}
 
 
+# ---------------------------------------------------------------------------
+# 22. the static graph and the predictor
+
+# (a): row 1 at the BERT predictor's attention (inference_bench.py:114
+# bench_bert: bert-base, B=8, T=128; 12 heads of 64), float32, not causal
+STATIC_BERT_B, STATIC_BERT_T, STATIC_BERT_H, STATIC_BERT_D = 8, 128, 12, 64
+# (b): bench_resnet50's static run (train_bench.py:317-388, its TPU
+# branch); the graph-against-eager check's steps
+STATIC_STEPS_EAGER = 3
+# (c): inference_bench.py's predictor runs (its TPU branch)
+INFER_RESNET_BATCHES, INFER_HW = (8, 64), 224
+INFER_STEPS, INFER_WARMUP = 20, 3
+# (c): a predictor's output against the same model's dygraph eval forward
+# on the card (float32, TF32 off), max abs error over the largest |value|
+# (at least 1). ResNet-50's predictor runs the batch norms folded into the
+# convolutions' weights (conv_bn_fuse_pass: the weights rounded once more,
+# float32 sums in another order); BERT's runs the same kernels as the
+# forward, and against the forward with use_flash_attention off the plain
+# attention's float32 sums in another order
+INFER_REL_TOL = REL_TOL["float32"]
+# (d): the bfloat16 predictor (every weight and activation bfloat16)
+# against (c)'s float32 one: bfloat16 rounds at 2^-9 relative in each of
+# BERT-base's 12 layers; held to 5e-2 of the largest |logit| (the CPU's
+# plain versions at bert-base, B=2, T=32, read 1.9e-2)
+INFER_BF16_REL_TOL = 5e-2
+
+
+def static_flash(torch, ck, F, timer, gen):
+    """Phase 22 (a): `flash_attention` at the BERT predictor's shape, not
+    causal, in both instances the predictors launch: float32 (row 1, (c))
+    and bfloat16 (row 1t's tensor-core body without lse, (d)), each
+    against its plain version on the same inputs at phase 3's tolerance
+    for its dtype, then its device time beside its bound, its plain
+    version's and torch sdpa's forward. Returns {dtype name: entry}."""
+    B, T, H, D = STATIC_BERT_B, STATIC_BERT_T, STATIC_BERT_H, STATIC_BERT_D
+    out = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        q, k, v = qkv_views(torch, B, T, H, D, dtype, gen)
+        got = ck.flash_attention(q, k, v, False)
+        want = ck.flash_attention_plain(q, k, v, False)
+        err = (got.float() - want.float()).abs().max().item()
+        require(got.shape == want.shape and got.dtype == dtype,
+                "static (a): flash_fwd %s output type or shape" % name)
+        require(err <= TOL[name], "static (a) flash_fwd B=%d H=%d T=%d D=%d "
+                "%s not causal: max abs err %.3g > %.3g"
+                % (B, H, T, D, name, err, TOL[name]))
+        nbytes = 4 * B * H * T * D * q.element_size()
+        flops = 4 * B * H * T * T * D
+        bound, by = bound_ms(nbytes, flops, name)
+        t = {"ms": timer.ms(lambda: ck.flash_attention(q, k, v, False)),
+             "plain_ms": timer.ms(lambda: ck.flash_attention_plain(
+                 q, k, v, False)),
+             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v)),
+             "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+             "B": B, "H": H, "T": T, "D": D, "causal": False,
+             "dtype": name}
+        say("static (a) check flash_fwd B=%d H=%d T=%d D=%d %s not causal: "
+            "max abs err %.3g (tol %.0e); time %.4f ms, plain %.4f ms, sdpa "
+            "%.4f ms, bound %.4f ms (%s: %.1f MB, %.3f GFLOP)"
+            % (B, H, T, D, name, err, TOL[name], t["ms"], t["plain_ms"],
+               t["library_ms"], bound, by, nbytes / 1e6, flops / 1e9))
+        out[name] = t
+    return out
+
+
+def static_resnet_build(paddle, static, B):
+    """bench_resnet50's static program (train_bench.py:343-358 on its TPU
+    branch), written against `paddle` the port: (net, loss, opt)."""
+    from paddle_tpu_torch.vision.models import resnet50
+    static.reset_default_programs()
+    paddle.seed(0)
+    img = static.data("image", [-1, 3, RESNET_HW, RESNET_HW], "float32")
+    label = static.data("label", [-1, 1], "int64")
+    net = resnet50(num_classes=RESNET_CLASSES)
+    logits = net(img)
+    loss = paddle.nn.functional.cross_entropy(logits, label)
+    opt = paddle.optimizer.Momentum(learning_rate=RESNET_LR,
+                                    momentum=RESNET_MOMENTUM)
+    opt.minimize(loss)
+    static.apply_pass(static.default_main_program(), "amp_bf16_pass")
+    return net, loss, opt
+
+
+def static_feed(B, seed=0):
+    rs = np.random.RandomState(seed)
+    return {"image": rs.rand(B, 3, RESNET_HW, RESNET_HW).astype(np.float32),
+            "label": rs.randint(0, RESNET_CLASSES, (B, 1)).astype(np.int64)}
+
+
+def static_parity(torch, paddle, static, card):
+    """Phase 22 (b), first: the bench's program at B=64, its first
+    STATIC_STEPS_EAGER steps from one saved state through the captured
+    program and twice through the same program interpreted eagerly (the
+    train step's bodies, `eager_train_step`): losses, parameters,
+    velocities and running statistics bit-equal; cuDNN's deterministic
+    algorithms for this check (phase 19 (a))."""
+    from paddle_tpu_torch.static.executor import _StaticTrainStep
+    torch.backends.cudnn.deterministic = True
+    try:
+        net, loss, opt = static_resnet_build(paddle, static, RESNET_B)
+        exe = static.Executor()
+        exe.run(static.default_startup_program())
+        feeds = [static_feed(RESNET_B, s) for s in range(STATIC_STEPS_EAGER)]
+        exe.run(feed=feeds[0], fetch_list=[loss])   # the build
+        (cp,) = exe._cache.values()
+        step = cp.step
+        eager = eager_train_step(_StaticTrainStep)(
+            step.network, step.loss_fn, opt)
+        tensors = lambda: (list(net.parameters()) + [  # noqa: E731
+            opt._get_accumulators(p)["velocity"] for p in net.parameters()]
+            + list(net.buffers()))
+        torch.cuda.synchronize()
+        saved = [t.detach().clone() for t in tensors()], opt._step_count
+
+        def run(fn):
+            with torch.no_grad():
+                for t, s in zip(tensors(), saved[0]):
+                    t.copy_(s)
+            opt._step_count = saved[1]
+            losses = [fn.run([torch.from_numpy(f[n])
+                              for n in cp.feed_names], ())[0]
+                      for f in feeds]
+            torch.cuda.synchronize()
+            return losses, [t.detach().clone() for t in tensors()]
+        e1, e2 = run(eager), run(eager)
+        replays = step.replays
+        g = run(step)
+        require(step.replays == replays + len(feeds) and step.compiles == 1,
+                "static (b): the captured program did not replay")
+        same = lambda a, b: all(torch.equal(x, y)  # noqa: E731
+                                for x, y in zip(a[0] + a[1], b[0] + b[1]))
+        require(same(e1, e2), "static (b): two eager runs of the program "
+                "from one state differ")
+        require(same(g, e1), "static (b): the captured program's losses, "
+                "parameters, velocities or running statistics differ from "
+                "the program interpreted eagerly")
+        say("static (b) graph against eager: resnet50 static program B=%d, "
+            "amp_bf16_pass, %d steps from one state (cudnn.deterministic "
+            "on for this check): losses %s; %d parameters, their "
+            "velocities and %d running statistics bit-equal to the program "
+            "interpreted eagerly, which repeats itself bit for bit (%s)"
+            % (RESNET_B, len(feeds), ["%.6f" % float(x) for x in g[0]],
+               len(list(net.parameters())), len(list(net.buffers())), card))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        static.reset_default_programs()
+
+
+def static_train(torch, ck, paddle, static, card):
+    """Phase 22 (b): bench_resnet50's static run as written (3 warm-up
+    runs fetching numpy, 20 timed with return_numpy=False, one
+    float(lv.numpy())), then one profiled run."""
+    net, loss, opt = static_resnet_build(paddle, static, RESNET_B)
+    prog = static.default_main_program()
+    kinds = {}
+    for op in prog.ops:
+        kinds[op.op_type] = kinds.get(op.op_type, 0) + 1
+    exe = static.Executor()
+    exe.run(static.default_startup_program())
+    feed = static_feed(RESNET_B)
+    mean0 = net.bn1._mean.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.launch_counts(reset=True)
+    t0 = time.perf_counter()
+    warm = [float(exe.run(feed=feed, fetch_list=[loss])[0])
+            for _ in range(RESNET_WARMUP)]
+    build_s = time.perf_counter() - t0
+    times, outs = [], []
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        t1 = time.perf_counter()
+        (lv,) = exe.run(feed=feed, fetch_list=[loss], return_numpy=False)
+        outs.append(lv)
+        times.append((time.perf_counter() - t1) * 1e3)
+    last = float(lv.numpy())
+    wall = (time.perf_counter() - t0) / RESNET_STEPS * 1e3
+    launches = ck.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (cp,) = exe._cache.values()
+    step = cp.step
+    n_runs = RESNET_WARMUP + RESNET_STEPS
+    require(len(exe._cache) == 1 and step.compiles == 1
+            and step.replays == n_runs - 1,
+            "static (b): %d programs, %d builds, %d replays in %d runs"
+            % (len(exe._cache), step.compiles, step.replays, n_runs))
+    losses = warm + [float(x.numpy()) for x in outs]
+    require(all(math.isfinite(x) for x in losses) and losses[-1] == last,
+            "static (b): non-finite loss %s" % losses)
+    moved = (net.bn1._mean - mean0).abs().max().item()
+    require(moved > 0, "static (b): the running statistics did not move")
+    require(sum(launches.values()) == 0,
+            "static (b): the port's kernels launched on a path that "
+            "reaches none: %s" % {k: n for k, n in launches.items() if n})
+    dev_ms, top = profile_step(
+        torch, lambda: exe.run(feed=feed, fetch_list=[loss],
+                               return_numpy=False), lambda: ())
+    step_ms = statistics.median(times)
+    mfu = (RESNET_FLOPS_PER_IMAGE * RESNET_B / (wall / 1e3)
+           / PEAK_FLOPS["bfloat16"])
+    (key,) = step.programs.builds
+    say("static (b) program: %d ops %s, %d buffer updates; 1 build (%.2f s "
+        "for the %d warm-up runs) + %d replays, captured in %.1f ms, graph "
+        "pool %.1f MiB; bn1 running mean moved by up to %.4g; launches of "
+        "the port's kernels 0 (none on this path)"
+        % (len(prog.ops), kinds, len(prog.buffer_updates), build_s,
+           RESNET_WARMUP, step.replays, step.programs.capture_s[key] * 1e3,
+           step.programs.pool_bytes() / 2 ** 20, moved))
+    idle = ("device idle %.1f %% (%.3f ms of kernels in one profiled run)"
+            % (100.0 * (1.0 - dev_ms / step_ms), dev_ms) if dev_ms > 0
+            else "device idle not measured (the profiler saw no device "
+            "activity)")
+    say("static (b) bench_resnet50 static, B=%d %dx%d, Momentum(%g, %g), "
+        "amp_bf16_pass: %.2f ms a step by the bench's clock (20 runs, one "
+        "sync), %.2f ms median a run (host, no sync), %.1f images/s, MFU "
+        "%.4f of 989 TFLOP/s bf16 (train_bench.py:379-381), peak memory "
+        "%.1f MiB, losses %s ... %s, %s (%s)"
+        % (RESNET_B, RESNET_HW, RESNET_HW, RESNET_LR, RESNET_MOMENTUM, wall,
+           step_ms, RESNET_B / (wall / 1e3), mfu, peak / 2 ** 20,
+           ["%.4f" % x for x in losses[:3]], "%.4f" % losses[-1], idle,
+           card))
+    report_profile("static (b)", dev_ms, wall, top, RESNET_PROFILE_GROUPS)
+    static.reset_default_programs()
+
+
+def serve_loop(pred, feed_name, out_name, make_batch, steps, warmup):
+    """inference_bench.py:37 `_serve_loop` as written: seconds a run, each
+    run's output copied to the host."""
+    inh = pred.get_input_handle(feed_name)
+    oh = pred.get_output_handle(out_name)
+    for _ in range(warmup):
+        inh.copy_from_cpu(make_batch())
+        pred.run()
+        oh.copy_to_cpu()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        inh.copy_from_cpu(make_batch())
+        pred.run()
+        oh.copy_to_cpu()
+    return (time.perf_counter() - t0) / steps
+
+
+def export(paddle, static, build_fn, feed_specs, tag, root):
+    """inference_bench.py:56 `_export` against the port: the model built
+    under the static graph, saved through save_inference_model (the fusion
+    passes run). Returns (path, feed names)."""
+    paddle.enable_static()
+    static.reset_default_programs()
+    try:
+        paddle.seed(0)
+        feeds = [static.data(n, shape, dtype)
+                 for n, shape, dtype in feed_specs]
+        out = build_fn(*feeds)
+        exe = static.Executor()
+        exe.run(static.default_startup_program())
+        path = os.path.join(root, tag)
+        static.save_inference_model(path, feeds, [out], exe)
+    finally:
+        paddle.disable_static()
+        static.reset_default_programs()
+    return path, [n for n, _, _ in feed_specs]
+
+
+def rel_err(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def infer_resnet(torch, ck, paddle, static, root, card):
+    """Phase 22 (c): inference_bench.py:82 bench_resnet50 as written (on
+    its TPU branch) against the port, each batch's output held to the
+    same model's dygraph eval forward."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.vision.models import resnet50
+    nets = []
+
+    def build(img):
+        net = resnet50(num_classes=100)
+        net.eval()
+        nets.append(net)
+        return net(img)
+    path, feeds = export(paddle, static, build,
+                         [("image", [-1, 3, INFER_HW, INFER_HW],
+                           "float32")],
+                         "resnet50", root)
+    pred = create_predictor(Config(path + ".pdmodel", path + ".pdiparams"))
+    out_name = pred.get_output_names()[0]
+    kinds = {}
+    for op in pred._program.ops:
+        kinds[op.op_type] = kinds.get(op.op_type, 0) + 1
+    for B in INFER_RESNET_BATCHES:
+        rs = np.random.RandomState(0)
+        x = rs.rand(B, 3, INFER_HW, INFER_HW).astype(np.float32)
+        dt = serve_loop(pred, feeds[0], out_name, lambda: x, INFER_STEPS,
+                        INFER_WARMUP)
+        got = pred.get_output_handle(out_name).copy_to_cpu()
+        with torch.no_grad():
+            want = nets[0](torch.from_numpy(x).cuda()).cpu().numpy()
+        err = rel_err(got, want)
+        require(err <= INFER_REL_TOL, "static (c) resnet50 predictor B=%d: "
+                "rel err %.3g against the dygraph eval forward > %.0e"
+                % (B, err, INFER_REL_TOL))
+        dev_ms, top = profile_step(torch, pred.run, lambda: ())
+        say("static (c) resnet50_infer B=%d %dx%d: latency %.3f ms, %.1f "
+            "images/s (inference_bench.py's loop: copy in, run, copy out; "
+            "%d runs after %d); output against the dygraph eval forward: "
+            "rel err %.3g (tol %.0e) (%s)"
+            % (B, INFER_HW, INFER_HW, dt * 1e3, B / dt, INFER_STEPS,
+               INFER_WARMUP, err, INFER_REL_TOL, card))
+        report_profile("static (c) resnet50_infer B=%d run" % B, dev_ms,
+                       dt * 1e3, top, RESNET_PROFILE_GROUPS)
+    progs = pred.programs
+    # each batch's runs and its profiled run: one build, then replays
+    require(len(progs.builds) == len(INFER_RESNET_BATCHES) and all(
+        n == INFER_STEPS + INFER_WARMUP for n in progs.replays.values()),
+        "static (c) resnet50: programs %s, replays %s"
+        % (progs.builds, progs.replays))
+    say("static (c) resnet50 predictor program: %d ops %s (every batch norm "
+        "folded); one program a batch size, each built once and replayed "
+        "%d times, graph pool %.1f MiB"
+        % (len(pred._program.ops), kinds, INFER_STEPS + INFER_WARMUP,
+           progs.pool_bytes() / 2 ** 20))
+
+
+def infer_bert(torch, ck, flags, paddle, static, root, card):
+    """Phase 22 (c) and (d): inference_bench.py:114 bench_bert as written
+    (bert-base, B=8, T=128), its flash launches and attention paths, its
+    output against the dygraph eval forward with the flash flag on and
+    off; then the same artifact through Config.enable_mkldnn_bfloat16()."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import bert_base
+    B, T = STATIC_BERT_B, STATIC_BERT_T
+    net = bert_base()
+    net.eval()
+    core = getattr(net, "bert", net)
+    vocab = core.embeddings.word_embeddings.weight.shape[0]
+
+    def build(ids):
+        out = net(ids)
+        return out[0] if isinstance(out, (list, tuple)) else out
+    path, feeds = export(paddle, static, build, [("ids", [B, T], "int64")],
+                         "bert", root)
+    cfg = Config(path + ".pdmodel", path + ".pdiparams")
+    pred = create_predictor(cfg)
+    out_name = pred.get_output_names()[0]
+    rs = np.random.RandomState(0)
+    x = rs.randint(0, vocab, (B, T)).astype(np.int64)
+    ck.launch_counts(reset=True)
+    ck.attention_path_counts(reset=True)
+    dt = serve_loop(pred, feeds[0], out_name, lambda: x, INFER_STEPS,
+                    INFER_WARMUP)
+    launches = ck.launch_counts()
+    paths = ck.attention_path_counts()
+    got = pred.get_output_handle(out_name).copy_to_cpu()
+    progs = pred.programs
+    (key,) = progs.builds
+    n_runs = INFER_STEPS + INFER_WARMUP
+    layers = len(core.layers)
+    require(progs.replays[key] == n_runs - 1,
+            "static (c) bert: %d replays in %d runs" % (progs.replays[key],
+                                                       n_runs))
+    require(progs.launches[key].get("flash_fwd") == layers
+            and launches["flash_fwd"] == layers * n_runs
+            and sum(launches.values()) == launches["flash_fwd"],
+            "static (c) bert: launches %s in %d runs (want flash_fwd %d a "
+            "run)" % ({k: n for k, n in launches.items() if n}, n_runs,
+                      layers))
+    # the attention gates count bodies that ran in Python: on the card the
+    # build's eager run and its capture, on the CPU every run
+    bodies = 2 if progs._cuda else n_runs
+    require(paths["flash"] == bodies * layers
+            and sum(paths.values()) == bodies * layers,
+            "static (c) bert: attention paths %s (want flash only, %d a "
+            "body)" % (paths, layers))
+    ids = torch.from_numpy(x).cuda()
+    with torch.no_grad():
+        want = net(ids)[0].cpu().numpy()
+        saved = flags.get_flags(["use_flash_attention"])
+        flags.set_flags({"use_flash_attention": False})
+        try:
+            plain = net(ids)[0].cpu().numpy()
+        finally:
+            flags.set_flags(saved)
+    err, err_plain = rel_err(got, want), rel_err(got, plain)
+    require(err <= INFER_REL_TOL and err_plain <= INFER_REL_TOL,
+            "static (c) bert predictor: rel err %.3g against the dygraph "
+            "eval forward, %.3g against it with use_flash_attention off "
+            "(tol %.0e)" % (err, err_plain, INFER_REL_TOL))
+    dev_ms, top = profile_step(torch, pred.run, lambda: ())
+    say("static (c) bert_infer bert-base B=%d T=%d: latency %.3f ms, %.0f "
+        "tokens/s (copy in, run, copy out of the [%d, %d, %d] float32 "
+        "logits; %d runs after %d); flash_fwd %d launches in %d runs (%d a "
+        "run, through replays), attention paths %s; output against the "
+        "dygraph eval forward rel err %.3g, against it with "
+        "use_flash_attention off %.3g (tol %.0e); graph pool %.1f MiB (%s)"
+        % (B, T, dt * 1e3, B * T / dt, B, T, vocab, INFER_STEPS,
+           INFER_WARMUP, launches["flash_fwd"], n_runs, layers,
+           {k: n for k, n in paths.items() if n}, err, err_plain,
+           INFER_REL_TOL, progs.pool_bytes() / 2 ** 20, card))
+    report_profile("static (c) bert_infer run", dev_ms, dt * 1e3, top)
+    # (d) bfloat16
+    cfg16 = Config(path + ".pdmodel", path + ".pdiparams")
+    cfg16.enable_mkldnn_bfloat16()
+    pred16 = create_predictor(cfg16)
+    ck.launch_counts(reset=True)
+    dt16 = serve_loop(pred16, feeds[0], out_name, lambda: x, INFER_STEPS,
+                      INFER_WARMUP)
+    launches16 = ck.launch_counts()
+    got16 = pred16.get_output_handle(out_name).copy_to_cpu()
+    err16 = rel_err(got16, got)
+    dev16, top16 = profile_step(torch, pred16.run, lambda: ())
+    replays16 = pred16.programs.replays
+    require(launches16["flash_fwd"] == layers * n_runs and got16.dtype ==
+            np.float32 and list(replays16.values()) == [n_runs],
+            "static (d) bert bf16: launches %s, output %s, replays %s"
+            % ({k: n for k, n in launches16.items() if n}, got16.dtype,
+               replays16))
+    require(err16 <= INFER_BF16_REL_TOL, "static (d) bert bf16 predictor: "
+            "rel err %.3g against the float32 one > %.0e"
+            % (err16, INFER_BF16_REL_TOL))
+    say("static (d) bert_infer bf16 (Config.enable_mkldnn_bfloat16): "
+        "latency %.3f ms, %.0f tokens/s; flash_fwd (bf16 instance) %d "
+        "launches in %d runs; output against (c)'s float32 rel err %.3g "
+        "(tol %.0e); graph pool %.1f MiB (%s)"
+        % (dt16 * 1e3, B * T / dt16, launches16["flash_fwd"], n_runs,
+           err16, INFER_BF16_REL_TOL,
+           pred16.programs.pool_bytes() / 2 ** 20, card))
+    report_profile("static (d) bert_infer bf16 run", dev16, dt16 * 1e3,
+                   top16)
+    return launches["flash_fwd"], launches16["flash_fwd"]
+
+
+def static_main(torch, ck, F, flags, card):
+    """Phase 22: the static graph and the predictor (see the module's
+    docstring), (a)-(d). Returns the flash forward's float32 and bfloat16
+    entries at BERT's shape, with the launches of (c) and (d) each."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    flash = static_flash(torch, ck, F, Timer(torch), gen)
+    t1 = time.perf_counter()
+    paddle.enable_static()
+    try:
+        static_parity(torch, paddle, static, card)
+        free_memory(torch)
+        static_train(torch, ck, paddle, static, card)
+    finally:
+        paddle.disable_static()
+    free_memory(torch)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        infer_resnet(torch, ck, paddle, static, root, card)
+        free_memory(torch)
+        (flash["float32"]["launches"],
+         flash["bfloat16"]["launches"]) = infer_bert(
+             torch, ck, flags, paddle, static, root, card)
+    free_memory(torch)
+    say("static phase 22: %.1f s ((a) %.1f, (b) %.1f, (c)-(d) %.1f)"
+        % (time.perf_counter() - t0, t1 - t0, t2 - t1,
+           time.perf_counter() - t2))
+    return flash
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5375,6 +5874,9 @@ def main():
     ap.add_argument("--long-only", action="store_true",
                     help="name the card, build the kernels, then run phase "
                     "21 (GPT-2 long context, T=8192) alone")
+    ap.add_argument("--static-only", action="store_true",
+                    help="name the card, build the kernels, then run phase "
+                    "22 (the static graph and the predictor) alone")
     ap.add_argument("--fit-drill", metavar="JSON",
                     help="one run of phase 20's preemption drill, its "
                     "settings as JSON (see fit_drill); phase 20 starts "
@@ -5435,6 +5937,10 @@ def main():
     if opts.long_only:
         long_main(torch, ck, F, flags, card)
         say("long-only run: phase 21 passed")
+        return 0
+    if opts.static_only:
+        static_main(torch, ck, F, flags, card)
+        say("static-only run: phase 22 passed")
         return 0
 
     # 3. kernels against their plain versions
@@ -5687,9 +6193,15 @@ def main():
     free_memory(torch)
     long = long_main(torch, ck, F, flags, card)
 
+    # 22. the static graph and the predictor: row 1 at BERT's shape, static
+    # ResNet-50 training, the ResNet-50 and BERT-base predictors
+    free_memory(torch)
+    stat = static_main(torch, ck, F, flags, card)
+
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]
-                            + slaunch_c["flash_fwd"]),
+                            + slaunch_c["flash_fwd"]
+                            + stat["float32"]["launches"]),
               "paged_decode": (launches["paged_decode"]
                                + slaunch_a["paged_decode"]
                                + slaunch_b["paged_decode"]),
@@ -5719,8 +6231,25 @@ def main():
               "bound_by": times[name]["bound_by"],
               "library_ms": times[name]["library_ms"]}
              for name in KERNEL_ORDER + F16_ORDER]
-    next(e for e in table if e["name"] == "flash_fwd")["buckets"] = \
-        times["flash_fwd"]["buckets"]
+    row1 = next(e for e in table if e["name"] == "flash_fwd")
+    row1["buckets"] = times["flash_fwd"]["buckets"]
+    keys = ("B", "H", "T", "D", "causal", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    row1["static_bert"] = {k: stat["float32"][k] for k in keys}
+    # the bfloat16 predictor's attention: flash_fwd's tensor-core instance
+    # (row 1t's body, no lse), launched only by phase 22 (d)
+    b16 = stat["bfloat16"]
+    table.append(dict(
+        name="flash_fwd_bf16", route="cuda", source=SOURCES["flash_fwd"],
+        replaces=TPU_KERNELS["flash_fwd"],
+        **{k: b16[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")},
+        static_bert={k: b16[k] for k in keys}))
+    say("launches flash_fwd: %d on the serving paths (phases 5, 8), %d in "
+        "the float32 BERT predictor (phase 22 (c)); flash_fwd_bf16: %d in "
+        "the bfloat16 BERT predictor (phase 22 (d))"
+        % (counts["flash_fwd"] - stat["float32"]["launches"],
+           stat["float32"]["launches"], b16["launches"]))
     for e in table:                     # rows 1t, 2, 3 at phase 21's shape
         if e["name"] in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
             e["long_context"] = [dict(

@@ -84,8 +84,18 @@ import changed:
     loss, _ = step([ids[:, :-1]], [ids[:, 1:]])
     print(float(loss.numpy()))
 
-Names whose modules are not ported stay unbound: `static`,
-`enable_static`, `disable_static`, `distributed`, `fft`, `signal`,
+The static graph and the predictor (`static`, `enable_static`,
+`disable_static`, `inference.Config` / `create_predictor`) run the
+reference's static ResNet-50 training and its predictors:
+
+    paddle.enable_static()
+    img = paddle.static.data("image", [-1, 3, 224, 224], "float32")
+    ...
+    paddle.static.save_inference_model("rn50", [img], [logits], exe)
+    pred = paddle.inference.create_predictor(
+        paddle.inference.Config("rn50.pdmodel", "rn50.pdiparams"))
+
+Names whose modules are not ported stay unbound: `distributed`, `fft`, `signal`,
 `linalg`, `distribution`, `text`, `onnx`, `quantization`, `fluid`,
 `utils`, `SelectedRows`, and the tensor-op surface (`paddle.add`,
 `paddle.matmul`, ...).
@@ -113,8 +123,10 @@ from .framework.place import (CPUPlace, CUDAPinnedPlace,  # noqa: E402,F401
                               is_compiled_with_xpu)
 # the tensor, grad mode, randomness, flags
 from .framework.tensor import Parameter, Tensor, to_tensor  # noqa: E402,F401
-from .framework.state import (in_dygraph_mode,  # noqa: E402,F401
-                              is_grad_enabled, no_grad, set_grad_enabled)
+from .framework.state import (disable_static,  # noqa: E402,F401
+                              enable_static, in_dygraph_mode,
+                              in_static_mode, is_grad_enabled, no_grad,
+                              set_grad_enabled)
 from .framework.random import (get_rng_state, seed,  # noqa: E402,F401
                                set_rng_state)
 from .framework.flags import get_flags, set_flags  # noqa: E402,F401
@@ -122,16 +134,17 @@ from .framework.autograd import grad  # noqa: E402,F401
 
 from . import (amp, autograd, checkpoint, device,  # noqa: E402,F401
                framework, hapi, incubate, inference, io, jit, metric,
-               models, nn, observability, optimizer, resilience, tensor,
-               vision)
+               models, nn, observability, optimizer, resilience, static,
+               tensor, vision)
 from .framework.io import load, save  # noqa: E402,F401
 from .hapi import callbacks, flops, summary  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401
 
 __all__ = ["amp", "autograd", "checkpoint", "device", "framework", "hapi",
            "incubate", "inference", "io", "jit", "metric", "models", "nn",
-           "observability", "ops", "optimizer", "resilience", "tensor",
-           "vision", "Model", "callbacks", "flops", "summary", "save",
+           "observability", "ops", "optimizer", "resilience", "static",
+           "tensor", "vision", "enable_static", "disable_static",
+           "in_static_mode", "Model", "callbacks", "flops", "summary", "save",
            "load", "bool", "uint8", "int8", "int16", "int32", "int64",
            "float16", "bfloat16", "float32", "float64", "complex64",
            "complex128", "dtype", "set_default_dtype", "get_default_dtype",

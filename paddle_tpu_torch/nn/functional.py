@@ -22,29 +22,38 @@ import numpy as np
 import torch
 
 from ..amp import amp_cast_inputs
+from ..framework.dispatch import OPS, primitive
 from ..framework.flags import flag
 from ..framework.random import RNG
+from ..framework.state import staging
 from ..observability import metrics
 from ..ops import cuda_kernels as ck
 from ..ops.ring_attention import blockwise_attention
+from ..tensor import add, mean, reshape, squeeze
 
 __all__ = ["linear", "matmul", "gelu", "relu", "tanh", "softmax",
            "log_softmax", "layer_norm", "dropout",
            "scaled_dot_product_attention", "cross_entropy",
-           "softmax_with_cross_entropy", "conv1d", "conv2d", "conv3d",
-           "batch_norm", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
-           "conv_path_counts", "deferred_buffer_updates", "CONV_ALGOS"]
+           "softmax_with_cross_entropy", "embedding", "conv1d", "conv2d",
+           "conv3d", "batch_norm", "max_pool2d", "avg_pool2d",
+           "adaptive_avg_pool2d", "conv_path_counts", "deferred_buffer_updates", "CONV_ALGOS"]
+
+
+@primitive("matmul_v2")
+def _matmul(x, y, transpose_x=False, transpose_y=False):
+    x, y = amp_cast_inputs("matmul_v2", [x, y])
+    if transpose_x and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if transpose_y and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False):
     """paddle.matmul (reference: ops/math.py matmul, op matmul_v2) with
     the transposes of the last two axes."""
-    x, y = amp_cast_inputs("matmul_v2", [x, y])
-    if transpose_x:
-        x = x.transpose(-1, -2)
-    if transpose_y:
-        y = y.transpose(-1, -2)
-    return torch.matmul(x, y)
+    return _matmul(x, y, transpose_x=bool(transpose_x),
+                   transpose_y=bool(transpose_y))
 
 
 def linear(x, weight, bias=None):
@@ -54,6 +63,7 @@ def linear(x, weight, bias=None):
     return y if bias is None else y + bias
 
 
+@primitive("relu")
 def relu(x):
     """relu as the reference computes it, max(x, 0) (ops/nn_ops.py:21):
     its gradient at exactly 0 is 1/2 (torch.relu's is 0), which
@@ -61,15 +71,21 @@ def relu(x):
     return torch.maximum(x, x.new_zeros(()))
 
 
+@primitive("tanh")
 def tanh(x):
     """tanh (reference: ops/nn_ops.py:84)."""
     return torch.tanh(x)
 
 
-def softmax(x, axis=-1):
-    """softmax along `axis` (reference: ops/nn_ops.py:165, softmax_op)."""
+@primitive("softmax_op")
+def _softmax(x, axis=-1):
     (x,) = amp_cast_inputs("softmax_op", [x])
     return torch.softmax(x, dim=axis)
+
+
+def softmax(x, axis=-1):
+    """softmax along `axis` (reference: ops/nn_ops.py:165, softmax_op)."""
+    return _softmax(x, axis=int(axis))
 
 
 def log_softmax(x, axis=-1):
@@ -79,11 +95,32 @@ def log_softmax(x, axis=-1):
     return torch.log_softmax(x, dim=axis)
 
 
+@primitive("gelu")
+def _gelu(x, approximate=False):
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
 def gelu(x, approximate=False):
     """GELU; approximate=True is the tanh form (jax.nn.gelu's
     approximate=True, reference: ops/nn_ops.py gelu)."""
-    return torch.nn.functional.gelu(
-        x, approximate="tanh" if approximate else "none")
+    return _gelu(x, approximate=bool(approximate))
+
+
+@primitive("layer_norm_op")
+def _layer_norm(x, weight, bias, epsilon=1e-5, begin_norm_axis=-1):
+    x, weight, bias = amp_cast_inputs("layer_norm_op", [x, weight, bias])
+    begin = begin_norm_axis % x.ndim
+    last = begin == x.ndim - 1
+    dims = -1 if last else tuple(range(begin, x.ndim))
+    mu = x.mean(dim=dims, keepdim=True)
+    var = (x - mu).square().mean(dim=dims, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        y = y * (weight if last else weight.reshape(x.shape[begin:]))
+    if bias is not None:
+        y = y + (bias if last else bias.reshape(x.shape[begin:]))
+    return y
 
 
 def layer_norm(x, weight, bias, epsilon=1e-5):
@@ -91,15 +128,8 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
     (ops/nn_ops.py layer_norm): mean, then the mean of squared deviations,
     then (x - mean) * rsqrt(var + eps) * weight + bias; layer_norm_op
     under auto_cast."""
-    x, weight, bias = amp_cast_inputs("layer_norm_op", [x, weight, bias])
-    mean = x.mean(dim=-1, keepdim=True)
-    var = (x - mean).square().mean(dim=-1, keepdim=True)
-    y = (x - mean) * torch.rsqrt(var + epsilon)
-    if weight is not None:
-        y = y * weight
-    if bias is not None:
-        y = y + bias
-    return y
+    return _layer_norm(x, weight, bias, epsilon=float(epsilon),
+                       begin_norm_axis=x.ndim - 1)
 
 
 def _keep(shape, p, device):
@@ -130,6 +160,14 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
         return x
     if p == 1.0:
         return x * torch.zeros_like(x)
+    return _dropout(x, None, p=float(p), mode=mode)
+
+
+@primitive("dropout_op", out_like=0)
+def _dropout(x, key=None, p=0.5, mode="upscale_in_train"):
+    """The random branch of `dropout`: a fresh keep mask at each call (in a
+    program, at each run). `key` is the reference's PRNG key input, taken
+    and ignored: the mask comes from `_keep`."""
     keep = _keep(x.shape, p, x.device)
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0)
@@ -179,6 +217,17 @@ def softmax_with_cross_entropy(logits, label, ignore_index=-100, axis=-1):
     (ops/nn_ops.py softmax_with_cross_entropy); positions whose label is
     `ignore_index` give 0. A label with a trailing size-1 axis is taken
     as it is."""
+    return _softmax_with_cross_entropy(logits, label,
+                                       ignore_index=int(ignore_index),
+                                       axis=int(axis))
+
+
+@primitive("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy(logits, label, ignore_index=-100, axis=-1,
+                                soft_label=False):
+    if soft_label:
+        raise NotImplementedError("softmax_with_cross_entropy: soft labels "
+                                  "are not ported")
     (logits,) = amp_cast_inputs("softmax_with_cross_entropy", [logits])
     axis = axis % logits.ndim
     lab = label.long()
@@ -202,7 +251,7 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean",
     if reduction not in ("none", "sum", "mean"):
         raise ValueError("reduction %r" % (reduction,))
     loss = softmax_with_cross_entropy(input, label, ignore_index, axis)
-    loss = loss.squeeze(axis % input.ndim)
+    loss = squeeze(loss, axis)
     if reduction == "none":
         return loss
     if reduction == "sum":
@@ -210,7 +259,37 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean",
     if ignore_index >= 0:
         valid = (label.reshape(loss.shape) != ignore_index).to(input.dtype)
         return loss.sum() / torch.clamp_min(valid.sum(), 1e-8)
-    return loss.mean()
+    return mean(loss)
+
+
+@primitive("fc_op")
+def _fc(x, w, b, transpose_x=False, transpose_y=False):
+    """matmul_v2 then the bias add: the op `fc_fuse_pass` makes
+    (reference: ops/nn_ops.py :831)."""
+    return _matmul.fn(x, w, transpose_x, transpose_y) + b
+
+
+@primitive("fused_elemwise_add_act")
+def _fused_elemwise_add_act(x, y, act="relu", act_attrs=None):
+    """act(x + y): the op `fuse_elewise_add_act_pass` makes (reference:
+    ops/nn_ops.py :840); `act` an op type of the registry."""
+    return OPS[act].fn(x + y, **(act_attrs or {}))
+
+
+@primitive("lookup_table_v2")
+def _lookup(weight, ids, padding_idx=None):
+    out = weight[ids.long()]
+    if padding_idx is not None and padding_idx >= 0:
+        out = torch.where((ids == padding_idx)[..., None], 0.0, out)
+    return out
+
+
+def embedding(x, weight, padding_idx=None):
+    """Rows of `weight` at the ids `x` (op lookup_table_v2, reference:
+    ops/nn_ops.py :599); rows at `padding_idx` come back zero."""
+    if padding_idx is None:
+        return _lookup(weight, x)
+    return _lookup(weight, x, padding_idx=int(padding_idx))
 
 
 # ---------------------------------------------------------------------------
@@ -364,19 +443,31 @@ def _conv(x, w, stride, padding, dilation, groups, channel_last, algo):
     return out.float() if out.dtype == torch.bfloat16 else out
 
 
+@primitive("conv2d_op")
+def _conv_op(x, w, stride=(1, 1), padding=(0, 0), dilation=(1, 1), groups=1,
+             channel_last=False, algo="direct"):
+    """The reference's conv2d_op (ops/nn_ops.py conv :269, any spatial
+    rank) under auto_cast (input and weight)."""
+    n = x.ndim - 2
+    x, w = amp_cast_inputs("conv2d_op", [x, w])
+    return _conv(x, w, _pair(stride, n), _norm_padding(padding, n),
+                 _pair(dilation, n), int(groups), bool(channel_last),
+                 str(algo))
+
+
 def _convnd(x, weight, bias, stride, padding, dilation, groups,
             data_format, n):
-    """conv1d/2d/3d: conv2d_op under auto_cast (input and weight), the
-    flag's algorithm, then the bias in the layout's channel axis."""
+    """conv1d/2d/3d: conv2d_op with the flag's algorithm, then the bias in
+    the layout's channel axis (reshape2, elementwise_add)."""
     channel_last = data_format[-1] == "C" and len(data_format) > 2
-    x, weight = amp_cast_inputs("conv2d_op", [x, weight])
-    out = _conv(x, weight, _pair(stride, n), _norm_padding(padding, n),
-                _pair(dilation, n), int(groups), channel_last,
-                str(flag("conv_algo")))
+    out = _conv_op(x, weight, stride=_pair(stride, n),
+                   padding=_norm_padding(padding, n),
+                   dilation=_pair(dilation, n), groups=int(groups),
+                   channel_last=channel_last, algo=str(flag("conv_algo")))
     if bias is not None:
         shape = ((1,) * (n + 1) + (-1,)) if channel_last \
             else ((1, -1) + (1,) * n)
-        out = out + bias.reshape(shape)
+        out = add(out, reshape(bias, shape))
     return out
 
 
@@ -436,6 +527,55 @@ def _set_running(buf, value):
         updates[id(buf)] = (buf, value)
 
 
+def _bn_shape(x, channel_last):
+    shape = [1] * x.ndim
+    shape[x.ndim - 1 if channel_last else 1] = -1
+    return shape
+
+
+def _bn_apply(x, mean, var, weight, bias, epsilon, shape):
+    y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + epsilon)
+    if weight is not None:
+        y = y * weight.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    return y
+
+
+def _bn_batch(x, weight, bias, epsilon, channel_last):
+    """Training batch norm: (y, batch mean, biased batch variance)."""
+    shape = _bn_shape(x, channel_last)
+    c_axis = x.ndim - 1 if channel_last else 1
+    axes = [i for i in range(x.ndim) if i != c_axis]
+    mean = x.mean(dim=axes)
+    var = x.square().mean(dim=axes) - mean.square()
+    return _bn_apply(x, mean, var, weight, bias, epsilon, shape), mean, var
+
+
+def _moved(run, batch, momentum):
+    return momentum * run + (1 - momentum) * batch.detach()
+
+
+@primitive("batch_norm_infer")
+def batch_norm_infer(x, weight, bias, mean, var, epsilon=1e-5,
+                     channel_last=False):
+    """Batch norm by given statistics (reference: ops/nn_ops.py :460)."""
+    return _bn_apply(x, mean, var, weight, bias, epsilon,
+                     _bn_shape(x, channel_last))
+
+
+@primitive("batch_norm_train_stats")
+def batch_norm_train_stats(x, weight, bias, run_mean, run_var, momentum=0.9,
+                           epsilon=1e-5, channel_last=False):
+    """Training batch norm that also returns the new running statistics,
+    the static graph's form (reference: ops/nn_ops.py :493): (y,
+    new mean, new variance)."""
+    y, mean, var = _bn_batch(x, weight, bias, epsilon, channel_last)
+    m = float(momentum)
+    with torch.no_grad():
+        return y, _moved(run_mean, mean, m), _moved(run_var, var, m)
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None):
@@ -446,31 +586,35 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     0.9: the weight of the old value; torch.nn.functional.batch_norm
     reads it the other way round and feeds the unbiased variance); with
     use_global_stats (default: not training) the running statistics
-    normalise and nothing is written."""
+    normalise (op batch_norm_infer) and nothing is written. Recorded into
+    a static program, training records batch_norm_train_stats and hands
+    its new statistics to the program's `buffer_updates`, which a run
+    writes into the buffers (reference nn/functional/__init__.py:432-442)."""
     channel_last = data_format[-1] == "C" and len(data_format) > 2
-    c_axis = x.ndim - 1 if channel_last else 1
-    shape = [1] * x.ndim
-    shape[c_axis] = -1
     if use_global_stats is None:
         use_global_stats = not training
     if use_global_stats:
-        mean, var = _running(running_mean), _running(running_var)
-    else:
-        axes = [i for i in range(x.ndim) if i != c_axis]
-        mean = x.mean(dim=axes)
-        var = x.square().mean(dim=axes) - mean.square()
-    y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + epsilon)
-    if weight is not None:
-        y = y * weight.reshape(shape)
-    if bias is not None:
-        y = y + bias.reshape(shape)
-    if not use_global_stats and running_mean is not None:
+        return batch_norm_infer(x, weight, bias, _running(running_mean),
+                                _running(running_var),
+                                epsilon=float(epsilon),
+                                channel_last=channel_last)
+    if staging() and running_mean is not None:
+        from ..static.program import Variable
+        if isinstance(x, Variable):
+            y, new_mean, new_var = batch_norm_train_stats(
+                x, weight, bias, running_mean, running_var,
+                momentum=float(momentum), epsilon=float(epsilon),
+                channel_last=channel_last)
+            x.program.buffer_updates.append((running_mean, new_mean.name))
+            x.program.buffer_updates.append((running_var, new_var.name))
+            return y
+    y, mean, var = _bn_batch(x, weight, bias, epsilon, channel_last)
+    if running_mean is not None:
         m = float(momentum)
         with torch.no_grad():
-            _set_running(running_mean, m * _running(running_mean)
-                         + (1 - m) * mean.detach())
-            _set_running(running_var, m * _running(running_var)
-                         + (1 - m) * var.detach())
+            _set_running(running_mean,
+                         _moved(_running(running_mean), mean, m))
+            _set_running(running_var, _moved(_running(running_var), var, m))
     return y
 
 
@@ -533,18 +677,38 @@ def _pool2d(x, ptype, kernel, stride, padding, ceil_mode, exclusive,
     return out.movedim(1, -1) if channel_last else out
 
 
+@primitive("pool2d_op")
+def _pool2d_op(x, pool_type="max", kernel=(2, 2), stride=(2, 2),
+               padding=(0, 0), ceil_mode=False, exclusive=True,
+               channel_last=False):
+    """The reference's pool2d_op (ops/nn_ops.py pool :338)."""
+    return _pool2d(x, pool_type, kernel, stride, padding, ceil_mode,
+                   exclusive, "NHWC" if channel_last else "NCHW")
+
+
+def _pool_call(x, ptype, kernel_size, stride, padding, ceil_mode, exclusive,
+               data_format):
+    kernel = _pair(kernel_size, 2)
+    return _pool2d_op(
+        x, pool_type=ptype, kernel=kernel,
+        stride=_pair(stride, 2) if stride is not None else kernel,
+        padding=_norm_padding(padding, 2), ceil_mode=bool(ceil_mode),
+        exclusive=bool(exclusive),
+        channel_last=data_format[-1] == "C" and len(data_format) > 2)
+
+
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                data_format="NCHW"):
     """Max pool; the gradient goes to the first maximum of a window in
     row-major order, as XLA's select-and-scatter (>=) sends it."""
-    return _pool2d(x, "max", kernel_size, stride, padding, ceil_mode, True,
-                   data_format)
+    return _pool_call(x, "max", kernel_size, stride, padding, ceil_mode,
+                      True, data_format)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, data_format="NCHW"):
-    return _pool2d(x, "avg", kernel_size, stride, padding, ceil_mode,
-                   exclusive, data_format)
+    return _pool_call(x, "avg", kernel_size, stride, padding, ceil_mode,
+                      exclusive, data_format)
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
@@ -555,7 +719,20 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
         sizes = (output_size,) * 2
     else:
         sizes = tuple(output_size)
-    channel_last = data_format[-1] == "C" and len(data_format) > 2
+    return _adaptive_pool2d(
+        x, output_size=tuple(None if s is None else int(s) for s in sizes),
+        pool_type="avg",
+        channel_last=data_format[-1] == "C" and len(data_format) > 2)
+
+
+@primitive("adaptive_pool2d_op")
+def _adaptive_pool2d(x, output_size, pool_type="avg", channel_last=False):
+    """The reference's adaptive_pool2d_op (ops/nn_ops.py :399), average
+    pooling only."""
+    if pool_type != "avg":
+        raise NotImplementedError("adaptive_pool2d_op: pool_type %r is not "
+                                  "ported" % (pool_type,))
+    sizes = tuple(output_size)
     axes = (1, 2) if channel_last else (2, 3)
     out = x
     for ax, out_s in zip(axes, sizes):

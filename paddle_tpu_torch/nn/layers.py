@@ -58,7 +58,7 @@ class Embedding(nn.Module):
             _normal((num_embeddings, embedding_dim), std, generator))
 
     def forward(self, ids):
-        return self.weight[ids.long()]
+        return F.embedding(ids, self.weight)
 
 
 class LayerNorm(nn.Module):

@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from ..amp import amp_cast_inputs
+from ..framework.dispatch import primitive
 from ..framework.flags import flag
 from ..framework.random import RNG
 from ..observability import metrics
@@ -663,12 +664,24 @@ def flash_attention_or_none(query, key, value, attn_mask, is_causal,
     if (not flag("use_flash_attention") or attn_mask is not None
             or dropout_p >= 1.0):
         return None
-    query, key, value = amp_cast_inputs("flash_attention",
-                                        [query, key, value])
-    word, delta = (RNG.draw(query.device) if dropout_p > 0.0
-                   else (None, 0))
-    out = FlashAttentionFunction.apply(query, key, value, bool(is_causal),
-                                       dropout_p, word, delta)
+    return _flash_op(query, key, value, None, causal=bool(is_causal),
+                     dropout_p=dropout_p)
+
+
+@primitive("flash_attention", out_like=0)
+def _flash_op(q, k, v, rng=None, causal=False, dropout_p=0.0,
+              interpret=False, block_q=None, block_k=None):
+    """The op flash_attention (reference: pallas_kernels.py :724 `_flash_op`,
+    q, k, v [B, H, T, D] and a PRNG key): `FlashAttentionFunction` with
+    attention dropout at `dropout_p` drawn in the kernel from the Philox
+    word (a fresh draw at every call, in a program at every run). The
+    reference's key input and its Pallas attrs (interpret, block_q,
+    block_k) are taken and ignored."""
+    dropout_p = float(dropout_p)
+    q, k, v = amp_cast_inputs("flash_attention", [q, k, v])
+    word, delta = (RNG.draw(q.device) if dropout_p > 0.0 else (None, 0))
+    out = FlashAttentionFunction.apply(q, k, v, bool(causal), dropout_p,
+                                       word, delta)
     _note_attn_path("flash_dropout" if dropout_p > 0.0 else "flash")
     return out
 

@@ -214,13 +214,20 @@ def _weak(x, dtype):
     return float(torch.tensor(float(x), dtype=dtype))
 
 
+def _wide(t):
+    """`t` in float32, or as it is where it is float64: the reference's
+    rules that compute in the parameter's dtype keep float64 there."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _low_mul(x, c, dtype):
     """x * c for float32 x holding a `dtype` operand: rounded to `dtype`
     (and widened back), as XLA rounds a bfloat16 or float16 product in the
     reference's jitted rule. Its sums it keeps in float32 (excess
     precision) until they are stored; so does the port."""
     prod = x * c
-    return prod if dtype == torch.float32 else prod.to(dtype).float()
+    return (prod.to(dtype).float() if dtype in (torch.bfloat16, torch.float16)
+            else prod)
 
 
 def _commit(go, pairs):
@@ -406,8 +413,17 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """Dygraph: loss.backward(), then step() (reference :221-236; the
-        static-graph form is not ported). Returns (None, None)."""
+        """Dygraph: loss.backward(), then step(). Static (`loss` a
+        Variable): record the optimize directive on the loss's program,
+        which `static.Executor` runs as one train step, over the
+        program's trainable parameters unless the optimizer was given
+        its own (reference :221-236). Returns (None, None)."""
+        from ..static.program import Variable
+        if isinstance(loss, Variable):
+            loss.program.optimize_directive = (self, loss)
+            if self._parameter_list is None:
+                self._parameter_list = loss.program.all_parameters()
+            return None, None
         loss.backward()
         self.step()
         return None, None
@@ -483,7 +499,8 @@ def _lr_go(scalars):
 
 class SGD(Optimizer):
     """param - lr * g, g the gradient in the parameter's dtype (reference
-    :326), in float32, rounded once to the parameter's dtype."""
+    :326), in float32 (float64 for a float64 parameter), rounded once to
+    the parameter's dtype."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -494,15 +511,16 @@ class SGD(Optimizer):
     @staticmethod
     def _update_rule(static_args, param, grad, scalars):
         lr, go = _lr_go(scalars)
-        g = grad.to(param.dtype).float()
-        _commit(go, [(param, param.float() - lr * g)])
+        g = _wide(grad.to(param.dtype))
+        _commit(go, [(param, _wide(param) - lr * g)])
         return (param,)
 
 
 class Momentum(Optimizer):
     """v = mu * velocity + g in the parameter's dtype (the velocity keeps
     it, as the reference's does), param - lr * v (or, with use_nesterov,
-    param - lr * (g + mu * v)) in float32 (reference :339)."""
+    param - lr * (g + mu * v)) in float32, or float64 for a float64
+    parameter (reference :339)."""
 
     _accumulator_names = ["velocity"]
 
@@ -522,14 +540,14 @@ class Momentum(Optimizer):
         mu, nesterov = static_args
         lr, go = _lr_go(scalars)
         dt = velocity.dtype
-        g = grad.to(param.dtype).float()
+        g = _wide(grad.to(param.dtype))
         mu_w = _weak(mu, dt)
-        v = _low_mul(velocity.float(), mu_w, dt) + g
+        v = _low_mul(_wide(velocity), mu_w, dt) + g
         if nesterov:
             step = lr * (g + _low_mul(v, mu_w, dt))
         else:
             step = lr * v
-        _commit(go, [(param, param.float() - step), (velocity, v)])
+        _commit(go, [(param, _wide(param) - step), (velocity, v)])
         return param, velocity
 
 
@@ -653,7 +671,8 @@ class AdamW(Adam):
 class Adamax(Optimizer):
     """m = b1 m + (1 - b1) g and u = max(b2 u, |g|) in the parameter's
     dtype (the reference's accumulators keep it), param - lr / c1 * m /
-    (u + eps) in float32, c1 = 1 - b1^t (reference :516)."""
+    (u + eps) in float32 (float64 for a float64 parameter), c1 = 1 - b1^t
+    (reference :516)."""
 
     _accumulator_names = ["moment", "inf_norm"]
 
@@ -676,13 +695,13 @@ class Adamax(Optimizer):
         b1, b2, eps = static_args
         lr, go = _lr_go(scalars)
         c1 = scalars[1]
-        g = grad.to(param.dtype).float()
+        g = _wide(grad.to(param.dtype))
         dt = m.dtype
-        mn = (_low_mul(m.float(), _weak(b1, dt), dt)
+        mn = (_low_mul(_wide(m), _weak(b1, dt), dt)
               + _low_mul(g, _weak(1 - b1, dt), dt))
-        un = torch.maximum(_low_mul(u.float(), _weak(b2, dt), dt), g.abs())
+        un = torch.maximum(_low_mul(_wide(u), _weak(b2, dt), dt), g.abs())
         step = lr / c1 * mn / (un + _weak(eps, dt))
-        _commit(go, [(param, param.float() - step), (m, mn), (u, un)])
+        _commit(go, [(param, _wide(param) - step), (m, mn), (u, un)])
         return param, m, u
 
 

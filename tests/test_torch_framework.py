@@ -380,7 +380,8 @@ NAMES = ("seed", "get_rng_state", "set_rng_state", "to_tensor", "Tensor",
          "checkpoint", "resilience", "observability", "tensor", "summary",
          "flops", "Model", "save", "load", "set_default_dtype",
          "get_default_dtype", "in_dygraph_mode", "is_grad_enabled",
-         "set_grad_enabled", "is_compiled_with_cuda")
+         "set_grad_enabled", "is_compiled_with_cuda", "static",
+         "enable_static", "disable_static")
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -227,6 +227,49 @@ def test_reference_promotes_a_bfloat16_parameter(name):
             assert a.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("rule", [r for r in RULES if r[0] in (
+    "SGD", "Momentum", "Adamax")], ids=lambda r: r[0] + (
+        "-nesterov" if r[1] else ""))
+def test_rule_float64_parameter_stays_float64(rule):
+    """SGD, Momentum and Adamax compute in the parameter's dtype in the
+    reference (:326, :339, :516), so a float64 parameter's update keeps
+    float64 there (ResNet-50's float64 parity in test_torch_static.py
+    runs Momentum). 3 steps under x64 from float32-representable values:
+    the port's parameters and accumulators within rtol 1e-12 of the
+    reference's (the port rounded the update to float32 before: 1e-7)."""
+    name, kw, lr = rule
+    rs = np.random.RandomState(0)
+    init = [rs.randn(*s).astype(np.float32).astype(np.float64)
+            for s in SHAPES]
+    with jax.enable_x64(True):
+        jps = [JParam(a) for a in init]
+        for p, a in zip(jps, init):
+            p._data = jnp.asarray(a, dtype=jnp.float64)
+        tps = [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in init]
+        jo = getattr(jopt, name)(learning_rate=lr, parameters=jps, **kw)
+        to = getattr(topt, name)(learning_rate=lr, parameters=tps,
+                                 device="cpu", **kw)
+        for step in range(3):
+            grads = [rs.randn(*s) * 0.1 for s in SHAPES]
+            for p, g in zip(jps, grads):
+                p._grad = JTensor(jnp.asarray(g, dtype=jnp.float64),
+                                  _internal=True)
+            for p, g in zip(tps, grads):
+                p.grad = torch.from_numpy(g.copy())
+            jo.step()
+            to.step()
+            for jp, tp in zip(jps, tps):
+                assert tp.dtype == torch.float64
+                assert str(jp._data.dtype) == "float64"
+                np.testing.assert_allclose(
+                    tp.detach().numpy(), np.asarray(jp._data), rtol=1e-12,
+                    atol=0, err_msg="step %d" % step)
+                for n, a in _accs(to, tp).items():
+                    np.testing.assert_allclose(
+                        a.numpy(), np.asarray(jo._accumulators[id(jp)][n]),
+                        rtol=1e-12, atol=0, err_msg="%s step %d" % (n, step))
+
+
 # ---------------------------------------------------------------------------
 # the base: minimize, aliases, per-parameter lr, lr_ratio, state dicts
 

@@ -366,6 +366,7 @@ def test_cross_entropy_ignore_index_and_reductions():
         got = F.cross_entropy(torch.from_numpy(logits),
                               torch.from_numpy(label), reduction=reduction)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+        assert got.shape == (want.shape if reduction == "none" else ())
     got = F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(label),
                           reduction="none")
     assert (got[0, :2] == 0).all()
