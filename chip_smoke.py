@@ -8,6 +8,7 @@
     python3 chip_smoke.py --fit-only       # the card, the build, phase 20
     python3 chip_smoke.py --long-only      # the card, the build, phase 21
     python3 chip_smoke.py --static-only    # the card, the build, phase 22
+    python3 chip_smoke.py --seq2seq-only   # the card, the build, phase 23
     python3 chip_smoke.py --fit-drill JSON # one run of phase 20's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -109,8 +110,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
  11. the same float32 weights with both dropouts 0, B=4, T=512, 3 steps
      through the captured step, once with the kernels and once with
      use_flash_attention and use_fused_optimizer off (which must launch
-     nothing): the losses and the parameters must agree within the
-     stated tolerances;
+     nothing): step 1's gradients, per parameter in norm, the losses and
+     the parameters must agree within the stated tolerances
+     (compare_runs);
  12. the fused dropout-residual(+LN) kernels' device times at path B's
      shape (N=8192, Hd=768, bfloat16) and path A's (N=4096, Hd=768,
      float32), beside their bounds, their plain versions and the composed
@@ -320,14 +322,58 @@ Phases, each of which fails the run (non-zero exit, no result line):
      Config.enable_mkldnn_bfloat16(): the bfloat16 flash forward's 12
      launches a run, output within INFER_BF16_REL_TOL of (c)'s.
 
+ 23. the encoder-decoder Transformer (`nmt_main`, `--seq2seq-only`),
+     Transformer-base (Vaswani et al. 2017, Table 3: nn.Transformer's
+     defaults, d 512, 8 heads, 6 + 6 layers, FFN 2048) over a shared
+     37000-token vocabulary (`seq2seq_model`: a shared Embedding with
+     padding_idx 0 and a ParamAttr initializer, scaled by sqrt(512), the
+     sinusoidal table, the tied output projection), use_fused_dropout_ln
+     on: (a) the kernels at its shapes, each against its plain version at
+     phase 3's tolerances and timed as phase 4 times (bound, plain, torch
+     sdpa or the composed route): rows 1t, 2, 3 at B=32, H=8, D=64, bf16,
+     not causal, the encoder's 256 x 256 and the cross-attention's 200
+     queries against 256 keys (Tq != Tk), p 0.1 and 0; row 1b at one
+     query against 1, 32 and 64 cached keys and the 256 of the
+     cross-attention; rows 4-6 at Hd=512, N=8192 and 6400, p=0.1; row K
+     at [32, 256, 2048]; (b) training: B=32 pairs of 256 source and 200
+     target tokens (synthetic ids, no padding), dropout 0.1, label
+     smoothing 0.1 (label_smooth(one_hot) and soft-label cross_entropy),
+     amp.decorate O2 bf16, Adam(0.9, 0.98, 1e-9) under NoamDecay(512,
+     4000), make_train_step (one CUDA graph), 3 + 20 steps with the
+     counters zeroed just before and read just after: 12 / 12 / 12 / 30 /
+     30 / 20 launches a step of rows 1t, 2, 3, 4, 6, K and Adam's one a
+     parameter, attention paths flash_dropout (encoder, cross) and
+     xla_sdpa (the decoder's masked self-attention); step ms, tokens/s
+     (source + target), MFU from the shapes (`nmt_flops`), peak memory,
+     the graph pool, a profiled step's idle share and kernel groups; the
+     captured step against its eager bodies over 3 steps from one state
+     (bit-equal), row 7 at the model's 253 parameters; then float32 at p
+     0, 2 captured steps with the kernels and with their flags off:
+     step 1's gradients within 1e-3 of each parameter's norm, the losses
+     and, outside the elements with a near-zero first gradient, the
+     parameters within 1e-4; (c) cached greedy decoding, eval, B=32
+     sources of 256 tokens: the encoder once, decoder.gen_cache(memory),
+     64 steps of one token (12 flash launches a step, row 1b), ms a
+     token; the tokens against a decode that runs the whole prefix every
+     step under the causal mask (equal, or first differing where that
+     decode's top-2 float32 logits are within NMT_TIE = 1e-2); (d) the
+     encoder's weights
+     through `fused_encoder` (fused_multi_head_attention and
+     fused_feedforward, q/k/v packed by models.pack_qkv), bf16, p 0,
+     post-LN against the encoder and pre-LN against a pre-LN
+     nn.TransformerEncoder of the same weights (row 5), within 2e-2; a
+     forward + backward launches rows 1t, 2, 3 and, post-LN, 4 and 6.
+
 The line before the last is the kernel table as JSON (the float16
 instances under their names + "_f16"; rows 1t, 2, 3 with their times at
 phase 21's shape under "long_context"; the launches of phase 21 (b)
 counted in with phase 10's; row 1 at phase 22's BERT shape under
 "static_bert", the float32 BERT predictor's launches counted in with the
 serving paths'; the bfloat16 instance as "flash_fwd_bf16", its launches
-those of the bfloat16 BERT predictor); the last line is
-{"ok": true, "device": {...}}.
+those of the bfloat16 BERT predictor and phase 23 (c)'s decoding, its
+times there under "nmt_decode"; rows 1t, 2, 3, 4-7 and K with phase
+23 (a)'s entries under "nmt", and phase 23 (b)'s launches counted in); the
+last line is {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -419,9 +465,20 @@ ADAMW_CHECK_SCALE = 0.3711
 # (~3e-4), which a run that skipped its updates would show
 TRAIN_PARAM_TOL = 1e-4
 TRAIN_LR = 1e-4
-# ernie_compare: elements whose first-step |g| is at most this (ten times
-# Adam's epsilon) are held within 2 * steps * lr (see compare_runs)
-ADAM_NOISE_FLOOR = 1e-7
+# compare_runs: each parameter's first-step gradient (both runs start from
+# the same weights on the same batch) within this share of its norm in the
+# plain run. On an H100, float32 sums in another order read ~1.2e-6
+# (GPT-2), up to 7.1e-4 where the gradient is a sum that cancels (ERNIE's
+# top query and key projections at init); a ReLU whose input rounds to the
+# other side of 0 in one run adds one token's term (Transformer-base: up
+# to 5.3e-4). A dK scaled by 1.002 reads 2.1e-3 on the key projections,
+# by 1.01 0.01, dropped 1, dK and dV swapped 300
+TRAIN_GRAD_TOL = 1e-3
+# ... or of this share of the whole model's gradient norm, where the
+# parameter's own is below it: a gradient that is 0 in exact arithmetic
+# (the key projections' biases: softmax ignores a constant added to a row
+# of scores) is rounding noise in both runs, ~1e-10 of the model's
+TRAIN_GRAD_FLOOR = 1e-6
 DROP_RATE_TOL = 0.002
 # fused dropout-LN checks with bfloat16 outputs: one bfloat16 rounding of
 # y, z and the gradients (2^-8 relative), plus the float32 differences
@@ -1281,7 +1338,8 @@ def train_timings(torch, ck, F, timer, gen):
     return out
 
 
-def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16"):
+def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16",
+               plain_runs=(25, 10)):
     """One AdamW step over tensors shaped like every gpt2-small parameter,
     bfloat16 parameters and gradients, float32 moments, as the O2 main
     path runs it: one launch per parameter, lr and the bias corrections
@@ -1293,7 +1351,8 @@ def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16"):
     from the host (the time this row reported before the step was
     captured). With dt_name float16: the same for the kernel's float16
     instance; PyTorch's AdamW(fused=True) keeps float16 moments there, so it
-    is no yardstick of the same function (library_ms None)."""
+    is no yardstick of the same function (library_ms None). The plain
+    version is timed over `plain_runs` (runs, calls a run)."""
     dt = getattr(torch, dt_name)
     ps = [torch.randn(s, generator=gen, device="cuda").to(dt)
           for s in shapes]
@@ -1332,7 +1391,7 @@ def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16"):
     lib_ms = timer.ms(lib.step)
     out = {"ms": timer.ms(graph.replay),
            "plain_ms": timer.ms(lambda: run(ck.adamw_plain_scalars, sc,
-                                            scaled=True)),
+                                            scaled=True), *plain_runs),
            "library_ms": lib_ms if dt == torch.bfloat16 else None,
            "bound_ms": b, "bound_by": by}
     say("time adamw %d parameters, %d elements, %s param+grad, f32 "
@@ -1728,20 +1787,24 @@ def train_main(torch, ck, flags, card, fused=False, dtype="bfloat16"):
 
 
 def compare_runs(torch, ck, flags, label, build, kernel_flags, must_launch,
-                 steps=3, noise_floor=None):
+                 steps=3, near_zero=None):
     """Kernels vs plain versions on the card. `build()` makes the seeded
     float32 model without dropout, its optimizer and a closure that runs
     train step i; it runs once with `kernel_flags` on and once with all of
-    them off (which must launch nothing). The losses must agree within
-    1e-4 relative and the parameters within TRAIN_PARAM_TOL, which the
-    plain run's own movement must exceed.
+    them off (which must launch nothing). Both runs keep their first
+    step's gradients (the step's eager build: the same weights on the same
+    batch), and each parameter's ||g_kernels - g_plain|| must be within
+    TRAIN_GRAD_TOL of ||g_plain|| (of TRAIN_GRAD_FLOOR times the model's
+    gradient norm where its own is below that). The losses must agree
+    within 1e-4 relative and the parameters after the steps within
+    TRAIN_PARAM_TOL, which the plain run's own movement must exceed.
 
-    With `noise_floor`, an element whose first-step gradient in the plain
-    run is at most that in magnitude is held within 2 * steps * lr
-    instead, and the elements are counted: where |g| is at Adam's epsilon
-    (1e-8), its step lr * g / (|g| + eps) follows the gradient's rounding
-    noise, which two correct summation orders do not share (ERNIE-base's
-    upper query/key projections start with gradients of 1e-9 to 1e-5)."""
+    With `near_zero`, an element whose first-step gradient in the plain
+    run is at most that share of its parameter's gradient RMS is held
+    within 2 * steps * lr instead, and the elements are counted: Adam's
+    step is lr * g / (|g| + eps), the gradient's sign, and one token's
+    ReLU rounding to the other side of 0 in one run can turn a sign that
+    small. Those elements' check is the gradient comparison."""
     saved = flags.get_flags(list(kernel_flags))
 
     def run(on):
@@ -1751,51 +1814,80 @@ def compare_runs(torch, ck, flags, label, build, kernel_flags, must_launch,
             start = None if on else [p.detach().clone()
                                      for p in model.parameters()]
             first = []
-            if noise_floor is not None and not on:
-                apply = opt.apply_updates
+            apply = opt.apply_updates
 
-                def recording(pairs):
-                    # the step's first run is its eager build
-                    pairs = list(pairs)
-                    if not first:
-                        first.extend(g.abs() <= noise_floor for _, g in pairs)
-                    return apply(pairs)
-                opt.apply_updates = recording
+            def recording(pairs):
+                # the step's first run is its eager build
+                pairs = list(pairs)
+                if not first:
+                    first.extend(g.detach().clone() for _, g in pairs)
+                return apply(pairs)
+            opt.apply_updates = recording
             ck.launch_counts(reset=True)
             losses = [float(step(i)[0]) for i in range(steps)]
             torch.cuda.synchronize()
             launches = ck.launch_counts()
         finally:
             flags.set_flags(saved)
-        return (losses, [p.detach() for p in model.parameters()], launches,
-                start, first)
-    kl, kp, kla, _, _ = run(True)
-    pl, pp, pla, start, quiet = run(False)
+        params = [p.detach() for p in model.parameters()]
+        require(len(first) == len(params), "%s: %d gradients for %d "
+                "parameters" % (label, len(first), len(params)))
+        return (losses, params, launches, start, first,
+                [n for n, _ in model.named_parameters()])
+    kl, kp, kla, _, kg, _ = run(True)
+    pl, pp, pla, start, pg, names = run(False)
     require(sum(pla.values()) == 0, "%s: the plain run launched %s"
             % (label, pla))
     require(all(kla[k] > 0 for k in must_launch),
             "%s: the kernel run launched %s" % (label, kla))
+    norms = [g.double().norm().item() for g in pg]
+    floor = TRAIN_GRAD_FLOOR * math.sqrt(sum(n * n for n in norms))
+    ratios = [(a - b).double().norm().item() / max(n, floor)
+              for a, b, n in zip(kg, pg, norms)]
+    order = sorted(range(len(names)), key=lambda i: -ratios[i])
+    low = [i for i in order if norms[i] < floor]
+    top = [i for i in order if norms[i] >= floor][:4]
+    say("%s step 1 gradients, kernels vs plain (same weights, same batch): "
+        "||g_k - g_p|| / ||g_p|| per parameter, the largest %s (tol %.0e); "
+        "%d parameters with ||g_p|| below %.0e of the model's %.4g held "
+        "against that: largest %s"
+        % (label, ", ".join("%s %.3g" % (names[i], ratios[i]) for i in top),
+           TRAIN_GRAD_TOL, len(low), TRAIN_GRAD_FLOOR,
+           floor / TRAIN_GRAD_FLOOR,
+           "%.3g (%s)" % (ratios[low[0]], names[low[0]]) if low else "-"))
+    worst_g = order[0]
+    require(ratios[worst_g] <= TRAIN_GRAD_TOL, "%s: step 1 gradients of %s "
+            "differ by %.3g of their norm" % (label, names[worst_g],
+                                              ratios[worst_g]))
+    quiet = None
+    if near_zero is not None:
+        quiet = [g.abs() <= near_zero * g.float().pow(2).mean().sqrt()
+                 for g in pg]
+    del kg, pg
     rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
     diffs = [(a - b).abs() for a, b in zip(kp, pp)]
     if quiet:
         noisy = max(d[q].max().item() if bool(q.any()) else 0.0
                     for d, q in zip(diffs, quiet))
         diffs = [d.masked_fill(q, 0.0) for d, q in zip(diffs, quiet)]
-    diff = max(d.max().item() for d in diffs)
+    worst = max(range(len(diffs)), key=lambda i: diffs[i].max().item())
+    diff = diffs[worst].max().item()
     # control: what a kernel run that never updated would differ by
     moved = max((a - b).abs().max().item() for a, b in zip(pp, start))
     say("%s kernels vs plain (float32, no dropout, %d steps, flags %s): "
         "losses %s vs %s, max rel diff %.3g (tol 1e-4); max parameter diff "
-        "%.3g (tol %.0e), against the plain run's own movement %.3g"
+        "%.3g (tol %.0e, in %s), against the plain run's own movement %.3g"
         % (label, steps, "+".join(kernel_flags), ["%.6f" % x for x in kl],
-           ["%.6f" % x for x in pl], rel, diff, TRAIN_PARAM_TOL, moved))
+           ["%.6f" % x for x in pl], rel, diff, TRAIN_PARAM_TOL,
+           names[worst], moved))
     if quiet:
         n = sum(int(q.sum()) for q in quiet)
         total = sum(q.numel() for q in quiet)
-        say("%s: %d of %d elements with a first-step |g| <= %.0e (Adam's "
-            "step follows their rounding noise) held within %.0e: max diff "
-            "%.3g" % (label, n, total, noise_floor, 2 * steps * TRAIN_LR,
-                      noisy))
+        say("%s: %d of %d elements with a first-step |g| <= %g of their "
+            "parameter's gradient RMS (Adam's step there follows a sign "
+            "that one flipped ReLU can turn) held within %.0e: max diff "
+            "%.3g"
+            % (label, n, total, near_zero, 2 * steps * TRAIN_LR, noisy))
         require(noisy <= 2 * steps * TRAIN_LR, "%s: a near-zero-gradient "
                 "element moved %.3g apart" % (label, noisy))
     require(rel <= 1e-4, "%s: kernel and plain losses differ by %.3g"
@@ -2331,8 +2423,7 @@ def ernie_compare(torch, ck, flags):
                  ("use_flash_attention", "use_fused_optimizer",
                   "use_fused_dropout_ln"),
                  ("flash_fwd_train", "flash_bwd_dkv", "adamw",
-                  "fused_dropout_ln_fwd", "fused_dropout_ln_bwd"),
-                 noise_floor=ADAM_NOISE_FLOOR)
+                  "fused_dropout_ln_fwd", "fused_dropout_ln_bwd"))
 # ---------------------------------------------------------------------------
 # guards and eval on the training main path (phase 16)
 
@@ -5856,6 +5947,724 @@ def static_main(torch, ck, F, flags, card):
     return flash
 
 
+# ---------------------------------------------------------------------------
+# 23. the encoder-decoder Transformer: Transformer-base training, cached
+# greedy decoding, the fused block functions
+
+# Transformer-base (Vaswani et al. 2017, Table 3: nn.Transformer's
+# defaults) over the paper's shared source-target BPE vocabulary (§5.1)
+NMT_VOCAB, NMT_D, NMT_HEADS, NMT_LAYERS, NMT_FFN = 37000, 512, 8, 6, 2048
+NMT_DROPOUT, NMT_SMOOTH = 0.1, 0.1             # §5.4: P_drop and eps_ls
+NMT_WARMUP_STEPS = 4000                        # §5.3: the learning rate
+NMT_PAD, NMT_BOS = 0, 1                        # ids; the data draw from 2
+# (b): 32 sentence pairs of 256 source and 200 target tokens, no padding;
+# NMT_BATCHES synthetic batches taken in turn
+NMT_B, NMT_S, NMT_T = 32, 256, 200
+NMT_BATCHES = 4
+NMT_WARMUP, NMT_STEPS = 3, 20
+# (b): the float32 kernels-against-plain run's steps and its constant lr
+# (Noam's first steps, ~1.7e-7, would move the weights less than the
+# comparison's tolerance)
+NMT_COMPARE_STEPS = 2
+# ... where an element's first-step gradient in the plain run is at most
+# this share of its parameter's gradient RMS, Adam's step (the sign of g)
+# is not set by the arithmetic: the random decoder's FFN has units that
+# few tokens reach, whose columns' gradients are a few tokens' terms, and
+# one token's ReLU rounding to the other side of 0 turns their sign (the
+# elements more than TRAIN_PARAM_TOL apart read |g| <= 0.043 of the RMS)
+NMT_NEAR_ZERO = 0.1
+# (c): greedy steps; (a): the self-attention cache lengths checked
+NMT_DECODE = 64
+NMT_SELF_T = (1, 32, 64)
+# row 7's plain version over the model's 253 parameters takes ~0.15 s a
+# call: timed over 3 runs of 1 call
+NMT_PLAIN_RUNS = (3, 1)
+# (c): the cached and the uncached decode may first differ only where the
+# uncached run's top-2 logits are at most this far apart (a near tie).
+# Both decodes take the output projection in float32 (decode_step), so
+# the rule reads no bfloat16 rounding of the logits themselves
+NMT_TIE = 1e-2
+# (d): the fused functions' stack against nn.TransformerEncoder in
+# bfloat16 at p = 0, max abs error over the largest |value|: both round
+# every op to bfloat16 (one ulp is 2^-8 of a value), the fused stack's
+# q/k/v product one matmul where the layers make three
+NMT_FUSED_REL_TOL = 2e-2
+
+
+def position_table(n, d):
+    """The sinusoidal position encoding [n, d] float32 (§3.5): sin at the
+    even channels, cos at the odd, of pos / 10000^(2i / d)."""
+    pos = np.arange(n, dtype=np.float64)[:, None]
+    angle = pos / np.power(10000.0, np.arange(0, d, 2) / d)[None, :]
+    table = np.zeros((n, d), np.float32)
+    table[:, 0::2] = np.sin(angle)
+    table[:, 1::2] = np.cos(angle)
+    return table
+
+
+def seq2seq_model(vocab=NMT_VOCAB, d_model=NMT_D, nhead=NMT_HEADS,
+                  layers=NMT_LAYERS, ffn=NMT_FFN, dropout=NMT_DROPOUT,
+                  max_len=NMT_S, normalize_before=False, seed=0,
+                  device="cuda"):
+    """The Transformer-base translation model around nn.Transformer (the
+    JAX package has no such class; tests/test_torch_transformer.py builds
+    the same one on it): a source/target Embedding shared by both sides
+    (padding_idx NMT_PAD, N(0, d_model^-0.5) through a ParamAttr) scaled
+    by sqrt(d_model) plus the sinusoidal table (a buffer, `pos_table`),
+    dropout, nn.Transformer with the causal mask on the target, and the
+    output projection tied to the embedding (matmul with its transpose).
+    Weights drawn on the CPU from a generator seeded with `seed`, then
+    moved to `device`."""
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as PF
+
+    class Seq2Seq(torch.nn.Module):
+        def __init__(self, generator):
+            super().__init__()
+            self.d_model = d_model
+            self.embedding = nn.Embedding(
+                vocab, d_model, padding_idx=NMT_PAD,
+                weight_attr=nn.ParamAttr(initializer=nn.initializer.Normal(
+                    0.0, d_model ** -0.5)), generator=generator)
+            self.register_buffer("pos_table", torch.from_numpy(
+                position_table(max_len, d_model)))
+            self.dropout = nn.Dropout(dropout)
+            self.transformer = nn.Transformer(
+                d_model, nhead, layers, layers, ffn, dropout,
+                normalize_before=normalize_before, generator=generator)
+
+        def embed(self, ids, start=0):
+            x = self.embedding(ids) * (self.d_model ** 0.5)
+            return self.dropout(
+                x + self.pos_table[start:start + ids.shape[1]])
+
+        def logits(self, h, dtype=None):
+            """The tied output projection; with `dtype`, h and the
+            embedding are cast to it first."""
+            w = self.embedding.weight
+            if dtype is not None:
+                h, w = h.to(dtype), w.to(dtype)
+            return PF.matmul(h, w, transpose_y=True)
+
+        def forward(self, src, tgt):
+            mask = self.transformer.generate_square_subsequent_mask(
+                tgt.shape[1])
+            return self.logits(self.transformer(
+                self.embed(src), self.embed(tgt), tgt_mask=mask))
+
+        def decode_step(self, tok, memory, cache, t):
+            """float32 logits [B, 1, vocab] of the token at position t, and
+            the grown caches (decoder.gen_cache's)."""
+            h, cache = self.transformer.decoder(self.embed(tok, t), memory,
+                                                cache=cache)
+            return self.logits(h, torch.float32), cache
+
+    gen = torch.Generator().manual_seed(int(seed))
+    return Seq2Seq(gen).to(device)
+
+
+def seq2seq_loss(F, logits, label, vocab=NMT_VOCAB, epsilon=NMT_SMOOTH):
+    """Label-smoothed cross entropy (§5.4) in either package's functional
+    namespace `F`: one-hot labels smoothed by epsilon, soft-label cross
+    entropy, the mean over the positions."""
+    soft = F.label_smooth(F.one_hot(label, vocab), epsilon=epsilon)
+    return F.cross_entropy(logits, soft, soft_label=True)
+
+
+def nmt_batch(B, S, T, vocab, seed):
+    """Synthetic sentence pairs from RandomState(seed): (source [B, S],
+    target input [B, T], label [B, T]) int64, ids in [2, vocab) (no
+    padding), the target input starting with NMT_BOS."""
+    rs = np.random.RandomState(seed)
+    src = rs.randint(2, vocab, (B, S)).astype(np.int64)
+    tgt = rs.randint(2, vocab, (B, T + 1)).astype(np.int64)
+    tgt[:, 0] = NMT_BOS
+    return src, tgt[:, :-1], tgt[:, 1:]
+
+
+def fused_encoder(fused, pack_qkv, encoder, x, pre_layer_norm,
+                  training=True):
+    """`encoder` (an nn.TransformerEncoder) rebuilt from the fused block
+    functions `fused.fused_multi_head_attention` and
+    `fused.fused_feedforward` with its own weights, q/k/v packed by
+    `pack_qkv`, dropout 0: post-LN each block's LayerNorm the tail's,
+    pre-LN the block's first op."""
+    for layer in encoder.layers:
+        a = layer.self_attn
+        projs = (a.q_proj, a.k_proj, a.v_proj)
+        qkv_w, qkv_b = pack_qkv([p.weight for p in projs],
+                                [p.bias for p in projs], a.num_heads)
+        n1, n2 = layer.norm1, layer.norm2
+        x = fused.fused_multi_head_attention(
+            x, qkv_w, a.out_proj.weight, pre_layer_norm=pre_layer_norm,
+            pre_ln_scale=n1.weight, pre_ln_bias=n1.bias, ln_scale=n1.weight,
+            ln_bias=n1.bias, qkv_bias=qkv_b, linear_bias=a.out_proj.bias,
+            dropout_rate=0.0, attn_dropout_rate=0.0, training=training)
+        x = fused.fused_feedforward(
+            x, layer.linear1.weight, layer.linear2.weight,
+            layer.linear1.bias, layer.linear2.bias, ln1_scale=n2.weight,
+            ln1_bias=n2.bias, ln2_scale=n2.weight, ln2_bias=n2.bias,
+            dropout1_rate=0.0, dropout2_rate=0.0, activation="relu",
+            pre_layer_norm=pre_layer_norm, training=training)
+    return x
+
+
+def nmt_flops(B=NMT_B, S=NMT_S, T=NMT_T, d=NMT_D, ff=NMT_FFN, V=NMT_VOCAB,
+              L=NMT_LAYERS):
+    """A training step's FLOPs, from the shapes: 3x the forward's matrix
+    products (the backward's two products for each), by part: the
+    encoder's projections and FFNs, the decoder's (self-attention and
+    cross-attention queries and outputs on the target's tokens, the
+    cross-attention keys and values on the source's), the tied output
+    projection, and attention's two products (the decoder's self-attention
+    at its causal half)."""
+    parts = {"encoder": L * 2 * B * S * (4 * d * d + 2 * d * ff),
+             "decoder": L * 2 * (B * T * (6 * d * d + 2 * d * ff)
+                                 + B * S * 2 * d * d),
+             "output projection": 2 * B * T * d * V,
+             "attention": L * 4 * B * d * (S * S + T * (T + 1) // 2
+                                           + T * S)}
+    return {k: 3 * v for k, v in parts.items()}
+
+
+def nmt_flash_train(torch, ck, F, timer, gen, Tq, Tk, p):
+    """(a) rows 1t, 2 and 3 at the model's attention: B=NMT_B, 8 heads of
+    64, bfloat16, not causal, Tq queries against Tk keys (the encoder's
+    Tq = Tk = 256, the cross-attention's 200 against 256): each against
+    its plain version fed the kernels' own dropout bits (REL_TOL bf16),
+    then its device time beside its bound, its plain version's and torch
+    sdpa's forward or backward (dq, dk and dv in one call)."""
+    B, H, D, dt = NMT_B, NMT_HEADS, NMT_D // NMT_HEADS, torch.bfloat16
+    tol = REL_TOL["bfloat16"]
+    q, _, _ = qkv_views(torch, B, Tq, H, D, dt, gen)
+    _, k, v = qkv_views(torch, B, Tk, H, D, dt, gen)
+    do = torch.randn((B, H, Tq, D), generator=gen, device="cuda").to(dt)
+    bits = ck.attn_dropout_bits(WORD, DELTA, B * H, Tq, Tk) if p else None
+    o, lse = ck.flash_fwd_train(q, k, v, False, p, WORD, DELTA)
+    dq, dsum = ck.flash_bwd_dq(q, k, v, o, do, lse, False, p, WORD, DELTA)
+    dk, dv = ck.flash_bwd_dkv(q, k, v, do, lse, dsum, False, p, WORD, DELTA)
+    for t in (o, dq, dk, dv):
+        require(t.dtype == dt and bool(torch.isfinite(t.float()).all()),
+                "nmt (a) flash Tq=%d Tk=%d p=%g: non-finite or wrong type"
+                % (Tq, Tk, p))
+    runs = {
+        "flash_fwd_train": (
+            (o, lse), lambda: ck.flash_fwd_train(q, k, v, False, p, WORD,
+                                                 DELTA),
+            lambda: ck.flash_fwd_train_plain(q, k, v, False, p, bits)),
+        "flash_bwd_dq": (
+            (dq, dsum), lambda: ck.flash_bwd_dq(q, k, v, o, do, lse, False,
+                                                p, WORD, DELTA),
+            lambda: ck.flash_bwd_dq_plain(q, k, v, o, do, lse, False, p,
+                                          bits)),
+        "flash_bwd_dkv": (
+            (dk, dv), lambda: ck.flash_bwd_dkv(q, k, v, do, lse, dsum, False,
+                                               p, WORD, DELTA),
+            lambda: ck.flash_bwd_dkv_plain(q, k, v, do, lse, dsum, False, p,
+                                           bits))}
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, dropout_p=p)
+    lib = {"fwd": timer.ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, dropout_p=p)),
+           "bwd": timer.ms(lambda: torch.autograd.grad(
+               lo, (lq, lk, lv), do, retain_graph=True))}
+    bq, bk, bl = B * H * Tq * D * 2, B * H * Tk * D * 2, B * H * Tq * 4
+    pairs = B * H * Tq * Tk
+    # forward: reads q, k, v, writes o, lse, 2 products; dq: reads q, k,
+    # v, o, dO, lse, writes dq, Delta, 3 products; dk/dv: reads q, k, v,
+    # dO, lse, Delta, writes dk, dv, 4 products (2 D flops a pair each)
+    work = {"flash_fwd_train": (2 * bq + 2 * bk + bl, 4 * D * pairs, "fwd"),
+            "flash_bwd_dq": (4 * bq + 2 * bk + 2 * bl, 6 * D * pairs, "bwd"),
+            "flash_bwd_dkv": (2 * bq + 4 * bk + 2 * bl, 8 * D * pairs,
+                              "bwd")}
+    out = {}
+    case = "B=%d H=%d Tq=%d Tk=%d D=%d bf16 not causal p=%g" % (
+        B, H, Tq, Tk, D, p)
+    for name, (got, fn, plain) in runs.items():
+        ea, er = (max(x) for x in zip(*(abs_rel_err(g, w) for g, w in
+                                        zip(got, plain()))))
+        require(er <= tol, "nmt (a) %s %s: rel err %.3g > %.3g"
+                % (name, case, er, tol))
+        nbytes, flops, which = work[name]
+        b, by = bound_ms(nbytes, flops, "bfloat16")
+        out[name] = {"ms": timer.ms(fn), "plain_ms": timer.ms(plain),
+                     "library_ms": lib[which], "bound_ms": b,
+                     "bound_by": by, "max_abs_err": ea, "B": B, "H": H,
+                     "Tq": Tq, "Tk": Tk, "D": D, "p": p}
+        say("nmt (a) %s %s: max rel err %.3g (tol %.0e), max abs err %.3g; "
+            "time %.4f ms, plain %.4f ms, torch sdpa %s %.4f ms, bound %.4f "
+            "ms (%s)" % (name, case, er, tol, ea, out[name]["ms"],
+                         out[name]["plain_ms"], which, lib[which], b, by))
+    return out
+
+
+def nmt_flash_decode(torch, ck, F, timer, gen, Tk, cross):
+    """(a) row 1b at cached decoding's attention: one bfloat16 query a
+    head (B=NMT_B, 8 heads of 64, a [B, 1, H, 64] view, as the query
+    projection gives it) against Tk keys, not causal, no lse: the
+    self-attention's cache (contiguous, as torch.cat grows it) or the
+    cross-attention's StaticCache (views of one projection); against its
+    plain version (TOL bf16, absolute), then its device time beside its
+    bound, its plain version's and torch sdpa's forward."""
+    B, H, D, dt = NMT_B, NMT_HEADS, NMT_D // NMT_HEADS, torch.bfloat16
+    q = torch.randn((B, 1, H, D), generator=gen,
+                    device="cuda").to(dt).transpose(1, 2)
+    if cross:
+        _, k, v = qkv_views(torch, B, Tk, H, D, dt, gen)
+    else:
+        k, v = (torch.randn((B, H, Tk, D), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+    got = ck.flash_attention(q, k, v, False)
+    want = ck.flash_attention_plain(q, k, v, False)
+    err = (got.float() - want.float()).abs().max().item()
+    what = "%s B=%d H=%d Tq=1 Tk=%d D=%d bf16" % (
+        "cross" if cross else "self", B, H, Tk, D)
+    require(got.shape == want.shape and got.dtype == dt
+            and err <= TOL["bfloat16"], "nmt (a) flash_fwd %s: max abs err "
+            "%.3g > %.3g" % (what, err, TOL["bfloat16"]))
+    # reads q, k, v, writes o; 2 products of 2 D flops a pair
+    b, by = bound_ms(2 * (2 * B * H * D + 2 * B * H * Tk * D),
+                     4 * D * B * H * Tk, "bfloat16")
+    t = {"ms": timer.ms(lambda: ck.flash_attention(q, k, v, False)),
+         "plain_ms": timer.ms(lambda: ck.flash_attention_plain(q, k, v,
+                                                               False)),
+         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+             q, k, v)),
+         "bound_ms": b, "bound_by": by, "max_abs_err": err, "B": B, "H": H,
+         "Tq": 1, "Tk": Tk, "D": D, "attention": "cross" if cross
+         else "self"}
+    say("nmt (a) flash_fwd %s: max abs err %.3g (tol %.0e); time %.4f ms, "
+        "plain %.4f ms, torch sdpa %.4f ms, bound %.4f ms (%s)"
+        % (what, err, TOL["bfloat16"], t["ms"], t["plain_ms"],
+           t["library_ms"], b, by))
+    return t
+
+
+def nmt_fused_check(torch, ck, gen, N, Hd):
+    """(a) rows 4, 5 and 6 at Hd = d_model, bfloat16, p = 0.1, no bias (the
+    model's tails pass none), against their plain versions fed the
+    kernels' own bits (FDRLN_BF16_REL_TOL). Returns {name: max abs err}."""
+    dt = torch.bfloat16
+    mk = lambda: torch.randn((N, Hd), generator=gen, device="cuda").to(dt)
+    x, res, dy = mk(), mk(), mk()
+    g = (1.0 + 0.1 * torch.randn(Hd, generator=gen, device="cuda")).to(dt)
+    b = torch.randn(Hd, generator=gen, device="cuda").to(dt)
+    p, s = DROPOUT, fdrln_scale(DROPOUT, "upscale_in_train")
+    bits = ck.fused_dropout_bits(WORD, DELTA, N, Hd)
+    y, z = ck.fused_dropout_ln_fwd(x, res, None, g, b, p, s, 1e-5, WORD,
+                                   DELTA)
+    pairs = {
+        "fused_dropout_ln_fwd": zip((y, z), ck.fused_dropout_ln_fwd_plain(
+            x, res, None, g, b, p, s, 1e-5, bits=bits)),
+        "fused_dropout_residual_fwd": [(
+            ck.fused_dropout_residual_fwd(x, res, None, p, s, WORD, DELTA),
+            ck.fused_dropout_residual_fwd_plain(x, res, None, p, s,
+                                                bits=bits))],
+        "fused_dropout_ln_bwd": zip(
+            ck.fused_dropout_ln_bwd(z, dy, None, g, p, s, 1e-5, WORD, DELTA),
+            ck.fused_dropout_ln_bwd_plain(z, dy, None, g, p, s, 1e-5,
+                                          bits=bits))}
+    out = {}
+    for name, prs in pairs.items():
+        prs = [(a, w) for a, w in prs if w is not None]
+        torch.cuda.synchronize()
+        for a, w in prs:
+            require(a.dtype == w.dtype and a.shape == w.shape
+                    and bool(torch.isfinite(a.float()).all()),
+                    "nmt (a) %s N=%d Hd=%d: type, shape or non-finite"
+                    % (name, N, Hd))
+        ea, er = (max(v) for v in zip(*(abs_rel_err(a, w) for a, w in prs)))
+        require(er <= FDRLN_BF16_REL_TOL, "nmt (a) %s N=%d Hd=%d bf16 "
+                "p=%g: rel err %.3g > %.3g" % (name, N, Hd, p, er,
+                                               FDRLN_BF16_REL_TOL))
+        say("nmt (a) check %s N=%d Hd=%d bf16 p=%g: max rel err %.3g (tol "
+            "%.0e), max abs err %.3g" % (name, N, Hd, p, er,
+                                         FDRLN_BF16_REL_TOL, ea))
+        out[name] = ea
+    return out
+
+
+def nmt_kernels(torch, ck, F, timer, gen):
+    """Phase 23 (a): the kernels at this slice's new shapes (see the
+    module's docstring). Returns {kernel: [entries]}."""
+    out = {n: [] for n in ("flash_fwd_train", "flash_bwd_dq",
+                           "flash_bwd_dkv", "flash_fwd_bf16",
+                           "fused_dropout_ln_fwd",
+                           "fused_dropout_residual_fwd",
+                           "fused_dropout_ln_bwd", "adamw",
+                           "dropout_keep")}
+    for Tq, Tk in ((NMT_S, NMT_S), (NMT_T, NMT_S)):
+        for p in (DROPOUT, 0.0):
+            for name, t in nmt_flash_train(torch, ck, F, timer, gen, Tq, Tk,
+                                           p).items():
+                out[name].append(t)
+            free_memory(torch)
+    for Tk in NMT_SELF_T:
+        out["flash_fwd_bf16"].append(nmt_flash_decode(torch, ck, F, timer,
+                                                      gen, Tk, False))
+    out["flash_fwd_bf16"].append(nmt_flash_decode(torch, ck, F, timer, gen,
+                                                  NMT_S, True))
+    for N, label in ((NMT_B * NMT_S, "nmt encoder"),
+                     (NMT_B * NMT_T, "nmt decoder")):
+        errs = nmt_fused_check(torch, ck, gen, N, NMT_D)
+        for name, t in time_fused(torch, ck, timer, gen, N, NMT_D,
+                                  torch.bfloat16, False, label).items():
+            out[name].append(dict(t, N=N, Hd=NMT_D, p=DROPOUT,
+                                  max_abs_err=errs[name]))
+        free_memory(torch)
+    out["dropout_keep"].append(dict(time_dropout_keep(
+        torch, ck, timer, (NMT_B, NMT_S, NMT_FFN)),
+        shape=[NMT_B, NMT_S, NMT_FFN]))
+    return out
+
+
+def nmt_build(dtype="bfloat16", dropout=NMT_DROPOUT, lr=None):
+    """(b)'s model, Adam (beta1 0.9, beta2 0.98, epsilon 1e-9) under
+    NoamDecay(d_model, 4000) (or a constant `lr`) and, for bfloat16, the
+    O2 decoration; returns (model, optimizer, scheduler or None)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.optimizer import lr as plr
+    prandom.seed(0)
+    model = seq2seq_model(dropout=dropout, seed=0)
+    model.train()
+    sched = None if lr else plr.NoamDecay(NMT_D, NMT_WARMUP_STEPS)
+    opt = optimizer.Adam(learning_rate=lr or sched, beta1=0.9, beta2=0.98,
+                         epsilon=1e-9, parameters=model.parameters())
+    if dtype == "bfloat16":
+        model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
+    return model, opt, sched
+
+
+def nmt_batches(torch, n):
+    """n of (b)'s batches on the card (seeds 0 .. n-1), as make_train_step
+    takes them: ([source, target input], [label])."""
+    out = []
+    for i in range(n):
+        src, tin, lab = nmt_batch(NMT_B, NMT_S, NMT_T, NMT_VOCAB, i)
+        out.append(([torch.from_numpy(src).cuda(),
+                     torch.from_numpy(tin).cuda()],
+                    [torch.from_numpy(lab).cuda()]))
+    return out
+
+
+def nmt_train(torch, ck, card, batches):
+    """Phase 23 (b): Transformer-base training through make_train_step (one
+    captured CUDA graph), the launch and path counters zeroed just before
+    the NMT_WARMUP + NMT_STEPS steps and read just after, the scheduler
+    stepped after each; then graph against eager from one saved state.
+    Returns (the trained model, launches, step entry)."""
+    import contextlib
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.nn import functional as PF
+    t0 = time.perf_counter()
+    model, opt, sched = nmt_build()
+    loss_fn = lambda o, l: seq2seq_loss(PF, o, l)  # noqa: E731
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    say("nmt (b): Transformer-base %d parameters (%d tensors) in %s, vocab "
+        "%d, B=%d, source %d, target %d tokens, built in %.1f s"
+        % (n_params, n_tensors, next(model.parameters()).dtype, NMT_VOCAB,
+           NMT_B, NMT_S, NMT_T, time.perf_counter() - t0))
+    L = NMT_LAYERS
+    # a step: the encoder's and the cross-attention's flash calls, 2 fused
+    # tails an encoder layer and 3 a decoder layer, Adam over every
+    # parameter; the keep mask for the FFNs' activation dropouts, the
+    # decoder's masked self-attention (the plain path) and the two
+    # embeddings' dropouts
+    want = {"flash_fwd_train": 2 * L, "flash_bwd_dq": 2 * L,
+            "flash_bwd_dkv": 2 * L, "flash_fwd": 0,
+            "fused_dropout_ln_fwd": 5 * L, "fused_dropout_residual_fwd": 0,
+            "fused_dropout_ln_bwd": 5 * L, "adamw": n_tensors,
+            "dropout_keep": 2 * L + L + 2}
+    step = make_train_step(model, loss_fn, opt)
+    n_steps = NMT_WARMUP + NMT_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.launch_counts(reset=True)
+    ck.attention_path_counts(reset=True)
+    losses, times = [], []
+    for i in range(n_steps):
+        t1 = time.perf_counter()
+        loss, _ = step(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+        sched.step()
+    launches = ck.launch_counts()
+    paths = ck.attention_path_counts()
+    peak = torch.cuda.max_memory_allocated()
+    progs = step.programs
+    (key,) = progs.builds
+    replayed = {k: progs.replays[key] * n for k, n in
+                progs.launches[key].items()}
+    require(step.compiles == 1 and step.replays == n_steps - 1,
+            "nmt (b): %d programs and %d replays in %d steps" % (
+                step.compiles, step.replays, n_steps))
+    require(all(math.isfinite(x) for x in losses),
+            "nmt (b): non-finite loss %s" % losses)
+    per_step = {k: launches[k] / n_steps for k in want}
+    say("nmt (b) losses %s" % ["%.4f" % x for x in losses])
+    say("nmt (b) launches %s, attention paths %s" % (launches, paths))
+    require(per_step == {k: float(v) for k, v in want.items()},
+            "nmt (b): launches a step %s, want %s" % (per_step, want))
+    require(all(replayed[k] > 0 for k, v in want.items() if v),
+            "nmt (b): kernels launched in no replay: %s" % replayed)
+    # each run of the step's body (the build's eager run and its capture)
+    # takes 12 flash calls with dropout and 6 plain masked ones
+    require(paths["flash_dropout"] == 2 * paths["xla_sdpa"] > 0
+            and paths["flash"] == paths["xla_chunked"] == 0,
+            "nmt (b): attention paths %s (want flash_dropout for the "
+            "encoder and the cross-attention, xla_sdpa for the decoder's "
+            "masked self-attention)" % paths)
+    dev_ms, top = profile_step(torch, step, lambda: batches[0])
+    sched.step()
+    step_ms = statistics.median(times[NMT_WARMUP:])
+    flops = nmt_flops()
+    total = sum(flops.values())
+    tokens = NMT_B * (NMT_S + NMT_T)
+    mfu = total / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    say("nmt (b) program %s: 1 build + %d replays, captured in %.1f ms, "
+        "graph pool %.1f MiB, launches a step %s (%s)"
+        % (key, progs.replays[key], progs.capture_s[key] * 1e3,
+           progs.pool_bytes() / 2 ** 20,
+           {k: n for k, n in progs.launches[key].items() if n}, card))
+    say("nmt (b) Transformer-base train step, O2 bf16, Adam + Noam, "
+        "dropout %g, label smoothing %g: %.2f ms median of %d after %d "
+        "warm-up (mean %.2f), %.0f tokens/s (source + target: %d a step), "
+        "MFU %.4f of 989 TFLOP/s bf16 (%.3f TFLOP a step: %s), peak memory "
+        "%.1f MiB (%s)"
+        % (NMT_DROPOUT, NMT_SMOOTH, step_ms, NMT_STEPS, NMT_WARMUP,
+           statistics.mean(times[NMT_WARMUP:]), tokens / (step_ms / 1e3),
+           tokens, mfu, total / 1e12, ", ".join(
+               "%s %.3f" % (k, v / 1e12) for k, v in flops.items()),
+           peak / 2 ** 20, card))
+    report_profile("nmt (b) captured", dev_ms, step_ms, top)
+    entry = {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+             "mfu": mfu, "peak_mib": peak / 2 ** 20,
+             "pool_mib": progs.pool_bytes() / 2 ** 20,
+             "idle": 1.0 - dev_ms / step_ms if dev_ms > 0 else None}
+    del step
+    free_memory(torch)
+    graph_against_eager_train(torch, ck, "nmt (b)", model, opt, loss_fn,
+                              batches[:3], contextlib.nullcontext, DROPOUT)
+    del opt
+    free_memory(torch)
+    return model, launches, entry
+
+
+def nmt_compare(torch, ck, flags, batches):
+    """Phase 23 (b): the kernels against their plain versions, float32,
+    dropout 0, NMT_COMPARE_STEPS captured steps at lr TRAIN_LR, through
+    compare_runs (use_flash_attention, use_fused_dropout_ln and
+    use_fused_optimizer on, then all off): step 1's gradients per
+    parameter, then the parameters outside the elements with a near-zero
+    first gradient (NMT_NEAR_ZERO)."""
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.nn import functional as PF
+
+    def build():
+        model, opt, _ = nmt_build("float32", 0.0, TRAIN_LR)
+        step = make_train_step(model, lambda o, l: seq2seq_loss(PF, o, l),
+                               opt)
+        return model, opt, lambda i: step(*batches[i])
+    compare_runs(torch, ck, flags, "nmt (b)", build,
+                 ("use_flash_attention", "use_fused_dropout_ln",
+                  "use_fused_optimizer"),
+                 ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
+                  "fused_dropout_ln_fwd", "fused_dropout_ln_bwd", "adamw"),
+                 steps=NMT_COMPARE_STEPS, near_zero=NMT_NEAR_ZERO)
+
+
+def nmt_decode(torch, ck, model, src, card):
+    """Phase 23 (c): greedy decoding of NMT_DECODE tokens from NMT_BOS with
+    (b)'s weights in eval mode: the encoder once, decoder.gen_cache(memory)
+    (an incremental Cache and a StaticCache a layer), one token a step,
+    timed and counted on its second run; against a decode that runs the
+    whole prefix every step under the causal mask with no cache: the
+    tokens equal, or first differing where the uncached run's top-2 logits
+    are a near tie. Returns the cached run's launches."""
+    model.eval()
+    B = src.shape[0]
+    L = NMT_LAYERS
+    dec = model.transformer.decoder
+    bos = torch.full((B, 1), NMT_BOS, dtype=torch.int64, device=src.device)
+    with torch.no_grad():
+        memory = model.transformer.encoder(model.embed(src))
+
+        def cached():
+            cache = dec.gen_cache(memory)
+            tok, toks, logits = bos, [], []
+            for t in range(NMT_DECODE):
+                lg, cache = model.decode_step(tok, memory, cache, t)
+                tok = lg[:, -1].argmax(-1, keepdim=True)
+                toks.append(tok)
+                logits.append(lg[:, -1])
+            return torch.cat(toks, 1), torch.stack(logits, 1), cache
+        cached()
+        torch.cuda.synchronize()
+        ck.launch_counts(reset=True)
+        ck.attention_path_counts(reset=True)
+        t0 = time.perf_counter()
+        toks, lg_c, cache = cached()
+        torch.cuda.synchronize()
+        ms_tok = (time.perf_counter() - t0) * 1e3 / NMT_DECODE
+        launches = ck.launch_counts()
+        paths = ck.attention_path_counts()
+        prefix, lg_u = bos, []
+        t0 = time.perf_counter()
+        for t in range(NMT_DECODE):
+            mask = model.transformer.generate_square_subsequent_mask(t + 1)
+            h = dec(model.embed(prefix), memory, tgt_mask=mask)[:, -1:]
+            lg = model.logits(h, torch.float32)[:, 0]
+            lg_u.append(lg)
+            prefix = torch.cat([prefix, lg.argmax(-1, keepdim=True)], 1)
+        torch.cuda.synchronize()
+        ms_full = (time.perf_counter() - t0) * 1e3 / NMT_DECODE
+    lg_u = torch.stack(lg_u, 1)
+    toks_u = prefix[:, 1:]
+    require(tuple(toks.shape) == (B, NMT_DECODE)
+            and all(c[0].k.shape[2] == NMT_DECODE
+                    and c[1].k.shape[2] == src.shape[1] for c in cache),
+            "nmt (c): tokens %s or cache lengths %s" % (
+                tuple(toks.shape), [(c[0].k.shape[2], c[1].k.shape[2])
+                                    for c in cache]))
+    per = {k: n / NMT_DECODE for k, n in launches.items() if n}
+    require(per.get("flash_fwd") == 2 * L and paths["flash"] == 2 * L *
+            NMT_DECODE and paths["xla_sdpa"] == 0,
+            "nmt (c): launches a step %s, attention paths %s (want %d "
+            "flash_fwd a step: %d self-attention, %d cross-attention)"
+            % (per, paths, 2 * L, L, L))
+    top2 = lg_u.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = (toks != toks_u).cpu().numpy()
+    first = [int(np.argmax(row)) if row.any() else None for row in differ]
+    same = sum(f is None for f in first)
+    shared = torch.tensor([[t < (f if f is not None else NMT_DECODE) + 1
+                            for t in range(NMT_DECODE)] for f in first],
+                          device=lg_u.device)
+    dlogit = ((lg_c - lg_u).abs().amax(-1) * shared).max().item()
+    gaps = [(b, f, gap[b, f].item()) for b, f in enumerate(first)
+            if f is not None]
+    bad = [g for g in gaps if g[2] > NMT_TIE]
+    say("nmt (c) cached greedy decode B=%d, %d tokens from BOS over a %d "
+        "token source: %.3f ms a token (host clock, no sync a step; the "
+        "uncached decode %.3f ms a token); launches a step %s, attention "
+        "paths %s; %d of %d sequences equal to the uncached decode's "
+        "tokens, the rest first differ at (sequence, step, the uncached "
+        "decode's top-2 gap, tie bound %g) %s; max |logit difference| "
+        "(float32 logits) over the steps both decodes share %.4g (%s)"
+        % (B, NMT_DECODE, src.shape[1], ms_tok, ms_full, per, paths, same,
+           B, NMT_TIE, ["(%d, %d, %.4g)" % g for g in gaps], dlogit, card))
+    require(not bad, "nmt (c): the cached decode first differs from the "
+            "uncached one at a top-2 gap above %g: %s" % (NMT_TIE, bad[:4]))
+    return launches, {"ms_per_token": ms_tok, "uncached_ms_per_token":
+                      ms_full, "same": same, "max_dlogit": dlogit}
+
+
+def nmt_fused(torch, ck, model, src, card):
+    """Phase 23 (d): (b)'s encoder weights through fused_encoder (the fused
+    block functions) at p = 0 in bfloat16, post-LN against
+    model.transformer.encoder and pre-LN against an nn.TransformerEncoder
+    of pre-LN layers holding the same weights; each within
+    NMT_FUSED_REL_TOL; a forward + backward of the post-LN stack launches
+    rows 1t, 2, 3, 4 and 6 a layer, the pre-LN layers row 5."""
+    from paddle_tpu_torch.incubate.nn import functional as fused
+    from paddle_tpu_torch.models import pack_qkv
+    from paddle_tpu_torch.nn import TransformerEncoder, TransformerEncoderLayer
+    model.eval()
+    L = NMT_LAYERS
+    enc = model.transformer.encoder
+    pre = TransformerEncoder(TransformerEncoderLayer(
+        NMT_D, NMT_HEADS, NMT_FFN, normalize_before=True), L)
+    pre.load_state_dict(enc.state_dict())
+    pre = pre.to(device="cuda", dtype=torch.bfloat16).eval()
+    with torch.no_grad():
+        x = model.embed(src)
+    out = {}
+    for label, ref, is_pre in (("post-LN", enc, False),
+                               ("pre-LN", pre, True)):
+        ck.launch_counts(reset=True)
+        with torch.no_grad():
+            want = ref(x)
+        layer_launches = ck.launch_counts()
+        xg = x.detach().requires_grad_()
+        ck.launch_counts(reset=True)
+        got = fused_encoder(fused, pack_qkv, enc, xg, is_pre)
+        got.backward(torch.randn(got.shape, device="cuda",
+                                 dtype=got.dtype))
+        torch.cuda.synchronize()
+        launches = ck.launch_counts()
+        ea, er = abs_rel_err(got.detach(), want)
+        say("nmt (d) fused functions %s, %d layers, B=%d S=%d bf16 p=0: "
+            "against nn.TransformerEncoder max rel err %.3g (tol %.0e), "
+            "max abs err %.3g; forward + backward launches %s; the layers' "
+            "forward launches %s"
+            % (label, L, src.shape[0], src.shape[1], er, NMT_FUSED_REL_TOL,
+               ea, {k: n for k, n in launches.items() if n},
+               {k: n for k, n in layer_launches.items() if n}))
+        require(bool(torch.isfinite(got.float()).all())
+                and er <= NMT_FUSED_REL_TOL, "nmt (d) %s: rel err %.3g > "
+                "%.3g" % (label, er, NMT_FUSED_REL_TOL))
+        need = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+        if not is_pre:
+            need.update(fused_dropout_ln_fwd=2 * L,
+                        fused_dropout_ln_bwd=2 * L)
+        require(all(launches[k] == v for k, v in need.items()),
+                "nmt (d) %s: launches %s, want %s" % (label, launches, need))
+        if is_pre:
+            require(layer_launches["fused_dropout_residual_fwd"] == 2 * L,
+                    "nmt (d) pre-LN layers: launches %s, want %d of "
+                    "fused_dropout_residual_fwd" % (layer_launches, 2 * L))
+        out[label] = dict(rel_err=er, launches=launches,
+                          layer_launches=layer_launches)
+    return out
+
+
+def nmt_main(torch, ck, F, flags, card):
+    """Phase 23: the encoder-decoder Transformer (see the module's
+    docstring), (a)-(d), with use_fused_dropout_ln on. Returns (a)'s
+    entries, the launches of (b)'s timed steps and (c)'s cached decode, and
+    (d)'s launches."""
+    from paddle_tpu_torch.framework.random import philox_word
+    global WORD
+    if WORD is None:
+        WORD = philox_word(SEED, OFFSET - DELTA, "cuda")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    timer = Timer(torch)
+    kern = nmt_kernels(torch, ck, F, timer, gen)
+    t1 = time.perf_counter()
+    saved = flags.get_flags(["use_fused_dropout_ln"])
+    flags.set_flags({"use_fused_dropout_ln": True})
+    try:
+        batches = nmt_batches(torch, NMT_BATCHES)
+        model, tlaunches, entry = nmt_train(torch, ck, card, batches)
+        shapes = [tuple(p.shape) for p in model.parameters()]
+        kern["adamw"].append(dict(time_adamw(
+            torch, ck, timer, gen, shapes, card, plain_runs=NMT_PLAIN_RUNS),
+            tensors=len(shapes)))
+        t2 = time.perf_counter()
+        src = batches[0][0][0]
+        dlaunches, dec = nmt_decode(torch, ck, model, src, card)
+        t3 = time.perf_counter()
+        fus = nmt_fused(torch, ck, model, src, card)
+        del model
+        free_memory(torch)
+        t4 = time.perf_counter()
+        nmt_compare(torch, ck, flags, batches)
+    finally:
+        flags.set_flags(saved)
+    free_memory(torch)
+    say("nmt phase 23: %.1f s ((a) %.1f, (b) training and row 7 %.1f, (c) "
+        "%.1f, (d) %.1f, (b) float32 against plain %.1f)"
+        % (time.perf_counter() - t0, t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+           time.perf_counter() - t4))
+    return {"kernels": kern, "train": tlaunches, "decode": dlaunches,
+            "fused": fus, "step": entry, "dec": dec}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5877,6 +6686,9 @@ def main():
     ap.add_argument("--static-only", action="store_true",
                     help="name the card, build the kernels, then run phase "
                     "22 (the static graph and the predictor) alone")
+    ap.add_argument("--seq2seq-only", action="store_true",
+                    help="name the card, build the kernels, then run phase "
+                    "23 (the encoder-decoder Transformer) alone")
     ap.add_argument("--fit-drill", metavar="JSON",
                     help="one run of phase 20's preemption drill, its "
                     "settings as JSON (see fit_drill); phase 20 starts "
@@ -5941,6 +6753,10 @@ def main():
     if opts.static_only:
         static_main(torch, ck, F, flags, card)
         say("static-only run: phase 22 passed")
+        return 0
+    if opts.seq2seq_only:
+        nmt_main(torch, ck, F, flags, card)
+        say("seq2seq-only run: phase 23 passed")
         return 0
 
     # 3. kernels against their plain versions
@@ -6198,6 +7014,12 @@ def main():
     free_memory(torch)
     stat = static_main(torch, ck, F, flags, card)
 
+    # 23. the encoder-decoder Transformer: the kernels at its shapes,
+    # Transformer-base training, cached greedy decoding, the fused block
+    # functions
+    free_memory(torch)
+    nmt = nmt_main(torch, ck, F, flags, card)
+
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]
                             + slaunch_c["flash_fwd"]
@@ -6209,14 +7031,19 @@ def main():
                                     + slaunch_c["paged_decode_int8"])}
     for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
                  "adamw", "dropout_keep"):
-        counts[name] = tlaunches[name] + long["launches"][name]
+        counts[name] = (tlaunches[name] + long["launches"][name]
+                        + nmt["train"][name])
         say("launches %s: %d on the training main path (phase 10), %d on "
-            "the long-context path (phase 21 (b))"
-            % (name, tlaunches[name], long["launches"][name]))
+            "the long-context path (phase 21 (b)), %d in Transformer-base "
+            "training (phase 23 (b))"
+            % (name, tlaunches[name], long["launches"][name],
+               nmt["train"][name]))
     for name in FUSED_KERNELS:
-        counts[name] = blaunches[name] + alaunches[name]
+        counts[name] = (blaunches[name] + alaunches[name]
+                        + nmt["train"][name])
         say("launches %s: %d on path B (gpt2, fused flags), %d on path A "
-            "(ernie)" % (name, blaunches[name], alaunches[name]))
+            "(ernie), %d in Transformer-base training (phase 23 (b))"
+            % (name, blaunches[name], alaunches[name], nmt["train"][name]))
     for name in F16_ORDER:
         counts[name] = f16_off[name] + f16_on[name]
         say("launches %s: %d with the fused flags off, %d on path B (gpt2 "
@@ -6239,17 +7066,30 @@ def main():
     # the bfloat16 predictor's attention: flash_fwd's tensor-core instance
     # (row 1t's body, no lse), launched only by phase 22 (d)
     b16 = stat["bfloat16"]
+    # ... and phase 23 (c)'s cached decoding, whose flash calls are all
+    # this instance (bfloat16, no lse: counted as flash_fwd by the wrapper)
     table.append(dict(
         name="flash_fwd_bf16", route="cuda", source=SOURCES["flash_fwd"],
         replaces=TPU_KERNELS["flash_fwd"],
-        **{k: b16[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms")},
-        static_bert={k: b16[k] for k in keys}))
+        **{k: b16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")},
+        launches=b16["launches"] + nmt["decode"]["flash_fwd"],
+        static_bert={k: b16[k] for k in keys},
+        nmt_decode=nmt["kernels"]["flash_fwd_bf16"]))
     say("launches flash_fwd: %d on the serving paths (phases 5, 8), %d in "
         "the float32 BERT predictor (phase 22 (c)); flash_fwd_bf16: %d in "
-        "the bfloat16 BERT predictor (phase 22 (d))"
+        "the bfloat16 BERT predictor (phase 22 (d)), %d in cached decoding "
+        "(phase 23 (c))"
         % (counts["flash_fwd"] - stat["float32"]["launches"],
-           stat["float32"]["launches"], b16["launches"]))
+           stat["float32"]["launches"], b16["launches"],
+           nmt["decode"]["flash_fwd"]))
+    for e in table:                     # phase 23 (a) at the new shapes
+        name = e["name"]
+        if name in nmt["kernels"] and name != "flash_fwd_bf16":
+            e["nmt"] = nmt["kernels"][name]
+            if name == "fused_dropout_residual_fwd":
+                e["nmt_check_launches"] = nmt["fused"]["pre-LN"][
+                    "layer_launches"][name]
     for e in table:                     # rows 1t, 2, 3 at phase 21's shape
         if e["name"] in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
             e["long_context"] = [dict(

@@ -20,8 +20,10 @@ change the casting, as in the reference. The port's functions that call
 (matmul_v2; linear's bias add is on neither list), `layer_norm`
 (layer_norm_op), `softmax` / `log_softmax` (softmax_op / log_softmax_op),
 `cross_entropy` / `softmax_with_cross_entropy`
-(softmax_with_cross_entropy), `conv1d` / `conv2d` / `conv3d`
-(conv2d_op: a bfloat16 conv returns float32, as the reference's) and the
+(softmax_with_cross_entropy, hard or soft labels; with use_softmax=False
+log and reduce_sum), `label_smooth` (label_smooth_op), `conv1d` /
+`conv2d` / `conv3d` (conv2d_op: a bfloat16 conv returns float32, as the
+reference's) and the
 flash-attention gate (flash_attention). Not hooked yet (ROADMAP.md): the other listed ops.
 
 `GradScaler` is the reference's loss-scaling state machine (dygraph:

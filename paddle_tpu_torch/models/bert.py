@@ -20,6 +20,7 @@ from torch import nn
 from ..framework.device import resolve_device
 from ..framework.random import init_seed
 from ..nn import functional as F
+from ..nn.initializer import Normal
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear, Tanh
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 
@@ -37,13 +38,16 @@ class BertEmbeddings(nn.Module):
                  type_vocab_size=2, dropout=0.1, initializer_range=0.02,
                  generator=None):
         super().__init__()
+        init = Normal(0.0, initializer_range)
         self.word_embeddings = Embedding(vocab_size, hidden_size,
-                                         initializer_range, generator)
+                                         weight_attr=init,
+                                         generator=generator)
         self.position_embeddings = Embedding(
-            max_position_embeddings, hidden_size, initializer_range,
-            generator)
+            max_position_embeddings, hidden_size, weight_attr=init,
+            generator=generator)
         self.token_type_embeddings = Embedding(
-            type_vocab_size, hidden_size, initializer_range, generator)
+            type_vocab_size, hidden_size, weight_attr=init,
+            generator=generator)
         self.layer_norm = LayerNorm(hidden_size)
         self.dropout = Dropout(dropout)
 
@@ -62,7 +66,7 @@ class BertEmbeddings(nn.Module):
 class BertPooler(nn.Module):
     def __init__(self, hidden_size, generator=None):
         super().__init__()
-        self.dense = Linear(hidden_size, hidden_size, generator)
+        self.dense = Linear(hidden_size, hidden_size, generator=generator)
         self.activation = Tanh()
 
     def forward(self, hidden):
@@ -113,11 +117,11 @@ class BertPretrainingHeads(nn.Module):
     def __init__(self, hidden_size, vocab_size, word_embedding_weight,
                  generator=None):
         super().__init__()
-        self.transform = Linear(hidden_size, hidden_size, generator)
+        self.transform = Linear(hidden_size, hidden_size, generator=generator)
         self.layer_norm = LayerNorm(hidden_size)
         self.decoder_weight = word_embedding_weight          # tied
         self.decoder_bias = nn.Parameter(torch.zeros(vocab_size))
-        self.seq_relationship = Linear(hidden_size, 2, generator)
+        self.seq_relationship = Linear(hidden_size, 2, generator=generator)
 
     def forward(self, sequence_output, pooled_output):
         h = self.layer_norm(F.gelu(self.transform(sequence_output)))

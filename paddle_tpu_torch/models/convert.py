@@ -12,9 +12,14 @@ taken from `paddle_tpu_model.state_dict()` maps one to one, and back:
 
 Both sides list a parameter that is used twice (BERT's word embeddings,
 which are also its MLM decoder weight) once, under the name of its first
-use, so a tied weight maps one to one. GPT, BERT, the ResNets and LeNet
+use, so a tied weight maps one to one. GPT, BERT, the ResNets, LeNet
 (`features.<i>.weight`, `fc.<i>.weight`: OIHW convolutions, [in, out]
-Linears) carry over this way.
+Linears) and `nn.Transformer` (`encoder.layers.<i>.self_attn.q_proj.weight`,
+`decoder.layers.<i>.cross_attn...`, `norm1`-`norm3`, and a model's own
+names around it) carry over this way.
+
+`pack_qkv` packs a MultiHeadAttention's q/k/v projections into
+`fused_multi_head_attention`'s fused [3, H, head_dim, E] layout.
 
 `set_state_dict` is the reference's `Layer.set_state_dict`: names the
 module lacks are skipped and reported, not raised on; `Model.load` and
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 __all__ = ["load_reference_state", "export_reference_state",
-           "set_state_dict"]
+           "set_state_dict", "pack_qkv"]
 
 
 def _tensors(module):
@@ -96,3 +101,20 @@ def export_reference_state(module: torch.nn.Module) -> Dict[str, np.ndarray]:
             t = t.float()
         out[name] = t.cpu().numpy().copy()
     return out
+
+
+def pack_qkv(weights, biases, num_heads):
+    """`fused_multi_head_attention`'s (qkv_weight [3, H, head_dim, E],
+    qkv_bias [3, H, head_dim]) from the q, k and v projections' [E, E]
+    weights ([in, out], as Linear holds them) and [E] biases: row
+    (j, h, d) of the packed weight is output column h * head_dim + d of
+    projection j. Takes and returns numpy arrays or torch tensors alike,
+    so that both packages' weights pack from the same arrays."""
+    def stack(ts):
+        return (torch.stack(list(ts)) if isinstance(ts[0], torch.Tensor)
+                else np.stack(ts))
+    E = weights[0].shape[0]
+    shape = (num_heads, E // num_heads)
+    w = stack([wj.T.reshape(shape + (E,)) for wj in weights])
+    b = stack([bj.reshape(shape) for bj in biases])
+    return w, b

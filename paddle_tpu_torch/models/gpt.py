@@ -27,6 +27,7 @@ from ..framework.flags import flag
 from ..incubate.nn.functional import (fused_bias_dropout_residual,
                                       fused_bias_dropout_residual_ln_pair)
 from ..nn import functional as F
+from ..nn.initializer import Normal
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 from ..ops import cuda_kernels as ck
 
@@ -42,11 +43,13 @@ class GPTEmbeddings(nn.Module):
                  hidden_dropout_prob=0.1, initializer_range=0.02,
                  generator=None):
         super().__init__()
+        init = Normal(0.0, initializer_range)
         self.word_embeddings = Embedding(vocab_size, hidden_size,
-                                         initializer_range, generator)
+                                         weight_attr=init,
+                                         generator=generator)
         self.position_embeddings = Embedding(
-            max_position_embeddings, hidden_size, initializer_range,
-            generator)
+            max_position_embeddings, hidden_size, weight_attr=init,
+            generator=generator)
         self.dropout = Dropout(hidden_dropout_prob)
 
     def forward(self, input_ids, position_ids=None):
@@ -106,8 +109,9 @@ class GPTAttention(nn.Module):
         self.head_dim = hidden_size // num_heads
         self.hidden_size = hidden_size
         self.attn_dropout_prob = attn_dropout_prob
-        self.qkv_proj = Linear(hidden_size, 3 * hidden_size, generator)
-        self.out_proj = Linear(hidden_size, hidden_size, generator)
+        self.qkv_proj = Linear(hidden_size, 3 * hidden_size,
+                               generator=generator)
+        self.out_proj = Linear(hidden_size, hidden_size, generator=generator)
 
     def _merge(self, out, B, T):
         return self.out_proj(out.transpose(1, 2).reshape(
@@ -141,8 +145,8 @@ class GPTAttention(nn.Module):
 class GPTMLP(nn.Module):
     def __init__(self, hidden_size, intermediate_size, generator=None):
         super().__init__()
-        self.fc1 = Linear(hidden_size, intermediate_size, generator)
-        self.fc2 = Linear(intermediate_size, hidden_size, generator)
+        self.fc1 = Linear(hidden_size, intermediate_size, generator=generator)
+        self.fc2 = Linear(intermediate_size, hidden_size, generator=generator)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))

@@ -34,7 +34,8 @@ from ..tensor import add, mean, reshape, squeeze
 __all__ = ["linear", "matmul", "gelu", "relu", "tanh", "softmax",
            "log_softmax", "layer_norm", "dropout",
            "scaled_dot_product_attention", "cross_entropy",
-           "softmax_with_cross_entropy", "embedding", "conv1d", "conv2d",
+           "softmax_with_cross_entropy", "one_hot", "label_smooth",
+           "embedding", "conv1d", "conv2d",
            "conv3d", "batch_norm", "max_pool2d", "avg_pool2d",
            "adaptive_avg_pool2d", "conv_path_counts", "deferred_buffer_updates", "CONV_ALGOS"]
 
@@ -176,58 +177,74 @@ def _dropout(x, key=None, p=0.5, mode="upscale_in_train"):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
-    """Attention entry point, q/k/v [B, H, T, D]; returns out [B, H, Tq, D].
+                                 training=True, return_weights=False):
+    """Attention entry point, q/k/v [B, H, T, D]; returns out [B, H, Tq, D],
+    or (out, weights) with return_weights.
 
     Gate order of the reference (nn/functional/__init__.py
     scaled_dot_product_attention :873, ops/nn_ops.py sdpa :854):
-    attention dropout counts only in training; first the flash kernels
-    (`FlashAttentionFunction`, dropout drawn in the kernel) while the flag
-    `use_flash_attention` is on and the call has no additive mask and
-    p < 1, their gate raising on a shape or dtype the kernels do not take;
-    then, while `FLAGS_sdpa_chunked_threshold` (read per call) is non-zero
-    and the key length is at or above it, the blockwise online-softmax
-    tier (`ops.ring_attention.blockwise_attention`, path xla_chunked), for
-    a call with no mask, p < 1, and Tq == Tk when causal; else the dense
+    attention dropout counts only in training; a call that asks for the
+    weights takes the dense plain version at once, and returns them
+    ([B, H, Tq, Tk] in q's dtype, after the dropout, as the reference's
+    are); else first the flash kernels (`FlashAttentionFunction`, dropout
+    drawn in the kernel) while the flag `use_flash_attention` is on and
+    the call has no additive mask and p < 1, their gate raising on a
+    shape or dtype the kernels do not take; then, while
+    `FLAGS_sdpa_chunked_threshold` (read per call) is non-zero and the key
+    length is at or above it, the blockwise online-softmax tier
+    (`ops.ring_attention.blockwise_attention`, path xla_chunked), for a
+    call with no mask, p < 1, and Tq == Tk when causal; else the dense
     plain version `flash_attention_plain` (path xla_sdpa), which adds the
     mask and drops the probabilities with a mask from `_keep` (all of them
     at p >= 1), as the reference's XLA path does."""
     p = float(dropout_p) if training else 0.0
-    out = ck.flash_attention_or_none(query, key, value, attn_mask,
-                                     is_causal, dropout_p=p)
-    if out is not None:
-        return out
+    if not return_weights:
+        out = ck.flash_attention_or_none(query, key, value, attn_mask,
+                                         is_causal, dropout_p=p)
+        if out is not None:
+            return out
     B, H, Tq, _ = query.shape
     Tk = key.shape[2]
     thr = flag("sdpa_chunked_threshold")
-    if (thr and Tk >= thr and attn_mask is None and p < 1.0
-            and (not is_causal or Tq == Tk)):
+    if (not return_weights and thr and Tk >= thr and attn_mask is None
+            and p < 1.0 and (not is_causal or Tq == Tk)):
         ck._note_attn_path("xla_chunked")
         return blockwise_attention(query, key, value, bool(is_causal),
                                    dropout_p=p)
     ck._note_attn_path("xla_sdpa")
     keep = _keep((B, H, Tq, Tk), p, query.device) if p > 0.0 else None
     return ck.flash_attention_plain(query, key, value, bool(is_causal),
-                                    attn_mask, keep=keep, dropout_p=p)
+                                    attn_mask, keep=keep, dropout_p=p,
+                                    return_weights=return_weights)
 
 
-def softmax_with_cross_entropy(logits, label, ignore_index=-100, axis=-1):
-    """-log_softmax(logits)[label] along `axis`, keeping that axis with
-    size 1, computed in the logits' dtype as the reference computes it
-    (ops/nn_ops.py softmax_with_cross_entropy); positions whose label is
-    `ignore_index` give 0. A label with a trailing size-1 axis is taken
-    as it is."""
-    return _softmax_with_cross_entropy(logits, label,
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """-log_softmax(logits) along `axis` against the label, keeping that
+    axis with size 1, computed in the logits' dtype as the reference
+    computes it (ops/nn_ops.py:648): a hard label picks its class
+    (positions whose label is `ignore_index` give 0; a label with a
+    trailing size-1 axis is taken as it is); a soft label (a distribution
+    over the classes, soft_label=True) gives -sum(label * log_softmax).
+    With return_softmax, (loss, softmax)."""
+    loss = _softmax_with_cross_entropy(logits, label,
+                                       soft_label=bool(soft_label),
                                        ignore_index=int(ignore_index),
                                        axis=int(axis))
+    if return_softmax:
+        return loss, softmax(logits, axis)
+    return loss
 
 
 @primitive("softmax_with_cross_entropy")
-def _softmax_with_cross_entropy(logits, label, ignore_index=-100, axis=-1,
-                                soft_label=False):
+def _softmax_with_cross_entropy(logits, label, soft_label=False,
+                                ignore_index=-100, axis=-1):
     if soft_label:
-        raise NotImplementedError("softmax_with_cross_entropy: soft labels "
-                                  "are not ported")
+        logits, label = amp_cast_inputs("softmax_with_cross_entropy",
+                                        [logits, label])
+        logp = torch.log_softmax(logits, dim=axis)
+        return -(label * logp).sum(dim=axis, keepdim=True)
     (logits,) = amp_cast_inputs("softmax_with_cross_entropy", [logits])
     axis = axis % logits.ndim
     lab = label.long()
@@ -240,23 +257,83 @@ def _softmax_with_cross_entropy(logits, label, ignore_index=-100, axis=-1,
                        torch.zeros_like(picked), -picked)
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean",
-                  axis=-1):
-    """Hard-label softmax cross entropy (reference: nn/functional
-    cross_entropy with use_softmax=True, no weight, no soft labels):
-    the per-position loss with the class axis squeezed, then "none",
-    "sum", or "mean". As in the reference, "mean" with ignore_index >= 0
-    divides by the count of labels that are not ignored; with a negative
-    ignore_index it is the plain mean, ignored positions counting 0."""
+@primitive("one_hot_v2")
+def _one_hot(x, num_classes):
+    return (x.long().unsqueeze(-1) == torch.arange(
+        num_classes, device=x.device)).to(torch.float32)
+
+
+def one_hot(x, num_classes):
+    """float32 one-hot rows on a new last axis (reference: ops/nn_ops.py
+    one_hot, jax.nn.one_hot): an id outside [0, num_classes) gives a row
+    of zeros."""
+    return _one_hot(x, num_classes=int(num_classes))
+
+
+@primitive("label_smooth_op")
+def _label_smooth(label, epsilon=0.1):
+    (label,) = amp_cast_inputs("label_smooth_op", [label])
+    return (1.0 - epsilon) * label + epsilon / label.shape[-1]
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    """(1 - epsilon) * label + epsilon / K over the last axis of K classes
+    (reference: nn/functional/__init__.py:664 over ops/nn_ops.py:737).
+    The reference takes `prior_dist` and ignores it; the port refuses
+    one rather than ignore it."""
+    if prior_dist is not None:
+        raise NotImplementedError("label_smooth(prior_dist=...): the "
+                                  "reference ignores it; not ported")
+    return _label_smooth(label, epsilon=float(epsilon))
+
+
+def _log_probs_loss(input, label, soft_label, axis):
+    """use_softmax=False: -sum(log(input) * target) along `axis`, kept, the
+    target the soft label or one_hot(label) on a new last axis (ops log
+    and reduce_sum, both on auto_cast's black list)."""
+    (x,) = amp_cast_inputs("log", [input])
+    target = label if soft_label else one_hot(label, input.shape[axis])
+    prod = torch.log(x) * target
+    (prod,) = amp_cast_inputs("reduce_sum", [prod])
+    return -prod.sum(dim=axis, keepdim=True)
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, name=None):
+    """Cross entropy as the reference computes it (nn/functional/
+    __init__.py:548-572): the per-position loss of
+    softmax_with_cross_entropy (or, with use_softmax=False, of `input`
+    taken as probabilities), the class axis squeezed, then:
+      * with a class `weight` [C] and hard labels, each loss times its
+        label's weight, and "mean" is sum(loss) / sum(weights) (the
+        reference ignores `weight` with soft labels, and so does the
+        port); an ignored label weighs 0 (the reference looks it up
+        outside the weight);
+      * else "mean" with ignore_index >= 0 and hard labels divides by the
+        count of labels that are not ignored;
+      * else "none", "sum" or the plain mean."""
     if reduction not in ("none", "sum", "mean"):
         raise ValueError("reduction %r" % (reduction,))
-    loss = softmax_with_cross_entropy(input, label, ignore_index, axis)
-    loss = squeeze(loss, axis)
+    if use_softmax:
+        loss = softmax_with_cross_entropy(input, label, soft_label,
+                                          ignore_index, axis=axis)
+    else:
+        loss = _log_probs_loss(input, label, soft_label, axis)
+    if loss.ndim > 1 and loss.shape[axis] == 1:
+        loss = squeeze(loss, axis)
+    if weight is not None and not soft_label:
+        lab = label.reshape(loss.shape)
+        w = torch.where(lab == ignore_index, 0.0,
+                        embedding(lab.clamp(min=0), weight))
+        loss = loss * w
+        if reduction == "mean":
+            return loss.sum() / w.sum()
     if reduction == "none":
         return loss
     if reduction == "sum":
         return loss.sum()
-    if ignore_index >= 0:
+    if ignore_index >= 0 and not soft_label:
         valid = (label.reshape(loss.shape) != ignore_index).to(input.dtype)
         return loss.sum() / torch.clamp_min(valid.sum(), 1e-8)
     return mean(loss)

@@ -19,6 +19,8 @@ import torch
 from torch import nn
 
 from . import functional as F
+from . import initializer as I
+from .layer_base import Layer
 from ..tensor import flatten
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Tanh", "ReLU",
@@ -27,48 +29,70 @@ __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Tanh", "ReLU",
            "AdaptiveAvgPool2D", "Flatten", "Sequential", "CrossEntropyLoss"]
 
 
-def _normal(shape, std, generator):
-    return torch.empty(shape).normal_(0.0, std, generator=generator)
+class Linear(Layer):
+    """y = x @ weight + bias, weight [in, out] (reference: nn/layers.py:46):
+    by default XavierNormal weights and a zero bias; `weight_attr` /
+    `bias_attr` as in `Layer.create_parameter` (bias_attr False: no
+    bias)."""
 
-
-class Linear(nn.Module):
-    """y = x @ weight + bias, weight [in, out] with paddle's XavierNormal
-    init, bias zeros."""
-
-    def __init__(self, in_features, out_features, generator=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, generator=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        std = math.sqrt(2.0 / (in_features + out_features))
-        self.weight = nn.Parameter(
-            _normal((in_features, out_features), std, generator))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.weight = self.create_parameter(
+            (in_features, out_features), weight_attr,
+            default_initializer=I.XavierNormal(), generator=generator)
+        self.bias = self.create_parameter((out_features,), bias_attr,
+                                          is_bias=True, generator=generator)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
 
-class Embedding(nn.Module):
-    """Row lookup in weight [num_embeddings, embedding_dim], N(0, std)."""
+class Embedding(Layer):
+    """Row lookup in weight [num_embeddings, embedding_dim] (reference:
+    nn/layers.py:74), N(0, 1) by default. `padding_idx` (negative counts
+    from the end) names a row that is zeroed after the draw, whose lookups
+    return zeros and pass no gradient to the row."""
 
-    def __init__(self, num_embeddings, embedding_dim, std=1.0,
-                 generator=None):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, generator=None):
         super().__init__()
-        self.weight = nn.Parameter(
-            _normal((num_embeddings, embedding_dim), std, generator))
+        if sparse:
+            raise NotImplementedError("Embedding(sparse=True): row-sparse "
+                                      "gradients are not ported")
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = (None if padding_idx is None else
+                             padding_idx if padding_idx >= 0
+                             else num_embeddings + padding_idx)
+        self.weight = self.create_parameter(
+            (num_embeddings, embedding_dim), weight_attr,
+            default_initializer=I.Normal(0.0, 1.0), generator=generator)
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight, self._padding_idx)
 
 
-class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, weight ones and bias zeros."""
+class LayerNorm(Layer):
+    """LayerNorm over the last axis (reference: nn/layers.py:439): weight
+    ones and bias zeros by default; weight_attr / bias_attr False: none."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, generator=None):
         super().__init__()
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(normalized_shape))
-        self.bias = nn.Parameter(torch.zeros(normalized_shape))
+        shape = ((normalized_shape,) if isinstance(normalized_shape, int)
+                 else tuple(normalized_shape))
+        self.weight = self.create_parameter(
+            shape, weight_attr, default_initializer=I.Constant(1.0),
+            generator=generator)
+        self.bias = self.create_parameter(shape, bias_attr, is_bias=True,
+                                          generator=generator)
 
     def forward(self, x):
         return F.layer_norm(x, self.weight, self.bias, self._epsilon)
@@ -288,19 +312,15 @@ class Sequential(nn.Sequential):
 
 
 class CrossEntropyLoss(nn.Module):
-    """functional.cross_entropy as a layer: hard labels through softmax;
-    a class weight, soft labels and use_softmax=False are not ported and
-    raise."""
+    """functional.cross_entropy as a layer (reference: nn/layers.py:929),
+    with every option of the reference's."""
 
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
-                 soft_label=False, axis=-1, use_softmax=True):
+                 soft_label=False, axis=-1, use_softmax=True, name=None):
         super().__init__()
-        if weight is not None or soft_label or not use_softmax:
-            raise NotImplementedError(
-                "CrossEntropyLoss: weight, soft_label and use_softmax=False "
-                "are not ported")
-        self._kw = dict(ignore_index=ignore_index, reduction=reduction,
-                        axis=axis)
+        self._kw = dict(weight=weight, ignore_index=ignore_index,
+                        reduction=reduction, soft_label=soft_label,
+                        axis=axis, use_softmax=use_softmax)
 
     def forward(self, input, label):
         return F.cross_entropy(input, label, **self._kw)

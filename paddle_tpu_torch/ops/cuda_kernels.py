@@ -352,16 +352,17 @@ def _scores(q, k, causal):
 
 
 def flash_attention_plain(q, k, v, causal, attn_mask=None, keep=None,
-                          dropout_p=0.0):
+                          dropout_p=0.0, return_weights=False):
     """softmax(q k^T / sqrt(D) + attn_mask) v in float32, causal mask
     aligned bottom-right, returned in q's dtype (reference:
     pallas_kernels.py `_xla_attention`). With `keep` (bool, [B, H, Tq, Tk])
     the probabilities are dropped where keep is False and the rest scaled
     by 1 / (1 - dropout_p); at dropout_p >= 1 every probability is
     dropped and the output is zeros, as the reference's where(keep, w /
-    (1 - p), 0) gives. The one dense attention body of the port: the
-    kernels' CPU path, the plain sdpa route and the suffix-prefill
-    attention all run it."""
+    (1 - p), 0) gives. With return_weights, (out, the dropped
+    probabilities in q's dtype). The one dense attention body of the
+    port: the kernels' CPU path, the plain sdpa route and the
+    suffix-prefill attention all run it."""
     s = _scores(q, k, causal)
     if attn_mask is not None:
         s = s + attn_mask.float()
@@ -369,7 +370,8 @@ def flash_attention_plain(q, k, v, causal, attn_mask=None, keep=None,
     if keep is not None:
         w = (torch.where(keep, w * _drop_args(dropout_p)[1], 0.0)
              if dropout_p < 1.0 else torch.zeros_like(w))
-    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+    return (out, w.to(q.dtype)) if return_weights else out
 
 
 def flash_fwd_train_plain(q, k, v, causal, dropout_p=0.0, bits=None):

@@ -111,7 +111,7 @@ class ResNet(torch.nn.Module):
             self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
         if num_classes > 0:
             self.fc = nn.Linear(512 * block.expansion, num_classes,
-                                generator)
+                                generator=generator)
 
     def _make_layer(self, block, planes, blocks, stride=1, generator=None):
         downsample = None

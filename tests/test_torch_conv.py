@@ -421,7 +421,8 @@ def test_flatten_matches_the_reference(shape, start, stop):
 def test_cross_entropy_takes_resnet_labels_b_by_1():
     """ResNet's criterion: logits [64, 100], int64 labels [64, 1]
     (softmax_with_cross_entropy squeezes the trailing axis): the loss and
-    the logits' gradient against the reference's."""
+    the logits' gradient against the reference's, and the same loss from
+    the labels one-hot as soft labels."""
     rs = np.random.RandomState(12)
     logits = rs.randn(64, 100).astype(np.float32)
     label = rs.randint(0, 100, (64, 1)).astype(np.int64)
@@ -434,8 +435,11 @@ def test_cross_entropy_takes_resnet_labels_b_by_1():
     assert tl.shape == () and jl.shape in ([], ())
     _close(tl.item(), float(jl.numpy()), TOL)
     _close(tin.grad.numpy(), jin.grad.numpy(), TOL)
-    with pytest.raises(NotImplementedError):
-        tnn.CrossEntropyLoss(soft_label=True)
+    # soft labels (the same labels one-hot) give the same loss
+    soft = np.eye(100, dtype=np.float32)[label[:, 0]]
+    ts = tnn.CrossEntropyLoss(soft_label=True)(
+        torch.from_numpy(logits), torch.from_numpy(soft))
+    _close(ts.item(), float(jl.numpy()), TOL)
 
 
 # -- layers -----------------------------------------------------------------

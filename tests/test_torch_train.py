@@ -385,6 +385,168 @@ def test_cross_entropy_ignore_index_and_reductions():
                            torch.from_numpy(label)).dtype == torch.bfloat16
 
 
+# soft labels, class weights, use_softmax=False, label smoothing: the
+# port's functions against the reference's on the same numpy arrays,
+# float32 losses at rtol 1e-6 / atol 1e-6, gradients at 1e-5
+
+def _ce_inputs(soft, seed=0, C=11):
+    rs = np.random.RandomState(seed)
+    logits = rs.randn(3, 5, C).astype(np.float32)
+    if soft:
+        label = rs.rand(3, 5, C).astype(np.float32)
+        label /= label.sum(-1, keepdims=True)
+    else:
+        label = rs.randint(0, C, (3, 5)).astype(np.int64)
+    return logits, label
+
+
+def _both_ce(kw, soft, probs=False, weight=None, seed=0):
+    """(port loss, reference loss, port logits grad, reference grad)."""
+    from paddle_tpu.nn import functional as JF
+    logits, label = _ce_inputs(soft, seed)
+    if probs:
+        e = np.exp(logits - logits.max(-1, keepdims=True))
+        logits = (e / e.sum(-1, keepdims=True)).astype(np.float32)
+    extra = {}
+    if weight is not None:
+        extra = dict(weight=(paddle.to_tensor(weight),
+                             torch.from_numpy(weight)))
+    jx = paddle.to_tensor(logits, stop_gradient=False)
+    tx = torch.from_numpy(logits).requires_grad_()
+    want = JF.cross_entropy(jx, paddle.to_tensor(label), soft_label=soft,
+                            **{k: v[0] for k, v in extra.items()}, **kw)
+    got = F.cross_entropy(tx, torch.from_numpy(label), soft_label=soft,
+                          **{k: v[1] for k, v in extra.items()}, **kw)
+    want.sum().backward()
+    got.sum().backward()
+    return got, want, tx.grad, jx.grad
+
+
+def _hold_ce(got, want, tg, jg):
+    w = np.asarray(want.numpy())
+    np.testing.assert_allclose(got.detach().numpy(), w, rtol=1e-6,
+                               atol=1e-6)
+    assert tuple(got.shape) == w.shape
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg.numpy()),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_softmax", [True, False],
+                         ids=["softmax", "probs"])
+@pytest.mark.parametrize("reduction", ["none", "mean", "sum"])
+def test_soft_label_cross_entropy_matches_the_reference(reduction,
+                                                        use_softmax):
+    _hold_ce(*_both_ce(dict(reduction=reduction, use_softmax=use_softmax),
+                       True, probs=not use_softmax))
+
+
+@pytest.mark.parametrize("reduction", ["none", "mean", "sum"])
+def test_hard_label_cross_entropy_of_probabilities_matches(reduction):
+    """use_softmax=False with hard labels: -log of the label's
+    probability."""
+    _hold_ce(*_both_ce(dict(reduction=reduction, use_softmax=False), False,
+                       probs=True))
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("reduction", ["none", "mean", "sum"])
+def test_class_weighted_cross_entropy_matches_the_reference(reduction,
+                                                            soft):
+    """A class weight: each hard label's loss times its weight, "mean"
+    over the weights' sum; ignored with soft labels, as in the
+    reference."""
+    weight = np.random.RandomState(5).rand(11).astype(np.float32) + 0.5
+    _hold_ce(*_both_ce(dict(reduction=reduction), soft, weight=weight))
+
+
+@pytest.mark.parametrize("epsilon", [0.0, 0.1, 0.25])
+def test_label_smooth_of_one_hot_matches_the_reference(epsilon):
+    from paddle_tpu.nn import functional as JF
+    ids = np.array([[0, 3, 10], [7, 11, 2]], np.int64)    # 11: no class
+    want = JF.label_smooth(JF.one_hot(paddle.to_tensor(ids), 11),
+                           epsilon=epsilon)
+    got = F.label_smooth(F.one_hot(torch.from_numpy(ids), 11),
+                         epsilon=epsilon)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               rtol=1e-7, atol=1e-7)
+    with pytest.raises(NotImplementedError):
+        F.label_smooth(got, prior_dist=got[0, 0], epsilon=epsilon)
+
+
+def test_smoothed_loss_and_the_layer_match_the_reference():
+    """CrossEntropyLoss with soft labels from label_smooth(one_hot),
+    a class weight, use_softmax=False and ignore_index, against the
+    reference's layer; under auto_cast the bfloat16 logits and labels
+    enter softmax_with_cross_entropy as float32 (its black list)."""
+    from paddle_tpu import nn as jnn
+    from paddle_tpu.nn import functional as JF
+    from paddle_tpu_torch import nn
+    logits, label = _ce_inputs(False, seed=3)
+    soft = JF.label_smooth(JF.one_hot(paddle.to_tensor(label), 11))
+    tsoft = F.label_smooth(F.one_hot(torch.from_numpy(label), 11))
+    weight = np.linspace(0.5, 1.5, 11).astype(np.float32)
+    for kw, jl, tl in (
+            (dict(soft_label=True), soft, tsoft),
+            (dict(ignore_index=4), paddle.to_tensor(label),
+             torch.from_numpy(label)),
+            (dict(use_softmax=False, reduction="sum"),
+             paddle.to_tensor(label), torch.from_numpy(label))):
+        x = logits if kw.get("use_softmax", True) else np.exp(logits) / \
+            np.exp(logits).sum(-1, keepdims=True)
+        want = jnn.CrossEntropyLoss(**kw)(paddle.to_tensor(x), jl)
+        got = nn.CrossEntropyLoss(**kw)(torch.from_numpy(x), tl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                                   rtol=1e-6, atol=1e-6)
+    want = jnn.CrossEntropyLoss(weight=paddle.to_tensor(weight))(
+        paddle.to_tensor(logits), paddle.to_tensor(label))
+    got = nn.CrossEntropyLoss(weight=torch.from_numpy(weight))(
+        torch.from_numpy(logits), torch.from_numpy(label))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               rtol=1e-6, atol=1e-6)
+    with jamp.auto_cast(level="O1", dtype="bfloat16"):
+        jd = JF.softmax_with_cross_entropy(
+            paddle.to_tensor(logits).astype("bfloat16"),
+            soft.astype("bfloat16"), soft_label=True).dtype
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        td = F.softmax_with_cross_entropy(
+            torch.from_numpy(logits).bfloat16(), tsoft.bfloat16(),
+            soft_label=True).dtype
+    assert td == torch.float32 and str(jd).endswith("float32")
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_softmax_with_cross_entropy_returns_the_softmax(soft):
+    """return_softmax: (loss, softmax(logits)) as the reference's."""
+    from paddle_tpu.nn import functional as JF
+    logits, label = _ce_inputs(soft, seed=6)
+    jl, js = JF.softmax_with_cross_entropy(
+        paddle.to_tensor(logits), paddle.to_tensor(label), soft_label=soft,
+        return_softmax=True)
+    tl, ts = F.softmax_with_cross_entropy(
+        torch.from_numpy(logits), torch.from_numpy(label), soft_label=soft,
+        return_softmax=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl.numpy()),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js.numpy()),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_cross_entropy_weight_with_an_ignored_label():
+    """A class weight with an ignored label: that position weighs 0 (the
+    reference's lookup of -100 reads outside the weight: NaN)."""
+    logits, label = _ce_inputs(False, seed=4)
+    label[0, :2] = -100
+    weight = np.linspace(0.5, 1.5, 11).astype(np.float32)
+    got = F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(label),
+                          weight=torch.from_numpy(weight))
+    per = F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(label),
+                          reduction="none")
+    w = np.where(label == -100, 0.0, weight[np.maximum(label, 0)])
+    np.testing.assert_allclose(got.numpy(),
+                               (per.numpy() * w).sum() / w.sum(), rtol=1e-6)
+
+
 def test_eager_step_matches_the_train_step():
     # Optimizer.step() after loss.backward() is the train step's update
     crit = GPTPretrainingCriterion()
