@@ -9,6 +9,7 @@
     python3 chip_smoke.py --long-only      # the card, the build, phase 21
     python3 chip_smoke.py --static-only    # the card, the build, phase 22
     python3 chip_smoke.py --seq2seq-only   # the card, the build, phase 23
+    python3 chip_smoke.py --rnn-only       # the card, the build, phase 24
     python3 chip_smoke.py --fit-drill JSON # one run of phase 20's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -364,6 +365,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      nn.TransformerEncoder of the same weights (row 5), within 2e-2; a
      forward + backward launches rows 1t, 2, 3 and, post-LN, 4 and 6.
 
+ 24. the recurrent family (`rnn_main`, `--rnn-only`), float32 with TF32
+     off: (a) the port's LSTM(1500, 1500, 2) at B=20, T=35 and a 2-layer
+     bidirectional GRU(512, 512) at B=64, T=128 with lengths drawn in
+     [16, 128] against torch.nn.LSTM / GRU (cuDNN; over
+     pack_padded_sequence for the lengths) with the same weights: y and
+     the final states within RNN_FWD_REL_TOL of each output's largest
+     |value|, each parameter's gradient within RNN_GRAD_REL_TOL of its
+     norm; BiRNN(GRUCell, GRUCell) against the fused GRU; the port's
+     forward and forward + backward timed eagerly and replayed from a CUDA
+     graph, cuDNN's eagerly, beside their FLOP bound at 67 TFLOP/s; (b) Zaremba et al.'s large LSTM language model
+     (`ptb_model`: vocab 10000, 2 x 1500, B=20, T=35, dropout 0.65,
+     Uniform(-0.04, 0.04)) trained by SGD(1.0) under
+     ClipGradByGlobalNorm(10) through make_train_step (one CUDA graph),
+     the states carried from step to step, 3 + 20 steps with the counters
+     zeroed just before and read just after: 3 keep-mask launches a step
+     (after the embedding, between the layers, before the projection) and
+     no other kernel; step ms, tokens/s, MFU from the shapes
+     (`ptb_flops`), peak memory, the graph pool, a profiled step; the
+     captured step bit-equal to its eager bodies over 3 steps; at p 0,
+     step 1 against the same model with torch.nn.LSTM: losses within
+     1e-4, gradients within TRAIN_GRAD_TOL of each norm; (c) the model
+     under amp.decorate O2 bfloat16: 3 + 20 captured steps, every loss
+     finite, and at p 0 the first loss and the logits within
+     PTB_BF16_LOSS_TOL of (b)'s.
+
 The line before the last is the kernel table as JSON (the float16
 instances under their names + "_f16"; rows 1t, 2, 3 with their times at
 phase 21's shape under "long_context"; the launches of phase 21 (b)
@@ -372,8 +398,9 @@ counted in with phase 10's; row 1 at phase 22's BERT shape under
 serving paths'; the bfloat16 instance as "flash_fwd_bf16", its launches
 those of the bfloat16 BERT predictor and phase 23 (c)'s decoding, its
 times there under "nmt_decode"; rows 1t, 2, 3, 4-7 and K with phase
-23 (a)'s entries under "nmt", and phase 23 (b)'s launches counted in); the
-last line is {"ok": true, "device": {...}}.
+23 (a)'s entries under "nmt", and phase 23 (b)'s launches counted in;
+row K's launches of phase 24 (b) counted in, its time at that shape
+under "ptb"); the last line is {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -678,6 +705,30 @@ def abs_rel_err(got, want):
     want = want.float()
     err = (got.float() - want).abs().max().item()
     return err, err / max(1.0, want.abs().max().item())
+
+
+def rel_err(got, want, floor):
+    """max |got - want| over max(floor, max |want|): floor 1 for values of
+    order one, 0 for the array's own scale. numpy arrays or tensors."""
+    got, want = (np.asarray(a.detach().double().cpu()) if hasattr(a, "detach")
+                 else np.asarray(a, np.float64) for a in (got, want))
+    return float(np.abs(got - want).max()
+                 / max(floor, np.abs(want).max(), 1e-30))
+
+
+def graph_of(torch, fn, warmups=2):
+    """`fn` captured in a CUDA graph, warmed up `warmups` times on a side
+    stream first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmups):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
 
 
 def check_dropout_bits(torch, ck):
@@ -1035,28 +1086,40 @@ def check_adamw_scale(torch, ck, gen):
         % (ADAMW_CHECK_SCALE, worst_m))
 
 
-def check_dropout_keep(torch, ck):
+def keep_cases():
+    """(shape, p) at which F.dropout's keep mask runs on the main paths:
+    the training paths' hidden and ERNIE's feed-forward activation at the
+    kernels' drop rate and 0.5; phase 24's embedding and projection
+    dropouts [B, T, hidden] and its `rnn` op's inter-layer mask, time-major
+    [T, B, hidden], at the model's 0.65; one ragged shape."""
+    main = [((TRAIN_B, TRAIN_T, 768), p) for p in (DROPOUT, 0.5)] + [
+        ((ERNIE_B, ERNIE_T, w), p) for w in (768, 3072)
+        for p in (DROPOUT, 0.5)] + [((3, 5, 7), p) for p in (DROPOUT, 0.5)]
+    return main + ptb_keep_cases()
+
+
+def ptb_keep_cases():
+    return [((PTB_B, PTB_T, PTB_HIDDEN), PTB_DROPOUT),
+            ((PTB_T, PTB_B, PTB_HIDDEN), PTB_DROPOUT)]
+
+
+def check_dropout_keep(torch, ck, cases):
     """The keep mask of F.dropout on the card (`dropout_keep`: the fused
-    bits kernel under its own tag) bit-equal to its plain version at the
-    training paths' shapes (hidden; ERNIE's feed-forward activation), at
-    the kernels' drop rate."""
-    shapes = ((TRAIN_B, TRAIN_T, 768), (ERNIE_B, ERNIE_T, 768),
-              (ERNIE_B, ERNIE_T, 3072), (3, 5, 7))
-    for shape in shapes:
-        for p in (DROPOUT, 0.5):
-            got = ck.dropout_keep(WORD, DELTA, shape, p)
-            want = ck.dropout_keep_plain(SEED, OFFSET, shape, p,
-                                         device="cuda")
-            require(got.dtype == torch.bool and torch.equal(got, want),
-                    "dropout_keep %s p=%g differs from its plain version"
-                    % (shape, p))
-    rate = 1.0 - ck.dropout_keep(WORD, DELTA, (TRAIN_B, TRAIN_T, 768),
-                                 DROPOUT).double().mean().item()
-    require(abs(rate - DROPOUT) <= DROP_RATE_TOL, "dropout_keep rate %.5f"
-            % rate)
-    say("check dropout_keep: bit-equal to the plain Philox mask at %s, p "
-        "%g and 0.5; drop rate %.5f (want %.3f +- %.3f)"
-        % (list(shapes), DROPOUT, rate, DROPOUT, DROP_RATE_TOL))
+    bits kernel under its own tag) bit-equal to its plain version at each
+    (shape, p) of `cases`, and its drop rate at the largest of them."""
+    for shape, p in cases:
+        got = ck.dropout_keep(WORD, DELTA, shape, p)
+        want = ck.dropout_keep_plain(SEED, OFFSET, shape, p, device="cuda")
+        require(got.dtype == torch.bool and torch.equal(got, want),
+                "dropout_keep %s p=%g differs from its plain version"
+                % (shape, p))
+    shape, p = max(cases, key=lambda c: int(np.prod(c[0])))
+    rate = 1.0 - ck.dropout_keep(WORD, DELTA, shape, p).double().mean().item()
+    require(abs(rate - p) <= DROP_RATE_TOL, "dropout_keep rate %.5f at %s "
+            "p=%g" % (rate, shape, p))
+    say("check dropout_keep: bit-equal to the plain Philox mask at %s; drop "
+        "rate %.5f at %s (want %.3f +- %.3f)"
+        % (["%s p=%g" % c for c in cases], rate, shape, p, DROP_RATE_TOL))
     return 0.0
 
 
@@ -1368,15 +1431,7 @@ def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16",
             fn(p, g, a, b, *args, **kw, **extra)
 
     def captured(**extra):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            run(ck.adamw, sc, **extra)    # warm-up on the capture stream
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            run(ck.adamw, sc, **extra)
-        return graph
+        return graph_of(torch, lambda: run(ck.adamw, sc, **extra), 1)
     graph, unscaled = captured(scaled=True), captured()
     lib_p = [p.clone().requires_grad_() for p in ps]
     for p, g in zip(lib_p, gs):
@@ -1409,8 +1464,8 @@ def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16",
     return out
 
 
-def time_dropout_keep(torch, ck, timer, shape):
-    """Device time of the keep-mask kernel at a hidden dropout's shape
+def time_dropout_keep(torch, ck, timer, shape, p=DROPOUT):
+    """Device time of the keep-mask kernel at a dropout's shape and rate
     beside its bound (one bool written an element; one Philox call,
     PHILOX_INT_OPS int32 operations a lane, a 4 elements at the card's
     int32 rate) and its plain version. No PyTorch call
@@ -1418,13 +1473,12 @@ def time_dropout_keep(torch, ck, timer, shape):
     library_ms is null."""
     n = int(np.prod(shape))
     b, by = bound_ms(n, PHILOX_INT_OPS * n / 4, "int32")
-    out = {"ms": timer.ms(lambda: ck.dropout_keep(WORD, DELTA, shape,
-                                                  DROPOUT)),
+    out = {"ms": timer.ms(lambda: ck.dropout_keep(WORD, DELTA, shape, p)),
            "plain_ms": timer.ms(lambda: ck.dropout_keep_plain(
-               SEED, OFFSET, shape, DROPOUT, device="cuda")),
+               SEED, OFFSET, shape, p, device="cuda")),
            "library_ms": None, "bound_ms": b, "bound_by": by}
     say("time dropout_keep %s p=%g: %.4f ms, plain %.4f ms, bound %.4f ms "
-        "(%s)" % (shape, DROPOUT, out["ms"], out["plain_ms"], b, by))
+        "(%s)" % (shape, p, out["ms"], out["plain_ms"], b, by))
     return out
 
 
@@ -3512,14 +3566,8 @@ def momentum_ms(torch, model, n=20):
     opt = optimizer.Momentum(learning_rate=RESNET_LR,
                              momentum=RESNET_MOMENTUM, parameters=params)
     opt.stage_step()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        opt.apply_updates(pairs)             # the velocities made, warm
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        opt.apply_updates(pairs)
+    # the warm-up makes the velocities
+    graph = graph_of(torch, lambda: opt.apply_updates(pairs), 1)
     out = []
     for _ in range(n):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -5745,12 +5793,6 @@ def export(paddle, static, build_fn, feed_specs, tag, root):
     return path, [n for n, _, _ in feed_specs]
 
 
-def rel_err(got, want):
-    got = np.asarray(got, np.float64)
-    want = np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
-
-
 def infer_resnet(torch, ck, paddle, static, root, card):
     """Phase 22 (c): inference_bench.py:82 bench_resnet50 as written (on
     its TPU branch) against the port, each batch's output held to the
@@ -5781,7 +5823,7 @@ def infer_resnet(torch, ck, paddle, static, root, card):
         got = pred.get_output_handle(out_name).copy_to_cpu()
         with torch.no_grad():
             want = nets[0](torch.from_numpy(x).cuda()).cpu().numpy()
-        err = rel_err(got, want)
+        err = rel_err(got, want, 1.0)
         require(err <= INFER_REL_TOL, "static (c) resnet50 predictor B=%d: "
                 "rel err %.3g against the dygraph eval forward > %.0e"
                 % (B, err, INFER_REL_TOL))
@@ -5866,7 +5908,7 @@ def infer_bert(torch, ck, flags, paddle, static, root, card):
             plain = net(ids)[0].cpu().numpy()
         finally:
             flags.set_flags(saved)
-    err, err_plain = rel_err(got, want), rel_err(got, plain)
+    err, err_plain = rel_err(got, want, 1.0), rel_err(got, plain, 1.0)
     require(err <= INFER_REL_TOL and err_plain <= INFER_REL_TOL,
             "static (c) bert predictor: rel err %.3g against the dygraph "
             "eval forward, %.3g against it with use_flash_attention off "
@@ -5892,7 +5934,7 @@ def infer_bert(torch, ck, flags, paddle, static, root, card):
                       INFER_WARMUP)
     launches16 = ck.launch_counts()
     got16 = pred16.get_output_handle(out_name).copy_to_cpu()
-    err16 = rel_err(got16, got)
+    err16 = rel_err(got16, got, 1.0)
     dev16, top16 = profile_step(torch, pred16.run, lambda: ())
     replays16 = pred16.programs.replays
     require(launches16["flash_fwd"] == layers * n_runs and got16.dtype ==
@@ -6665,6 +6707,605 @@ def nmt_main(torch, ck, F, flags, card):
             "fused": fus, "step": entry, "dec": dec}
 
 
+# ---------------------------------------------------------------------------
+# 24. the recurrent family: the LSTM and GRU recurrence against cuDNN,
+# Zaremba et al.'s large LSTM language model
+
+# Zaremba, Sutskever and Vinyals 2014 (arXiv:1409.2329), §4.1, the large
+# Penn Treebank model: 2 layers of 1500 units unrolled 35 steps, batch 20,
+# a 10000-word vocabulary, dropout 0.65 on the non-recurrent connections,
+# weights uniform in [-0.04, 0.04], SGD at lr 1, gradients clipped to a
+# global norm of 10. The ids are synthetic (the corpus is not in the
+# repository)
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS = 10000, 1500, 2
+PTB_B, PTB_T = 20, 35
+PTB_DROPOUT, PTB_INIT, PTB_LR, PTB_CLIP = 0.65, 0.04, 1.0, 10.0
+
+
+def ptb_model(vocab=PTB_VOCAB, hidden=PTB_HIDDEN, layers=PTB_LAYERS,
+              dropout=PTB_DROPOUT, init=PTB_INIT, seed=0, device="cuda"):
+    """The LSTM language model (the JAX package has no such class;
+    tests/test_torch_rnn.py builds the same one on it): Embedding(vocab,
+    hidden), Dropout, LSTM(hidden, hidden, layers, dropout), Dropout,
+    Linear(hidden, vocab), every weight drawn by ParamAttr(Uniform(-init,
+    init)). forward(ids [B, T], h0, c0 [layers, B, hidden]) -> (logits
+    [B, T, vocab], h_n, c_n): truncated back-propagation takes h_n and c_n
+    as the next batch's h0 and c0. Weights drawn on the CPU from a
+    generator seeded with `seed`, then moved to `device`."""
+    import torch
+    from paddle_tpu_torch import nn
+
+    def attr():
+        return nn.ParamAttr(initializer=nn.initializer.Uniform(-init, init))
+
+    class LSTMLM(torch.nn.Module):
+        def __init__(self, g):
+            super().__init__()
+            self.embedding = nn.Embedding(vocab, hidden, weight_attr=attr(),
+                                          generator=g)
+            self.drop_in = nn.Dropout(dropout)
+            self.lstm = nn.LSTM(hidden, hidden, layers, dropout=dropout,
+                                weight_ih_attr=attr(), weight_hh_attr=attr(),
+                                bias_ih_attr=attr(), bias_hh_attr=attr(),
+                                generator=g)
+            self.drop_out = nn.Dropout(dropout)
+            self.proj = nn.Linear(hidden, vocab, weight_attr=attr(),
+                                  bias_attr=attr(), generator=g)
+
+        def forward(self, ids, h0, c0):
+            y, (h, c) = self.lstm(self.drop_in(self.embedding(ids)),
+                                  (h0, c0))
+            return self.proj(self.drop_out(y)), h, c
+
+    gen = torch.Generator().manual_seed(int(seed))
+    return LSTMLM(gen).to(device)
+
+
+def ptb_loss(F, logits, label):
+    """The paper's loss in either package's functional namespace `F`: the
+    cross entropy summed over the steps and averaged over the batch."""
+    return F.cross_entropy(logits, label, reduction="sum") / label.shape[0]
+
+
+# (a): the recurrence at the model's shapes and a bidirectional GRU with
+# lengths (B=64, T=128, 2 layers of 512, lengths drawn in [16, 128]),
+# each against PyTorch's cuDNN RNN with the same weights: forward values
+# within RNN_FWD_REL_TOL of the largest |value| of each output (float32
+# sums over 1500 inputs and up to 128 steps in another order), each
+# parameter's gradient within RNN_GRAD_REL_TOL of its norm
+RNN_FWD_REL_TOL, RNN_GRAD_REL_TOL = 1e-5, 1e-4
+GRU_B, GRU_T, GRU_H, GRU_LAYERS, GRU_MIN_LEN = 64, 128, 512, 2, 16
+# (a)'s timings: runs x calls a run; the GRU's port calls take 0.1-0.4 s
+# each eagerly (host-bound: ~8000 launches a forward), 20-90 ms from a
+# graph
+RNN_TIMER_RUNS = {"lstm": (9, 3), "gru": (5, 1)}
+# (b): synthetic batches taken in turn, the warm-up and timed steps
+PTB_BATCHES, PTB_WARMUP, PTB_STEPS = 4, 3, 20
+# (c): the bfloat16 model's first loss at p = 0 against (b)'s float32 one,
+# and its logits of the largest float32 |logit|; its LSTM output and
+# final states, each of the float32 array's largest |value|, within
+# PTB_BF16_STATE_TOL (PERF.md §6 has the readings that set it: sound bf16
+# 0.0079-0.0147, a planted fault, the cell gate scaled by PTB_FAULT_SCALE,
+# 0.19-0.21)
+PTB_BF16_LOSS_TOL = 2e-2
+PTB_BF16_STATE_TOL, PTB_FAULT_SCALE = 5e-2, 1.1
+
+
+def rnn_flops(mode, B, T, I, H, layers, dirs, tokens=None):
+    """Forward FLOPs of the fused recurrence, from the shapes: the input
+    projection and h @ W_hh^T of each layer and direction, 2 flops a
+    multiply-add, over `tokens` valid (row, step) pairs (default B * T;
+    the GEMMs' work that lengths need); pointwise math not counted."""
+    G = {"LSTM": 4, "GRU": 3}.get(mode, 1) * H
+    n = B * T if tokens is None else tokens
+    total = 0
+    for layer in range(layers):
+        in_sz = I if layer == 0 else H * dirs
+        total += dirs * 2 * n * (in_sz + H) * G
+    return total
+
+
+def ptb_flops(B=PTB_B, T=PTB_T, V=PTB_VOCAB, H=PTB_HIDDEN, L=PTB_LAYERS):
+    """A training step's FLOPs from the shapes: forward (the LSTM's GEMMs
+    and the output projection) times 3 for forward + backward: about 306
+    MFLOP a token, 214 GFLOP a step at the paper's shapes."""
+    fwd = rnn_flops("LSTM", B, T, H, H, L, 1) + 2 * B * T * H * V
+    return 3 * fwd
+
+
+def copy_rnn_weights(torch, src, dst):
+    """The port's RNNBase weights into a torch.nn.LSTM / GRU (the same
+    names, weight_ih_l0, ..., _reverse) or the other way round."""
+    own = dict(dst.named_parameters())
+    with torch.no_grad():
+        for name, p in src.named_parameters():
+            own[name].copy_(p)
+
+
+def rnn_against_cudnn(torch, label, port, ref, x, states, lens=None):
+    """The port's fused class and cuDNN's (torch.nn.LSTM / GRU, batch_first,
+    the same weights; with `lens`, over pack_padded_sequence(
+    enforce_sorted=False)) on x and the initial states: y and the final
+    states within RNN_FWD_REL_TOL, each parameter's gradient under one
+    cotangent within RNN_GRAD_REL_TOL of its norm. On a forward failure
+    the error by time step is printed first."""
+    nn_utils = torch.nn.utils.rnn
+    T = x.shape[1]
+    lstm = isinstance(states, tuple)
+    t_lens = None if lens is None else torch.from_numpy(lens).to(x.device)
+    out = port(x, states, sequence_length=t_lens)
+    y, fin = out[0], (list(out[1]) if lstm else [out[1]])
+    if lens is None:
+        ry, rfin = ref(x, states)
+    else:
+        packed = nn_utils.pack_padded_sequence(
+            x, torch.from_numpy(lens), batch_first=True,
+            enforce_sorted=False)
+        ry, rfin = ref(packed, states)
+        ry, _ = nn_utils.pad_packed_sequence(ry, batch_first=True,
+                                             total_length=T)
+    rfin = list(rfin) if lstm else [rfin]
+    errs = [rel_err(a, b, 0.0) for a, b in zip([y] + fin, [ry] + rfin)]
+    if max(errs) > RNN_FWD_REL_TOL:
+        scale = ry.abs().max().item()
+        by_t = [round((y[:, t] - ry[:, t]).abs().max().item() / scale, 9)
+                for t in range(T)]
+        say("%s: y's error by time step (of max |y|) %s" % (label, by_t))
+    require(max(errs) <= RNN_FWD_REL_TOL, "%s: forward against cuDNN %s "
+            "(y, final states; tol %g)" % (label, errs, RNN_FWD_REL_TOL))
+    gen = torch.Generator(device=x.device).manual_seed(5)
+    cts = [torch.randn(t.shape, generator=gen, device=x.device)
+           for t in [y] + fin]
+    if lens is not None:                # no gradient into padding
+        cts[0] = cts[0] * (torch.arange(T, device=x.device)[None, :, None]
+                           < t_lens[:, None, None])
+    names = [n for n, _ in port.named_parameters()]
+    g = torch.autograd.grad([y] + fin, list(port.parameters()), cts)
+    rp = dict(ref.named_parameters())
+    rg = torch.autograd.grad([ry] + rfin, [rp[n] for n in names], cts)
+    ratios = {n: ((a - b).double().norm() / b.double().norm()).item()
+              for n, a, b in zip(names, g, rg)}
+    worst = max(ratios, key=ratios.get)
+    say("%s against cuDNN: y %.3g, final states %s of max |value| (tol %g); "
+        "gradients ||g - g_cudnn|| / ||g_cudnn|| largest %s %.3g (tol %g)"
+        % (label, errs[0], ["%.3g" % e for e in errs[1:]], RNN_FWD_REL_TOL,
+           worst, ratios[worst], RNN_GRAD_REL_TOL))
+    require(ratios[worst] <= RNN_GRAD_REL_TOL, "%s: gradient of %s %.3g of "
+            "its norm from cuDNN's" % (label, worst, ratios[worst]))
+    return y, fin
+
+
+def time_recurrence(torch, timer, label, port, ref, x, states, flops, card,
+                    runs, lens=None):
+    """Device time of the port's forward and forward + backward, run
+    eagerly (each launch enqueued from Python, as an eager step runs it)
+    and replayed from a CUDA graph (as the captured train step runs it),
+    and of cuDNN's eager calls for the same work (CUDA events, the median
+    as phase 4 takes it, over `runs` = (runs, calls a run)), each beside
+    its FLOP bound at the float32 rate."""
+    nn_utils = torch.nn.utils.rnn
+    t_lens = None if lens is None else torch.from_numpy(lens).cuda()
+    packed = None if lens is None else nn_utils.pack_padded_sequence(
+        x, torch.from_numpy(lens), batch_first=True, enforce_sorted=False)
+    pp, rp = list(port.parameters()), list(ref.parameters())
+
+    def run_port():
+        return port(x, states, sequence_length=t_lens)[0]
+
+    def run_ref():
+        y = ref(x if packed is None else packed, states)[0]
+        return y if packed is None else y.data
+
+    def train(run, params):
+        def call():
+            y = run()
+            torch.autograd.grad(y, params, torch.ones_like(y))
+        return call
+
+    def infer(run):
+        def call():
+            with torch.no_grad():
+                run()
+        return call
+    runs, reps = runs
+    out = {"fwd_ms": timer.ms(infer(run_port), runs, reps),
+           "cudnn_fwd_ms": timer.ms(infer(run_ref), runs, reps),
+           "train_ms": timer.ms(train(run_port, pp), runs, reps),
+           "cudnn_train_ms": timer.ms(train(run_ref, rp), runs, reps),
+           "fwd_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+           "train_bound_ms": 3 * flops / PEAK_FLOPS["float32"] * 1e3}
+    fwd_graph = graph_of(torch, infer(run_port))
+    out["graph_fwd_ms"] = timer.ms(fwd_graph.replay, runs, reps)
+    del fwd_graph
+    train_graph = graph_of(torch, train(run_port, pp))
+    out["graph_train_ms"] = timer.ms(train_graph.replay, runs, reps)
+    del train_graph
+    say("time %s (%.3f GFLOP forward): forward port %.4f ms eager, %.4f ms "
+        "from a CUDA graph, cuDNN %.4f ms, bound %.4f ms; forward + "
+        "backward port %.4f ms eager, %.4f ms from a graph, cuDNN %.4f ms, "
+        "bound %.4f ms (operations at 67 TFLOP/s float32; %s)"
+        % (label, flops / 1e9, out["fwd_ms"], out["graph_fwd_ms"],
+           out["cudnn_fwd_ms"], out["fwd_bound_ms"], out["train_ms"],
+           out["graph_train_ms"], out["cudnn_train_ms"],
+           out["train_bound_ms"], card))
+    return out
+
+
+def rnn_recurrence(torch, timer, card):
+    """Phase 24 (a): the port's LSTM(1500, 1500, 2) at B=20, T=35 and a
+    2-layer bidirectional GRU(512, 512) at B=64, T=128 with lengths from
+    the seed, each against cuDNN (`rnn_against_cudnn`) and timed
+    (`time_recurrence`); BiRNN(GRUCell, GRUCell) against the fused GRU of
+    the same weights. Float32, TF32 off for the oracle too."""
+    from paddle_tpu_torch import nn
+    require(not torch.backends.cudnn.allow_tf32
+            and not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 is on: the float32 comparisons need it off")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    H, L = PTB_HIDDEN, PTB_LAYERS
+    port = nn.LSTM(H, H, L, generator=torch.Generator().manual_seed(0)).cuda()
+    ref = torch.nn.LSTM(H, H, L, batch_first=True).cuda()
+    copy_rnn_weights(torch, port, ref)
+    x = torch.randn(PTB_B, PTB_T, H, generator=gen, device="cuda")
+    st = (0.5 * torch.randn(L, PTB_B, H, generator=gen, device="cuda"),
+          0.5 * torch.randn(L, PTB_B, H, generator=gen, device="cuda"))
+    label = "rnn (a) LSTM(%d, %d, %d) B=%d T=%d" % (H, H, L, PTB_B, PTB_T)
+    rnn_against_cudnn(torch, label, port, ref, x, st)
+    out = {"lstm": time_recurrence(
+        torch, timer, label, port, ref, x, st,
+        rnn_flops("LSTM", PTB_B, PTB_T, H, H, L, 1), card,
+        RNN_TIMER_RUNS["lstm"])}
+    del port, ref
+    gport = nn.GRU(GRU_H, GRU_H, GRU_LAYERS, direction="bidirect",
+                   generator=torch.Generator().manual_seed(1)).cuda()
+    gref = torch.nn.GRU(GRU_H, GRU_H, GRU_LAYERS, batch_first=True,
+                        bidirectional=True).cuda()
+    copy_rnn_weights(torch, gport, gref)
+    lens = np.random.RandomState(24).randint(
+        GRU_MIN_LEN, GRU_T + 1, GRU_B).astype(np.int64)
+    gx = torch.randn(GRU_B, GRU_T, GRU_H, generator=gen, device="cuda")
+    h0 = 0.5 * torch.randn(2 * GRU_LAYERS, GRU_B, GRU_H, generator=gen,
+                           device="cuda")
+    glabel = ("rnn (a) GRU(%d, %d, %d, bidirect) B=%d T=%d lengths %d-%d "
+              "(%d tokens)" % (GRU_H, GRU_H, GRU_LAYERS, GRU_B, GRU_T,
+                               lens.min(), lens.max(), lens.sum()))
+    rnn_against_cudnn(torch, glabel, gport, gref, gx, h0, lens)
+    out["gru"] = time_recurrence(
+        torch, timer, glabel, gport, gref, gx, h0,
+        rnn_flops("GRU", GRU_B, GRU_T, GRU_H, GRU_H, GRU_LAYERS, 2,
+                  int(lens.sum())), card, RNN_TIMER_RUNS["gru"], lens)
+    # BiRNN of two cells against the fused GRU's first layer
+    one = nn.GRU(GRU_H, GRU_H, 1, direction="bidirect",
+                 generator=torch.Generator().manual_seed(2)).cuda()
+    cells = [nn.GRUCell(GRU_H, GRU_H).cuda() for _ in range(2)]
+    with torch.no_grad():
+        for cell, sfx in zip(cells, ("", "_reverse")):
+            for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                getattr(cell, k).copy_(getattr(one, k + "_l0" + sfx))
+    t_lens = torch.from_numpy(lens).cuda()
+    with torch.no_grad():
+        y, h = one(gx, h0[:2], sequence_length=t_lens)
+        yb, (sf, sb) = nn.BiRNN(*cells)(gx, (h0[0], h0[1]),
+                                        sequence_length=t_lens)
+    errs = [rel_err(yb, y, 0.0), rel_err(sf, h[0], 0.0),
+            rel_err(sb, h[1], 0.0)]
+    say("rnn (a) BiRNN(GRUCell, GRUCell) against the fused GRU (1 layer, "
+        "the same weights, lengths): y %.3g, states %.3g / %.3g of max "
+        "|value| (tol %g)" % (*errs, RNN_FWD_REL_TOL))
+    require(max(errs) <= RNN_FWD_REL_TOL, "rnn (a): BiRNN against the "
+            "fused GRU %s" % errs)
+    return out
+
+
+def ptb_batches(torch, n, B=PTB_B, T=PTB_T, V=PTB_VOCAB):
+    """n synthetic batches (seeds 0 .. n-1) on the card: ids [B, T] and the
+    next ids as labels."""
+    out = []
+    for i in range(n):
+        ids = np.random.RandomState(i).randint(0, V, (B, T + 1))
+        out.append((torch.from_numpy(ids[:, :-1]).cuda(),
+                    torch.from_numpy(ids[:, 1:]).cuda()))
+    return out
+
+
+def ptb_build(torch, dropout=PTB_DROPOUT, dtype="float32"):
+    """(b)'s model, SGD(1.0) under ClipGradByGlobalNorm(10), and for
+    bfloat16 the O2 decoration: (model, optimizer, step, states zeros)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.nn import functional as PF
+    prandom.seed(0)
+    model = ptb_model(dropout=dropout, seed=0)
+    model.train()
+    opt = optimizer.SGD(learning_rate=PTB_LR, parameters=model.parameters(),
+                        grad_clip=optimizer.ClipGradByGlobalNorm(PTB_CLIP))
+    if dtype != "float32":
+        model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
+    step = make_train_step(model, lambda o, h, c, y: ptb_loss(PF, o, y), opt)
+    z = torch.zeros(PTB_LAYERS, PTB_B, PTB_HIDDEN, device="cuda",
+                    dtype=next(model.parameters()).dtype)
+    return model, opt, step, z
+
+
+def ptb_run(torch, ck, label, step, batches, z, ctx, card):
+    """PTB_WARMUP + PTB_STEPS captured steps, the states carried from step
+    to step (truncated back-propagation), the counters zeroed just before
+    and read just after: (losses, step times ms, launches, replayed
+    launches, the program's key)."""
+    h = c = z
+    ck.launch_counts(reset=True)
+    ck.attention_path_counts(reset=True)
+    losses, times = [], []
+    with ctx():
+        for i in range(PTB_WARMUP + PTB_STEPS):
+            ids, lab = batches[i % len(batches)]
+            t0 = time.perf_counter()
+            loss, (_, h, c) = step([ids, h, c], [lab])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+    launches = ck.launch_counts()
+    progs = step.programs
+    (key,) = progs.builds
+    replayed = {k: progs.replays[key] * n
+                for k, n in progs.launches[key].items()}
+    n = PTB_WARMUP + PTB_STEPS
+    require(step.compiles == 1 and step.replays == n - 1,
+            "%s: %d programs and %d replays in %d steps"
+            % (label, step.compiles, step.replays, n))
+    require(all(math.isfinite(x) for x in losses),
+            "%s: non-finite loss %s" % (label, losses))
+    say("%s losses %s" % (label, ["%.3f" % x for x in losses]))
+    return losses, times[PTB_WARMUP:], launches, replayed, key, (h, c)
+
+
+def ptb_train(torch, ck, card, batches):
+    """Phase 24 (b): the large LSTM language model (float32, dropout 0.65)
+    through make_train_step (one CUDA graph), PTB_WARMUP + PTB_STEPS steps
+    with the states carried: the keep mask's launches a step (3: after the
+    embedding, between the LSTM's layers, before the projection) and
+    through replays, no other kernel; step ms, tokens/s, MFU, peak memory,
+    the graph pool, a profiled step; then the captured step against its
+    eager bodies over 3 steps from one state. Returns (launches, entry)."""
+    import contextlib
+    from paddle_tpu_torch.nn import functional as PF
+    t0 = time.perf_counter()
+    model, opt, step, z = ptb_build(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+    say("ptb (b): LSTM LM %d parameters (%d tensors), vocab %d, %d x %d, "
+        "B=%d, T=%d, dropout %g, built in %.1f s"
+        % (n_params, len(list(model.parameters())), PTB_VOCAB, PTB_LAYERS,
+           PTB_HIDDEN, PTB_B, PTB_T, PTB_DROPOUT, time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = {k: 0 for k in ck.launch_counts()}
+    want["dropout_keep"] = 3
+    _, times, launches, replayed, key, _ = ptb_run(
+        torch, ck, "ptb (b)", step, batches, z, contextlib.nullcontext, card)
+    peak = torch.cuda.max_memory_allocated()
+    n = PTB_WARMUP + PTB_STEPS
+    per_step = {k: v / n for k, v in launches.items()}
+    say("ptb (b) launches %s (%d steps)" % (launches, n))
+    require(per_step == {k: float(v) for k, v in want.items()},
+            "ptb (b): launches a step %s, want %s" % (per_step, want))
+    require(replayed["dropout_keep"] > 0, "ptb (b): the keep mask launched "
+            "in no replay: %s" % replayed)
+    ids, lab = batches[0]
+    dev_ms, top = profile_step(torch, step, lambda: ([ids, z, z], [lab]))
+    step_ms = statistics.median(times)
+    flops = ptb_flops()
+    tokens = PTB_B * PTB_T
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    progs = step.programs
+    say("ptb (b) program %s: 1 build + %d replays, captured in %.1f ms, "
+        "graph pool %.1f MiB (%s)" % (key, progs.replays[key],
+                                      progs.capture_s[key] * 1e3,
+                                      progs.pool_bytes() / 2 ** 20, card))
+    say("ptb (b) LSTM LM train step, float32, SGD + clip, dropout %g: %.2f "
+        "ms median of %d after %d warm-up (mean %.2f), %.0f tokens/s (%d a "
+        "step), MFU %.4f of 989 TFLOP/s bf16 (%.4f of 67 TFLOP/s float32; "
+        "%.1f GFLOP a step), peak memory %.1f MiB (%s)"
+        % (PTB_DROPOUT, step_ms, PTB_STEPS, PTB_WARMUP,
+           statistics.mean(times), tokens / (step_ms / 1e3), tokens, mfu,
+           flops / (step_ms / 1e3) / PEAK_FLOPS["float32"], flops / 1e9,
+           peak / 2 ** 20, card))
+    report_profile("ptb (b) captured", dev_ms, step_ms, top)
+    entry = {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+             "mfu": mfu, "peak_mib": peak / 2 ** 20,
+             "pool_mib": progs.pool_bytes() / 2 ** 20,
+             "idle": 1.0 - dev_ms / step_ms if dev_ms > 0 else None}
+    del step
+    free_memory(torch)
+    graph_against_eager_train(
+        torch, ck, "ptb (b)", model, opt,
+        lambda o, h, c, y: ptb_loss(PF, o, y),
+        [([ids, z, z], [lab]) for ids, lab in batches[:3]],
+        contextlib.nullcontext, PTB_DROPOUT)
+    return launches, entry
+
+
+def ptb_against_cudnn(torch, batches):
+    """Phase 24 (b), float32 at p = 0: step 1 (one forward and backward on
+    one batch from zero states) of the port's model against the same
+    model whose LSTM is torch.nn.LSTM (cuDNN) with copied weights: the
+    losses within 1e-4, each parameter's gradient within TRAIN_GRAD_TOL of
+    its norm (compare_runs' rule, with its floor). Returns the port's
+    p = 0 outputs (ptb_outputs' keys)."""
+    from paddle_tpu_torch.nn import functional as PF
+    model = ptb_model(dropout=0.0, seed=0)
+    twin = ptb_model(dropout=0.0, seed=0)
+    twin.lstm = torch.nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, PTB_LAYERS,
+                              batch_first=True).cuda()
+    copy_rnn_weights(torch, model.lstm, twin.lstm)
+    ids, lab = batches[0]
+    z = torch.zeros(PTB_LAYERS, PTB_B, PTB_HIDDEN, device="cuda")
+    out = []
+    for m in (model, twin):
+        seen = []
+        hook = m.lstm.register_forward_hook(
+            lambda mod, args, o: seen.append(o[0].detach()))
+        logits, h, c = m(ids, z, z)
+        hook.remove()
+        loss = ptb_loss(PF, logits, lab)
+        names = [n for n, _ in m.named_parameters()]
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        out.append((loss.item(), dict(zip(names, grads)),
+                    {"loss": loss.item(), "y": seen[0], "h_n": h.detach(),
+                     "c_n": c.detach(), "logits": logits.detach()}))
+    (kl, kg, k_out), (pl, pg, _) = out
+    norms = {n: g.double().norm().item() for n, g in pg.items()}
+    floor = TRAIN_GRAD_FLOOR * math.sqrt(sum(v * v for v in norms.values()))
+    ratios = {n: (kg[n] - g).double().norm().item() / max(norms[n], floor)
+              for n, g in pg.items()}
+    worst = max(ratios, key=ratios.get)
+    rel = abs(kl - pl) / abs(pl)
+    say("ptb (b) float32 p=0 step 1 against the cuDNN-LSTM model: loss "
+        "%.6f vs %.6f (rel %.3g, tol 1e-4); gradients ||g - g_cudnn|| / "
+        "||g_cudnn|| largest %s %.3g (tol %g)"
+        % (kl, pl, rel, worst, ratios[worst], TRAIN_GRAD_TOL))
+    require(rel <= 1e-4, "ptb (b): loss %.6f against cuDNN's %.6f"
+            % (kl, pl))
+    require(ratios[worst] <= TRAIN_GRAD_TOL, "ptb (b): gradient of %s %.3g "
+            "of its norm from the cuDNN model's" % (worst, ratios[worst]))
+    return k_out
+
+
+def ptb_outputs(torch, PF, model, ids, lab, z, ctx):
+    """One p = 0 forward of the language model under `ctx` from zero
+    states: the loss, the LSTM's output y (before the projection), h_n,
+    c_n and the logits."""
+    seen = []
+    hook = model.lstm.register_forward_hook(
+        lambda mod, args, o: seen.append(o[0]))
+    with torch.no_grad(), ctx():
+        logits, h, c = model(ids, z, z)
+        loss = float(ptb_loss(PF, logits, lab))
+    hook.remove()
+    return {"loss": loss, "y": seen[0], "h_n": h, "c_n": c,
+            "logits": logits}
+
+
+def ptb_bf16(torch, ck, card, batches, f32):
+    """Phase 24 (c): the model under amp.decorate O2 bfloat16, every step
+    under auto_cast(O2, bfloat16): PTB_WARMUP + PTB_STEPS captured steps
+    (step ms, tokens/s, every loss finite); then at p = 0 from the same
+    weights and batch, against (b)'s float32 outputs `f32`: the first
+    loss within PTB_BF16_LOSS_TOL (at the initial weights the logits lie
+    within a few hundredths of 0, so the loss is close to T ln(vocab)
+    whatever the model computes: a weak check) and the logits, of the
+    largest float32 |logit|; the LSTM's y, h_n and c_n each within
+    PTB_BF16_STATE_TOL of its own largest float32 |value|. Then a planted
+    fault, the cell gate g's rows of every LSTM weight and bias scaled by
+    PTB_FAULT_SCALE (about that much off in c and h), must put each of y,
+    h_n and c_n past PTB_BF16_STATE_TOL: the bound tells a wrong
+    recurrence from bf16 rounding. Each loss is also taken in float64
+    from its logits (torch's cross entropy, a yardstick only)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as PF
+
+    def ctx():
+        return amp.auto_cast(level="O2", dtype="bfloat16")
+    model, opt, step, z = ptb_build(torch, dtype="bfloat16")
+    _, times, launches, _, _, _ = ptb_run(torch, ck, "ptb (c) bf16", step,
+                                          batches, z, ctx, card)
+    step_ms = statistics.median(times)
+    tokens = PTB_B * PTB_T
+    say("ptb (c) LSTM LM train step, O2 bf16: %.2f ms median of %d (mean "
+        "%.2f), %.0f tokens/s, MFU %.4f of 989 TFLOP/s bf16, launches %s "
+        "(%s)" % (step_ms, PTB_STEPS, statistics.mean(times),
+                  tokens / (step_ms / 1e3),
+                  ptb_flops() / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+                  {k: v for k, v in launches.items() if v}, card))
+    del model, opt, step
+    free_memory(torch)
+    m16 = amp.decorate(ptb_model(dropout=0.0, seed=0), level="O2",
+                       dtype="bfloat16")
+    ids, lab = batches[0]
+    z = torch.zeros(PTB_LAYERS, PTB_B, PTB_HIDDEN, device="cuda",
+                    dtype=torch.bfloat16)
+    keys, states = ("y", "h_n", "c_n", "logits"), ("y", "h_n", "c_n")
+
+    def errors(out):
+        return {k: rel_err(out[k], f32[k], 0.0) for k in keys}
+
+    def ce64(logits):
+        return torch.nn.functional.cross_entropy(
+            logits.double().flatten(0, 1), lab.flatten(),
+            reduction="sum").item() / PTB_B
+    b16 = ptb_outputs(torch, PF, m16, ids, lab, z, ctx)
+    rel = abs(b16["loss"] - f32["loss"]) / abs(f32["loss"])
+    errs = errors(b16)
+    f64 = ce64(f32["logits"])
+    say("ptb (c) bf16 p=0 first loss %.9g against float32's %.9g: rel %.3g "
+        "(tol %g); in float64 from each's logits %.12g against %.12g (%.3g "
+        "apart); of each float32 array's largest |value| (%s): %s (tol: "
+        "states %g, logits %g)"
+        % (b16["loss"], f32["loss"], rel, PTB_BF16_LOSS_TOL,
+           ce64(b16["logits"]), f64, ce64(b16["logits"]) - f64,
+           ", ".join("%s %.4g" % (k, f32[k].abs().max().item())
+                     for k in keys),
+           ", ".join("%s %.3g" % kv for kv in errs.items()),
+           PTB_BF16_STATE_TOL, PTB_BF16_LOSS_TOL))
+    require(rel <= PTB_BF16_LOSS_TOL
+            and errs["logits"] <= PTB_BF16_LOSS_TOL
+            and max(errs[k] for k in states) <= PTB_BF16_STATE_TOL,
+            "ptb (c): bf16 loss %.4f against float32's %.4f, outputs %s"
+            % (b16["loss"], f32["loss"], errs))
+    H = PTB_HIDDEN
+    with torch.no_grad():
+        for p in m16.lstm.parameters():      # [i, f, g, o] blocks of 4H
+            p[2 * H:3 * H] *= PTB_FAULT_SCALE
+    bad = ptb_outputs(torch, PF, m16, ids, lab, z, ctx)
+    bad_errs = errors(bad)
+    say("ptb (c) planted fault, gate g x %g: loss %.9g (rel %.3g; float64 "
+        "%.12g, %.3g from float32's logits); %s (each of y, h_n, c_n must "
+        "pass tol %g)"
+        % (PTB_FAULT_SCALE, bad["loss"],
+           abs(bad["loss"] - f32["loss"]) / abs(f32["loss"]),
+           ce64(bad["logits"]), ce64(bad["logits"]) - f64,
+           ", ".join("%s %.3g" % kv for kv in bad_errs.items()),
+           PTB_BF16_STATE_TOL))
+    require(min(bad_errs[k] for k in states) > PTB_BF16_STATE_TOL,
+            "ptb (c): the bound %g lets a gate scaled by %g through: %s"
+            % (PTB_BF16_STATE_TOL, PTB_FAULT_SCALE, bad_errs))
+    return {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+            "errs": errs, "fault_errs": bad_errs}
+
+
+def rnn_main(torch, ck, card):
+    """Phase 24: the recurrent family (see the module's docstring), (a)-(c).
+    Returns (b)'s launches, the keep mask's time at the model's dropout
+    shape and the phase's numbers."""
+    from paddle_tpu_torch.framework.random import philox_word
+    global WORD
+    if WORD is None:
+        WORD = philox_word(SEED, OFFSET - DELTA, "cuda")
+    t0 = time.perf_counter()
+    check_dropout_keep(torch, ck, ptb_keep_cases())
+    timer = Timer(torch)
+    rec = rnn_recurrence(torch, timer, card)
+    free_memory(torch)
+    t1 = time.perf_counter()
+    batches = ptb_batches(torch, PTB_BATCHES)
+    launches, entry = ptb_train(torch, ck, card, batches)
+    free_memory(torch)
+    keep = time_dropout_keep(torch, ck, timer, (PTB_B, PTB_T, PTB_HIDDEN),
+                             PTB_DROPOUT)
+    t2 = time.perf_counter()
+    f32 = ptb_against_cudnn(torch, batches)
+    free_memory(torch)
+    t3 = time.perf_counter()
+    bf16 = ptb_bf16(torch, ck, card, batches, f32)
+    del f32
+    free_memory(torch)
+    say("rnn phase 24: %.1f s ((a) %.1f, (b) %.1f, (b) against cuDNN %.1f, "
+        "(c) %.1f)" % (time.perf_counter() - t0, t1 - t0, t2 - t1, t3 - t2,
+                       time.perf_counter() - t3))
+    return {"launches": launches, "keep": keep, "recurrence": rec,
+            "step": entry, "bf16": bf16}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -6689,6 +7330,10 @@ def main():
     ap.add_argument("--seq2seq-only", action="store_true",
                     help="name the card, build the kernels, then run phase "
                     "23 (the encoder-decoder Transformer) alone")
+    ap.add_argument("--rnn-only", action="store_true",
+                    help="name the card, build the kernels, then run phase "
+                    "24 (the recurrent family, the LSTM language model) "
+                    "alone")
     ap.add_argument("--fit-drill", metavar="JSON",
                     help="one run of phase 20's preemption drill, its "
                     "settings as JSON (see fit_drill); phase 20 starts "
@@ -6758,6 +7403,10 @@ def main():
         nmt_main(torch, ck, F, flags, card)
         say("seq2seq-only run: phase 23 passed")
         return 0
+    if opts.rnn_only:
+        rnn_main(torch, ck, card)
+        say("rnn-only run: phase 24 passed")
+        return 0
 
     # 3. kernels against their plain versions
     from paddle_tpu_torch.framework.random import philox_word
@@ -6771,7 +7420,7 @@ def main():
     errs.update(check_flash_train(torch, ck, gen))
     check_flash_f16_range(torch, ck, gen)
     errs.update(check_adamw(torch, ck, gen))
-    errs["dropout_keep"] = check_dropout_keep(torch, ck)
+    errs["dropout_keep"] = check_dropout_keep(torch, ck, keep_cases())
     check_gates(torch, ck, gen)
     errs.update(check_fused(torch, ck, flags, gen))
     if opts.kernels_only:
@@ -7020,6 +7669,11 @@ def main():
     free_memory(torch)
     nmt = nmt_main(torch, ck, F, flags, card)
 
+    # 24. the recurrent family: the recurrence against cuDNN, the large
+    # LSTM language model in float32 and bfloat16
+    free_memory(torch)
+    rnn = rnn_main(torch, ck, card)
+
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]
                             + slaunch_c["flash_fwd"]
@@ -7038,6 +7692,9 @@ def main():
             "training (phase 23 (b))"
             % (name, tlaunches[name], long["launches"][name],
                nmt["train"][name]))
+    counts["dropout_keep"] += rnn["launches"]["dropout_keep"]
+    say("launches dropout_keep: %d in the LSTM language model's training "
+        "(phase 24 (b)), counted in above" % rnn["launches"]["dropout_keep"])
     for name in FUSED_KERNELS:
         counts[name] = (blaunches[name] + alaunches[name]
                         + nmt["train"][name])
@@ -7090,6 +7747,10 @@ def main():
             if name == "fused_dropout_residual_fwd":
                 e["nmt_check_launches"] = nmt["fused"]["pre-LN"][
                     "layer_launches"][name]
+    keep_row = next(e for e in table if e["name"] == "dropout_keep")
+    keep_row["ptb"] = dict(shape=[PTB_B, PTB_T, PTB_HIDDEN], p=PTB_DROPOUT,
+                           launches=rnn["launches"]["dropout_keep"],
+                           **rnn["keep"])
     for e in table:                     # rows 1t, 2, 3 at phase 21's shape
         if e["name"] in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
             e["long_context"] = [dict(
@@ -7103,7 +7764,10 @@ def main():
     say(json.dumps({"kernels": table, "no_pallas_counterpart": {
         "19": "ResNet-50: cuDNN convolutions, composed batch norm and "
               "pooling; the reference reaches no pl.pallas_call on this "
-              "path, so phase 19 launches none of the kernels above"}}))
+              "path, so phase 19 launches none of the kernels above",
+        "24": "the rnn op: composed ops over cuBLAS GEMMs, as the "
+              "reference's lax.scan over composed XLA ops; its dropouts "
+              "launch dropout_keep (counted above)"}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

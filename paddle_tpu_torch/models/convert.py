@@ -14,9 +14,14 @@ Both sides list a parameter that is used twice (BERT's word embeddings,
 which are also its MLM decoder weight) once, under the name of its first
 use, so a tied weight maps one to one. GPT, BERT, the ResNets, LeNet
 (`features.<i>.weight`, `fc.<i>.weight`: OIHW convolutions, [in, out]
-Linears) and `nn.Transformer` (`encoder.layers.<i>.self_attn.q_proj.weight`,
+Linears), `nn.Transformer` (`encoder.layers.<i>.self_attn.q_proj.weight`,
 `decoder.layers.<i>.cross_attn...`, `norm1`-`norm3`, and a model's own
-names around it) carry over this way.
+names around it), the recurrent classes (`weight_ih_l<k>`,
+`weight_hh_l<k>`, `bias_ih_l<k>`, `bias_hh_l<k>`, `_reverse` for the
+second direction; a cell's `weight_ih` ... `bias_hh`), the containers
+(`<i>.` or `<key>.` before each sublayer's names, a ParameterList's
+`<i>`) and the LSTM language model of chip_smoke.py phase 24 carry over
+this way.
 
 `pack_qkv` packs a MultiHeadAttention's q/k/v projections into
 `fused_multi_head_attention`'s fused [3, H, head_dim, E] layout.

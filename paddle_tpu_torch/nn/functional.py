@@ -1,6 +1,7 @@
-"""Functional ops of the serving and training paths (counterpart of
-paddle_tpu/nn/functional and the primitives in paddle_tpu/ops/nn_ops.py
-that GPT, BERT and ResNet reach).
+"""Functional ops (counterpart of paddle_tpu/nn/functional and the
+primitives in paddle_tpu/ops/nn_ops.py): those GPT, BERT, ResNet and the
+Transformer reach, the activations, the losses, `sequence_mask` and
+`unstack`.
 
 Weights follow paddle's layout: a linear weight is [in, out] and the op is
 x @ W + b, not torch.nn.Linear's [out, in]; a convolution's weight is
@@ -23,6 +24,7 @@ import torch
 
 from ..amp import amp_cast_inputs
 from ..framework.dispatch import OPS, primitive
+from ..framework.dtype import convert_dtype
 from ..framework.flags import flag
 from ..framework.random import RNG
 from ..framework.state import staging
@@ -37,7 +39,16 @@ __all__ = ["linear", "matmul", "gelu", "relu", "tanh", "softmax",
            "softmax_with_cross_entropy", "one_hot", "label_smooth",
            "embedding", "conv1d", "conv2d",
            "conv3d", "batch_norm", "max_pool2d", "avg_pool2d",
-           "adaptive_avg_pool2d", "conv_path_counts", "deferred_buffer_updates", "CONV_ALGOS"]
+           "adaptive_avg_pool2d", "conv_path_counts", "deferred_buffer_updates", "CONV_ALGOS",
+           "relu6", "leaky_relu", "prelu", "elu", "selu", "celu", "sigmoid",
+           "silu", "swish", "hardtanh", "hardshrink", "softshrink",
+           "tanhshrink", "hardsigmoid", "hardswish", "mish", "softplus",
+           "softsign", "thresholded_relu", "log_sigmoid", "maxout", "glu",
+           "square_error_cost", "mse_loss", "l1_loss", "nll_loss",
+           "binary_cross_entropy", "binary_cross_entropy_with_logits",
+           "kl_div", "smooth_l1_loss", "margin_ranking_loss",
+           "hinge_embedding_loss", "log_loss", "sigmoid_focal_loss",
+           "sequence_mask", "unstack"]
 
 
 @primitive("matmul_v2")
@@ -84,14 +95,19 @@ def _softmax(x, axis=-1):
     return torch.softmax(x, dim=axis)
 
 
-def softmax(x, axis=-1):
-    """softmax along `axis` (reference: ops/nn_ops.py:165, softmax_op)."""
+def softmax(x, axis=-1, dtype=None, name=None):
+    """softmax along `axis` (reference: ops/nn_ops.py:165, softmax_op),
+    x cast to `dtype` first when one is given."""
+    if dtype is not None:
+        x = x.to(convert_dtype(dtype))
     return _softmax(x, axis=int(axis))
 
 
-def log_softmax(x, axis=-1):
+def log_softmax(x, axis=-1, dtype=None, name=None):
     """log-softmax along `axis` (reference: ops/nn_ops.py:170,
-    log_softmax_op)."""
+    log_softmax_op), x cast to `dtype` first when one is given."""
+    if dtype is not None:
+        x = x.to(convert_dtype(dtype))
     (x,) = amp_cast_inputs("log_softmax_op", [x])
     return torch.log_softmax(x, dim=axis)
 
@@ -102,7 +118,7 @@ def _gelu(x, approximate=False):
         x, approximate="tanh" if approximate else "none")
 
 
-def gelu(x, approximate=False):
+def gelu(x, approximate=False, name=None):
     """GELU; approximate=True is the tanh form (jax.nn.gelu's
     approximate=True, reference: ops/nn_ops.py gelu)."""
     return _gelu(x, approximate=bool(approximate))
@@ -828,3 +844,454 @@ def _adaptive_pool2d(x, output_size, pool_type="avg", channel_last=False):
                              .mean(dim=ax, keepdim=True)
                              for a, b in zip(starts, ends)], dim=ax)
     return out
+
+
+# ---------------------------------------------------------------------------
+# activations (reference: nn/functional/__init__.py:17-84 over ops/nn_ops.py
+# :21-157). Each is the reference's formula with the same tie rules: a
+# clip is min(max(x, lo), hi), whose gradient at lo or hi is 1/2 as
+# jnp.clip's is (torch.clamp's is 1); a where() keeps its branch's
+# gradient.
+
+def _clip(x, lo=None, hi=None):
+    if lo is not None:
+        x = torch.maximum(x, x.new_tensor(lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_tensor(hi))
+    return x
+
+
+def _softplus1(x):
+    """jax.nn.softplus: log(1 + exp(x)) = logaddexp(x, 0), exact for every
+    x (torch's softplus turns to x above its threshold of 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+@primitive("relu6")
+def _relu6(x, threshold=6.0):
+    return _clip(x, 0.0, threshold)
+
+
+def relu6(x):
+    """min(max(x, 0), 6) (reference: ops/nn_ops.py:26)."""
+    return _relu6(x)
+
+
+@primitive("leaky_relu")
+def _leaky_relu(x, negative_slope=0.01):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def leaky_relu(x, negative_slope=0.01, name=None):
+    return _leaky_relu(x, negative_slope=float(negative_slope))
+
+
+@primitive("prelu_op")
+def _prelu(x, weight, data_format="NCHW"):
+    if weight.numel() == 1:
+        w = weight.reshape(())
+    elif data_format == "NCHW" and x.ndim >= 2:
+        w = weight.reshape((1, -1) + (1,) * (x.ndim - 2))
+    else:
+        w = weight.reshape((1,) * (x.ndim - 1) + (-1,))
+    return torch.where(x >= 0, x, w * x)
+
+
+def prelu(x, weight, data_format="NCHW", name=None):
+    """x where x >= 0, else weight * x: one weight, or one per channel
+    (axis 1 for NCHW, the last axis otherwise)."""
+    return _prelu(x, weight, data_format=data_format)
+
+
+def _expm1_neg(x):
+    """expm1 of x where x <= 0, of 0 elsewhere (the reference's `safe`)."""
+    return torch.expm1(torch.where(x > 0, 0.0, x))
+
+
+@primitive("elu")
+def _elu(x, alpha=1.0):
+    return torch.where(x > 0, x, alpha * _expm1_neg(x))
+
+
+def elu(x, alpha=1.0, name=None):
+    return _elu(x, alpha=float(alpha))
+
+
+@primitive("selu")
+def _selu(x, scale=1.0507009873554805, alpha=1.6732632423543772):
+    return scale * torch.where(x > 0, x, alpha * _expm1_neg(x))
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772, name=None):
+    return _selu(x, scale=float(scale), alpha=float(alpha))
+
+
+@primitive("celu")
+def _celu(x, alpha=1.0):
+    zero = x.new_zeros(())
+    return torch.maximum(x, zero) + torch.minimum(
+        zero, alpha * torch.expm1(torch.minimum(x, zero) / alpha))
+
+
+def celu(x, alpha=1.0, name=None):
+    return _celu(x, alpha=float(alpha))
+
+
+@primitive("sigmoid")
+def sigmoid(x):
+    """1 / (1 + exp(-x)) (reference: ops/nn_ops.py:69)."""
+    return torch.sigmoid(x)
+
+
+@primitive("silu")
+def silu(x):
+    """x * sigmoid(x)."""
+    return x * torch.sigmoid(x)
+
+
+@primitive("swish")
+def swish(x):
+    """x * sigmoid(x), under the op name swish."""
+    return x * torch.sigmoid(x)
+
+
+@primitive("hardtanh")
+def _hardtanh(x, min=-1.0, max=1.0):  # noqa: A002
+    return _clip(x, min, max)
+
+
+def hardtanh(x, min=-1.0, max=1.0, name=None):  # noqa: A002
+    return _hardtanh(x, min=float(min), max=float(max))
+
+
+@primitive("hardshrink")
+def _hardshrink(x, threshold=0.5):
+    return torch.where(x.abs() > threshold, x, 0.0)
+
+
+def hardshrink(x, threshold=0.5, name=None):
+    return _hardshrink(x, threshold=float(threshold))
+
+
+@primitive("softshrink")
+def _softshrink(x, threshold=0.5):
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, 0.0))
+
+
+def softshrink(x, threshold=0.5, name=None):
+    return _softshrink(x, threshold=float(threshold))
+
+
+@primitive("tanhshrink")
+def tanhshrink(x):
+    """x - tanh(x)."""
+    return x - torch.tanh(x)
+
+
+@primitive("hardsigmoid")
+def _hardsigmoid(x, slope=1.0 / 6, offset=0.5):
+    return _clip(slope * x + offset, 0.0, 1.0)
+
+
+def hardsigmoid(x, slope=1.0 / 6, offset=0.5, name=None):
+    """clip(slope * x + offset, 0, 1), slope 1/6 and offset 0.5 by
+    default (the reference's, not torch's 1/6 and 1/2 by another
+    formula)."""
+    return _hardsigmoid(x, slope=float(slope), offset=float(offset))
+
+
+@primitive("hardswish")
+def _hardswish(x, threshold=6.0, scale=6.0, offset=3.0):
+    return x * _clip(x + offset, 0.0, threshold) / scale
+
+
+def hardswish(x):
+    """x * clip(x + 3, 0, 6) / 6."""
+    return _hardswish(x)
+
+
+@primitive("mish")
+def mish(x):
+    """x * tanh(softplus(x))."""
+    return x * torch.tanh(_softplus1(x))
+
+
+@primitive("softplus")
+def _softplus(x, beta=1.0, threshold=20.0):
+    scaled = beta * x
+    return torch.where(scaled > threshold, x, _softplus1(scaled) / beta)
+
+
+def softplus(x, beta=1.0, threshold=20.0, name=None):
+    """log(1 + exp(beta * x)) / beta, x itself where beta * x > threshold
+    (20 by default)."""
+    return _softplus(x, beta=float(beta), threshold=float(threshold))
+
+
+@primitive("softsign")
+def softsign(x):
+    """x / (1 + |x|)."""
+    return x / (1.0 + x.abs())
+
+
+@primitive("thresholded_relu")
+def _thresholded_relu(x, threshold=1.0):
+    return torch.where(x > threshold, x, 0.0)
+
+
+def thresholded_relu(x, threshold=1.0, name=None):
+    return _thresholded_relu(x, threshold=float(threshold))
+
+
+@primitive("log_sigmoid")
+def log_sigmoid(x):
+    """log(sigmoid(x)) = -softplus(-x)."""
+    return -_softplus1(-x)
+
+
+@primitive("maxout_op")
+def _maxout(x, groups, axis=1):
+    axis = axis % x.ndim
+    shape = list(x.shape)
+    shape[axis] = shape[axis] // groups
+    shape.insert(axis + 1, groups)
+    # amax shares the gradient among tied maxima, as the reference's max
+    # reduction does
+    return x.reshape(shape).amax(dim=axis + 1)
+
+
+def maxout(x, groups, axis=1, name=None):
+    """The max over `groups` consecutive channels of `axis`."""
+    return _maxout(x, groups=int(groups), axis=int(axis))
+
+
+@primitive("glu_op")
+def _glu(x, axis=-1):
+    a, b = x.chunk(2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+def glu(x, axis=-1, name=None):
+    """a * sigmoid(b), a and b the halves of `axis`."""
+    return _glu(x, axis=int(axis))
+
+
+# ---------------------------------------------------------------------------
+# losses (reference: nn/functional/__init__.py:540-700 over ops/nn_ops.py
+# :666-735). The per-element ops cast their inputs by the reference's op
+# names under auto_cast (bce_loss_op, bce_with_logits_op, kldiv_loss_op,
+# nll_loss_op and square_error_cost_op are on its black list: bfloat16
+# and float16 inputs run in float32); so do the reductions (reduce_mean,
+# reduce_sum) and log.
+
+def _reduce_loss(loss, reduction):
+    """The reference's `_reduce_loss`: "mean" (op reduce_mean), "sum" (op
+    reduce_sum), anything else the loss as it is."""
+    if reduction == "mean":
+        (loss,) = amp_cast_inputs("reduce_mean", [loss])
+        return mean(loss)
+    if reduction == "sum":
+        (loss,) = amp_cast_inputs("reduce_sum", [loss])
+        return loss.sum()
+    return loss
+
+
+@primitive("square_error_cost_op")
+def _square_error_cost(input, label):
+    input, label = amp_cast_inputs("square_error_cost_op", [input, label])
+    return (input - label).square()
+
+
+def square_error_cost(input, label):
+    """(input - label)^2 elementwise."""
+    return _square_error_cost(input, label)
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    return _reduce_loss(_square_error_cost(input, label), reduction)
+
+
+def _abs(x):
+    """|x| with jnp.abs's gradient at 0 (1, where torch.abs's is 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def l1_loss(input, label, reduction="mean", name=None):
+    return _reduce_loss(_abs(input - label), reduction)
+
+
+@primitive("nll_loss_op")
+def _nll_loss(log_prob, label, ignore_index=-100):
+    log_prob, = amp_cast_inputs("nll_loss_op", [log_prob])
+    lab = label.long()
+    picked = torch.gather(log_prob, 1, lab.clamp(min=0)[:, None])[:, 0]
+    return torch.where(lab == ignore_index, 0.0, -picked)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
+             name=None):
+    """-input[i, label[i]] for log-probabilities input [N, C], 0 where the
+    label is `ignore_index`; "mean" over all N positions, ignored ones
+    too, as the reference's. The reference takes `weight` and ignores
+    it; the port refuses one rather than ignore it."""
+    if weight is not None:
+        raise NotImplementedError("nll_loss(weight=...): the reference "
+                                  "ignores it; not ported")
+    return _reduce_loss(_nll_loss(input, label,
+                                  ignore_index=int(ignore_index)), reduction)
+
+
+@primitive("bce_loss_op")
+def _bce_loss(input, label):
+    input, label = amp_cast_inputs("bce_loss_op", [input, label])
+    x = _clip(input, 1e-12, 1.0 - 1e-12)
+    return -(label * torch.log(x) + (1.0 - label) * torch.log1p(-x))
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean",
+                         name=None):
+    """-(y log p + (1 - y) log(1 - p)), p clipped to [1e-12, 1 - 1e-12],
+    times `weight` (broadcast), then the reduction."""
+    loss = _bce_loss(input, label)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+@primitive("bce_with_logits_op")
+def _bce_with_logits(logit, label, pos_weight=None):
+    logit, label, pos_weight = amp_cast_inputs(
+        "bce_with_logits_op", [logit, label, pos_weight])
+    max_val = _clip(-logit, 0.0)
+    soft = torch.log1p(torch.exp(-_abs(logit)))
+    if pos_weight is None:
+        return (1.0 - label) * logit + max_val + soft
+    log_w = (pos_weight - 1.0) * label + 1.0
+    return (1.0 - label) * logit + log_w * (soft + max_val)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    """The stable sigmoid cross entropy of the reference's
+    bce_with_logits_op; `pos_weight` [C] weighs the positive term, `weight`
+    the loss."""
+    loss = _bce_with_logits(logit, label, pos_weight)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+@primitive("kldiv_loss_op")
+def _kldiv_loss(x, target):
+    x, target = amp_cast_inputs("kldiv_loss_op", [x, target])
+    safe = torch.where(target > 0, target, 1.0)
+    return torch.where(target > 0, target * (torch.log(safe) - x), 0.0)
+
+
+def kl_div(input, label, reduction="mean", name=None):
+    """target * (log target - input) where target > 0, else 0;
+    "batchmean" is the sum over the batch size (input.shape[0])."""
+    loss = _kldiv_loss(input, label)
+    if reduction == "batchmean":
+        return _reduce_loss(loss, "sum") / float(input.shape[0])
+    return _reduce_loss(loss, reduction)
+
+
+@primitive("huber_loss_op")
+def _huber_loss(input, label, delta=1.0):
+    (input, label) = amp_cast_inputs("huber_loss_op", [input, label])
+    r = _abs(input - label)
+    return torch.where(r <= delta, 0.5 * r * r, delta * (r - 0.5 * delta))
+
+
+@primitive("smooth_l1_op")
+def _smooth_l1(input, label, delta=1.0):
+    """The reference's smooth_l1_op (ops/nn_ops.py:699), which its
+    F.smooth_l1_loss does not reach (that is huber_loss_op): registered
+    so that a program that names it loads."""
+    (input, label) = amp_cast_inputs("smooth_l1_op", [input, label])
+    r = _abs(input - label)
+    return torch.where(r < delta, 0.5 * r * r / delta, r - 0.5 * delta)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0, name=None):
+    """The Huber loss of the reference's F.smooth_l1_loss (op
+    huber_loss_op): 0.5 r^2 where r = |input - label| <= delta, else
+    delta (r - delta / 2)."""
+    return _reduce_loss(_huber_loss(input, label, delta=float(delta)),
+                        reduction)
+
+
+@primitive("margin_ranking_loss_op")
+def _margin_ranking_loss(input, other, label, margin=0.0):
+    return _clip(-label * (input - other) + margin, 0.0)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean",
+                        name=None):
+    return _reduce_loss(_margin_ranking_loss(input, other, label,
+                                             margin=float(margin)),
+                        reduction)
+
+
+@primitive("hinge_embedding_loss_op")
+def _hinge_embedding_loss(input, label, margin=1.0):
+    return torch.where(label == 1.0, input, _clip(margin - input, 0.0))
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
+                         name=None):
+    return _reduce_loss(_hinge_embedding_loss(input, label,
+                                              margin=float(margin)),
+                        reduction)
+
+
+def _log(x):
+    (x,) = amp_cast_inputs("log", [x])
+    return torch.log(x)
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    """-(y log(p + eps) + (1 - y) log(1 + eps - p)), elementwise."""
+    eps = float(epsilon)
+    return -(label * _log(input + eps)
+             + (1.0 - label) * _log(1.0 + eps - input))
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum", name=None):
+    """alpha_t (1 - p_t)^gamma times the sigmoid cross entropy, divided by
+    `normalizer`, then the reduction ("sum" by default)."""
+    p = sigmoid(logit)
+    ce = _bce_with_logits(logit, label)
+    p_t = p * label + (1.0 - p) * (1.0 - label)
+    a_t = label * alpha + (1.0 - label) * (1.0 - alpha)
+    loss = a_t * torch.pow(1.0 - p_t, gamma) * ce
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce_loss(loss, reduction)
+
+
+# ---------------------------------------------------------------------------
+# sequences (reference: nn/functional/__init__.py:735, :860)
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """mask[..., j] = j < x[...], on x's device, in `dtype`. Without
+    `maxlen` the mask is max(x) wide, which reads x on the host (as the
+    reference does); with it, nothing is read, so a captured program can
+    hold the call."""
+    if maxlen is None:
+        maxlen = int(x.max())
+    r = torch.arange(int(maxlen), device=x.device)
+    return (r < x[..., None]).to(convert_dtype(dtype))
+
+
+def unstack(x, axis=0, num=None):
+    """The slices of x along `axis`, as a list (torch.unbind)."""
+    if num is not None and num != x.shape[axis]:
+        raise ValueError("unstack: num %d, axis of size %d"
+                         % (num, x.shape[axis]))
+    return list(torch.unbind(x, dim=axis))

@@ -1,7 +1,6 @@
-"""Layers of the ported paths as torch.nn.Modules (counterparts of
-paddle_tpu/nn/layers.py Linear, Embedding, LayerNorm, Dropout, Tanh, and
-ResNet's convolutions, batch norms, pools, ReLU, Flatten, Sequential and
-CrossEntropyLoss).
+"""Layers as torch.nn.Modules (counterparts of paddle_tpu/nn/layers.py
+Linear, Embedding, LayerNorm, Dropout, ResNet's convolutions, batch norms,
+pools and Flatten, the containers, the activation layers and the losses).
 
 Parameters are created on the CPU and drawn from the explicit
 `torch.Generator` the caller passes; the model factory moves the finished
@@ -26,7 +25,15 @@ from ..tensor import flatten
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Tanh", "ReLU",
            "Conv1D", "Conv2D", "Conv3D", "BatchNorm", "BatchNorm1D",
            "BatchNorm2D", "BatchNorm3D", "MaxPool2D", "AvgPool2D",
-           "AdaptiveAvgPool2D", "Flatten", "Sequential", "CrossEntropyLoss"]
+           "AdaptiveAvgPool2D", "Flatten", "Sequential", "LayerList",
+           "LayerDict", "ParameterList", "ReLU6", "LeakyReLU", "PReLU",
+           "ELU", "SELU", "CELU", "GELU", "Sigmoid", "Silu", "Swish",
+           "Tanhshrink", "Hardtanh", "Hardshrink", "Softshrink",
+           "Hardsigmoid", "Hardswish", "Mish", "Softplus", "Softsign",
+           "LogSigmoid", "Softmax", "LogSoftmax", "Maxout",
+           "ThresholdedReLU", "GLU", "CrossEntropyLoss", "MSELoss",
+           "L1Loss", "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
+           "SmoothL1Loss", "MarginRankingLoss", "HingeEmbeddingLoss"]
 
 
 class Linear(Layer):
@@ -298,17 +305,113 @@ class Flatten(nn.Module):
 
 
 class Sequential(nn.Sequential):
-    """The reference's container: layers named "0", "1", ..., or by an
-    OrderedDict, or given as (name, layer) pairs."""
+    """The reference's container (nn/layers.py:776): layers named "0",
+    "1", ... by position, or by an OrderedDict, or given as (name, layer)
+    pairs (mixed with plain layers, which keep their position's name); a
+    slice is a new Sequential of those layers named from "0" again, as
+    the reference's is."""
 
     def __init__(self, *layers):
+        super().__init__()
         if len(layers) == 1 and isinstance(layers[0],
                                            collections.OrderedDict):
-            super().__init__(layers[0])
-        elif layers and all(isinstance(item, tuple) for item in layers):
-            super().__init__(collections.OrderedDict(layers))
+            for name, layer in layers[0].items():
+                self.add_module(name, layer)
         else:
-            super().__init__(*layers)
+            for i, item in enumerate(layers):
+                if isinstance(item, tuple):
+                    self.add_module(item[0], item[1])
+                else:
+                    self.add_module(str(i), item)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return Sequential(*list(self._modules.values())[idx])
+        return super().__getitem__(idx)
+
+
+class LayerList(Layer, nn.ModuleList):
+    """The reference's LayerList (nn/layers.py:807): sublayers named "0",
+    "1", ... (a slice is a new LayerList named from "0"; insert renames);
+    append and extend return the list."""
+
+
+class LayerDict(Layer, nn.ModuleDict):
+    """The reference's LayerDict (nn/layers.py:847): sublayers by key,
+    in insertion order; `update` takes a dict or (key, layer) pairs."""
+
+
+class ParameterList(Layer, nn.ParameterList):
+    """The reference's ParameterList (nn/layers.py:894): parameters named
+    "0", "1", ...; append returns the list."""
+
+
+def _act_layer(name, fn, doc):
+    """An activation layer as the reference's `_act_layer` makes it
+    (nn/layers.py:614): the constructor's arguments are passed to `fn`
+    after x."""
+    def __init__(self, *args, **kwargs):
+        Layer.__init__(self)
+        self._args = args
+        self._kwargs = kwargs
+
+    def forward(self, x):
+        return fn(x, *self._args, **self._kwargs)
+
+    return type(name, (Layer,), {"__init__": __init__, "forward": forward,
+                                 "__doc__": doc, "__module__": __name__})
+
+
+ReLU6 = _act_layer("ReLU6", lambda x, name=None: F.relu6(x), "F.relu6")
+LeakyReLU = _act_layer("LeakyReLU", F.leaky_relu, "F.leaky_relu")
+ELU = _act_layer("ELU", F.elu, "F.elu")
+# the reference's SELU takes scale and alpha and computes the default
+# selu (nn/layers.py:627); so does the port's
+SELU = _act_layer("SELU", lambda x, *a, name=None: F.selu(x), "F.selu")
+CELU = _act_layer("CELU", F.celu, "F.celu")
+GELU = _act_layer("GELU", F.gelu, "F.gelu")
+Sigmoid = _act_layer("Sigmoid", lambda x, name=None: F.sigmoid(x),
+                     "F.sigmoid")
+Silu = _act_layer("Silu", lambda x, name=None: F.silu(x), "F.silu")
+Swish = _act_layer("Swish", lambda x, name=None: F.swish(x), "F.swish")
+Tanhshrink = _act_layer("Tanhshrink", lambda x, name=None: F.tanhshrink(x),
+                        "F.tanhshrink")
+Hardtanh = _act_layer("Hardtanh", F.hardtanh, "F.hardtanh")
+Hardshrink = _act_layer("Hardshrink", F.hardshrink, "F.hardshrink")
+Softshrink = _act_layer("Softshrink", F.softshrink, "F.softshrink")
+Hardsigmoid = _act_layer("Hardsigmoid",
+                         lambda x, name=None: F.hardsigmoid(x),
+                         "F.hardsigmoid")
+Hardswish = _act_layer("Hardswish", lambda x, name=None: F.hardswish(x),
+                       "F.hardswish")
+Mish = _act_layer("Mish", lambda x, name=None: F.mish(x), "F.mish")
+Softplus = _act_layer("Softplus", F.softplus, "F.softplus")
+Softsign = _act_layer("Softsign", lambda x, name=None: F.softsign(x),
+                      "F.softsign")
+LogSigmoid = _act_layer("LogSigmoid", lambda x, name=None: F.log_sigmoid(x),
+                        "F.log_sigmoid")
+Softmax = _act_layer("Softmax", F.softmax, "F.softmax")
+LogSoftmax = _act_layer("LogSoftmax", F.log_softmax, "F.log_softmax")
+Maxout = _act_layer("Maxout", F.maxout, "F.maxout")
+ThresholdedReLU = _act_layer("ThresholdedReLU", F.thresholded_relu,
+                             "F.thresholded_relu")
+GLU = _act_layer("GLU", F.glu, "F.glu")
+
+
+class PReLU(Layer):
+    """F.prelu with a learned weight of `num_parameters` slopes, `init`
+    each (reference: nn/layers.py:654)."""
+
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None, generator=None):
+        super().__init__()
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            (num_parameters,), weight_attr,
+            default_initializer=I.Constant(init), generator=generator)
+
+    def forward(self, x):
+        return F.prelu(x, self.weight, self._data_format)
 
 
 class CrossEntropyLoss(nn.Module):
@@ -324,3 +427,73 @@ class CrossEntropyLoss(nn.Module):
 
     def forward(self, input, label):
         return F.cross_entropy(input, label, **self._kw)
+
+
+
+class _Loss(Layer):
+    """A loss function as a layer: forward(input, label) calls `fn` with
+    the constructor's options (reference: nn/layers.py:919)."""
+
+    def __init__(self, fn, **kw):
+        super().__init__()
+        self._fn = fn
+        self._kw = kw
+
+    def forward(self, input, label):
+        return self._fn(input, label, **self._kw)
+
+
+class MSELoss(_Loss):
+    def __init__(self, reduction="mean"):
+        super().__init__(F.mse_loss, reduction=reduction)
+
+
+class L1Loss(_Loss):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__(F.l1_loss, reduction=reduction)
+
+
+class NLLLoss(_Loss):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__(F.nll_loss, weight=weight,
+                         ignore_index=ignore_index, reduction=reduction)
+
+
+class BCELoss(_Loss):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__(F.binary_cross_entropy, weight=weight,
+                         reduction=reduction)
+
+
+class BCEWithLogitsLoss(_Loss):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__(F.binary_cross_entropy_with_logits, weight=weight,
+                         reduction=reduction, pos_weight=pos_weight)
+
+
+class KLDivLoss(_Loss):
+    def __init__(self, reduction="mean"):
+        super().__init__(F.kl_div, reduction=reduction)
+
+
+class SmoothL1Loss(_Loss):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__(F.smooth_l1_loss, reduction=reduction, delta=delta)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self._margin, self._reduction = margin, reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self._margin,
+                                     self._reduction)
+
+
+class HingeEmbeddingLoss(_Loss):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__(F.hinge_embedding_loss, margin=margin,
+                         reduction=reduction)

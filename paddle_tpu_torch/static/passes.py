@@ -369,7 +369,7 @@ class ElewiseAddActFusePass(PassBase):
     (reference: ir/fuse_elewise_add_act_pass.cc); the add stays as a dead
     producer."""
 
-    ACTS = ("relu", "gelu", "tanh")
+    ACTS = ("relu", "relu6", "gelu", "sigmoid", "tanh")
 
     def apply(self, program):
         producer, uses = _producer_uses(program)

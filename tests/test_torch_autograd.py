@@ -17,6 +17,7 @@ from paddle_tpu import autograd as jautograd
 
 import paddle_tpu_torch as paddle
 from paddle_tpu_torch import autograd
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

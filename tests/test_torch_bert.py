@@ -45,6 +45,7 @@ from paddle_tpu_torch.nn import MultiHeadAttention
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.transformer import _convert_attention_mask
 from paddle_tpu_torch.ops import cuda_kernels as ck
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

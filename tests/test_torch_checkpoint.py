@@ -52,6 +52,7 @@ from paddle_tpu_torch.observability import journal as run_journal
 from paddle_tpu_torch.observability.metrics import REGISTRY
 from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.resilience import chaos
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -38,6 +38,7 @@ from paddle_tpu_torch.framework import flags
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.observability import metrics
 from paddle_tpu_torch.tensor import flatten
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

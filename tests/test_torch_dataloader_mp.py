@@ -23,6 +23,7 @@ from paddle_tpu.io import Dataset as JDataset
 from paddle_tpu_torch import io
 from paddle_tpu_torch.io import (DataLoader, DataLoaderWorkerError, Dataset,
                                  multiprocess)
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

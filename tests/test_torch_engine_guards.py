@@ -52,6 +52,7 @@ from paddle_tpu_torch.models import load_reference_state
 from paddle_tpu_torch.observability import (flight, journal, memprof,
                                             metrics, tracing)
 from paddle_tpu_torch.resilience import chaos, health, watchdog
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

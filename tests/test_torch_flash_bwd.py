@@ -26,6 +26,7 @@ import torch
 
 from chip_smoke import REL_TOL, abs_rel_err
 from paddle_tpu_torch.ops import cuda_kernels as ck
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 MIRROR_REL_TOL = REL_TOL["bfloat16"] / 4
 SEED, OFFSET = 0x1234_5678_9ABC_DEF0, 7

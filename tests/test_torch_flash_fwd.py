@@ -33,6 +33,7 @@ import torch
 from chip_smoke import REL_TOL, TOL, abs_rel_err
 from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu_torch.ops import cuda_kernels as ck
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -32,6 +32,7 @@ from paddle_tpu_torch.framework import dtype as pdtype
 from paddle_tpu_torch.framework import flags as pflags
 from paddle_tpu_torch.framework import place as pplace
 from paddle_tpu_torch.framework import random as prandom
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -29,6 +29,7 @@ from paddle_tpu_torch.framework import flags
 from paddle_tpu_torch.incubate.nn import functional as FF
 from paddle_tpu_torch.models import load_reference_state, pack_qkv
 from paddle_tpu_torch.ops import cuda_kernels as ck
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

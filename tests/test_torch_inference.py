@@ -34,6 +34,7 @@ from paddle_tpu_torch.framework import place as pplace
 from paddle_tpu_torch.inference import (Config, PredictorPool,
                                         create_predictor)
 from paddle_tpu_torch.nn import functional as F
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -36,6 +36,7 @@ from paddle_tpu_torch.models import (bert_tiny, export_reference_state,
                                      gpt_tiny, load_reference_state)
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.vision import models as vision
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

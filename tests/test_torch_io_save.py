@@ -43,6 +43,7 @@ from paddle_tpu_torch import nn, optimizer
 from paddle_tpu_torch.checkpoint import CheckpointCorruptError, engine
 from paddle_tpu_torch.framework import io as pio
 from paddle_tpu_torch.vision import datasets
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -19,6 +19,7 @@ from paddle_tpu_torch.framework.flags import get_flags, set_flags
 from paddle_tpu_torch.framework import random as prandom
 from paddle_tpu_torch.inference.serving import cache as tcache
 from paddle_tpu_torch.ops import cuda_kernels as ck
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

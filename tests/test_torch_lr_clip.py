@@ -36,6 +36,7 @@ from paddle_tpu_torch.models import gpt_tiny as tgpt_tiny
 from paddle_tpu_torch.ops import cuda_kernels as ck
 from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.resilience import chaos
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

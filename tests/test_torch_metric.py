@@ -17,6 +17,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu import metric as jmetric
 from paddle_tpu_torch import metric
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

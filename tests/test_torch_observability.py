@@ -45,6 +45,7 @@ from paddle_tpu_torch.models import load_reference_state
 from paddle_tpu_torch.observability import (flight, httpd, journal, memprof,
                                             metrics, spans, tracing)
 from paddle_tpu_torch.resilience import health
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -180,10 +181,13 @@ def test_heartbeat_ticks_from_threads_never_tear_the_file(tmp_path):
     for t in threads:
         t.start()
     torn = 0
-    while any(t.is_alive() for t in threads):
+    deadline = time.monotonic() + 120
+    while (any(t.is_alive() for t in threads)
+           and time.monotonic() < deadline):
         torn += health.read_heartbeat(w.path) is None
     for t in threads:
-        t.join()
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    assert not any(t.is_alive() for t in threads), "a ticker hung"
     assert torn == 0 and not failed
     assert health.read_heartbeat(w.path)["pid"] == os.getpid()
 

@@ -37,6 +37,7 @@ from paddle_tpu_torch.observability.metrics import REGISTRY
 from paddle_tpu_torch.resilience import (DeadlineExceeded, PreemptionGuard,
                                          RetryExhausted, RetryPolicy, chaos,
                                          preemption, with_deadline)
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 
 def _counter(name):
@@ -207,7 +208,8 @@ class TestPreemptionGuard:
             g.uninstall()
         t = threading.Thread(target=run)
         t.start()
-        t.join()
+        t.join(timeout=60)
+        assert not t.is_alive(), "the guard's thread hung"
         assert box == {"installed": None, "triggered": True}
         assert signal.getsignal(signal.SIGTERM) == handler
 

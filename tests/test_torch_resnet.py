@@ -1,8 +1,10 @@
 """The port's ResNet against the JAX package's, on the CPU: weights and
 batch-norm buffers carried across by models/convert.py, the train step
 with Momentum (float32, and one step under auto_cast O1 bfloat16), the
-non-finite guard's skipped step, make_eval_step, and the forward and
-backward of ResNet-18 (basic blocks) and ResNet-50 (bottleneck blocks).
+non-finite guard's skipped step, make_eval_step, and (in
+tests/test_torch_resnet_f64.py, which imports this file's helpers) the
+forward and backward of ResNet-18 (basic blocks) and ResNet-50
+(bottleneck blocks).
 
 Exactness is shown in float64 (the reference with JAX's x64 on for that
 test only): ResNet-18 and ResNet-50 at B=2, 64x64, in training mode
@@ -53,7 +55,6 @@ from paddle_tpu.jit.engine import make_eval_step as jmake_eval_step
 from paddle_tpu.jit.engine import make_train_step as jmake_train_step
 from paddle_tpu.resilience import chaos as jchaos
 from paddle_tpu.vision.models import resnet18 as jresnet18
-from paddle_tpu.vision.models import resnet50 as jresnet50
 from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.framework import flags
 from paddle_tpu_torch.jit import make_eval_step, make_train_step
@@ -62,6 +63,7 @@ from paddle_tpu_torch.models import (export_reference_state,
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.resilience import chaos
 from paddle_tpu_torch.vision import models as vision
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -334,82 +336,6 @@ def test_rebinding_a_buffer_makes_the_step_raise():
     port.bn1._mean = port.bn1._mean.clone()
     with pytest.raises(RuntimeError, match="moved"):
         tstep([torch.from_numpy(x)], [torch.from_numpy(y)])
-
-
-def _forward_backward_float64(ref, port, x, y):
-    """One training-mode forward and backward of each in float64 (the
-    reference under JAX's x64, then cast back to float32): logits, loss,
-    gradients and the state dict after the forward, as numpy."""
-    port.double()
-    to = port(torch.from_numpy(x))
-    tl = F.cross_entropy(to, torch.from_numpy(y))
-    tl.backward()
-    got = (to.detach().numpy(), tl.item(),
-           {n: p.grad.numpy() for n, p in port.named_parameters()},
-           export_reference_state(port))
-    with jax.enable_x64(True):
-        ref.to(dtype="float64")
-        try:
-            jo = ref(paddle.to_tensor(x, dtype="float64"))
-            jl = JF.cross_entropy(jo, paddle.to_tensor(y))
-            jl.backward()
-            want = (jo.numpy(), float(jl.numpy()),
-                    {n: p.grad.numpy() for n, p in ref.named_parameters()},
-                    _numpy(ref.state_dict()))
-        finally:
-            ref.clear_gradients()
-            ref.to(dtype="float32")
-    return got, want
-
-
-@pytest.mark.parametrize("depth", [18, 50])
-def test_forward_backward_float64_matches_the_reference(depth, reference18):
-    """ResNet-18 (basic blocks) and ResNet-50 (bottleneck blocks, 53 batch
-    norms) at B=2, 64x64 in training mode, in float64: the same function
-    as the reference's, to rounding."""
-    if depth == 18:
-        ref, port = _pair(reference18)
-    else:
-        paddle.seed(0)
-        ref = jresnet50(num_classes=CLASSES)
-        port = vision.resnet50(num_classes=CLASSES, device="cpu", seed=1)
-        load_reference_state(port, _numpy(ref.state_dict()))
-    rs = np.random.RandomState(6)
-    x = rs.rand(B, 3, SIZE, SIZE)
-    y = rs.randint(0, CLASSES, (B, 1)).astype(np.int64)
-    (to, tl, tg, tstate), (jo, jl, jg, jstate) = _forward_backward_float64(
-        ref, port, x, y)
-    _close(to, jo, F64_TOL, "logits")
-    _close(tl, jl, F64_TOL, "loss")
-    for n, g in tg.items():
-        _close(g, jg[n], F64_TOL, "grad " + n)
-    assert sorted(tstate) == sorted(jstate)
-    assert sum(k.endswith("._mean") for k in tstate) == \
-        {18: 20, 50: 53}[depth]
-    for k in jstate:
-        _close(tstate[k], jstate[k], F64_TOL, k)
-
-
-def test_resnet50_float32_eval_forward_matches_the_reference():
-    """ResNet-50 in eval mode (running statistics set to seeded values),
-    float32, B=2, 32x32: the logits."""
-    paddle.seed(0)
-    ref = jresnet50(num_classes=CLASSES)
-    state = _numpy(ref.state_dict())
-    rs = np.random.RandomState(7)
-    for k in state:
-        if k.endswith(("._mean", "._variance")):
-            state[k] = (0.5 + rs.rand(*state[k].shape)).astype(np.float32)
-    ref.set_state_dict(state)
-    port = vision.resnet50(num_classes=CLASSES, device="cpu", seed=1)
-    load_reference_state(port, state)
-    ref.eval()
-    port.eval()
-    x = rs.rand(2, 3, 32, 32).astype(np.float32)
-    want = ref(paddle.to_tensor(x)).numpy()
-    with torch.no_grad():
-        got = port(torch.from_numpy(x)).numpy()
-    _close(got, want, TOL, "logits")
 
 
 @pytest.mark.parametrize("name,params", [

@@ -7,10 +7,12 @@ Tolerances (relative to the largest |value| of the reference's tensor,
 at least 1): float32 outputs of one forward 1e-6; the two-block ResNet's
 5 Momentum steps at 32x32 (losses, parameters, running statistics) 1e-5.
 
-ResNet-50 (train_bench.py bench_resnet50's static body) runs as written
-at 32x32, B=4 in the port (float32: one program, 5 finite runs), and is
-held to the reference in float64 at 64x64, B=8 over 3 steps (each loss,
-and every parameter and running statistic after its update) to 1e-8.
+ResNet-50 (train_bench.py bench_resnet50's static body; its tests are in
+tests/test_torch_static_resnet.py, which imports this file's helpers)
+runs as written at 32x32, B=4 in the port (float32: one program, 5
+finite runs), and the static training is held to the reference in
+float64 at 64x64, B=8 over 3 steps (each loss, and every parameter and
+running statistic after its update) to 1e-8, on ResNet-18.
 The float32 body is not held to the reference's float32 losses: at
 32x32, B=4 the last stage's maps are 1x1 and its batch norms take
 E[x^2] - E[x]^2 over 4 values a channel, so float32 rounding moves the
@@ -35,6 +37,7 @@ from paddle_tpu_torch.models import (export_reference_state,
                                      load_reference_state)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.tensor import flatten
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -415,83 +418,12 @@ def test_save_and_load_persistables(tmp_path):
         assert torch.equal(t, v)
 
 
-def _resnet50_program(pkg, st, net, dtype, hw):
+def _resnet_program(pkg, st, net, dtype, hw):
     img = st.data("image", [-1, 3, hw, hw], dtype)
     label = st.data("label", [-1, 1], "int64")
     loss = pkg.nn.functional.cross_entropy(net(img), label)
     pkg.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(loss)
     return loss
-
-
-def test_bench_resnet50_static_body_on_the_port_and_against_the_reference():
-    from paddle_tpu.vision.models import resnet50 as jresnet50
-    from paddle_tpu_torch.vision.models import resnet50
-    hw, B = 32, 4
-    rs = np.random.RandomState(0)
-    x = rs.rand(B, 3, hw, hw)
-    y = rs.randint(0, 100, (B, 1)).astype(np.int64)
-    # the bench's body as written (its CPU branch), on the port
-    paddle.seed(0)
-    img = static.data("image", [-1, 3, hw, hw], "float32")
-    label = static.data("label", [-1, 1], "int64")
-    net = resnet50(num_classes=100)
-    logits = net(img)
-    loss = paddle.nn.functional.cross_entropy(logits, label)
-    opt = paddle.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
-    opt.minimize(loss)
-    exe = static.Executor()
-    exe.run(static.default_startup_program())
-    mean0 = net.bn1._mean.clone()
-    feed = {"image": x.astype(np.float32), "label": y}
-    losses = [float(exe.run(feed=feed, fetch_list=[loss])[0])
-              for _ in range(3)]
-    for _ in range(2):
-        (lv,) = exe.run(feed=feed, fetch_list=[loss], return_numpy=False)
-        losses.append(float(lv.numpy()))
-    assert np.isfinite(losses).all()
-    (cp,) = exe._cache.values()
-    assert cp.step.compiles == 1 and cp.step.replays == 4
-    assert not torch.equal(net.bn1._mean, mean0)
-    port_types = _types(static.default_main_program())
-    # the reference against the port in float64, from the same weights,
-    # at 64x64 with B=8 (the last stage's batch norms over 32 values a
-    # channel), over 3 steps of fresh batches
-    static.reset_default_programs()
-    hw, B = 64, 8
-    xs = [rs.rand(B, 3, hw, hw) for _ in range(F64_STEPS)]
-    ys = [rs.randint(0, 100, (B, 1)).astype(np.int64)
-          for _ in range(F64_STEPS)]
-    with jax.enable_x64(True):
-        jpaddle.disable_static()
-        jpaddle.seed(0)
-        ref = jresnet50(num_classes=100)
-        ref.to(dtype="float64")
-        state = {k: np.asarray(v.numpy())
-                 for k, v in ref.state_dict().items()}
-        jpaddle.enable_static()
-        jloss = _resnet50_program(jpaddle, jstatic, ref, "float64", hw)
-        jexe = jstatic.Executor()
-        want, after = [], []
-        for x, y in zip(xs, ys):
-            (lv,) = jexe.run(feed={"image": x, "label": y},
-                             fetch_list=[jloss])
-            want.append(float(lv))
-            after.append(_state(ref, False))
-        ref_types = _types(jstatic.default_main_program())
-    port = resnet50(num_classes=100).double()
-    load_reference_state(port, state)
-    ploss = _resnet50_program(paddle, static, port, "float64", hw)
-    assert port_types == ref_types == _types(static.default_main_program())
-    assert port_types.count("batch_norm_train_stats") == 53
-    pexe = static.Executor()
-    # each step's loss, then every parameter and running statistic after
-    # its update
-    for step, (x, y) in enumerate(zip(xs, ys)):
-        (got,) = pexe.run(feed={"image": x, "label": y}, fetch_list=[ploss])
-        assert abs(float(got) - want[step]) <= F64_TOL * abs(want[step])
-        got_state = _state(port, True)
-        for k in after[step]:
-            assert _rel(got_state[k], after[step][k]) <= F64_TOL, (step, k)
 
 
 def test_bert_predictor_program_is_the_references_op_for_op():

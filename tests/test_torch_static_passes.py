@@ -32,6 +32,7 @@ from paddle_tpu_torch.models import load_reference_state
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.static.passes import apply_inference_fusion
 from paddle_tpu_torch.static.program import prune_ops
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -208,13 +209,13 @@ def _add_act(act):
     def build(pkg, st, nnmod, Fm, ref):
         x = st.data("x", [-1, 5], "float32")
         z = st.data("z", [-1, 5], "float32")
-        y = (Fm.relu(x + z) if act == "relu"
-             else Fm.gelu(x + z, approximate=True))
+        y = (Fm.gelu(x + z, approximate=True) if act == "gelu"
+             else getattr(Fm, act)(x + z))
         return st.default_main_program(), [y], st.Executor()
     return build
 
 
-@pytest.mark.parametrize("act", ["relu", "gelu"])
+@pytest.mark.parametrize("act", ["relu", "gelu", "relu6", "sigmoid"])
 def test_fuse_elewise_add_act_pass(act):
     pair = Pair(_add_act(act))
     feed = {"x": np.random.RandomState(1).randn(2, 5).astype(np.float32),

@@ -37,6 +37,7 @@ from paddle_tpu_torch.models import gpt_tiny as tgpt_tiny
 from paddle_tpu_torch.models import export_reference_state
 from paddle_tpu_torch.models import load_reference_state
 from paddle_tpu_torch.ops import cuda_kernels as ck
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -43,6 +43,7 @@ from paddle_tpu_torch.models import (export_reference_state,
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import cuda_kernels as ck
 from paddle_tpu_torch.optimizer import lr as tlr
+import torch_threads  # noqa: F401,E402  (one intra-op thread a worker)
 
 jax.config.update("jax_platforms", "cpu")
 
