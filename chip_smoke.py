@@ -10,6 +10,7 @@
     python3 chip_smoke.py --static-only    # the card, the build, phase 22
     python3 chip_smoke.py --seq2seq-only   # the card, the build, phase 23
     python3 chip_smoke.py --rnn-only       # the card, the build, phase 24
+    python3 chip_smoke.py --moe-only       # the card, the build, phase 25
     python3 chip_smoke.py --fit-drill JSON # one run of phase 20's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -390,6 +391,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      finite, and at p 0 the first loss and the logits within
      PTB_BF16_LOSS_TOL of (b)'s.
 
+ 25. the tensor-op surface and GPT-2-small-MoE (`moe_main`, `--moe-only`):
+     (a) every op the port registers from the reference's ops/math.py,
+     manipulation.py, creation.py and linalg.py run on CUDA tensors
+     against the same op on CPU tensors (the tier-1 tests hold the CPU
+     path against the reference), forward and, where it is
+     differentiable, the input gradients under one cotangent: within
+     1e-5 of the largest |value| for one-element-in-one-out ops, 1e-4 for
+     reductions, products and linear algebra (factorizations by
+     reconstruction), integers exact; the random ops by shape, dtype,
+     range, one seed's repeat and the moments of 1e6 draws within 5
+     sigma; (b) GPT-2-small with an MoELayer (8 experts, top-2, capacity
+     factor 1.25) in every other block (GShard's layout), B=16, T=512,
+     dropouts 0.1, O2 bf16, AdamW, the criterion + 0.01 x moe_aux_loss(),
+     through run_path (eager bodies, then the captured step with the
+     counters zeroed just before and read just after: 12 launches a step
+     of rows 1t, 2, 3, 100 of row 7, 25 of row K), step ms, tokens/s,
+     MFU from the shapes (`moe_flops`, the dispatch and combine einsums
+     at capacity included) with the expert FFNs' share, peak memory,
+     graph pool, idle, the tokens over capacity by block, l_aux read
+     after the captured steps; the captured step bit-equal to its eager
+     bodies over 3 steps; row 7 timed at this path's parameters; (c) the
+     configuration in float32 at B=4 and 4 blocks, kernels against plain
+     through compare_runs, every token's experts the same in both runs
+     but at near ties (within 1e-5, counted), and a planted fault (second
+     choices placed without the first choices' count) refused.
+
 The line before the last is the kernel table as JSON (the float16
 instances under their names + "_f16"; rows 1t, 2, 3 with their times at
 phase 21's shape under "long_context"; the launches of phase 21 (b)
@@ -400,7 +427,8 @@ those of the bfloat16 BERT predictor and phase 23 (c)'s decoding, its
 times there under "nmt_decode"; rows 1t, 2, 3, 4-7 and K with phase
 23 (a)'s entries under "nmt", and phase 23 (b)'s launches counted in;
 row K's launches of phase 24 (b) counted in, its time at that shape
-under "ptb"); the last line is {"ok": true, "device": {...}}.
+under "ptb"; rows 1t, 2, 3, 7 and K's launches of phase 25 (b) counted
+in, row 7's time at its parameters under "moe"); the last line is {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -7306,6 +7334,703 @@ def rnn_main(torch, ck, card):
             "step": entry, "bf16": bf16}
 
 
+# ---------------------------------------------------------------------------
+# 25. the tensor-op surface on the card, and GPT-2-small-MoE training
+
+# GShard's configuration (Lepikhin et al. 2020, §2) at GPT-2-small's width:
+# top-2 gating, capacity factor 1.25, MoE in every other block, 8 experts;
+# the load-balancing loss at 0.01 in the criterion (tests/test_moe.py:238)
+MOE_EXPERTS, MOE_TOP_K, MOE_CF, MOE_EVERY, MOE_AUX = 8, 2, 1.25, 2, 0.01
+# (c): the float32 comparison at B=4 and 4 blocks (2 of them MoE)
+MOE_COMPARE_B, MOE_COMPARE_LAYERS = 4, 4
+# a routing decision whose competing gate probabilities lie within this is
+# a near tie that summation order may flip (the only exemption in (c))
+MOE_TIE = 1e-5
+# (a): ops on the card against the same ops on CPU tensors, the largest
+# error over the largest |value| of the CPU result (at least 1)
+OPS_TOL = {"elementwise": 1e-5, "reduction": 1e-4}
+OPS_DRAWS = 10 ** 6
+OP_MODULES = ("math", "manipulation", "creation", "linalg", "random_ops")
+
+
+def _u(lo, hi, shape=(4, 3)):
+    return lambda rs: (lo + (hi - lo) * rs.rand(*shape)).astype(np.float32)
+
+
+def _i64(lo, hi, shape):
+    return lambda rs: rs.randint(lo, hi, shape).astype(np.int64)
+
+
+def _bools(shape=(4, 3)):
+    return lambda rs: rs.rand(*shape) > 0.5
+
+
+def _well(n=3):
+    return lambda rs: (rs.rand(n, n) + n * np.eye(n)).astype(np.float32)
+
+
+def _spd(n=3):
+    def make(rs):
+        a = rs.rand(n, n)
+        return (a @ a.T + n * np.eye(n)).astype(np.float32)
+    return make
+
+
+def _sym(n=4):
+    def make(rs):
+        a = rs.rand(n, n)
+        return (a + a.T + np.diag(np.arange(n) * 2.0)).astype(np.float32)
+    return make
+
+
+def _perm_rows(rows, cols):
+    return lambda rs: np.stack([rs.permutation(cols) for _ in range(rows)]
+                               ).astype(np.int64)
+
+
+def _const(a):
+    return lambda rs: np.array(a)
+
+
+_SG = _u(-1.5, 1.5)
+# (inputs, attrs) of the ops the default (one uniform [0.25, 2.75] [4, 3]
+# input for each required positional) does not fit
+OP_SPECS = {
+    "acos": ([_u(-0.9, 0.9)], {}), "asin": ([_u(-0.9, 0.9)], {}),
+    "atanh": ([_u(-0.9, 0.9)], {}), "erfinv": ([_u(-0.9, 0.9)], {}),
+    "acosh": ([_u(1.1, 3.0)], {}), "logit": ([_u(0.1, 0.9)], {}),
+    "tan": ([_u(-0.6, 0.6)], {}), "sin": ([_SG], {}), "cos": ([_SG], {}),
+    "sign": ([_SG], {}), "abs": ([_SG], {}), "neg": ([_SG], {}),
+    "clip": ([_SG], {"min": -0.5, "max": 0.5}),
+    "clip_t": ([_SG, _const(np.float32(-0.5)), _const(np.float32(0.5))],
+               {}),
+    "elementwise_pow": ([_u(0.5, 2), _u(-2, 2)], {}),
+    "matmul_v2": ([_u(-1, 1, (3, 4)), _u(-1, 1, (4, 5))], {}),
+    "mul": ([_u(-1, 1, (2, 3, 4)), _u(-1, 1, (12, 5))], {}),
+    "dot": ([_u(-1, 1, (5,)), _u(-1, 1, (5,))], {}),
+    "addmm": ([_u(-1, 1, (3, 5)), _u(-1, 1, (3, 4)), _u(-1, 1, (4, 5))],
+              {}),
+    "outer": ([_u(-1, 1, (3,)), _u(-1, 1, (4,))], {}),
+    "inner": ([_u(-1, 1, (3, 4)), _u(-1, 1, (2, 4))], {}),
+    "cross": ([_u(-1, 1, (4, 3)), _u(-1, 1, (4, 3))], {"axis": 1}),
+    "bmm": ([_u(-1, 1, (2, 3, 4)), _u(-1, 1, (2, 4, 5))], {}),
+    "mv": ([_u(-1, 1, (3, 4)), _u(-1, 1, (4,))], {}),
+    "kron": ([_u(-1, 1, (2, 3)), _u(-1, 1, (3, 2))], {}),
+    "quantile": ([_u(-1, 1, (4, 5))], {"q": 0.3, "axis": 1}),
+    "median": ([_u(-1, 1, (4, 6))], {"axis": 1}),
+    "top_k_v2": ([_u(-1, 1, (4, 6))], {"k": 2}),
+    "cumsum": ([_SG], {"axis": 1}), "cummax": ([_SG], {"axis": 0}),
+    "logcumsumexp": ([_SG], {"axis": 0}), "cumprod": ([_u(0.5, 1.5)],
+                                                      {"dim": 0}),
+    "reduce_sum": ([_SG], {"axis": 1}),
+    "reduce_mean": ([_SG], {"axis": 0, "keepdim": True}),
+    "reduce_prod": ([_u(0.5, 1.5)], {"axis": 1}),
+    "sort_op": ([_SG], {"axis": 0, "descending": True}),
+    "argsort": ([_SG], {"axis": 1, "descending": True}),
+    "logical_and": ([_bools(), _bools()], {}),
+    "logical_or": ([_bools(), _bools()], {}),
+    "logical_xor": ([_bools(), _bools()], {}),
+    "logical_not": ([_bools()], {}),
+    "bitwise_and": ([_i64(0, 16, (4, 3)), _i64(0, 16, (4, 3))], {}),
+    "bitwise_or": ([_i64(0, 16, (4, 3)), _i64(0, 16, (4, 3))], {}),
+    "bitwise_xor": ([_i64(0, 16, (4, 3)), _i64(0, 16, (4, 3))], {}),
+    "bitwise_not": ([_i64(0, 16, (4, 3))], {}),
+    "gcd": ([_i64(0, 20, (4, 3)), _i64(0, 20, (4, 3))], {}),
+    "lcm": ([_i64(1, 12, (4, 3)), _i64(1, 12, (4, 3))], {}),
+    "where": ([_bools(), _SG, _SG], {}),
+    "masked_select": ([_SG, _bools()], {}),
+    "nonzero": ([lambda rs: (rs.rand(4, 3) > 0.5).astype(np.float32)], {}),
+    "unique": ([lambda rs: rs.randint(0, 5, (4, 3)).astype(np.float32)],
+               {}),
+    "multiplex": ([_const(np.array([[1], [0], [1], [0]], np.int32)), _SG,
+                   _SG], {}),
+    "lerp": ([_SG, _SG, _u(0.1, 0.9)], {}),
+    "heaviside": ([_SG, _u(0.25, 2.75)], {}),
+    "searchsorted_op": ([lambda rs: np.sort(rs.rand(2, 5), -1)
+                         .astype(np.float32), _u(0, 1, (2, 3))], {}),
+    "tensordot_op": ([_u(-1, 1, (2, 3, 4)), _u(-1, 1, (3, 4, 5))],
+                     {"axes": 2}),
+    "dist_op": ([_SG, _SG], {"p": 3.0}),
+    "nan_to_num": ([_const(np.array([1.0, np.nan, np.inf, -np.inf, -2.0],
+                                    np.float32))], {"posinf": 9.0}),
+    "increment": ([_u(-1, 1, (1,))], {}),
+    "cast": ([_SG], {"dtype": "float64"}),
+    "reshape2": ([_SG], {"shape": [3, 4]}),
+    "transpose2": ([_SG], {"perm": [1, 0]}),
+    "unsqueeze2": ([_SG], {"axis": [0]}),
+    "squeeze2": ([_u(-1, 1, (1, 3, 4))], {}),
+    "concat_op": ([_u(-1, 1, (2, 3)), _u(-1, 1, (4, 3))], {"axis": 0}),
+    "stack_op": ([_u(-1, 1, (2, 3)), _u(-1, 1, (2, 3))], {"axis": 1}),
+    "unstack_op": ([_u(-1, 1, (3, 4))], {"axis": 1}),
+    "split_op": ([_SG], {"sections": 2, "axis": 0}),
+    "slice_op": ([_SG], {"axes": [0], "starts": [0], "ends": [2]}),
+    "strided_slice_op": ([_SG], {"axes": [0], "starts": [3], "ends": [0],
+                                 "strides": [-2]}),
+    "getitem": ([_SG], {"index": (slice(0, 2),)}),
+    "getitem_dyn": ([_SG, _const(np.array([2, 0, 3], np.int64))],
+                    {"index_template": ("__arr__", slice(0, 2))}),
+    "gather_op": ([_SG, _i64(0, 4, (3,))], {}),
+    "gather_nd": ([_SG, _const(np.array([[0, 1], [3, 2], [1, 0]],
+                                        np.int64))], {}),
+    "take_along_axis_op": ([_SG, _perm_rows(4, 3)], {"axis": 1}),
+    "put_along_axis_op": ([_SG, _perm_rows(4, 3), _SG], {"axis": 1}),
+    "scatter_op": ([_u(-1, 1, (5, 4)), _const(np.array([0, 2, 4],
+                                                       np.int64)),
+                    _u(-1, 1, (3, 4))], {}),
+    "scatter_nd_add_op": ([_u(-1, 1, (5, 4)), _i64(0, 5, (3, 1)),
+                           _u(-1, 1, (3, 4))], {}),
+    "index_select_op": ([_SG, _i64(0, 4, (3,))], {}),
+    "index_sample_op": ([_u(-1, 1, (3, 5)), _i64(0, 5, (3, 2))], {}),
+    "tile_op": ([_SG], {"repeat_times": [2, 1]}),
+    "expand_v2": ([_u(-1, 1, (1, 3))], {"shape": [4, 3]}),
+    "broadcast_tensors_op": ([_u(-1, 1, (2, 1)), _u(-1, 1, (1, 3))], {}),
+    "flip_op": ([_SG], {"axis": 0}),
+    "roll_op": ([_SG], {"shifts": 1}),
+    "rot90_op": ([_SG], {"k": 1, "axes": (0, 1)}),
+    "pad3d_op": ([_u(-1, 1, (2, 3, 4))],
+                 {"paddings": ((0, 0), (1, 2), (2, 1)), "mode": "reflect"}),
+    "repeat_interleave_op": ([_SG], {"repeats": 2}),
+    "moveaxis_op": ([_u(-1, 1, (2, 3, 4))],
+                    {"source": 0, "destination": 1}),
+    "as_complex_op": ([_u(-1, 1, (4, 3, 2))], {}),
+    "as_real_op": ([lambda rs: (rs.randn(4, 3) + 1j * rs.randn(4, 3))
+                    .astype(np.complex64)], {}),
+    "unique_consecutive_op": ([_const(np.array([1, 1, 2, 2, 3, 1],
+                                               np.float32))], {}),
+    "shard_index_op": ([_i64(0, 8, (4, 1))],
+                       {"index_num": 8, "nshards": 2, "shard_id": 0}),
+    "fill_constant": ([], {"shape": (2, 3), "fill_value": 1.5,
+                           "dtype": "float32"}),
+    "fill_like": ([_SG], {"fill_value": 2.0}),
+    "arange": ([], {"start": 0.0, "end": 2.0, "step": 0.3,
+                    "dtype": "float32"}),
+    "linspace": ([], {"start": -1.0, "stop": 2.0, "num": 7,
+                      "dtype": "float32"}),
+    "logspace": ([], {"start": 0.0, "stop": 2.0, "num": 5, "base": 10.0,
+                      "dtype": "float32"}),
+    "eye_op": ([], {"num_rows": 3, "num_columns": 4, "dtype": "float32"}),
+    "tril_op": ([_u(-1, 1, (4, 4))], {"diagonal": -1}),
+    "triu_op": ([_u(-1, 1, (4, 4))], {"diagonal": 1}),
+    "diag_v2": ([_u(-1, 1, (4,))], {"offset": 1, "padding_value": 0.5}),
+    "diagflat": ([_u(-1, 1, (3,))], {}),
+    "diag_embed": ([_u(-1, 1, (2, 3))], {"offset": 1}),
+    "diagonal": ([_u(-1, 1, (3, 4))], {"offset": 1}),
+    "meshgrid_op": ([_u(-1, 1, (3,)), _u(-1, 1, (4,))], {}),
+    "complex_op": ([_SG, _SG], {}),
+    "matrix_norm": ([_SG], {"porder": 1.0, "axis": (-2, -1)}),
+    "cholesky_op": ([_spd()], {}),
+    "cholesky_solve_op": ([_u(-1, 1, (3, 2)), lambda rs: np.linalg.cholesky(
+        _spd()(rs)).astype(np.float32)], {}),
+    "inverse_op": ([_well()], {}), "det_op": ([_well()], {}),
+    "slogdet_op": ([_well()], {}), "cond_number_op": ([_well()], {}),
+    "matrix_power_op": ([_well()], {"n": 2}),
+    "matrix_rank_op": ([_well()], {}),
+    "pinv_op": ([_u(-1, 1, (4, 3))], {}),
+    "svd_op": ([_u(-1, 1, (4, 3))], {}), "qr_op": ([_u(-1, 1, (4, 3))], {}),
+    "lu_op": ([_well(4)], {}), "eig_op": ([_well(4)], {}),
+    "eigvals_op": ([_well(4)], {}), "eigh_op": ([_sym()], {}),
+    "eigvalsh_op": ([_sym()], {}),
+    "solve_op": ([_well(), _u(-1, 1, (3, 2))], {}),
+    "triangular_solve_op": ([lambda rs: (np.tril(rs.rand(3, 3))
+                                         + 2 * np.eye(3)).astype(np.float32),
+                             _u(-1, 1, (3, 2))], {}),
+    "lstsq_op": ([_u(-1, 1, (6, 3)), _u(-1, 1, (6, 2))], {}),
+    "multi_dot_op": ([_u(-1, 1, (2, 3)), _u(-1, 1, (3, 4)),
+                      _u(-1, 1, (4, 2))], {}),
+    "histogram_op": ([_u(-1, 1, (20,))], {"bins": 5}),
+    "bincount_op": ([_i64(0, 6, (10,))], {"minlength": 3}),
+    "trace_op": ([_u(-1, 1, (3, 4))], {"offset": 1}),
+    "einsum_op": ([_u(-1, 1, (2, 3, 4)), _u(-1, 1, (2, 4, 5))],
+                  {"equation": "bij,bjk->bik"}),
+    "corrcoef_op": ([_u(-1, 1, (3, 6))], {}),
+    "cov_op": ([_u(-1, 1, (3, 6))], {}),
+}
+# one element in, one out: held to OPS_TOL["elementwise"]; the rest sum
+OPS_ELEMENTWISE = ("elementwise_", "atan2", "scale", "neg", "abs", "sign", "exp",
+             "log", "sqrt", "rsqrt", "square", "reciprocal", "sin", "cos",
+             "tan", "asin", "acos", "atan", "sinh", "cosh", "asinh",
+             "acosh", "atanh", "ceil", "floor", "round", "trunc", "frac",
+             "erf", "erfinv", "lgamma", "digamma", "angle", "conj", "real",
+             "imag", "is", "clip", "stanh", "logit", "nan_to_num",
+             "increment", "lerp", "rad2deg", "deg2rad", "gcd", "lcm",
+             "heaviside", "identity", "equal", "not_equal", "greater",
+             "less", "logical", "bitwise", "where", "masked_select",
+             "multiplex", "frexp")
+# factorizations unique up to signs or order: held by reconstruction
+OPS_RECONSTRUCT = ("svd_op", "qr_op", "lu_op", "eig_op", "eigh_op",
+                   "eigvals_op")
+
+
+def port_op_modules():
+    """{module: [op type, ...]} of the port's registered ops in
+    ops/{math,manipulation,creation,linalg,random_ops}.py."""
+    from paddle_tpu_torch.framework.dispatch import OPS
+    return {m: sorted(n for n, o in OPS.items()
+                      if o.fn.__module__ == "paddle_tpu_torch.ops." + m)
+            for m in OP_MODULES}
+
+
+def _op_inputs(op, fn):
+    import inspect
+    import zlib
+    if op in OP_SPECS:
+        makers, attrs = OP_SPECS[op]
+    else:
+        n = sum(1 for p in inspect.signature(fn).parameters.values()
+                if p.kind == p.POSITIONAL_OR_KEYWORD
+                and p.default is p.empty)
+        makers, attrs = [_u(0.25, 2.75)] * n, {}
+    rs = np.random.RandomState(zlib.crc32(op.encode()) % 2 ** 31)
+    return [np.asarray(m(rs)) for m in makers], dict(attrs)
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def _err(torch, got, want, name):
+    """max |got - want| over the largest |want| (at least 1), dtype and
+    shape exact, integers and bools exact."""
+    require(got.dtype == want.dtype and tuple(got.shape) == tuple(
+        want.shape), "%s: %s %s on the card, %s %s on the CPU"
+        % (name, got.dtype, tuple(got.shape), want.dtype, tuple(want.shape)))
+    g, w = got.detach().cpu(), want.detach()
+    if not (w.is_floating_point() or w.is_complex()):
+        require(torch.equal(g, w), "%s: integer outputs differ" % name)
+        return 0.0
+    if w.numel() == 0:
+        return 0.0
+    g, w = g.to(torch.complex128 if w.is_complex() else torch.float64), \
+        w.to(torch.complex128 if w.is_complex() else torch.float64)
+    require(torch.equal(torch.isnan(g), torch.isnan(w)),
+            "%s: NaNs differ" % name)
+    fin = ~torch.isnan(w)
+    s = max(1.0, float(w[fin].abs().max())) if bool(fin.any()) else 1.0
+    return float((g - w)[fin].abs().max()) / s if bool(fin.any()) else 0.0
+
+
+def _reconstruct(torch, op, outs, a):
+    """The factorization's residual over |a|'s largest value."""
+    a = a.to(outs[0].device)
+    if op == "svd_op":
+        u, s, vh = outs
+        r = (u * s) @ vh - a
+    elif op == "qr_op":
+        r = outs[0] @ outs[1] - a
+    elif op == "lu_op":
+        p, lo, up = torch.lu_unpack(outs[0], outs[1])
+        r = p @ lo @ up - a
+    elif op == "eig_op":
+        w, v = outs
+        r = a.to(v.dtype) @ v - v * w
+    elif op == "eigh_op":
+        w, v = outs
+        r = a @ v - v * w
+    else:
+        return 0.0
+    return float(r.abs().max()) / max(1.0, float(a.abs().max()))
+
+
+def check_op_sweep(torch):
+    """Phase 25 (a): every ported op of the five modules on CUDA tensors
+    against the same op on CPU tensors, forward and (where the op is
+    differentiable) the input gradients under one cotangent; the random
+    ops by their distributions. Returns {family: largest error}."""
+    from paddle_tpu_torch.framework.dispatch import OPS
+    mods = port_op_modules()
+    worst, n_checked, n_grad = {}, 0, 0
+    for mod in OP_MODULES:
+        if mod == "random_ops":
+            continue
+        for op in mods[mod]:
+            prim = OPS[op]
+            arrays, attrs = _op_inputs(op, prim.fn)
+            kind = ("elementwise" if op.startswith(OPS_ELEMENTWISE)
+                    or mod == "manipulation" else "reduction")
+            family = "%s/%s" % (mod, kind)
+            extra = ({"device": "cuda"} if mod == "creation" and not arrays
+                     else {})
+
+            def inputs(dev, grad):
+                out = []
+                for a in arrays:
+                    t = torch.from_numpy(np.array(a)).to(dev)
+                    if grad and (t.is_floating_point()) and t.ndim:
+                        t.requires_grad_(True)
+                    out.append(t)
+                return out
+            diff = not prim.nondiff and op not in OPS_RECONSTRUCT
+            cin, gin = inputs("cpu", diff), inputs("cuda", diff)
+            want = _as_list(prim.fn(*cin, **attrs, **(
+                {"device": "cpu"} if extra else {})))
+            got = _as_list(prim.fn(*gin, **attrs, **extra))
+            require(len(got) == len(want), "%s: %d outputs on the card, %d "
+                    "on the CPU" % (op, len(got), len(want)))
+            if op in OPS_RECONSTRUCT:
+                e = _reconstruct(torch, op, got, cin[0].detach())
+                if op in ("svd_op", "eigh_op"):    # the invariant values
+                    e = max(e, _err(torch, got[1 if op == "svd_op" else 0],
+                                    want[1 if op == "svd_op" else 0], op))
+                if op == "eigvals_op":
+                    key = lambda z: (round(z.real, 4), round(z.imag, 4))  # noqa: E731,E501
+                    g = sorted(got[0].cpu().tolist(), key=key)
+                    w = sorted(want[0].tolist(), key=key)
+                    e = max(abs(x - y) for x, y in zip(g, w)) / max(
+                        1.0, max(abs(y) for y in w))
+                tol = OPS_TOL["reduction"]
+            else:
+                e = max(_err(torch, g, w, op) for g, w in zip(got, want))
+                tol = OPS_TOL[kind]
+            require(e <= tol, "%s on the card: error %.3g > %.0e of the "
+                    "CPU result's largest |value|" % (op, e, tol))
+            worst[family] = max(worst.get(family, 0.0), e)
+            n_checked += 1
+            fl = [i for i, w in enumerate(want) if w.is_floating_point()
+                  and w.requires_grad]
+            if not (diff and fl):
+                continue
+            rs = np.random.RandomState(1234)
+            cts = [torch.from_numpy(np.asarray(rs.rand(*want[i].shape),
+                                               np.float32)).to(want[i].dtype)
+                   for i in fl]
+            wi = [t for t in cin if t.requires_grad]
+            gi = [t for t in gin if t.requires_grad]
+            wg = torch.autograd.grad(
+                sum((want[i] * c).sum() for i, c in zip(fl, cts)), wi,
+                allow_unused=True)
+            gg = torch.autograd.grad(
+                sum((got[i] * c.cuda()).sum() for i, c in zip(fl, cts)), gi,
+                allow_unused=True)
+            for a, b in zip(gg, wg):
+                if b is None:
+                    continue
+                e = _err(torch, a, b, op + " gradient")
+                require(e <= OPS_TOL["reduction"], "%s gradient on the "
+                        "card: error %.3g" % (op, e))
+                worst[mod + "/gradients"] = max(
+                    worst.get(mod + "/gradients", 0.0), e)
+            n_grad += 1
+    n_random = check_random_ops(torch)
+    say("op surface on the card (phase 25 (a)): %d ops checked against the "
+        "same ops on CPU tensors (%d with their gradients), %d random ops "
+        "by their draws; largest error by family %s (tolerances %s of the "
+        "largest |value|; integers, bools and indices exact)"
+        % (n_checked, n_grad, n_random,
+           {k: float("%.3g" % v) for k, v in sorted(worst.items())},
+           OPS_TOL))
+    return worst
+
+
+def _moments(name, x, mean, var):
+    x = x.double()
+    n = x.numel()
+    m, v = float(x.mean()), float(x.var())
+    require(abs(m - mean) <= 5 * (var / n) ** 0.5, "%s: mean %.5g, want "
+            "%.5g within 5 sigma" % (name, m, mean))
+    require(abs(v - var) <= 5 * var * (8.0 / n) ** 0.5, "%s: variance %.5g,"
+            " want %.5g" % (name, v, var))
+    return m, v
+
+
+def check_random_ops(torch):
+    """The random ops on the card: shape, dtype and range, the same draws
+    twice from one paddle.seed, the first two moments of OPS_DRAWS draws
+    within 5 sigma."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import random_ops as R
+    n = OPS_DRAWS
+    cases = {
+        "gaussian_random": (lambda: paddle.randn([n], device="cuda"),
+                            torch.float32, (0.0, 1.0)),
+        "uniform_random": (lambda: paddle.uniform([n], min=-2.0, max=3.0,
+                                                  device="cuda"),
+                           torch.float32, (0.5, 25 / 12)),
+        "randint_op": (lambda: paddle.randint(-3, 7, [n], device="cuda"),
+                       torch.int64, (1.5, 99 / 12)),
+        "randperm_op": (lambda: paddle.randperm(1000, device="cuda"),
+                        torch.int64, None),
+        "bernoulli_op": (lambda: paddle.bernoulli(
+            torch.full((n,), 0.3, device="cuda")), torch.float32,
+            (0.3, 0.21)),
+        "multinomial_op": (lambda: paddle.multinomial(
+            torch.tensor([1.0, 2.0, 7.0], device="cuda"), n, True),
+            torch.int64, (1.6, 0.44)),
+        "poisson_op": (lambda: paddle.poisson(
+            torch.full((n,), 4.0, device="cuda")), torch.float32,
+            (4.0, 4.0)),
+        "exponential_op": (lambda: R.exponential_(
+            torch.empty(n, device="cuda"), 2.0), torch.float32,
+            (0.5, 0.25)),
+    }
+    for name, (draw, dt, mom) in cases.items():
+        paddle.seed(11)
+        x = draw()
+        paddle.seed(11)
+        y = draw()
+        require(x.is_cuda and x.dtype == dt, "%s: %s on %s" % (
+            name, x.dtype, x.device))
+        require(torch.equal(x, y), "%s: one seed gave other draws" % name)
+        if mom is None:
+            require(sorted(x.tolist()) == list(range(1000)),
+                    "%s: not a permutation" % name)
+            continue
+        if name == "uniform_random":
+            require(-2.0 <= float(x.min()) and float(x.max()) < 3.0,
+                    "%s: out of range" % name)
+        if name == "randint_op":
+            require(int(x.min()) == -3 and int(x.max()) == 6,
+                    "%s: range [%d, %d]" % (name, x.min(), x.max()))
+        _moments(name, x, *mom)
+    return len(cases)
+
+
+def moe_flops(B, T, model):
+    """(FLOPs of one training step counted from the shapes, of which the
+    expert FFNs'): 6 x the parameters a token uses (every dense and gate
+    parameter; the experts counted apart) x tokens, the attention scores
+    (12 L d T a token), and for each MoE block at capacity C the expert
+    FFNs (2 x 2 E C M H forward, x3 with the backward), the dispatch
+    einsum (2 S E C M, x2: its backward needs only dX) and the combine
+    einsum (2 S E C M, x3)."""
+    from paddle_tpu_torch.incubate import MoELayer
+    gpt = model.gpt
+    S = B * T
+    L, d = len(gpt.layers), gpt.hidden_size
+    expert_params, experts, einsums = 0, 0, 0
+    for blk in gpt.layers:
+        m = blk.mlp
+        if not isinstance(m, MoELayer):
+            continue
+        C = m.capacity(S)
+        E, M, H = m.num_experts, m.d_model, m.d_hidden
+        expert_params += sum(p.numel() for p in (m.w1, m.b1, m.w2, m.b2))
+        experts += 3 * 2 * 2 * E * C * M * H
+        einsums += (2 + 3) * 2 * S * E * C * M
+    dense = sum(p.numel() for p in model.parameters()) - expert_params
+    total = 6 * dense * S + 12 * L * d * T * S + experts + einsums
+    return total, experts
+
+
+def moe_routes(torch, model):
+    """A forward hook on each MoE block that keeps its routing (the first
+    and second choices, from the gate's float32 probabilities) and the
+    gaps between the competing probabilities, for one forward."""
+    from paddle_tpu_torch.incubate import MoELayer
+    seen = []
+
+    def hook(mod, inputs, out):
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            return
+        with torch.no_grad():
+            x = inputs[0].reshape(-1, mod.d_model).float()
+            p = torch.softmax(x @ mod.gate_weight.float(), -1)
+            top = torch.topk(p, 3, dim=-1)
+            seen.append((top.indices[:, :2].cpu(),
+                         (top.values[:, :2] - top.values[:, 1:3]).cpu()))
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, MoELayer)]
+    return seen, handles
+
+
+def moe_model(**kw):
+    from paddle_tpu_torch.models import gpt2_small
+    return gpt2_small(seed=0, moe_every_n_layers=MOE_EVERY,
+                      moe_num_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
+                      moe_capacity_factor=MOE_CF, **kw)
+
+
+def moe_train(torch, ck, card):
+    """Phase 25 (b): GPT-2-small-MoE at B=16, T=512, O2 bf16, dropouts
+    0.1, AdamW, the criterion plus MOE_AUX x moe_aux_loss(), through
+    run_path (eager bodies, then the captured step: one build, replays,
+    the launches a step), the captured step against its eager bodies over
+    3 steps, the tokens over capacity and l_aux after a step, row 7 at
+    this path's parameters."""
+    from paddle_tpu_torch import amp, io, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    import contextlib
+    prandom.seed(0)
+    t0 = time.perf_counter()
+    model = moe_model()
+    model.train()
+    opt = optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                          parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    crit = GPTPretrainingCriterion()
+    gpt = model.gpt
+    loss_fn = lambda o, l: crit(o, l) + MOE_AUX * gpt.moe_aux_loss()  # noqa
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    moes = [b.mlp for b in gpt.layers if isinstance(b.mlp, MoELayer)]
+    S = TRAIN_B * TRAIN_T
+    say("moe: gpt2-small-MoE %d parameters (%d tensors), %d of 12 blocks "
+        "MoE (E=%d, top-%d, capacity factor %.2f: C=%d of S=%d tokens), "
+        "built in %.1f s"
+        % (n_params, n_tensors, len(moes), MOE_EXPERTS, MOE_TOP_K, MOE_CF,
+           moes[0].capacity(S), S, time.perf_counter() - t0))
+    loader = io.DataLoader(token_stream(io, gpt.vocab_size, TRAIN_T),
+                           batch_size=TRAIN_B, prefetch_to_device=2)
+    it = iter(loader)
+
+    def batch():
+        ids = next(it)
+        return [ids[:, :-1]], [ids[:, 1:]]
+    L = len(gpt.layers)
+    want = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "adamw": n_tensors, "dropout_keep": 2 * L + 1,
+            "fused_dropout_ln_fwd": 0, "fused_dropout_residual_fwd": 0,
+            "fused_dropout_ln_bwd": 0}
+    flops, expert_flops = moe_flops(TRAIN_B, TRAIN_T, model)
+    launches, paths, step_ms, _, _ = run_path(
+        torch, ck, "moe", card, model, opt, loss_fn, batch,
+        contextlib.nullcontext, S, flops, want)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    aux = float(gpt.moe_aux_loss())
+    require(math.isfinite(aux) and aux > 0, "moe: l_aux after a captured "
+            "step %r" % aux)
+    over = [int(m.dropped) / (S * MOE_TOP_K) for m in moes]
+    say("moe: %.2f TFLOP a step, %.1f %% of them in the expert FFNs, the "
+        "rest the dense blocks, the attention and the [S, E, C] dispatch "
+        "and combine einsums; MFU above against 989 TFLOP/s; l_aux after "
+        "the captured steps %.6f (sum of %d blocks, read from their "
+        "buffers); tokens over capacity (choices dropped / S x k) by MoE "
+        "block %s; launches a step %s; graph pool and idle in the lines "
+        "above (%s)"
+        % (flops / 1e12, 100.0 * expert_flops / flops, aux, len(moes),
+           ["%.4f" % x for x in over],
+           {k: launches[k] / n_steps for k in want}, card))
+    require(paths["flash_dropout"] > 0 and paths["xla_sdpa"] == 0,
+            "moe: attention paths %s" % paths)
+    fixed = [batch() for _ in range(3)]
+    it.close()
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    free_memory(torch)
+    graph_against_eager_train(torch, ck, "moe", model, opt, loss_fn,
+                              fixed, contextlib.nullcontext, DROPOUT)
+    del model, opt
+    free_memory(torch)
+    return launches, shapes, {"step_ms": step_ms, "flops": flops,
+                              "expert_share": expert_flops / flops,
+                              "over": over, "l_aux": aux}
+
+
+def moe_compare(torch, ck, flags, fault=False):
+    """Phase 25 (c): the same configuration in float32 at B=4 and 4
+    blocks (2 MoE), no dropout, kernels on against off through
+    compare_runs (step 1's gradients within TRAIN_GRAD_TOL of each norm,
+    losses within 1e-4); every token's experts the same in both runs' first
+    forward, except where the competing probabilities lie within MOE_TIE
+    (counted). With `fault`, the kernel run places second choices without
+    the first choices' offset (count1): the comparison must refuse it."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.models import GPT_CONFIGS, GPTPretrainingCriterion
+    B = MOE_COMPARE_B
+    vocab = GPT_CONFIGS["gpt2-small"]["vocab_size"]
+    data = [torch.from_numpy(token_stream_batch(np, vocab, B, TRAIN_T, s))
+            .cuda() for s in range(3)]
+    routes = []
+    place = MoELayer._place
+
+    def build():
+        prandom.seed(0)
+        model = moe_model(num_layers=MOE_COMPARE_LAYERS,
+                          attn_dropout_prob=0.0, hidden_dropout_prob=0.0)
+        model.train()
+        opt = optimizer.AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                              parameters=model.parameters())
+        crit = GPTPretrainingCriterion()
+        gpt = model.gpt
+        step = make_train_step(
+            model, lambda o, l: crit(o, l) + MOE_AUX * gpt.moe_aux_loss(),
+            opt)
+        seen, handles = moe_routes(torch, model)
+        routes.append(seen)
+
+        def run(i):
+            out = step([data[i][:, :-1]], [data[i][:, 1:]])
+            for h in handles:               # the first forward's routes
+                h.remove()
+            handles.clear()
+            return out
+        return model, opt, run
+    if fault:
+        def faulty(self, mask, offset, C):
+            return place(self, mask, None, C)
+        def build_faulty():
+            MoELayer._place = faulty if flags.get_flags(
+                ["use_flash_attention"])["use_flash_attention"] else place
+            return build()
+        try:
+            compare_runs(torch, ck, flags, "moe fault", build_faulty,
+                         ("use_flash_attention", "use_fused_optimizer"),
+                         ("flash_fwd_train", "adamw"))
+        except SystemExit as e:
+            say("moe planted fault (second choices placed without the first "
+                "choices' count): refused, %s" % str(e)[len(
+                    "chip_smoke FAILED: "):][:160])
+            return None
+        finally:
+            MoELayer._place = place
+        require(False, "moe: the planted fault passed the comparison")
+    compare_runs(torch, ck, flags, "moe", build,
+                 ("use_flash_attention", "use_fused_optimizer"),
+                 ("flash_fwd_train", "flash_bwd_dkv", "adamw"))
+    (k_routes, p_routes) = routes
+    flips, near, total = 0, 0, 0
+    for (ki, kg), (pi, pg) in zip(k_routes, p_routes):
+        diff = (ki != pi).any(-1)
+        total += diff.numel()
+        gap = torch.minimum(kg.min(-1).values, pg.min(-1).values)
+        flips += int(diff.sum())
+        near += int((diff & (gap <= MOE_TIE)).sum())
+    require(flips == near, "moe: %d tokens routed to other experts with "
+            "the kernels, %d of them at a near tie (within %g)"
+            % (flips, near, MOE_TIE))
+    say("moe routing, kernels vs plain (first forward, %d MoE blocks x %d "
+        "tokens): %d tokens routed differently, all at near ties (within "
+        "%g); the smallest gap between competing probabilities %.3g"
+        % (len(k_routes), k_routes[0][0].shape[0], flips, MOE_TIE,
+           min(float(g.min()) for _, g in p_routes)))
+    return flips
+
+
+def moe_main(torch, ck, flags, card, timer=None, gen=None):
+    """Phase 25: (a) the op surface on the card, (b) GPT-2-small-MoE
+    training, (c) its float32 comparison and the planted fault. Returns
+    (b)'s launches and the phase's numbers."""
+    from paddle_tpu_torch.framework.random import philox_word
+    global WORD
+    if WORD is None:
+        WORD = philox_word(SEED, OFFSET - DELTA, "cuda")
+    t0 = time.perf_counter()
+    worst = check_op_sweep(torch)
+    free_memory(torch)
+    t1 = time.perf_counter()
+    launches, shapes, entry = moe_train(torch, ck, card)
+    t2 = time.perf_counter()
+    timer = timer or Timer(torch)
+    gen = gen or torch.Generator(device="cuda").manual_seed(0)
+    adamw = time_adamw(torch, ck, timer, gen, shapes, card,
+                       plain_runs=(3, 1))
+    free_memory(torch)
+    t3 = time.perf_counter()
+    flips = moe_compare(torch, ck, flags)
+    free_memory(torch)
+    moe_compare(torch, ck, flags, fault=True)
+    free_memory(torch)
+    say("moe phase 25: %.1f s ((a) %.1f, (b) %.1f, row 7 at its shapes "
+        "%.1f, (c) %.1f)" % (time.perf_counter() - t0, t1 - t0, t2 - t1,
+                             t3 - t2, time.perf_counter() - t3))
+    entry.update(launches=launches, adamw=adamw, flips=flips, ops=worst)
+    return entry
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -7334,6 +8059,9 @@ def main():
                     help="name the card, build the kernels, then run phase "
                     "24 (the recurrent family, the LSTM language model) "
                     "alone")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="name the card, build the kernels, then run phase "
+                    "25 (the op surface, GPT-2-small-MoE) alone")
     ap.add_argument("--fit-drill", metavar="JSON",
                     help="one run of phase 20's preemption drill, its "
                     "settings as JSON (see fit_drill); phase 20 starts "
@@ -7406,6 +8134,10 @@ def main():
     if opts.rnn_only:
         rnn_main(torch, ck, card)
         say("rnn-only run: phase 24 passed")
+        return 0
+    if opts.moe_only:
+        moe_main(torch, ck, flags, card)
+        say("moe-only run: phase 25 passed")
         return 0
 
     # 3. kernels against their plain versions
@@ -7674,6 +8406,10 @@ def main():
     free_memory(torch)
     rnn = rnn_main(torch, ck, card)
 
+    # 25. the tensor-op surface on the card and GPT-2-small-MoE training
+    free_memory(torch)
+    moe = moe_main(torch, ck, flags, card, timer, gen)
+
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]
                             + slaunch_c["flash_fwd"]
@@ -7693,6 +8429,11 @@ def main():
             % (name, tlaunches[name], long["launches"][name],
                nmt["train"][name]))
     counts["dropout_keep"] += rnn["launches"]["dropout_keep"]
+    for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
+                 "adamw", "dropout_keep"):
+        counts[name] += moe["launches"][name]
+        say("launches %s: %d in GPT-2-small-MoE training (phase 25 (b)), "
+            "counted in" % (name, moe["launches"][name]))
     say("launches dropout_keep: %d in the LSTM language model's training "
         "(phase 24 (b)), counted in above" % rnn["launches"]["dropout_keep"])
     for name in FUSED_KERNELS:
@@ -7747,6 +8488,10 @@ def main():
             if name == "fused_dropout_residual_fwd":
                 e["nmt_check_launches"] = nmt["fused"]["pre-LN"][
                     "layer_launches"][name]
+    adamw_row = next(e for e in table if e["name"] == "adamw")
+    adamw_row["moe"] = dict(
+        tensors=moe["launches"]["adamw"] // (TRAIN_WARMUP + TRAIN_STEPS),
+        launches=moe["launches"]["adamw"], **moe["adamw"])
     keep_row = next(e for e in table if e["name"] == "dropout_keep")
     keep_row["ptb"] = dict(shape=[PTB_B, PTB_T, PTB_HIDDEN], p=PTB_DROPOUT,
                            launches=rnn["launches"]["dropout_keep"],
@@ -7767,7 +8512,11 @@ def main():
               "path, so phase 19 launches none of the kernels above",
         "24": "the rnn op: composed ops over cuBLAS GEMMs, as the "
               "reference's lax.scan over composed XLA ops; its dropouts "
-              "launch dropout_keep (counted above)"}}))
+              "launch dropout_keep (counted above)",
+        "25": "the op surface (ops/math, manipulation, creation, linalg, "
+              "random_ops) and the MoE layer: torch ops over cuBLAS and "
+              "cuSOLVER, as the reference's are XLA ops; GPT-2-small-MoE "
+              "training launches rows 1t, 2, 3, 7 and K (counted above)"}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -95,10 +95,16 @@ reference's static ResNet-50 training and its predictors:
     pred = paddle.inference.create_predictor(
         paddle.inference.Config("rn50.pdmodel", "rn50.pdiparams"))
 
-Names whose modules are not ported stay unbound: `distributed`, `fft`, `signal`,
-`linalg`, `distribution`, `text`, `onnx`, `quantization`, `fluid`,
-`utils`, `SelectedRows`, and the tensor-op surface (`paddle.add`,
-`paddle.matmul`, ...).
+The tensor-op surface is bound at the top level, as the reference binds
+it (`from .tensor import *`): `paddle.add`, `paddle.matmul`,
+`paddle.sum(x, 1)`, `paddle.topk`, `paddle.einsum`, `paddle.arange`,
+`paddle.randn`, ..., and `paddle.linalg`; each op is registered under the
+reference's op type name (ops/math.py, manipulation.py, creation.py,
+linalg.py, random_ops.py), so a static program records it.
+
+Names whose modules are not ported stay unbound: `distributed`, `fft`,
+`signal`, `distribution`, `text`, `onnx`, `quantization`, `fluid`,
+`utils` and `SelectedRows`.
 
 Float32 matrix products run in full float32: the reference computes in
 float32, so TF32 is switched off for matmul and cuDNN at import.
@@ -131,17 +137,20 @@ from .framework.random import (get_rng_state, seed,  # noqa: E402,F401
                                set_rng_state)
 from .framework.flags import get_flags, set_flags  # noqa: E402,F401
 from .framework.autograd import grad  # noqa: E402,F401
+# the tensor-op surface at the top level, as the reference's
+from .tensor import *  # noqa: E402,F401,F403
 
 from . import (amp, autograd, checkpoint, device,  # noqa: E402,F401
                framework, hapi, incubate, inference, io, jit, metric,
-               models, nn, observability, optimizer, resilience, static,
-               tensor, vision)
+               linalg, models, nn, observability, optimizer, resilience,
+               static, tensor, vision)
 from .framework.io import load, save  # noqa: E402,F401
 from .hapi import callbacks, flops, summary  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401
 
 __all__ = ["amp", "autograd", "checkpoint", "device", "framework", "hapi",
-           "incubate", "inference", "io", "jit", "metric", "models", "nn",
+           "incubate", "inference", "io", "jit", "linalg", "metric",
+           "models", "nn",
            "observability", "ops", "optimizer", "resilience", "static",
            "tensor", "vision", "enable_static", "disable_static",
            "in_static_mode", "Model", "callbacks", "flops", "summary", "save",
@@ -154,4 +163,4 @@ __all__ = ["amp", "autograd", "checkpoint", "device", "framework", "hapi",
            "is_compiled_with_npu", "is_compiled_with_xpu", "Tensor",
            "Parameter", "to_tensor", "no_grad", "in_dygraph_mode",
            "is_grad_enabled", "set_grad_enabled", "seed", "get_rng_state",
-           "set_rng_state", "get_flags", "set_flags", "grad"]
+           "set_rng_state", "get_flags", "set_flags", "grad"] + tensor.__all__

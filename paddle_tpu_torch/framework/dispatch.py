@@ -27,6 +27,8 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict, Optional
 
+import torch
+
 from .state import _MODE, staging
 
 __all__ = ["OPS", "primitive"]
@@ -36,14 +38,28 @@ __all__ = ["OPS", "primitive"]
 OPS: Dict[str, Callable] = {}
 
 
-def primitive(name: str, out_like: Optional[int] = None):
+def _detached(fn):
+    def run(*args, **attrs):
+        out = fn(*args, **attrs)
+        if isinstance(out, tuple):
+            return tuple(o.detach() if isinstance(o, torch.Tensor) else o
+                         for o in out)
+        return out.detach() if isinstance(out, torch.Tensor) else out
+    return functools.update_wrapper(run, fn)
+
+
+def primitive(name: str, out_like: Optional[int] = None,
+              nondiff: bool = False):
     """Decorator registering `fn` as the op `name` (see the module's
     note). `out_like`: the index of the input whose shape and dtype the
     output has, for an op whose function cannot run on meta tensors (a
     kernel wrapper, a random draw); else a recorded op's output shape
-    comes from running `fn` on meta tensors."""
+    comes from running `fn` on meta tensors. `nondiff`: the outputs are
+    detached, as the reference's nondiff ops give no gradient."""
 
     def deco(fn):
+        if nondiff:
+            fn = _detached(fn)
         def op(*args, **attrs):
             if _MODE[0] and staging():
                 from ..static.program import stage_op
@@ -54,6 +70,7 @@ def primitive(name: str, out_like: Optional[int] = None):
 
         functools.update_wrapper(op, fn)
         op.op_type, op.fn, op.out_like = name, fn, out_like
+        op.nondiff = nondiff
         OPS[name] = op
         return op
 

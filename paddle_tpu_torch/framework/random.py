@@ -80,6 +80,23 @@ class GlobalRNG:
         self.cpu = torch.Generator().manual_seed(self._seed)
         self._kernel_seed: Optional[int] = None
         self._offset = 0
+        self._gens: Dict[torch.device, torch.Generator] = {}
+
+    def generator(self, device) -> torch.Generator:
+        """The torch.Generator of `device` the random ops (ops/random_ops.py)
+        draw from: the CPU generator, or a CUDA one seeded from the seed
+        when first asked for after `manual_seed`, so that `paddle.seed(s)`
+        repeats every draw. Its state is not part of `state()`."""
+        dev = _device(device)
+        if dev.type == "cpu":
+            return self.cpu
+        gen = self._gens.get(dev)
+        if gen is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed((self._seed * 0x9E3779B97F4A7C15 + 1
+                             + (dev.index or 0)) % 2 ** 63)
+            self._gens[dev] = gen
+        return gen
 
     # -- the kernels' Philox word --------------------------------------------
     def _kseed(self) -> int:

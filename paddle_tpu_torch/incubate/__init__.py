@@ -1,6 +1,7 @@
 """paddle.incubate surface of the port (counterpart of
-paddle_tpu/incubate/): the fused transformer functionals and the
-auto-checkpoint epoch range."""
-from . import checkpoint, nn
+paddle_tpu/incubate/): the fused transformer functionals, the
+auto-checkpoint epoch range and the MoE layer."""
+from . import checkpoint, moe, nn
+from .moe import MoELayer
 
-__all__ = ["checkpoint", "nn"]
+__all__ = ["checkpoint", "moe", "nn", "MoELayer"]

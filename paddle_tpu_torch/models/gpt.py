@@ -3,8 +3,11 @@ paddle_tpu/models/gpt.py, GPTEmbeddings through GPTPretrainingCriterion).
 
 Off a mesh the reference's ColumnParallelLinear / RowParallelLinear /
 VocabParallelEmbedding are plain Linear / Embedding, which is what the port
-uses. MoE blocks, the pipeline classes, `generate` and the sequence-parallel
-constraints are not part of this port.
+uses. `GPTModel(moe_every_n_layers=n)` puts an `incubate.MoELayer` in
+place of every n-th block's MLP (GShard's every-other-block layout at
+n=2), its load-balancing losses summed by `moe_aux_loss()`. The pipeline
+classes, `generate` and the sequence-parallel constraints are not part of
+this port.
 
 Attention takes three routes, as in the reference:
   * no cache, or a zero-length legacy cache (cold prefill, and training):
@@ -24,6 +27,7 @@ from torch import nn
 from ..framework.device import resolve_device
 from ..framework.random import init_seed
 from ..framework.flags import flag
+from ..incubate.moe import MoELayer
 from ..incubate.nn.functional import (fused_bias_dropout_residual,
                                       fused_bias_dropout_residual_ln_pair)
 from ..nn import functional as F
@@ -154,21 +158,30 @@ class GPTMLP(nn.Module):
 
 class GPTDecoderLayer(nn.Module):
     """Pre-LN transformer decoder block: x + dropout(attn(ln_1(x))), then
-    x + dropout(mlp(ln_2(x))). Each residual tail is `_residual_dropout`:
+    x + dropout(mlp(ln_2(x))); moe_num_experts > 0 makes the MLP an
+    MoELayer (reference: paddle_tpu/models/gpt.py:300-321). Each residual
+    tail is `_residual_dropout`:
     one fused kernel pass while FLAGS_use_fused_dropout_ln is on, else the
     composed ops. Under FLAGS_fused_block (training and prefill without a
     cache) the attention tail and ln_2 are one pass with two outputs."""
 
     def __init__(self, hidden_size, num_heads, intermediate_size=None,
                  attn_dropout_prob=0.1, hidden_dropout_prob=0.1,
-                 layer_norm_epsilon=1e-5, generator=None):
+                 layer_norm_epsilon=1e-5, generator=None, moe_num_experts=0,
+                 moe_top_k=2, moe_capacity_factor=1.25):
         super().__init__()
         inter = intermediate_size or 4 * hidden_size
         self.ln_1 = LayerNorm(hidden_size, epsilon=layer_norm_epsilon)
         self.attn = GPTAttention(hidden_size, num_heads, attn_dropout_prob,
                                  generator)
         self.ln_2 = LayerNorm(hidden_size, epsilon=layer_norm_epsilon)
-        self.mlp = GPTMLP(hidden_size, inter, generator)
+        if moe_num_experts:
+            self.mlp = MoELayer(hidden_size, inter, moe_num_experts,
+                                top_k=moe_top_k,
+                                capacity_factor=moe_capacity_factor,
+                                generator=generator)
+        else:
+            self.mlp = GPTMLP(hidden_size, inter, generator)
         self.dropout = Dropout(hidden_dropout_prob)
 
     def _residual_dropout(self, h, residual):
@@ -209,19 +222,42 @@ class GPTModel(nn.Module):
                  num_heads=12, intermediate_size=None,
                  max_position_embeddings=1024, attn_dropout_prob=0.1,
                  hidden_dropout_prob=0.1, layer_norm_epsilon=1e-5,
-                 initializer_range=0.02, generator=None):
+                 initializer_range=0.02, generator=None,
+                 moe_every_n_layers=0, moe_num_experts=8, moe_top_k=2,
+                 moe_capacity_factor=1.25):
         super().__init__()
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.embeddings = GPTEmbeddings(
             vocab_size, hidden_size, max_position_embeddings,
             hidden_dropout_prob, initializer_range, generator)
+        # every moe_every_n_layers-th block's MLP is an MoELayer
         self.layers = nn.ModuleList([
-            GPTDecoderLayer(hidden_size, num_heads, intermediate_size,
-                            attn_dropout_prob, hidden_dropout_prob,
-                            layer_norm_epsilon, generator)
-            for _ in range(num_layers)])
+            GPTDecoderLayer(
+                hidden_size, num_heads, intermediate_size,
+                attn_dropout_prob, hidden_dropout_prob, layer_norm_epsilon,
+                generator,
+                moe_num_experts=(moe_num_experts if moe_every_n_layers
+                                 and (i + 1) % moe_every_n_layers == 0
+                                 else 0),
+                moe_top_k=moe_top_k,
+                moe_capacity_factor=moe_capacity_factor)
+            for i in range(num_layers)])
         self.ln_f = LayerNorm(hidden_size, epsilon=layer_norm_epsilon)
+
+    def moe_aux_loss(self):
+        """The sum of the MoE blocks' load-balancing losses of the latest
+        forward (add coef * moe_aux_loss() to the training loss); a 0-d
+        float32 zero on the model's device without MoE blocks."""
+        total = None
+        for blk in self.layers:
+            if isinstance(blk.mlp, MoELayer):
+                total = blk.mlp.l_aux if total is None \
+                    else total + blk.mlp.l_aux
+        if total is None:
+            return torch.zeros((), dtype=torch.float32,
+                               device=self.ln_f.weight.device)
+        return total
 
     def forward(self, input_ids, position_ids=None, caches=None):
         x = self.embeddings(input_ids, position_ids)

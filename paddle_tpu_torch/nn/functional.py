@@ -30,6 +30,7 @@ from ..framework.random import RNG
 from ..framework.state import staging
 from ..observability import metrics
 from ..ops import cuda_kernels as ck
+from ..ops import math as _math
 from ..ops.ring_attention import blockwise_attention
 from ..tensor import add, mean, reshape, squeeze
 
@@ -48,24 +49,14 @@ __all__ = ["linear", "matmul", "gelu", "relu", "tanh", "softmax",
            "binary_cross_entropy", "binary_cross_entropy_with_logits",
            "kl_div", "smooth_l1_loss", "margin_ranking_loss",
            "hinge_embedding_loss", "log_loss", "sigmoid_focal_loss",
-           "sequence_mask", "unstack"]
-
-
-@primitive("matmul_v2")
-def _matmul(x, y, transpose_x=False, transpose_y=False):
-    x, y = amp_cast_inputs("matmul_v2", [x, y])
-    if transpose_x and x.ndim > 1:
-        x = x.transpose(-1, -2)
-    if transpose_y and y.ndim > 1:
-        y = y.transpose(-1, -2)
-    return torch.matmul(x, y)
+           "sequence_mask", "unstack", "cosine_similarity"]
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False):
     """paddle.matmul (reference: ops/math.py matmul, op matmul_v2) with
     the transposes of the last two axes."""
-    return _matmul(x, y, transpose_x=bool(transpose_x),
-                   transpose_y=bool(transpose_y))
+    return _math.matmul(x, y, transpose_x=bool(transpose_x),
+                        transpose_y=bool(transpose_y))
 
 
 def linear(x, weight, bias=None):
@@ -359,7 +350,8 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
 def _fc(x, w, b, transpose_x=False, transpose_y=False):
     """matmul_v2 then the bias add: the op `fc_fuse_pass` makes
     (reference: ops/nn_ops.py :831)."""
-    return _matmul.fn(x, w, transpose_x, transpose_y) + b
+    return _math.matmul.fn(x, w, transpose_x=transpose_x,
+                           transpose_y=transpose_y) + b
 
 
 @primitive("fused_elemwise_add_act")
@@ -598,11 +590,37 @@ def deferred_buffer_updates():
     pending value, as a second use of the layer would see it in the
     reference's trace."""
     prev = getattr(_DEFERRED, "updates", None)
+    prev_held = getattr(_DEFERRED, "held", None)
     updates = _DEFERRED.updates = {}
+    _DEFERRED.held = {}
     try:
         yield updates
     finally:
         _DEFERRED.updates = prev
+        _DEFERRED.held = prev_held
+
+
+def _deferring():
+    """Whether this thread is inside `deferred_buffer_updates` (a train
+    step's body)."""
+    return getattr(_DEFERRED, "updates", None) is not None
+
+
+def _hold(owner, value):
+    """Keep `value` (a tensor in the autograd graph) for `owner` until the
+    train step's body ends: a reference that outlived the body would keep
+    that step's graph, and its gradient accumulators, alive into the next
+    capture, which then fails. False outside a body."""
+    if not _deferring():
+        return False
+    _DEFERRED.held[id(owner)] = value
+    return True
+
+
+def _held(owner):
+    """What `_hold` kept for `owner` in this body, else None."""
+    held = getattr(_DEFERRED, "held", None) if _deferring() else None
+    return None if held is None else held.get(id(owner))
 
 
 def _running(buf):
@@ -1295,3 +1313,17 @@ def unstack(x, axis=0, num=None):
         raise ValueError("unstack: num %d, axis of size %d"
                          % (num, x.shape[axis]))
     return list(torch.unbind(x, dim=axis))
+
+
+@primitive("cosine_similarity_op")
+def _cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    dot = torch.sum(x1 * x2, dim=axis)
+    n1 = torch.linalg.vector_norm(x1, dim=axis)
+    n2 = torch.linalg.vector_norm(x2, dim=axis)
+    return dot / torch.clamp_min(n1 * n2, eps)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    """sum(x1 * x2) / max(|x1| |x2|, eps) along `axis` (reference:
+    ops/nn_ops.py:716)."""
+    return _cosine_similarity(x1, x2, axis=int(axis), eps=float(eps))

@@ -161,15 +161,17 @@ class AmpBf16Pass(PassBase):
 
 @register_pass("identity_scale_clean_pass")
 class IdentityScaleCleanPass(PassBase):
-    """Remove identity ops, their consumers rewired (reference:
-    ir/identity_scale_op_clean_pass.cc; its scale(1, +0) case waits for
-    the scale op to be registered)."""
+    """Remove identity and scale(1.0, +0) ops, their consumers rewired
+    (reference: ir/identity_scale_op_clean_pass.cc)."""
 
     def apply(self, program):
         mapping = {}
         for op in program.ops:
-            if op.op_type == "identity" and len(op.out_names) == 1 \
-                    and op.in_refs:
+            is_noop = (op.op_type == "identity"
+                       or (op.op_type in ("scale", "scale_op")
+                           and float(op.attrs.get("scale", 1.0)) == 1.0
+                           and float(op.attrs.get("bias", 0.0)) == 0.0))
+            if is_noop and len(op.out_names) == 1 and op.in_refs:
                 mapping[op.out_names[0]] = op.in_refs[0]
         return _remove_and_rewire(program, mapping)
 

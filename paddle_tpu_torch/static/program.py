@@ -57,10 +57,12 @@ _READS = {"item", "tolist", "__bool__", "__float__", "__int__",
 class Variable(torch.Tensor):
     """A symbolic tensor of a Program (reference: program.py Variable): a
     meta tensor with `name`, `program`, `is_data`, `dyn_axes`,
-    `persistable` and `stop_gradient`. Its methods `reshape`,
-    `transpose`, `mean`, `+` and `[...]` record the reference's ops
-    (reshape2, transpose2, reduce_mean, elementwise_add, getitem); any
-    other torch function raises."""
+    `persistable` and `stop_gradient`. Its Python operators (`+ - * /
+    // % ** @`, unary `-`, the comparisons, `[...]`) and its methods
+    `reshape`, `transpose`, `mean` and `sum` record the reference's ops
+    (elementwise_add, ..., equal, ..., getitem / getitem_dyn, reshape2,
+    transpose2, reduce_mean, reduce_sum), as the surface's functions do;
+    any other torch function raises."""
 
     def __new__(cls, program, name, shape, dtype, stop_gradient=True,
                 is_data=False, dyn_axes=(), device=None):
@@ -129,14 +131,6 @@ class Variable(torch.Tensor):
             "registered ops only" % name)
 
     # -- the reference's tensor methods, as registered ops ----------------
-    def __add__(self, other):
-        from ..tensor import add
-        return add(self, other)
-
-    def __radd__(self, other):
-        from ..tensor import add
-        return add(other, self)
-
     def __getitem__(self, index):
         from ..tensor import getitem
         return getitem(self, index)
@@ -164,6 +158,14 @@ class Variable(torch.Tensor):
         from ..tensor import mean
         return mean(self, axis, keepdim)
 
+    def sum(self, axis=None, dtype=None, keepdim=False):
+        from ..tensor import sum as sum_
+        return sum_(self, axis, dtype, keepdim)
+
+    def __neg__(self):
+        from ..tensor import neg
+        return neg(self)
+
     def numpy(self):
         raise RuntimeError(
             "Variable %s has no value in static mode; run it through "
@@ -177,6 +179,30 @@ class Variable(torch.Tensor):
             self.name, self.shape, str(self._dtype).replace("torch.", ""))
 
     __str__ = __repr__
+
+
+def _operator(fn_name, reverse=False):
+    """A Python operator of a Variable: the surface function `fn_name`
+    (tensor/__init__.py), which records its registered op."""
+    def method(self, other):
+        from .. import tensor
+        fn = getattr(tensor, fn_name)
+        return fn(other, self) if reverse else fn(self, other)
+    method.__name__ = fn_name
+    return method
+
+
+for _dunder, _fn in (("add", "add"), ("sub", "subtract"),
+                     ("mul", "multiply"), ("truediv", "divide"),
+                     ("floordiv", "floor_divide"), ("mod", "remainder"),
+                     ("pow", "pow"), ("matmul", "matmul")):
+    setattr(Variable, "__%s__" % _dunder, _operator(_fn))
+    setattr(Variable, "__r%s__" % _dunder, _operator(_fn, reverse=True))
+for _dunder, _fn in (("eq", "equal"), ("ne", "not_equal"),
+                     ("lt", "less_than"), ("le", "less_equal"),
+                     ("gt", "greater_than"), ("ge", "greater_equal")):
+    setattr(Variable, "__%s__" % _dunder, _operator(_fn))
+del _dunder, _fn
 
 
 class OpRecord:

@@ -104,7 +104,8 @@ def test_feed_fetch_roundtrip_and_repr():
     text = repr(prog)
     assert text.startswith("Program(4 ops)") and "relu(" in text
     assert y.name in prog.vars and prog.var(y.name) is y
-    assert prog.global_block() is prog and y in prog.list_vars()
+    assert prog.global_block() is prog
+    assert any(v is y for v in prog.list_vars())
     assert [p is port.weight or p is port.bias
             for p in prog.all_parameters()] == [True, True]
 
@@ -371,9 +372,10 @@ def test_a_torch_call_on_a_variable_outside_a_registered_op_raises():
     x = static.data("x", [2, 3], "float32")
     with pytest.raises(TypeError, match="exp"):
         torch.exp(x)
-    # an operator without a registered op: Python's own TypeError
+    # an operator without a registered op raises too (`*` records
+    # elementwise_mul)
     with pytest.raises(TypeError, match="Variable"):
-        x * 2.0
+        x << 1
     with pytest.raises(TypeError, match="static graph"):
         torch.nn.functional.softplus(x)
     with pytest.raises(RuntimeError, match="item"):
