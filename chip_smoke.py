@@ -11,6 +11,7 @@
     python3 chip_smoke.py --seq2seq-only   # the card, the build, phase 23
     python3 chip_smoke.py --rnn-only       # the card, the build, phase 24
     python3 chip_smoke.py --moe-only       # the card, the build, phase 25
+    python3 chip_smoke.py --unet-only      # the card, the build, phase 26
     python3 chip_smoke.py --fit-drill JSON # one run of phase 20's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -416,6 +417,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      through compare_runs, every token's experts the same in both runs
      but at near ties (within 1e-5, counted), and a planted fault (second
      choices placed without the first choices' count) refused.
+ 26. the rest of nn and the improved-DDPM CIFAR-10 UNet (`unet_main`,
+     `--unet-only`): (a) row K bit-equal to its plain mask at each
+     ResBlock dropout's shape at p 0.3; the slice's functions and
+     layers (transposed
+     convolutions, group, instance and local-response norms, the pools,
+     interpolate in every mode, grid sampling, shuffles, unfold, pads,
+     CTC and the losses, sparse attention, the sequence ops) on CUDA
+     tensors against the same calls on CPU tensors, forward and input
+     (and parameter) gradients, TF32 off, within NN_TOL; the dropouts by
+     their draws; a step resampling through weights built on the card
+     (bilinear, bicubic, align_corners, trilinear, an affine grid)
+     captured and bit-equal to its eager bodies; the static calls
+     repaired in this slice through
+     static.Executor on the card against their eager results; (b) the
+     UNet at full width (52,542,979 parameters in 446 tensors), B=128,
+     O1 bf16, dropout 0.3, AdamW(1e-4, weight_decay 0), L_simple on
+     x_t drawn outside the step, through run_path (15 launches a step of
+     rows 1t, 2 and 3, 446 of row 7, 30 of row K), step ms, images/s,
+     MFU from the shapes (`unet_flops`: 6.438 TFLOP a step), peak
+     memory, graph pool, idle, the profile's groups; the captured step
+     bit-equal to its eager bodies over 3 steps; rows 1t, 2, 3 at the
+     UNet's three attention shapes, row K at its first dropout, row 7 at
+     its float32 parameters; (c) the UNet at reduced depth in float32,
+     kernels against plain through compare_runs, and a planted fault (a
+     group norm whose variance is taken over the channels only)
+     refused.
 
 The line before the last is the kernel table as JSON (the float16
 instances under their names + "_f16"; rows 1t, 2, 3 with their times at
@@ -428,7 +455,9 @@ times there under "nmt_decode"; rows 1t, 2, 3, 4-7 and K with phase
 23 (a)'s entries under "nmt", and phase 23 (b)'s launches counted in;
 row K's launches of phase 24 (b) counted in, its time at that shape
 under "ptb"; rows 1t, 2, 3, 7 and K's launches of phase 25 (b) counted
-in, row 7's time at its parameters under "moe"); the last line is {"ok": true, "device": {...}}.
+in, row 7's time at its parameters under "moe"; rows 1t, 2, 3, 7 and K's
+launches of phase 26 (b) counted in, their times at the UNet's shapes
+under "unet"); the last line is {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -1119,16 +1148,25 @@ def keep_cases():
     the training paths' hidden and ERNIE's feed-forward activation at the
     kernels' drop rate and 0.5; phase 24's embedding and projection
     dropouts [B, T, hidden] and its `rnn` op's inter-layer mask, time-major
-    [T, B, hidden], at the model's 0.65; one ragged shape."""
+    [T, B, hidden], at the model's 0.65; phase 26's ResBlock dropouts at
+    0.3; one ragged shape."""
     main = [((TRAIN_B, TRAIN_T, 768), p) for p in (DROPOUT, 0.5)] + [
         ((ERNIE_B, ERNIE_T, w), p) for w in (768, 3072)
         for p in (DROPOUT, 0.5)] + [((3, 5, 7), p) for p in (DROPOUT, 0.5)]
-    return main + ptb_keep_cases()
+    return main + ptb_keep_cases() + unet_keep_cases()
 
 
 def ptb_keep_cases():
     return [((PTB_B, PTB_T, PTB_HIDDEN), PTB_DROPOUT),
             ((PTB_T, PTB_B, PTB_HIDDEN), PTB_DROPOUT)]
+
+
+def unet_keep_cases():
+    """Phase 26's ResBlock dropouts at the model's 0.3: [B, ch * mult,
+    32 / 2^level, 32 / 2^level] at each level (128 x 32 x 32, then 256
+    at 16, 8 and 4)."""
+    return [((UNET_B, UNET_CH * m, UNET_HW >> i, UNET_HW >> i),
+             UNET_DROPOUT) for i, m in enumerate(UNET_MULT)]
 
 
 def check_dropout_keep(torch, ck, cases):
@@ -1442,7 +1480,9 @@ def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16",
     from the host (the time this row reported before the step was
     captured). With dt_name float16: the same for the kernel's float16
     instance; PyTorch's AdamW(fused=True) keeps float16 moments there, so it
-    is no yardstick of the same function (library_ms None). The plain
+    is no yardstick of the same function (library_ms None). With float32
+    (an O1 path's parameters and gradients): 28 bytes an element in the
+    bound, and PyTorch's fused AdamW computes the same function. The plain
     version is timed over `plain_runs` (runs, calls a run)."""
     dt = getattr(torch, dt_name)
     ps = [torch.randn(s, generator=gen, device="cuda").to(dt)
@@ -1466,16 +1506,18 @@ def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16",
         p.grad = g.clone()
     lib = torch.optim.AdamW(lib_p, lr=1e-4, weight_decay=0.01, fused=True)
     n = sum(p.numel() for p in ps)
-    # each element: param read + write (2 + 2), grad read (2), m1 and m2
-    # read + write (8 + 8); 10 operations and the scale's product
-    b, by = bound_ms(22 * n, 11 * n, "float32")
+    # each element: param read + write (2 + 2 bytes, 4 + 4 for float32),
+    # grad read (2, or 4), m1 and m2 read + write (8 + 8); 10 operations
+    # and the scale's product
+    size = torch.empty((), dtype=dt).element_size()
+    b, by = bound_ms((3 * size + 16) * n, 11 * n, "float32")
     eager_ms = timer.ms(lambda: run(ck.adamw, sc))
     unscaled_ms = timer.ms(unscaled.replay)
     lib_ms = timer.ms(lib.step)
     out = {"ms": timer.ms(graph.replay),
            "plain_ms": timer.ms(lambda: run(ck.adamw_plain_scalars, sc,
                                             scaled=True), *plain_runs),
-           "library_ms": lib_ms if dt == torch.bfloat16 else None,
+           "library_ms": lib_ms if dt != torch.float16 else None,
            "bound_ms": b, "bound_by": by}
     say("time adamw %d parameters, %d elements, %s param+grad, f32 "
         "moments, the clip's scale word: %.4f ms/step replayed from a CUDA "
@@ -1628,7 +1670,7 @@ def step_line(label, times, tokens, flops, peak, dev_ms, card):
 
 
 def run_path(torch, ck, label, card, model, opt, loss_fn, batch, ctx,
-             tokens, flops, want):
+             tokens, flops, want, groups=PROFILE_GROUPS):
     """One training path: its step's bodies run eagerly (EAGER_WARMUP +
     EAGER_STEPS steps, one profiled), then the captured step, the main
     path: the launch and path counters zeroed just before its TRAIN_WARMUP
@@ -1649,7 +1691,8 @@ def run_path(torch, ck, label, card, model, opt, loss_fn, batch, ctx,
         dev_ms, top = profile_step(torch, eager, batch)
     step_line("%s eager bodies" % label, times, tokens, flops, peak, dev_ms,
               card)
-    report_profile("%s eager" % label, dev_ms, statistics.median(times), top)
+    report_profile("%s eager" % label, dev_ms, statistics.median(times), top,
+                   groups)
     del eager
     step = make_train_step(model, loss_fn, opt)
     with ctx():
@@ -1692,7 +1735,7 @@ def run_path(torch, ck, label, card, model, opt, loss_fn, batch, ctx,
            {k: n for k, n in replayed.items() if n}, card))
     step_ms = step_line("%s captured step" % label, times, tokens, flops,
                         peak, dev_ms, card)
-    report_profile("%s captured" % label, dev_ms, step_ms, top)
+    report_profile("%s captured" % label, dev_ms, step_ms, top, groups)
     bodies = 2 if next(model.parameters()).is_cuda else n_steps
     return launches, paths, step_ms, outs, bodies
 
@@ -2195,24 +2238,24 @@ def check_fused(torch, ck, flags, gen):
     v = torch.ones(64, device="cuda")
     saved = flags.get_flags(["use_fused_dropout_ln"])
     flags.set_flags({"use_fused_dropout_ln": True})
-    gate = ck.fused_dropout_residual_ln_or_none
-    bad = [("Hd above the limit", lambda: gate(big, big, None, None, None,
-                                                0.1, 1e-5, True,
-                                                "upscale_in_train")),
-           ("bfloat16 with float16", lambda: gate(
-               x.half(), x.bfloat16(), None, v, v, 0.1, 1e-5, True,
-               "upscale_in_train")),
-           ("mismatched shapes", lambda: gate(x, x[:4], None, v, v, 0.1,
-                                              1e-5, True,
-                                              "upscale_in_train")),
+    # the public routes, which take the kernels while the flag is on
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    def gate(x, r, g, b):
+        return IF.fused_bias_dropout_residual_layer_norm(x, r, None, g, b,
+                                                         dropout_rate=0.1)
+    bad = [("Hd above the limit", lambda: IF.fused_bias_dropout_residual(
+               big, big, dropout_rate=0.1)),
+           ("bfloat16 with float16", lambda: gate(x.half(), x.bfloat16(),
+                                                  v, v)),
+           ("mismatched shapes", lambda: gate(x, x[:4], v, v)),
            ("gamma of another width",
             lambda: ck.fused_bias_dropout_residual_ln(
                 x, x, None, v[:32], v, 0.1, 1e-5, True,
                 "upscale_in_train")),
            ("bfloat16 with float16 backward", lambda: ck.fused_dropout_ln_bwd(
                x.half(), x.half(), None, v.bfloat16(), 0.1, 1.0, 1e-5)),
-           ("float64", lambda: gate(x.double(), x, None, v, v, 0.1, 1e-5,
-                                    True, "upscale_in_train"))]
+           ("float64", lambda: gate(x.double(), x, v, v))]
     before = ck.launch_counts()
     try:
         for what, call in bad:
@@ -6201,11 +6244,19 @@ def nmt_flops(B=NMT_B, S=NMT_S, T=NMT_T, d=NMT_D, ff=NMT_FFN, V=NMT_VOCAB,
 def nmt_flash_train(torch, ck, F, timer, gen, Tq, Tk, p):
     """(a) rows 1t, 2 and 3 at the model's attention: B=NMT_B, 8 heads of
     64, bfloat16, not causal, Tq queries against Tk keys (the encoder's
-    Tq = Tk = 256, the cross-attention's 200 against 256): each against
-    its plain version fed the kernels' own dropout bits (REL_TOL bf16),
-    then its device time beside its bound, its plain version's and torch
-    sdpa's forward or backward (dq, dk and dv in one call)."""
-    B, H, D, dt = NMT_B, NMT_HEADS, NMT_D // NMT_HEADS, torch.bfloat16
+    Tq = Tk = 256, the cross-attention's 200 against 256); see
+    flash_train_times."""
+    return flash_train_times(torch, ck, F, timer, gen, NMT_B, NMT_HEADS,
+                             NMT_D // NMT_HEADS, Tq, Tk, p, "nmt (a)")
+
+
+def flash_train_times(torch, ck, F, timer, gen, B, H, D, Tq, Tk, p, label):
+    """Rows 1t, 2 and 3 at B x H heads of D, bfloat16, not causal, Tq
+    queries against Tk keys: each against its plain version fed the
+    kernels' own dropout bits (REL_TOL bf16), then its device time beside
+    its bound, its plain version's and torch sdpa's forward or backward
+    (dq, dk and dv in one call)."""
+    dt = torch.bfloat16
     tol = REL_TOL["bfloat16"]
     q, _, _ = qkv_views(torch, B, Tq, H, D, dt, gen)
     _, k, v = qkv_views(torch, B, Tk, H, D, dt, gen)
@@ -6216,8 +6267,8 @@ def nmt_flash_train(torch, ck, F, timer, gen, Tq, Tk, p):
     dk, dv = ck.flash_bwd_dkv(q, k, v, do, lse, dsum, False, p, WORD, DELTA)
     for t in (o, dq, dk, dv):
         require(t.dtype == dt and bool(torch.isfinite(t.float()).all()),
-                "nmt (a) flash Tq=%d Tk=%d p=%g: non-finite or wrong type"
-                % (Tq, Tk, p))
+                "%s flash Tq=%d Tk=%d p=%g: non-finite or wrong type"
+                % (label, Tq, Tk, p))
     runs = {
         "flash_fwd_train": (
             (o, lse), lambda: ck.flash_fwd_train(q, k, v, False, p, WORD,
@@ -6254,17 +6305,17 @@ def nmt_flash_train(torch, ck, F, timer, gen, Tq, Tk, p):
     for name, (got, fn, plain) in runs.items():
         ea, er = (max(x) for x in zip(*(abs_rel_err(g, w) for g, w in
                                         zip(got, plain()))))
-        require(er <= tol, "nmt (a) %s %s: rel err %.3g > %.3g"
-                % (name, case, er, tol))
+        require(er <= tol, "%s %s %s: rel err %.3g > %.3g"
+                % (label, name, case, er, tol))
         nbytes, flops, which = work[name]
         b, by = bound_ms(nbytes, flops, "bfloat16")
         out[name] = {"ms": timer.ms(fn), "plain_ms": timer.ms(plain),
                      "library_ms": lib[which], "bound_ms": b,
                      "bound_by": by, "max_abs_err": ea, "B": B, "H": H,
                      "Tq": Tq, "Tk": Tk, "D": D, "p": p}
-        say("nmt (a) %s %s: max rel err %.3g (tol %.0e), max abs err %.3g; "
+        say("%s %s %s: max rel err %.3g (tol %.0e), max abs err %.3g; "
             "time %.4f ms, plain %.4f ms, torch sdpa %s %.4f ms, bound %.4f "
-            "ms (%s)" % (name, case, er, tol, ea, out[name]["ms"],
+            "ms (%s)" % (label, name, case, er, tol, ea, out[name]["ms"],
                          out[name]["plain_ms"], which, lib[which], b, by))
     return out
 
@@ -8031,6 +8082,854 @@ def moe_main(torch, ck, flags, card, timer=None, gen=None):
     return entry
 
 
+
+# ---------------------------------------------------------------------------
+# 26. the rest of nn on the card, and the improved-DDPM CIFAR-10 UNet
+
+# Nichol & Dhariwal 2021 ("Improved Denoising Diffusion Probabilistic
+# Models"), the CIFAR-10 run of openai/improved-diffusion's README:
+# --image_size 32 --num_channels 128 --num_res_blocks 3 --learn_sigma True
+# --dropout 0.3 --diffusion_steps 4000 --noise_schedule cosine --lr 1e-4
+# --batch_size 128, with script_util.py's defaults for 32x32:
+# channel_mult (1, 2, 2, 2), 4 heads, attention at 16 and 8 (ds 2 and 4),
+# use_scale_shift_norm, AdamW with weight_decay 0. The loss is L_simple
+# (learn_sigma's variance output and L_vlb are left out: 3 output
+# channels). Images come from the port's synthetic vision.datasets.Cifar10
+# (the data files are not in the repository), scaled to [-1, 1]
+UNET_CH, UNET_MULT, UNET_RES_BLOCKS = 128, (1, 2, 2, 2), 3
+UNET_ATTN_DS, UNET_HEADS, UNET_DROPOUT = (2, 4), 4, 0.3
+UNET_DIFFUSION_STEPS, UNET_LR, UNET_B, UNET_HW = 4000, 1e-4, 128, 32
+UNET_PARAMS, UNET_TENSORS = 52542979, 446
+# the images the batches are drawn from (the synthetic set's first ones)
+UNET_POOL = 2048
+# (c): the same architecture at reduced depth, in float32 without
+# dropout, its zero-initialised convolutions drawn like the others so that
+# step 1's gradients reach every parameter
+UNET_SMALL = dict(channels=64, channel_mult=(1, 2), num_res_blocks=1,
+                  attention_ds=(2,), num_heads=4, dropout=0.0,
+                  zero_init=False)
+UNET_COMPARE_B = 8
+# (a): the surface on the card against its CPU result, TF32 off: within
+# NN_TOL of the CPU result's largest |value| (elementwise ops 1e-5;
+# reductions, convolutions, resampling and every gradient 1e-4);
+# integers exact
+NN_TOL = {"elementwise": 1e-5, "reduction": 1e-4}
+# kernel-name patterns of the UNet step's profile groups, first match
+UNET_PROFILE_GROUPS = (
+    ("flash kernels (port)", ("flash_fwd_", "flash_bwd_")),
+    ("dropout keep mask (port)", ("fdrln_bits_kernel",)),
+    ("adamw (port)", ("adamw_kernel",)),
+    ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                              "implicit", "nchwToNhwc", "nhwcToNchw")),
+    ("nearest upsampling", ("upsample",)),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cublas", "cutlass")),
+    ("reductions (group norm statistics)", ("reduce_kernel",)),
+    ("elementwise (group norm, SiLU, casts)", ("elementwise",
+                                               "vectorized")))
+
+
+def unet_model(channels=UNET_CH, channel_mult=UNET_MULT,
+               num_res_blocks=UNET_RES_BLOCKS, attention_ds=UNET_ATTN_DS,
+               num_heads=UNET_HEADS, dropout=UNET_DROPOUT, in_channels=3,
+               out_channels=3, zero_init=True, seed=0, device="cuda"):
+    """improved-diffusion's UNetModel (unet.py) from the port's public API
+    (the JAX package has no such class; tests/test_torch_unet.py builds the
+    same one on it): a sinusoidal timestep embedding through Linear(ch,
+    4ch), SiLU, Linear(4ch, 4ch); ResBlocks (GroupNorm(32) in float32 and
+    cast back, as GroupNorm32; SiLU; a 3x3 conv; the embedding's scale and
+    shift after the second norm; SiLU; dropout; a 3x3 conv, zero at init
+    with `zero_init`; a 1x1 skip conv where the widths differ);
+    AttentionBlocks (GroupNorm; a 1x1 qkv conv; `num_heads` heads through
+    F.scaled_dot_product_attention; a 1x1 projection, zero at init);
+    downsampling by a 3x3 conv at stride 2; upsampling by
+    nn.Upsample(scale_factor=2, mode="nearest") then a 3x3 conv.
+    forward(x [B, 3, H, W], t [B] integer steps) -> [B, out, H, W].
+    Weights drawn on the CPU from a generator seeded with `seed`, then
+    moved to `device`."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    F = nn.functional
+    gen = torch.Generator().manual_seed(int(seed))
+    zero = (nn.ParamAttr(initializer=nn.initializer.Constant(0.0))
+            if zero_init else None)
+
+    def conv(cin, cout, k, stride=1, last=False, dims=2):
+        cls = nn.Conv2D if dims == 2 else nn.Conv1D
+        attr = zero if last else None
+        return cls(cin, cout, k, stride=stride, padding=k // 2,
+                   weight_attr=attr, bias_attr=attr, generator=gen)
+
+    class Norm(nn.GroupNorm):
+        def forward(self, x):
+            return paddle.cast(super().forward(paddle.cast(x, "float32")),
+                               x.dtype)
+
+    class ResBlock(nn.Layer):
+        def __init__(self, cin, cout, emb):
+            super().__init__()
+            self.in_norm = Norm(32, cin)
+            self.in_conv = conv(cin, cout, 3)
+            self.emb = nn.Linear(emb, 2 * cout, generator=gen)
+            self.out_norm = Norm(32, cout)
+            self.drop = nn.Dropout(dropout)
+            self.out_conv = conv(cout, cout, 3, last=True)
+            self.skip = (nn.Identity() if cin == cout
+                         else conv(cin, cout, 1))
+
+        def forward(self, x, emb):
+            h = self.in_conv(F.silu(self.in_norm(x)))
+            e = paddle.cast(self.emb(F.silu(emb)), h.dtype)
+            scale, shift = paddle.chunk(e[:, :, None, None], 2, axis=1)
+            h = self.out_norm(h) * (1 + scale) + shift
+            h = self.out_conv(self.drop(F.silu(h)))
+            return self.skip(x) + h
+
+    class AttentionBlock(nn.Layer):
+        def __init__(self, c):
+            super().__init__()
+            self.norm = Norm(32, c)
+            self.qkv = conv(c, 3 * c, 1, dims=1)
+            self.proj = conv(c, c, 1, last=True, dims=1)
+
+        def forward(self, x):
+            B, C, H, W = x.shape
+            T, heads = H * W, num_heads
+            h = self.qkv(self.norm(paddle.reshape(x, [B, C, T])))
+            # improved-diffusion's legacy split: channels [head][q|k|v][d];
+            # the kernels take a unit head_dim stride, so the [B, T, 3C]
+            # transpose is laid out anew
+            h = paddle.reshape(paddle.transpose(h, [0, 2, 1]).contiguous(),
+                               [B, T, heads, 3, C // heads])
+            q, k, v = (paddle.transpose(h[:, :, :, i], [0, 2, 1, 3])
+                       for i in range(3))
+            a = F.scaled_dot_product_attention(q, k, v)
+            a = paddle.transpose(paddle.reshape(
+                paddle.transpose(a, [0, 2, 1, 3]), [B, T, C]), [0, 2, 1])
+            return x + paddle.reshape(self.proj(a), [B, C, H, W])
+
+    class Up(nn.Layer):
+        def __init__(self, c):
+            super().__init__()
+            self.up = nn.Upsample(scale_factor=2, mode="nearest")
+            self.conv = conv(c, c, 3)
+
+        def forward(self, x):
+            return self.conv(self.up(x))
+
+    class Step(nn.LayerList):
+        """TimestepEmbedSequential: the embedding to the ResBlocks."""
+
+        def forward(self, x, emb):
+            for layer in self:
+                x = layer(x, emb) if isinstance(layer, ResBlock) \
+                    else layer(x)
+            return x
+
+    class UNet(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            emb = 4 * channels
+            self.time_in = nn.Linear(channels, emb, generator=gen)
+            self.time_out = nn.Linear(emb, emb, generator=gen)
+            self.inputs = nn.LayerList([Step([conv(in_channels, channels,
+                                                   3)])])
+            chans, ch, ds = [channels], channels, 1
+            for level, mult in enumerate(channel_mult):
+                for _ in range(num_res_blocks):
+                    layers = [ResBlock(ch, mult * channels, emb)]
+                    ch = mult * channels
+                    if ds in attention_ds:
+                        layers.append(AttentionBlock(ch))
+                    self.inputs.append(Step(layers))
+                    chans.append(ch)
+                if level != len(channel_mult) - 1:
+                    self.inputs.append(Step([conv(ch, ch, 3, stride=2)]))
+                    chans.append(ch)
+                    ds *= 2
+            self.middle = Step([ResBlock(ch, ch, emb), AttentionBlock(ch),
+                                ResBlock(ch, ch, emb)])
+            self.outputs = nn.LayerList()
+            for level, mult in list(enumerate(channel_mult))[::-1]:
+                for i in range(num_res_blocks + 1):
+                    layers = [ResBlock(ch + chans.pop(), channels * mult,
+                                       emb)]
+                    ch = channels * mult
+                    if ds in attention_ds:
+                        layers.append(AttentionBlock(ch))
+                    if level and i == num_res_blocks:
+                        layers.append(Up(ch))
+                        ds //= 2
+                    self.outputs.append(Step(layers))
+            self.out_norm = Norm(32, ch)
+            self.out_conv = conv(channels, out_channels, 3, last=True)
+
+        def forward(self, x, t):
+            half = channels // 2
+            freqs = paddle.exp(paddle.arange(0, half, dtype="float32",
+                                             device=t.device)
+                               * (-math.log(10000.0) / half))
+            args = paddle.unsqueeze(paddle.cast(t, "float32"), 1) \
+                * paddle.unsqueeze(freqs, 0)
+            emb = paddle.concat([paddle.cos(args), paddle.sin(args)],
+                                axis=-1)
+            emb = self.time_out(F.silu(self.time_in(emb)))
+            hs = []
+            h = x
+            for block in self.inputs:
+                h = block(h, emb)
+                hs.append(h)
+            h = self.middle(h, emb)
+            for block in self.outputs:
+                h = block(paddle.concat([h, hs.pop()], axis=1), emb)
+            return self.out_conv(F.silu(self.out_norm(h)))
+
+    return UNet().to(device)
+
+
+def unet_loss(F, out, eps):
+    """L_simple: the mean squared error between the predicted and the
+    drawn noise, in either package's functional namespace `F`."""
+    return F.mse_loss(out, eps)
+
+
+def cosine_alphas_cumprod(steps=UNET_DIFFUSION_STEPS, s=0.008):
+    """improved DDPM's cosine schedule (gaussian_diffusion.py
+    betas_for_alpha_bar): beta_t = min(1 - abar(t + 1) / abar(t), 0.999),
+    abar(t) = cos((t / T + s) / (1 + s) * pi / 2)^2, and the product of
+    1 - beta, in float64."""
+    abar = lambda t: math.cos((t / steps + s) / (1 + s) * math.pi / 2) ** 2  # noqa: E731,E501
+    betas = np.array([min(1 - abar(i + 1) / abar(i), 0.999)
+                      for i in range(steps)])
+    return np.cumprod(1.0 - betas)
+
+
+def unet_flops(torch, model, B, hw=UNET_HW):
+    """FLOPs of one training step counted from the shapes: one forward of
+    a [1, 3, hw, hw] image with hooks on every convolution and Linear
+    (output elements x input channels / groups x kernel taps
+    multiply-adds) and every attention block (2 T^2 C for QK^T and PV),
+    2 FLOPs a multiply-add, x3 with the backward, x B."""
+    from paddle_tpu_torch import nn
+    macs = [0]
+
+    def layer_hook(mod, inputs, out):
+        w = mod.weight
+        macs[0] += out.numel() * int(np.prod(w.shape[1:])) \
+            if w.ndim > 2 else out.numel() * w.shape[0]
+
+    def attn_hook(mod, inputs, out):
+        _, C, H, W = inputs[0].shape
+        macs[0] += 2 * (H * W) ** 2 * C
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, (nn.Conv1D, nn.Conv2D, nn.Linear)):
+            hooks.append(m.register_forward_hook(layer_hook))
+        elif type(m).__name__ == "AttentionBlock":
+            hooks.append(m.register_forward_hook(attn_hook))
+    dev = next(model.parameters()).device
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, 3, hw, hw), device=dev),
+                  torch.zeros((1,), dtype=torch.int64, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return 2 * 3 * macs[0] * B, macs[0]
+
+
+def unet_batches(torch, n_pool=UNET_POOL, B=UNET_B, device="cuda"):
+    """A batch maker for the training step: each call draws B images of
+    the pool, t ~ U[0, 4000) and eps ~ N(0, 1) from the port's device
+    generator and forms x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps
+    outside the step: ([x_t, t], [eps])."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.datasets import Cifar10
+    imgs = Cifar10(mode="train").images[:n_pool]
+    x0 = torch.from_numpy(imgs).to(device).permute(0, 3, 1, 2).float() \
+        / 127.5 - 1.0
+    abar = torch.from_numpy(cosine_alphas_cumprod()).float().to(device)
+
+    def batch():
+        idx = paddle.randint(0, n_pool, [B], device=device)
+        t = paddle.randint(0, UNET_DIFFUSION_STEPS, [B], device=device)
+        eps = paddle.randn([B, 3, UNET_HW, UNET_HW], device=device)
+        a = abar[t][:, None, None, None]
+        xt = a.sqrt() * x0[idx] + (1 - a).sqrt() * eps
+        return [xt, t], [eps]
+    return batch
+
+
+def _nn_cases(torch, F, nn_mod):
+    """(a)'s cases: name -> (fn(*tensors), numpy inputs, differentiable
+    indices, kind). Each runs on CPU tensors and on CUDA tensors."""
+    rs = np.random.RandomState(26)
+    u = lambda *s: rs.randn(*s).astype(np.float32)  # noqa: E731
+    i64 = lambda hi, *s: rs.randint(0, hi, s).astype(np.int64)  # noqa
+    lens = np.array([3, 1, 4, 2], np.int64)
+    offs = np.array([[[0, 2, 3, 5, 5, 7]]], np.int64)
+    cols = np.array([[[0, 3, 1, 2, 4, 0, 4]]], np.int64)
+    ctc_labels = np.array([[1, 2, 2, 3], [4, 1, 0, 0], [3, 0, 0, 0]],
+                          np.int64)
+    e, r = "elementwise", "reduction"
+    cases = {
+        "conv2d_transpose": (lambda x, w, b: F.conv2d_transpose(
+            x, w, b, stride=2, padding=1, output_padding=1, groups=2),
+            [u(2, 4, 5, 5), u(4, 3, 3, 3), u(6)], [0, 1, 2], r),
+        "conv1d_transpose": (lambda x, w: F.conv1d_transpose(
+            x, w, stride=3, padding=[1, 2], dilation=2),
+            [u(2, 3, 7), u(3, 2, 3)], [0, 1], r),
+        "conv3d_transpose": (lambda x, w: F.conv3d_transpose(x, w, stride=2),
+                             [u(1, 2, 3, 3, 2), u(2, 3, 2, 2, 2)], [0, 1],
+                             r),
+        "group_norm": (lambda x, w, b: F.group_norm(x, 4, 1e-5, w, b),
+                       [u(2, 8, 5, 6), u(8), u(8)], [0, 1, 2], r),
+        "instance_norm": (lambda x, w, b: F.instance_norm(
+            x, weight=w, bias=b), [u(2, 4, 5, 6), u(4), u(4)], [0, 1, 2], r),
+        "local_response_norm": (lambda x: F.local_response_norm(x, 3),
+                                [u(2, 6, 3, 4)], [0], r),
+        "normalize": (lambda x: F.normalize(x, p=3, axis=-1), [u(4, 5)],
+                      [0], r),
+        "max_pool1d": (lambda x: F.max_pool1d(x, 3, 2, 1), [u(2, 3, 11)],
+                       [0], e),
+        "avg_pool3d": (lambda x: F.avg_pool3d(x, 3, 2, 1, ceil_mode=True),
+                       [u(1, 2, 5, 6, 5)], [0], r),
+        "avg_pool2d_divisor": (lambda x: F.avg_pool2d(
+            x, 3, 2, 1, divisor_override=4), [u(2, 3, 7, 7)], [0], r),
+        "adaptive_max_pool2d": (lambda x: F.adaptive_max_pool2d(x, (3, 2)),
+                                [u(2, 3, 7, 6)], [0], e),
+        "adaptive_avg_pool3d": (lambda x: F.adaptive_avg_pool3d(x, 2),
+                                [u(1, 2, 5, 4, 3)], [0], r),
+        "max_pool2d_mask": (lambda x: F.max_pool2d(x, 2, return_mask=True),
+                            [u(2, 3, 6, 8)], [0], e),
+        "max_unpool2d": (lambda x, i: F.max_unpool2d(x, i, 2),
+                         [u(2, 3, 3, 4), np.array(
+                             [[[[0, 3, 5, 6], [17, 18, 20, 23],
+                                [32, 34, 37, 39]]] * 3] * 2, np.int64)],
+                         [0], e),
+        "interpolate_nearest_up": (lambda x: F.interpolate(
+            x, scale_factor=2), [u(2, 3, 5, 6)], [0], e),
+        "interpolate_nearest_frac": (lambda x: F.interpolate(
+            x, size=[7, 4]), [u(2, 3, 5, 6)], [0], e),
+        "interpolate_bilinear_down": (lambda x: F.interpolate(
+            x, size=[3, 4], mode="bilinear"), [u(2, 3, 7, 9)], [0], r),
+        "interpolate_bicubic_up": (lambda x: F.interpolate(
+            x, scale_factor=1.5, mode="bicubic"), [u(2, 3, 5, 6)], [0], r),
+        "interpolate_align_corners": (lambda x: F.interpolate(
+            x, size=[9, 11], mode="bilinear", align_corners=True),
+            [u(2, 3, 5, 6)], [0], r),
+        "interpolate_trilinear": (lambda x: F.interpolate(
+            x, size=[3, 5, 4], mode="trilinear", data_format="NCDHW"),
+            [u(1, 2, 4, 3, 6)], [0], r),
+        "grid_sample": (lambda x, g: F.grid_sample(x, g), [
+            u(2, 3, 5, 6), np.clip(u(2, 4, 7, 2) * 0.6, -1, 1)], [0, 1], r),
+        "affine_grid": (lambda t: F.affine_grid(t, [2, 3, 4, 5]),
+                        [u(2, 2, 3)], [0], r),
+        "pixel_shuffle": (lambda x: F.pixel_shuffle(x, 2), [u(2, 8, 3, 4)],
+                          [0], e),
+        "pixel_unshuffle": (lambda x: F.pixel_unshuffle(x, 2),
+                            [u(2, 3, 4, 6)], [0], e),
+        "channel_shuffle": (lambda x: F.channel_shuffle(x, 3),
+                            [u(2, 6, 3, 2)], [0], e),
+        "unfold": (lambda x: F.unfold(x, [2, 3], strides=2, paddings=1),
+                   [u(2, 2, 7, 8)], [0], e),
+        "pad_reflect": (lambda x: F.pad(x, [1, 2, 2, 1], mode="reflect"),
+                        [u(2, 3, 4, 5)], [0], e),
+        "pad_circular": (lambda x: F.pad(x, [1, 2, 2, 1], mode="circular"),
+                         [u(2, 3, 4, 5)], [0], e),
+        "zeropad2d": (lambda x: F.zeropad2d(x, [1, 2, 0, 3]),
+                      [u(2, 3, 4, 5)], [0], e),
+        "temporal_shift": (lambda x: F.temporal_shift(x, 3),
+                           [u(6, 8, 2, 3)], [0], e),
+        "bilinear": (lambda a, b, w, c: F.bilinear(a, b, w, c),
+                     [u(3, 4), u(3, 2), u(5, 4, 2), u(5)], [0, 1, 2, 3], r),
+        "hsigmoid_loss": (lambda x, y, w, b: F.hsigmoid_loss(x, y, 7, w, b),
+                          [u(5, 4), np.array([0, 3, 5, 6, 2]), u(6, 4),
+                           u(6, 1)], [0, 2, 3], r),
+        "ctc_loss": (lambda lp, y, n, m: F.ctc_loss(lp, y, n, m),
+                     [u(10, 3, 5), ctc_labels, np.array([10, 7, 4]),
+                      np.array([4, 2, 1])], [0], r),
+        "margin_cross_entropy": (lambda x, y: F.margin_cross_entropy(
+            x, y, scale=16.0), [np.clip(u(5, 7) * 0.4, -0.9, 0.9),
+                                i64(7, 5)], [0], r),
+        "sparse_attention": (lambda q, k, v, o, c: F.sparse_attention(
+            q, k, v, o, c), [u(1, 1, 5, 4), u(1, 1, 5, 4), u(1, 1, 5, 4),
+                             offs, cols], [0, 1, 2], r),
+        "masked_attention": (lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m), [u(2, 2, 5, 8), u(2, 2, 5, 8),
+                                    u(2, 2, 5, 8),
+                                    np.where(rs.rand(2, 1, 5, 5) > 0.3, 0.0,
+                                             -1e9).astype(np.float32)],
+            [0, 1, 2], r),
+        "log_softmax": (lambda x: F.log_softmax(x, axis=1), [u(4, 6)], [0],
+                        r),
+        "cosine_pairwise": (lambda a, b: nn_mod.PairwiseDistance(p=3.0)(
+            a, b) + F.cosine_similarity(a, b, axis=1), [u(4, 6), u(4, 6)],
+            [0, 1], r),
+        "diag_embed": (lambda x: F.diag_embed(x, 1), [u(2, 3)], [0], e),
+        "sequence_pool": (lambda x, n: F.sequence_pool(x, "sqrt", n),
+                          [u(4, 5, 3), lens], [0], r),
+        "sequence_softmax": (lambda x, n: F.sequence_softmax(x, n),
+                             [u(4, 5), lens], [0], r),
+        "sequence_reverse": (lambda x, n: F.sequence_reverse(x, n),
+                             [u(4, 5, 2), lens], [0], e),
+        "sequence_conv": (lambda x, w, n: F.sequence_conv(x, w, n, 3),
+                          [u(4, 5, 3), u(9, 2), lens], [0, 1], r),
+        "sequence_unpad": (lambda x, n: F.sequence_unpad(x, n),
+                           [u(4, 5, 2), lens], [], e),
+        "sequence_pad": (lambda x, n: F.sequence_pad(x, torch.tensor(
+            0.5, device=x.device), lengths=n), [u(10, 2), lens], [], e),
+        "ctc_greedy_decoder": (lambda x: F.ctc_greedy_decoder(x, 0),
+                               [u(3, 8, 5)], [], e),
+        "gather_tree": (lambda a, b: F.gather_tree(a, b), [
+            i64(9, 5, 2, 3), i64(3, 5, 2, 3)], [], e),
+        "edit_distance": (lambda a, b: F.edit_distance(a, b), [
+            i64(5, 4, 7), i64(5, 4, 6) + 1], [], e),
+    }
+    return cases
+
+
+def check_nn_surface(torch, ck):
+    """Phase 26 (a): every op, layer and function of the slice on CUDA
+    tensors against the same call on CPU tensors, forward and the input
+    gradients under one cotangent, TF32 off: within NN_TOL of the CPU
+    result's largest |value|, integers exact. The layers with parameters
+    are held the same way through their weights' gradients; the dropouts
+    by their masks' structure. Returns {kind: largest error}."""
+    from paddle_tpu_torch import nn
+    F = nn.functional
+    worst = {}
+    n = 0
+    for name, (fn, arrays, diff, kind) in sorted(_nn_cases(
+            torch, F, nn).items()):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            ins = [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+            for i in diff:
+                ins[i].requires_grad_(True)
+            got = _as_list(fn(*ins))
+            grads = []
+            fl = [o for o in got if o.is_floating_point() and o.requires_grad]
+            if fl:
+                rs = np.random.RandomState(1234)
+                loss = sum((o * torch.from_numpy(np.asarray(
+                    rs.rand(*o.shape), np.float32)).to(dev)).sum()
+                    for o in fl)
+                grads = torch.autograd.grad(loss, [ins[i] for i in diff])
+            outs[dev] = (got, grads)
+        (cg, cgr), (gg, ggr) = outs["cpu"], outs["cuda"]
+        require(len(cg) == len(gg), "%s: outputs differ in number" % name)
+        e = max(_err(torch, g, c, name) for g, c in zip(gg, cg))
+        require(e <= NN_TOL[kind], "%s on the card: error %.3g > %.0e of "
+                "the CPU result's largest |value|" % (name, e, NN_TOL[kind]))
+        worst[kind] = max(worst.get(kind, 0.0), e)
+        for g, c in zip(ggr, cgr):
+            e = _err(torch, g, c, name + " gradient")
+            require(e <= NN_TOL["reduction"], "%s gradient on the card: "
+                    "error %.3g" % (name, e))
+            worst["gradients"] = max(worst.get("gradients", 0.0), e)
+        n += 1
+    n_layers = check_nn_layers(torch, nn, worst)
+    check_nn_dropouts(torch, ck, nn)
+    say("nn surface on the card (phase 26 (a)): %d functions and %d layers "
+        "against the same calls on CPU tensors, forward and gradients, TF32 "
+        "off; largest error by kind %s (tolerances %s of the largest "
+        "|value|; integers exact); dropout2d/3d, Dropout(axis), "
+        "AlphaDropout and gumbel_softmax by their draws"
+        % (n, n_layers, {k: float("%.3g" % v) for k, v in
+                         sorted(worst.items())}, NN_TOL))
+    return worst
+
+
+def check_nn_layers(torch, nn, worst):
+    """The layers that hold parameters or buffers, built once on the CPU,
+    copied to the card: outputs, input and parameter gradients."""
+    import copy
+    gen = torch.Generator().manual_seed(5)
+    rs = np.random.RandomState(5)
+    layers = [
+        (nn.Conv2DTranspose(4, 6, 3, stride=2, groups=2, generator=gen),
+         [(2, 4, 4, 5)]),
+        (nn.GroupNorm(2, 6, generator=gen), [(2, 6, 3, 4)]),
+        (nn.InstanceNorm3D(3, generator=gen), [(1, 3, 2, 3, 4)]),
+        (nn.Bilinear(4, 3, 5, generator=gen), [(6, 4), (6, 3)]),
+        (nn.SyncBatchNorm(4), [(3, 4, 2, 2)]),
+        (nn.SpectralNorm((4, 3, 2), dim=1, generator=gen), [(4, 3, 2)]),
+        (nn.Upsample(scale_factor=2), [(2, 3, 4, 5)]),
+        (nn.UpsamplingBilinear2D(size=[7, 3]), [(2, 3, 4, 5)]),
+    ]
+    for layer, shapes in layers:
+        xs = [rs.randn(*s).astype(np.float32) for s in shapes]
+        res = {}
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(layer).to(dev)
+            ins = [torch.from_numpy(x).to(dev).requires_grad_(True)
+                   for x in xs]
+            out = m(*ins)
+            out.sum().backward()
+            res[dev] = ([out] + [t.grad for t in ins]
+                        + [p.grad for p in m.parameters() if p.requires_grad]
+                        + [b for b in m.buffers()]
+                        + [p for p in m.parameters() if not p.requires_grad])
+        name = type(layer).__name__
+        for g, c in zip(res["cuda"], res["cpu"]):
+            e = _err(torch, g, c, name)
+            require(e <= NN_TOL["reduction"], "%s on the card: error %.3g"
+                    % (name, e))
+            worst["layers"] = max(worst.get("layers", 0.0), e)
+    return len(layers)
+
+
+def check_nn_dropouts(torch, ck, nn):
+    """The random layers on the card: dropout2d's mask constant over the
+    spatial axes and through row K (the keep kernel's launches counted),
+    Dropout(axis) shared along the other axes, AlphaDropout's two values
+    a kept or dropped element can take, gumbel_softmax's one-hot rows."""
+    F = nn.functional
+    x = torch.ones((8, 16, 5, 7), device="cuda")
+    ck.launch_counts(reset=True)
+    out = F.dropout2d(x, 0.5)
+    require(ck.launch_counts()["dropout_keep"] == 1, "dropout2d: the keep "
+            "kernel did not launch")
+    kept = out != 0
+    require(bool((kept.all((2, 3)) | ~kept.any((2, 3))).all())
+            and 0 < int(kept.all((2, 3)).sum()) < 128
+            and bool((out[kept] == 2.0).all()),
+            "dropout2d on the card: the mask is not one a channel")
+    y = nn.Dropout(0.5, axis=1)(torch.ones((6, 5, 4), device="cuda"))
+    require(bool((y == y[:1, :, :1]).all()), "Dropout(axis=1) on the card")
+    a = F.alpha_dropout(torch.zeros((1000,), device="cuda"), 0.3)
+    require(len(torch.unique(a)) == 2, "alpha_dropout on the card: %d "
+            "values" % len(torch.unique(a)))
+    g = F.gumbel_softmax(torch.randn((64, 7), device="cuda"), hard=True)
+    require(bool((g.sum(-1) == 1).all()) and bool(((g == 0) | (g == 1))
+                                                 .all()),
+            "gumbel_softmax(hard) on the card: not one-hot")
+
+
+def check_resize_capture(torch, ck):
+    """Phase 26 (a): a step that resamples through weights and taps built
+    on the card (bilinear with align_corners, an affine grid, bilinear
+    down, bicubic up, trilinear), captured by make_train_step: bit-equal
+    to its eager bodies over 2 steps from one state. Sums with atomics,
+    in no fixed order, are kept out of the gradients: the index gathers
+    (align_corners' taps, grid_sample's) see only the input, which
+    carries none, and cuDNN runs its deterministic algorithms (its
+    default weight gradient sums with atomics; phase 19 (a) does the
+    same)."""
+    import contextlib
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    F = nn.functional
+    prandom.seed(0)
+
+    class Resampler(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2D(3, 4, 3, padding=1)
+            self.theta = self.create_parameter([1, 2, 3])
+
+        def forward(self, x):
+            n = x.shape[0]
+            x = F.interpolate(x, size=[9, 11], mode="bilinear",
+                              align_corners=True)
+            grid = F.affine_grid(self.theta.expand(n, 2, 3), [n, 3, 8, 10])
+            h = self.conv(F.grid_sample(x, grid))
+            h = F.interpolate(h, size=[5, 7], mode="bilinear")
+            h = F.interpolate(h, scale_factor=1.5, mode="bicubic")
+            return F.interpolate(h.unsqueeze(2), size=[2, 6, 8],
+                                 mode="trilinear",
+                                 data_format="NCDHW").mean(2)
+    model = Resampler().to("cuda")
+    opt = optimizer.AdamW(learning_rate=1e-2, weight_decay=0.0,
+                          parameters=model.parameters())
+    rs = np.random.RandomState(5)
+    batches = [([torch.from_numpy(rs.randn(4, 3, 12, 14).astype(
+        np.float32)).cuda()], [torch.from_numpy(rs.randn(4, 4, 6, 8).astype(
+            np.float32)).cuda()]) for _ in range(2)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        graph_against_eager_train(torch, ck, "resampling", model, opt,
+                                  lambda o, y: F.mse_loss(o, y), batches,
+                                  contextlib.nullcontext, 0.0)
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def static_repairs(torch, card):
+    """Phase 26 (a), the static recording repaired: each call that raised
+    in the port records under static.program_guard and runs through
+    static.Executor on the card to the eager result of the same call on
+    the same card (1e-5 of the largest |value|)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import incubate, nn, static
+    from paddle_tpu_torch.framework import flags
+    F = nn.functional
+    rs = np.random.RandomState(9)
+    x = rs.randn(6, 8).astype(np.float32)
+    y = rs.randint(0, 8, (6,)).astype(np.int64)
+    w = (rs.rand(8) + 0.5).astype(np.float32)
+    m = np.where(rs.rand(2, 1, 6, 6) > 0.3, 0.0, -1e9).astype(np.float32)
+    q = rs.randn(2, 2, 6, 8).astype(np.float32)
+    torch.manual_seed(0)
+    mha = nn.MultiHeadAttention(8, 2).to("cuda")
+    moe = incubate.MoELayer(8, 16, 4, generator=torch.Generator()
+                            .manual_seed(0)).to("cuda")
+    calls = {
+        "log_softmax": (lambda a: F.log_softmax(a, axis=1), [x]),
+        "softmax_dtype": (lambda a: F.softmax(a, dtype="float64"), [x]),
+        "cross_entropy_weight": (lambda a, b, c: F.cross_entropy(
+            a, b, weight=c), [x, y, w]),
+        "cross_entropy_ignore": (lambda a, b: F.cross_entropy(
+            a, b, ignore_index=1), [x, y]),
+        "l1_loss": (lambda a: F.l1_loss(a, a * 0.5), [x]),
+        "sdpa_masked": (lambda a, b: F.scaled_dot_product_attention(
+            a, a, a, attn_mask=b), [q, m]),
+        "mha_masked": (lambda a, b: mha(a, a, a, attn_mask=b),
+                       [q[:, 0], m]),
+        "batch_norm_no_stats": (lambda a: F.batch_norm(
+            a, None, None, training=True), [x]),
+        "fused_ln": (lambda a: incubate.nn.functional
+                     .fused_bias_dropout_residual_layer_norm(
+                         a, a * 2.0, dropout_rate=0.0), [x]),
+        "moe": (lambda a: moe(a), [x.reshape(2, 3, 8)]),
+    }
+    saved = flags.get_flags(["use_fused_dropout_ln"])
+    try:
+        for name, (fn, arrays) in calls.items():
+            flags.set_flags({"use_fused_dropout_ln": name == "fused_ln"})
+            want = fn(*[torch.from_numpy(a).cuda() for a in arrays])
+            paddle.enable_static()
+            static.reset_default_programs()
+            try:
+                main, start = static.Program(), static.Program()
+                with static.program_guard(main, start):
+                    vs = [static.data("in%d" % i, list(a.shape),
+                                      str(a.dtype)) for i, a in
+                          enumerate(arrays)]
+                    out = fn(*vs)
+                exe = static.Executor("gpu:0")
+                (got,) = exe.run(main, feed={"in%d" % i: a for i, a in
+                                             enumerate(arrays)},
+                                 fetch_list=[out])
+            finally:
+                paddle.disable_static()
+                static.reset_default_programs()
+            e = _err(torch, torch.as_tensor(np.asarray(got)),
+                     want.detach().cpu(), name)
+            require(e <= 1e-5, "static %s on the card: %.3g from the eager "
+                    "result" % (name, e))
+    finally:
+        flags.set_flags(saved)
+    say("static recording on the card (phase 26 (a)): %d calls that raised "
+        "before this slice (log_softmax, softmax(dtype), cross_entropy with "
+        "a weight and with ignore_index, l1_loss, masked sdpa and "
+        "MultiHeadAttention, batch_norm without statistics, the fused "
+        "dropout-LN tail, MoELayer) recorded and run through "
+        "static.Executor to their eager results (%s)" % (len(calls), card))
+
+
+def unet_train(torch, ck, card):
+    """Phase 26 (b): the improved-DDPM CIFAR-10 UNet at full width, B=128,
+    O1 bf16 under amp.auto_cast, dropout 0.3, AdamW(1e-4, weight_decay 0),
+    L_simple, through run_path (eager bodies, then the captured step: one
+    build, replays, the launches a step: 15 of rows 1t, 2 and 3 (7
+    attention blocks at 16x16, 7 at 8x8, 1 at 4x4), one of row 7 a
+    parameter, 30 of row K (one a ResBlock)); the captured step bit-equal
+    to its eager bodies over 3 steps at dropout 0.3."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    import paddle_tpu_torch.nn.functional as F
+    prandom.seed(0)
+    t0 = time.perf_counter()
+    model = unet_model()
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    require(n_params == UNET_PARAMS and n_tensors == UNET_TENSORS,
+            "unet: %d parameters in %d tensors, want %d in %d"
+            % (n_params, n_tensors, UNET_PARAMS, UNET_TENSORS))
+    flops, macs = unet_flops(torch, model, UNET_B)
+    opt = optimizer.AdamW(learning_rate=UNET_LR, weight_decay=0.0,
+                          parameters=model.parameters())
+    say("unet: improved-DDPM CIFAR-10 UNet, %d parameters in %d tensors, "
+        "%.3f GMAC an image's forward, %.3f TFLOP a step at B=%d, built in "
+        "%.1f s" % (n_params, n_tensors, macs / 1e9, flops / 1e12, UNET_B,
+                    time.perf_counter() - t0))
+    batch = unet_batches(torch)
+    loss_fn = lambda out, eps: unet_loss(F, out, eps)  # noqa: E731
+    ctx = lambda: amp.auto_cast(level="O1", dtype="bfloat16")  # noqa: E731
+    n_attn = sum(1 for m in model.modules()
+                 if type(m).__name__ == "AttentionBlock")
+    n_res = sum(1 for m in model.modules() if type(m).__name__ == "ResBlock")
+    want = {"flash_fwd_train": n_attn, "flash_bwd_dq": n_attn,
+            "flash_bwd_dkv": n_attn, "adamw": n_tensors,
+            "dropout_keep": n_res, "fused_dropout_ln_fwd": 0,
+            "fused_dropout_residual_fwd": 0, "fused_dropout_ln_bwd": 0}
+    launches, paths, step_ms, _, _ = run_path(
+        torch, ck, "unet", card, model, opt, loss_fn, batch, ctx, UNET_B,
+        flops, want, groups=UNET_PROFILE_GROUPS)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    say("unet: %.1f images/s (B=%d, %.2f ms a captured step), MFU %.4f of "
+        "989 TFLOP/s bf16 from %.3f TFLOP a step; %d attention blocks "
+        "(flash, 4 heads of 64), %d ResBlocks (dropout %.1f), launches a "
+        "step %s (%s)"
+        % (UNET_B / (step_ms / 1e3), UNET_B, step_ms,
+           flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"], flops / 1e12,
+           n_attn, n_res, UNET_DROPOUT,
+           {k: launches[k] / n_steps for k in want}, card))
+    require(paths["flash"] > 0 and paths["xla_sdpa"] == 0,
+            "unet: attention paths %s" % paths)
+    fixed = [batch() for _ in range(3)]
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    free_memory(torch)
+    graph_against_eager_train(torch, ck, "unet", model, opt, loss_fn,
+                              fixed, ctx, UNET_DROPOUT)
+    del model, opt, fixed
+    free_memory(torch)
+    return launches, shapes, {"step_ms": step_ms, "flops": flops,
+                              "images_per_s": UNET_B / (step_ms / 1e3)}
+
+
+def group_norm_channels_only(x, weight, bias, num_groups, epsilon=1e-5,
+                             channel_last=False):
+    """(c)'s planted fault: a group norm whose variance is taken over the
+    group's channels alone (the mean over the channels and the spatial
+    axes, as it should be)."""
+    n, c = x.shape[:2]
+    xr = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    mean = xr.mean(dim=tuple(range(2, xr.ndim)), keepdim=True)
+    var = (xr - mean).square().mean(dim=2, keepdim=True)
+    y = ((xr - mean) / (var + epsilon).sqrt()).reshape(x.shape)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return y * weight.reshape(shape) + bias.reshape(shape)
+
+
+def unet_compare(torch, ck, flags, fault=False):
+    """Phase 26 (c): the UNet at reduced depth (UNET_SMALL: 64 channels,
+    channel_mult (1, 2), one res block, attention at 16x16 with 4 heads of
+    32) in float32, no dropout, TF32 off, B=UNET_COMPARE_B: the kernels on
+    against off through compare_runs (step 1's gradients within
+    TRAIN_GRAD_TOL of each norm, losses within 1e-4, parameters after 3
+    AdamW steps within TRAIN_PARAM_TOL). With `fault`, the kernel run's
+    group norms take their variance over the channels only: the
+    comparison must refuse it."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.ops import nn_ops
+    import paddle_tpu_torch.nn.functional as F
+    B = UNET_COMPARE_B
+    rs = np.random.RandomState(3)
+    data = [[torch.from_numpy(rs.randn(B, 3, UNET_HW, UNET_HW).astype(
+        np.float32)).cuda() for _ in range(2)]
+        + [torch.from_numpy(rs.randint(0, UNET_DIFFUSION_STEPS, (B,)))
+           .cuda()] for _ in range(3)]
+    sound = nn_ops.group_norm
+
+    def build():
+        prandom.seed(0)
+        model = unet_model(**UNET_SMALL)
+        model.train()
+        opt = optimizer.AdamW(learning_rate=TRAIN_LR, weight_decay=0.0,
+                              parameters=model.parameters())
+        step = make_train_step(model, lambda o, e: unet_loss(F, o, e), opt)
+        return model, opt, lambda i: step([data[i][0], data[i][2]],
+                                          [data[i][1]])
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        if fault:
+            def build_faulty():
+                on = flags.get_flags(["use_flash_attention"])[
+                    "use_flash_attention"]
+                nn_ops.group_norm = group_norm_channels_only if on else sound
+                return build()
+            try:
+                compare_runs(torch, ck, flags, "unet fault", build_faulty,
+                             ("use_flash_attention", "use_fused_optimizer"),
+                             ("flash_fwd_train", "adamw"))
+            except SystemExit as e:
+                say("unet planted fault (group norm variance over the "
+                    "channels only): refused, %s"
+                    % str(e)[len("chip_smoke FAILED: "):][:160])
+                return
+            finally:
+                nn_ops.group_norm = sound
+            require(False, "unet: the planted fault passed the comparison")
+        compare_runs(torch, ck, flags, "unet", build,
+                     ("use_flash_attention", "use_fused_optimizer"),
+                     ("flash_fwd_train", "flash_bwd_dkv", "adamw"))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def unet_kernel_times(torch, ck, F, timer, gen, card):
+    """Rows 1t, 2 and 3 at the UNet's three attention shapes (B=128, 4
+    heads of 64, bf16, not causal, p 0, T = 256, 64, 16), each beside its
+    bound, its plain version's and torch sdpa's time; row K at the first
+    ResBlocks' dropout (128 x 128 x 32 x 32, p 0.3)."""
+    out = {}
+    for T in (256, 64, 16):
+        out[T] = flash_train_times(torch, ck, F, timer, gen, UNET_B,
+                                   UNET_HEADS, UNET_CH * 2 // UNET_HEADS, T,
+                                   T, 0.0, "unet (b)")
+    keep = time_dropout_keep(torch, ck, timer, (UNET_B, UNET_CH, UNET_HW,
+                                                UNET_HW), p=UNET_DROPOUT)
+    say("unet kernel times above at the model's shapes (%s)" % card)
+    return out, keep
+
+
+def unet_main(torch, ck, F, flags, card, timer=None, gen=None):
+    """Phase 26: (a) the slice's surface and the repaired static recording
+    on the card, (b) the full-width UNet's training, its kernels' times at
+    its shapes and row 7 at its parameters, (c) the reduced UNet's float32
+    kernels-against-plain comparison and the planted fault. Returns (b)'s
+    launches and the phase's numbers."""
+    from paddle_tpu_torch.framework.random import philox_word
+    global WORD
+    if WORD is None:
+        WORD = philox_word(SEED, OFFSET - DELTA, "cuda")
+    t0 = time.perf_counter()
+    check_dropout_keep(torch, ck, unet_keep_cases())
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        worst = check_nn_surface(torch, ck)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    check_resize_capture(torch, ck)
+    static_repairs(torch, card)
+    free_memory(torch)
+    t1 = time.perf_counter()
+    launches, shapes, entry = unet_train(torch, ck, card)
+    t2 = time.perf_counter()
+    timer = timer or Timer(torch)
+    gen = gen or torch.Generator(device="cuda").manual_seed(0)
+    flash, keep = unet_kernel_times(torch, ck, F, timer, gen, card)
+    adamw = time_adamw(torch, ck, timer, gen, shapes, card,
+                       dt_name="float32", plain_runs=(3, 1))
+    free_memory(torch)
+    t3 = time.perf_counter()
+    unet_compare(torch, ck, flags)
+    free_memory(torch)
+    unet_compare(torch, ck, flags, fault=True)
+    free_memory(torch)
+    say("unet phase 26: %.1f s ((a) %.1f, (b) %.1f, kernel times %.1f, (c) "
+        "%.1f)" % (time.perf_counter() - t0, t1 - t0, t2 - t1, t3 - t2,
+                   time.perf_counter() - t3))
+    entry.update(launches=launches, flash=flash, keep=keep, adamw=adamw,
+                 surface=worst)
+    return entry
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -8062,6 +8961,10 @@ def main():
     ap.add_argument("--moe-only", action="store_true",
                     help="name the card, build the kernels, then run phase "
                     "25 (the op surface, GPT-2-small-MoE) alone")
+    ap.add_argument("--unet-only", action="store_true",
+                    help="name the card, build the kernels, then run phase "
+                    "26 (the rest of nn, the improved-DDPM CIFAR-10 UNet) "
+                    "alone")
     ap.add_argument("--fit-drill", metavar="JSON",
                     help="one run of phase 20's preemption drill, its "
                     "settings as JSON (see fit_drill); phase 20 starts "
@@ -8114,6 +9017,14 @@ def main():
     for src, entry, regs, spill in ptxas_registers(
             _build.build_logs(), ("paged_split_kernel", "flash_fwd_f32")):
         say("registers %s %s: %d (%s)" % (src, entry, regs, spill))
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        """The wall time since the last lap, so that a slow run shows
+        which phases took it."""
+        now = time.perf_counter()
+        say("wall %s: %.1f s" % (what, now - clock[0]))
+        clock[0] = now
 
     if opts.fit_only:
         fit_main(torch, ck, card)
@@ -8139,6 +9050,10 @@ def main():
         moe_main(torch, ck, flags, card)
         say("moe-only run: phase 25 passed")
         return 0
+    if opts.unet_only:
+        unet_main(torch, ck, F, flags, card)
+        say("unet-only run: phase 26 passed")
+        return 0
 
     # 3. kernels against their plain versions
     from paddle_tpu_torch.framework.random import philox_word
@@ -8158,6 +9073,8 @@ def main():
     if opts.kernels_only:
         say("kernels-only run: checks passed")
         return 0
+
+    lap("phase 3, the kernels against their plain versions")
 
     # 4. kernel timings at the main path's shapes
     timer = Timer(torch)
@@ -8183,6 +9100,8 @@ def main():
                else "%.4f ms" % t["library_ms"], t["bound_ms"],
                t["bound_by"]))
         times[name] = t
+
+    lap("phase 4, the serving kernels' times")
 
     # 5. main path: gpt2-small behind the engine and the batcher
     t0 = time.perf_counter()
@@ -8298,6 +9217,8 @@ def main():
     p8, gaps8 = plain_run(ireqs, kv_dtype="int8")
     compare_tokens(k8, p8, gaps8, "int8")
 
+    lap("phases 5-7, serving through the engine")
+
     # 8. the server: InferenceServer on the card, its live plane scraped
     from paddle_tpu_torch.observability import flight, httpd, tracing
     from paddle_tpu_torch.resilience import health
@@ -8336,6 +9257,8 @@ def main():
             for var in env:
                 os.environ.pop(var, None)
 
+    lap("phase 8, the server")
+
     # 9-11. training: kernel times, the main path, kernels vs plain
     times.update(train_timings(torch, ck, F, timer, gen))
     tlaunches, shapes, off_ms = train_main(torch, ck, flags, card)
@@ -8343,6 +9266,8 @@ def main():
     times["dropout_keep"] = time_dropout_keep(torch, ck, timer,
                                               (TRAIN_B, TRAIN_T, 768))
     train_compare(torch, ck, flags)
+
+    lap("phases 9-11, GPT-2 training")
 
     # 12-13. rows 4-6 at the paths' shapes; path B: GPT-2 training with
     # both fused flags on, then its kernels vs the flags-off plain run
@@ -8356,17 +9281,25 @@ def main():
         % (TRAIN_B, TRAIN_T, card, off_ms, on_ms, TRAIN_STEPS))
     train_compare(torch, ck, flags, fused=True)
 
+    lap("phases 12-13, path B")
+
     # 14-15. path A: ERNIE-base pretraining, then kernels vs plain
     alaunches = ernie_main(torch, ck, flags, card)
     ernie_compare(torch, ck, flags)
+
+    lap("phases 14-15, ERNIE")
 
     # 16. guards and eval on the training main path
     free_memory(torch)
     guards_main(torch, ck, flags, card, off_ms, tlaunches)
 
+    lap("phase 16, guards and eval")
+
     # 17. resumable training: schedule, clip, checkpoints, preemption
     free_memory(torch)
     resume_main(torch, ck, card, off_ms, tlaunches)
+
+    lap("phase 17, resumable training")
 
     # 18. float16 on the card, GradScaler, the other optimizers
     free_memory(torch)
@@ -8376,6 +9309,8 @@ def main():
     scaler_main(torch, ck, card)
     ernie_lamb(torch, ck, flags, card)
     optimizer_sweep(torch, ck, flags, card)
+
+    lap("phase 18, float16, GradScaler, the optimizers")
 
     # 19. ResNet-50 on the card
     free_memory(torch)
@@ -8410,6 +9345,11 @@ def main():
     free_memory(torch)
     moe = moe_main(torch, ck, flags, card, timer, gen)
 
+    # 26. the rest of nn on the card and the improved-DDPM CIFAR-10 UNet
+    free_memory(torch)
+    unet = unet_main(torch, ck, F, flags, card, timer, gen)
+    lap("phases 19-26 (each timed above)")
+
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]
                             + slaunch_c["flash_fwd"]
@@ -8436,6 +9376,11 @@ def main():
             "counted in" % (name, moe["launches"][name]))
     say("launches dropout_keep: %d in the LSTM language model's training "
         "(phase 24 (b)), counted in above" % rnn["launches"]["dropout_keep"])
+    for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv",
+                 "adamw", "dropout_keep"):
+        counts[name] += unet["launches"][name]
+        say("launches %s: %d in the UNet's training (phase 26 (b)), counted "
+            "in" % (name, unet["launches"][name]))
     for name in FUSED_KERNELS:
         counts[name] = (blaunches[name] + alaunches[name]
                         + nmt["train"][name])
@@ -8496,6 +9441,19 @@ def main():
     keep_row["ptb"] = dict(shape=[PTB_B, PTB_T, PTB_HIDDEN], p=PTB_DROPOUT,
                            launches=rnn["launches"]["dropout_keep"],
                            **rnn["keep"])
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    keep_row["unet"] = dict(shape=[UNET_B, UNET_CH, UNET_HW, UNET_HW],
+                            p=UNET_DROPOUT,
+                            launches=unet["launches"]["dropout_keep"],
+                            **unet["keep"])
+    adamw_row["unet"] = dict(
+        tensors=unet["launches"]["adamw"] // steps, dtype="float32",
+        launches=unet["launches"]["adamw"], **unet["adamw"])
+    for e in table:                     # rows 1t, 2, 3 at the UNet's shapes
+        if e["name"] in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
+            e["unet"] = [dict(unet["flash"][T][e["name"]],
+                              launches_a_step=unet["launches"][e["name"]]
+                              // steps) for T in (256, 64, 16)]
     for e in table:                     # rows 1t, 2, 3 at phase 21's shape
         if e["name"] in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
             e["long_context"] = [dict(
@@ -8516,7 +9474,11 @@ def main():
         "25": "the op surface (ops/math, manipulation, creation, linalg, "
               "random_ops) and the MoE layer: torch ops over cuBLAS and "
               "cuSOLVER, as the reference's are XLA ops; GPT-2-small-MoE "
-              "training launches rows 1t, 2, 3, 7 and K (counted above)"}}))
+              "training launches rows 1t, 2, 3, 7 and K (counted above)",
+        "26": "the rest of nn (ops/nn_ops.py: transposed convolutions over "
+              "cuDNN, norms, resampling, pads, CTC, sequence ops): torch "
+              "ops, as the reference's are XLA ops; the UNet's training "
+              "launches rows 1t, 2, 3, 7 and K (counted above)"}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,7 +25,7 @@ reference's artifacts included.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
 import torch
 
@@ -48,13 +48,14 @@ def _detached(fn):
     return functools.update_wrapper(run, fn)
 
 
-def primitive(name: str, out_like: Optional[int] = None,
+def primitive(name: str, out_like=None,
               nondiff: bool = False):
     """Decorator registering `fn` as the op `name` (see the module's
     note). `out_like`: the index of the input whose shape and dtype the
     output has, for an op whose function cannot run on meta tensors (a
     kernel wrapper, a random draw); else a recorded op's output shape
-    comes from running `fn` on meta tensors. `nondiff`: the outputs are
+    comes from running `fn` on meta tensors; a tuple of indices, one an
+    output, for an op of several outputs. `nondiff`: the outputs are
     detached, as the reference's nondiff ops give no gradient."""
 
     def deco(fn):

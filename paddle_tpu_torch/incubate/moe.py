@@ -24,6 +24,7 @@ import torch
 from .. import tensor as P
 from ..nn import functional as F
 from ..nn.layer_base import Layer
+from ..static.program import Variable
 
 __all__ = ["MoELayer"]
 
@@ -137,9 +138,11 @@ class MoELayer(Layer):
         # eagerly the layer keeps the live loss; inside a train step's
         # body the step does, until the body ends
         self._l_aux_live = None if F._hold(self, aux) else aux
-        with torch.no_grad():
-            F._set_running(self.l_aux_value,
-                           aux.detach().to(self.l_aux_value.dtype))
+        if not isinstance(aux, Variable):
+            # a static program keeps the loss symbolic: nothing to write
+            with torch.no_grad():
+                F._set_running(self.l_aux_value,
+                               aux.detach().to(self.l_aux_value.dtype))
 
         if self.top_k == 2:
             probs2 = probs * (1.0 - mask1)
@@ -164,7 +167,7 @@ class MoELayer(Layer):
                 * P.unsqueeze(mask2, -1) \
                 * P.unsqueeze(F.one_hot(P.clip(slot2, 0, C - 1), C), 1)
             kept = kept + P.sum(in2)
-        self.dropped = (S * self.top_k) - P.cast(kept.detach(), "int64")
+        self.dropped = (S * self.top_k) - P.cast(kept, "int64")
 
         combine = P.cast(combine, x.dtype)                      # [S, E, C]
         dispatch = P.cast(combine > 0, x.dtype)

@@ -10,7 +10,10 @@ kernel. `fused_bias_dropout_residual` and
 when `use_fused_dropout_ln` is off; the pair is the decoder-block fusion,
 gated by its caller's `fused_block` alone, as in the reference. An input
 the kernels do not take raises ValueError: no shape is handed to the
-composed ops on the quiet.
+composed ops on the quiet. The kernel routes are the reference's
+registered ops (`fused_bias_dropout_residual_layer_norm`,
+`fused_bias_dropout_residual`, `fused_bias_dropout_residual_ln_pair`),
+so a static program records them under those types.
 
 `fused_feedforward` and `fused_multi_head_attention` (:129-209) are the
 reference's block functions: a transformer layer's feed-forward or
@@ -24,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ....framework.dispatch import primitive
+from ....framework.flags import flag
 from ....nn import functional as F
 from ....ops import cuda_kernels as ck
 
@@ -42,8 +47,40 @@ def _ln_params(x, ln_scale, ln_bias):
     """The kernels' gamma and beta: ones / zeros in x's dtype where the
     caller passes None."""
     d = x.shape[-1]
-    return (x.new_ones(d) if ln_scale is None else ln_scale,
-            x.new_zeros(d) if ln_bias is None else ln_bias)
+    return (torch.ones(d, dtype=x.dtype, device=x.device)
+            if ln_scale is None else ln_scale,
+            torch.zeros(d, dtype=x.dtype, device=x.device)
+            if ln_bias is None else ln_bias)
+
+
+# the reference's registered ops (its fused_transformer.py :23-56); `key`
+# is its PRNG key input, taken and ignored: the kernels draw from the
+# Philox word
+
+
+@primitive("fused_bias_dropout_residual_layer_norm", out_like=0)
+def _fbdrln_op(x, residual, bias, ln_scale, ln_bias, key=None,
+               dropout_rate=0.5, ln_epsilon=1e-5, training=True,
+               mode="upscale_in_train"):
+    return ck.fused_bias_dropout_residual_ln(
+        x, residual, bias, ln_scale, ln_bias, dropout_rate, ln_epsilon,
+        training, mode)[0]
+
+
+@primitive("fused_bias_dropout_residual", out_like=0)
+def _fbdr_op(x, residual, bias, key=None, dropout_rate=0.5, training=True,
+             mode="upscale_in_train"):
+    return ck.fused_bias_dropout_residual_ln(
+        x, residual, bias, None, None, dropout_rate, 1e-5, training, mode)
+
+
+@primitive("fused_bias_dropout_residual_ln_pair", out_like=(0, 0))
+def _fbdrln_pair_op(x, residual, bias, ln_scale, ln_bias, key=None,
+                    dropout_rate=0.5, ln_epsilon=1e-5, training=True,
+                    mode="upscale_in_train"):
+    return ck.fused_bias_dropout_residual_ln(
+        x, residual, bias, ln_scale, ln_bias, dropout_rate, ln_epsilon,
+        training, mode)
 
 
 def fused_bias_dropout_residual_ln_pair(
@@ -54,9 +91,10 @@ def fused_bias_dropout_residual_ln_pair(
     one kernel pass: the decoder-block tail of GPTDecoderLayer under
     FLAGS_fused_block (y feeds the MLP, z carries the residual stream).
     ln_scale / ln_bias default to ones / zeros in x's dtype."""
-    return ck.fused_bias_dropout_residual_ln(
-        x, residual, bias, *_ln_params(x, ln_scale, ln_bias), dropout_rate,
-        ln_epsilon, training, mode)
+    return _fbdrln_pair_op(
+        x, residual, bias, *_ln_params(x, ln_scale, ln_bias), None,
+        dropout_rate=float(dropout_rate), ln_epsilon=float(ln_epsilon),
+        training=bool(training), mode=str(mode))
 
 
 def fused_bias_dropout_residual(x, residual, bias=None, dropout_rate=0.5,
@@ -64,11 +102,11 @@ def fused_bias_dropout_residual(x, residual, bias=None, dropout_rate=0.5,
                                 name=None):
     """residual + dropout(x + bias): the pre-LN residual tail, one kernel
     pass while `use_fused_dropout_ln` is on, else the composed ops."""
-    z = ck.fused_dropout_residual_ln_or_none(
-        x, residual, bias, None, None, dropout_rate, 1e-5, training, mode)
-    if z is None:
+    if not flag("use_fused_dropout_ln"):
         return _composed_z(x, residual, bias, dropout_rate, training, mode)
-    return z
+    return _fbdr_op(x, residual, bias, None,
+                    dropout_rate=float(dropout_rate),
+                    training=bool(training), mode=str(mode))
 
 
 def fused_bias_dropout_residual_layer_norm(
@@ -78,13 +116,13 @@ def fused_bias_dropout_residual_layer_norm(
     """LayerNorm(residual + dropout(x + bias)): the post-LN residual tail,
     one kernel pass while `use_fused_dropout_ln` is on, else the composed
     ops. ln_scale / ln_bias default to ones / zeros in x's dtype."""
-    out = ck.fused_dropout_residual_ln_or_none(
-        x, residual, bias, *_ln_params(x, ln_scale, ln_bias), dropout_rate,
-        ln_epsilon, training, mode)
-    if out is None:
+    if not flag("use_fused_dropout_ln"):
         z = _composed_z(x, residual, bias, dropout_rate, training, mode)
         return F.layer_norm(z, ln_scale, ln_bias, ln_epsilon)
-    return out[0]
+    return _fbdrln_op(x, residual, bias, *_ln_params(x, ln_scale, ln_bias),
+                      None, dropout_rate=float(dropout_rate),
+                      ln_epsilon=float(ln_epsilon), training=bool(training),
+                      mode=str(mode))
 
 
 def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,

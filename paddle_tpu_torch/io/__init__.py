@@ -139,11 +139,34 @@ class SequenceSampler(Sampler):
 
 
 class RandomSampler(Sampler):
-    """A permutation drawn from the framework's CPU generator."""
+    """Indices of `data_source` in random order (reference:
+    paddle_tpu/io/__init__.py:128): a permutation, its first
+    `num_samples` (default: all); with `replacement`, `num_samples` draws
+    with repeats. The draws come from `generator` (a torch.Generator),
+    else from the framework's CPU generator."""
+
+    def __init__(self, data_source, replacement=False, num_samples=None,
+                 generator=None):
+        super().__init__(data_source)
+        self.replacement = replacement
+        self._num_samples = num_samples
+        self.generator = generator
+
+    @property
+    def num_samples(self):
+        return self._num_samples or len(self.data_source)
 
     def __iter__(self):
         n = len(self.data_source)
-        return iter(torch.randperm(n, generator=RNG.cpu).tolist())
+        gen = self.generator if self.generator is not None else RNG.cpu
+        if self.replacement:
+            return iter(torch.randint(0, n, (self.num_samples,),
+                                      generator=gen).tolist())
+        return iter(torch.randperm(n, generator=gen)[:self.num_samples]
+                    .tolist())
+
+    def __len__(self):
+        return self.num_samples
 
 
 class WeightedRandomSampler(Sampler):

@@ -20,8 +20,13 @@ names around it), the recurrent classes (`weight_ih_l<k>`,
 `weight_hh_l<k>`, `bias_ih_l<k>`, `bias_hh_l<k>`, `_reverse` for the
 second direction; a cell's `weight_ih` ... `bias_hh`), the containers
 (`<i>.` or `<key>.` before each sublayer's names, a ParameterList's
-`<i>`) and the LSTM language model of chip_smoke.py phase 24 carry over
-this way.
+`<i>`), the LSTM language model of chip_smoke.py phase 24, the second
+part of nn (a transposed convolution's weight [in, out / groups, *k] and
+bias, GroupNorm's and the batch norms' weight and bias, an InstanceNorm's
+`scale` and `bias`, SpectralNorm's `weight_u` and `weight_v`, Bilinear's
+weight [out, in1, in2] and bias, HSigmoidLoss's weight [rows, feature]
+and bias [rows, 1], PReLU's weight) and chip_smoke.py phase 26's UNet
+carry over this way.
 
 `pack_qkv` packs a MultiHeadAttention's q/k/v projections into
 `fused_multi_head_attention`'s fused [3, H, head_dim, E] layout.

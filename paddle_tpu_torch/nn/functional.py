@@ -1,7 +1,10 @@
 """Functional ops (counterpart of paddle_tpu/nn/functional and the
-primitives in paddle_tpu/ops/nn_ops.py): those GPT, BERT, ResNet and the
-Transformer reach, the activations, the losses, `sequence_mask` and
-`unstack`.
+primitives in paddle_tpu/ops/nn_ops.py): every public function of the
+reference's nn.functional. The ops GPT, BERT, ResNet and the Transformer
+reach, the activations and the losses are registered here; the second
+part's (transposed convolutions, norms, resampling, pads, CTC, ...) in
+ops/nn_ops.py, and the sequence ops in functional_sequence.py (bound as
+`sequence`).
 
 Weights follow paddle's layout: a linear weight is [in, out] and the op is
 x @ W + b, not torch.nn.Linear's [out, in]; a convolution's weight is
@@ -32,7 +35,10 @@ from ..observability import metrics
 from ..ops import cuda_kernels as ck
 from ..ops import math as _math
 from ..ops.ring_attention import blockwise_attention
-from ..tensor import add, mean, reshape, squeeze
+from ..ops import manipulation as _manip
+from ..ops import nn_ops as _nn
+from ..tensor import (add, cast, clip, equal, maximum, mean, not_equal,
+                      reshape, squeeze, where)
 
 __all__ = ["linear", "matmul", "gelu", "relu", "tanh", "softmax",
            "log_softmax", "layer_norm", "dropout",
@@ -88,19 +94,25 @@ def _softmax(x, axis=-1):
 
 def softmax(x, axis=-1, dtype=None, name=None):
     """softmax along `axis` (reference: ops/nn_ops.py:165, softmax_op),
-    x cast to `dtype` first when one is given."""
+    x cast to `dtype` first when one is given (op cast)."""
     if dtype is not None:
-        x = x.to(convert_dtype(dtype))
+        x = cast(x, dtype)
     return _softmax(x, axis=int(axis))
+
+
+@primitive("log_softmax_op")
+def _log_softmax(x, axis=-1):
+    (x,) = amp_cast_inputs("log_softmax_op", [x])
+    return torch.log_softmax(x, dim=axis)
 
 
 def log_softmax(x, axis=-1, dtype=None, name=None):
     """log-softmax along `axis` (reference: ops/nn_ops.py:170,
-    log_softmax_op), x cast to `dtype` first when one is given."""
+    log_softmax_op), x cast to `dtype` first when one is given (op
+    cast)."""
     if dtype is not None:
-        x = x.to(convert_dtype(dtype))
-    (x,) = amp_cast_inputs("log_softmax_op", [x])
-    return torch.log_softmax(x, dim=axis)
+        x = cast(x, dtype)
+    return _log_softmax(x, axis=int(axis))
 
 
 @primitive("gelu")
@@ -148,17 +160,22 @@ def _keep(shape, p, device):
     replay; on the CPU it comes from the CPU generator."""
     if device.type == "cuda":
         return ck.dropout_keep(*RNG.draw(device), shape, p)
+    if device.type == "meta":            # a static program's shapes
+        return torch.empty(shape, dtype=torch.bool, device=device)
     u = torch.rand(shape, generator=RNG.cpu, device=device)
     return u >= p
 
 
-def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
     """paddle's dropout (reference: nn/functional dropout, ops/nn_ops.py
     _dropout). upscale_in_train: kept values scaled by 1/(1-p) in
     training, the identity in eval. downscale_in_infer: kept values as
     they are in training, x * (1-p) in eval. The mask is drawn by `_keep`
     (framework/random.py's Philox word on CUDA, its CPU generator on the
-    CPU), so it is not the reference's jax.random mask."""
+    CPU), so it is not the reference's jax.random mask. `axis` (an int or
+    a list): one draw for each index along those axes, shared by the rest,
+    as in paddle (the reference takes `axis` and drops single elements)."""
     if mode not in ck.DROPOUT_MODES:
         raise ValueError("dropout mode %r (one of %s)" % (mode,
                                                           ck.DROPOUT_MODES))
@@ -168,15 +185,21 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
         return x
     if p == 1.0:
         return x * torch.zeros_like(x)
-    return _dropout(x, None, p=float(p), mode=mode)
+    if axis is not None:
+        axis = tuple(sorted(int(a) % x.ndim for a in (
+            axis if isinstance(axis, (list, tuple)) else [axis])))
+    return _dropout(x, None, p=float(p), mode=mode, axis=axis)
 
 
 @primitive("dropout_op", out_like=0)
-def _dropout(x, key=None, p=0.5, mode="upscale_in_train"):
+def _dropout(x, key=None, p=0.5, mode="upscale_in_train", axis=None):
     """The random branch of `dropout`: a fresh keep mask at each call (in a
     program, at each run). `key` is the reference's PRNG key input, taken
-    and ignored: the mask comes from `_keep`."""
-    keep = _keep(x.shape, p, x.device)
+    and ignored: the mask comes from `_keep`. `axis`: the mask has x's
+    size on those axes and 1 on the others."""
+    shape = x.shape if axis is None else tuple(
+        x.shape[i] if i in axis else 1 for i in range(x.ndim))
+    keep = _keep(shape, p, x.device)
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0)
     return torch.where(keep, x, 0.0)
@@ -210,18 +233,35 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                          is_causal, dropout_p=p)
         if out is not None:
             return out
-    B, H, Tq, _ = query.shape
-    Tk = key.shape[2]
+    Tq, Tk = query.shape[2], key.shape[2]
     thr = flag("sdpa_chunked_threshold")
-    if (not return_weights and thr and Tk >= thr and attn_mask is None
-            and p < 1.0 and (not is_causal or Tq == Tk)):
-        ck._note_attn_path("xla_chunked")
-        return blockwise_attention(query, key, value, bool(is_causal),
-                                   dropout_p=p)
-    ck._note_attn_path("xla_sdpa")
-    keep = _keep((B, H, Tq, Tk), p, query.device) if p > 0.0 else None
-    return ck.flash_attention_plain(query, key, value, bool(is_causal),
-                                    attn_mask, keep=keep, dropout_p=p,
+    chunked = bool(not return_weights and thr and Tk >= thr
+                   and attn_mask is None and p < 1.0
+                   and (not is_causal or Tq == Tk))
+    return _sdpa(query, key, value, attn_mask, None, dropout_p=p,
+                 causal=bool(is_causal), return_weights=bool(return_weights),
+                 chunked=chunked)
+
+
+@primitive("scaled_dot_product_attention")
+def _sdpa(q, k, v, mask, key=None, dropout_p=0.0, causal=False,
+          return_weights=False, chunked=False):
+    """The op of attention's plain routes (reference: ops/nn_ops.py sdpa
+    :853): the blockwise tier when `chunked`, else the dense plain
+    version. `key` is the reference's PRNG key input, taken and ignored:
+    the dropout mask comes from `_keep`."""
+    counted = q.device.type != "meta"      # not a static program's shapes
+    if chunked:
+        if counted:
+            ck._note_attn_path("xla_chunked")
+        return blockwise_attention(q, k, v, bool(causal), dropout_p=dropout_p)
+    if counted:
+        ck._note_attn_path("xla_sdpa")
+    B, H, Tq, _ = q.shape
+    keep = (_keep((B, H, Tq, k.shape[2]), dropout_p, q.device)
+            if dropout_p > 0.0 else None)
+    return ck.flash_attention_plain(q, k, v, bool(causal), mask, keep=keep,
+                                    dropout_p=dropout_p,
                                     return_weights=return_weights)
 
 
@@ -330,9 +370,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if loss.ndim > 1 and loss.shape[axis] == 1:
         loss = squeeze(loss, axis)
     if weight is not None and not soft_label:
-        lab = label.reshape(loss.shape)
-        w = torch.where(lab == ignore_index, 0.0,
-                        embedding(lab.clamp(min=0), weight))
+        lab = reshape(label, loss.shape)
+        w = where(equal(lab, ignore_index), 0.0,
+                  embedding(clip(lab, 0), weight))
         loss = loss * w
         if reduction == "mean":
             return loss.sum() / w.sum()
@@ -341,8 +381,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if reduction == "sum":
         return loss.sum()
     if ignore_index >= 0 and not soft_label:
-        valid = (label.reshape(loss.shape) != ignore_index).to(input.dtype)
-        return loss.sum() / torch.clamp_min(valid.sum(), 1e-8)
+        valid = cast(not_equal(reshape(label, loss.shape), ignore_index),
+                     input.dtype)
+        return loss.sum() / maximum(valid.sum(), 1e-8)
     return mean(loss)
 
 
@@ -438,13 +479,7 @@ def _same_pairs(in_sp, ks, st):
     return tuple(pairs)
 
 
-def _pad(x, pairs, value=0.0):
-    """x padded (or, for a negative pair, cropped) on its trailing axes by
-    (lo, hi) pairs, the first pair the first of those axes."""
-    if all(lo == 0 and hi == 0 for lo, hi in pairs):
-        return x
-    flat = [v for lo, hi in reversed(pairs) for v in (lo, hi)]
-    return torch.nn.functional.pad(x, flat, value=value)
+_pad = _nn.pad_pairs
 
 
 def _symmetric(pairs):
@@ -459,27 +494,12 @@ def _conv_direct(x, w, stride, pairs, dilation, groups):
     return conv(_pad(x, pairs), w, None, stride, 0, dilation, groups)
 
 
-def _patches(x, ks, stride, pairs, dilation):
-    """im2col: [N, C, *sp] -> [N, C * prod(ks), *out], features in
-    (channel, *taps) order, as lax.conv_general_dilated_patches gives
-    them."""
-    n = len(ks)
-    x = _pad(x, pairs)
-    for i in range(n):
-        x = x.unfold(2 + i, (ks[i] - 1) * dilation[i] + 1, stride[i])
-        if dilation[i] > 1:
-            x = x[..., ::dilation[i]]
-    out_sp = tuple(x.shape[2:2 + n])
-    x = x.permute(0, 1, *range(2 + n, 2 + 2 * n), *range(2, 2 + n))
-    return x.reshape(x.shape[0], -1, *out_sp)
-
-
 def _conv_im2col(x, w, stride, pairs, dilation):
     """The reference's `_conv_im2col` (ops/nn_ops.py:199): the patches,
     then one matmul over (cin * prod(kernel)) taps with a float32 result
     (its preferred_element_type), rounded back to x's dtype unless x is
     bfloat16."""
-    p = _patches(x, tuple(w.shape[2:]), stride, pairs, dilation)
+    p = _nn.patches(x, tuple(w.shape[2:]), stride, pairs, dilation)
     out_sp = p.shape[2:]
     w2 = w.reshape(w.shape[0], -1).float()
     out = torch.matmul(w2, p.reshape(p.shape[0], p.shape[1], -1).float())
@@ -675,6 +695,14 @@ def batch_norm_infer(x, weight, bias, mean, var, epsilon=1e-5,
                      _bn_shape(x, channel_last))
 
 
+@primitive("batch_norm_train")
+def batch_norm_train(x, weight, bias, epsilon=1e-5, channel_last=False):
+    """Training batch norm (reference: ops/nn_ops.py :474): (y, batch
+    mean, biased batch variance); the caller moves the running
+    statistics."""
+    return _bn_batch(x, weight, bias, epsilon, channel_last)
+
+
 @primitive("batch_norm_train_stats")
 def batch_norm_train_stats(x, weight, bias, run_mean, run_var, momentum=0.9,
                            epsilon=1e-5, channel_last=False):
@@ -719,7 +747,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
             x.program.buffer_updates.append((running_mean, new_mean.name))
             x.program.buffer_updates.append((running_var, new_var.name))
             return y
-    y, mean, var = _bn_batch(x, weight, bias, epsilon, channel_last)
+    y, mean, var = batch_norm_train(x, weight, bias, epsilon=float(epsilon),
+                                    channel_last=channel_last)
     if running_mean is not None:
         m = float(momentum)
         with torch.no_grad():
@@ -730,8 +759,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 
 
 # ---------------------------------------------------------------------------
-# pooling (reference: nn/functional/__init__.py:215-372 over ops/nn_ops.py
-# pool :339 and adaptive_pool :400)
+# pooling (reference: nn/functional/__init__.py:209-400 over ops/nn_ops.py
+# pool :339, adaptive_pool :400 and max_pool2d_with_index :1003)
 
 
 def _ceil_extend(in_sp, ks, st, pairs):
@@ -745,43 +774,70 @@ def _ceil_extend(in_sp, ks, st, pairs):
     return tuple(ext)
 
 
-def _pool2d(x, ptype, kernel, stride, padding, ceil_mode, exclusive,
-            data_format):
-    """ops/nn_ops.py pool over NCHW or NHWC: the padding resolved as the
-    reference resolves it (SAME, VALID, pairs; ceil_mode extends the high
-    side), max over -inf padding, avg as window sums divided by the count
-    of input elements in each window (exclusive) or by the window's
-    size."""
-    channel_last = data_format[-1] == "C" and len(data_format) > 2
-    ks = _pair(kernel, 2)
-    st = _pair(stride if stride is not None else kernel, 2)
-    if channel_last:
-        x = x.movedim(-1, 1)
-    sp = tuple(x.shape[2:])
-    pad = _norm_padding(padding, 2)
+def _window_sums(x, ks, st):
+    """Sums over each window of an NC* tensor (no padding)."""
+    F = torch.nn.functional
+    if x.ndim == 3:
+        return F.avg_pool2d(x[:, :, None], (1,) + ks, (1,) + st,
+                            divisor_override=1)[:, :, 0]
+    pool = F.avg_pool2d if x.ndim == 4 else F.avg_pool3d
+    return pool(x, ks, st, divisor_override=1)
+
+
+def _window_max(x, ks, st):
+    F = torch.nn.functional
+    if x.ndim == 3:
+        return F.max_pool2d(x[:, :, None], (1,) + ks, (1,) + st)[:, :, 0]
+    return (F.max_pool2d if x.ndim == 4 else F.max_pool3d)(x, ks, st)
+
+
+def _pool_cfg(sp, kernel, stride, padding, ceil_mode):
+    """(kernel, stride, (lo, hi) pairs) of a pool over the spatial sizes
+    `sp`, the padding resolved as the reference resolves it (SAME, VALID,
+    pairs; ceil_mode extends the high side)."""
+    n = len(sp)
+    ks = _pair(kernel, n)
+    st = _pair(stride if stride is not None else kernel, n)
+    pad = _norm_padding(padding, n)
     if pad == "VALID":
-        pairs = ((0, 0),) * 2
+        pairs = ((0, 0),) * n
     elif pad == "SAME":
         pairs = _same_pairs(sp, ks, st)
     else:
-        pairs = pad
+        pairs = tuple(tuple(p) for p in pad)
     if ceil_mode:
         pairs = _ceil_extend(sp, ks, st, pairs)
-    F = torch.nn.functional
+    return ks, st, pairs
+
+
+def _pool(x, ptype, kernel, stride, padding, ceil_mode, exclusive,
+          channel_last, divisor=None):
+    """ops/nn_ops.py pool over N C *sp (or N *sp C), any spatial rank:
+    the padding resolved as the reference resolves it (SAME, VALID, pairs;
+    ceil_mode extends the high side), max over -inf padding, avg as window
+    sums divided by the count of input elements in each window
+    (exclusive), by the window's size, or by `divisor`."""
+    n = x.ndim - 2
+    if channel_last:
+        x = x.movedim(-1, 1)
+    sp = tuple(x.shape[2:])
+    ks, st, pairs = _pool_cfg(sp, kernel, stride, padding, ceil_mode)
     if ptype == "max":
-        if _symmetric(pairs) and all(lo <= k // 2
-                                     for (lo, _), k in zip(pairs, ks)):
-            out = F.max_pool2d(x, ks, st, [lo for lo, _ in pairs])
+        if (n == 2 and _symmetric(pairs)
+                and all(lo <= k // 2 for (lo, _), k in zip(pairs, ks))):
+            out = torch.nn.functional.max_pool2d(x, ks, st,
+                                                 [lo for lo, _ in pairs])
         else:
             low = (float("-inf") if x.is_floating_point()
                    else torch.iinfo(x.dtype).min)
-            out = F.max_pool2d(_pad(x, pairs, low), ks, st)
+            out = _window_max(_pad(x, pairs, low), ks, st)
     else:
-        out = F.avg_pool2d(_pad(x, pairs), ks, st, divisor_override=1)
-        if exclusive:
+        out = _window_sums(_pad(x, pairs), ks, st)
+        if divisor is not None:
+            out = out / float(divisor)
+        elif exclusive:
             ones = torch.ones((1, 1) + sp, dtype=out.dtype, device=x.device)
-            count = F.avg_pool2d(_pad(ones, pairs), ks, st,
-                                 divisor_override=1)
+            count = _window_sums(_pad(ones, pairs), ks, st)
             out = out / count.clamp_min(1)
         else:
             out = out / float(np.prod(ks))
@@ -789,64 +845,171 @@ def _pool2d(x, ptype, kernel, stride, padding, ceil_mode, exclusive,
 
 
 @primitive("pool2d_op")
-def _pool2d_op(x, pool_type="max", kernel=(2, 2), stride=(2, 2),
-               padding=(0, 0), ceil_mode=False, exclusive=True,
-               channel_last=False):
-    """The reference's pool2d_op (ops/nn_ops.py pool :338)."""
-    return _pool2d(x, pool_type, kernel, stride, padding, ceil_mode,
-                   exclusive, "NHWC" if channel_last else "NCHW")
+def _pool_op(x, pool_type="max", kernel=(2, 2), stride=(2, 2),
+             padding=(0, 0), ceil_mode=False, exclusive=True,
+             channel_last=False, divisor_override=None):
+    """The reference's pool2d_op (ops/nn_ops.py pool :338), any spatial
+    rank. `divisor_override` is the port's: paddle's avg_pool2d/3d take
+    it, the reference's ignore it."""
+    return _pool(x, pool_type, kernel, stride, padding, ceil_mode,
+                 exclusive, channel_last, divisor_override)
 
 
 def _pool_call(x, ptype, kernel_size, stride, padding, ceil_mode, exclusive,
-               data_format):
-    kernel = _pair(kernel_size, 2)
-    return _pool2d_op(
+               data_format, n, divisor_override=None):
+    kernel = _pair(kernel_size, n)
+    extra = ({} if divisor_override is None
+             else {"divisor_override": float(divisor_override)})
+    return _pool_op(
         x, pool_type=ptype, kernel=kernel,
-        stride=_pair(stride, 2) if stride is not None else kernel,
-        padding=_norm_padding(padding, 2), ceil_mode=bool(ceil_mode),
+        stride=_pair(stride, n) if stride is not None else kernel,
+        padding=_norm_padding(padding, n), ceil_mode=bool(ceil_mode),
         exclusive=bool(exclusive),
-        channel_last=data_format[-1] == "C" and len(data_format) > 2)
+        channel_last=data_format[-1] == "C" and len(data_format) > 2,
+        **extra)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, name=None):
+    """Max pool over [N, C, L] (`return_mask` taken and ignored, as the
+    reference does)."""
+    return _pool_call(x, "max", kernel_size, stride, padding, ceil_mode,
+                      True, "NCL", 1)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               data_format="NCHW"):
+               return_mask=False, data_format="NCHW", name=None):
     """Max pool; the gradient goes to the first maximum of a window in
-    row-major order, as XLA's select-and-scatter (>=) sends it."""
+    row-major order, as XLA's select-and-scatter (>=) sends it. With
+    return_mask (NCHW only), (values, the flat h * W + w index of each
+    window's first maximum) through op max_pool2d_with_index."""
+    if return_mask:
+        if data_format != "NCHW":
+            raise ValueError("return_mask requires NCHW")
+        ks, st, pairs = _pool_cfg(tuple(x.shape[2:]), kernel_size, stride,
+                                  padding, ceil_mode)
+        return _nn.max_pool2d_with_index(x, kernel=ks, stride=st,
+                                         padding=pairs)
     return _pool_call(x, "max", kernel_size, stride, padding, ceil_mode,
-                      True, data_format)
+                      True, data_format, 2)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCDHW", name=None):
+    return _pool_call(x, "max", kernel_size, stride, padding, ceil_mode,
+                      True, data_format, 3)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, name=None):
+    return _pool_call(x, "avg", kernel_size, stride, padding, ceil_mode,
+                      exclusive, "NCL", 1)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               exclusive=True, data_format="NCHW"):
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
+    """Average pool; `divisor_override` divides each window's sum by
+    itself, as paddle's does (the reference takes it and ignores it)."""
     return _pool_call(x, "avg", kernel_size, stride, padding, ceil_mode,
-                      exclusive, data_format)
+                      exclusive, data_format, 2, divisor_override)
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW",
+               name=None):
+    return _pool_call(x, "avg", kernel_size, stride, padding, ceil_mode,
+                      exclusive, data_format, 3, divisor_override)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None, data_format="NCHW", name=None):
+    """The inverse of max_pool2d(return_mask=True): each value written at
+    its index of an output plane of zeros (op max_unpool2d_op). Its size is
+    `output_size`, else (in - 1) * stride - pads + kernel. Eagerly (not in
+    a static program or a capture) an index outside the plane raises, as
+    the reference's eager check does."""
+    if data_format != "NCHW":
+        raise ValueError("max_unpool2d supports NCHW only")
+    oh, ow = x.shape[2], x.shape[3]
+    if output_size is None:
+        ks = _pair(kernel_size, 2)
+        st = _pair(stride if stride is not None else kernel_size, 2)
+        pad = _norm_padding(padding, 2)
+        if isinstance(pad, str):
+            raise ValueError("max_unpool2d with SAME/VALID padding needs an "
+                             "explicit output_size (the inverse shape is "
+                             "ambiguous)")
+        out_h = (oh - 1) * st[0] - (pad[0][0] + pad[0][1]) + ks[0]
+        out_w = (ow - 1) * st[1] - (pad[1][0] + pad[1][1]) + ks[1]
+    else:
+        out_h, out_w = [int(v) for v in output_size[-2:]]
+    from ..static.program import Variable
+    if not isinstance(indices, Variable) and not (
+            indices.is_cuda and torch.cuda.is_current_stream_capturing()):
+        mx = int(indices.max()) if indices.numel() else 0
+        if mx >= out_h * out_w:
+            raise ValueError("max_unpool2d: index %d out of range for output "
+                             "%dx%d: output_size smaller than the pooled "
+                             "input" % (mx, out_h, out_w))
+    return _nn.max_unpool2d(x, indices, out_h=int(out_h), out_w=int(out_w))
+
+
+def _adp_size(v, n):
+    if isinstance(v, (int, np.integer)) or v is None:
+        return (v if v is None else int(v),) * n
+    return tuple(None if s is None else int(s) for s in v)
+
+
+def adaptive_avg_pool1d(x, output_size, name=None):
+    return _adaptive_pool(x, output_size=_adp_size(output_size, 1),
+                          pool_type="avg")
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     """ops/nn_ops.py adaptive_pool: axis by axis, a mean over equal blocks
     where the size divides, else over the buckets [floor(i * in / out),
     ceil((i + 1) * in / out)); an output size of None keeps the axis."""
-    if isinstance(output_size, (int, np.integer)) or output_size is None:
-        sizes = (output_size,) * 2
-    else:
-        sizes = tuple(output_size)
-    return _adaptive_pool2d(
-        x, output_size=tuple(None if s is None else int(s) for s in sizes),
-        pool_type="avg",
+    return _adaptive_pool(
+        x, output_size=_adp_size(output_size, 2), pool_type="avg",
         channel_last=data_format[-1] == "C" and len(data_format) > 2)
 
 
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    return _adaptive_pool(
+        x, output_size=_adp_size(output_size, 3), pool_type="avg",
+        channel_last=data_format[-1] == "C" and len(data_format) > 2)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    """The max over each bucket (`return_mask` taken and ignored, as the
+    reference does)."""
+    return _adaptive_pool(x, output_size=_adp_size(output_size, 1),
+                          pool_type="max")
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    return _adaptive_pool(x, output_size=_adp_size(output_size, 2),
+                          pool_type="max")
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    return _adaptive_pool(x, output_size=_adp_size(output_size, 3),
+                          pool_type="max")
+
+
 @primitive("adaptive_pool2d_op")
-def _adaptive_pool2d(x, output_size, pool_type="avg", channel_last=False):
-    """The reference's adaptive_pool2d_op (ops/nn_ops.py :399), average
-    pooling only."""
-    if pool_type != "avg":
-        raise NotImplementedError("adaptive_pool2d_op: pool_type %r is not "
-                                  "ported" % (pool_type,))
-    sizes = tuple(output_size)
-    axes = (1, 2) if channel_last else (2, 3)
+def _adaptive_pool(x, output_size, pool_type="avg", channel_last=False):
+    """The reference's adaptive_pool2d_op (ops/nn_ops.py :399), any
+    spatial rank, mean or max (a max shares the gradient between tied
+    elements, as jnp.max's does)."""
+    n = x.ndim - 2
+    axes = tuple(range(1, 1 + n)) if channel_last else tuple(range(2, 2 + n))
+    red = ((lambda t, d, keep=False: t.mean(dim=d, keepdim=keep))
+           if pool_type == "avg"
+           else (lambda t, d, keep=False: t.amax(dim=d, keepdim=keep)))
     out = x
-    for ax, out_s in zip(axes, sizes):
+    for ax, out_s in zip(axes, tuple(output_size)):
         in_s = out.shape[ax]
         if out_s is None or out_s == in_s:
             continue
@@ -854,12 +1017,12 @@ def _adaptive_pool2d(x, output_size, pool_type="avg", channel_last=False):
         if in_s % out_s == 0:
             shape = (tuple(out.shape[:ax]) + (out_s, in_s // out_s)
                      + tuple(out.shape[ax + 1:]))
-            out = out.reshape(shape).mean(dim=ax + 1)
+            out = red(out.reshape(shape), ax + 1)
         else:
             starts = (np.arange(out_s) * in_s) // out_s
             ends = ((np.arange(out_s) + 1) * in_s + out_s - 1) // out_s
-            out = torch.cat([out.narrow(ax, int(a), int(b - a))
-                             .mean(dim=ax, keepdim=True)
+            out = torch.cat([red(out.narrow(ax, int(a), int(b - a)), ax,
+                                 True)
                              for a, b in zip(starts, ends)], dim=ax)
     return out
 
@@ -871,12 +1034,7 @@ def _adaptive_pool2d(x, output_size, pool_type="avg", channel_last=False):
 # jnp.clip's is (torch.clamp's is 1); a where() keeps its branch's
 # gradient.
 
-def _clip(x, lo=None, hi=None):
-    if lo is not None:
-        x = torch.maximum(x, x.new_tensor(lo))
-    if hi is not None:
-        x = torch.minimum(x, x.new_tensor(hi))
-    return x
+_clip = _nn.clip_ties
 
 
 def _softplus1(x):
@@ -1136,7 +1294,9 @@ def _abs(x):
 
 
 def l1_loss(input, label, reduction="mean", name=None):
-    return _reduce_loss(_abs(input - label), reduction)
+    """|input - label| (op abs, as the reference's), then the
+    reduction."""
+    return _reduce_loss(_math.abs_(input - label), reduction)
 
 
 @primitive("nll_loss_op")
@@ -1327,3 +1487,441 @@ def cosine_similarity(x1, x2, axis=1, eps=1e-8):
     """sum(x1 * x2) / max(|x1| |x2|, eps) along `axis` (reference:
     ops/nn_ops.py:716)."""
     return _cosine_similarity(x1, x2, axis=int(axis), eps=float(eps))
+
+
+# ---------------------------------------------------------------------------
+# the second part of nn (reference: nn/functional/__init__.py:172-208,
+# :461-511, :686-996), over ops/nn_ops.py
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCL", name=None, output_size=None):
+    return _convnd_t(x, weight, bias, stride, padding, output_padding,
+                     dilation, groups, data_format, output_size, 1)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCHW", name=None, output_size=None):
+    """The transposed convolution, weight [in, out / groups, *k] (op
+    conv2d_transpose_op, any spatial rank), then the bias in the layout's
+    channel axis. `output_size` (the spatial sizes) sets the
+    output_padding that reaches it, as paddle's does (the reference takes
+    it and ignores it); it must lie within one stride of the size without
+    it."""
+    return _convnd_t(x, weight, bias, stride, padding, output_padding,
+                     dilation, groups, data_format, output_size, 2)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCDHW", name=None, output_size=None):
+    return _convnd_t(x, weight, bias, stride, padding, output_padding,
+                     dilation, groups, data_format, output_size, 3)
+
+
+def _convnd_t(x, weight, bias, stride, padding, output_padding, dilation,
+              groups, data_format, output_size, n):
+    channel_last = data_format[-1] == "C" and len(data_format) > 2
+    pad = _norm_padding(padding, n)
+    if isinstance(pad, str):
+        raise ValueError("SAME/VALID not supported for conv_transpose")
+    st, dil = _pair(stride, n), _pair(dilation, n)
+    outpad = _pair(output_padding, n)
+    if output_size is not None:
+        sizes = _pair(output_size, n) if not isinstance(
+            output_size, (list, tuple)) else tuple(
+                int(s) for s in output_size)[-n:]
+        sp = x.shape[1:1 + n] if channel_last else x.shape[2:2 + n]
+        k = weight.shape[2:]
+        outpad = []
+        for i in range(n):
+            # the size without output_padding
+            base = ((sp[i] - 1) * st[i] - pad[i][0] - pad[i][1]
+                    + dil[i] * (k[i] - 1) + 1)
+            extra = sizes[i] - base
+            if not 0 <= extra < max(st[i], dil[i]):
+                raise ValueError(
+                    "conv_transpose output_size %s: axis %d can be %d to "
+                    "%d" % (tuple(sizes), i, base,
+                            base + max(st[i], dil[i]) - 1))
+            outpad.append(extra)
+        outpad = tuple(outpad)
+    out = _nn.conv_transpose(x, weight, stride=st, padding=pad,
+                             output_padding=outpad, dilation=dil,
+                             groups=int(groups), channel_last=channel_last)
+    if bias is not None:
+        shape = ((1,) * (n + 1) + (-1,)) if channel_last \
+            else ((1, -1) + (1,) * n)
+        out = add(out, reshape(bias, shape))
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Each sample's channels normalised over their spatial axes (op
+    instance_norm_op); the running statistics are taken and not used, as
+    the reference's are."""
+    return _nn.instance_norm(x, weight, bias, epsilon=float(eps))
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    return _nn.group_norm(
+        x, weight, bias, num_groups=int(num_groups), epsilon=float(epsilon),
+        channel_last=data_format[-1] == "C" and len(data_format) > 2)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    return _nn.local_response_norm(x, size=int(size), alpha=float(alpha),
+                                   beta=float(beta), k=float(k))
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """x / max(||x||_p, epsilon) along `axis` (op l2_normalize_op)."""
+    return _nn.normalize(x, p=float(p), axis=int(axis),
+                         epsilon=float(epsilon))
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
+    """Whole channels dropped: one keep draw for each (sample, channel),
+    the mask [N, C, 1, 1] (NHWC: [N, 1, 1, C]), as paddle's. The
+    reference drops single elements (it calls dropout with no axis)."""
+    return dropout(x, p, axis=[0, 3] if data_format == "NHWC" else [0, 1],
+                   training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None):
+    """Whole channels dropped, the mask [N, C, 1, 1, 1] (NDHWC: [N, 1, 1,
+    1, C]); see dropout2d."""
+    return dropout(x, p, axis=[0, 4] if data_format == "NDHWC" else [0, 1],
+                   training=training)
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None):
+    """SELU's dropout (op alpha_dropout_op); the identity in eval or at
+    p = 0."""
+    if not training or p == 0.0:
+        return x
+    return _nn.alpha_dropout(x, None, p=float(p))
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
+    return _nn.gumbel_softmax(x, None, temperature=float(temperature),
+                              hard=bool(hard), axis=int(axis))
+
+
+def diag_embed(x, offset=0, dim1=-2, dim2=-1):
+    """Matrices whose `offset` diagonal (dims dim1, dim2) holds the last
+    axis of x (op diag_embed)."""
+    from ..ops.creation import diag_embed as _de
+    return _de(x, offset=int(offset), dim1=int(dim1), dim2=int(dim2))
+
+
+# the reference's in-place names: its tensors are values, so these are
+# the functions themselves (nn/functional/__init__.py:985-989)
+relu_ = relu
+elu_ = elu
+softmax_ = softmax
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """x1ᵀ W[o] x2 (+ bias) for each output o (op bilinear_op)."""
+    return _nn.bilinear(x1, x2, weight, bias)
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """The hierarchical sigmoid loss [B, 1] (op hsigmoid_loss_op)."""
+    return _nn.hsigmoid_loss(input, label, weight, bias, path_table,
+                             path_code, num_classes=int(num_classes))
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """Sliding blocks [N, C * kh * kw, L] (op unfold_op)."""
+    return _nn.unfold(x, kernel_sizes=_pair(kernel_sizes, 2),
+                      strides=_pair(strides, 2), paddings=_pair(paddings, 2),
+                      dilations=_pair(dilations, 2))
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """Resize the spatial axes (op interp_op, jax.image.resize's sampling:
+    see ops/nn_ops.py `interp`). A `scale_factor` becomes the size
+    int(in * factor), and the sampling follows that size, as in the
+    reference; `align_mode` is taken and ignored, as there."""
+    channel_last = data_format[-1] == "C" and len(data_format) > 2
+    nsp = x.ndim - 2
+    if size is None:
+        sf = (list(scale_factor) if isinstance(scale_factor, (list, tuple))
+              else [scale_factor] * nsp)
+        sp = x.shape[1:-1] if channel_last else x.shape[2:]
+        size = [int(s * f) for s, f in zip(sp, sf)]
+    elif isinstance(size, torch.Tensor):
+        size = [int(s) for s in size.reshape(-1).tolist()]
+    else:
+        size = [int(s) for s in (size if isinstance(size, (list, tuple))
+                                 else [size])]
+    return _nn.interp(x, size=tuple(size), mode=mode,
+                      align_corners=bool(align_corners),
+                      channel_last=channel_last)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, align_mode=0, data_format="NCHW",
+             name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format)
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    return _nn.pixel_shuffle(x, upscale_factor=int(upscale_factor),
+                             channel_last=data_format == "NHWC")
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    return _nn.pixel_unshuffle(x, downscale_factor=int(downscale_factor),
+                               channel_last=data_format == "NHWC")
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    return _nn.channel_shuffle(x, groups=int(groups),
+                               channel_last=data_format == "NHWC")
+
+
+# paddle's F.pad (op pad3d_op): constant, reflect, replicate or circular
+pad = _manip.pad
+
+
+def zeropad2d(x, padding, data_format="NCHW", name=None):
+    """Zeros around H and W by (left, right, top, bottom) (op
+    pad2d_zero_op)."""
+    return _nn.zero_pad(x, padding=tuple(int(p) for p in padding),
+                        channel_last=data_format == "NHWC")
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None,
+                   data_format="NCHW"):
+    """TSM's shift over [N * T, C, H, W]: the first C * ratio channels move
+    one segment back in time, the next as many one forward, zeros where
+    nothing arrives; the rest stay."""
+    nt, c, h, w = x.shape
+    n = nt // seg_num
+    data = reshape(x, (n, seg_num, c, h, w))
+    c1 = int(c * shift_ratio)
+    zero = torch.zeros_like(data[:, :1, :c1])
+    left = torch.cat([data[:, 1:, :c1], zero], dim=1)
+    right = torch.cat([torch.zeros_like(data[:, :1, c1:2 * c1]),
+                       data[:, :-1, c1:2 * c1]], dim=1)
+    out = torch.cat([left, right, data[:, :, 2 * c1:]], dim=2)
+    return reshape(out, (nt, c, h, w))
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False, name=None):
+    """CTC loss of [T, B, C] scores (log-softmax taken here) against padded
+    labels [B, L] (op warpctc); "mean" divides each sample's loss by its
+    label length (at least 1), then averages, as paddle and the reference
+    do; norm_by_times divides by the input lengths first."""
+    lp = log_softmax(log_probs, axis=-1)
+    nll = _nn.ctc_loss(lp, labels, input_lengths, label_lengths,
+                       blank=int(blank))
+    if norm_by_times:
+        nll = nll / cast(input_lengths, nll.dtype)
+    if reduction == "mean":
+        denom = maximum(cast(label_lengths, nll.dtype), 1.0)
+        return mean(nll / denom)
+    return _reduce_loss(nll, reduction)
+
+
+def ctc_align(x, input_length, blank=0, merge_repeated=True, padding_value=0,
+              name=None):
+    """Merge repeats, then drop blanks (op ctc_align_op): ([B, T], the
+    counts [B, 1])."""
+    return _nn.ctc_align(x, input_length, blank=int(blank),
+                         merge_repeated=bool(merge_repeated),
+                         padding_value=int(padding_value))
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, padding_value=0,
+                       name=None):
+    """The best path of [B, T, C] probabilities: the argmax of each step,
+    then ctc_align."""
+    idx = _math.argmax(input, axis=-1)
+    if input_length is None:
+        B, T = input.shape[0], input.shape[1]
+        input_length = torch.full((B, 1), T, dtype=torch.int64,
+                                  device=input.device)
+    return ctc_align(idx, input_length, blank=blank,
+                     padding_value=padding_value)
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None, name=None):
+    """The Levenshtein distance of each row, on the host as the reference
+    computes it: (distance [B, 1] float32, sequence count [1] float32);
+    normalized divides by the reference's length (an empty one raises).
+    It reads the tokens on the host, so it refuses a CUDA graph
+    capture."""
+    from ..ops.math import no_capture
+    no_capture("edit_distance")
+    host = lambda t: None if t is None else t.detach().cpu().numpy()  # noqa
+    hyp, ref = host(input), host(label)
+    B = hyp.shape[0]
+    hyp_len = (np.full((B,), hyp.shape[1], np.int64) if input_length is None
+               else host(input_length).reshape(B).astype(np.int64))
+    ref_len = (np.full((B,), ref.shape[1], np.int64) if label_length is None
+               else host(label_length).reshape(B).astype(np.int64))
+    ignored = set(ignored_tokens) if ignored_tokens else None
+    out = np.zeros((B, 1), np.float32)
+    for b in range(B):
+        h = [v for v in hyp[b][:hyp_len[b]] if not ignored or v not in ignored]
+        r = [v for v in ref[b][:ref_len[b]] if not ignored or v not in ignored]
+        row = np.arange(len(r) + 1, dtype=np.int64)
+        for i in range(1, len(h) + 1):
+            diag, row[0] = row[0], i
+            for j in range(1, len(r) + 1):
+                cur = min(row[j] + 1, row[j - 1] + 1,
+                          diag + (h[i - 1] != r[j - 1]))
+                diag, row[j] = row[j], cur
+        d = float(row[len(r)])
+        if normalized:
+            if not r:
+                raise ValueError("edit_distance: empty reference with "
+                                 "normalized=True (division by zero)")
+            d /= len(r)
+        out[b, 0] = d
+    dev = input.device
+    return (torch.from_numpy(out).to(dev),
+            torch.tensor([B], dtype=torch.float32, device=dev))
+
+
+def gather_tree(ids, parents):
+    """Beam-search backtrace [T, B, W] (op gather_tree_op)."""
+    return _nn.gather_tree(ids, parents)
+
+
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """Attention over a CSR pattern (q/k/v [B, H, M, D], offsets [B, H,
+    M + 1], columns [B, H, nnz]): the pattern becomes an additive mask (0
+    where kept, -1e30 elsewhere), `attn_mask` ([M, M], 0 drops) ANDed in
+    and `key_padding_mask` ([B, M]) added, then op masked_sdpa (a row
+    with no kept key gives zeros), as in the reference. The mask is built
+    on the device from the pattern, with no host read."""
+    B, H, M, _ = query.shape
+    offs = sparse_csr_offset.long()
+    cols = sparse_csr_columns.long()
+    nnz = cols.shape[-1]
+    idx = torch.arange(nnz, device=query.device)
+    rows = torch.searchsorted(offs[..., 1:].contiguous(),
+                              idx.expand(B, H, nnz).contiguous(),
+                              right=True)
+    valid = idx < (offs[..., -1:] - offs[..., :1])
+    flat = (rows.clamp(max=M - 1) * M + cols.clamp(0, M - 1))
+    hits = torch.zeros((B, H, M * M), dtype=torch.int32, device=query.device)
+    hits = hits.scatter_add(2, torch.where(valid, flat, 0),
+                            valid.to(torch.int32))
+    keep = (hits > 0).reshape(B, H, M, M)
+    if attn_mask is not None:
+        keep = keep & (attn_mask != 0)[None, None]
+    add_mask = torch.where(keep, 0.0, -1e30).to(query.dtype)
+    if key_padding_mask is not None:
+        add_mask = add_mask + key_padding_mask.to(query.dtype)[:, None,
+                                                                None, :]
+    return _nn.masked_sdpa(query, key, value, add_mask)
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    """The ArcFace-family loss on one process (op margin_cross_entropy_op);
+    `group` (the sharded classifier) waits for the distributed queue."""
+    if group is not None:
+        raise NotImplementedError("margin_cross_entropy(group=...): the "
+                                  "sharded classifier is not ported")
+    out = _nn.margin_cross_entropy(logits, label, margin1=float(margin1),
+                                   margin2=float(margin2),
+                                   margin3=float(margin3),
+                                   scale=float(scale),
+                                   return_softmax=bool(return_softmax))
+    loss, soft = out if return_softmax else (out, None)
+    if reduction == "mean":
+        loss = mean(loss)
+    elif reduction == "sum":
+        loss = loss.sum()
+    return (loss, soft) if return_softmax else loss
+
+
+def class_center_sample(label, num_classes, num_samples, group=None):
+    """The positive classes plus uniform negatives up to `num_samples`, on
+    the host as the reference samples them: (the labels remapped into the
+    sampled set, the sampled class ids, sorted). The negatives come from
+    the CPU generator (framework.random), not the reference's key. It
+    reads the labels on the host, so it refuses a CUDA graph capture."""
+    from ..ops.math import no_capture
+    no_capture("class_center_sample")
+    if group is not None:
+        raise NotImplementedError("class_center_sample(group=...): the "
+                                  "sharded classifier is not ported")
+    lab = label.detach().cpu().numpy().astype(np.int64).reshape(-1)
+    pos = np.unique(lab)
+    if len(pos) >= num_samples:
+        sampled = pos
+    else:
+        pool = np.setdiff1d(np.arange(num_classes, dtype=np.int64), pos)
+        need = min(num_samples - len(pos), len(pool))
+        pick = torch.randperm(len(pool), generator=RNG.cpu)[:need].numpy()
+        sampled = np.sort(np.concatenate([pos, pool[pick]]))
+    remap = np.searchsorted(sampled, lab)
+    dev = label.device
+    return (torch.from_numpy(remap.astype(np.int64)).to(dev),
+            torch.from_numpy(sampled.astype(np.int64)).to(dev))
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """The [N, H, W, 2] sampling grid of [N, 2, 3] affines (op
+    affine_grid_op); 4-D out_shape only, as in the reference."""
+    out_shape = [int(s) for s in (out_shape.tolist() if isinstance(
+        out_shape, torch.Tensor) else out_shape)]
+    if len(out_shape) != 4:
+        raise NotImplementedError("affine_grid supports 4-D out_shape [N, C, "
+                                  "H, W] (got %d dims)" % len(out_shape))
+    return _nn.affine_grid(theta, out_h=out_shape[2], out_w=out_shape[3],
+                           align_corners=bool(align_corners))
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    return _nn.grid_sample(x, grid, mode=mode, padding_mode=padding_mode,
+                           align_corners=bool(align_corners))
+
+
+from . import functional_sequence as sequence  # noqa: E402
+from .functional_sequence import (sequence_concat, sequence_conv,  # noqa
+                                  sequence_enumerate, sequence_erase,
+                                  sequence_expand, sequence_expand_as,
+                                  sequence_pad, sequence_pool,
+                                  sequence_reshape, sequence_reverse,
+                                  sequence_scatter, sequence_slice,
+                                  sequence_softmax, sequence_unpad)
+
+__all__ += [
+    "conv1d_transpose", "conv2d_transpose", "conv3d_transpose",
+    "max_pool1d", "max_pool3d", "avg_pool1d", "avg_pool3d",
+    "adaptive_avg_pool1d", "adaptive_avg_pool3d", "adaptive_max_pool1d",
+    "adaptive_max_pool2d", "adaptive_max_pool3d", "max_unpool2d",
+    "instance_norm", "group_norm", "local_response_norm", "normalize",
+    "dropout2d", "dropout3d", "alpha_dropout", "gumbel_softmax",
+    "diag_embed", "relu_", "elu_", "softmax_", "bilinear", "hsigmoid_loss",
+    "unfold", "interpolate", "upsample", "pixel_shuffle", "pixel_unshuffle",
+    "channel_shuffle", "pad", "zeropad2d", "temporal_shift", "ctc_loss",
+    "ctc_align", "ctc_greedy_decoder", "edit_distance", "gather_tree",
+    "sparse_attention", "margin_cross_entropy", "class_center_sample",
+    "affine_grid", "grid_sample", "sequence"] + sequence.__all__

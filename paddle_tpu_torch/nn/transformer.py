@@ -37,6 +37,7 @@ from torch import nn
 
 from . import functional as F
 from .layers import Dropout, LayerNorm, Linear
+from ..ops.manipulation import cast
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
@@ -49,8 +50,8 @@ def _convert_attention_mask(attn_mask, dtype):
     if attn_mask is None:
         return None
     if attn_mask.dtype in (torch.bool, torch.int32, torch.int64):
-        return (1.0 - attn_mask.to(dtype)) * -1e9
-    return attn_mask.to(dtype)
+        return (1.0 - cast(attn_mask, dtype)) * -1e9
+    return cast(attn_mask, dtype)
 
 
 class MultiHeadAttention(nn.Module):

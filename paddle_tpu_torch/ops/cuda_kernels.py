@@ -32,7 +32,8 @@ then runs the plain version for tensors that lie on the CPU and launches
 the kernel for CUDA tensors. There is no probe and no quiet fallback: a
 gate returns None (the caller's plain route) only when the kernel's flag
 is off (`use_flash_attention`, `use_fused_optimizer`,
-`paged_flash_decode`, `use_fused_dropout_ln`), or where the reference's
+`paged_flash_decode`; `use_fused_dropout_ln` is read by the
+incubate fused_transformer functions themselves), or where the reference's
 gate does so for what the call computes rather than for what its kernel
 takes: the flash gate on an additive mask or dropout p >= 1 (the
 reference's Pallas kernel takes neither, and the composed XLA attention
@@ -89,8 +90,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
            "fused_dropout_ln_bwd_plain", "FusedDropoutResidualLNFunction",
            "fused_dropout_bits", "fused_dropout_bits_plain", "dropout_keep",
            "dropout_keep_plain",
-           "fused_bias_dropout_residual_ln",
-           "fused_dropout_residual_ln_or_none", "DROPOUT_MODES", "adamw",
+           "fused_bias_dropout_residual_ln", "DROPOUT_MODES", "adamw",
            "adamw_plain", "adamw_plain_scalars", "adam_step_scalars",
            "fused_adamw_or_none", "paged_decode", "paged_decode_plain",
            "paged_split_geometry", "paged_int8_geometry",
@@ -1087,21 +1087,6 @@ def fused_bias_dropout_residual_ln(x, residual, bias, gamma, beta, p, eps,
     return FusedDropoutResidualLNFunction.apply(
         x, residual, bias, gamma, beta, p_eff, scale, float(eps), word,
         delta)
-
-
-def fused_dropout_residual_ln_or_none(x, residual, bias, gamma, beta, p, eps,
-                                      training, mode):
-    """Gate of `fused_bias_dropout_residual` and
-    `fused_bias_dropout_residual_layer_norm` (reference: pallas_kernels.py
-    fused_ln_shapes_ok :1024): None when `use_fused_dropout_ln` is off (the
-    caller runs the composed ops), else `fused_bias_dropout_residual_ln`'s
-    output. The reference's gate also hands a shape the TPU cannot tile
-    to the composed ops; this one raises ValueError on an input the
-    kernels do not take."""
-    if not flag("use_fused_dropout_ln"):
-        return None
-    return fused_bias_dropout_residual_ln(x, residual, bias, gamma, beta, p,
-                                          eps, training, mode)
 
 
 # ---------------------------------------------------------------------------

@@ -145,7 +145,7 @@ class AmpBf16Pass(PassBase):
     inputs cast), their outputs back to float32 (reference: the static
     AMP rewrite, a compute-dtype rewrite of the records)."""
 
-    DEFAULT_LIST = ("matmul_v2", "conv2d_op")
+    DEFAULT_LIST = ("matmul_v2", "conv2d_op", "conv2d_transpose_op")
 
     def __init__(self, op_types=None):
         self.op_types = tuple(op_types or self.DEFAULT_LIST)

@@ -362,8 +362,12 @@ class Program:
                 in_refs.append(("const", a))
                 metas.append(a)
         if prim.out_like is not None:
-            like = metas[prim.out_like]
-            outs = torch.empty(like.shape, dtype=like.dtype, device="meta")
+            likes = (prim.out_like if isinstance(prim.out_like, tuple)
+                     else (prim.out_like,))
+            outs = tuple(torch.empty(metas[i].shape, dtype=metas[i].dtype,
+                                     device="meta") for i in likes)
+            if not isinstance(prim.out_like, tuple):
+                outs = outs[0]
         else:
             try:
                 with torch.no_grad():
