@@ -36,8 +36,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plain rule leave the parameter and both moments bit-equal to their
      inputs (float32 and bfloat16); with the clip's scale word at 0.3711
      the kernel and the plain rule bit-equal to the composed float32
-     product g * scale; F.dropout's keep-mask kernel against
-     its plain version; the backward's mask equal to the forward's; each
+     product g * scale; the one-launch update over a mixed list of 324
+     tensors (every type pair, coeff 0 and 0.01, scaled and not, lr
+     factors, sizes 1 to 4 M + 3, views off 16-byte alignment) bit-equal
+     to the plain rule tensor by tensor over 3 steps, eagerly and from a
+     CUDA graph, the guard word 0 on step 2; F.dropout's keep-mask kernel
+     against its plain version (and its bits route against the plain
+     bits) at the main paths' shapes and at h = 1, h and n not multiples
+     of 4; the backward's mask equal to the forward's; each
      gate raising on inputs its kernel does not take, and the flash gate
      handing an additive mask and dropout p=1 to the plain attention;
   4. each kernel's device time (CUDA events, median of 25 runs of 10
@@ -87,10 +93,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shapes (flash forward with lse and dropout, flash backward dq and
      dk/dv: B=16, H=12, T=512, D=64, bfloat16, causal, p=0.1; AdamW over
      every gpt2-small parameter), each beside its bound, its plain
-     version's time and one library call's time (AdamW's 148 launches
-     with the clip's scale word replayed from one CUDA graph, beside the
-     same launches without it, PERF.md's time before the word, and the
-     launches enqueued one by one); the flash
+     version's time and one library call's time (AdamW's one launch over
+     the 148 tensors with the clip's scale word replayed from one CUDA
+     graph, beside the launch without it and the eager call's device and
+     host time); the flash
      forward and backward also at p=0 (their Philox share) and at ERNIE's
      attention (B=32, T=128, not causal, p=0.1); the keep-mask kernel at
      a hidden dropout's shape;
@@ -149,7 +155,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      PADDLE_TPU_CHAOS=nan_at_step:3 over 5 steps from a saved state
      through the captured graph: the loss NaN at step 3 only, that step
      alone skipped, parameters and both moments after it bit-equal to
-     their values after step 2, AdamW launched 148 times every step, and
+     their values after step 2, AdamW launched once every step, and
      steps 4-5 bit-equal to the same drill through the eager bodies; (3)
      the watchdog, step_watchdog_s=0.5 with hang_at_step:2:1.5 (warn):
      the dump names compiled train step 2 and the step finishes finite;
@@ -243,7 +249,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      callbacks=[LRScheduler(by_step=True)])`: the first 13 batches of 2
      worker processes (spawned: CUDA is up) bit-equal to num_workers=0's
      and pinned; one program, launches a step equal to phase 10's (rows
-     1t, 2, 3 12 each, row 7 148, row K 25), all through replays; the
+     1t, 2, 3 12 each, row 7 1, row K 25), all through replays; the
      per-step losses bit-equal to a make_train_step loop over the same
      batches from the same seed; `tools/ptdoctor.py summary` over the
      telemetry directory showing `retraces: jit_train=1` and the last
@@ -285,7 +291,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      paddle.to_tensor(ids), paddle.optimizer.AdamW(1e-4, wd 0.01),
      paddle.amp.decorate(O2, bfloat16), make_train_step, 2 warm-up and 10
      timed steps and float(loss.numpy()): one program, launches a step
-     (rows 1t, 2, 3 12 each, row 7 148, row K 25) through replays, path
+     (rows 1t, 2, 3 12 each, row 7 1, row K 25) through replays, path
      flash_dropout, finite losses; step ms (median), tokens/s, MFU by
      train_bench.py:139's formula, peak memory, one profiled step's idle
      share and kernel groups; (c) the same model at dropout 0, 3 steps
@@ -407,7 +413,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      dropouts 0.1, O2 bf16, AdamW, the criterion + 0.01 x moe_aux_loss(),
      through run_path (eager bodies, then the captured step with the
      counters zeroed just before and read just after: 12 launches a step
-     of rows 1t, 2, 3, 100 of row 7, 25 of row K), step ms, tokens/s,
+     of rows 1t, 2, 3, 1 of row 7, 25 of row K), step ms, tokens/s,
      MFU from the shapes (`moe_flops`, the dispatch and combine einsums
      at capacity included) with the expert FFNs' share, peak memory,
      graph pool, idle, the tokens over capacity by block, l_aux read
@@ -434,7 +440,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      UNet at full width (52,542,979 parameters in 446 tensors), B=128,
      O1 bf16, dropout 0.3, AdamW(1e-4, weight_decay 0), L_simple on
      x_t drawn outside the step, through run_path (15 launches a step of
-     rows 1t, 2 and 3, 446 of row 7, 30 of row K), step ms, images/s,
+     rows 1t, 2 and 3, 1 of row 7, 30 of row K), step ms, images/s,
      MFU from the shapes (`unet_flops`: 6.438 TFLOP a step), peak
      memory, graph pool, idle, the profile's groups; the captured step
      bit-equal to its eager bodies over 3 steps; rows 1t, 2, 3 at the
@@ -537,10 +543,6 @@ ADAMW_MOMENT_REL_TOL = 2 ** -23
 # the bfloat16 cases at lr 1e-2 on parameters of size ~1e-2 must move at
 # least this share of the elements, or the bit-equality shows nothing
 ADAMW_MOVED_MIN = 0.9
-# row 7's time in PERF.md before the clip's scale word (148 launches
-# replayed from one graph, on an H100 80GB HBM3 at 700 W), printed beside
-# the re-time
-ADAMW_EARLIER_MS = 1.3858
 # the clip scale the row-7 checks stage in the buffer's fifth word
 ADAMW_CHECK_SCALE = 0.3711
 # train_compare: max parameter difference after 3 float32 steps at lr
@@ -963,6 +965,13 @@ def step_scalars(torch, ck, lr, t, scale=1.0):
     return sc
 
 
+def adamw_launches(params):
+    """AdamW launches a step over `params`: one a (parameter dtype,
+    gradient dtype) group (`adamw_multi`); a gradient has its parameter's
+    dtype."""
+    return len({p.dtype for p in params})
+
+
 def check_adamw(torch, ck, gen):
     """The kernel, reading lr, c1 and c2 from a scalar buffer on the card,
     against the plain rule with host lr and t: parameter bit-equal,
@@ -1086,6 +1095,7 @@ def check_adamw(torch, ck, gen):
         "kernel is "
         "bit-equal to the plain rule" % (2304 * 768))
     check_adamw_scale(torch, ck, gen)
+    check_adamw_multi(torch, ck, gen)
     return worst_p
 
 
@@ -1143,6 +1153,125 @@ def check_adamw_scale(torch, ck, gen):
         % (ADAMW_CHECK_SCALE, worst_m))
 
 
+# the multi-tensor check's sizes: 1 to ~4 M elements, odd ones, the edges
+# of the kernel's 4-element vectors and 4096-element chunks
+ADAMW_MULTI_SIZES = (1, 2, 3, 4, 5, 7, 31, 64, 127, 128, 129, 255, 256, 511,
+                     512, 768, 1000, 1023, 3071, 4095, 4096, 4097, 8191,
+                     8192, 12289, 65535, 65537, 100003, 262144, 589825,
+                     768 * 768, 2304 * 768 + 1, 3 * 2 ** 20 + 5)
+# ... and one tensor of 4 M + 3 in each (parameter, gradient) type pair
+ADAMW_MULTI_BIG = 4 * 2 ** 20 + 3
+ADAMW_MULTI_PER_PAIR = 36
+
+
+def adamw_mixed_list(torch, gen):
+    """The multi-tensor check's entries: ADAMW_MULTI_PER_PAIR a
+    (parameter, gradient) type pair of float32, bfloat16 and float16 (324
+    in all), each a dict of param, grad, m1, m2 (fresh tensors; some views
+    one element into a larger buffer, so 4-byte but not 16-byte aligned)
+    and its coeff, clip bit and lr factor, in an order that interleaves
+    the pairs."""
+    types = (torch.float32, torch.bfloat16, torch.float16)
+    sizes = list(ADAMW_MULTI_SIZES) + [ADAMW_MULTI_BIG]
+    out = []
+    for i in range(ADAMW_MULTI_PER_PAIR):
+        for k, (pdt, gdt) in enumerate((a, b) for a in types for b in types):
+            numel = sizes[(i + 5 * k) % len(sizes)]
+            # all four tensors views, or the gradient alone
+            every, grad_only = (i + k) % 7 == 3, (i + k) % 7 == 5
+
+            def make(scale, dtype, view=every, positive=False):
+                t = torch.randn(numel + view, generator=gen, device="cuda")
+                t = ((t.abs() if positive else t) * scale).to(dtype)
+                return t[1:] if view else t
+            out.append(dict(
+                param=make(1e-2, pdt),
+                grad=make(1e-2, gdt, view=every or grad_only),
+                m1=make(1e-3, torch.float32),
+                m2=make(1e-5, torch.float32, positive=True),
+                coeff=(0.0, 0.01)[i % 2], scaled=(i // 2) % 2 == 1,
+                lr_factor=(1.0, 0.5, 2.0 / 3.0)[(i + k) % 3]))
+    return out
+
+
+def check_adamw_multi(torch, ck, gen):
+    """The multi-tensor launch (`adamw_multi`, the optimizer's route) on a
+    mixed list of 324 tensors of every (parameter, gradient) type pair,
+    coeff 0 and 0.01, scaled and not, lr factors 1, 0.5 and 2/3, sizes 1 to
+    4 M + 3, some views 4 bytes off 16-byte alignment, against the plain
+    rule tensor by tensor (`adamw_plain_scalars`, the lr factor's buffer
+    made as the optimizer makes it): over 3 steps with lr and t restaged
+    and the clip scale word at ADAMW_CHECK_SCALE, the second step's guard
+    word at 0, every parameter and moment bit-equal after each step,
+    eagerly (one launch a type pair) and replayed from a CUDA graph that
+    captured the launches once."""
+    from paddle_tpu_torch.framework.device import write_values
+    entries = adamw_mixed_list(torch, gen)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8)
+    cols = ("param", "grad", "m1", "m2")
+    attrs = {a: [e[a] for e in entries] for a in ("coeff", "scaled")}
+    attrs["lr_factor"] = [e["lr_factor"] for e in entries]
+    # the three copies of the state: eager kernel, graph, plain rule
+    state = [[{c: e[c].clone() if c != "grad" else e[c] for c in cols}
+              for e in entries] for _ in range(3)]
+    sc = torch.empty(5, device="cuda")
+
+    def multi(st):
+        ck.adamw_multi(*([x[c] for x in st] for c in cols), sc, **kw,
+                       coeff=attrs["coeff"], scaled=attrs["scaled"],
+                       lr_factor=attrs["lr_factor"])
+    write_values(sc, ck.adam_step_scalars(1e-2, 1, 0.9, 0.999))
+    torch.cuda.synchronize()
+    graph = graph_of(torch, lambda: multi(state[1]), 0)
+    pairs = {(e["param"].dtype, e["grad"].dtype) for e in entries}
+    groups = len(pairs)
+    n_el = sum(e["param"].numel() for e in entries)
+    for t, lr, go in ((1, 1e-2, 1.0), (2, 1e-2, 0.0), (3, 3e-3, 1.0)):
+        vals = ck.adam_step_scalars(lr, t, 0.9, 0.999)
+        vals[ck.GO], vals[ck.SCALE] = go, ADAMW_CHECK_SCALE
+        write_values(sc, vals)
+        before = [x["param"].clone() for x in state[2]]
+        mark = ck.launch_counts()
+        multi(state[0])
+        launched = ck.launch_delta(mark)
+        require(launched["adamw"] + launched["adamw" + ck.F16] == groups,
+                "adamw_multi: %s launches for %d type pairs"
+                % (launched, groups))
+        graph.replay()
+        for x, e in zip(state[2], entries):
+            f = e["lr_factor"]
+            psc = sc if f == 1.0 else torch.cat((sc[:1] * float(f), sc[1:]))
+            ck.adamw_plain_scalars(x["param"], x["grad"], x["m1"], x["m2"],
+                                   psc, coeff=e["coeff"], scaled=e["scaled"],
+                                   **kw)
+        torch.cuda.synchronize()
+        for route, st in (("eager", state[0]), ("graph", state[1])):
+            for i, (x, y) in enumerate(zip(st, state[2])):
+                require(all(torch.equal(x[c], y[c]) for c in cols),
+                        "adamw_multi %s step %d (go %g): entry %d (%s param, "
+                        "%s grad, %d elements, coeff %g, scaled %s, lr "
+                        "factor %g) differs from the plain rule"
+                        % (route, t, go, i, entries[i]["param"].dtype,
+                           entries[i]["grad"].dtype, x["param"].numel(),
+                           entries[i]["coeff"], entries[i]["scaled"],
+                           entries[i]["lr_factor"]))
+        moved = sum(int(not torch.equal(a, x["param"]))
+                    for a, x in zip(before, state[2]))
+        require(moved == 0 if go == 0 else moved > len(entries) // 2,
+                "adamw_multi step %d (go %g): %d of %d parameters moved"
+                % (t, go, moved, len(entries)))
+    say("check adamw multi-tensor: %d tensors (%d elements, sizes %d to %d, "
+        "%d entries with views off 16-byte alignment), %d type pairs, coeff 0 / 0.01, "
+        "scaled and not, lr factors 1 / 0.5 / 2/3: eager (%d launches a "
+        "step) and replayed from one CUDA graph, bit-equal to the plain rule "
+        "tensor by tensor over 3 steps (lr and t restaged, clip scale %g; "
+        "step 2's guard word 0 wrote nothing)"
+        % (len(entries), n_el, min(ADAMW_MULTI_SIZES), ADAMW_MULTI_BIG,
+           sum(1 for e in entries
+               if any(e[c].data_ptr() % 16 for c in cols)),
+           groups, groups, ADAMW_CHECK_SCALE))
+
+
 def keep_cases():
     """(shape, p) at which F.dropout's keep mask runs on the main paths:
     the training paths' hidden and ERNIE's feed-forward activation at the
@@ -1153,7 +1282,15 @@ def keep_cases():
     main = [((TRAIN_B, TRAIN_T, 768), p) for p in (DROPOUT, 0.5)] + [
         ((ERNIE_B, ERNIE_T, w), p) for w in (768, 3072)
         for p in (DROPOUT, 0.5)] + [((3, 5, 7), p) for p in (DROPOUT, 0.5)]
-    return main + ptb_keep_cases() + unet_keep_cases()
+    return (main + [(shape, DROPOUT) for shape in KEEP_EDGE_SHAPES]
+            + ptb_keep_cases() + unet_keep_cases())
+
+
+# shapes at the edges of the keep-mask kernel's lanes (4 columns of a 4-row
+# group, whole groups and quads stored 4 bytes a row): h = 1, h not a
+# multiple of 4 or of 16, n not a multiple of 4, one row
+KEEP_EDGE_SHAPES = ((5, 1), (4, 1, 1), (7, 6), (9, 20), (2, 3, 33),
+                    (1, 130), (13, 1500), (6, 36), (4, 12), (3, 2, 4, 17))
 
 
 def ptb_keep_cases():
@@ -1172,18 +1309,28 @@ def unet_keep_cases():
 def check_dropout_keep(torch, ck, cases):
     """The keep mask of F.dropout on the card (`dropout_keep`: the fused
     bits kernel under its own tag) bit-equal to its plain version at each
-    (shape, p) of `cases`, and its drop rate at the largest of them."""
+    (shape, p) of `cases`, the same kernel's bits route
+    (`fused_dropout_bits`) bit-equal to the plain bits at each shape, and
+    the mask's drop rate at the largest of them."""
     for shape, p in cases:
         got = ck.dropout_keep(WORD, DELTA, shape, p)
         want = ck.dropout_keep_plain(SEED, OFFSET, shape, p, device="cuda")
         require(got.dtype == torch.bool and torch.equal(got, want),
                 "dropout_keep %s p=%g differs from its plain version"
                 % (shape, p))
+    for shape, _ in cases:                  # the mask = 0 route: the bits
+        n, h = int(np.prod(shape[:-1])), shape[-1]
+        require(torch.equal(
+            ck.fused_dropout_bits(WORD, DELTA, n, h),
+            ck.fused_dropout_bits_plain(SEED, OFFSET, n, h, device="cuda")),
+            "fused_dropout_bits [%d, %d] differ from the plain Philox"
+            % (n, h))
     shape, p = max(cases, key=lambda c: int(np.prod(c[0])))
     rate = 1.0 - ck.dropout_keep(WORD, DELTA, shape, p).double().mean().item()
     require(abs(rate - p) <= DROP_RATE_TOL, "dropout_keep rate %.5f at %s "
             "p=%g" % (rate, shape, p))
-    say("check dropout_keep: bit-equal to the plain Philox mask at %s; drop "
+    say("check dropout_keep: bit-equal to the plain Philox mask (and "
+        "fused_dropout_bits to the plain bits) at %s; drop "
         "rate %.5f at %s (want %.3f +- %.3f)"
         % (["%s p=%g" % c for c in cases], rate, shape, p, DROP_RATE_TOL))
     return 0.0
@@ -1286,6 +1433,21 @@ def check_gates(torch, ck, gen):
     bad.append(("float64 adamw", lambda: ck.fused_adamw_or_none(
         w, w, sc, m, m, beta1=0.9, beta2=0.999, epsilon=1e-8,
         coeff=0.0)))
+    f = torch.zeros(16, device="cuda")
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.0)
+    for what, lists in (
+            ("a float64 entry", ([f, w], [f, w], [m, m], [m, m])),
+            ("lists of unequal length", ([f, f], [f], [m, m], [m, m])),
+            ("an empty list", ([], [], [], [])),
+            ("a strided gradient", ([f], [torch.zeros(32, device="cuda")
+                                         [::2]], [m], [m])),
+            ("a float16 moment", ([f], [f], [m.half()], [m])),
+            ("a CPU entry", ([f, f.cpu()], [f, f.cpu()], [m, m.cpu()],
+                             [m, m.cpu()])),
+            ("a shape mismatch", ([f], [f[:8]], [m], [m]))):
+        bad.append(("multi-tensor adamw with " + what,
+                    lambda lists=lists: ck.fused_adamw_multi_or_none(
+                        lists[0], lists[1], sc, lists[2], lists[3], **kw)))
     args = paged_inputs(torch, False, [3, 4], gen, B=2, H=2, T=64, D=64)
     args[3] = args[3].long()
     bad.append(("int64 lens",
@@ -1468,22 +1630,24 @@ def train_timings(torch, ck, F, timer, gen):
 
 
 def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16",
-               plain_runs=(25, 10)):
-    """One AdamW step over tensors shaped like every gpt2-small parameter,
-    bfloat16 parameters and gradients, float32 moments, as the O2 main
-    path runs it: one launch per parameter, lr and the bias corrections
-    from the scalar buffer, each gradient times the clip's scale word (the
-    GPT-2 configuration's ClipGradByGlobalNorm, phase 17). The row's time
-    is the launches replayed from one CUDA graph, as the captured train
-    step runs them: device time alone. The same launches without the
-    scale (phase 10's optimizer) are replayed too, and enqueued one by one
-    from the host (the time this row reported before the step was
-    captured). With dt_name float16: the same for the kernel's float16
-    instance; PyTorch's AdamW(fused=True) keeps float16 moments there, so it
-    is no yardstick of the same function (library_ms None). With float32
-    (an O1 path's parameters and gradients): 28 bytes an element in the
-    bound, and PyTorch's fused AdamW computes the same function. The plain
-    version is timed over `plain_runs` (runs, calls a run)."""
+               plain_runs=(3, 1)):
+    """One AdamW step over tensors shaped like `shapes` (a model's
+    parameters), `dt_name` parameters and gradients, float32 moments, as
+    the captured train step runs it: one launch for the whole list
+    (`adamw_multi`), lr and the bias corrections from the scalar buffer,
+    each gradient times the clip's scale word (the GPT-2 configuration's
+    ClipGradByGlobalNorm, phase 17). The row's time is that launch
+    replayed from a CUDA graph: device time alone. The launch without the
+    scale (phase 10's optimizer) is replayed too, and the eager call is
+    timed on the device and, apart, on the host (the seconds a step's
+    Python takes to check and enqueue it; the packed table reused). With
+    dt_name float16: the kernel's float16 instance; PyTorch's
+    AdamW(fused=True) keeps float16 moments there, so it is no yardstick
+    of the same function (library_ms None). With float32 (an O1 path's
+    parameters and gradients): 28 bytes an element in the bound, and
+    PyTorch's fused AdamW computes the same function. The plain version,
+    tensor by tensor (0.07-0.22 s a call on an H100), is timed over
+    `plain_runs` (runs, calls a run)."""
     dt = getattr(torch, dt_name)
     ps = [torch.randn(s, generator=gen, device="cuda").to(dt)
           for s in shapes]
@@ -1494,13 +1658,14 @@ def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16",
     sc = step_scalars(torch, ck, 1e-4, 10, ADAMW_CHECK_SCALE)
     kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.01)
 
-    def run(fn, *args, **extra):
-        for p, g, a, b in zip(ps, gs, m1, m2):
-            fn(p, g, a, b, *args, **kw, **extra)
+    def multi(**extra):
+        ck.adamw_multi(ps, gs, m1, m2, sc, **kw, **extra)
 
-    def captured(**extra):
-        return graph_of(torch, lambda: run(ck.adamw, sc, **extra), 1)
-    graph, unscaled = captured(scaled=True), captured()
+    def plain():
+        for p, g, a, b in zip(ps, gs, m1, m2):
+            ck.adamw_plain_scalars(p, g, a, b, sc, scaled=True, **kw)
+    graph = graph_of(torch, lambda: multi(scaled=True), 1)
+    unscaled = graph_of(torch, multi, 1)
     lib_p = [p.clone().requires_grad_() for p in ps]
     for p, g in zip(lib_p, gs):
         p.grad = g.clone()
@@ -1511,26 +1676,42 @@ def time_adamw(torch, ck, timer, gen, shapes, card, dt_name="bfloat16",
     # and the scale's product
     size = torch.empty((), dtype=dt).element_size()
     b, by = bound_ms((3 * size + 16) * n, 11 * n, "float32")
-    eager_ms = timer.ms(lambda: run(ck.adamw, sc))
+    mark = ck.launch_counts()
+    multi()
+    launched = ck.launch_delta(mark)
+    per_step = launched["adamw"] + launched["adamw" + ck.F16]
+    require(per_step == 1, "time adamw: %d launches for one type pair"
+            % per_step)
+    eager_ms = timer.ms(multi)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            multi()
+        host.append((time.perf_counter() - t0) * 1e2)
+    host_ms = statistics.median(host)
     unscaled_ms = timer.ms(unscaled.replay)
     lib_ms = timer.ms(lib.step)
     out = {"ms": timer.ms(graph.replay),
-           "plain_ms": timer.ms(lambda: run(ck.adamw_plain_scalars, sc,
-                                            scaled=True), *plain_runs),
+           "plain_ms": timer.ms(plain, *plain_runs),
            "library_ms": lib_ms if dt != torch.float16 else None,
-           "bound_ms": b, "bound_by": by}
+           "bound_ms": b, "bound_by": by, "tensors": len(shapes),
+           "unscaled_ms": unscaled_ms, "eager_ms": eager_ms,
+           "host_ms": host_ms}
     say("time adamw %d parameters, %d elements, %s param+grad, f32 "
-        "moments, the clip's scale word: %.4f ms/step replayed from a CUDA "
-        "graph (without the scale %.4f ms replayed, %.4f ms enqueued one "
-        "launch at a time), plain %.4f ms, torch AdamW(fused=True) %.4f ms "
-        "(%s moments), bound %.4f ms (%s)"
+        "moments, the clip's scale word, one launch: %.4f ms/step replayed "
+        "from a CUDA graph (without the scale %.4f ms replayed; the eager "
+        "call %.4f ms on the device, %.4f ms of host time to check and "
+        "enqueue), plain %.4f ms, torch AdamW(fused=True) %.4f ms (%s "
+        "moments), bound %.4f ms (%s)"
         % (len(shapes), n, SHORT[dt_name], out["ms"], unscaled_ms, eager_ms,
-           out["plain_ms"], lib_ms, SHORT[dt_name], b, by))
+           host_ms, out["plain_ms"], lib_ms, SHORT[dt_name], b, by))
     say("time adamw %s with the scale word: %.4f ms/step replayed, %.2f of "
-        "its bound, %+.4f ms against the unscaled launches in this run; "
-        "PERF.md's bf16 time before the word %.4f ms (another run) (%s)"
-        % (SHORT[dt_name], out["ms"], b / out["ms"], out["ms"] - unscaled_ms,
-           ADAMW_EARLIER_MS, card))
+        "its bound, %.2f of torch's fused AdamW time, %+.4f ms against the "
+        "unscaled launch in this run (%s)"
+        % (SHORT[dt_name], out["ms"], b / out["ms"], lib_ms / out["ms"],
+           out["ms"] - unscaled_ms, card))
     return out
 
 
@@ -1868,7 +2049,8 @@ def train_main(torch, ck, flags, card, fused=False, dtype="bfloat16"):
                time.perf_counter() - t0, "on" if fused else "off"))
         L = len(model.gpt.layers)
         want = {"flash_fwd_train" + sfx: L, "flash_bwd_dq" + sfx: L,
-                "flash_bwd_dkv" + sfx: L, "adamw" + sfx: n_tensors,
+                "flash_bwd_dkv" + sfx: L,
+                "adamw" + sfx: adamw_launches(model.parameters()),
                 "fused_dropout_ln_fwd" + sfx: L if fused else 0,
                 "fused_dropout_residual_fwd" + sfx: L if fused else 0,
                 "fused_dropout_ln_bwd" + sfx: 2 * L if fused else 0,
@@ -2445,7 +2627,8 @@ def ernie_main(torch, ck, flags, card):
         L = len(net.bert.layers)
         want = {"fused_dropout_ln_fwd": 2 * L, "fused_dropout_ln_bwd": 2 * L,
                 "flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-                "adamw": n_tensors, "fused_dropout_residual_fwd": 0,
+                "adamw": adamw_launches(net.parameters()),
+                "fused_dropout_residual_fwd": 0,
                 # the feed-forward's activation dropout a layer and the
                 # embeddings' dropout
                 "dropout_keep": L + 1}
@@ -2657,7 +2840,6 @@ def guards_main(torch, ck, flags, card, off_ms, off_launches):
                           parameters=model.parameters())
     model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
     L = len(model.gpt.layers)
-    n_tensors = len(list(model.parameters()))
     loader = io.DataLoader(token_stream(io, model.gpt.vocab_size, TRAIN_T),
                            batch_size=TRAIN_B, prefetch_to_device=2)
     it = iter(loader)
@@ -2808,7 +2990,7 @@ def guards_main(torch, ck, flags, card, off_ms, off_launches):
                 "guards (2): the skipped step changed parameters or moments")
         require(not same(g["state"][3], g["state"][2]),
                 "guards (2): step 4 did not move the model")
-        require(g["adamw"] == [n_tensors] * 5,
+        require(g["adamw"] == [adamw_launches(model.parameters())] * 5,
                 "guards (2): AdamW launches a step %s" % g["adamw"])
         same_loss = lambda a, b: (torch.equal(a, b)  # noqa: E731
                                   or bool(a.isnan() and b.isnan()))
@@ -3967,7 +4149,7 @@ def scaler_main(torch, ck, card):
     taken = SCALER_STEPS - sum(skipped)
     require(all(math.isfinite(x) for x in losses) and taken > 0,
             "scaler (b): losses %s, %d steps taken" % (losses, taken))
-    require(launches["adamw" + ck.F16] == len(params) * taken
+    require(launches["adamw" + ck.F16] == adamw_launches(params) * taken
             and launches["flash_fwd_train" + ck.F16] > 0
             and launches["adamw"] == 0,
             "scaler (b): launches %s for %d steps taken" % (launches, taken))
@@ -4890,9 +5072,10 @@ def fit_gpt2(torch, ck, card, off_ms, off_launches):
     model, opt, sched, crit = gpt2_fit_setup(torch)
     vocab = model.gpt.vocab_size
     data = TokenPairs(vocab, TRAIN_T)
-    L, n_tensors = len(model.gpt.layers), len(list(model.parameters()))
+    L = len(model.gpt.layers)
     want = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "adamw": n_tensors, "dropout_keep": 2 * L + 1}
+            "adamw": adamw_launches(model.parameters()),
+            "dropout_keep": 2 * L + 1}
     # the loader's batches: 2 workers against the consumer's own, in order
     loaders = [io.DataLoader(data, batch_size=TRAIN_B, num_workers=w)
                for w in (FIT_WORKERS, 0)]
@@ -5475,7 +5658,8 @@ def long_bench(torch, ck, paddle, gpt2_small, card):
             % (step.compiles, step.replays, n_steps))
     per_step = {k: launches[k] / (n_steps - 1) for k in launches}
     want = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "adamw": n_tensors, "dropout_keep": 2 * L + 1}
+            "adamw": adamw_launches(net.parameters()),
+            "dropout_keep": 2 * L + 1}
     say("long (b) launches %s, attention paths %s" % (launches, paths))
     require(all(per_step[k] == v for k, v in want.items()),
             "long (b): launches a step %s, want %s" % (per_step, want))
@@ -6089,9 +6273,6 @@ NMT_NEAR_ZERO = 0.1
 # (c): greedy steps; (a): the self-attention cache lengths checked
 NMT_DECODE = 64
 NMT_SELF_T = (1, 32, 64)
-# row 7's plain version over the model's 253 parameters takes ~0.15 s a
-# call: timed over 3 runs of 1 call
-NMT_PLAIN_RUNS = (3, 1)
 # (c): the cached and the uncached decode may first differ only where the
 # uncached run's top-2 logits are at most this far apart (a near tie).
 # Both decodes take the output projection in float32 (decode_step), so
@@ -6497,7 +6678,8 @@ def nmt_train(torch, ck, card, batches):
     want = {"flash_fwd_train": 2 * L, "flash_bwd_dq": 2 * L,
             "flash_bwd_dkv": 2 * L, "flash_fwd": 0,
             "fused_dropout_ln_fwd": 5 * L, "fused_dropout_residual_fwd": 0,
-            "fused_dropout_ln_bwd": 5 * L, "adamw": n_tensors,
+            "fused_dropout_ln_bwd": 5 * L,
+            "adamw": adamw_launches(model.parameters()),
             "dropout_keep": 2 * L + L + 2}
     step = make_train_step(model, loss_fn, opt)
     n_steps = NMT_WARMUP + NMT_STEPS
@@ -6763,9 +6945,8 @@ def nmt_main(torch, ck, F, flags, card):
         batches = nmt_batches(torch, NMT_BATCHES)
         model, tlaunches, entry = nmt_train(torch, ck, card, batches)
         shapes = [tuple(p.shape) for p in model.parameters()]
-        kern["adamw"].append(dict(time_adamw(
-            torch, ck, timer, gen, shapes, card, plain_runs=NMT_PLAIN_RUNS),
-            tensors=len(shapes)))
+        kern["adamw"].append(time_adamw(torch, ck, timer, gen, shapes,
+                                        card))
         t2 = time.perf_counter()
         src = batches[0][0][0]
         dlaunches, dec = nmt_decode(torch, ck, model, src, card)
@@ -7931,8 +8112,8 @@ def moe_train(torch, ck, card):
         return [ids[:, :-1]], [ids[:, 1:]]
     L = len(gpt.layers)
     want = {"flash_fwd_train": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "adamw": n_tensors, "dropout_keep": 2 * L + 1,
-            "fused_dropout_ln_fwd": 0, "fused_dropout_residual_fwd": 0,
+            "adamw": adamw_launches(model.parameters()),
+            "dropout_keep": 2 * L + 1, "fused_dropout_ln_fwd": 0, "fused_dropout_residual_fwd": 0,
             "fused_dropout_ln_bwd": 0}
     flops, expert_flops = moe_flops(TRAIN_B, TRAIN_T, model)
     launches, paths, step_ms, _, _ = run_path(
@@ -8067,8 +8248,7 @@ def moe_main(torch, ck, flags, card, timer=None, gen=None):
     t2 = time.perf_counter()
     timer = timer or Timer(torch)
     gen = gen or torch.Generator(device="cuda").manual_seed(0)
-    adamw = time_adamw(torch, ck, timer, gen, shapes, card,
-                       plain_runs=(3, 1))
+    adamw = time_adamw(torch, ck, timer, gen, shapes, card)
     free_memory(torch)
     t3 = time.perf_counter()
     flips = moe_compare(torch, ck, flags)
@@ -8764,7 +8944,8 @@ def unet_train(torch, ck, card):
                  if type(m).__name__ == "AttentionBlock")
     n_res = sum(1 for m in model.modules() if type(m).__name__ == "ResBlock")
     want = {"flash_fwd_train": n_attn, "flash_bwd_dq": n_attn,
-            "flash_bwd_dkv": n_attn, "adamw": n_tensors,
+            "flash_bwd_dkv": n_attn,
+            "adamw": adamw_launches(model.parameters()),
             "dropout_keep": n_res, "fused_dropout_ln_fwd": 0,
             "fused_dropout_residual_fwd": 0, "fused_dropout_ln_bwd": 0}
     launches, paths, step_ms, _, _ = run_path(
@@ -8915,7 +9096,7 @@ def unet_main(torch, ck, F, flags, card, timer=None, gen=None):
     gen = gen or torch.Generator(device="cuda").manual_seed(0)
     flash, keep = unet_kernel_times(torch, ck, F, timer, gen, card)
     adamw = time_adamw(torch, ck, timer, gen, shapes, card,
-                       dt_name="float32", plain_runs=(3, 1))
+                       dt_name="float32")
     free_memory(torch)
     t3 = time.perf_counter()
     unet_compare(torch, ck, flags)
@@ -9434,9 +9615,8 @@ def main():
                 e["nmt_check_launches"] = nmt["fused"]["pre-LN"][
                     "layer_launches"][name]
     adamw_row = next(e for e in table if e["name"] == "adamw")
-    adamw_row["moe"] = dict(
-        tensors=moe["launches"]["adamw"] // (TRAIN_WARMUP + TRAIN_STEPS),
-        launches=moe["launches"]["adamw"], **moe["adamw"])
+    adamw_row["moe"] = dict(launches=moe["launches"]["adamw"],
+                            **moe["adamw"])
     keep_row = next(e for e in table if e["name"] == "dropout_keep")
     keep_row["ptb"] = dict(shape=[PTB_B, PTB_T, PTB_HIDDEN], p=PTB_DROPOUT,
                            launches=rnn["launches"]["dropout_keep"],
@@ -9446,9 +9626,9 @@ def main():
                             p=UNET_DROPOUT,
                             launches=unet["launches"]["dropout_keep"],
                             **unet["keep"])
-    adamw_row["unet"] = dict(
-        tensors=unet["launches"]["adamw"] // steps, dtype="float32",
-        launches=unet["launches"]["adamw"], **unet["adamw"])
+    adamw_row["unet"] = dict(dtype="float32",
+                             launches=unet["launches"]["adamw"],
+                             **unet["adamw"])
     for e in table:                     # rows 1t, 2, 3 at the UNet's shapes
         if e["name"] in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
             e["unet"] = [dict(unet["flash"][T][e["name"]],

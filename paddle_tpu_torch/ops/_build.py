@@ -44,7 +44,7 @@ KERNEL_SOURCES = {
                  "fused_dropout_ln")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U, _I64 = ctypes.c_uint, ctypes.c_longlong
+_U = ctypes.c_uint
 # dropout arguments of the flash kernels: on, threshold, scale, the Philox
 # word (seed, base offset) in device memory, the call's delta
 _DROP = [_I, _U, _F, _P, _U]
@@ -65,11 +65,11 @@ _SIGNATURES = {
         "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I] + _DROP + [_P],
     },
     "adamw": {
-        # param, grad, m1, m2, n, ptype, gtype, scalars (lr, c1, c2, go,
-        # scale in device memory), coeff, use_decay, use_scale, b1, 1-b1,
-        # b2, 1-b2, eps, stream
-        "adamw": [_P] * 4 + [_I64, _I, _I, _P, _F, _I, _I] + [_F] * 5
-                 + [_P],
+        # table (host memory), count, ptype, gtype, scalars (lr, c1, c2,
+        # go, scale in device memory), b1, 1-b1, b2, 1-b2, eps, stream
+        "adamw_multi": [_P, _I, _I, _I, _P] + [_F] * 5 + [_P],
+        # out: sizeof(Table), capacity, chunk, the fields' offsets
+        "adamw_table_layout": [_P],
     },
     "paged_decode": {
         # q, nk, nv, strides*, kc, vc, ks, vs, lens, out, part, ticket, B,

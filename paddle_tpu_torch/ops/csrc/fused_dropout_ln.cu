@@ -894,27 +894,105 @@ int launch_fwd_ln(const FwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// MASK: out is bool [n, h], bits >= d.thr (a dropout keep mask); else out
-// is uint32 [n, h], the bits
+// One lane's bits: 4-row group `group`, columns c0 .. c0 + 3 (4 Philox
+// calls, one a column). MASK: out is bool [n, h], bits >= d.thr (a dropout
+// keep mask), each row's 4 bytes one 4-byte store; else out is uint32 [n,
+// h], the bits, each row's 4 words one 16-byte store. `vec` (h % 4 == 0 and
+// out 16-byte aligned) lets a whole group and quad take those stores; the
+// last partial group and the ragged column tail store element by element.
 template <bool MASK>
-__global__ void fdrln_bits_kernel(void* __restrict__ out, DropArgs da, int n,
-                                  int h) {
-  const Drop d = resolve(da);
-  const int groups = (n + kRows - 1) / kRows;
-  const long long total = (long long)groups * h;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const int group = (int)(t / h), c = (int)(t % h);
-    const uint4 w = bits4(d, group, c, da.tag);
-    for (int r = 0; r < kRows && group * kRows + r < n; ++r) {
-      const size_t i = (size_t)(group * kRows + r) * h + c;
-      const unsigned b = attn_dropout::word(w, r);
+__device__ __forceinline__ void bits_lane(void* __restrict__ out,
+                                          const Drop& d, unsigned tag, int n,
+                                          int h, bool vec, int group,
+                                          int c0) {
+  uint4 w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = bits4(d, group, c0 + j, tag);
+  const int row0 = group * kRows;
+  if (vec && row0 + kRows <= n && c0 + 4 <= h) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const size_t i = (size_t)(row0 + r) * h + c0;
+      const unsigned b0 = attn_dropout::word(w[0], r),
+                     b1 = attn_dropout::word(w[1], r),
+                     b2 = attn_dropout::word(w[2], r),
+                     b3 = attn_dropout::word(w[3], r);
+      if (MASK)
+        *reinterpret_cast<unsigned*>(static_cast<bool*>(out) + i) =
+            (unsigned)(b0 >= d.thr) | (unsigned)(b1 >= d.thr) << 8 |
+            (unsigned)(b2 >= d.thr) << 16 | (unsigned)(b3 >= d.thr) << 24;
+      else
+        *reinterpret_cast<uint4*>(static_cast<unsigned*>(out) + i) =
+            make_uint4(b0, b1, b2, b3);
+    }
+    return;
+  }
+  for (int r = 0; r < kRows && row0 + r < n; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (c0 + j >= h) break;
+      const size_t i = (size_t)(row0 + r) * h + c0 + j;
+      const unsigned b = attn_dropout::word(w[j], r);
       if (MASK)
         static_cast<bool*>(out)[i] = b >= d.thr;
       else
         static_cast<unsigned*>(out)[i] = b;
     }
+}
+
+// The bits of rows [n, h], a lane per (4-row group, 4 adjacent columns):
+// lane t takes group t / quads and columns 4 (t % quads) .., quads = ceil(h
+// / 4). The split is 32-bit, by a multiply-high with the host's magic
+// number for quads (t < 2^31: t / quads = (umulhi(t, magic) + t) >>
+// shift), one lane a thread. WIDE (groups * quads >= 2^31): 64-bit
+// division in a grid-stride loop. What bounds it on the H100: the Philox
+// calls (~60 int32 operations each, one a 4 elements) against one byte
+// written an element. A lane per (group, column) with a 64-bit t / h and
+// t % h, as the kernel first did, spent about as many instructions on the
+// split as on Philox and stored single bytes at row stride; here the
+// split is ~4 instructions for 4 calls, and a warp stores 128 contiguous
+// bytes a row.
+template <bool MASK, bool WIDE>
+__global__ void __launch_bounds__(256)
+fdrln_bits_kernel(void* __restrict__ out, DropArgs da, int n, int h,
+                  int vec, unsigned quads, unsigned magic, unsigned shift,
+                  long long total) {
+  const Drop d = resolve(da);
+  if (WIDE) {
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += (long long)gridDim.x * blockDim.x)
+      bits_lane<MASK>(out, d, da.tag, n, h, vec, (int)(t / quads),
+                      (int)(t % quads) * 4);
+    return;
   }
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (unsigned)total) return;
+  const unsigned group = (__umulhi(t, magic) + t) >> shift;
+  bits_lane<MASK>(out, d, da.tag, n, h, vec, (int)group,
+                  (int)(t - group * quads) * 4);
+}
+
+template <bool MASK>
+void launch_bits(void* out, const DropArgs& d, int n, int h,
+                 cudaStream_t stream) {
+  const unsigned quads = (unsigned)((h + 3) / 4);
+  const long long total = (long long)((n + kRows - 1) / kRows) * quads;
+  const int vec =
+      h % 4 == 0 && reinterpret_cast<unsigned long long>(out) % 16 == 0;
+  if (total >= (1ll << 31)) {
+    fdrln_bits_kernel<MASK, true><<<132 * 16, 256, 0, stream>>>(
+        out, d, n, h, vec, quads, 0u, 0u, total);
+    return;
+  }
+  // magic number for t / quads (t < 2^31): shift = ceil(log2(quads)),
+  // magic = floor(2^32 (2^shift - quads) / quads) + 1
+  unsigned shift = 0;
+  while ((1ull << shift) < quads) ++shift;
+  const unsigned magic = (unsigned)(
+      ((1ull << 32) * ((1ull << shift) - quads)) / quads + 1);
+  fdrln_bits_kernel<MASK, false><<<(unsigned)((total + 255) / 256), 256, 0,
+                                   stream>>>(out, d, n, h, vec, quads, magic,
+                                             shift, total);
 }
 
 }  // namespace
@@ -1028,12 +1106,9 @@ extern "C" int fused_dropout_bits(void* out, const unsigned long long* rng,
                                   cudaStream_t stream) {
   if (n < 1 || h < 1) return (int)cudaErrorInvalidValue;
   const DropArgs d{1, thr, 1.f, rng, rng_delta, tag ? tag : kTag};
-  const long long total = (long long)((n + kRows - 1) / kRows) * h;
-  long long blocks = (total + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
   if (mask)
-    fdrln_bits_kernel<true><<<(int)blocks, 256, 0, stream>>>(out, d, n, h);
+    launch_bits<true>(out, d, n, h, stream);
   else
-    fdrln_bits_kernel<false><<<(int)blocks, 256, 0, stream>>>(out, d, n, h);
+    launch_bits<false>(out, d, n, h, stream);
   return (int)cudaGetLastError();
 }

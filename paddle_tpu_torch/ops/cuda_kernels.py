@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -91,8 +92,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd_train",
            "fused_dropout_bits", "fused_dropout_bits_plain", "dropout_keep",
            "dropout_keep_plain",
            "fused_bias_dropout_residual_ln", "DROPOUT_MODES", "adamw",
-           "adamw_plain", "adamw_plain_scalars", "adam_step_scalars",
-           "fused_adamw_or_none", "paged_decode", "paged_decode_plain",
+           "adamw_multi", "adamw_plain", "adamw_plain_scalars",
+           "adam_step_scalars", "fused_adamw_or_none",
+           "fused_adamw_multi_or_none", "paged_decode", "paged_decode_plain",
            "paged_split_geometry", "paged_int8_geometry",
            "paged_workspace_numel", "paged_decode_attention_or_none",
            "quantize_kv", "dequantize_kv", "launch_counts", "launch_delta",
@@ -766,8 +768,10 @@ def dropout_keep(word, delta, shape, p):
     device, drawn by the Philox bits kernel of fused_dropout_ln.cu under a
     tag of its own from the Philox word and delta: keep iff bits >=
     floor(p * 2^32), the fused kernels' rule. Bound on the H100: the
-    Philox calls (one per 4 elements, ~90 integer instructions each)
-    against one byte written an element. The plain version on the CPU."""
+    Philox calls (one per 4 elements, ~60-90 integer instructions each)
+    against one byte written an element; a lane takes 4 columns of a
+    4-row group and splits its index in 32 bits (fused_dropout_ln.cu
+    `fdrln_bits_kernel`). The plain version on the CPU."""
     shape = tuple(int(x) for x in shape)
     _word_check(word, word, "dropout_keep")
     _need(len(shape) >= 1 and all(x >= 1 for x in shape)
@@ -1094,13 +1098,15 @@ def fused_bias_dropout_residual_ln(x, residual, bias, gamma, beta, p, eps,
 #
 # Replaces pallas_kernels.py `_adamw_kernel` (:1044, via `fused_adamw_or_none`
 # :1067). Bound on the H100: bytes (22 per element for a bfloat16 or float16
-# parameter and gradient, 28 for float32). One pass, in place; one launch per
-# parameter. lr and the bias corrections c1 = 1 - beta1^t, c2 = 1 - beta2^t
-# change every step, so the kernel reads them from a float32 device buffer [lr,
-# c1, c2, go, scale] (`adam_step_scalars`, filled by the optimizer once a
-# step), as `_adamw_kernel` reads its SMEM refs. `go` is the non-finite guard's
-# word (`Optimizer.gate_update`): staged 1 by the host, set to 0 on the device
-# by a guarded train step whose loss or gradients are not finite, and then the
+# parameter and gradient, 28 for float32). One pass, in place; one launch a
+# step for all the parameters of one (parameter dtype, gradient dtype) pair
+# (`adamw_multi`; the per-tensor `adamw` is its list of one). lr and the bias
+# corrections c1 = 1 - beta1^t, c2 = 1 - beta2^t change every step, so the
+# kernel reads them from a float32 device buffer [lr, c1, c2, go, scale]
+# (`adam_step_scalars`, filled by the optimizer once a step), as
+# `_adamw_kernel` reads its SMEM refs. `go` is the non-finite guard's word
+# (`Optimizer.gate_update`): staged 1 by the host, set to 0 on the device by a
+# guarded train step whose loss or gradients are not finite, and then the
 # update writes nothing. `scale` is ClipGradByGlobalNorm's: staged 1, written
 # on the device by a clipped step; an update made with scaled=True takes g =
 # float(grad) * scale, one float32 rounding, the reference's product of a
@@ -1203,14 +1209,15 @@ def _scalars_check(scalars, param, scaled=False):
           "parameter's device")
 
 
-def _adamw_check(param, grad, m1, m2):
+def _adamw_check(param, grad, m1, m2, device=None):
     _need(param.dtype in _DTYPE_CODE and grad.dtype in _DTYPE_CODE,
           "adamw: param and grad must be %s (got %s, %s)"
           % (_DTYPE_WORDS, param.dtype, grad.dtype))
-    for t in (grad, m1, m2):
-        _need(t.shape == param.shape and t.device == param.device,
-              "adamw: grad and moments must match the parameter's shape "
-              "and device")
+    dev = param.device if device is None else device
+    for t in (param, grad, m1, m2):
+        _need(t.shape == param.shape and t.device == dev,
+              "adamw: grad and moments must match the parameter's shape, "
+              "and every tensor must lie on %s" % dev)
     _need(m1.dtype == torch.float32 and m2.dtype == torch.float32,
           "adamw: moments must be float32")
     for t in (param, grad, m1, m2):
@@ -1218,28 +1225,156 @@ def _adamw_check(param, grad, m1, m2):
     _need(param.numel() > 0, "adamw: empty parameter")
 
 
+def _per_tensor(value, n, name):
+    """A per-tensor attribute as a list of n: one value for all, or a
+    sequence of n."""
+    if isinstance(value, (list, tuple)):
+        _need(len(value) == n, "adamw: %d %s for %d tensors"
+              % (len(value), name, n))
+        return list(value)
+    return [value] * n
+
+
+# the kernel's table (csrc/adamw.cu `Table`): its layout, read once from
+# the library, and the tables of recent launches, keyed by their tensors'
+# data pointers and attributes (an eager step over the same tensors packs
+# nothing; a captured one never calls here again)
+_TABLE_FIELDS = {"p": np.uint64, "g": np.uint64, "m1": np.uint64,
+                 "m2": np.uint64, "n": np.int64, "coeff": np.float32,
+                 "lrf": np.float32, "chunk0": np.int32, "flags": np.uint8}
+_ADAMW_LAYOUT = []
+_ADAMW_PLANS = {}
+_ADAMW_PLANS_MAX = 8
+_SCALED, _VEC = 1, 2
+
+
+def _adamw_layout():
+    """(bytes, capacity, chunk, {field: offset}) of the kernel's table."""
+    if not _ADAMW_LAYOUT:
+        out = (ctypes.c_longlong * 12)()
+        _build.load("adamw").adamw_table_layout(ctypes.addressof(out))
+        _ADAMW_LAYOUT.append((out[0], out[1], out[2],
+                              dict(zip(_TABLE_FIELDS, out[3:12]))))
+    return _ADAMW_LAYOUT[0]
+
+
+def _adamw_table(ptrs, ns, coeffs, lrfs, flags):
+    """One launch's packed table (uint8 numpy) for the tensors whose
+    pointers (param, grad, m1, m2 of each), sizes, coeffs, lr factors and
+    flags are given, with the chunk prefixes of their sizes."""
+    size, _, chunk, off = _adamw_layout()
+    ptrs = np.asarray(ptrs, dtype=np.uint64).reshape(len(ns), 4)
+    prefix = np.zeros(len(ns) + 1, np.int64)
+    np.cumsum((np.asarray(ns, np.int64) + chunk - 1) // chunk,
+              out=prefix[1:])
+    _need(prefix[-1] < 2 ** 31, "adamw: %d elements in one launch"
+          % sum(ns))
+    values = dict(p=ptrs[:, 0], g=ptrs[:, 1], m1=ptrs[:, 2], m2=ptrs[:, 3],
+                  n=ns, coeff=coeffs, lrf=lrfs, chunk0=prefix, flags=flags)
+    buf = np.zeros(size, np.uint8)
+    for field, dtype in _TABLE_FIELDS.items():
+        a = np.ascontiguousarray(values[field], dtype=dtype)
+        buf[off[field]:off[field] + a.nbytes] = a.view(np.uint8)
+    return buf
+
+
+def _adamw_plan(params, grads, m1s, m2s, coeffs, scaled, lrfs):
+    """The launches of one multi-tensor update on the card: a list of
+    (table, count, ptype, gtype, dtype), one a (parameter dtype, gradient
+    dtype) group, consecutive launches where a group outgrows the table.
+    Checks every entry first (ValueError); a call over the same tensor
+    objects at the same addresses and attributes reuses its plan."""
+    tensors = params + grads + m1s + m2s
+    ptrs = [t.data_ptr() for t in tensors]
+    key = (tuple(ptrs), tuple(coeffs), tuple(scaled), tuple(lrfs))
+    plan = _ADAMW_PLANS.get(key)
+    if plan is not None and all(r() is t for r, t in zip(plan[0], tensors)):
+        return plan[1]
+    dev = params[0].device
+    for p, g, a, b in zip(params, grads, m1s, m2s):
+        _adamw_check(p, g, a, b, dev)
+    _, cap, _, _ = _adamw_layout()
+    n = len(params)
+    groups = {}
+    for i, (p, g) in enumerate(zip(params, grads)):
+        groups.setdefault((p.dtype, g.dtype), []).append(i)
+    launches = []
+    for (pdt, gdt), idx in groups.items():
+        for s in range(0, len(idx), cap):
+            part = idx[s:s + cap]
+            tptrs = [ptrs[j * n + i] for i in part for j in range(4)]
+            flags = [(_SCALED if scaled[i] else 0)
+                     | (_VEC if all(ptrs[j * n + i] % 16 == 0
+                                    for j in range(4)) else 0)
+                     for i in part]
+            table = _adamw_table(
+                tptrs, [params[i].numel() for i in part],
+                [coeffs[i] for i in part], [lrfs[i] for i in part], flags)
+            launches.append((table, len(part), _DTYPE_CODE[pdt],
+                             _DTYPE_CODE[gdt], pdt))
+    if len(_ADAMW_PLANS) >= _ADAMW_PLANS_MAX:
+        _ADAMW_PLANS.pop(next(iter(_ADAMW_PLANS)), None)
+    _ADAMW_PLANS[key] = ([weakref.ref(t) for t in tensors], launches)
+    return launches
+
+
+def adamw_multi(params, grads, m1s, m2s, scalars, *, beta1, beta2, epsilon,
+                coeff, scaled=False, lr_factor=1.0):
+    """The fused update over lists of tensors, in place on each parameter
+    and both its moments, with the step's lr, c1 and c2 from `scalars`
+    (float32 [4] or [5] on the parameters' device, `adam_step_scalars`;
+    its guard word at 0: nothing written). `coeff` (AdamW's decoupled
+    decay; 0 is Adam), `scaled` (each gradient element times the buffer's
+    fifth word, the clip scale) and `lr_factor` (the tensor's lr is the
+    buffer's lr times it, in float32) are one value for all tensors or a
+    sequence of one a tensor. On the card one launch a (parameter dtype,
+    gradient dtype) group, reading the tensor table as its parameter (a
+    CUDA graph freezes it); on CPU tensors the plain version, tensor by
+    tensor. Every entry is checked first (ValueError), so a bad one
+    launches nothing."""
+    params, grads, m1s, m2s = (list(x) for x in (params, grads, m1s, m2s))
+    n = len(params)
+    _need(n > 0 and len(grads) == n and len(m1s) == n and len(m2s) == n,
+          "adamw: %d params, %d grads, %d and %d moments: equal, non-empty "
+          "lists" % (n, len(grads), len(m1s), len(m2s)))
+    coeffs = _per_tensor(coeff, n, "coeffs")
+    scaled = _per_tensor(scaled, n, "scaled flags")
+    lrfs = _per_tensor(lr_factor, n, "lr factors")
+    _scalars_check(scalars, params[0], any(scaled))
+    if not _on_cuda(params[0], "adamw"):
+        dev = params[0].device
+        for p, g, a, b in zip(params, grads, m1s, m2s):
+            _adamw_check(p, g, a, b, dev)
+        for p, g, a, b, c, s, f in zip(params, grads, m1s, m2s, coeffs,
+                                       scaled, lrfs):
+            sc = scalars if f == 1.0 else torch.cat(
+                (scalars[:1] * float(f), scalars[1:]))
+            adamw_plain_scalars(p, g, a, b, sc, beta1=beta1, beta2=beta2,
+                                epsilon=epsilon, coeff=c, scaled=s)
+        return
+    launches = _adamw_plan(params, grads, m1s, m2s, coeffs, scaled, lrfs)
+    hp = _adam_scalars(0.0, 1, beta1, beta2, epsilon, 0.0)
+    lib = _build.load("adamw")
+    stream = _stream(params[0])
+    for table, count, ptype, gtype, dtype in launches:
+        err = lib.adamw_multi(
+            table.ctypes.data, count, ptype, gtype, scalars.data_ptr(),
+            float(hp["b1"]), float(hp["omb1"]), float(hp["b2"]),
+            float(hp["omb2"]), float(hp["eps"]), stream)
+        _check_launch(err, "adamw")
+        _count("adamw", dtype)
+
+
 def adamw(param, grad, m1, m2, scalars, *, beta1, beta2, epsilon, coeff,
           scaled=False):
-    """The fused update kernel, in place on param, m1, m2, with the step's
-    lr, c1 and c2 from `scalars` (float32 [4] or [5] on param's device,
+    """The fused update kernel on one parameter (`adamw_multi` over a list
+    of one), in place on param, m1, m2, with the step's lr, c1 and c2
+    from `scalars` (float32 [4] or [5] on param's device,
     `adam_step_scalars`; its guard word at 0: nothing written; with
-    `scaled`, each gradient element times its fifth word, the clip scale);
-    the plain version on CPU tensors. coeff 0 is Adam."""
-    _adamw_check(param, grad, m1, m2)
-    _scalars_check(scalars, param, scaled)
-    if not _on_cuda(param, "adamw"):
-        return adamw_plain_scalars(param, grad, m1, m2, scalars, beta1=beta1,
-                                   beta2=beta2, epsilon=epsilon, coeff=coeff,
-                                   scaled=scaled)
-    sc = _adam_scalars(0.0, 1, beta1, beta2, epsilon, coeff)
-    err = _build.load("adamw").adamw(
-        param.data_ptr(), grad.data_ptr(), m1.data_ptr(), m2.data_ptr(),
-        param.numel(), _DTYPE_CODE[param.dtype], _DTYPE_CODE[grad.dtype],
-        scalars.data_ptr(), float(np.float32(coeff)), int(bool(coeff)),
-        int(bool(scaled)), float(sc["b1"]), float(sc["omb1"]),
-        float(sc["b2"]), float(sc["omb2"]), float(sc["eps"]), _stream(param))
-    _check_launch(err, "adamw")
-    _count("adamw", param.dtype)
+    `scaled`, each gradient element times its fifth word, the clip
+    scale); the plain version on CPU tensors. coeff 0 is Adam."""
+    adamw_multi([param], [grad], [m1], [m2], scalars, beta1=beta1,
+                beta2=beta2, epsilon=epsilon, coeff=coeff, scaled=scaled)
 
 
 def fused_adamw_or_none(param, grad, scalars, m1, m2, *, beta1, beta2,
@@ -1256,6 +1391,20 @@ def fused_adamw_or_none(param, grad, scalars, m1, m2, *, beta1, beta2,
     adamw(param, grad, m1, m2, scalars, beta1=beta1, beta2=beta2,
           epsilon=epsilon, coeff=coeff, scaled=scaled)
     return param, m1, m2
+
+
+def fused_adamw_multi_or_none(params, grads, scalars, m1s, m2s, *, beta1,
+                              beta2, epsilon, coeff, scaled=False,
+                              lr_factor=1.0):
+    """The same gate over lists (the optimizer's one call a dtype group a
+    step): None when `use_fused_optimizer` is off, else `adamw_multi`'s
+    update, in place, returning the parameters."""
+    if not flag("use_fused_optimizer"):
+        return None
+    adamw_multi(params, grads, m1s, m2s, scalars, beta1=beta1, beta2=beta2,
+                epsilon=epsilon, coeff=coeff, scaled=scaled,
+                lr_factor=lr_factor)
+    return params
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ reference. The rules: SGD, Momentum, Lars, Adam, AdamW, Adamax, Adagrad,
 Adadelta, RMSProp, Lamb, Ftrl, DecayedAdagrad, ProximalGD,
 ProximalAdagrad and Dpsgd, each the reference's `_update_rule` line for
 line in PyTorch ops (Adam and AdamW also through the hand-written kernel,
-below).
+one launch a step for each (parameter dtype, gradient dtype) group, below).
 
 Every rule reads the step's values from a float32 device buffer
 (`_scalars`: lr, c1, c2, go, scale), as the reference's kernel reads
@@ -78,7 +78,8 @@ import torch
 
 from ..framework.device import resolve_device, write_values
 from ..ops.cuda_kernels import (GO, SCALE, adam_step_scalars,
-                                adamw_plain_scalars, fused_adamw_or_none)
+                                adamw_plain_scalars,
+                                fused_adamw_multi_or_none)
 from . import lr  # noqa: F401
 from .lr import LRScheduler
 
@@ -95,6 +96,11 @@ __all__ = ["Optimizer", "SGD", "Momentum", "Lars", "Adam", "AdamW",
 
 def _need_clip(p):
     return getattr(p, "need_clip", True)
+
+
+def _lr_factor(p):
+    """The parameter's optimize_attr learning rate, a factor of lr."""
+    return getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
 
 
 def _true_div(num, den):
@@ -364,7 +370,7 @@ class Optimizer:
         optimize_attr sets a learning rate, a copy whose lr is lr *
         param_lr in float32 (made on the device, after the guard and the
         clip have written their words)."""
-        plr = getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+        plr = _lr_factor(p)
         if plr == 1.0:
             return self._scalars
         return torch.cat((self._scalars[:1] * float(plr), self._scalars[1:]))
@@ -389,13 +395,15 @@ class Optimizer:
         regularizer on every gradient, then the clip over the whole list,
         then the rule on each pair, in place, at the values `stage_step`
         staged."""
-        pairs = self._clipped([(p, self._regularized(p, g))
-                               for p, g in params_grads])
-        for p, g in pairs:
-            accs = self._get_accumulators(p)
-            self._update_rule(self._static_args(p), p, g,
-                              self._param_scalars(p),
-                              *[accs[n] for n in self._accumulator_names])
+        for p, g in self._clipped([(p, self._regularized(p, g))
+                                   for p, g in params_grads]):
+            self._apply_rule(p, g)
+
+    def _apply_rule(self, p, g):
+        """The rule on one (parameter, gradient) pair, in place."""
+        accs = self._get_accumulators(p)
+        self._update_rule(self._static_args(p), p, g, self._param_scalars(p),
+                          *[accs[n] for n in self._accumulator_names])
 
     def apply_gradients(self, params_grads):
         """One step over (parameter, gradient) pairs: counts the step,
@@ -628,16 +636,42 @@ class Adam(Optimizer):
     def _step_scalars(self, lr, t):
         return adam_step_scalars(lr, t, self._beta1, self._beta2)
 
+    @torch.no_grad()
+    def apply_updates(self, params_grads):
+        """The base class's order (the regularizer, then the clip, which
+        writes the scale word, then the rule), the rule over each
+        (parameter dtype, gradient dtype) group of pairs at once: one
+        `fused_adamw_multi_or_none` call a group, one kernel launch, each
+        tensor with its own coeff, clip bit and lr factor; with
+        use_fused_optimizer off, the plain rule pair by pair."""
+        groups = {}
+        for p, g in self._clipped([(p, self._regularized(p, g))
+                                   for p, g in params_grads]):
+            groups.setdefault((p.dtype, g.dtype), []).append((p, g))
+        for pairs in groups.values():
+            ps = [p for p, _ in pairs]
+            accs = [self._get_accumulators(p) for p in ps]
+            args = [self._static_args(p) for p in ps]
+            if fused_adamw_multi_or_none(
+                    ps, [g for _, g in pairs], self._scalars,
+                    [a["moment1"] for a in accs], [a["moment2"] for a in accs],
+                    beta1=self._beta1, beta2=self._beta2,
+                    epsilon=self._epsilon, coeff=[a[3] for a in args],
+                    scaled=[a[4] for a in args],
+                    lr_factor=[_lr_factor(p) for p in ps]) is None:
+                for p, g in pairs:
+                    self._apply_rule(p, g)
+
     @staticmethod
     def _update_rule(static_args, param, grad, scalars, m1, m2):
-        """Adam (coeff 0) and AdamW in one rule; static_args is (beta1,
-        beta2, epsilon, coeff, scaled), scalars the step's (lr, c1, c2, go,
-        scale)."""
+        """Adam (coeff 0) and AdamW in one plain rule (the route with
+        use_fused_optimizer off; `apply_updates` sends the rest to the
+        kernel); static_args is (beta1, beta2, epsilon, coeff, scaled),
+        scalars the step's (lr, c1, c2, go, scale)."""
         b1, b2, eps, coeff, scaled = static_args
-        kw = dict(beta1=b1, beta2=b2, epsilon=eps, coeff=coeff,
-                  scaled=scaled)
-        if fused_adamw_or_none(param, grad, scalars, m1, m2, **kw) is None:
-            adamw_plain_scalars(param, grad, m1, m2, scalars, **kw)
+        adamw_plain_scalars(param, grad, m1, m2, scalars, beta1=b1,
+                            beta2=b2, epsilon=eps, coeff=coeff,
+                            scaled=scaled)
         return param, m1, m2
 
 
