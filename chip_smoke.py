@@ -12,6 +12,7 @@
     python3 chip_smoke.py --rnn-only       # the card, the build, phase 24
     python3 chip_smoke.py --moe-only       # the card, the build, phase 25
     python3 chip_smoke.py --unet-only      # the card, the build, phase 26
+    python3 chip_smoke.py --dlrm-only      # the card, the build, phase 27
     python3 chip_smoke.py --fit-drill JSON # one run of phase 20's drill
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -449,6 +450,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernels against plain through compare_runs, and a planted fault (a
      group norm whose variance is taken over the channels only)
      refused.
+ 27. row-sparse gradients, the legacy op surface and DLRM (`dlrm_main`,
+     `--dlrm-only`): (a) the slice's 48 registered ops (ops/misc_ops.py,
+     lookup_table_v2_sparse, fft, frame, overlap_add), stft / istft, the
+     distributions, fluid.layers over the new ops and static.gradients on
+     CUDA tensors against the CPU, forward and gradients, TF32 off,
+     within OPS_TOL, hash_op and viterbi_decode_op bit-equal,
+     shuffle_batch's and nce's bodies on the CPU's draws; (b) DLRM at the
+     Criteo Kaggle tables' full 33,762,577 rows (dlrm_s_criteo_kaggle.sh:
+     26 tables of 16, bottom MLP 13-512-256-64-16, top 367-512-256-1,
+     B=128, float32) on synthetic power-law batches: (b1) SGD(0.1)
+     eagerly with row-sparse table gradients (one step against the dense
+     step within 1e-6, untouched rows bit-identical after 60 steps),
+     (b2) Adam(lazy_mode=True, 1e-3) eagerly (untouched rows bit-identical
+     in the parameter and both moments; the MLP through row 7, one launch
+     a step, counted with the counters zeroed just before and read just
+     after), (b3) the tables dense through make_train_step (one CUDA
+     graph); each its step ms, samples/s, peak memory, the profiled
+     step's groups and the device's idle share; (c) DLRM at 4 small
+     tables on the card against its CPU run, 3 steps each of SGD, lazy
+     Adam and lazy AdamW, within 1e-5.
 
 The line before the last is the kernel table as JSON (the float16
 instances under their names + "_f16"; rows 1t, 2, 3 with their times at
@@ -463,7 +484,8 @@ row K's launches of phase 24 (b) counted in, its time at that shape
 under "ptb"; rows 1t, 2, 3, 7 and K's launches of phase 25 (b) counted
 in, row 7's time at its parameters under "moe"; rows 1t, 2, 3, 7 and K's
 launches of phase 26 (b) counted in, their times at the UNet's shapes
-under "unet"); the last line is {"ok": true, "device": {...}}.
+under "unet"; row 7's launches of phase 27 (b2) counted in, under
+"dlrm"); the last line is {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -7837,8 +7859,10 @@ def _err(torch, got, want, name):
     require(torch.equal(torch.isnan(g), torch.isnan(w)),
             "%s: NaNs differ" % name)
     fin = ~torch.isnan(w)
-    s = max(1.0, float(w[fin].abs().max())) if bool(fin.any()) else 1.0
-    return float((g - w)[fin].abs().max()) / s if bool(fin.any()) else 0.0
+    d = torch.where(g == w, torch.zeros_like(w), g - w)[fin].abs()
+    mag = w[torch.isfinite(w)].abs()
+    s = max(1.0, float(mag.max())) if mag.numel() else 1.0
+    return float(d.max()) / s if d.numel() else 0.0
 
 
 def _reconstruct(torch, op, outs, a):
@@ -9111,6 +9135,680 @@ def unet_main(torch, ck, F, flags, card, timer=None, gen=None):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# 27. row-sparse gradients, the legacy op surface and DLRM
+
+# Naumov et al. 2019 ("Deep Learning Recommendation Model for
+# Personalization and Recommendation Systems"), facebookresearch/dlrm's
+# bench/dlrm_s_criteo_kaggle.sh: --arch-sparse-feature-size=16
+# --arch-mlp-bot="13-512-256-64-16" --arch-mlp-top="512-256-1"
+# --loss-function=bce --learning-rate=0.1 --mini-batch-size=128, the dot
+# interaction without self-pairs; the 26 tables at the Criteo Kaggle
+# (Display Advertising Challenge) row counts. The data is not in the
+# repository: batches are synthetic, of the same shapes (`dlrm_batches`)
+DLRM_KAGGLE_ROWS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                    93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10,
+                    5652, 2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+DLRM_KAGGLE = dict(table_rows=DLRM_KAGGLE_ROWS, dim=16,
+                   bot=(13, 512, 256, 64, 16), top=(512, 256, 1))
+DLRM_ROWS = 33762577
+DLRM_B, DLRM_LR, DLRM_ADAM_LR = 128, 0.1, 1e-3
+DLRM_WARMUP, DLRM_STEPS = 10, 50
+# ids drawn per table by rank from a power law P(k) ~ k^-1.05 truncated to
+# the table's rows; labels Bernoulli(0.256), the Kaggle set's click rate
+DLRM_ALPHA, DLRM_CTR = 1.05, 0.256
+DLRM_SPARSE_REL_TOL = 1e-6
+# (c): the same architecture at 4 small tables against its plain CPU run
+DLRM_SMALL = dict(table_rows=(1000, 2000, 3000, 5000), dim=16,
+                  bot=(13, 64, 16), top=(64, 1))
+DLRM_SMALL_B, DLRM_SMALL_STEPS, DLRM_CPU_TOL = 16, 3, 1e-5
+DLRM_PROFILE_GROUPS = (
+    ("adamw (port)", ("adamw_kernel",)),
+    ("unique / sort", ("unique", "sort", "Sort", "radix", "Radix")),
+    ("index_add / scatter / gather", ("index", "scatter", "gather",
+                                      "Index", "embedding")),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "cublas")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized")))
+
+
+def dlrm_model(table_rows=DLRM_KAGGLE_ROWS, dim=16, bot=(13, 512, 256, 64, 16),
+               top=(512, 256, 1), sparse=True, seed=0, device="cuda"):
+    """DLRM (dlrm_s_pytorch.py's DLRM_Net) from the port's public API: a
+    bottom MLP over the 13 dense features (ReLU after every layer), one
+    nn.Embedding(n_i, dim, sparse=sparse) a table looked up once a
+    sample, the dot interaction (the strictly lower triangle of the Gram
+    matrix of the dense vector and the 26 rows, in row-major order, after
+    the dense vector), a top MLP (ReLU, a sigmoid at the end). DLRM's
+    initialisation: tables uniform +-sqrt(1/n_i), weights N(0, sqrt(2 /
+    (fan_in + fan_out))), biases N(0, sqrt(1 / fan_out)), drawn on
+    `device` from `seed`."""
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import initializer as I
+
+    class Drawn(I.Initializer):
+        """An uninitialised tensor: the values are drawn on the device."""
+
+        def __call__(self, shape, dtype=None, generator=None):
+            return torch.empty(tuple(shape), dtype=torch.float32)
+
+    attr = nn.ParamAttr(initializer=Drawn())
+    n = len(table_rows) + 1
+    widths = (dim + n * (n - 1) // 2,) + tuple(top)
+
+    class DLRM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.LayerList([nn.Embedding(r, dim, sparse=sparse,
+                                                  weight_attr=attr)
+                                     for r in table_rows])
+            self.bot = nn.LayerList([nn.Linear(a, b, attr, attr)
+                                     for a, b in zip(bot[:-1], bot[1:])])
+            self.top = nn.LayerList([nn.Linear(a, b, attr, attr) for a, b in
+                                     zip(widths[:-1], widths[1:])])
+            li, lj = torch.tril_indices(n, n, offset=-1)
+            self.register_buffer("li", li, persistent=False)
+            self.register_buffer("lj", lj, persistent=False)
+
+        def forward(self, dense, ids):
+            x = dense
+            for lin in self.bot:
+                x = F.relu(lin(x))
+            rows = [e(ids[:, i]) for i, e in enumerate(self.emb)]
+            t = torch.cat([x] + rows, dim=1).reshape(x.shape[0], n, dim)
+            z = torch.bmm(t, t.transpose(1, 2))
+            r = torch.cat([x, z[:, self.li, self.lj]], dim=1)
+            for k, lin in enumerate(self.top):
+                r = lin(r)
+                r = torch.sigmoid(r) if k == len(self.top) - 1 else F.relu(r)
+            return r
+
+    model = DLRM().to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for e, rows in zip(model.emb, table_rows):
+            a = math.sqrt(1.0 / rows)
+            e.weight.uniform_(-a, a, generator=gen)
+        for lin in list(model.bot) + list(model.top):
+            fan_in, fan_out = lin.weight.shape
+            lin.weight.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
+                               generator=gen)
+            lin.bias.normal_(0.0, math.sqrt(1.0 / fan_out), generator=gen)
+    return model
+
+
+def dlrm_loss(F, p, y):
+    """BCE of the click probability (--loss-function=bce), the mean."""
+    return F.binary_cross_entropy(p, y)
+
+
+def power_law_ids(rs, rows, size, alpha=DLRM_ALPHA):
+    """Row ids of rank k with P(k) ~ k^-alpha over 1..rows (the inverse of
+    the truncated continuous law's CDF, floored), as 0-based rows: the
+    hot rows repeat within a batch, as real CTR ids do."""
+    a = 1.0 - alpha
+    u = rs.rand(size)
+    k = np.floor((1.0 + u * ((rows + 1.0) ** a - 1.0)) ** (1.0 / a))
+    return np.minimum(k.astype(np.int64), rows) - 1
+
+
+def dlrm_batches(n, B, table_rows, seed=0):
+    """n numpy batches (dense [B, 13] float32 = log(1 + counts), ids [B,
+    26] int64 by `power_law_ids`, labels [B, 1] Bernoulli(DLRM_CTR))."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        dense = np.log1p(rs.geometric(0.05, size=(B, 13)) - 1.0)
+        ids = np.stack([power_law_ids(rs, r, B) for r in table_rows], 1)
+        y = (rs.rand(B, 1) < DLRM_CTR).astype(np.float32)
+        out.append((dense.astype(np.float32), ids, y))
+    return out
+
+
+def dlrm_eager_step(model, opt, F):
+    """One eager step: forward, BCE, backward (row-sparse table gradients
+    where the tables are sparse), opt.step(), opt.clear_grad()."""
+    def step(dense, ids, y):
+        out = model(dense, ids)
+        loss = dlrm_loss(F, out, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach(), [out.detach()]
+    return step
+
+
+def touched_rows(batches, i):
+    """The sorted unique ids of table i over `batches`."""
+    return np.unique(np.concatenate([b[1][:, i] for b in batches]))
+
+
+def check_untouched(torch, label, tables, before, batches, extra=()):
+    """Every row of each table that no batch touched is bit-identical to
+    `before`, and so are the rows of each (name, tensors, want) in
+    `extra` (a moment: want 0); returns the rows that changed."""
+    changed = 0
+    for i, (w, w0) in enumerate(zip(tables, before)):
+        keep = torch.ones(w.shape[0], dtype=torch.bool, device=w.device)
+        keep[torch.from_numpy(touched_rows(batches, i)).to(w.device)] = False
+        moved = (w != w0).any(1)
+        require(not bool((moved & keep).any()), "%s: table %d moved %d "
+                "untouched rows" % (label, i, int((moved & keep).sum())))
+        for name, ts, want in extra:
+            bad = (ts[i] != want).any(1) & keep
+            require(not bool(bad.any()), "%s: %s of table %d is not %s on "
+                    "%d untouched rows" % (label, name, i, want,
+                                           int(bad.sum())))
+        changed += int(moved.sum())
+    return changed
+
+
+def dlrm_sparse_vs_dense(torch, F, model, batch):
+    """One SGD step on `batch` with row-sparse table gradients against
+    the same step with dense ones (sparse=False), from one state: the
+    touched rows within DLRM_SPARSE_REL_TOL of the dense step's largest
+    |value|, every other row bit-identical in both. The state is put
+    back after."""
+    from paddle_tpu_torch import optimizer
+    state = [p.detach().clone() for p in model.parameters()]
+    dense, ids, y = batch
+    ids_np = ids.cpu().numpy()
+    rows = [torch.from_numpy(np.unique(ids_np[:, i])).cuda()
+            for i in range(ids.shape[1])]
+    got = {}
+    for sparse in (True, False):
+        for e in model.emb:
+            e._sparse = sparse
+        opt = optimizer.SGD(DLRM_LR, parameters=model.parameters())
+        dlrm_eager_step(model, opt, F)(dense, ids, y)
+        got[sparse] = [e.weight[r].clone() for e, r in zip(model.emb, rows)]
+        check_untouched(torch, "dlrm sparse=%s step" % sparse,
+                        [e.weight for e in model.emb], state[:len(rows)],
+                        [(None, ids_np, None)])
+        got[(sparse, "mlp")] = [p.detach().clone() for p in
+                                list(model.parameters())[len(rows):]]
+        with torch.no_grad():
+            for p, s in zip(model.parameters(), state):
+                p.copy_(s)
+                p.grad = None     # a dense gradient left would absorb the
+                # next sparse ones (dense + sparse is dense)
+    for e in model.emb:
+        e._sparse = True
+    err = 0.0
+    for a, b in zip(got[True], got[False]):
+        err = max(err, float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30))
+    for a, b in zip(got[(True, "mlp")], got[(False, "mlp")]):
+        err = max(err, float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30))
+    require(err <= DLRM_SPARSE_REL_TOL, "dlrm: the sparse step is %.3g of "
+            "the dense step's largest |value| away (> %g)"
+            % (err, DLRM_SPARSE_REL_TOL))
+    return err
+
+
+def dlrm_eager_path(torch, ck, F, card, label, model, opt, batches):
+    """DLRM_WARMUP + DLRM_STEPS eager steps over `batches` (one a step),
+    the launch counters zeroed just before and read just after; one
+    profiled step. Returns (launches, step ms, samples/s, peak bytes,
+    device ms of the profiled step)."""
+    from paddle_tpu_torch import SelectedRows
+    it = iter(batches)
+    step = dlrm_eager_step(model, opt, F)
+    sparse_updates = [0]
+    rule = opt._apply_sparse
+
+    def counted(p, sr):
+        require(isinstance(sr, SelectedRows), "dlrm %s: a dense table "
+                "gradient" % label)
+        sparse_updates[0] += 1
+        return rule(p, sr)
+    opt._apply_sparse = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.launch_counts(reset=True)
+    _, times, _ = timed_steps(torch, step, lambda: next(it), DLRM_WARMUP,
+                              DLRM_STEPS)
+    launches = ck.launch_counts(reset=True)
+    n_tables = len(model.emb)
+    n_updates = sparse_updates[0]
+    opt._apply_sparse = rule
+    require(n_updates == n_tables * (DLRM_WARMUP + DLRM_STEPS),
+            "dlrm %s: %d row-sparse table updates, want %d (one a table a "
+            "step)" % (label, n_updates,
+                       n_tables * (DLRM_WARMUP + DLRM_STEPS)))
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms, rows = profile_step(torch, step, lambda: batches[0])
+    step_ms = statistics.median(times)
+    say("dlrm %s: step %.3f ms median (%.3f mean) over %d eager steps after "
+        "%d warm-up, %.0f samples/s, peak memory %.1f MiB; %d row-sparse "
+        "table updates (%s)"
+        % (label, step_ms, statistics.mean(times), DLRM_STEPS, DLRM_WARMUP,
+           DLRM_B / (step_ms / 1e3), peak / 2 ** 20, n_updates, card))
+    report_profile("dlrm %s" % label, dev_ms, step_ms, rows,
+                   DLRM_PROFILE_GROUPS)
+    return launches, step_ms, DLRM_B / (step_ms / 1e3), peak, dev_ms
+
+
+def dlrm_train(torch, ck, card):
+    """Phase 27 (b): DLRM at the Kaggle tables' full 33,762,577 rows, B=128,
+    float32: (b1) SGD(0.1) eagerly with row-sparse table gradients, (b2)
+    Adam(lazy_mode=True, 1e-3) eagerly (the MLP's parameters through row
+    7, one launch a step), (b3) the tables dense (sparse=False) through
+    make_train_step with SGD: one CUDA graph. Returns (b2)'s launches and
+    the numbers."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import make_train_step
+    import paddle_tpu_torch.nn.functional as F
+    t0 = time.perf_counter()
+    model = dlrm_model(**DLRM_KAGGLE)
+    tables = [e.weight for e in model.emb]
+    n_rows = sum(t.shape[0] for t in tables)
+    require(n_rows == DLRM_ROWS, "dlrm: %d table rows, want %d"
+            % (n_rows, DLRM_ROWS))
+    n = DLRM_WARMUP + DLRM_STEPS
+    host = dlrm_batches(3 * n + 1, DLRM_B, DLRM_KAGGLE_ROWS, seed=0)
+    dev = [tuple(torch.from_numpy(a).cuda() for a in b) for b in host]
+    per_step = [sum(len(np.unique(b[1][:, i])) for i in range(26))
+                for b in host]
+    say("dlrm: %d tables, %d rows (%.2f GB float32), MLPs %s and %s, "
+        "built in %.1f s; %d rows a step, %.1f unique rows a step on "
+        "average (power law %.2f)"
+        % (len(tables), n_rows, n_rows * 16 * 4 / 1e9,
+           "-".join(str(w) for w in DLRM_KAGGLE["bot"]),
+           "-".join(str(w) for w in (model.top[0].weight.shape[0],)
+                    + tuple(DLRM_KAGGLE["top"])), time.perf_counter() - t0,
+           DLRM_B * 26, statistics.mean(per_step), DLRM_ALPHA))
+    out = {"rows_a_step": DLRM_B * 26,
+           "unique_rows_a_step": statistics.mean(per_step)}
+    err = dlrm_sparse_vs_dense(torch, F, model, dev[-1])
+    say("dlrm (b1): one sparse SGD step against the dense step "
+        "(sparse=False, the same batch): %.3g of the dense step's largest "
+        "|value| on the touched rows (tolerance %g), every other row "
+        "bit-identical in both" % (err, DLRM_SPARSE_REL_TOL))
+    # (b1) SGD, eager
+    before = [t.detach().clone() for t in tables]
+    opt = optimizer.SGD(DLRM_LR, parameters=model.parameters())
+    l1, ms1, sps1, peak1, dev1 = dlrm_eager_path(
+        torch, ck, F, card, "(b1) SGD sparse eager", model, opt, dev[:n])
+    moved = check_untouched(torch, "dlrm (b1)", tables, before, host[:n])
+    say("dlrm (b1): %d rows moved, every untouched row bit-identical"
+        % moved)
+    require(sum(l1.values()) == 0, "dlrm (b1): SGD launched %s" % l1)
+    out["b1"] = dict(step_ms=ms1, samples_per_s=sps1, peak_bytes=peak1,
+                     device_ms=dev1, sparse_vs_dense=err, moved_rows=moved)
+    # (b2) lazy Adam, eager
+    del before
+    before = [t.detach().clone() for t in tables]
+    opt = optimizer.Adam(learning_rate=DLRM_ADAM_LR, lazy_mode=True,
+                         parameters=model.parameters())
+    l2, ms2, sps2, peak2, dev2 = dlrm_eager_path(
+        torch, ck, F, card, "(b2) lazy Adam sparse eager", model, opt,
+        dev[n:2 * n])
+    accs = [opt._get_accumulators(t) for t in tables]
+    moved = check_untouched(
+        torch, "dlrm (b2)", tables, before, host[n:2 * n],
+        extra=(("moment1", [a["moment1"] for a in accs], 0.0),
+               ("moment2", [a["moment2"] for a in accs], 0.0)))
+    mlp = [p for p in model.parameters() if all(p is not t for t in tables)]
+    want = n * adamw_launches(mlp)
+    require(l2.get("adamw", 0) == want, "dlrm (b2): %d adamw launches, want "
+            "%d (one a step)" % (l2.get("adamw", 0), want))
+    say("dlrm (b2): %d rows moved, untouched rows bit-identical in the "
+        "parameter and both moments (zero); row 7 launched %d times over %d "
+        "steps (one a step, the tables' sparse pairs outside its group)"
+        % (moved, l2["adamw"], n))
+    out["b2"] = dict(step_ms=ms2, samples_per_s=sps2, peak_bytes=peak2,
+                     device_ms=dev2, moved_rows=moved, launches=l2["adamw"])
+    del before, opt, accs
+    free_memory(torch)
+    # (b3) dense tables through the captured step
+    for e in model.emb:
+        e._sparse = False
+    opt = optimizer.SGD(DLRM_LR, parameters=model.parameters())
+    step = make_train_step(model, lambda p, y: dlrm_loss(F, p, y), opt)
+    it = iter(dev[2 * n:3 * n])
+    batch = lambda: (lambda b: ([b[0], b[1]], [b[2]]))(next(it))  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    _, times, _ = timed_steps(torch, step, batch, DLRM_WARMUP, DLRM_STEPS)
+    peak3 = torch.cuda.max_memory_allocated()
+    require(step.compiles == 1 and step.replays == n - 1,
+            "dlrm (b3): %d builds, %d replays" % (step.compiles,
+                                                  step.replays))
+    b0 = dev[0]
+    dev3, rows3 = profile_step(torch, step, lambda: ([b0[0], b0[1]], [b0[2]]))
+    ms3 = statistics.median(times)
+    pool = step.programs.pool_bytes()
+    say("dlrm (b3) SGD dense captured: step %.3f ms median (%.3f mean) over "
+        "%d replays after %d warm-up (one build), %.0f samples/s, peak "
+        "memory %.1f MiB, graph pool %.1f MiB (%s)"
+        % (ms3, statistics.mean(times), DLRM_STEPS, DLRM_WARMUP,
+           DLRM_B / (ms3 / 1e3), peak3 / 2 ** 20, pool / 2 ** 20, card))
+    report_profile("dlrm (b3) SGD dense captured", dev3, ms3, rows3,
+                   DLRM_PROFILE_GROUPS)
+    out["b3"] = dict(step_ms=ms3, samples_per_s=DLRM_B / (ms3 / 1e3),
+                     peak_bytes=peak3, device_ms=dev3, pool_bytes=pool)
+    del model, opt, step, dev, tables
+    free_memory(torch)
+    return l2, out
+
+
+def dlrm_compare(torch):
+    """Phase 27 (c): DLRM_SMALL on the card against the same model on the
+    CPU (its weights carried over), B=16, float32, TF32 off, 3 steps each
+    of SGD, lazy Adam and lazy AdamW with row-sparse tables: losses and
+    parameters within DLRM_CPU_TOL of the CPU's largest |value|."""
+    from paddle_tpu_torch import optimizer
+    import paddle_tpu_torch.nn.functional as F
+    rules = (("SGD", lambda ps, dev: optimizer.SGD(
+        DLRM_LR, parameters=ps, device=dev)),
+             ("Adam lazy", lambda ps, dev: optimizer.Adam(
+                 learning_rate=DLRM_ADAM_LR, lazy_mode=True, parameters=ps,
+                 device=dev)),
+             ("AdamW lazy", lambda ps, dev: optimizer.AdamW(
+                 learning_rate=DLRM_ADAM_LR, weight_decay=0.01,
+                 lazy_mode=True, parameters=ps, device=dev)))
+    batches = dlrm_batches(DLRM_SMALL_STEPS, DLRM_SMALL_B,
+                           DLRM_SMALL["table_rows"], seed=1)
+    worst = 0.0
+    for name, make in rules:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = dlrm_model(**DLRM_SMALL, device="cuda")
+            if dev == "cpu":
+                model = model.to("cpu")
+            opt = make(model.parameters(), dev)
+            step = dlrm_eager_step(model, opt, F)
+            losses = [float(step(*(torch.from_numpy(a).to(dev)
+                                   for a in b))[0]) for b in batches]
+            runs[dev] = (losses, [p.detach().cpu() for p in
+                                  model.parameters()])
+        (lg, pg), (lw, pw) = runs["cuda"], runs["cpu"]
+        e = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(lg, lw))
+        for a, b in zip(pg, pw):
+            e = max(e, float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1.0))
+        require(e <= DLRM_CPU_TOL, "dlrm (c) %s: the card is %.3g from the "
+                "CPU run (> %g)" % (name, e, DLRM_CPU_TOL))
+        worst = max(worst, e)
+    say("dlrm (c): %s on the card against the CPU run, %d steps each: "
+        "largest error %.3g (tolerance %g)"
+        % ([r for r, _ in rules], DLRM_SMALL_STEPS, worst, DLRM_CPU_TOL))
+    return worst
+
+
+def _c64(shape=(4, 6)):
+    return lambda rs: (rs.randn(*shape) + 1j * rs.randn(*shape)).astype(
+        np.complex64)
+
+
+_R46 = _u(-1.5, 1.5, (4, 6))
+# (a): the slice's registered ops, their inputs and attrs
+LEGACY_SPECS = {
+    "affine_channel_op": ([_u(-1, 1, (2, 3, 4, 4)), _u(0.5, 1.5, (3,)),
+                           _u(-0.5, 0.5, (3,))], {}),
+    "viterbi_decode_op": ([_u(-1, 1, (3, 5, 4)), _u(-1, 1, (4, 4)),
+                           _const(np.array([5, 3, 1], np.int64))], {}),
+    "cvm_op": ([_u(0.5, 3, (4, 6)), _u(0.5, 3, (4, 2))], {}),
+    "center_loss_op": ([_u(-1, 1, (4, 3)), _i64(0, 3, (4,)),
+                        _u(-1, 1, (3, 3)), _u(0.1, 0.5, (1,))],
+                       {"cluster_num": 3}),
+    "squared_l2_distance_op": ([_u(-1, 1, (4, 3)), _u(-1, 1, (1, 3))], {}),
+    "teacher_student_sigmoid_loss_op": (
+        [_u(-2, 2, (6,)), _const(np.array([-2, -1, 0.3, 0.8, 1.2, 1.7],
+                                          np.float32))], {}),
+    "fused_embedding_seq_pool_op": ([_u(-1, 1, (8, 4)), _i64(0, 8, (2, 5)),
+                                     _const(np.array([2, 5], np.int64))], {}),
+    "squared_l2_norm_op": ([_u(-1, 1, (4, 3))], {}),
+    "hinge_loss_op": ([_u(-1, 1, (4, 1)), _const(np.array(
+        [[0], [1], [1], [0]], np.float32))], {}),
+    "rank_loss_op": ([_const(np.array([[0], [1], [1], [0]], np.float32)),
+                      _u(-1, 1, (4, 1)), _u(-1, 1, (4, 1))], {}),
+    "bpr_loss_op": ([_u(-1, 1, (4, 5)), _i64(0, 5, (4, 1))], {}),
+    "fsp_op": ([_u(-1, 1, (2, 3, 4, 5)), _u(-1, 1, (2, 6, 4, 5))], {}),
+    "pad_constant_like_op": ([_u(-1, 1, (4, 5)), _u(-1, 1, (2, 3))],
+                             {"pad_value": 0.5}),
+    "shuffle_batch_op": ([_u(-1, 1, (6, 3)), _const(np.array([7],
+                                                             np.int64))], {}),
+    "conv_shift_op": ([_u(-1, 1, (2, 7)), _u(-1, 1, (2, 3))], {}),
+    "row_conv_op": ([_u(-1, 1, (2, 5, 3)), _u(-1, 1, (2, 3))], {}),
+    "correlation_op": ([_u(-1, 1, (1, 2, 6, 6)), _u(-1, 1, (1, 2, 6, 6))],
+                       {"max_displacement": 2, "pad_size": 2}),
+    "segment_pool_op": ([_u(-1, 1, (6, 3)), _const(np.array(
+        [0, 0, 1, 3, 3, 3], np.int64))], {"pooltype": "MAX"}),
+    "positive_negative_pair_op": (
+        [_u(0, 1, (8, 1)), lambda rs: rs.randint(0, 3, (8, 1)).astype(
+            np.float32), _const(np.array([0, 0, 0, 0, 1, 1, 1, 1],
+                                         np.int64))], {}),
+    "filter_by_instag_op": ([_u(-1, 1, (4, 3)), _const(np.array(
+        [[1, -1], [2, 3], [4, -1], [3, 1]], np.int64)),
+        _const(np.array([3], np.int64))], {}),
+    "beam_search_step_op": ([_i64(0, 4, (2, 2)), _u(-1, 0, (2, 2)),
+                             _u(-2, 0, (2, 2, 4))],
+                            {"beam_size": 2, "end_id": 3}),
+    "py_func_op": ([_u(-1, 1, (4, 3))], {"func": np.tanh,
+                                         "out_shape": (4, 3),
+                                         "out_dtype": "float32"}),
+    "data_norm_op": ([_u(-1, 1, (4, 3)), _const(np.full((3,), 8.0,
+                                                        np.float32)),
+                      _u(-1, 1, (3,)), _u(4, 8, (3,))], {}),
+    "linear_chain_crf_op": ([_u(-1, 1, (2, 3, 4)), _u(-1, 1, (6, 4)),
+                             _i64(0, 4, (2, 3)),
+                             _const(np.array([3, 2], np.int64))], {}),
+    "hash_op": ([_const(np.array([[1], [12345], [2 ** 40 + 7],
+                                  [987654321012]], np.int64))],
+                {"num_hash": 3, "mod_by": 100000007}),
+    "fill_diagonal_op": ([_u(-1, 1, (7, 3))], {"value": 0.5, "offset": 1,
+                                               "wrap": True}),
+    "space_to_depth_op": ([_u(-1, 1, (1, 8, 4, 4))], {"blocksize": 2}),
+    "nce_op": ([_u(-1, 1, (4, 3)), _u(-1, 1, (8, 3)), _u(-0.5, 0.5, (8,)),
+                _i64(0, 8, (4, 1)), _const(np.array([11], np.int64))],
+               {"num_neg_samples": 5, "num_total_classes": 8}),
+    "prroi_pool_op": ([_u(0, 1, (1, 2, 8, 8)), _const(np.array(
+        [[0.5, 0.5, 5.5, 6.0], [1.0, 2.0, 7.0, 7.5]], np.float32))],
+        {"output_size": (3, 3), "spatial_scale": 1.0}),
+    "lookup_table_v2_sparse": ([_u(-1, 1, (10, 4)), _i64(0, 10, (3, 5))],
+                               {}),
+    "frame": ([_u(-1, 1, (16,))], {"frame_length": 8, "hop_length": 4}),
+    "overlap_add": ([_u(-1, 1, (8, 4))], {"hop_length": 4}),
+}
+for _op in ("fft", "ifft", "fft2", "ifft2", "fftn", "ifftn", "hfft",
+            "irfft", "irfft2", "irfftn", "fftshift", "ifftshift"):
+    LEGACY_SPECS[_op] = ([_c64()], {})
+for _op in ("rfft", "rfft2", "rfftn", "ihfft"):
+    LEGACY_SPECS[_op] = ([_R46], {})
+# ops whose results must be bit-equal on the card and the CPU
+LEGACY_EXACT = ("hash_op", "viterbi_decode_op")
+
+
+def legacy_inputs(op):
+    """(numpy inputs, attrs) of LEGACY_SPECS[op], seeded by the op's
+    name."""
+    import zlib
+    makers, attrs = LEGACY_SPECS[op]
+    rs = np.random.RandomState(zlib.crc32(op.encode()) % 2 ** 31)
+    return [np.asarray(m(rs)) for m in makers], dict(attrs)
+
+
+def _card_vs_cpu(torch, name, fn, arrays, grads=True):
+    """fn on CUDA tensors against fn on CPU tensors (floating inputs
+    differentiated under one cotangent): the largest error over the CPU
+    result's largest |value| (integers exact)."""
+    def inputs(dev):
+        out = []
+        for a in arrays:
+            t = torch.from_numpy(np.array(a)).to(dev)
+            if grads and t.is_floating_point() and t.ndim:
+                t.requires_grad_(True)
+            out.append(t)
+        return out
+    cin, gin = inputs("cpu"), inputs("cuda")
+    want, got = _as_list(fn(*cin)), _as_list(fn(*gin))
+    require(len(got) == len(want), "%s: %d outputs on the card, %d on the "
+            "CPU" % (name, len(got), len(want)))
+    err = max([_err(torch, g, w, name) for g, w in zip(got, want)] + [0.0])
+    fl = [i for i, w in enumerate(want) if w.is_floating_point()
+          and w.requires_grad]
+    if grads and fl:
+        rs = np.random.RandomState(1234)
+        cts = [torch.from_numpy(np.asarray(rs.rand(*want[i].shape),
+                                           np.float32)).to(want[i].dtype)
+               for i in fl]
+        wi = [t for t in cin if t.requires_grad]
+        gi = [t for t in gin if t.requires_grad]
+        wg = torch.autograd.grad(sum((want[i] * c).sum() for i, c in
+                                     zip(fl, cts)), wi, allow_unused=True)
+        gg = torch.autograd.grad(sum((got[i] * c.cuda()).sum() for i, c in
+                                     zip(fl, cts)), gi, allow_unused=True)
+        for a, b in zip(gg, wg):
+            if b is not None:
+                a = a.to_dense() if a.is_sparse else a
+                b = b.to_dense() if b.is_sparse else b
+                err = max(err, _err(torch, a, b, name + " gradient"))
+    return err
+
+
+def check_legacy_surface(torch):
+    """Phase 27 (a): the slice's 48 registered ops, stft / istft, the
+    distributions, fluid.layers over the new ops and static.gradients on
+    the card against the CPU, forward and gradients, TF32 off, within
+    OPS_TOL (hash_op and viterbi_decode_op bit-equal); shuffle_batch's
+    and nce's bodies on the CPU's draws."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distribution, fluid, signal, static
+    from paddle_tpu_torch.framework.dispatch import OPS
+    from paddle_tpu_torch.ops import misc_ops
+    worst = {}
+    for op in LEGACY_SPECS:
+        arrays, attrs = legacy_inputs(op)
+        fn = lambda *a, op=op, attrs=attrs: OPS[op].fn(*a, **attrs)  # noqa
+        if op == "shuffle_batch_op":
+            perm = OPS[op].fn(torch.from_numpy(arrays[0]), 7)[1]
+            arrays = [arrays[0], perm.numpy()]
+            fn = lambda x, p: misc_ops.shuffle_rows(x, p)  # noqa: E731
+        elif op == "nce_op":
+            neg = np.random.RandomState(3).randint(0, 8, (4, 5))
+            arrays = arrays[:4] + [neg]
+            fn = lambda x, w, b, lab, ng: misc_ops.nce_loss(  # noqa: E731
+                x, w, b, lab.reshape(-1), ng, float(np.log(5 / 8)))
+        e = _card_vs_cpu(torch, op, fn, arrays,
+                         grads=not OPS[op].nondiff)
+        tol = 0.0 if op in LEGACY_EXACT else OPS_TOL["reduction"]
+        require(e <= tol, "%s on the card: error %.3g > %g" % (op, e, tol))
+        worst[op] = e
+    x = _u(-1, 1, (2, 64))(np.random.RandomState(5))
+    win = np.hanning(16).astype(np.float32)
+    worst["stft"] = _card_vs_cpu(torch, "stft", lambda t: signal.stft(
+        t, 32, 8, 16, torch.from_numpy(win).to(t.device)), [x])
+    spec = signal.stft(torch.from_numpy(x).cuda(), 32, 8)
+    back = signal.istft(spec, 32, 8, length=64)
+    worst["istft round trip"] = _err(torch, back, torch.from_numpy(x),
+                                     "istft")
+    worst["istft"] = _card_vs_cpu(torch, "istft", lambda s: signal.istft(
+        s, 32, 8, length=64), [spec.detach().cpu().numpy()])
+    rs = np.random.RandomState(6)
+    loc, scale = rs.randn(3).astype(np.float32), rs.rand(3).astype(
+        np.float32) + 0.5
+    val = rs.randn(4, 3).astype(np.float32)
+    logits = rs.randn(4, 5).astype(np.float32)
+    for name, fn, arrays in (
+            ("Normal", lambda m, s, v: (
+                distribution.Normal(m, s).log_prob(v),
+                distribution.Normal(m, s).entropy(),
+                distribution.Normal(m, s).kl_divergence(
+                    distribution.Normal(m * 0.5, s + 0.1))),
+             [loc, scale, val]),
+            ("Uniform", lambda lo, v: (
+                distribution.Uniform(lo, lo + 2.0).log_prob(v),
+                distribution.Uniform(lo, lo + 2.0).entropy()),
+             [loc, val]),
+            ("Categorical", lambda lg: (
+                distribution.Categorical(lg).entropy(),
+                distribution.Categorical(lg).log_prob(
+                    torch.arange(4, device=lg.device) % 5),
+                distribution.Categorical(lg).kl_divergence(
+                    distribution.Categorical(lg * 0.5))), [logits])):
+        worst[name] = _card_vs_cpu(torch, name, fn, arrays)
+    L = fluid.layers
+    for name, fn, spec_op in (
+            ("fluid.layers.hinge_loss", L.hinge_loss, "hinge_loss_op"),
+            ("fluid.layers.rank_loss", L.rank_loss, "rank_loss_op"),
+            ("fluid.layers.bpr_loss", L.bpr_loss, "bpr_loss_op"),
+            ("fluid.layers.linear_chain_crf", L.linear_chain_crf,
+             "linear_chain_crf_op"),
+            ("fluid.layers.continuous_value_model",
+             L.continuous_value_model, "cvm_op")):
+        worst[name] = _card_vs_cpu(torch, name, fn, legacy_inputs(spec_op)[0])
+    worst["static.gradients"] = _card_vs_cpu(
+        torch, "static.gradients", lambda x, w: static_gradients_run(
+            paddle, static, x, w), [_u(-1, 1, (4, 3))(rs),
+                                    _u(-1, 1, (3, 2))(rs)], grads=False)
+    tol = OPS_TOL["reduction"]
+    bad = {k: v for k, v in worst.items() if v > tol}
+    require(not bad, "legacy surface on the card: %s > %g" % (bad, tol))
+    say("legacy surface on the card (phase 27 (a)): %d registered ops, "
+        "stft/istft, 3 distributions, 5 fluid.layers wrappers and "
+        "static.gradients against the CPU, forward and gradients, TF32 off: "
+        "largest error %.3g (%s), hash_op and viterbi_decode_op bit-equal, "
+        "istft(stft(x)) within %.3g of x"
+        % (len(LEGACY_SPECS), max(worst.values()),
+           max(worst, key=worst.get), worst["istft round trip"]))
+    return worst
+
+
+def static_gradients_run(paddle, static, x, w):
+    """A static program on x's device: y = tanh(x @ w), loss = mean(y^2);
+    (loss, dloss/dx, dloss/dw seeded by 2) through static.gradients and
+    Executor.run."""
+    import torch
+    dev = "gpu:0" if x.device.type == "cuda" else "cpu"
+    prog = static.Program()
+    paddle.enable_static()
+    try:
+        with static.program_guard(prog):
+            xv = static.data("x", list(x.shape), "float32")
+            wp = torch.nn.Parameter(w.detach().clone())
+            y = paddle.tanh(paddle.matmul(xv, wp))
+            loss = paddle.mean(y * y)
+            seed = static.data("seed", [], "float32")
+            gx, gw = static.gradients([loss], [xv, wp],
+                                      target_gradients=[seed])
+        out = static.Executor(dev).run(
+            prog, feed={"x": x.detach(), "seed": torch.tensor(2.0)},
+            fetch_list=[loss, gx, gw], return_numpy=False)
+    finally:
+        paddle.disable_static()
+    return tuple(out)
+
+
+def dlrm_main(torch, ck, flags, card):
+    """Phase 27: (a) the legacy op surface on the card, (b) DLRM at full
+    size through the sparse and dense paths, (c) the small DLRM against
+    its CPU run. Returns (b)'s launches and the numbers."""
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        worst = check_legacy_surface(torch)
+        t1 = time.perf_counter()
+        launches, entry = dlrm_train(torch, ck, card)
+        t2 = time.perf_counter()
+        entry["cpu_err"] = dlrm_compare(torch)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    free_memory(torch)
+    say("dlrm phase 27: %.1f s ((a) %.1f, (b) %.1f, (c) %.1f)"
+        % (time.perf_counter() - t0, t1 - t0, t2 - t1,
+           time.perf_counter() - t2))
+    entry.update(launches=launches, surface=max(worst.values()))
+    return entry
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -9146,6 +9844,10 @@ def main():
                     help="name the card, build the kernels, then run phase "
                     "26 (the rest of nn, the improved-DDPM CIFAR-10 UNet) "
                     "alone")
+    ap.add_argument("--dlrm-only", action="store_true",
+                    help="name the card, build the kernels, then run phase "
+                    "27 (row-sparse gradients, the legacy op surface, "
+                    "DLRM) alone")
     ap.add_argument("--fit-drill", metavar="JSON",
                     help="one run of phase 20's preemption drill, its "
                     "settings as JSON (see fit_drill); phase 20 starts "
@@ -9234,6 +9936,10 @@ def main():
     if opts.unet_only:
         unet_main(torch, ck, F, flags, card)
         say("unet-only run: phase 26 passed")
+        return 0
+    if opts.dlrm_only:
+        dlrm_main(torch, ck, flags, card)
+        say("dlrm-only run: phase 27 passed")
         return 0
 
     # 3. kernels against their plain versions
@@ -9529,7 +10235,11 @@ def main():
     # 26. the rest of nn on the card and the improved-DDPM CIFAR-10 UNet
     free_memory(torch)
     unet = unet_main(torch, ck, F, flags, card, timer, gen)
-    lap("phases 19-26 (each timed above)")
+
+    # 27. row-sparse gradients, the legacy op surface and DLRM
+    free_memory(torch)
+    dlrm = dlrm_main(torch, ck, flags, card)
+    lap("phases 19-27 (each timed above)")
 
     counts = {"flash_fwd": (launches["flash_fwd"] + slaunch_a["flash_fwd"]
                             + slaunch_b["flash_fwd"]
@@ -9562,6 +10272,9 @@ def main():
         counts[name] += unet["launches"][name]
         say("launches %s: %d in the UNet's training (phase 26 (b)), counted "
             "in" % (name, unet["launches"][name]))
+    counts["adamw"] += dlrm["launches"]["adamw"]
+    say("launches adamw: %d in DLRM's lazy Adam steps (phase 27 (b2)), "
+        "counted in" % dlrm["launches"]["adamw"])
     for name in FUSED_KERNELS:
         counts[name] = (blaunches[name] + alaunches[name]
                         + nmt["train"][name])
@@ -9629,6 +10342,9 @@ def main():
     adamw_row["unet"] = dict(dtype="float32",
                              launches=unet["launches"]["adamw"],
                              **unet["adamw"])
+    adamw_row["dlrm"] = dict(dtype="float32",
+                             launches=dlrm["launches"]["adamw"],
+                             step_ms=dlrm["b2"]["step_ms"])
     for e in table:                     # rows 1t, 2, 3 at the UNet's shapes
         if e["name"] in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
             e["unet"] = [dict(unet["flash"][T][e["name"]],
@@ -9658,7 +10374,12 @@ def main():
         "26": "the rest of nn (ops/nn_ops.py: transposed convolutions over "
               "cuDNN, norms, resampling, pads, CTC, sequence ops): torch "
               "ops, as the reference's are XLA ops; the UNet's training "
-              "launches rows 1t, 2, 3, 7 and K (counted above)"}}))
+              "launches rows 1t, 2, 3, 7 and K (counted above)",
+        "27": "row-sparse gradients (SelectedRows, sparse SGD's index_add_, "
+              "lazy Adam's merge and row updates), ops/misc_ops.py, fft, "
+              "signal, distribution, fluid: torch ops, as the reference's "
+              "are XLA ops; DLRM's lazy Adam steps launch row 7 (counted "
+              "above)"}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -102,9 +102,15 @@ it (`from .tensor import *`): `paddle.add`, `paddle.matmul`,
 reference's op type name (ops/math.py, manipulation.py, creation.py,
 linalg.py, random_ops.py), so a static program records it.
 
-Names whose modules are not ported stay unbound: `distributed`, `fft`,
-`signal`, `distribution`, `text`, `onnx`, `quantization`, `fluid`,
-`utils` and `SelectedRows`.
+Row-sparse gradients: `nn.Embedding(sparse=True)` gives its table a
+`paddle.SelectedRows` gradient in dygraph, which `optimizer.SGD` applies
+as a scatter-add and `Adam` / `AdamW(lazy_mode=True)` on the touched rows
+only; captured steps (`make_train_step`, static programs) keep dense
+gradients. `fft`, `signal`, `distribution`, `text`, `hub` and the legacy
+`fluid` are bound.
+
+Names whose modules are not ported stay unbound: `distributed`,
+`dataset`, `reader`, `utils`, `onnx`, `quantization` and `cost_model`.
 
 Float32 matrix products run in full float32: the reference computes in
 float32, so TF32 is switched off for matmul and cuDNN at import.
@@ -144,9 +150,116 @@ from . import (amp, autograd, checkpoint, device,  # noqa: E402,F401
                framework, hapi, incubate, inference, io, jit, metric,
                linalg, models, nn, observability, optimizer, resilience,
                static, tensor, vision)
+from .ops import misc_ops  # noqa: E402,F401
+from . import (distribution, fft, fluid, hub, signal,  # noqa: E402,F401
+               text)
+from .framework.selected_rows import SelectedRows  # noqa: E402,F401
 from .framework.io import load, save  # noqa: E402,F401
 from .hapi import callbacks, flops, summary  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401
+
+__version__ = "0.1.0"
+full_version = __version__
+commit = "torch-cuda"
+
+
+def batch(reader, batch_size, drop_last=False):
+    """The classic reader batching: a reader of lists of batch_size
+    samples (the last one shorter unless drop_last)."""
+
+    def batch_reader():
+        buf = []
+        for item in reader():
+            buf.append(item)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+
+    return batch_reader
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None, device=None):
+    """A trainable parameter outside any Layer, on `device` (the current
+    place by default), drawn as `Layer.create_parameter` draws one
+    (`default_initializer` where the ParamAttr names none)."""
+    from .framework.device import resolve_device
+    from .nn.layer_base import Layer
+    p = Layer().create_parameter(shape, attr, dtype, is_bias,
+                                 default_initializer)
+    with torch.no_grad():
+        p.data = p.data.to(resolve_device(device))
+    if name is not None:
+        p.name = name
+    return p
+
+
+def enable_dygraph(place=None):
+    disable_static()
+
+
+def disable_dygraph():
+    enable_static()
+
+
+def in_dynamic_mode():
+    return in_dygraph_mode()
+
+
+def get_cuda_rng_state():
+    """The CUDA generators' states, one a card ([] without CUDA)."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.cuda.get_rng_state(i)
+            for i in range(torch.cuda.device_count())]
+
+
+def set_cuda_rng_state(state_list):
+    """Restore the states `get_cuda_rng_state` returned."""
+    for i, st in enumerate(state_list):
+        torch.cuda.set_rng_state(st, i)
+
+
+def get_cudnn_version():
+    """cuDNN's version as an int (torch.backends.cudnn.version()), None
+    without cuDNN."""
+    return torch.backends.cudnn.version()
+
+
+def disable_signal_handler():
+    """The port installs no signal handlers of its own here: a no-op."""
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """numpy's print options (a Tensor prints through numpy)."""
+    import numpy as _np
+    kw = {k: v for k, v in (("precision", precision),
+                            ("threshold", threshold),
+                            ("edgeitems", edgeitems),
+                            ("linewidth", linewidth)) if v is not None}
+    if sci_mode is not None:
+        kw["suppress"] = not sci_mode
+    _np.set_printoptions(**kw)
+
+
+def monkey_patch_math_varbase():
+    """A no-op: the Tensor's operators are torch's."""
+
+
+def monkey_patch_variable():
+    """A no-op: a static Variable records its operators already."""
+
+
+def check_shape(shape):
+    """Raise for a dimension below -1."""
+    for s in shape:
+        if s is not None and int(s) < -1:
+            raise ValueError("illegal dimension %s in shape %s"
+                             % (s, shape))
+
 
 __all__ = ["amp", "autograd", "checkpoint", "device", "framework", "hapi",
            "incubate", "inference", "io", "jit", "linalg", "metric",
@@ -163,4 +276,11 @@ __all__ = ["amp", "autograd", "checkpoint", "device", "framework", "hapi",
            "is_compiled_with_npu", "is_compiled_with_xpu", "Tensor",
            "Parameter", "to_tensor", "no_grad", "in_dygraph_mode",
            "is_grad_enabled", "set_grad_enabled", "seed", "get_rng_state",
-           "set_rng_state", "get_flags", "set_flags", "grad"] + tensor.__all__
+           "set_rng_state", "get_flags", "set_flags", "grad",
+           "SelectedRows", "fft", "signal", "distribution", "hub", "fluid",
+           "text", "batch", "create_parameter", "enable_dygraph",
+           "disable_dygraph", "in_dynamic_mode", "get_cuda_rng_state",
+           "set_cuda_rng_state", "get_cudnn_version",
+           "disable_signal_handler", "set_printoptions", "check_shape",
+           "monkey_patch_math_varbase", "monkey_patch_variable",
+           "full_version", "commit"] + tensor.__all__

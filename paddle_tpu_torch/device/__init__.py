@@ -18,12 +18,18 @@ from ..framework.place import (get_device, is_compiled_with_cuda,
                                is_compiled_with_tpu, is_compiled_with_xpu,
                                set_device)
 
-__all__ = ["get_device", "set_device", "get_device_count", "memory_stats",
+__all__ = ["get_device", "set_device", "get_device_count",
+           "get_all_device_type", "memory_stats",
            "memory_allocated", "max_memory_allocated", "memory_reserved",
            "max_memory_reserved", "empty_cache", "synchronize", "cuda",
            "is_compiled_with_cuda",
            "is_compiled_with_rocm", "is_compiled_with_xpu",
            "is_compiled_with_npu", "is_compiled_with_tpu"]
+
+
+def get_all_device_type():
+    """The device types present, sorted: "cpu", and "gpu" with CUDA."""
+    return sorted({"cpu"} | ({"gpu"} if torch.cuda.is_available() else set()))
 
 
 def get_device_count(device_type=None):

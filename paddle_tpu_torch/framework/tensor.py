@@ -33,6 +33,7 @@ import torch
 from .device import resolve_device
 from .dtype import convert_dtype, dtype_name, get_default_dtype
 from .place import CPUPlace, CUDAPlace
+from .selected_rows import SelectedRows, grad_view
 
 __all__ = ["Tensor", "Parameter", "to_tensor"]
 
@@ -78,7 +79,10 @@ class Tensor(torch.Tensor):
     # -- grad ---------------------------------------------------------------
     @property
     def grad(self):
-        return Tensor.wrap(torch.Tensor.grad.__get__(self))
+        """The gradient as a Tensor, or a SelectedRows where it is
+        row-sparse (an embedding looked up with sparse=True)."""
+        g = grad_view(torch.Tensor.grad.__get__(self))
+        return g if isinstance(g, SelectedRows) else Tensor.wrap(g)
 
     @grad.setter
     def grad(self, value):
@@ -92,7 +96,7 @@ class Tensor(torch.Tensor):
 
     def clear_gradient(self, set_to_zero=False):
         g = torch.Tensor.grad.__get__(self)
-        if set_to_zero and g is not None:
+        if set_to_zero and g is not None and not g.is_sparse:
             g.detach_().zero_()
         else:
             self.grad = None

@@ -43,6 +43,7 @@ import torch
 from ..framework.device import resolve_device, write_values
 from ..framework.flags import flag
 from ..framework.random import RNG
+from ..framework.selected_rows import dense_gradients
 from ..framework.tensor import Tensor
 from ..nn.functional import deferred_buffer_updates
 from ..observability import flight, memprof, tracing
@@ -223,10 +224,12 @@ class TrainStep(_ProgramStep):
         the guard's test (on the raw gradients), the updates at the staged
         scalars (regularizer, grad clip and rule, the clip's norm taken on
         the device: no host read) and the buffers' new values, each kept
-        as it was where the guard said no; every gradient dropped."""
+        as it was where the guard said no; every gradient dropped. A
+        sparse=True embedding takes the dense gradient here
+        (`dense_gradients`), as the reference's traced step does."""
         RNG.rewind_step()
         static = self._static[key]
-        with deferred_buffer_updates() as buffer_updates:
+        with deferred_buffer_updates() as buffer_updates, dense_gradients():
             outputs = self.network(*static[:n_inputs])
             outs = list(outputs) if isinstance(outputs, (list, tuple)) \
                 else [outputs]

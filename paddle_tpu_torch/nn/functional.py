@@ -404,18 +404,19 @@ def _fused_elemwise_add_act(x, y, act="relu", act_attrs=None):
 
 @primitive("lookup_table_v2")
 def _lookup(weight, ids, padding_idx=None):
-    out = weight[ids.long()]
-    if padding_idx is not None and padding_idx >= 0:
-        out = torch.where((ids == padding_idx)[..., None], 0.0, out)
-    return out
+    return _nn.lookup_rows(weight, ids, padding_idx)
 
 
-def embedding(x, weight, padding_idx=None):
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of `weight` at the ids `x` (op lookup_table_v2, reference:
-    ops/nn_ops.py :599); rows at `padding_idx` come back zero."""
-    if padding_idx is None:
-        return _lookup(weight, x)
-    return _lookup(weight, x, padding_idx=int(padding_idx))
+    ops/nn_ops.py :599); rows at `padding_idx` come back zero. `sparse`:
+    in dygraph the table's gradient is row-sparse (op
+    lookup_table_v2_sparse; `weight.grad` reads as a SelectedRows); a
+    static program records the dense op, as the reference's does."""
+    attrs = {} if padding_idx is None else {"padding_idx": int(padding_idx)}
+    if sparse and not staging():
+        return _nn.embedding_lookup_sparse(weight, x, **attrs)
+    return _lookup(weight, x, **attrs)
 
 
 # ---------------------------------------------------------------------------

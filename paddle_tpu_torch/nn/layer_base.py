@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from . import initializer as I
+from ..framework.selected_rows import grad_view
 
 __all__ = ["ParamAttr", "Layer"]
 
@@ -71,7 +72,16 @@ class ParamAttr:
 
 class _Parameter(nn.Parameter):
     """A `torch.nn.Parameter` whose `name` is the ParamAttr's (a torch
-    tensor's own `name` is the read-only named-tensor dimension name)."""
+    tensor's own `name` is the read-only named-tensor dimension name) and
+    whose row-sparse `grad` reads as a SelectedRows."""
+
+    @property
+    def grad(self):
+        return grad_view(torch.Tensor.grad.__get__(self))
+
+    @grad.setter
+    def grad(self, value):
+        torch.Tensor.grad.__set__(self, value)
 
     @property
     def name(self):

@@ -72,14 +72,14 @@ class Embedding(Layer):
     """Row lookup in weight [num_embeddings, embedding_dim] (reference:
     nn/layers.py:74), N(0, 1) by default. `padding_idx` (negative counts
     from the end) names a row that is zeroed after the draw, whose lookups
-    return zeros and pass no gradient to the row."""
+    return zeros and pass no gradient to the row. `sparse=True`: in
+    dygraph `weight.grad` is a row-sparse SelectedRows (see
+    F.embedding)."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, generator=None):
         super().__init__()
-        if sparse:
-            raise NotImplementedError("Embedding(sparse=True): row-sparse "
-                                      "gradients are not ported")
+        self._sparse = bool(sparse)
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
         self._padding_idx = (None if padding_idx is None else
@@ -93,7 +93,8 @@ class Embedding(Layer):
                 self.weight[self._padding_idx] = 0.0
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight, self._padding_idx)
+        return F.embedding(ids, self.weight, self._padding_idx,
+                           sparse=self._sparse)
 
 
 class LayerNorm(Layer):

@@ -31,16 +31,19 @@ __all__ = ["conv_transpose", "interp", "group_norm", "instance_norm",
            "hsigmoid_loss", "ctc_loss", "alpha_dropout", "grid_sample",
            "affine_grid", "gumbel_softmax", "margin_cross_entropy",
            "masked_sdpa", "ctc_align", "gather_tree", "resize_weights",
-           "patches", "pad_pairs", "clip_ties"]
+           "patches", "pad_pairs", "clip_ties", "lookup_rows",
+           "embedding_lookup_sparse"]
 
 
 def clip_ties(x, lo=None, hi=None):
     """jnp.clip: min(max(x, lo), hi), whose gradient at lo or hi is 1/2 as
-    jnp.clip's is (torch.clamp's is 1)."""
+    jnp.clip's is (torch.clamp's is 1). The bounds are filled on x's
+    device (`new_full`), not copied from the host: a captured step cannot
+    copy from the host."""
     if lo is not None:
-        x = torch.maximum(x, x.new_tensor(lo))
+        x = torch.maximum(x, x.new_full((), lo))
     if hi is not None:
-        x = torch.minimum(x, x.new_tensor(hi))
+        x = torch.minimum(x, x.new_full((), hi))
     return x
 
 
@@ -329,7 +332,7 @@ def group_norm(x, weight, bias, num_groups, epsilon=1e-5, channel_last=False):
 def normalize(x, p=2.0, axis=1, epsilon=1e-12):
     """x / max(||x||_p, eps) along `axis`."""
     norm = torch.linalg.vector_norm(x, ord=p, dim=axis, keepdim=True)
-    return x / torch.maximum(norm, norm.new_tensor(epsilon))
+    return x / torch.maximum(norm, norm.new_full((), epsilon))
 
 
 @primitive("local_response_norm_op")
@@ -678,3 +681,53 @@ def gather_tree(ids, parents):
         toks.append(ids[t].gather(1, b))
         beam = parents[t].gather(1, b)
     return torch.stack(toks[::-1])
+
+
+# ---------------------------------------------------------------------------
+# the row-sparse embedding (reference: ops/nn_ops.py:608, its backward
+# `_embedding_sparse_vjp` :618)
+
+
+def lookup_rows(weight, ids, padding_idx=None):
+    """The rows of weight at ids, zero where an id is padding_idx (ops
+    lookup_table_v2 and lookup_table_v2_sparse)."""
+    out = weight[ids.long()]
+    if padding_idx is not None and padding_idx >= 0:
+        out = torch.where((ids == padding_idx)[..., None], 0.0, out)
+    return out
+
+
+class _SparseLookup(torch.autograd.Function):
+    """The lookup whose table gradient is row-sparse: one row per id,
+    duplicates kept, rows at padding_idx zeroed, as an uncoalesced COO
+    tensor that torch accumulates by appending (framework/selected_rows)."""
+
+    @staticmethod
+    def forward(ctx, weight, ids, padding_idx):
+        ctx.save_for_backward(ids)
+        ctx.height, ctx.dtype = weight.shape[0], weight.dtype
+        ctx.padding_idx = padding_idx
+        return lookup_rows(weight, ids, padding_idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (ids,) = ctx.saved_tensors
+        rows = ids.reshape(-1).long()
+        vals = ct.reshape(-1, ct.shape[-1]).to(ctx.dtype)
+        if ctx.padding_idx is not None and ctx.padding_idx >= 0:
+            vals = torch.where((rows == ctx.padding_idx)[:, None], 0.0, vals)
+        g = torch.sparse_coo_tensor(rows[None], vals,
+                                    (ctx.height, vals.shape[1]),
+                                    check_invariants=False)
+        return g, None, None
+
+
+@primitive("lookup_table_v2_sparse")
+def embedding_lookup_sparse(weight, ids, padding_idx=None):
+    """lookup_table_v2's forward; the table's gradient is row-sparse (a
+    SelectedRows when read from `.grad`) where `sparse_allowed(weight)`,
+    else dense (a captured step, a table that is not a leaf)."""
+    from ..framework.selected_rows import sparse_allowed
+    if not sparse_allowed(weight):
+        return lookup_rows(weight, ids, padding_idx)
+    return _SparseLookup.apply(weight, ids, padding_idx)

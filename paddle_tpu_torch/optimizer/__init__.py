@@ -65,8 +65,20 @@ composed PyTorch ops in the gradient's dtype, as the reference's are.
 Dpsgd draws its noise on the host (numpy, the reference's stream) and so
 runs only eagerly: make_train_step refuses it, as the reference's does.
 
-Not ported yet (raise NotImplementedError when asked for): lazy_mode and
-the row-sparse (SelectedRows) paths, a callable weight_decay.
+Row-sparse gradients (a SelectedRows from `nn.Embedding(sparse=True)`,
+reference :144-184): a sparse gradient stays factored only where no
+regularizer and no clip apply, else it is densified first. SGD's sparse
+update is a scatter-add of -lr * values (`index_add_`: duplicate rows
+fold, no merge); Adam and AdamW with `lazy_mode=True` merge the rows and
+update the parameter and both moments on the touched rows only (AdamW's
+decay too); every other rule, and Adam without lazy_mode, takes the
+densified gradient. The sparse updates read lr and t from `_scalars` as
+the dense rules do, and run eagerly only (a captured step's gradients are
+dense: framework/selected_rows.py). Adam's dense pairs still go to the
+kernel in one launch a group; the sparse pairs stay out of the group.
+
+Not ported yet (raises NotImplementedError when asked for): a callable
+weight_decay.
 """
 from __future__ import annotations
 
@@ -77,6 +89,7 @@ import numpy as np
 import torch
 
 from ..framework.device import resolve_device, write_values
+from ..framework.selected_rows import SelectedRows
 from ..ops.cuda_kernels import (GO, SCALE, adam_step_scalars,
                                 adamw_plain_scalars,
                                 fused_adamw_multi_or_none)
@@ -389,15 +402,49 @@ class Optimizer:
         keeps its old values where the word is 0."""
         self._scalars[GO].copy_(ok)
 
+    def _keeps_sparse(self, p):
+        """A row-sparse gradient of p stays factored: no regularizer and no
+        clip (the reference's test), and the rule has a sparse update."""
+        return (self._grad_clip is None and self._regularization is None
+                and getattr(p, "regularizer", None) is None
+                and self._sparse_rule())
+
+    def _sparse_rule(self):
+        """The rule updates from a SelectedRows itself (SGD; lazy Adam)."""
+        return False
+
+    def _split_sparse(self, params_grads):
+        """(dense pairs, sparse pairs): each SelectedRows gradient kept
+        factored where `_keeps_sparse`, else densified."""
+        dense, sparse = [], []
+        for p, g in params_grads:
+            if isinstance(g, SelectedRows):
+                if self._keeps_sparse(p):
+                    sparse.append((p, g))
+                    continue
+                g = g.to_dense()
+            dense.append((p, g))
+        return dense, sparse
+
     @torch.no_grad()
     def apply_updates(self, params_grads):
         """The reference's order over (parameter, gradient) pairs: the
         regularizer on every gradient, then the clip over the whole list,
         then the rule on each pair, in place, at the values `stage_step`
-        staged."""
-        for p, g in self._clipped([(p, self._regularized(p, g))
-                                   for p, g in params_grads]):
+        staged; then the row-sparse updates (`_split_sparse`)."""
+        dense, sparse = self._split_sparse(params_grads)
+        self._apply_dense(self._clipped([(p, self._regularized(p, g))
+                                         for p, g in dense]))
+        for p, sr in sparse:
+            self._apply_sparse(p, sr)
+
+    def _apply_dense(self, params_grads):
+        """The rule on each regularized and clipped dense pair."""
+        for p, g in params_grads:
             self._apply_rule(p, g)
+
+    def _apply_sparse(self, p, sr):
+        raise NotImplementedError
 
     def _apply_rule(self, p, g):
         """The rule on one (parameter, gradient) pair, in place."""
@@ -416,8 +463,10 @@ class Optimizer:
         params = self._parameter_list
         if params is None:
             raise ValueError("optimizer constructed without parameters")
-        self.apply_gradients([(p, p.grad) for p in params
-                              if p.requires_grad and p.grad is not None])
+        self.apply_gradients([(p, g) for p, g in
+                              ((p, p.grad) for p in params
+                               if p.requires_grad)
+                              if g is not None])
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
@@ -439,12 +488,14 @@ class Optimizer:
     # -- bookkeeping -------------------------------------------------------
     def clear_grad(self, set_to_zero=True):
         """Zero every parameter's gradient in place (set_to_zero), or drop
-        it (None), which frees its memory."""
+        it (None), which frees its memory; a row-sparse gradient is
+        dropped either way."""
         for p in self._parameter_list or []:
-            if p.grad is None:
+            g = p.grad
+            if g is None:
                 continue
-            if set_to_zero:
-                p.grad.zero_()
+            if set_to_zero and not isinstance(g, SelectedRows):
+                g.zero_()
             else:
                 p.grad = None
 
@@ -522,6 +573,15 @@ class SGD(Optimizer):
         g = _wide(grad.to(param.dtype))
         _commit(go, [(param, _wide(param) - lr * g)])
         return (param,)
+
+    def _sparse_rule(self):
+        return True
+
+    def _apply_sparse(self, p, sr):
+        """param[rows] += -lr * values, duplicates folded by the scatter
+        (reference :295)."""
+        lr = self._param_scalars(p)[0]
+        p.index_add_(0, sr.rows, (-lr * sr.values).to(p.dtype))
 
 
 class Momentum(Optimizer):
@@ -612,13 +672,12 @@ class Adam(Optimizer):
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  name=None, device=None):
-        if lazy_mode:
-            _not_ported("lazy_mode (row-sparse gradients)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, device)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
+        self._lazy_mode = bool(lazy_mode)
 
     def _coeff(self, p):
         """Decoupled weight decay of parameter p: none for Adam."""
@@ -636,17 +695,39 @@ class Adam(Optimizer):
     def _step_scalars(self, lr, t):
         return adam_step_scalars(lr, t, self._beta1, self._beta2)
 
-    @torch.no_grad()
-    def apply_updates(self, params_grads):
-        """The base class's order (the regularizer, then the clip, which
-        writes the scale word, then the rule), the rule over each
-        (parameter dtype, gradient dtype) group of pairs at once: one
-        `fused_adamw_multi_or_none` call a group, one kernel launch, each
-        tensor with its own coeff, clip bit and lr factor; with
-        use_fused_optimizer off, the plain rule pair by pair."""
+    def _sparse_rule(self):
+        return self._lazy_mode
+
+    def _apply_sparse(self, p, sr):
+        """Lazy Adam / AdamW on the merged rows (reference :304-328): the
+        parameter (decayed first by AdamW's coeff) and both moments move
+        on the touched rows only, at the staged lr, c1 and c2."""
+        sr = sr.merged()
+        sc = self._param_scalars(p)
+        lr, c1, c2 = sc[0], sc[1], sc[2]
+        b1, b2, eps, coeff, _ = self._static_args(p)
+        accs = self._get_accumulators(p)
+        m1, m2 = accs["moment1"], accs["moment2"]
+        g = sr.values.float()
+        p_rows = p.index_select(0, sr.rows).float()
+        if coeff:
+            p_rows = p_rows * (1.0 - lr * coeff)
+        m1r = b1 * m1.index_select(0, sr.rows) + (1 - b1) * g
+        m2r = b2 * m2.index_select(0, sr.rows) + (1 - b2) * (g * g)
+        step = lr * (m1r / c1) / (torch.sqrt(m2r / c2) + eps)
+        p.index_copy_(0, sr.rows, (p_rows - step).to(p.dtype))
+        m1.index_copy_(0, sr.rows, m1r)
+        m2.index_copy_(0, sr.rows, m2r)
+
+    def _apply_dense(self, params_grads):
+        """The rule over each (parameter dtype, gradient dtype) group of
+        the regularized and clipped pairs at once (the clip wrote the
+        scale word): one `fused_adamw_multi_or_none` call a group, one
+        kernel launch, each tensor with its own coeff, clip bit and lr
+        factor; with use_fused_optimizer off, the plain rule pair by
+        pair."""
         groups = {}
-        for p, g in self._clipped([(p, self._regularized(p, g))
-                                   for p, g in params_grads]):
+        for p, g in params_grads:
             groups.setdefault((p.dtype, g.dtype), []).append((p, g))
         for pairs in groups.values():
             ps = [p for p, _ in pairs]
@@ -1042,8 +1123,7 @@ class Dpsgd(Optimizer):
         self._sigma = float(sigma)
         self._noise_rng = np.random.RandomState(seed or None)
 
-    @torch.no_grad()
-    def apply_updates(self, params_grads):
+    def _apply_dense(self, params_grads):
         for p, g in params_grads:
             noise = np.float32(self._noise_rng.normal(0.0, self._sigma))
             self._dpsgd_rule(p, g, self._param_scalars(p), float(noise))

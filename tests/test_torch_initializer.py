@@ -353,8 +353,18 @@ def test_embedding_padding_idx_matches_the_reference(padding_idx):
 
 
 def test_embedding_sparse_is_refused():
-    with pytest.raises(NotImplementedError):
-        nn.Embedding(4, 2, sparse=True)
+    # row-sparse gradients are ported now: sparse=True is no longer
+    # refused, and the table's gradient is the reference's SelectedRows
+    ids = np.array([[0, 3, 3, 1]], np.int64)
+    port = nn.Embedding(4, 2, sparse=True)
+    ref = paddle.nn.Embedding(4, 2, sparse=True)
+    ref.weight.set_value(port.weight.detach().numpy().copy())
+    port(torch.from_numpy(ids)).sum().backward()
+    ref(paddle.to_tensor(ids)).sum().backward()
+    g, jg = port.weight.grad, ref.weight.grad
+    assert type(g).__name__ == type(jg).__name__ == "SelectedRows"
+    np.testing.assert_array_equal(g.rows.numpy(), np.asarray(jg.rows))
+    np.testing.assert_allclose(g.numpy(), jg.numpy(), atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -242,6 +242,17 @@ def test_every_op_of_the_five_modules_is_registered():
     for m in sw.MODULES:
         for op in sw.REF_MODULE_OPS[m]:
             assert sw.PORT_OPS[op].nondiff == sw.REF_OPS[op].nondiff, op
+    # the long-tail ops, fft and signal: every op type the reference's
+    # ops/misc_ops.py, fft.py and signal.py register
+    import inspect
+    more = {op for op, prim in sw.REF_OPS.items()
+            if inspect.getsourcefile(prim.fn).replace("\\", "/").endswith(
+                ("paddle_tpu/ops/misc_ops.py", "paddle_tpu/fft.py",
+                 "paddle_tpu/signal.py"))}
+    assert len(more) == 50, len(more)
+    assert not {op for op in more if op not in sw.PORT_OPS}
+    for op in more:
+        assert sw.PORT_OPS[op].nondiff == sw.REF_OPS[op].nondiff, op
 
 
 def test_the_references_tensor_names_and_linalg_are_bound_at_top_level():
